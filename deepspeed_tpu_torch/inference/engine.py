@@ -1,0 +1,104 @@
+"""Inference engine: weights in the engine dtype and paged serving.
+
+Counterpart of ``deepspeed_tpu/inference/engine.py`` for the serving main
+path: ``init_inference(TransformerLM(cfg), dtype=..., paged_kv={...})``, the
+weights (``set_params`` / ``load_jax_params``, the JAX tree as numpy), and
+``serve`` / ``serve_stats`` over a ``PagedServer`` built as the JAX
+``_build_paged_server`` builds it for the ported options. The engine runs
+on ``cuda`` unless the caller passes another device; without a card it
+raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree, load_jax_params
+from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum, unported_switches
+from deepspeed_tpu_torch.inference.scheduler import PagedServer
+from deepspeed_tpu_torch.models.transformer import TransformerLM
+from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
+from deepspeed_tpu_torch.utils.logging import log_dist
+
+_DTYPES = {DtypeEnum.fp32: torch.float32, DtypeEnum.fp16: torch.float16, DtypeEnum.bf16: torch.bfloat16}
+
+
+class InferenceEngine:
+    def __init__(self, model: TransformerLM, config: Optional[DeepSpeedInferenceConfig] = None, device=None):
+        self._config = config or DeepSpeedInferenceConfig()
+        unported = unported_switches(self._config)
+        if unported:
+            raise NotImplementedError("not ported to deepspeed_tpu_torch yet: " + "; ".join(unported))
+        if self._config.dtype not in _DTYPES:
+            raise NotImplementedError("dtype int8 (weight quantization) is not ported yet (ROADMAP S8)")
+        if not isinstance(model, TransformerLM):
+            raise NotImplementedError(
+                "deepspeed_tpu_torch serves its own TransformerLM; other modules are not ported yet"
+            )
+        self.device = resolve_device(device)
+        self.dtype = _DTYPES[self._config.dtype]
+        self.module = model
+        self._ds_config = model.config
+        self.metrics = MetricsRegistry()
+        self._paged_server = None
+        if not any(p.is_meta for p in model.parameters()):
+            # weights already made (e.g. init_weights): move them once
+            with torch.no_grad():
+                for path, leaf in flatten_tree(model.param_tree()).items():
+                    model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype))
+        log_dist(f"InferenceEngine: dtype={self._config.dtype.value} device={self.device}", ranks=[0])
+
+    # --- weights --------------------------------------------------------
+    def set_params(self, params) -> None:
+        """Install the JAX parameter tree (numpy arrays, nested or under
+        flat paths) on the engine's device in the engine dtype."""
+        load_jax_params(self.module, params, device=self.device, dtype=self.dtype)
+        self._paged_server = None
+
+    load_jax_params = set_params
+
+    def _weights_ready(self) -> bool:
+        return not any(p.is_meta for p in self.module.parameters())
+
+    # --- paged serving --------------------------------------------------
+    def _build_paged_server(self) -> PagedServer:
+        if not self._weights_ready():
+            raise RuntimeError("serve() before weights are set: call set_params / load_jax_params")
+        pcfg = self._config.paged_kv
+        if not pcfg.enabled:
+            raise ValueError("paged serving is disabled (inference config paged_kv.enabled)")
+        return PagedServer(
+            self._ds_config,
+            self.module.param_tree(),
+            page_size=pcfg.page_size,
+            num_pages=pcfg.num_pages,
+            max_slots=pcfg.max_slots,
+            max_seq_len=pcfg.max_seq_len,
+            prefill_chunk=pcfg.prefill_chunk,
+            attn_impl=pcfg.attn_impl,
+            dtype=self.dtype,
+            device=self.device,
+            prefix_cache=pcfg.prefix_cache,
+            metrics=self.metrics,
+        )
+
+    def serve(self, prompts, max_new_tokens=32, eos_token_id=None):
+        """Continuous-batching greedy generation over the paged KV pool:
+        requests are admitted and evicted every step, prompts prefill in
+        chunks riding the same step as running decoders, and each step is
+        one call of the ragged step. Takes a list of 1-D prompts and a
+        scalar or per-request ``max_new_tokens``; returns one 1-D array per
+        request (prompt + generated) in submission order. The server and
+        its page pool persist across calls."""
+        if self._paged_server is None:
+            self._paged_server = self._build_paged_server()
+        return self._paged_server.serve(prompts, max_new_tokens=max_new_tokens, eos_token_id=eos_token_id)
+
+    def serve_stats(self):
+        """The live server's ``serve_stats()`` ({} before the first serve)."""
+        if self._paged_server is None:
+            return {}
+        return self._paged_server.serve_stats()

@@ -1,0 +1,490 @@
+"""Continuous-batching scheduler over the paged KV pool (the ragged path).
+
+Counterpart of ``deepspeed_tpu/inference/scheduler.py``'s ``PagedServer`` on
+its default path: requests are admitted whenever a slot and enough pages
+exist and evicted the step they finish; prompts prefill in fixed-size
+chunks that ride the SAME step as running decoders; when the pool runs dry
+the policy's victim (default: the youngest request) is preempted and
+recomputed on re-admission, which greedy decoding makes token-exact; with
+prefix caching the longest indexed full-page prefix of a request attaches
+by reference, and prefill resumes realigned to the cold chunk grid.
+
+Every scheduler step is ONE call of ``decode.build_ragged_step``: every
+active row contributes a prefill chunk or its pending decode token to a
+``[max_slots, W]`` window with per-row ``(kv_len, q_len)`` arrays. Per step
+the host makes one small host->device copy (tokens, page table, lengths
+and q_lens packed into one int32 buffer) and one ``[R, W+1]``
+device->host fetch, which is the step's only synchronisation.
+
+Not ported yet (the engine refuses their switches, naming the ROADMAP
+item): the bucketed oracle, speculative decoding, multi-step windows, the
+crash-recovery journal, traffic tenancy and tensor-parallel serving.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.inference.config import canonical_attn_impl
+from deepspeed_tpu_torch.inference.decode import build_ragged_step
+from deepspeed_tpu_torch.inference.kv_pool import PagePool
+from deepspeed_tpu_torch.models.config import TransformerConfig
+from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
+
+
+class SchedulingPolicy:
+    """Admission-order / preemption-victim policy for ``PagedServer``:
+    FIFO admission and youngest-first recompute preemption by default."""
+
+    def next_admission(self, queue: Sequence["Request"], server: "PagedServer") -> Optional["Request"]:
+        return queue[0] if queue else None
+
+    def preemption_victim(self, candidates: Sequence["Request"], server: "PagedServer",
+                          for_req: Optional["Request"] = None) -> "Request":
+        return candidates[-1]  # latest admission
+
+    def on_admit(self, req: "Request", server: "PagedServer") -> None:
+        pass
+
+    def on_emit(self, req: "Request", server: "PagedServer") -> None:
+        pass
+
+    def on_finish(self, req: "Request", server: "PagedServer") -> None:
+        pass
+
+
+class YoungestFirstPolicy(SchedulingPolicy):
+    """The default policy, by its name."""
+
+
+@dataclass
+class Request:
+    """One generation request moving through the scheduler."""
+
+    uid: int
+    prompt: np.ndarray  # [Lp] int32, immutable
+    max_new_tokens: int
+    eos_token_id: Optional[int] = None
+    tenant: str = "default"
+    generated: List[int] = field(default_factory=list)
+    slot: Optional[int] = None
+    consumed: int = 0  # prefill progress over context()
+    pending: Optional[int] = None  # sampled but not yet written token
+    done: bool = False
+    admissions: int = 0  # > 1 means the request was preempted and resumed
+    prefix_cached: int = 0  # context tokens attached from the prefix index
+    t_submit: float = 0.0  # perf_counter timestamps for TTFT / TPOT
+    t_first: Optional[float] = None
+    t_finish: Optional[float] = None
+    _ctx_buf: Optional[np.ndarray] = field(default=None, repr=False)
+    _ctx_len: int = field(default=0, repr=False)
+
+    def context(self) -> np.ndarray:
+        """The prompt plus everything emitted (what a re-admission
+        recomputes), as a read-only view of a capacity-doubling buffer."""
+        n = self.prompt.size + len(self.generated)
+        buf = self._ctx_buf
+        if buf is None or buf.size < n:
+            grown = np.empty(max(16, 2 * n), np.int32)
+            grown[: self.prompt.size] = self.prompt
+            grown[self.prompt.size : n] = self.generated
+            self._ctx_buf = buf = grown
+        elif self._ctx_len < n:
+            buf[self._ctx_len : n] = self.generated[self._ctx_len - self.prompt.size :]
+        self._ctx_len = n
+        view = buf[:n]
+        view.flags.writeable = False
+        return view
+
+    def output(self) -> np.ndarray:
+        return self.context().copy()
+
+
+class PagedServer:
+    """Owns the page pool and the admit → ragged-step loop."""
+
+    def __init__(
+        self,
+        cfg: TransformerConfig,
+        params,
+        page_size: int = 16,
+        num_pages: int = 0,
+        max_slots: int = 8,
+        max_seq_len: int = 0,
+        prefill_chunk: int = 32,
+        attn_impl: str = "auto",
+        dtype=None,
+        device=None,
+        prefix_cache: bool = False,
+        policy: Optional[SchedulingPolicy] = None,
+        metrics: Optional[MetricsRegistry] = None,
+    ):
+        self.cfg = cfg
+        self.params = params
+        self.device = resolve_device(device)
+        self.tracer = NULL_TRACER  # span names mirror the JAX server's; recording is not ported yet
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.prefill_chunk = int(prefill_chunk)
+        self.attn_impl = canonical_attn_impl(attn_impl)
+        self.prefix_cache = bool(prefix_cache)
+        self.policy = policy or YoungestFirstPolicy()
+        max_seq = int(max_seq_len or cfg.max_seq_len)
+        if num_pages <= 0:
+            # worst-case sizing: every slot at max length, plus the trash
+            # page — no preemption can ever trigger
+            num_pages = max_slots * (-(-max_seq // page_size)) + 1
+        self.pool = PagePool(cfg, num_pages, page_size, max_slots, max_seq_len=max_seq,
+                             dtype=dtype, device=self.device)
+        self._steps: Dict = {}
+        self._queue: deque[Request] = deque()
+        self._active: List[Request] = []  # admission order (oldest first)
+        self._results: Dict[int, np.ndarray] = {}
+        self._next_uid = 0
+        self._tenant_stats: Dict[str, Dict] = {}
+        self.stats = {
+            "admitted": 0,
+            "preempted": 0,
+            "finished": 0,
+            "prefix_cached_tokens": 0,  # context tokens attached, not prefilled
+            "prefill_chunks": 0,
+            "ragged_steps": 0,  # one per scheduler step
+            "dispatches": 0,
+            "emitted_tokens": 0,
+            "decode_steps": 0,  # ragged steps that carried plain-decode rows
+        }
+
+    # --- request intake -------------------------------------------------
+    def _tenant(self, name: str) -> Dict:
+        ts = self._tenant_stats.get(name)
+        if ts is None:
+            ts = self._tenant_stats[name] = {
+                "submitted": 0, "finished": 0, "tokens": 0,
+                "ttft_ms": deque(maxlen=4096), "tpot_ms": deque(maxlen=4096),
+            }
+        return ts
+
+    def submit(self, prompt, max_new_tokens: int = 32, eos_token_id: Optional[int] = None,
+               tenant: str = "default") -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = prompt.size + int(max_new_tokens)
+        if total > self.pool.max_seq_len:
+            raise ValueError(
+                f"prompt {prompt.size} + max_new_tokens {max_new_tokens} exceeds "
+                f"the serving max_seq_len {self.pool.max_seq_len}"
+            )
+        if self.pool.pages_for(total) > self.pool.num_pages - 1:
+            raise ValueError(
+                f"request needs {self.pool.pages_for(total)} pages but the pool "
+                f"holds {self.pool.num_pages - 1} allocatable"
+            )
+        uid = self._next_uid
+        self._next_uid += 1
+        self._queue.append(Request(uid=uid, prompt=prompt, max_new_tokens=int(max_new_tokens),
+                                   eos_token_id=eos_token_id, tenant=tenant, t_submit=time.perf_counter()))
+        self._tenant(tenant)["submitted"] += 1
+        self.tracer.begin_async("request", uid, f"req{uid}", tenant=tenant)
+        return uid
+
+    def has_work(self) -> bool:
+        return bool(self._queue or self._active)
+
+    def take_result(self, uid: int) -> Optional[np.ndarray]:
+        """Pop a finished output (a long-lived server keeps none)."""
+        return self._results.pop(uid, None)
+
+    # --- one scheduler iteration ---------------------------------------
+    def step(self) -> None:
+        """Admit what fits, then ONE ragged step covering every active
+        row's next tokens."""
+        with self.tracer.span("serve.step"):
+            with self.tracer.span("serve.admit"):
+                self._admit()
+            self._ragged_step()
+        self.metrics.counter("serve.steps").inc()
+
+    def run(self) -> Dict[int, np.ndarray]:
+        while self.has_work():
+            self.step()
+        return self._results
+
+    def serve(self, prompts: Sequence, max_new_tokens=32, eos_token_id: Optional[int] = None,
+              tenant: str = "default") -> List[np.ndarray]:
+        """Submit a batch (scalar or per-request ``max_new_tokens``), run to
+        completion, return outputs in submission order."""
+        if isinstance(max_new_tokens, (int, np.integer)):
+            max_new_tokens = [max_new_tokens] * len(prompts)
+        if len(max_new_tokens) != len(prompts):
+            raise ValueError(f"{len(prompts)} prompts but {len(max_new_tokens)} max_new_tokens")
+        uids = [
+            self.submit(p, max_new_tokens=int(n), eos_token_id=eos_token_id, tenant=tenant)
+            for p, n in zip(prompts, max_new_tokens)
+        ]
+        self.run()
+        return [self.take_result(u) for u in uids]
+
+    # --- phases ---------------------------------------------------------
+    def _admit(self) -> None:
+        while self._queue:
+            req = self.policy.next_admission(self._queue, self)
+            if req is None:
+                break
+            ctx = req.context()
+            # reserve the whole context plus the first decode write; with
+            # prefix caching the pool first attaches the longest indexed
+            # prefix (capped at ctx.size - 1 tokens)
+            slot = self.pool.alloc_slot(ctx.size + 1, prefix_tokens=ctx if self.prefix_cache else None)
+            if slot is None:
+                break
+            if self._queue[0] is req:
+                self._queue.popleft()
+            else:
+                self._queue.remove(req)
+            req.slot = slot
+            cached = int(self.pool.seq_lens[slot])
+            req.consumed = cached
+            req.prefix_cached = cached
+            self.stats["prefix_cached_tokens"] += cached
+            req.pending = None
+            req.admissions += 1
+            self._active.append(req)
+            self.stats["admitted"] += 1
+            self.tracer.instant_async("request", req.uid, "admit", slot=slot, prefix_cached=cached)
+            self.policy.on_admit(req, self)
+
+    def _next_chunk_len(self, req: "Request", ctx_size: int) -> int:
+        """Tokens the request's next prefill chunk covers; a prefix attach
+        that landed mid chunk-grid realigns to the cold-prefill chunk
+        boundaries, so every position is computed by the same geometry."""
+        C = self.prefill_chunk
+        start = req.consumed
+        real = min(C, ctx_size - start)
+        if start % C:
+            real = min(real, C - start % C)
+        return real
+
+    def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        """One host->device copy of several small int32 arrays, returned as
+        contiguous views of one device buffer."""
+        flat = np.concatenate([np.ascontiguousarray(a, np.int32).ravel() for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device, non_blocking=True)
+        out, i = [], 0
+        for a in arrays:
+            out.append(dev[i : i + a.size].view(a.shape))
+            i += a.size
+        return out
+
+    def _step_fn(self, W: int):
+        fn = self._steps.get(W)
+        if fn is None:
+            fn = self._steps[W] = build_ragged_step(self.cfg, W, attn_impl=self.attn_impl)
+        return fn
+
+    def _ragged_step(self) -> None:
+        """ONE step for the whole round: every active row contributes a
+        prefill chunk or its pending decode token."""
+        rows = [r for r in self._active if not r.done]
+        if not rows:
+            return
+        with self.tracer.span("serve.pack") as pack_span:
+            chunk_len: Dict[int, int] = {}
+            need: Dict[int, int] = {}
+            for r in rows:
+                if r.pending is None:
+                    chunk_len[r.uid] = need[r.uid] = self._next_chunk_len(r, r.context().size)
+                else:
+                    need[r.uid] = 1
+            rows = self._reserve_for_growth(rows, need)
+            if not rows:
+                return
+            # the two widths: 1 for decode-only steps, the chunk when a row prefills
+            W = self.prefill_chunk if any(r.pending is None for r in rows) else 1
+            # pad to the fixed row budget; lengths == consumed for prefill rows
+            R, page_table, lengths = self._dispatch_rows(rows, pad_to=self.pool.max_slots)
+            tokens = np.zeros((R, W), np.int32)
+            q_lens = np.zeros(R, np.int32)
+            for i, r in enumerate(rows):
+                if r.pending is None:
+                    real = chunk_len[r.uid]
+                    tokens[i, :real] = r.context()[r.consumed : r.consumed + real]
+                    q_lens[i] = real
+                else:
+                    tokens[i, 0] = r.pending
+                    q_lens[i] = 1
+            pack_span.set(rows=len(rows), width=W)
+        with self.tracer.span("serve.dispatch", rows=len(rows), width=W):
+            d_tokens, d_table, d_lengths, d_qlens = self._to_device(tokens, page_table, lengths, q_lens)
+            out = self._step_fn(W)(
+                self.params, d_tokens, self.pool.cache.k_pages, self.pool.cache.v_pages,
+                d_table, d_lengths, d_qlens,
+            )
+        self.stats["ragged_steps"] += 1
+        self.stats["dispatches"] += 1
+        with self.tracer.span("serve.emit"):
+            self._settle_ragged_rows(rows, out, chunk_len, q_lens)
+
+    def _settle_ragged_rows(self, rows, out, chunk_len, q_lens) -> None:
+        """The step's single host fetch, then per-row advance/emit/publish."""
+        out = out.cpu().numpy()  # [R, W+1]: accepted counts + greedy tokens
+        had_decode = False
+        for i, r in enumerate(rows):
+            if r.pending is None:
+                real = chunk_len[r.uid]
+                ctx = r.context()
+                self.pool.advance(r.slot, real)
+                r.consumed += real
+                self.stats["prefill_chunks"] += 1
+                if self.prefix_cache:
+                    self.pool.register_prefix(r.slot, ctx, r.consumed)
+                if r.consumed == ctx.size:
+                    # the first generated token: greedy after the chunk's last real position
+                    self._emit(r, int(out[i, real]))
+                continue
+            had_decode = True
+            self._settle_spec_row(r, int(q_lens[i]) - 1, int(out[i, 0]), out[i])
+        if had_decode:
+            self.stats["decode_steps"] += 1
+
+    def _reserve_for_growth(self, running: List[Request], need: Dict[int, int]) -> List[Request]:
+        """Make every running row writable for its next ``need[uid]`` tokens
+        (page growth plus the copy-on-write barrier), preempting the
+        policy's victim when the pool is dry. Mutates and returns
+        ``running`` (preempted rows leave the round)."""
+        idx = 0
+        while idx < len(running):
+            req = running[idx]
+            grow = need.get(req.uid, 1)
+            while not self.pool.prepare_write(req.slot, int(self.pool.seq_lens[req.slot]) + grow):
+                candidates = [r for r in self._active if r is not req]
+                if not candidates:
+                    raise RuntimeError(
+                        f"page pool exhausted by a single sequence (len "
+                        f"{int(self.pool.seq_lens[req.slot])}): the pool holds "
+                        f"{self.pool.num_pages - 1} pages x {self.pool.page_size} tokens"
+                    )
+                victim = self.policy.preemption_victim(candidates, self, for_req=req)
+                self._preempt(victim)
+                if victim in running:
+                    vi = running.index(victim)
+                    running.remove(victim)
+                    if vi < idx:
+                        idx -= 1
+            idx += 1
+        return running
+
+    def _dispatch_rows(self, running: List[Request], pad_to: int):
+        """(rows, page_table, lengths) padded to ``pad_to`` rows; padding rows
+        are dead (-1 tables / length 0)."""
+        page_table = np.full((pad_to, self.pool.max_pages_per_slot), -1, np.int32)
+        lengths = np.zeros(pad_to, np.int32)
+        rows_pt, rows_len = self.pool.rows([r.slot for r in running])
+        n = len(running)
+        page_table[:n] = rows_pt
+        lengths[:n] = rows_len
+        return pad_to, page_table, lengths
+
+    def _settle_spec_row(self, req: Request, d: int, acc: int, out_row) -> None:
+        """Accounting for one decode row (``d`` drafts, ``acc`` accepted —
+        both 0 until speculative decoding is ported): advance the written
+        positions, roll back a rejected tail, emit the accepted prefix plus
+        the bonus token, and republish the prefix."""
+        self.pool.advance(req.slot, d + 1)
+        self.pool.rollback(req.slot, d - acc)
+        for tok in out_row[1 : acc + 2]:
+            self._emit(req, int(tok))
+            if req.done:
+                break
+        if self.prefix_cache and not req.done:
+            self.pool.register_prefix(req.slot, req.context(), int(self.pool.seq_lens[req.slot]))
+
+    # --- bookkeeping ----------------------------------------------------
+    def _emit(self, req: Request, token: int) -> None:
+        """Record a newly sampled token and retire the request on EOS or
+        budget (the token is included)."""
+        if req.t_first is None:
+            req.t_first = time.perf_counter()
+            self.tracer.instant_async("request", req.uid, "first_token")
+        req.generated.append(token)
+        req.pending = token
+        self.stats["emitted_tokens"] += 1
+        self.metrics.counter("serve.tokens").inc()
+        self._tenant(req.tenant)["tokens"] += 1
+        self.policy.on_emit(req, self)
+        if (req.eos_token_id is not None and token == req.eos_token_id) or len(req.generated) >= req.max_new_tokens:
+            self._finish(req)
+
+    def _finish(self, req: Request) -> None:
+        req.done = True
+        req.t_finish = time.perf_counter()
+        self.pool.free_slot(req.slot)
+        req.slot = None
+        self._active.remove(req)
+        self._results[req.uid] = req.output()
+        self.stats["finished"] += 1
+        ts = self._tenant(req.tenant)
+        ts["finished"] += 1
+        ttft_ms = (req.t_first - req.t_submit) * 1e3
+        ts["ttft_ms"].append(ttft_ms)
+        if len(req.generated) > 1:
+            tpot_ms = (req.t_finish - req.t_first) * 1e3 / (len(req.generated) - 1)
+            ts["tpot_ms"].append(tpot_ms)
+            self.metrics.histogram("serve.tpot_ms").observe(tpot_ms)
+        self.metrics.histogram("serve.ttft_ms").observe(ttft_ms)
+        self.tracer.end_async("request", req.uid, f"req{req.uid}", tokens=len(req.generated))
+        self.policy.on_finish(req, self)
+
+    def _preempt(self, req: Request) -> None:
+        self.pool.free_slot(req.slot)
+        req.slot = None
+        req.pending = None
+        req.consumed = 0
+        self._active.remove(req)
+        self._queue.appendleft(req)
+        self.stats["preempted"] += 1
+        self.tracer.instant_async("request", req.uid, "preempt", tokens=len(req.generated))
+
+    # --- observability ---------------------------------------------------
+    def serve_stats(self) -> Dict:
+        """Scheduler counters (``ragged_steps`` is one per step), pool
+        occupancy and utilization, prefix-cache counters (``prefix``: hit
+        rate, CoW copies, cached pages) and latency SLOs: aggregate and
+        per-tenant p50/p99 TTFT (submit -> first token, queue wait
+        included) and TPOT (per generated token after the first)."""
+        s = dict(self.stats)
+        s["dispatches_per_token"] = s["dispatches"] / s["emitted_tokens"] if s["emitted_tokens"] else 0.0
+        s["tp_degree"] = 1
+        s.update(
+            live_tokens=self.pool.live_tokens(),
+            used_pages=self.pool.used_pages(),
+            free_pages=self.pool.free_pages(),
+            live_hbm_bytes=self.pool.live_hbm_bytes(),
+            pool_utilization=self.pool.utilization(),
+        )
+        all_ttft: List[float] = []
+        all_tpot: List[float] = []
+        tenants: Dict[str, Dict] = {}
+        for name, ts in self._tenant_stats.items():
+            all_ttft.extend(ts["ttft_ms"])
+            all_tpot.extend(ts["tpot_ms"])
+            tenants[name] = {
+                "submitted": ts["submitted"],
+                "finished": ts["finished"],
+                "tokens": ts["tokens"],
+                "ttft_ms": percentile_summary(ts["ttft_ms"]),
+                "tpot_ms": percentile_summary(ts["tpot_ms"]),
+            }
+        s["ttft_ms"] = percentile_summary(all_ttft)
+        s["tpot_ms"] = percentile_summary(all_tpot)
+        s["tenants"] = tenants
+        s["prefix"] = self.pool.prefix_stats()
+        return s

@@ -1,0 +1,161 @@
+"""Model configs for the built-in transformer families.
+
+A copy of ``deepspeed_tpu/models/config.py`` (pure Python): one decoder
+parameterized by norm type, positional scheme, activation and attention
+variant (MHA/GQA). The port keeps its own copy so it never imports the JAX
+package; the fields and presets are the same, so one config dict builds
+the same model in both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class TransformerConfig:
+    vocab_size: int = 50257
+    hidden_size: int = 768
+    intermediate_size: Optional[int] = None  # default: 4h (gelu) or 8h/3 rounded (swiglu)
+    num_layers: int = 12
+    num_heads: int = 12
+    num_kv_heads: Optional[int] = None  # GQA; None = MHA
+    head_dim: Optional[int] = None
+    max_seq_len: int = 2048
+
+    causal: bool = True  # False = bidirectional (encoder) attention
+    attn_softmax_scale: Optional[float] = None  # None = 1/sqrt(head_dim); GPT-Neo uses 1.0
+    prenorm: bool = True  # False = post-LN (BERT family): norm AFTER residual, no final norm
+    parallel_residual: bool = False  # GPT-J/NeoX: x + attn(norm(x)) + mlp(norm'(x))
+    shared_parallel_norm: bool = False  # GPT-J: both parallel branches read ONE norm (ln_1)
+    rope_dim: Optional[int] = None  # partial rotary; None = full head_dim
+    lm_head_bias: bool = False  # GPT-J: untied head carries a bias
+    embed_norm: bool = False  # LayerNorm on the embedding output (BERT family)
+    norm: str = "layernorm"  # layernorm | rmsnorm
+    norm_eps: float = 1e-5
+    position: str = "learned"  # learned | rope | alibi | none
+    rope_theta: float = 10000.0
+    activation: str = "gelu"  # gelu | swiglu | relu | geglu | quick_gelu
+    tie_embeddings: bool = True
+    attn_dropout: float = 0.0
+    hidden_dropout: float = 0.0
+    use_bias: bool = True  # linear biases (gpt2 yes, llama no)
+    qkv_bias: Optional[bool] = None  # override for qkv projs
+    dtype: str = "bfloat16"  # computation dtype for activations
+
+    sparse_embedding_grads: bool = False
+
+    # engineering knobs of the JAX training path; kept so one config dict
+    # builds the same model in both packages (the serving path ignores them)
+    remat: bool = True
+    remat_policy: str = "nothing_saveable"
+    scan_layers: bool = True
+    flash_attention: bool = True
+    sequence_parallel: bool = False
+    sequence_parallel_mode: str = "ulysses"  # ulysses | ring
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.hidden_size // self.num_heads
+        if self.num_kv_heads is None:
+            self.num_kv_heads = self.num_heads
+        if self.intermediate_size is None:
+            if self.activation in ("swiglu", "geglu"):
+                # llama convention: 2/3 * 4h rounded to a multiple of 256
+                self.intermediate_size = 256 * round(self.hidden_size * 8 / 3 / 256)
+            else:
+                self.intermediate_size = 4 * self.hidden_size
+        if self.qkv_bias is None:
+            self.qkv_bias = self.use_bias
+        if self.sequence_parallel_mode not in ("ulysses", "ring"):
+            raise ValueError(
+                f"unknown sequence_parallel_mode {self.sequence_parallel_mode!r}; "
+                "expected 'ulysses' or 'ring'"
+            )
+        if self.shared_parallel_norm and not self.parallel_residual:
+            raise ValueError("shared_parallel_norm requires parallel_residual=True")
+        if self.parallel_residual and not self.prenorm:
+            raise ValueError("parallel_residual requires prenorm=True")
+        if self.lm_head_bias and self.tie_embeddings:
+            raise ValueError("lm_head_bias requires an untied head (tie_embeddings=False)")
+        if self.sparse_embedding_grads and self.tie_embeddings:
+            raise ValueError("sparse_embedding_grads requires tie_embeddings=False")
+
+
+def gpt2_config(size: str = "125m", **overrides) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8, vocab_size=1024, max_seq_len=512),
+        "125m": dict(hidden_size=768, num_layers=12, num_heads=12),
+        "350m": dict(hidden_size=1024, num_layers=24, num_heads=16),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=16),
+        "2.7b": dict(hidden_size=2560, num_layers=32, num_heads=32),
+    }
+    base = dict(
+        vocab_size=50257,
+        max_seq_len=1024,
+        norm="layernorm",
+        position="learned",
+        activation="gelu",
+        use_bias=True,
+        tie_embeddings=True,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def llama_config(size: str = "7b", **overrides) -> TransformerConfig:
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8, vocab_size=32000, max_seq_len=512),
+        "1b": dict(hidden_size=2048, num_layers=22, num_heads=32, num_kv_heads=4, vocab_size=32000),
+        "7b": dict(hidden_size=4096, num_layers=32, num_heads=32, vocab_size=32000, max_seq_len=4096),
+        "13b": dict(hidden_size=5120, num_layers=40, num_heads=40, vocab_size=32000, max_seq_len=4096),
+        "70b": dict(
+            hidden_size=8192,
+            num_layers=80,
+            num_heads=64,
+            num_kv_heads=8,
+            intermediate_size=28672,
+            vocab_size=32000,
+            max_seq_len=4096,
+        ),
+    }
+    base = dict(
+        norm="rmsnorm",
+        norm_eps=1e-5,
+        position="rope",
+        activation="swiglu",
+        use_bias=False,
+        tie_embeddings=False,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def qwen2_config(size: str = "7b", **overrides) -> TransformerConfig:
+    """Qwen2 family: the llama body (RMSNorm + RoPE + SwiGLU, no output
+    biases) with BIASED q/k/v projections and GQA."""
+    presets = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=8, num_kv_heads=2,
+                     vocab_size=1024, max_seq_len=512),
+        "0.5b": dict(hidden_size=896, num_layers=24, num_heads=14, num_kv_heads=2,
+                     intermediate_size=4864, vocab_size=151936, tie_embeddings=True),
+        "7b": dict(hidden_size=3584, num_layers=28, num_heads=28, num_kv_heads=4,
+                   intermediate_size=18944, vocab_size=152064, max_seq_len=4096),
+    }
+    base = dict(
+        norm="rmsnorm",
+        norm_eps=1e-6,
+        position="rope",
+        rope_theta=1e6,
+        activation="swiglu",
+        use_bias=False,
+        qkv_bias=True,
+        tie_embeddings=False,
+        max_seq_len=2048,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)

@@ -5,6 +5,9 @@ and the native host ops (AVX CPUAdam, async disk I/O) compile lazily at
 import via the C toolchain (see ``deepspeed_tpu/ops/native/build.py``) —
 the JIT path of the reference's op_builder. ``DS_BUILD_NATIVE=1`` forces
 them to compile at install time instead.
+
+The PyTorch/CUDA port ``deepspeed_tpu_torch`` ships its ``csrc/*.cu``
+kernels as sources; they build with nvcc at first use on the card.
 """
 
 import os
@@ -25,8 +28,12 @@ setup(
     name="deepspeed_tpu",
     version=version,
     description="TPU-native distributed training and inference framework",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(
+        include=["deepspeed_tpu", "deepspeed_tpu.*", "deepspeed_tpu_torch", "deepspeed_tpu_torch.*"]
+    ),
     include_package_data=True,
+    # the PyTorch/CUDA port: its kernels ship as sources and build with nvcc at first use
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
     scripts=[
         "bin/deepspeed",
         "bin/ds_report",
