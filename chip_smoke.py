@@ -4,12 +4,13 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
-drives the serving main path at full width. Phases, each printing JSON
-lines; any failure raises, and the script then exits non-zero without the
-final line:
+drives the serving and the training main paths at full width. Phases,
+each printing JSON lines; any failure raises, and the script then exits
+non-zero without the final line:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the kernel
-   build (nvcc time, ptxas register/shared-memory report);
+   builds, one ``nvcc`` per source, all started together (nvcc time,
+   ptxas register/shared-memory report);
 2. the ragged paged-attention kernel (K4) against its plain PyTorch version
    at the serving shapes of llama-1B (R=8, NH=32, NKV=4, D=64, P=16,
    MAXP=128, NP=1025): a W=1 decode batch and a W=32 mixed batch, fp32 with
@@ -27,7 +28,30 @@ final line:
    22 × ``ragged_steps``;
 4. greedy-stream identity in fp32 (TF32 off): 4 requests × 32 tokens with
    ``attn_impl="kernel"`` against ``"plain"``; where streams part, the plain
-   run's top-2 logit gap at that position must be below 1e-4.
+   run's top-2 logit gap at that position must be below 1e-4;
+5. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
+   against their plain versions at the training shape (B=8, T=1024, N=12,
+   D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
+   T=2048, N=32): O, LSE, dQ, dK and dV, fp32 with TF32 off (O and LSE
+   within 1e-4, each gradient within 1e-3 of the reference's largest
+   magnitude) and bf16 against the plain versions in fp32 on the same bf16
+   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude).
+   At the training shape it times each kernel, its plain version and a
+   yardstick (``scaled_dot_product_attention(is_causal=True)`` for K1, and
+   its autograd backward for K2 and K3 together; the port never calls
+   either), L2 flushed before every launch, beside its bound;
+6. the training main path: ``initialize(TransformerLM(gpt2_config("125m",
+   max_seq_len=1024, remat=False)), config=<bench.py config 1>)`` (bf16,
+   ZeRO-1, Adam with weight decay 0.01, clipping 1.0, micro batch 8) with
+   seeded random weights in the JAX tree layout; one ``RandomState(0)``
+   batch of ``[8, 1025]`` tokens placed once; 3 warm-up and 20 timed steps
+   of ``engine(batch)``, ``backward``, ``step``. The flash launch counts
+   are zeroed just before and each must equal 12 × 23 just after; every
+   loss must be finite and the last below the first. Prints tokens/s, ms
+   per step, MFU by bench.py's formula and peak device memory;
+7. the same model in fp32 (TF32 off) for 3 steps, once through the
+   kernels and once with ``attn_impl="plain"``: step 1's loss and grad norm
+   agree within 1e-5 relative.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,10 +71,11 @@ import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.inference import decode
-from deepspeed_tpu_torch.models import TransformerLM, llama_config
-from deepspeed_tpu_torch.models.transformer import param_shapes
+from deepspeed_tpu_torch.models import TransformerLM, gpt2_config, llama_config
+from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops import native
 from deepspeed_tpu_torch.ops.transformer import decode_attention
+from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import ragged_paged_attention
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -206,20 +231,7 @@ def _weights(cfg, seed):
     ``TransformerLM.init`` (normal std 0.02, output projections
     0.02/sqrt(2L), norm scales 1, biases 0), from
     ``numpy.random.default_rng(seed)``."""
-    rng = np.random.default_rng(seed)
-    tree = {}
-    for path, shape in param_shapes(cfg).items():
-        name = path.rsplit("/", 1)[-1]
-        if "norm_scale" in name:
-            tree[path] = np.ones(shape, np.float32)
-        elif name.startswith("b") or name.endswith("bias"):
-            tree[path] = np.zeros(shape, np.float32)
-        else:
-            std = 0.02 / np.sqrt(2 * cfg.num_layers) if name in ("wo", "w_out") else 0.02
-            leaf = rng.standard_normal(shape, dtype=np.float32)
-            leaf *= std
-            tree[path] = leaf
-    return tree
+    return init_params(cfg, seed)
 
 
 def _requests(seed, vocab):
@@ -248,7 +260,7 @@ def phase_serve(cfg, tree, seed):
          params=sum(p.numel() for p in model.parameters()))
     prompts, budgets = _requests(seed, cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
-    decode_attention.launches = 0  # counts from here are the main path's
+    _zero_counts()  # counts from here are the serving main path's
     passes = []
     for name in ("cold", "warm"):
         before = engine.serve_stats() or {"prefix": {"prefix_hit_tokens": 0, "prefix_query_tokens": 0},
@@ -270,7 +282,8 @@ def phase_serve(cfg, tree, seed):
                    prefix_hit_rate=hit / query if query else 0.0)
         emit(**rec)
         passes.append(rec)
-    launches = decode_attention.launches
+    counts = _counts()
+    launches = counts["ragged_paged_attention"]
     s = engine.serve_stats()
     summary = dict(phase="serve", pass_="both", ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"],
                    ragged_steps=s["ragged_steps"], finished=s["finished"], preempted=s["preempted"],
@@ -280,7 +293,7 @@ def phase_serve(cfg, tree, seed):
     emit(**summary)
     if s["finished"] != 32 or passes[1]["prefix_hit_rate"] <= 0:
         raise AssertionError(f"serve: finished {s['finished']} of 32, warm prefix hit rate {passes[1]['prefix_hit_rate']}")
-    if launches != cfg.num_layers * s["ragged_steps"] or launches == 0:
+    if launches != cfg.num_layers * s["ragged_steps"] or launches == 0 or sum(counts.values()) != launches:
         raise AssertionError(f"K4 launches {launches} != {cfg.num_layers} x ragged_steps {s['ragged_steps']}")
     del engine, model
     torch.cuda.empty_cache()
@@ -340,6 +353,227 @@ def phase_streams(cfg, tree, seed, dev):
          identical=sum(1 for a, b in zip(outs_k, outs_p) if np.array_equal(a, b)), partings=partings)
 
 
+# --- launch counts -------------------------------------------------------------
+def _zero_counts():
+    decode_attention.launches = 0
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+
+
+def _counts():
+    return dict(ragged_paged_attention=decode_attention.launches, flash_fwd=fa.launches_fwd,
+                flash_dq=fa.launches_dq, flash_dkv=fa.launches_dkv)
+
+
+# --- phase 5: K1-K3 against their plain versions -------------------------------
+FLASH_CASES = {  # name: (B, T, N, D, causal)
+    "train B=8 T=1024 N=12 D=64 causal": (8, 1024, 12, 64, True),
+    "ragged B=2 T=200 N=12 D=64 causal": (2, 200, 12, 64, True),
+    "full B=2 T=256 N=12 D=64": (2, 256, 12, 64, False),
+    "D=128 B=1 T=2048 N=32 causal": (1, 2048, 32, 128, True),
+}
+FLASH_MAIN = "train B=8 T=1024 N=12 D=64 causal"
+FLASH_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}  # (O and LSE abs, grads rel)
+
+
+def _flash_bound(B, T, N, D, causal, dtype):
+    """Least time of each kernel at these shapes: max(bytes / HBM rate,
+    flops / peak). Pairs = the (query, key) pairs the mask leaves
+    (T(T+1)/2 per head causal, T^2 full); K1 does 2 products per pair
+    (QK^T, PV), K2 3 (QK^T, dO V^T, dS K), K3 4 (QK^T, dO V^T, P^T dO,
+    dS^T Q), 2·D flops each. Bytes: each [B, T, N, D] operand read once
+    and each output written once (K1: q, k, v, o; K2: q, k, v, dO, dQ; K3:
+    q, k, v, dO, dK, dV) plus the fp32 [B·N, T] rows (K1: lse; K2 and K3:
+    lse and delta)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    pairs = B * N * (T * (T + 1) // 2 if causal else T * T)
+    tensor, row = B * T * N * D * item, B * N * T * 4
+    out = {}
+    for name, products, tensors, rows in (("flash_fwd", 2, 4, 1), ("flash_dq", 3, 5, 2), ("flash_dkv", 4, 6, 2)):
+        nbytes, flops = tensors * tensor + rows * row, products * 2 * D * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        out[name] = dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, flops=flops)
+    return out
+
+
+def _flash_errors(q, k, v, do, causal):
+    """Each kernel against its plain version in fp32 on the same inputs
+    (the backward pair on the kernel forward's LSE and delta). Returns
+    {kernel: (max abs error, error relative to the reference's largest
+    magnitude)} over its outputs, and the kernel residuals."""
+    f = [t.float() for t in (q, k, v, do)]
+    o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(*f[:3], causal)
+    delta = fa.flash_delta(o, do)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal)
+    dq_ref = fa.flash_dq_plain(*f, lse, delta, causal)
+    dk_ref, dv_ref = fa.flash_dkv_plain(*f, lse, delta, causal)
+    torch.cuda.synchronize()
+
+    def gap(pairs):
+        errs = [((a.float() - b).abs().max().item(), (a.float() - b).abs().max().item() / b.abs().max().item())
+                for a, b in pairs]
+        for a, _ in pairs:
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError("a flash kernel wrote a non-finite value")
+        return max(e[0] for e in errs), max(e[1] for e in errs)
+
+    return dict(flash_fwd=gap([(o, o_ref)]), flash_lse=gap([(lse, lse_ref)]), flash_dq=gap([(dq, dq_ref)]),
+                flash_dkv=gap([(dk, dk_ref), (dv, dv_ref)])), (lse, delta)
+
+
+def phase_flash(dev, flush):
+    rs = np.random.default_rng(4321)
+    main = {}
+    for name, (B, T, N, D, causal) in FLASH_CASES.items():
+        base = [torch.from_numpy(rs.standard_normal((B, T, N, D), dtype=np.float32)).to(dev) for _ in range(4)]
+        for dtype, (tol_o, tol_g) in FLASH_TOL.items():
+            q, k, v, do = (t.to(dtype) for t in base)
+            errs, (lse, delta) = _flash_errors(q, k, v, do, causal)
+            bad = [key for key, (abs_err, rel) in errs.items()
+                   if (abs_err > tol_o if key in ("flash_fwd", "flash_lse") else rel > tol_g)]
+            dt = str(dtype).replace("torch.", "")
+            rec = dict(phase="flash", case=name, dtype=dt, tol_o_lse_abs=tol_o, tol_grad_rel=tol_g,
+                       errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
+            if name == FLASH_MAIN:
+                bounds = _flash_bound(B, T, N, D, causal, dtype)
+                f = [t.float() for t in (q, k, v, do)]
+                timed = {
+                    "flash_fwd": (lambda: fa.flash_fwd_kernel(q, k, v, causal),
+                                  lambda: fa.flash_fwd_plain(*f[:3], causal)),
+                    "flash_dq": (lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, causal),
+                                 lambda: fa.flash_dq_plain(*f, lse, delta, causal)),
+                    "flash_dkv": (lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal),
+                                  lambda: fa.flash_dkv_plain(*f, lse, delta, causal)),
+                }
+                # yardsticks the port never calls: SDPA forward, and its autograd backward
+                # (dQ, dK and dV together) for K2 and K3
+                sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+                so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+                sdo = do.transpose(1, 2).contiguous()
+                lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(sq.detach(), sk.detach(), sv.detach(),
+                                                                          is_causal=causal), 20, flush)
+                lib_bwd = _time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True), 20, flush)
+                timing = {}
+                for key, (kernel, plain) in timed.items():
+                    ms = _time_ms(kernel, 20, flush)
+                    timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 5, flush),
+                                       library_ms=lib_fwd if key == "flash_fwd" else lib_bwd,
+                                       roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
+                rec["timing"] = timing
+                rec["library"] = ("flash_fwd: scaled_dot_product_attention(is_causal=True) on [B, N, T, D]; "
+                                  "flash_dq and flash_dkv: the autograd backward of that call, dQ, dK and dV "
+                                  "together (the same number on both)")
+                main[dt] = rec
+                del so, sq, sk, sv, sdo
+            emit(**rec)
+            if bad:
+                raise AssertionError(f"flash {name} {dt}: {bad} past tolerance: {errs}")
+    torch.cuda.empty_cache()
+    return main
+
+
+# --- phases 6 and 7: the training main path --------------------------------------
+TRAIN_CONFIG = {  # bench.py:507-517, config 1
+    "train_micro_batch_size_per_gpu": 8,
+    "optimizer": {"type": "adam", "params": {"lr": 3e-4, "weight_decay": 0.01}},
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 1},
+    "gradient_clipping": 1.0,
+    "steps_per_print": 10_000,
+}
+WARMUP, TIMED = 3, 20
+
+
+def _train_batch(cfg, dev, micro=8):
+    """bench.py:519-521: RandomState(0) tokens [micro, T+1], split into
+    inputs and labels, placed on the card once."""
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (micro, cfg.max_seq_len + 1)).astype(np.int32)
+    return {"input_ids": torch.from_numpy(toks[:, :-1]).to(dev), "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+
+
+def phase_train(seed, dev):
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    t0 = time.perf_counter()
+    tree = _weights(cfg, seed)
+    engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(TRAIN_CONFIG), model_parameters=tree)
+    del tree
+    batch = _train_batch(cfg, dev)
+    torch.cuda.synchronize()
+    emit(phase="train", event="engine_built", seconds=time.perf_counter() - t0, params=engine.num_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # counts from here are the training main path's
+    losses = []
+    for _ in range(WARMUP):
+        loss = engine(batch)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED):
+        loss = engine(batch)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    losses = [float(x) for x in losses]
+    steps, L, H, T = WARMUP + TIMED, cfg.num_layers, cfg.hidden_size, cfg.max_seq_len
+    tokens_per_s = TIMED * 8 * T / wall
+    n_params = engine.num_parameters()
+    flops_per_token = 6 * n_params + 12 * L * H * T  # bench.py:440-443
+    rec = dict(phase="train", model='gpt2_config("125m", max_seq_len=1024, remat=False)', config=TRAIN_CONFIG,
+               steps=steps, timed_steps=TIMED, losses=losses, ms_per_step=wall * 1e3 / TIMED,
+               tokens_per_s=tokens_per_s, mfu=tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
+               step_floor_ms=8 * T * flops_per_token / PEAK_FLOPS[torch.bfloat16] * 1e3,
+               grad_norm=engine.get_global_grad_norm(), peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               params=n_params, launches=counts)
+    emit(**rec)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses not finite or not falling: {losses}")
+    want = L * steps
+    if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or counts["ragged_paged_attention"]:
+        raise AssertionError(f"train: launches {counts}, want {want} = {L} x {steps} for each flash kernel")
+    del engine, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_fp32(seed, dev):
+    """The same model in fp32 (TF32 off), 3 steps through the kernels and
+    3 through the plain attention from the same weights and batch."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float32")
+    tree = _weights(cfg, seed)
+    config = {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+    batch = _train_batch(cfg, dev)
+    arms = {}
+    for impl in ("kernel", "plain"):
+        engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree,
+                                         attn_impl=impl)
+        before = fa.launches_fwd
+        rec = []
+        for _ in range(3):
+            loss = engine(batch)
+            engine.backward(loss)
+            engine.step()
+            rec.append((loss.item(), engine.get_global_grad_norm()))
+        launched = fa.launches_fwd - before
+        if (impl == "kernel") != (launched > 0):
+            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times")
+        arms[impl] = rec
+        del engine
+        torch.cuda.empty_cache()
+    gaps = [dict(step=i + 1, loss_rel=abs(k[0] - p[0]) / abs(p[0]), grad_norm_rel=abs(k[1] - p[1]) / abs(p[1]))
+            for i, (k, p) in enumerate(zip(arms["kernel"], arms["plain"]))]
+    emit(phase="train_fp32", kernel=arms["kernel"], plain=arms["plain"], gaps=gaps, tol_step1=1e-5)
+    if gaps[0]["loss_rel"] > 1e-5 or gaps[0]["grad_norm_rel"] > 1e-5:
+        raise AssertionError(f"fp32 training: step 1 kernel vs plain gap {gaps[0]} past 1e-5")
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -356,11 +590,14 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    lib = native.build("ragged_paged_attention")
-    info = native.build_log.get("ragged_paged_attention", {})
+    sources = ["ragged_paged_attention", "flash_attention"]
+    libs = native.build_many(sources)  # one nvcc per source, all started together
     emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
-         cuda=torch.version.cuda, build_s=time.perf_counter() - t0, library=lib.split("/")[-1],
-         ptxas=[line.strip() for line in info.get("ptxas", "").splitlines() if "Used" in line or "spill" in line])
+         cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
+         builds={name: dict(library=lib.split("/")[-1], nvcc_s=native.build_log.get(name, {}).get("seconds"),
+                            ptxas=[line.strip() for line in native.build_log.get(name, {}).get("ptxas", "").splitlines()
+                                   if "Used" in line or "spill" in line])
+                 for name, lib in zip(sources, libs)})
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > the 50 MB L2
     cases = phase_kernel(dev, flush)
@@ -372,6 +609,13 @@ def main() -> int:
     emit(phase="serve", event="weights_made", seconds=time.perf_counter() - t0)
     launches = phase_serve(cfg, tree, args.seed)
     phase_streams(llama_config("1b", dtype="float32"), tree, args.seed, dev)
+    del tree
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    flash = phase_flash(dev, flush)
+    del flush
+    train_counts = phase_train(args.seed, dev)
+    phase_train_fp32(args.seed, dev)
 
     main_case = next(c for c in cases if c["case"] == "W=1 bfloat16")
     emit(kernels=[dict(
@@ -383,7 +627,15 @@ def main() -> int:
         library_ms=main_case["library_ms"], case=main_case["case"],
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")} for c in cases],
-    )])
+    )] + [dict(
+        name=name, route="cuda", source="deepspeed_tpu_torch/csrc/flash_attention.cu",
+        replaces=f"deepspeed_tpu/ops/transformer/flash_attention.py:{line}",
+        launches=train_counts[name],
+        max_abs_err=flash["bfloat16"]["errors"][name]["max_abs_err"],
+        case=f"{FLASH_MAIN} bfloat16",
+        **{k: flash["bfloat16"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        fp32={k: flash["float32"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})
     return 0

@@ -2,14 +2,52 @@
 
 The JAX package ``deepspeed_tpu`` stays the reference; this package grows
 beside it slice by slice and mirrors its module paths. It imports neither
-``jax`` nor ``deepspeed_tpu``. Today it covers the paged ragged serving path
-(``init_inference(...).serve(...)``), whose attention runs through the
-hand-written CUDA kernel ``csrc/ragged_paged_attention.cu``.
+``jax`` nor ``deepspeed_tpu``. Today it covers:
+
+* the paged ragged serving path (``init_inference(...).serve(...)``), whose
+  attention runs through the CUDA kernel ``csrc/ragged_paged_attention.cu``;
+* the single-card training path (``initialize(...)`` then ``engine(batch)``,
+  ``backward``, ``step``), whose attention runs through the CUDA flash
+  kernels ``csrc/flash_attention.cu`` (forward, dQ, dK/dV).
 """
 
 from __future__ import annotations
 
 __version__ = "0.1.0"
+
+
+def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,
+               lr_scheduler=None, mpu=None, dist_init_required=None, collate_fn=None, config=None,
+               config_params=None, loss_fn=None, device=None, attn_impl=None):
+    """Build the training engine (JAX ``initialize``, ``__init__.py:32``).
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+
+    ``model`` is the port's ``TransformerLM``; ``model_parameters`` the JAX
+    tree as numpy (nested or flat paths), the one way weights enter the
+    port (``models.transformer.init_params`` draws a tree with the JAX
+    init's distributions). ``config`` is a
+    dict (or a JSON path) in the JAX package's schema. The engine runs on
+    ``cuda`` unless ``device`` names another device, and raises when no
+    card is present. ``attn_impl="plain"`` runs the plain attention on the
+    card (the comparison arm); the default launches the kernels."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+    if model is None:
+        raise AssertionError("deepspeed.initialize requires a model")
+    if training_data is not None or collate_fn is not None:
+        raise NotImplementedError("training_data / collate_fn (the engine dataloader) are not ported yet "
+                                  "(ROADMAP T5)")
+    if mpu is not None or loss_fn is not None:
+        raise NotImplementedError("mpu / loss_fn are not ported yet (ROADMAP P1, X1)")
+    if config is None:
+        config = config_params
+    if config is None and args is not None and getattr(args, "deepspeed_config", None) is not None:
+        config = args.deepspeed_config
+    engine = DeepSpeedEngine(model, config=DeepSpeedConfig(config if config is not None else {}),
+                             model_parameters=model_parameters, optimizer=optimizer,
+                             lr_scheduler=lr_scheduler, device=device, attn_impl=attn_impl)
+    return engine, engine.optimizer, None, engine.lr_scheduler
 
 
 def init_inference(model, config=None, device=None, **kwargs):

@@ -1,0 +1,581 @@
+// Flash attention forward and backward for Hopper (sm_90a), plain C interface for ctypes.
+//
+// Replaces the three TPU kernels of deepspeed_tpu/ops/transformer/flash_attention.py:
+//   K1 _fwd_kernel (pallas_call in _flash_fwd):  O = softmax(scale * Q K^T) V, and the fp32
+//      log-sum-exp of every row;
+//   K2 _dq_kernel  (pallas_call in _flash_bwd):  dQ = scale * (P o (dO V^T - delta)) K;
+//   K3 _dkv_kernel (pallas_call in _flash_bwd):  dV = P^T dO, dK = scale * (P o (dO V^T - delta))^T Q,
+// with P = exp(scale * Q K^T - lse) recomputed from the forward's LSE and delta = rowsum(dO o O)
+// computed by the caller. q, k, v, o, dO are [B, T, N, D] (heads last, as the model lays them
+// out), indexed by strides: no transpose on either side. lse and delta are plain [B*N, T] fp32.
+// Operands are read in their dtype (fp32, bf16 or fp16) and every product accumulates in fp32;
+// the TPU kernels' casts are kept: P -> v's dtype before P V, dS -> k's dtype before dS K,
+// P -> dO's dtype before P^T dO, dS -> q's dtype before dS^T Q. Masking uses the finite
+// NEG_INF = -1e30; keys at or past T are masked (causal: also keys past the row), a masked
+// probability is exactly 0, and rows at or past T are never written, so T need not be a
+// multiple of the tile.
+//
+// What bounds it: at the training shapes (T = 1024, D = 64, bf16) each kernel does 2-4 causal
+// T x T x D products per (b, n) over about 3 T D bytes per operand, far above the card's ~295
+// flops/byte balance point, so the tensor-core rate bounds it (K1 ~13 us, K2 ~19.5 us, K3 ~26 us
+// at B=8, N=12 against 989 TFLOP/s). This first version multiplies with fp32 FMAs on the CUDA
+// cores out of shared memory (no tensor cores), so it sits well above that bound; it is written
+// to be right first, for every dtype the engine trains in, fp32 included.
+//
+// What the design does about the TPU kernels' shape: the Pallas kernels carry m/l/acc (or dQ,
+// dK/dV) in VMEM scratch across a sequential "arbitrary" grid axis of 512-row blocks. Hopper
+// runs blocks unordered and a 512 x 64 tile does not fit a block's registers, so:
+//  * K1 and K2 run one block per (b*n, 64-row q tile) and loop over the k tiles up to the
+//    causal diagonal inside the block, the running state in registers and shared memory;
+//  * K3 runs one block per (b*n, 64-row k tile) and loops over the q tiles from the diagonal to
+//    the end; it owns its dK and dV rows, so there are no atomics and the result is
+//    deterministic;
+//  * causal tiles above the diagonal are skipped by the loop bounds, not by a per-tile test;
+//  * 64-row tiles give 16 x 96 = 1,536 blocks at B=8, N=12, T=1024, and the heaviest tiles
+//    (K1/K2: the last q tiles; K3: the first k tiles) are launched first;
+//  * 256 threads hold a 4 x 4 register tile of every 64 x 64 score tile (rows ty + 16 i, columns
+//    tx + 16 j), so a row's softmax reduction is a 16-lane shuffle, and the same rows of the
+//    output accumulator, so the online-softmax rescale needs no shared memory;
+//  * shared-memory rows are padded by one float, so both row-wise and column-wise reads are
+//    free of bank conflicts.
+// Not done yet (later work): tensor-core tiles (mma.sync / wgmma), cp.async / TMA double
+// buffering, 16-byte vector loads, a persistent causal schedule.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int TILE = 64;      // rows of every q and k tile
+constexpr int THREADS = 256;  // 16 x 16 threads; each holds 4 x 4 of a 64 x 64 tile
+constexpr int SP = TILE + 1;  // padded row of a 64-wide score tile
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) { return __float2bfloat16(x); }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
+
+// x rounded to T and widened back: the TPU kernels' ".astype(dtype)" before a product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f32(from_f32<T>(x)); }
+
+__device__ __forceinline__ float reduce16_max(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+__device__ __forceinline__ float reduce16_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ size_t tok(int b, int t, int n, int T, int N, int D) {
+  return ((static_cast<size_t>(b) * T + t) * N + n) * D;
+}
+
+// rows t0 .. t0+63 of head (b, n) into dst[64][D+1] as fp32; rows at or past T read as zeros
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int b, int n,
+                                          int t0, int Tn, int N) {
+  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    const int t = t0 + r;
+    dst[r * (D + 1) + d] = t < Tn ? to_f32(src[tok(b, t, n, Tn, N, D) + d]) : 0.f;
+  }
+}
+
+// rows t0 .. t0+63 of a [B*N, T] fp32 row statistic; past T reads as zero
+__device__ __forceinline__ void load_rowstat(float* dst, const float* __restrict__ src, int bn,
+                                             int t0, int Tn) {
+  if (threadIdx.x < TILE) {
+    const int t = t0 + threadIdx.x;
+    dst[threadIdx.x] = t < Tn ? src[static_cast<size_t>(bn) * Tn + t] : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
+// K1: forward
+// ---------------------------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int Tn, int N, int causal,
+                 float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DC = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + TILE * DP;
+  float* vs = ks + TILE * DP;
+  float* ps = vs + TILE * DP;  // [64][SP] probabilities, rounded to T
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int q0 = qt * TILE;
+  const int n_kt = (Tn + TILE - 1) / TILE;
+  const int k_end = causal ? min(qt + 1, n_kt) : n_kt;
+
+  load_tile<T, D>(qs, q, b, n, q0, Tn, N);
+  float m[4], l[4], acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = 0; kt < k_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();  // the previous tile's K, V and P are consumed
+    load_tile<T, D>(ks, k, b, n, k0, Tn, N);
+    load_tile<T, D>(vs, v, b, n, k0, Tn, N);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float a[4], bk[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * DP + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + ty + 16 * i;
+      bool live[4];
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        live[j] = col < Tn && (!causal || col <= row);
+        s[i][j] = live[j] ? s[i][j] * scale : NEG_INF;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], reduce16_max(mx));
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = live[j] ? expf(s[i][j] - m_new) : 0.f;
+        sum += p;
+        ps[(ty + 16 * i) * SP + tx + 16 * j] = round_to<T>(p);
+      }
+      l[i] = corr * l[i] + reduce16_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < TILE; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * SP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float vv = vs[kk * DP + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < Tn) {
+      const float safe_l = l[i] == 0.f ? 1.f : l[i];
+      T* dst = o + tok(b, row, n, Tn, N, D);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = from_f32<T>(acc[i][c] / safe_l);
+      if (tx == 0) lse[static_cast<size_t>(bn) * Tn + row] = m[i] + logf(safe_l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
+// K2: dQ
+// ---------------------------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                const T* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dq, int Tn, int N, int causal,
+                float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + TILE * DP;
+  float* ks = dos + TILE * DP;
+  float* vs = ks + TILE * DP;
+  float* dss = vs + TILE * DP;  // [64][SP] dS, rounded to T
+  float* lse_s = dss + TILE * SP;
+  float* delta_s = lse_s + TILE;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int q0 = qt * TILE;
+  const int n_kt = (Tn + TILE - 1) / TILE;
+  const int k_end = causal ? min(qt + 1, n_kt) : n_kt;
+
+  load_tile<T, D>(qs, q, b, n, q0, Tn, N);
+  load_tile<T, D>(dos, dout, b, n, q0, Tn, N);
+  load_rowstat(lse_s, lse, bn, q0, Tn);
+  load_rowstat(delta_s, delta, bn, q0, Tn);
+  float acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+
+  for (int kt = 0; kt < k_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_tile<T, D>(ks, k, b, n, k0, Tn, N);
+    load_tile<T, D>(vs, v, b, n, k0, Tn, N);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], g[4], bk[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = qs[(ty + 16 * i) * DP + d];
+        g[i] = dos[(ty + 16 * i) * DP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bk[j] = ks[(tx + 16 * j) * DP + d];
+        bv[j] = vs[(tx + 16 * j) * DP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+          dp[i][j] = fmaf(g[i], bv[j], dp[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int row = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        const bool live = col < Tn && (!causal || col <= row);
+        const float p = live ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
+        dss[r * SP + tx + 16 * j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < TILE; ++kk) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty + 16 * i) * SP + kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float kv = ks[kk * DP + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kv, acc[i][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < Tn) {
+      T* dst = dq + tok(b, row, n, Tn, N, D);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = from_f32<T>(acc[i][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
+// K3: dK, dV
+// ---------------------------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tn,
+                 int N, int causal, float scale) {
+  constexpr int DP = D + 1;
+  constexpr int DC = D / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + TILE * DP;
+  float* qs = vs + TILE * DP;
+  float* dos = qs + TILE * DP;
+  float* pts = dos + TILE * DP;  // [64 keys][SP queries] P^T, rounded to T
+  float* dsts = pts + TILE * SP;  // dS^T, rounded to T
+  float* lse_s = dsts + TILE * SP;
+  float* delta_s = lse_s + TILE;
+
+  const int kt = blockIdx.x;  // heaviest causal tiles (the first keys) first
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int k0 = kt * TILE;
+  const int n_qt = (Tn + TILE - 1) / TILE;
+
+  load_tile<T, D>(ks, k, b, n, k0, Tn, N);
+  load_tile<T, D>(vs, v, b, n, k0, Tn, N);
+  float dk_acc[4][DC], dv_acc[4][DC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  for (int qt = causal ? kt : 0; qt < n_qt; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();
+    load_tile<T, D>(qs, q, b, n, q0, Tn, N);
+    load_tile<T, D>(dos, dout, b, n, q0, Tn, N);
+    load_rowstat(lse_s, lse, bn, q0, Tn);
+    load_rowstat(delta_s, delta, bn, q0, Tn);
+    __syncthreads();
+
+    // transposed scores: key rows ty + 16 i, query columns tx + 16 j
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], av[4], bq[4], bg[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i] = ks[(ty + 16 * i) * DP + d];
+        av[i] = vs[(ty + 16 * i) * DP + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bq[j] = qs[(tx + 16 * j) * DP + d];
+        bg[j] = dos[(tx + 16 * j) * DP + d];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          st[i][j] = fmaf(a[i], bq[j], st[i][j]);
+          dpt[i][j] = fmaf(av[i], bg[j], dpt[i][j]);
+        }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int key = k0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const int row = q0 + c;
+        const bool live = row < Tn && key < Tn && (!causal || key <= row);
+        const float p = live ? expf(st[i][j] * scale - lse_s[c]) : 0.f;
+        pts[r * SP + c] = round_to<T>(p);
+        dsts[r * SP + c] = round_to<T>(p * (dpt[i][j] - delta_s[c]) * scale);
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int qq = 0; qq < TILE; ++qq) {
+      float pv[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        pv[i] = pts[(ty + 16 * i) * SP + qq];
+        ds[i] = dsts[(ty + 16 * i) * SP + qq];
+      }
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float g = dos[qq * DP + tx + 16 * c];
+        const float qv = qs[qq * DP + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv_acc[i][c] = fmaf(pv[i], g, dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(ds[i], qv, dk_acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + ty + 16 * i;
+    if (key < Tn) {
+      T* dkd = dk + tok(b, key, n, Tn, N, D);
+      T* dvd = dv + tok(b, key, n, Tn, N, D);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        dkd[tx + 16 * c] = from_f32<T>(dk_acc[i][c]);
+        dvd[tx + 16 * c] = from_f32<T>(dv_acc[i][c]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
+// launch helpers
+// ---------------------------------------------------------------------------------------------
+template <int D>
+constexpr size_t tile_bytes(int n_tiles, int n_score_tiles, int n_rowstats) {
+  return sizeof(float) * (static_cast<size_t>(n_tiles) * TILE * (D + 1) +
+                          static_cast<size_t>(n_score_tiles) * TILE * SP +
+                          static_cast<size_t>(n_rowstats) * TILE);
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem) {
+  // above 48 KB a block's shared memory must be opted into per kernel
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *o, *out_lse, *dq, *dk, *dv;
+  int B, T, N, causal;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_fwd(const Args& a) {
+  const size_t smem = tile_bytes<D>(3, 1, 0);
+  auto kernel = flash_fwd_kernel<T, D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.T + TILE - 1) / TILE, a.B * a.N);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.T, a.N, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  const size_t smem = tile_bytes<D>(4, 1, 2);
+  auto kernel = flash_dq_kernel<T, D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.T + TILE - 1) / TILE, a.B * a.N);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.T, a.N, a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  const size_t smem = tile_bytes<D>(4, 2, 2);
+  auto kernel = flash_dkv_kernel<T, D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.T + TILE - 1) / TILE, a.B * a.N);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.T, a.N,
+      a.causal, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <template <typename, int> class Launch>
+int dispatch(int dtype, int D, const Args& a) {
+  if (a.B <= 0 || a.T <= 0 || a.N <= 0 || a.B * a.N > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype * 1000 + D) {
+    case 64: return Launch<float, 64>::run(a);
+    case 128: return Launch<float, 128>::run(a);
+    case 1064: return Launch<__nv_bfloat16, 64>::run(a);
+    case 1128: return Launch<__nv_bfloat16, 128>::run(a);
+    case 2064: return Launch<__half, 64>::run(a);
+    case 2128: return Launch<__half, 128>::run(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int D>
+struct Fwd {
+  static int run(const Args& a) { return launch_fwd<T, D>(a); }
+};
+template <typename T, int D>
+struct Dq {
+  static int run(const Args& a) { return launch_dq<T, D>(a); }
+};
+template <typename T, int D>
+struct Dkv {
+  static int run(const Args& a) { return launch_dkv<T, D>(a); }
+};
+
+}  // namespace
+
+// dtype: 0 fp32, 1 bf16, 2 fp16; D in {64, 128}. Each returns cudaGetLastError() after its launch
+// (or the error that stopped it) and does not synchronise.
+extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
+                         int B, int T, int N, int D, int causal, float scale, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.out_lse = lse;
+  a.B = B; a.T = T; a.N = N; a.causal = causal; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<Fwd>(dtype, D, a);
+}
+
+extern "C" int flash_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dq, int B, int T, int N, int D,
+                        int causal, float scale, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dq = dq;
+  a.B = B; a.T = T; a.N = N; a.causal = causal; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<Dq>(dtype, D, a);
+}
+
+extern "C" int flash_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dk, void* dv, int B, int T, int N,
+                         int D, int causal, float scale, void* stream) {
+  Args a{};
+  a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dk = dk; a.dv = dv;
+  a.B = B; a.T = T; a.N = N; a.causal = causal; a.scale = scale;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<Dkv>(dtype, D, a);
+}

@@ -164,6 +164,8 @@ def build_ragged_step(cfg, width: int, attn_impl: str = "auto"):
     tensors on the pools' device."""
     if cfg.position == "alibi":
         raise NotImplementedError("paged serving does not support alibi attention biases")
+    if cfg.embed_norm or not cfg.prenorm:
+        raise NotImplementedError("embed_norm / post-LN models are not on the paged serving path")
     if width < 1:
         raise ValueError(f"ragged step needs width >= 1, got {width}")
     W = int(width)

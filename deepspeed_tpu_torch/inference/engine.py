@@ -38,6 +38,8 @@ class InferenceEngine:
             raise NotImplementedError(
                 "deepspeed_tpu_torch serves its own TransformerLM; other modules are not ported yet"
             )
+        if model.config.embed_norm or not model.config.prenorm:
+            raise NotImplementedError("embed_norm / post-LN models are not on the paged serving path")
         self.device = resolve_device(device)
         self.dtype = _DTYPES[self._config.dtype]
         self.module = model

@@ -19,7 +19,8 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -63,6 +64,13 @@ def build(name: str) -> str:
     os.replace(tmp, out)
     build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stderr.strip()}
     return out
+
+
+def build_many(names: List[str]) -> List[str]:
+    """``build`` each source, all ``nvcc`` processes started together;
+    returns the libraries' paths in order."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

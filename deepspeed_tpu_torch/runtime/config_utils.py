@@ -3,11 +3,14 @@
 ``DeepSpeedConfigModel`` is a pydantic base that tolerates the literal
 string ``"auto"`` for any field (the field keeps its default and
 ``is_auto(name)`` reports it), forbids unknown keys, and copies deprecated
-fields onto their replacement.
+fields onto their replacement. ``dict_raise_error_on_duplicate_keys``,
+``pp_int`` and ``ScientificNotationEncoder`` serve the training config
+(``runtime/config.py``).
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict
 
 from pydantic import BaseModel, ConfigDict, model_validator
@@ -53,3 +56,43 @@ class DeepSpeedConfigModel(BaseModel):
 
     def dict_repr(self) -> Dict[str, Any]:
         return self.model_dump()
+
+
+def dict_raise_error_on_duplicate_keys(ordered_pairs):
+    """JSON object-pairs hook that rejects duplicate keys (reference config.py)."""
+    d = dict(ordered_pairs)
+    if len(d) != len(ordered_pairs):
+        counter = {}
+        for k, _ in ordered_pairs:
+            counter[k] = counter.get(k, 0) + 1
+        dupes = [k for k, c in counter.items() if c > 1]
+        raise ValueError(f"Duplicate keys in DeepSpeed config: {dupes}")
+    return d
+
+
+class pp_int(int):
+    """Int that remembers a human-readable form for config dumps (config_utils.py:120)."""
+
+    def __new__(cls, val: int, custom_print_str: str = None):
+        inst = super().__new__(cls, val)
+        inst.custom_print_str = custom_print_str
+        return inst
+
+    def __repr__(self):
+        if self.custom_print_str:
+            return self.custom_print_str
+        return f"{int(self):_}"
+
+
+class ScientificNotationEncoder(json.JSONEncoder):
+    """JSON encoder emitting large numbers in scientific notation (config_utils.py:139)."""
+
+    def iterencode(self, o, _one_shot=False):
+        if isinstance(o, (int, float)) and not isinstance(o, bool) and abs(o) >= 1e4:
+            return iter([f"{o:e}"])
+        if isinstance(o, dict):
+            parts = [f'"{k}": {"".join(self.iterencode(v))}' for k, v in o.items()]
+            return iter(["{" + ", ".join(parts) + "}"])
+        if isinstance(o, (list, tuple)):
+            return iter(["[" + ", ".join("".join(self.iterencode(v)) for v in o) + "]"])
+        return super().iterencode(o, _one_shot=_one_shot)

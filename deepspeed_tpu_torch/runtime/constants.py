@@ -1,0 +1,165 @@
+"""Config keys and defaults: a copy of ``deepspeed_tpu/runtime/constants.py``."""
+
+#############################################
+# Batch size triad
+#############################################
+TRAIN_BATCH_SIZE = "train_batch_size"
+TRAIN_BATCH_SIZE_DEFAULT = None
+TRAIN_MICRO_BATCH_SIZE_PER_GPU = "train_micro_batch_size_per_gpu"
+TRAIN_MICRO_BATCH_SIZE_PER_GPU_DEFAULT = None
+GRADIENT_ACCUMULATION_STEPS = "gradient_accumulation_steps"
+GRADIENT_ACCUMULATION_STEPS_DEFAULT = None
+
+#############################################
+# Optimizer / scheduler
+#############################################
+OPTIMIZER = "optimizer"
+OPTIMIZER_TYPE_DEFAULT = None
+OPTIMIZER_PARAMS = "params"
+TYPE = "type"
+LEGACY_FUSION = "legacy_fusion"
+LEGACY_FUSION_DEFAULT = False
+SCHEDULER = "scheduler"
+SCHEDULER_TYPE_DEFAULT = None
+SCHEDULER_PARAMS = "params"
+MAX_GRAD_NORM = "max_grad_norm"
+
+ADAM_OPTIMIZER = "adam"
+ADAMW_OPTIMIZER = "adamw"
+FUSED_ADAM_OPTIMIZER = "fusedadam"
+CPU_ADAM_OPTIMIZER = "deepspeedcpuadam"
+CPU_ADAGRAD_OPTIMIZER = "deepspeedcpuadagrad"
+ADAGRAD_OPTIMIZER = "adagrad"
+LAMB_OPTIMIZER = "lamb"
+FUSED_LAMB_OPTIMIZER = "fusedlamb"
+ONEBIT_ADAM_OPTIMIZER = "onebitadam"
+ONEBIT_LAMB_OPTIMIZER = "onebitlamb"
+ZERO_ONE_ADAM_OPTIMIZER = "zerooneadam"
+SGD_OPTIMIZER = "sgd"
+LION_OPTIMIZER = "lion"
+DEEPSPEED_OPTIMIZERS = [
+    ADAM_OPTIMIZER,
+    ADAMW_OPTIMIZER,
+    FUSED_ADAM_OPTIMIZER,
+    CPU_ADAM_OPTIMIZER,
+    CPU_ADAGRAD_OPTIMIZER,
+    ADAGRAD_OPTIMIZER,
+    LAMB_OPTIMIZER,
+    FUSED_LAMB_OPTIMIZER,
+    ONEBIT_ADAM_OPTIMIZER,
+    ONEBIT_LAMB_OPTIMIZER,
+    ZERO_ONE_ADAM_OPTIMIZER,
+    SGD_OPTIMIZER,
+    LION_OPTIMIZER,
+]
+
+#############################################
+# Precision
+#############################################
+FP16 = "fp16"
+FP16_ENABLED = "enabled"
+FP16_ENABLED_DEFAULT = False
+FP16_LOSS_SCALE = "loss_scale"
+FP16_LOSS_SCALE_DEFAULT = 0
+FP16_INITIAL_SCALE_POWER = "initial_scale_power"
+FP16_INITIAL_SCALE_POWER_DEFAULT = 16
+FP16_LOSS_SCALE_WINDOW = "loss_scale_window"
+FP16_LOSS_SCALE_WINDOW_DEFAULT = 1000
+FP16_HYSTERESIS = "hysteresis"
+FP16_HYSTERESIS_DEFAULT = 2
+FP16_MIN_LOSS_SCALE = "min_loss_scale"
+FP16_MIN_LOSS_SCALE_DEFAULT = 1
+FP16_MASTER_WEIGHTS_AND_GRADS = "fp16_master_weights_and_grads"
+FP16_MASTER_WEIGHTS_AND_GRADS_DEFAULT = False
+FP16_AUTO_CAST = "auto_cast"
+FP16_AUTO_CAST_DEFAULT = False
+
+BFLOAT16 = "bf16"
+BFLOAT16_OLD = "bfloat16"
+BFLOAT16_ENABLED = "enabled"
+BFLOAT16_ENABLED_DEFAULT = False
+
+AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+
+GRADIENT_CLIPPING = "gradient_clipping"
+GRADIENT_CLIPPING_DEFAULT = 0.0
+
+PRESCALE_GRADIENTS = "prescale_gradients"
+PRESCALE_GRADIENTS_DEFAULT = False
+GRADIENT_PREDIVIDE_FACTOR = "gradient_predivide_factor"
+GRADIENT_PREDIVIDE_FACTOR_DEFAULT = 1.0
+
+#############################################
+# Logging / misc
+#############################################
+STEPS_PER_PRINT = "steps_per_print"
+STEPS_PER_PRINT_DEFAULT = 10
+WALL_CLOCK_BREAKDOWN = "wall_clock_breakdown"
+WALL_CLOCK_BREAKDOWN_DEFAULT = False
+DUMP_STATE = "dump_state"
+DUMP_STATE_DEFAULT = False
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
+
+DISABLE_ALLGATHER = "disable_allgather"
+DISABLE_ALLGATHER_DEFAULT = False
+
+SPARSE_GRADIENTS = "sparse_gradients"
+SPARSE_GRADIENTS_DEFAULT = False
+
+#############################################
+# Checkpoint
+#############################################
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "Warn"
+CHECKPOINT_TAG_VALIDATION_MODES = ["Warn", "Ignore", "Fail"]
+LOAD_UNIVERSAL_CHECKPOINT = "load_universal"
+LOAD_UNIVERSAL_CHECKPOINT_DEFAULT = False
+USE_NODE_LOCAL_STORAGE_CHECKPOINT = "use_node_local_storage"
+USE_NODE_LOCAL_STORAGE_CHECKPOINT_DEFAULT = False
+
+#############################################
+# Mesh / parallelism (TPU-native section)
+#############################################
+MESH = "mesh"
+
+#############################################
+# Communication
+#############################################
+COMMS_LOGGER = "comms_logger"
+SEED = "seed"
+
+#############################################
+# Routing
+#############################################
+ROUTE_TRAIN = "train"
+ROUTE_EVAL = "eval"
+ROUTE_PREDICT = "predict"
+ROUTE_ENCODE = "encode"
+
+#############################################
+# Gradient-accumulation dtype
+#############################################
+DATA_TYPES = "data_types"
+GRAD_ACCUM_DTYPE = "grad_accum_dtype"
+GRAD_ACCUM_DTYPE_DEFAULT = None
+
+#############################################
+# Compile controls (TPU-native section)
+#############################################
+COMPILE = "compile"
+FUSE_GRAD_ACCUM = "fuse_grad_accum"
+FUSE_GRAD_ACCUM_DEFAULT = False
+COMPILE_CACHE_DIR = "cache_dir"
+COMPILE_CACHE_DIR_DEFAULT = None
+
+#############################################
+# Eigenvalue (MoQ)
+#############################################
+EIGENVALUE = "eigenvalue"
+
+# Pipeline config keys
+PIPE_REPLICATED = "ds_pipe_replicated"
