@@ -29,7 +29,32 @@ non-zero without the final line:
 4. greedy-stream identity in fp32 (TF32 off): 4 requests × 32 tokens with
    ``attn_impl="kernel"`` against ``"plain"``; where streams part, the plain
    run's top-2 logit gap at that position must be below 1e-4;
-5. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
+5. the dense decode kernel (K6) against its plain version at the generate
+   shape of llama-1B (B=16, S=256, NH=32, NKV=4, D=64, ragged lengths with
+   0 and 256) and an MHA shape (NH=NKV=12), fp32 with TF32 off (<= 1e-4)
+   and bf16 (<= 2e-2 against the plain version in fp32 on the same bf16
+   inputs), rows of length 0 exact zeros; timed beside its bound and a
+   yardstick (``scaled_dot_product_attention`` with a length mask over the
+   same cache), L2 flushed before every launch;
+6. the paged decode kernel (K5) the same way at the bucketed decode shape
+   (bucket 8, llama-1B heads, P=16, MAXP=128, NP=1025, a dead row and -1
+   sentinels), yardstick SDPA over pre-gathered K/V as for K4; and at D=128
+   with a group of 7 (correctness only);
+7. the dense ``engine.generate`` path in bf16 on llama-1B: 16 prompts of 128
+   tokens with 128 new (cache length 256), cold and warm, with
+   ``profile_model_time``; K6 must launch 22 × 128 times per call and K4,
+   K5 never. Then beam search (4 beams, 2 prompts of 224 tokens, 32 new):
+   K6 = 22 × 32;
+8. the bucketed server (``paged_kv.ragged=False``) in bf16 on phase 3's
+   traffic, cold and warm: 32 of 32 finished, K5 = 22 × ``decode_steps``,
+   K4 never;
+9. fp32 (TF32 off) stream identity of the three decode kernels: 4 prompts
+   of 224 tokens, 32 new tokens each, through the ragged server (K4), the
+   bucketed server (K5) and ``generate`` (K6, cache length 256); where two
+   streams part, the plain top-2 logit gap must be below 1e-4. Beam search
+   there too: the 4-beam answer's joint log-probability (rescored by a full
+   fp32 forward) must be at least the greedy answer's less 1e-3;
+10. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
    against their plain versions at the training shape (B=8, T=1024, N=12,
    D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
    T=2048, N=32): O, LSE, dQ, dK and dV, fp32 with TF32 off (O and LSE
@@ -40,7 +65,7 @@ non-zero without the final line:
    yardstick (``scaled_dot_product_attention(is_causal=True)`` for K1, and
    its autograd backward for K2 and K3 together; the port never calls
    either), L2 flushed before every launch, beside its bound;
-6. the training main path: ``initialize(TransformerLM(gpt2_config("125m",
+11. the training main path: ``initialize(TransformerLM(gpt2_config("125m",
    max_seq_len=1024, remat=False)), config=<bench.py config 1>)`` (bf16,
    ZeRO-1, Adam with weight decay 0.01, clipping 1.0, micro batch 8) with
    seeded random weights in the JAX tree layout; one ``RandomState(0)``
@@ -49,7 +74,7 @@ non-zero without the final line:
    are zeroed just before and each must equal 12 × 23 just after; every
    loss must be finite and the last below the first. Prints tokens/s, ms
    per step, MFU by bench.py's formula and peak device memory;
-7. the same model in fp32 (TF32 off) for 3 steps, once through the
+12. the same model in fp32 (TF32 off) for 3 steps, once through the
    kernels and once with ``attn_impl="plain"``: step 1's loss and grad norm
    agree within 1e-5 relative.
 
@@ -76,7 +101,7 @@ from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops import native
 from deepspeed_tpu_torch.ops.transformer import decode_attention
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
-from deepspeed_tpu_torch.ops.transformer.paged_attention import ragged_paged_attention
+from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor core; fp32 without TF32
@@ -353,14 +378,284 @@ def phase_streams(cfg, tree, seed, dev):
          identical=sum(1 for a, b in zip(outs_k, outs_p) if np.array_equal(a, b)), partings=partings)
 
 
+# --- phases 5 and 6: the decode kernels against their plain versions ----------
+def _decode_bound(lens, nh, nkv, d, dtype, extra_bytes=0):
+    """Least time of one single-token call: max(bytes / HBM rate, flops /
+    peak). Bytes: q and the output once, the live K and V rows once
+    (``extra_bytes`` adds what else the call must read: K5's whole live
+    pages beyond the live rows and its table entries), the lengths. Flops:
+    4·D per (query head, live key) for QK^T and P·V."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    live = int(np.asarray(lens, np.int64).sum())
+    nbytes = 2 * len(lens) * nh * d * item + 2 * live * nkv * d * item + 4 * len(lens) + extra_bytes
+    flops = 4 * d * nh * live
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+DECODE_SHAPES = {  # name: (B, S, NH, NKV, D)
+    "generate B=16 S=256 NH=32 NKV=4 D=64": (16, 256, 32, 4, 64),
+    "MHA B=16 S=256 NH=NKV=12 D=64": (16, 256, 12, 12, 64),
+}
+DECODE_MAIN = "generate B=16 S=256 NH=32 NKV=4 D=64"
+
+
+def phase_decode_kernel(dev, flush):
+    rs = np.random.default_rng(2345)
+    cases = []
+    for label, (B, S, nh, nkv, d) in DECODE_SHAPES.items():
+        lens = np.linspace(0, S, B).astype(np.int32)  # 0 .. S, ragged
+        q = torch.from_numpy(rs.standard_normal((B, nh, d), dtype=np.float32)).to(dev)
+        k, v = (torch.from_numpy(rs.standard_normal((B, S, nkv, d), dtype=np.float32)).to(dev) for _ in range(2))
+        lens_d = torch.from_numpy(lens).to(dev)
+        scale = 1.0 / np.sqrt(d)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+            ref = decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(), lens_d, scale)
+            out = decode_attention.decode_attention_kernel(qd, kd, vd, lens_d, scale)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            dead_zero = bool((out[lens_d == 0] == 0).all().item())
+            finite = bool(torch.isfinite(out.float()).all().item())
+            if not (err <= tol and dead_zero and finite):
+                raise AssertionError(f"K6 {label} {dtype}: max_abs_err {err} (tol {tol}), dead rows zero "
+                                     f"{dead_zero}, finite {finite}")
+            ms = _time_ms(lambda: decode_attention.decode_attention_kernel(qd, kd, vd, lens_d, scale), 50, flush)
+            plain_ms = _time_ms(lambda: decode_attention.decode_attention_plain(qd, kd, vd, lens_d, scale), 20, flush)
+            sq, sk, sv = qd[:, :, None], kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+            mask = (torch.arange(S, device=dev)[None, :] < lens_d[:, None])[:, None, None]
+            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, scale=scale, enable_gqa=True), 50, flush)
+            bound_ms, bound_by, nbytes, flops = _decode_bound(lens, nh, nkv, d, dtype)
+            case = dict(case=f"{label} {str(dtype).replace('torch.', '')}", max_abs_err=err, tol=tol, ms=ms,
+                        plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        bytes=nbytes, flops=flops, roofline_share=bound_ms / ms)
+            emit(phase="decode_kernel", kernel="decode_attention", dead_rows_exact_zero=True, **case,
+                 library="scaled_dot_product_attention with a length mask over the same cache")
+            cases.append(case)
+    return cases
+
+
+PAGED_ROWS = [(1, 1), (17, 1), (300, 1), (0, 0), (1024, 1), (1500, 1), (2047, 1), (2048, 1)]
+
+
+def _paged_compare(label, args, scale, dtype, tol):
+    """K5 on ``args`` (``_batch`` at W=1) cast to ``dtype`` against the plain
+    version in fp32 on the same (cast) inputs; raises past ``tol``, on a
+    non-finite live row, or on a dead row that is not exact zeros."""
+    q, kp, vp, pt, kv_lens, _ = args
+    qd, kd, vd = q[:, 0].to(dtype), kp.to(dtype), vp.to(dtype)
+    ref = paged_decode_attention(qd.float(), kd.float(), vd.float(), pt, kv_lens, scale=scale, impl="plain")
+    out = paged_decode_attention(qd, kd, vd, pt, kv_lens, scale=scale, impl="kernel")
+    torch.cuda.synchronize()
+    live = kv_lens > 0
+    err = (out.float() - ref).abs()[live].max().item()
+    dead_zero = bool((out[~live] == 0).all().item())
+    finite = bool(torch.isfinite(out.float()[live]).all().item())
+    if not (err <= tol and dead_zero and finite):
+        raise AssertionError(f"K5 {label} {dtype}: max_abs_err {err} (tol {tol}), dead rows zero "
+                             f"{dead_zero}, finite {finite}")
+    return err, (qd, kd, vd, pt, kv_lens)
+
+
+def phase_paged_kernel(dev, flush):
+    rs = np.random.default_rng(3456)
+    scale = 1.0 / np.sqrt(D)
+    args = _batch(rs, 1, PAGED_ROWS, dev)
+    cases = []
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        err, cast = _paged_compare("bucket 8", args, scale, dtype, tol)
+        ms = _time_ms(lambda: paged_decode_attention(*cast, scale=scale, impl="kernel"), 50, flush)
+        plain_ms = _time_ms(lambda: paged_decode_attention(*cast, scale=scale, impl="plain"), 20, flush)
+        qd, kd, vd, pt, kv_lens = cast
+        sq, sk, sv, mask = _sdpa_inputs(qd[:, None], kd, vd, pt, kv_lens, (kv_lens > 0).to(torch.int32))
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask, scale=scale, enable_gqa=True), 50, flush)
+        lens = kv_lens.cpu().numpy().astype(np.int64)
+        pages = -(-lens // P)
+        item = torch.tensor([], dtype=dtype).element_size()
+        # whole live pages (the pool's unit) beyond the live rows, and the table entries
+        extra = 2 * int((pages * P - lens).sum()) * NKV * D * item + 4 * int(pages.sum())
+        bound_ms, bound_by, nbytes, flops = _decode_bound(lens, NH, NKV, D, dtype, extra)
+        case = dict(case=f"bucket 8 W=1 {str(dtype).replace('torch.', '')}", max_abs_err=err, tol=tol, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    bytes=nbytes, flops=flops, roofline_share=bound_ms / ms)
+        emit(phase="paged_kernel", kernel="paged_decode_attention", dead_rows_exact_zero=True, **case,
+             library="scaled_dot_product_attention over pre-gathered contiguous K/V (omits the page walk)")
+        cases.append(case)
+    # beyond the main path's shapes (correctness only): head_dim 128, a GQA
+    # group of 7, pages of 64 keys, sentinel ids and a dead row
+    other = dict(nh=28, nkv=4, d=128, p=64, maxp=8, np_=24)
+    args = _batch(rs, 1, [(300, 1), (70, 1), (0, 0), (5, 1), (129, 1)], dev, **other)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        err, _ = _paged_compare("D=128 Hg=7 P=64", args, 1.0 / np.sqrt(128), dtype, tol)
+        emit(phase="paged_kernel", kernel="paged_decode_attention", case=f"D=128 Hg=7 P=64 {dtype}",
+             max_abs_err=err, tol=tol, dead_rows_exact_zero=True)
+    return cases
+
+
+# --- phase 7: the dense generate path -------------------------------------------
+def _check_generated(label, out, prompts, new, vocab):
+    out = out.cpu().numpy()
+    if out.shape != (prompts.shape[0], prompts.shape[1] + new) or not (out[:, : prompts.shape[1]] == prompts).all() \
+            or out.min() < 0 or out.max() >= vocab:
+        raise AssertionError(f"{label}: malformed output {out.shape}")
+    return out
+
+
+def phase_generate(cfg, tree, seed):
+    model = TransformerLM(cfg)
+    engine = dst.init_inference(model, dtype="bf16")
+    engine.load_jax_params(tree)
+    engine.profile_model_time()
+    rs = np.random.default_rng(seed)
+    prompts = rs.integers(0, cfg.vocab_size, (16, 128), dtype=np.int32)
+    new = 128
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # counts from here are the generate main path's
+    for name in ("cold", "warm"):
+        before = _counts()
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_generated(f"generate {name}", out, prompts, new, cfg.vocab_size)
+        got = {k: v - before[k] for k, v in _counts().items()}
+        emit(phase="generate", pass_=name, batch=16, prompt=128, new_tokens=new, wall_s=wall,
+             tokens_per_s=16 * new / wall, ms_per_token=wall * 1e3 / new, launches=got)
+        if got["decode_attention"] != cfg.num_layers * new or sum(got.values()) != got["decode_attention"]:
+            raise AssertionError(f"generate {name}: launches {got}, want K6 = {cfg.num_layers} x {new} and no other")
+    beam_prompts = rs.integers(0, cfg.vocab_size, (2, 224), dtype=np.int32)
+    before = _counts()
+    t0 = time.perf_counter()
+    beam = engine.generate(beam_prompts, max_new_tokens=32, num_beams=4)
+    torch.cuda.synchronize()
+    beam_wall = time.perf_counter() - t0
+    _check_generated("beam", beam, beam_prompts, 32, cfg.vocab_size)
+    got = {k: v - before[k] for k, v in _counts().items()}
+    if got["decode_attention"] != cfg.num_layers * 32 or sum(got.values()) != got["decode_attention"]:
+        raise AssertionError(f"beam: launches {got}, want K6 = {cfg.num_layers} x 32 and no other")
+    counts = _counts()
+    summary = dict(phase="generate", pass_="all", model_times_s=engine.model_times(), beam_wall_s=beam_wall,
+                   beam_launches=got, launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    emit(**summary)
+    del engine, model
+    torch.cuda.empty_cache()
+    return counts["decode_attention"]
+
+
+# --- phase 8: the bucketed server -------------------------------------------------
+def phase_bucketed(cfg, tree, seed):
+    model = TransformerLM(cfg)
+    engine = dst.init_inference(model, dtype="bf16", paged_kv={"page_size": 16, "max_slots": 8, "ragged": False})
+    engine.load_jax_params(tree)
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # counts from here are the bucketed serving path's
+    passes = []
+    for name in ("cold", "warm"):
+        before = engine.serve_stats() or {"prefix": {"prefix_hit_tokens": 0, "prefix_query_tokens": 0},
+                                          "decode_steps": 0, "prefill_chunks": 0}
+        t0 = time.perf_counter()
+        outs = engine.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = engine.serve_stats()
+        for p, b, o in zip(prompts, budgets, outs):
+            if o is None or o.shape != (p.size + b,) or not (o[: p.size] == p).all() \
+                    or o.min() < 0 or o.max() >= cfg.vocab_size:
+                raise AssertionError(f"bucketed {name}: malformed output for a {p.size}-token prompt")
+        hit = s["prefix"]["prefix_hit_tokens"] - before["prefix"]["prefix_hit_tokens"]
+        query = s["prefix"]["prefix_query_tokens"] - before["prefix"]["prefix_query_tokens"]
+        rec = dict(phase="bucketed", pass_=name, requests=len(outs), generated_tokens=sum(budgets), wall_s=wall,
+                   tokens_per_s=sum(budgets) / wall, decode_steps=s["decode_steps"] - before["decode_steps"],
+                   prefill_chunks=s["prefill_chunks"] - before["prefill_chunks"],
+                   prefix_hit_rate=hit / query if query else 0.0)
+        emit(**rec)
+        passes.append(rec)
+    counts = _counts()
+    launches = counts["paged_decode_attention"]
+    s = engine.serve_stats()
+    emit(phase="bucketed", pass_="both", ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"], decode_steps=s["decode_steps"],
+         prefill_chunks=s["prefill_chunks"], dispatches=s["dispatches"], finished=s["finished"],
+         preempted=s["preempted"], prefix=s["prefix"], buckets=engine._paged_server.buckets, k5_launches=launches,
+         launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if s["finished"] != 32 or passes[1]["prefix_hit_rate"] <= 0:
+        raise AssertionError(f"bucketed: finished {s['finished']} of 32, warm prefix hit rate "
+                             f"{passes[1]['prefix_hit_rate']}")
+    if launches != cfg.num_layers * s["decode_steps"] or launches == 0 or sum(counts.values()) != launches:
+        raise AssertionError(f"K5 launches {launches} != {cfg.num_layers} x decode_steps {s['decode_steps']}, "
+                             f"or another kernel launched: {counts}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --- phase 9: fp32 stream identity of K4, K5 and K6 --------------------------------
+def _joint_logprob(model, seqs, prompt_len):
+    """Σ log p(token | prefix) over each row's generated part, one full fp32
+    forward (the rescoring of tests/unit/inference/test_beam.py)."""
+    with torch.no_grad():
+        logits = model.apply(model.param_tree(), seqs.long(), train=False)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    gen = seqs[:, prompt_len:].long()
+    return logp[:, prompt_len - 1 : -1].gather(2, gen[..., None])[..., 0].sum(dim=1).tolist()
+
+
+def phase_three_way(cfg, tree, seed, dev):
+    model = TransformerLM(cfg)
+    paged = {"page_size": 16, "max_slots": 8}
+    ragged = dst.init_inference(model, dtype="fp32", paged_kv=paged)
+    ragged.load_jax_params(tree)
+    bucketed = dst.init_inference(model, dtype="fp32", paged_kv=dict(paged, ragged=False))
+    rs = np.random.default_rng(seed + 2)
+    prompts = rs.integers(0, cfg.vocab_size, (4, 224), dtype=np.int32)
+    before = _counts()
+    streams = {
+        "ragged (K4)": ragged.serve(list(prompts), max_new_tokens=32),
+        "bucketed (K5)": bucketed.serve(list(prompts), max_new_tokens=32),
+        "generate (K6)": list(ragged.generate(prompts, max_new_tokens=32).cpu().numpy()),
+    }
+    got = {k: v - before[k] for k, v in _counts().items()}
+    if not (got["ragged_paged_attention"] and got["paged_decode_attention"]
+            and got["decode_attention"] == cfg.num_layers * 32):
+        raise AssertionError(f"fp32 three-way: launches {got}")
+    partings = []
+    names = list(streams)
+    for other in names[1:]:
+        for i, (a, b) in enumerate(zip(streams[names[0]], streams[other])):
+            if a.shape != b.shape:
+                raise AssertionError(f"{other} stream {i}: shapes {a.shape} vs {b.shape}")
+            diff = np.nonzero(a != b)[0]
+            if diff.size:
+                at = int(diff[0])
+                gap = _top2_gap(cfg, model.param_tree(), a[:at], dev)
+                partings.append({"pair": f"{names[0]} vs {other}", "request": i, "position": at, "plain_top2_gap": gap})
+                if gap >= 1e-4:
+                    raise AssertionError(f"{other} stream {i} parts from {names[0]} at {at} with plain top-2 gap {gap}")
+    identical = {other: sum(1 for a, b in zip(streams[names[0]], streams[other]) if np.array_equal(a, b))
+                 for other in names[1:]}
+    greedy = ragged.generate(prompts[:2], max_new_tokens=32)
+    beam = ragged.generate(prompts[:2], max_new_tokens=32, num_beams=4, length_penalty=0.0)
+    g_scores = _joint_logprob(model, greedy, 224)
+    b_scores = _joint_logprob(model, beam, 224)
+    emit(phase="three_way", dtype="float32", requests=4, new_tokens=32, identical_to_ragged=identical,
+         partings=partings, launches=got, beam_logprob=b_scores, greedy_logprob=g_scores)
+    if beam.shape != greedy.shape or any(b < g - 1e-3 for g, b in zip(g_scores, b_scores)):
+        raise AssertionError(f"fp32 beam joint log-prob {b_scores} below greedy's {g_scores}")
+    del ragged, bucketed, model
+    torch.cuda.empty_cache()
+
+
 # --- launch counts -------------------------------------------------------------
 def _zero_counts():
-    decode_attention.launches = 0
+    decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
 
 
 def _counts():
-    return dict(ragged_paged_attention=decode_attention.launches, flash_fwd=fa.launches_fwd,
+    return dict(ragged_paged_attention=decode_attention.launches, decode_attention=decode_attention.launches_decode,
+                paged_decode_attention=decode_attention.launches_paged, flash_fwd=fa.launches_fwd,
                 flash_dq=fa.launches_dq, flash_dkv=fa.launches_dkv)
 
 
@@ -535,7 +830,8 @@ def phase_train(seed, dev):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
     want = L * steps
-    if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or counts["ragged_paged_attention"]:
+    if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or \
+            sum(counts[k] for k in ("ragged_paged_attention", "decode_attention", "paged_decode_attention")):
         raise AssertionError(f"train: launches {counts}, want {want} = {L} x {steps} for each flash kernel")
     del engine, batch
     torch.cuda.empty_cache()
@@ -590,7 +886,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = ["ragged_paged_attention", "flash_attention"]
+    sources = ["ragged_paged_attention", "decode_attention", "flash_attention"]
     libs = native.build_many(sources)  # one nvcc per source, all started together
     emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
@@ -609,6 +905,14 @@ def main() -> int:
     emit(phase="serve", event="weights_made", seconds=time.perf_counter() - t0)
     launches = phase_serve(cfg, tree, args.seed)
     phase_streams(llama_config("1b", dtype="float32"), tree, args.seed, dev)
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    k6_cases = phase_decode_kernel(dev, flush)
+    k5_cases = phase_paged_kernel(dev, flush)
+    del flush
+    k6_launches = phase_generate(cfg, tree, args.seed)
+    k5_launches = phase_bucketed(cfg, tree, args.seed)
+    phase_three_way(llama_config("1b", dtype="float32"), tree, args.seed, dev)
     del tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -618,6 +922,9 @@ def main() -> int:
     phase_train_fp32(args.seed, dev)
 
     main_case = next(c for c in cases if c["case"] == "W=1 bfloat16")
+    k6_main = next(c for c in k6_cases if c["case"] == f"{DECODE_MAIN} bfloat16")
+    k5_main = next(c for c in k5_cases if c["case"] == "bucket 8 W=1 bfloat16")
+    keys = ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit(kernels=[dict(
         name="ragged_paged_attention", route="cuda",
         source="deepspeed_tpu_torch/csrc/ragged_paged_attention.cu",
@@ -635,7 +942,12 @@ def main() -> int:
         case=f"{FLASH_MAIN} bfloat16",
         **{k: flash["bfloat16"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         fp32={k: flash["float32"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-    ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))])
+    ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
+        name=name, route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
+        replaces=f"deepspeed_tpu/ops/transformer/decode_attention.py:{line}", launches=n,
+        **{k: main_[k] for k in keys}, cases=[{k: c[k] for k in keys} for c in all_cases],
+    ) for name, line, n, main_, all_cases in (("decode_attention", 42, k6_launches, k6_main, k6_cases),
+                                               ("paged_decode_attention", 110, k5_launches, k5_main, k5_cases))])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})
     return 0

@@ -5,7 +5,13 @@ beside it slice by slice and mirrors its module paths. It imports neither
 ``jax`` nor ``deepspeed_tpu``. Today it covers:
 
 * the paged ragged serving path (``init_inference(...).serve(...)``), whose
-  attention runs through the CUDA kernel ``csrc/ragged_paged_attention.cu``;
+  attention runs through the CUDA kernel ``csrc/ragged_paged_attention.cu``,
+  and its bucketed oracle (``paged_kv={"ragged": False}``), whose decode
+  rounds attend through the paged decode kernel of
+  ``csrc/decode_attention.cu``;
+* the dense KV-cached ``engine.generate`` (greedy, sampling, beam search),
+  whose single-token steps attend through the dense decode kernel of
+  ``csrc/decode_attention.cu``;
 * the single-card training path (``initialize(...)`` then ``engine(batch)``,
   ``backward``, ``step``), whose attention runs through the CUDA flash
   kernels ``csrc/flash_attention.cu`` (forward, dQ, dK/dV).

@@ -115,9 +115,12 @@ class PagedKVConfig(DeepSpeedConfigModel):
     Cache memory is ``num_pages × page_size × 2·L·NKV·D·dtype_bytes``. With
     ``num_pages = 0`` the pool is sized worst-case
     (``max_slots × ceil(max_seq_len / page_size) + 1``, preemption-free).
-    Every scheduler step is one call of the ragged step
-    (``decode.py:build_ragged_step``): prefill chunks and decode rows ride
-    together, driven by per-row ``(kv_len, q_len)`` arrays."""
+    With ``ragged`` (the default) every scheduler step is one call of the
+    ragged step (``decode.py:build_ragged_step``): prefill chunks and decode
+    rows ride together, driven by per-row ``(kv_len, q_len)`` arrays. With
+    ``ragged=False`` (the bucketed oracle) each prompt chunk is its own
+    call and each decode round one call padded to a ``slot_buckets``
+    size."""
 
     enabled: bool = True
     page_size: int = 16
@@ -128,7 +131,7 @@ class PagedKVConfig(DeepSpeedConfigModel):
     prefill_chunk: int = 32  # prompt tokens per row per step
     attn_impl: str = "auto"  # auto | kernel | plain (JAX names pallas | xla accepted)
     prefix_cache: bool = True  # page-level prefix sharing (hash-of-block + CoW)
-    ragged: bool = True  # False = the bucketed oracle (not ported yet: ROADMAP S3)
+    ragged: bool = True  # False = the bucketed oracle (prefill chunks + slot-bucket decode rounds)
     multi_step: MultiStepConfig = Field(default_factory=MultiStepConfig)
     sharded: ShardedServingConfig = Field(default_factory=ShardedServingConfig)
 
@@ -233,8 +236,6 @@ def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
     does not have yet, each naming its ROADMAP item."""
     p = cfg.paged_kv
     found = []
-    if not p.ragged:
-        found.append("paged_kv.ragged=False (the bucketed oracle): ROADMAP S3")
     if cfg.spec_decode.enable:
         found.append("spec_decode.enable: ROADMAP S4")
     if p.multi_step.enable:

@@ -1,16 +1,22 @@
-"""Inference engine: weights in the engine dtype and paged serving.
+"""Inference engine: weights in the engine dtype, generation and paged serving.
 
-Counterpart of ``deepspeed_tpu/inference/engine.py`` for the serving main
-path: ``init_inference(TransformerLM(cfg), dtype=..., paged_kv={...})``, the
-weights (``set_params`` / ``load_jax_params``, the JAX tree as numpy), and
-``serve`` / ``serve_stats`` over a ``PagedServer`` built as the JAX
-``_build_paged_server`` builds it for the ported options. The engine runs
-on ``cuda`` unless the caller passes another device; without a card it
-raises.
+Counterpart of ``deepspeed_tpu/inference/engine.py`` for the inference
+main paths: ``init_inference(TransformerLM(cfg), dtype=..., paged_kv={...})``,
+the weights (``set_params`` / ``load_jax_params``, the JAX tree as numpy),
+``generate`` (the dense KV-cached loop: greedy, sampling, beam search),
+``profile_model_time`` / ``model_times``, and ``serve`` / ``serve_stats``
+over a ``PagedServer`` (ragged, or bucketed with ``paged_kv.ragged=False``)
+built as the JAX ``_build_paged_server`` builds it for the ported options.
+The port's ``TransformerLM`` is the converted family (JAX's
+``_ds_config`` path), so ``generate`` always takes the KV-cached loop. The
+engine runs on ``cuda`` unless the caller passes another device; without
+a card it raises.
 """
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import Optional
 
 import torch
@@ -46,6 +52,12 @@ class InferenceEngine:
         self._ds_config = model.config
         self.metrics = MetricsRegistry()
         self._paged_server = None
+        # the counterpart of JAX's PRNGKey(0): sampled generate calls draw
+        # from (and advance) this generator
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(0)
+        self.model_profile_enabled = False
+        self._model_times = []
         if not any(p.is_meta for p in model.parameters()):
             # weights already made (e.g. init_weights): move them once
             with torch.no_grad():
@@ -65,6 +77,71 @@ class InferenceEngine:
     def _weights_ready(self) -> bool:
         return not any(p.is_meta for p in self.module.parameters())
 
+    # --- generation -----------------------------------------------------
+    def profile_model_time(self, use_cuda_events: bool = True) -> None:  # noqa: ARG002
+        """Record the wall time of each ``generate`` call, the device drained
+        before the clock stops (JAX ``engine.py:340``)."""
+        self.model_profile_enabled = True
+
+    def model_times(self):
+        """Collected ``generate`` latencies in seconds, cleared on read."""
+        assert self.model_profile_enabled, "model profiling is not enabled"
+        times = self._model_times
+        self._model_times = []
+        return times
+
+    def generate(self, *args, **kwargs):
+        """Latency-recording wrapper over ``_generate_impl`` (whose
+        signature this function adopts via ``functools.wraps`` below)."""
+        if not self.model_profile_enabled:
+            return self._generate_impl(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = self._generate_impl(*args, **kwargs)
+        out[..., -1:].cpu()  # drain: wait for the last emitted token
+        self._model_times.append(time.perf_counter() - t0)
+        return out
+
+    def _generate_impl(
+        self,
+        input_ids,
+        max_new_tokens: int = 32,
+        eos_token_id: Optional[int] = None,
+        pad_token_id: int = 0,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        num_beams: int = 1,
+        length_penalty: float = 1.0,
+    ):
+        """Token generation through the KV-cached loop: greedy by default;
+        temperature / top-k / top-p sampling drawn from the engine's
+        generator; ``num_beams > 1`` is beam search (deterministic, so it
+        refuses the sampling controls). Returns ``[B, prompt + emitted]``
+        int32 on the engine's device."""
+        from deepspeed_tpu_torch.inference.decode import beam_generate, generate
+
+        if not self._weights_ready():
+            raise RuntimeError("generate() before weights are set: call set_params / load_jax_params")
+        params = self.module.param_tree()
+        if num_beams > 1:
+            if temperature or top_k or top_p < 1.0:
+                raise ValueError(
+                    "beam search is deterministic; temperature/top_k/top_p "
+                    "cannot be combined with num_beams > 1"
+                )
+            return beam_generate(
+                self._ds_config, params, input_ids, max_new_tokens, num_beams=num_beams,
+                eos_token_id=eos_token_id, pad_token_id=pad_token_id, length_penalty=length_penalty,
+            )
+        return generate(
+            self._ds_config, params, input_ids, max_new_tokens, eos_token_id=eos_token_id,
+            temperature=temperature, generator=self._generator, top_k=top_k, top_p=top_p,
+            pad_token_id=pad_token_id,
+        )
+
+    # the public generate adopts _generate_impl's signature and doc
+    generate = functools.wraps(_generate_impl)(generate)
+
     # --- paged serving --------------------------------------------------
     def _build_paged_server(self) -> PagedServer:
         if not self._weights_ready():
@@ -78,6 +155,7 @@ class InferenceEngine:
             page_size=pcfg.page_size,
             num_pages=pcfg.num_pages,
             max_slots=pcfg.max_slots,
+            slot_buckets=pcfg.slot_buckets or None,
             max_seq_len=pcfg.max_seq_len,
             prefill_chunk=pcfg.prefill_chunk,
             attn_impl=pcfg.attn_impl,
@@ -85,16 +163,18 @@ class InferenceEngine:
             device=self.device,
             prefix_cache=pcfg.prefix_cache,
             metrics=self.metrics,
+            ragged=pcfg.ragged,
         )
 
     def serve(self, prompts, max_new_tokens=32, eos_token_id=None):
         """Continuous-batching greedy generation over the paged KV pool:
-        requests are admitted and evicted every step, prompts prefill in
-        chunks riding the same step as running decoders, and each step is
-        one call of the ragged step. Takes a list of 1-D prompts and a
-        scalar or per-request ``max_new_tokens``; returns one 1-D array per
-        request (prompt + generated) in submission order. The server and
-        its page pool persist across calls."""
+        requests are admitted and evicted every step; prompts prefill in
+        chunks riding the same step as running decoders, each step one call
+        of the ragged step (or, with ``paged_kv.ragged=False``, one call per
+        chunk and one bucketed decode round per step). Takes a list of 1-D
+        prompts and a scalar or per-request ``max_new_tokens``; returns one
+        1-D array per request (prompt + generated) in submission order. The
+        server and its page pool persist across calls."""
         if self._paged_server is None:
             self._paged_server = self._build_paged_server()
         return self._paged_server.serve(prompts, max_new_tokens=max_new_tokens, eos_token_id=eos_token_id)

@@ -1,24 +1,30 @@
-"""Continuous-batching scheduler over the paged KV pool (the ragged path).
+"""Continuous-batching scheduler over the paged KV pool.
 
-Counterpart of ``deepspeed_tpu/inference/scheduler.py``'s ``PagedServer`` on
-its default path: requests are admitted whenever a slot and enough pages
-exist and evicted the step they finish; prompts prefill in fixed-size
-chunks that ride the SAME step as running decoders; when the pool runs dry
-the policy's victim (default: the youngest request) is preempted and
-recomputed on re-admission, which greedy decoding makes token-exact; with
-prefix caching the longest indexed full-page prefix of a request attaches
-by reference, and prefill resumes realigned to the cold chunk grid.
+Counterpart of ``deepspeed_tpu/inference/scheduler.py``'s ``PagedServer``:
+requests are admitted whenever a slot and enough pages exist and evicted
+the step they finish; prompts prefill in fixed-size chunks; when the pool
+runs dry the policy's victim (default: the youngest request) is preempted
+and recomputed on re-admission, which greedy decoding makes token-exact;
+with prefix caching the longest indexed full-page prefix of a request
+attaches by reference, and prefill resumes realigned to the cold chunk
+grid. Two modes:
 
-Every scheduler step is ONE call of ``decode.build_ragged_step``: every
-active row contributes a prefill chunk or its pending decode token to a
-``[max_slots, W]`` window with per-row ``(kv_len, q_len)`` arrays. Per step
-the host makes one small host->device copy (tokens, page table, lengths
-and q_lens packed into one int32 buffer) and one ``[R, W+1]``
-device->host fetch, which is the step's only synchronisation.
+* ragged (the default): every scheduler step is ONE call of
+  ``decode.build_ragged_step``: every active row contributes a prefill
+  chunk or its pending decode token to a ``[max_slots, W]`` window with
+  per-row ``(kv_len, q_len)`` arrays (attention K4). Per step the host
+  makes one small host->device copy (tokens, page table, lengths and
+  q_lens packed into one int32 buffer) and one ``[R, W+1]`` device->host
+  fetch, which is the step's only synchronisation;
+* bucketed (``ragged=False``, the token-exactness oracle): each step runs
+  one ``build_paged_prefill`` call per prefilling row's next chunk, then
+  one ``build_paged_decode_step`` call over the running rows padded to the
+  smallest slot bucket that covers them (attention K5). Greedy streams are
+  byte-identical to the ragged mode's.
 
 Not ported yet (the engine refuses their switches, naming the ROADMAP
-item): the bucketed oracle, speculative decoding, multi-step windows, the
-crash-recovery journal, traffic tenancy and tensor-parallel serving.
+item): speculative decoding, multi-step windows, the crash-recovery
+journal, traffic tenancy and tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -33,10 +39,24 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import canonical_attn_impl
-from deepspeed_tpu_torch.inference.decode import build_ragged_step
+from deepspeed_tpu_torch.inference.decode import (
+    build_paged_decode_step,
+    build_paged_prefill,
+    build_ragged_step,
+)
 from deepspeed_tpu_torch.inference.kv_pool import PagePool
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
+
+
+def _default_buckets(max_slots: int) -> List[int]:
+    """Powers of two up to and including max_slots."""
+    buckets, b = [], 1
+    while b < max_slots:
+        buckets.append(b)
+        b *= 2
+    buckets.append(max_slots)
+    return sorted(set(buckets))
 
 
 class SchedulingPolicy:
@@ -108,7 +128,8 @@ class Request:
 
 
 class PagedServer:
-    """Owns the page pool and the admit → ragged-step loop."""
+    """Owns the page pool and the admit → ragged step loop, or, with
+    ``ragged=False``, the admit → prefill chunks → bucketed decode loop."""
 
     def __init__(
         self,
@@ -117,6 +138,7 @@ class PagedServer:
         page_size: int = 16,
         num_pages: int = 0,
         max_slots: int = 8,
+        slot_buckets: Optional[Sequence[int]] = None,
         max_seq_len: int = 0,
         prefill_chunk: int = 32,
         attn_impl: str = "auto",
@@ -125,6 +147,7 @@ class PagedServer:
         prefix_cache: bool = False,
         policy: Optional[SchedulingPolicy] = None,
         metrics: Optional[MetricsRegistry] = None,
+        ragged: bool = True,
     ):
         self.cfg = cfg
         self.params = params
@@ -135,6 +158,7 @@ class PagedServer:
         self.attn_impl = canonical_attn_impl(attn_impl)
         self.prefix_cache = bool(prefix_cache)
         self.policy = policy or YoungestFirstPolicy()
+        self.ragged = bool(ragged)
         max_seq = int(max_seq_len or cfg.max_seq_len)
         if num_pages <= 0:
             # worst-case sizing: every slot at max length, plus the trash
@@ -142,7 +166,16 @@ class PagedServer:
             num_pages = max_slots * (-(-max_seq // page_size)) + 1
         self.pool = PagePool(cfg, num_pages, page_size, max_slots, max_seq_len=max_seq,
                              dtype=dtype, device=self.device)
-        self._steps: Dict = {}
+        buckets = sorted(set(int(b) for b in (slot_buckets or _default_buckets(max_slots))))
+        if buckets[-1] < max_slots:
+            buckets.append(max_slots)
+        if any(b < 1 for b in buckets):
+            raise ValueError(f"slot buckets must be >= 1, got {buckets}")
+        self.buckets = buckets
+        self._steps: Dict = {}  # ragged step callables by window width
+        if not self.ragged:
+            self._prefill_fn = build_paged_prefill(cfg, attn_impl=self.attn_impl)
+            self._decode_fn = build_paged_decode_step(cfg, attn_impl=self.attn_impl)
         self._queue: deque[Request] = deque()
         self._active: List[Request] = []  # admission order (oldest first)
         self._results: Dict[int, np.ndarray] = {}
@@ -154,10 +187,11 @@ class PagedServer:
             "finished": 0,
             "prefix_cached_tokens": 0,  # context tokens attached, not prefilled
             "prefill_chunks": 0,
-            "ragged_steps": 0,  # one per scheduler step
-            "dispatches": 0,
+            "ragged_steps": 0,  # one per scheduler step (ragged mode)
+            "dispatches": 0,  # every step call: ragged steps, bucketed prefill chunks and decode rounds
             "emitted_tokens": 0,
-            "decode_steps": 0,  # ragged steps that carried plain-decode rows
+            # ragged: steps that carried plain-decode rows; bucketed: decode rounds
+            "decode_steps": 0,
         }
 
     # --- request intake -------------------------------------------------
@@ -205,12 +239,19 @@ class PagedServer:
 
     # --- one scheduler iteration ---------------------------------------
     def step(self) -> None:
-        """Admit what fits, then ONE ragged step covering every active
-        row's next tokens."""
+        """Admit what fits, then the round's device work: in ragged mode ONE
+        step covering every active row's next tokens; in bucketed mode one
+        prefill call per chunk, then one decode round over the running set."""
         with self.tracer.span("serve.step"):
             with self.tracer.span("serve.admit"):
                 self._admit()
-            self._ragged_step()
+            if self.ragged:
+                self._ragged_step()
+            else:
+                with self.tracer.span("serve.prefill"):
+                    self._prefill_step()
+                with self.tracer.span("serve.decode"):
+                    self._decode_step()
         self.metrics.counter("serve.steps").inc()
 
     def run(self) -> Dict[int, np.ndarray]:
@@ -289,6 +330,63 @@ class PagedServer:
         if fn is None:
             fn = self._steps[W] = build_ragged_step(self.cfg, W, attn_impl=self.attn_impl)
         return fn
+
+    # --- the bucketed rounds ----------------------------------------------
+    def _prefill_step(self) -> None:
+        """One prefill call for each prefilling row's next chunk; a row
+        whose prompt completes emits its first token (the chunk's one host
+        fetch)."""
+        C = self.prefill_chunk
+        for req in [r for r in self._active if r.pending is None and not r.done]:
+            ctx = req.context()
+            start = req.consumed
+            real = self._next_chunk_len(req, ctx.size)
+            if not self.pool.prepare_write(req.slot, start + real):
+                # unreachable: admission reserved the whole context and
+                # prefill never writes into attached (shared) pages
+                raise RuntimeError(f"prefill write barrier failed for slot {req.slot} ({start}..{start + real})")
+            chunk = np.zeros((1, C), np.int32)
+            chunk[0, :real] = ctx[start : start + real]
+            pt, _ = self.pool.rows([req.slot])
+            d_chunk, d_table, d_start = self._to_device(chunk, pt, np.asarray([start], np.int32))
+            tok = self._prefill_fn(self.params, d_chunk, self.pool.cache.k_pages, self.pool.cache.v_pages,
+                                   d_table, d_start, real - 1)
+            self.stats["dispatches"] += 1
+            self.pool.advance(req.slot, real)
+            req.consumed = start + real
+            if self.prefix_cache:
+                self.pool.register_prefix(req.slot, ctx, req.consumed)
+            self.stats["prefill_chunks"] += 1
+            if req.consumed == ctx.size:
+                self._emit(req, int(tok[0]))
+
+    def _decode_step(self) -> None:
+        running = [r for r in self._active if r.pending is not None and not r.done]
+        if running:
+            self._plain_decode_step(running)
+
+    def _plain_decode_step(self, running: List[Request]) -> None:
+        """One decode round: every running row's pending token, padded to
+        the smallest slot bucket; the round's one host fetch is the
+        ``[bucket]`` next tokens."""
+        running = self._reserve_for_growth(running, {})
+        if not running:
+            return
+        bucket, page_table, lengths = self._dispatch_rows(running)
+        tokens = np.zeros(bucket, np.int32)
+        tokens[: len(running)] = [r.pending for r in running]
+        d_tokens, d_table, d_lengths = self._to_device(tokens, page_table, lengths)
+        out = self._decode_fn(self.params, d_tokens, self.pool.cache.k_pages, self.pool.cache.v_pages,
+                              d_table, d_lengths)
+        self.stats["decode_steps"] += 1
+        self.stats["dispatches"] += 1
+        out = out.cpu().numpy()
+        for i, req in enumerate(running):
+            self.pool.advance(req.slot, 1)
+            self._emit(req, int(out[i]))
+            if self.prefix_cache and not req.done:
+                # publish any page this write just filled
+                self.pool.register_prefix(req.slot, req.context(), int(self.pool.seq_lens[req.slot]))
 
     def _ragged_step(self) -> None:
         """ONE step for the whole round: every active row contributes a
@@ -382,9 +480,11 @@ class PagedServer:
             idx += 1
         return running
 
-    def _dispatch_rows(self, running: List[Request], pad_to: int):
-        """(rows, page_table, lengths) padded to ``pad_to`` rows; padding rows
-        are dead (-1 tables / length 0)."""
+    def _dispatch_rows(self, running: List[Request], pad_to: Optional[int] = None):
+        """(rows, page_table, lengths) padded to ``pad_to`` rows (default: the
+        smallest slot bucket covering the set); padding rows are dead (-1
+        tables / length 0)."""
+        pad_to = pad_to or min(b for b in self.buckets if b >= len(running))
         page_table = np.full((pad_to, self.pool.max_pages_per_slot), -1, np.int32)
         lengths = np.zeros(pad_to, np.int32)
         rows_pt, rows_len = self.pool.rows([r.slot for r in running])

@@ -1,34 +1,54 @@
-"""Wrapper of the CUDA ragged paged-attention kernel (K4).
+"""Wrappers of the CUDA decode-attention kernels K4, K5 and K6.
 
-Replaces ``deepspeed_tpu/ops/transformer/decode_attention.py:_ragged_kernel``
-(the Pallas kernel behind ``ragged_paged_attention``, ``pallas_call`` at
-``:313``). The kernel is ``csrc/ragged_paged_attention.cu``, built with
-``nvcc`` on first use and bound through ``ctypes``
-(``ops/native.py``). It computes exactly what the Pallas kernel computes:
-for row r, query slot w sits at position ``kv_len[r] - q_len[r] + w`` and
-sees the keys ``kv_pos <= q_pos`` with ``kv_pos < kv_len[r]``; q, k and v
-are read in their dtype and the softmax and P·V run in fp32 with the
-scale; the result is written in q's dtype; rows with ``kv_len == 0`` are
-exact zeros, and so are window slots past ``q_len``.
+Each replaces a Pallas kernel of
+``deepspeed_tpu/ops/transformer/decode_attention.py``; the kernels are built
+with ``nvcc`` on first use and bound through ``ctypes`` (``ops/native.py``).
+
+* K4 ``ragged_paged_attention`` (``_ragged_kernel``, ``pallas_call`` at
+  ``:313``; ``csrc/ragged_paged_attention.cu``): for row r, query slot w
+  sits at position ``kv_len[r] - q_len[r] + w`` and sees the keys
+  ``kv_pos <= q_pos`` with ``kv_pos < kv_len[r]``; rows with
+  ``kv_len == 0`` are exact zeros, and so are window slots past ``q_len``.
+  This entry takes CUDA tensors only; the dispatch with the plain version
+  is ``paged_attention.ragged_paged_attention``.
+* K6 ``decode_attention`` (``_decode_kernel`` :42, ``pallas_call`` :358 in
+  ``_grouped_decode``; ``csrc/decode_attention.cu``): one token per row
+  over a contiguous cache ``[B, S, NKV, D]``, keys ``< kv_len[b]``.
+* K5 ``paged_decode_attention`` (``_paged_kernel`` :110, ``pallas_call``
+  :199; ``csrc/decode_attention.cu``): one token per row over its pages of
+  a shared pool ``[NP, NKV, P, D]``; page ids clamp into ``[0, NP)``.
+
+All three read q, k and v in their dtype, run the softmax and P·V in fp32
+with the scale and write the result in q's dtype. K5 and K6 take a CPU
+tensor to their plain version (``decode_attention_plain``, with the
+kernel's math; ``paged_decode_attention_plain``, with the JAX XLA path's
+math) and launch the kernel for a CUDA tensor, or raise; ``*_kernel`` are
+the bare launches, which take CUDA tensors only. ``paged_attention`` builds
+its dispatch on these and imports nothing back into this module.
 
 This module imports no CUDA tooling at import time: the library is built
-and loaded at the first launch. ``launches`` counts the kernel's launches
-(one per call that reaches the kernel) and nothing else.
+and loaded at the first launch. ``launches`` (K4), ``launches_decode`` (K6)
+and ``launches_paged`` (K5) count each kernel's launches (one per call that
+reaches the kernel) and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
 
-launches = 0  # kernel launches since the caller last set it to 0
+launches = 0  # K4 launches since the caller last set it to 0
+launches_decode = 0  # K6
+launches_paged = 0  # K5
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _fn = None
+_decode_fns = {}
 
 
 def _entry():
@@ -111,3 +131,222 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens, sca
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: cudaError_t {err}")
     launches += 1
     return out
+
+
+# --- K5 and K6: one query token per row ---------------------------------------
+def _decode_entry(name: str):
+    """The ctypes function ``name`` of ``csrc/decode_attention.cu``."""
+    fn = _decode_fns.get(name)
+    if fn is None:
+        from deepspeed_tpu_torch.ops import native
+
+        fn = getattr(native.load("decode_attention"), name)
+        fn.restype = ctypes.c_int
+        if name == "dense_decode_attention":
+            fn.argtypes = (
+                [ctypes.c_int]  # dtype code
+                + [ctypes.c_void_p] * 5  # q, k_cache, v_cache, kv_lens, out
+                + [ctypes.c_int] * 5  # B, NH, NKV, S, D
+                + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            )
+        else:
+            fn.argtypes = (
+                [ctypes.c_int]
+                + [ctypes.c_void_p] * 6  # q, k_pages, v_pages, page_table, kv_lens, out
+                + [ctypes.c_int] * 7  # B, NH, NKV, NP, P, D, MAXP
+                + [ctypes.c_float, ctypes.c_void_p]
+            )
+        _decode_fns[name] = fn
+    return fn
+
+
+def _scale(scale, D: int) -> float:
+    return float(scale) if scale is not None else 1.0 / float(np.sqrt(D))
+
+
+def lengths_tensor(kv_len, B: int, device) -> torch.Tensor:
+    """``kv_len`` (a scalar or ``[B]``) as an int32 ``[B]`` tensor on ``device``."""
+    if isinstance(kv_len, torch.Tensor):
+        return torch.broadcast_to(kv_len.to(device=device, dtype=torch.int32), (B,)).contiguous()
+    return torch.full((B,), int(kv_len), dtype=torch.int32, device=device)
+
+
+def _check_decode_args(q, k, v, label):
+    """The JAX argument checks of both entries: q ``[B, NH, D]``, k/v of
+    one shape whose last two axes are ``(NKV, ·, D)`` (pool) or
+    ``(·, NKV, D)`` (cache) as the caller unpacks them."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError(f"{label}: q must be [B, NH, D] and k/v 4-D, got {tuple(q.shape)}, {tuple(k.shape)}")
+    if v.shape != k.shape or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"{label}: k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+
+
+def _check_dense_args(q, k_cache, v_cache):
+    _check_decode_args(q, k_cache, v_cache, "decode_attention")
+    B, NH, _ = q.shape
+    if k_cache.shape[0] != B:
+        raise ValueError(f"cache batch {k_cache.shape[0]} != q batch {B}")
+    if NH % k_cache.shape[2]:
+        raise ValueError(f"query heads {NH} not a multiple of kv heads {k_cache.shape[2]}")
+
+
+def _check_paged_args(q, k_pages, v_pages, page_table):
+    _check_decode_args(q, k_pages, v_pages, "paged_decode_attention")
+    B, NH, _ = q.shape
+    if NH % k_pages.shape[1]:
+        raise ValueError(f"query heads {NH} not a multiple of kv heads {k_pages.shape[1]}")
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page_table {tuple(page_table.shape)} does not match B={B}")
+
+
+def _check_kernel_tensors(label, q, *tensors):
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA {label} kernel takes CUDA tensors, got q on {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"q dtype {q.dtype} not supported (float32, bfloat16, float16)")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not supported by the kernel (supported: {_HEAD_DIMS})")
+    for name, t in (("q", q),) + tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in tensors:
+        if name in ("k", "v") and t.dtype != q.dtype:
+            raise TypeError(f"{name} ({t.dtype}) must match q ({q.dtype})")
+        if name in ("page_table", "kv_lens") and t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for name, t in (("q", q),) + tensors[:2]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's vector loads")
+
+
+def decode_attention_plain(q, k_cache, v_cache, kv_len, scale=None):
+    """K6's plain version, with the kernel's math: q, k and v in fp32, the
+    masked softmax and P·V in fp32, the result in q's dtype, rows with
+    ``kv_len == 0`` exact zeros."""
+    _check_dense_args(q, k_cache, v_cache)
+    B, NH, D = q.shape
+    S, NKV = k_cache.shape[1], k_cache.shape[2]
+    lens = lengths_tensor(kv_len, B, q.device)
+    qg = q.float().reshape(B, NKV, NH // NKV, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * _scale(scale, D)
+    live = torch.arange(S, device=q.device)[None, :] < lens[:, None]  # [B, S]
+    scores = scores.masked_fill(~live[:, None, None, :], NEG_INF)
+    out = torch.einsum("bkgs,bskd->bkgd", torch.softmax(scores, dim=-1), v_cache.float())
+    out = out.masked_fill((lens <= 0)[:, None, None, None], 0.0)
+    return out.reshape(B, NH, D).to(q.dtype)
+
+
+def decode_attention_kernel(q, k_cache, v_cache, kv_lens, scale: float):
+    """Launch K6 on the current stream: q ``[B, NH, D]``, caches
+    ``[B, S, NKV, D]`` in q's dtype, ``kv_lens [B]`` int32, all contiguous
+    CUDA tensors; returns ``[B, NH, D]``. Raises on a tensor the kernel
+    does not take and on a non-zero ``cudaError_t``. Does not synchronise."""
+    global launches_decode
+    _check_kernel_tensors("decode attention", q, ("k", k_cache), ("v", v_cache), ("kv_lens", kv_lens))
+    _check_dense_args(q, k_cache, v_cache)
+    B, NH, D = q.shape
+    S, NKV = k_cache.shape[1], k_cache.shape[2]
+    if kv_lens.shape != (B,):
+        raise ValueError(f"kv_lens {tuple(kv_lens.shape)} does not match B={B}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _decode_entry("dense_decode_attention")(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            kv_lens.data_ptr(), out.data_ptr(), B, NH, NKV, S, D, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {err}")
+    launches_decode += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, scale=None, block_k: int = 256):
+    """K6: one token per row over a contiguous cache. q ``[B, NH, D]``,
+    ``k_cache`` / ``v_cache`` ``[B, S, NKV, D]`` (no GQA expansion),
+    ``kv_len`` a scalar or ``[B]``. ``block_k`` is the TPU kernel's cache
+    block, kept for its checks (``S`` must divide into blocks of
+    ``min(block_k, S)``); the CUDA kernel tiles on its own. A CPU tensor
+    takes the plain version, a CUDA tensor the kernel; each checks the
+    remaining arguments."""
+    S = k_cache.shape[1]
+    blk = min(block_k, S)
+    if S % blk:
+        raise ValueError(f"cache capacity {S} not divisible by block_k {blk}")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, kv_len, scale)
+    return decode_attention_kernel(q.contiguous(), k_cache, v_cache, lengths_tensor(kv_len, q.shape[0], q.device),
+                                   _scale(scale, q.shape[-1]))
+
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """``[NP, NKV, P, D]`` pool + ``[B, MAXP]`` table -> ``[B, MAXP*P, NKV, D]``
+    linear view (kv position s lives in table slot s // P at offset s % P);
+    ids clamp into ``[0, NP)``."""
+    NP, NKV, P, D = pages.shape
+    B, maxp = page_table.shape
+    pt = page_table.long().clamp(0, NP - 1)
+    return pages[pt].permute(0, 1, 3, 2, 4).reshape(B, maxp * P, NKV, D)
+
+
+def paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_len, scale=None):
+    """K5's plain version, with the math of the JAX
+    ``paged_decode_attention_xla``: scores in the input dtype, the masked
+    softmax in fp32, probabilities cast to v's dtype before P·V, and rows
+    of length 0 exact zeros."""
+    _check_paged_args(q, k_pages, v_pages, page_table)
+    B, NH, D = q.shape
+    NKV, P = k_pages.shape[1], k_pages.shape[2]
+    S = page_table.shape[1] * P
+    k = gather_pages(k_pages, page_table)  # [B, S, NKV, D]
+    v = gather_pages(v_pages, page_table)
+    lens = lengths_tensor(kv_len, B, q.device)
+    qg = q.reshape(B, NKV, NH // NKV, D)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, k).float() * _scale(scale, D)
+    live = torch.arange(S, dtype=torch.int32, device=q.device)[None, :] < lens[:, None]
+    scores = scores.masked_fill(~live[:, None, None, :], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v)
+    out = out.masked_fill((lens <= 0)[:, None, None, None], 0)
+    return out.reshape(B, NH, D)
+
+
+def paged_decode_attention_kernel(q, k_pages, v_pages, page_table, kv_lens, scale: float):
+    """Launch K5 on the current stream: q ``[B, NH, D]``, pools
+    ``[NP, NKV, P, D]`` in q's dtype, ``page_table [B, MAXP]`` and
+    ``kv_lens [B]`` int32, all contiguous CUDA tensors; returns
+    ``[B, NH, D]``. Raises on a tensor the kernel does not take and on a
+    non-zero ``cudaError_t``. Does not synchronise."""
+    global launches_paged
+    _check_kernel_tensors("paged decode attention", q, ("k", k_pages), ("v", v_pages),
+                          ("page_table", page_table), ("kv_lens", kv_lens))
+    _check_paged_args(q, k_pages, v_pages, page_table)
+    B, NH, D = q.shape
+    NP, NKV, P, _ = k_pages.shape
+    if kv_lens.shape != (B,):
+        raise ValueError(f"kv_lens {tuple(kv_lens.shape)} does not match B={B}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _decode_entry("paged_decode_attention")(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+            B, NH, NKV, NP, P, D, page_table.shape[1], float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError_t {err}")
+    launches_paged += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, scale=None):
+    """K5: one token per row over its pages. q ``[B, NH, D]``, pools
+    ``[NP, NKV, P, D]``, ``page_table [B, MAXP]``, ``kv_len`` a scalar or
+    ``[B]``. A CPU tensor takes the plain version, a CUDA tensor the
+    kernel; each checks the arguments."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_len, scale)
+    return paged_decode_attention_kernel(q.contiguous(), k_pages, v_pages, page_table.to(torch.int32).contiguous(),
+                                         lengths_tensor(kv_len, q.shape[0], q.device), _scale(scale, q.shape[-1]))

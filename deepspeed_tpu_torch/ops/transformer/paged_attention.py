@@ -7,6 +7,12 @@ per-sequence page table. Table ids < 0 or >= num_pages are sentinels; they
 clamp onto page 0 (the pool's reserved trash page) and their scores are
 masked by the length, so padded tables are always safe to read.
 
+* ``paged_decode_attention`` — one generated token per row attends over
+  its live pages (the bucketed server's decode rounds). On a CUDA tensor
+  it launches the hand-written CUDA kernel K5
+  (``decode_attention.paged_decode_attention``); on a CPU tensor, or with
+  ``impl="plain"``, it runs ``decode_attention.paged_decode_attention_plain``,
+  the JAX package's XLA path (``paged_decode_attention_xla``).
 * ``paged_prefill_attention`` — a token slab ``[B, T]`` attends causally
   over each row's own pages, optionally capped by ``kv_lens``. Plain
   PyTorch (the JAX package's XLA path, ``paged_attention.py:177``).
@@ -32,6 +38,7 @@ import torch
 
 from deepspeed_tpu_torch.inference.config import canonical_attn_impl
 from deepspeed_tpu_torch.ops.transformer import decode_attention
+from deepspeed_tpu_torch.ops.transformer.decode_attention import gather_pages, paged_decode_attention_plain
 
 NEG_INF = decode_attention.NEG_INF
 
@@ -40,13 +47,17 @@ def _scale_or_default(scale: Optional[float], head_dim: int) -> float:
     return float(scale) if scale is not None else 1.0 / float(np.sqrt(head_dim))
 
 
-def _gather_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
-    """``[NP, NKV, P, D]`` pool + ``[B, MAXP]`` table -> ``[B, MAXP*P, NKV, D]``
-    linear view (kv position s lives in table slot s // P at offset s % P)."""
-    NP, NKV, P, D = pages.shape
-    B, maxp = page_table.shape
-    pt = page_table.long().clamp(0, NP - 1)
-    return pages[pt].permute(0, 1, 3, 2, 4).reshape(B, maxp * P, NKV, D)
+def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
+                           scale: Optional[float] = None, impl: str = "auto"):
+    """Single-token paged attention: ``q [B, NH, D]``, pools
+    ``[NP, NKV, P, D]``, ``page_table [B, MAXP]`` int32, ``kv_len`` ``[B]``
+    (or a scalar) live lengths. ``impl``: ``auto`` / ``kernel`` take K5's
+    entry (``decode_attention.paged_decode_attention``: the kernel for a
+    CUDA tensor, the plain version for a CPU tensor); ``plain`` forces the
+    plain version (the JAX names ``pallas`` / ``xla`` are accepted)."""
+    if canonical_attn_impl(impl) == "plain":
+        return paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_len, scale=scale)
+    return decode_attention.paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, scale=scale)
 
 
 def paged_prefill_attention(q, k_pages, v_pages, page_table, q_positions,
@@ -65,8 +76,8 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, q_positions,
     G = NH // NKV
     S = page_table.shape[1] * P
     scale_f = _scale_or_default(scale, D)
-    k = _gather_pages(k_pages, page_table)  # [B, S, NKV, D]
-    v = _gather_pages(v_pages, page_table)
+    k = gather_pages(k_pages, page_table)  # [B, S, NKV, D]
+    v = gather_pages(v_pages, page_table)
     qg = q.reshape(B, T, NKV, G, D)
     scores = torch.einsum("btkgd,bskd->bkgts", qg, k).float() * scale_f
     kv_pos = torch.arange(S, dtype=torch.int32, device=q.device)

@@ -1,5 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the ragged
-paged attention (K4) and the flash attention forward and backward (K1-K3).
+paged attention (K4), the flash attention forward and backward (K1-K3),
+and the decode attention over a contiguous cache (K6) and over pages (K5).
+A CPU tensor handed straight to a kernel entry raises (that test needs no
+card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest
@@ -105,3 +108,87 @@ def test_flash_attention_autograd_launches_kernels(cuda_device):
     torch.cuda.synchronize()
     assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+DECODE_CASES = {  # (B, NH, NKV, D, S, lens)
+    "GQA D=64": (3, 8, 2, 64, 512, [0, 200, 512]),
+    "MHA D=128": (2, 4, 4, 128, 256, [77, 256]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_kernel_matches_plain_on_card(cuda_device, case, dtype, monkeypatch):
+    """K6 against its plain version in fp32 on the same (cast) inputs, TF32
+    off: fp32 within 1e-4, bf16 within 2e-2 (bf16 output rounding); rows
+    of length 0 exact zeros."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    B, NH, NKV, D, S, lens = DECODE_CASES[case]
+    rs = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device).to(dtype)
+               for shape in ((B, NH, D), (B, S, NKV, D), (B, S, NKV, D)))
+    lens_d = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = da.launches_decode
+    out = da.decode_attention(q, k, v, lens_d)
+    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), lens_d)
+    torch.cuda.synchronize()
+    assert da.launches_decode == before + 1
+    assert (out.float() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
+    assert (out[lens_d == 0] == 0).all()
+
+
+PAGED_CASES = {  # (NH, NKV, D, P, NP, tables, lens)
+    "Hg=8 D=64 P=16": (32, 4, 64, 16, 40, [[3, 9, 1, 30, 12, 7], [22, 5], [], [17]], [90, 20, 0, 1]),
+    "Hg=7 D=128 P=64": (28, 4, 128, 64, 12, [[3, 9], [5], []], [100, 64, 0]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_decode_kernel_matches_plain_on_card(cuda_device, case, dtype, monkeypatch):
+    """K5 against the plain version in fp32 on the same (cast) inputs, TF32
+    off, tables ending in -1 sentinels: fp32 within 1e-4, bf16 within
+    2e-2; dead rows exact zeros."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    NH, NKV, D, P, NP, tables, lens = PAGED_CASES[case]
+    B = len(lens)
+    rs = np.random.RandomState(6)
+    q = torch.from_numpy(rs.randn(B, NH, D).astype(np.float32)).to(cuda_device).to(dtype)
+    kp, vp = (torch.from_numpy(rs.randn(NP, NKV, P, D).astype(np.float32)).to(cuda_device).to(dtype)
+              for _ in range(2))
+    pt = np.full((B, 8), -1, np.int32)
+    for b, ids in enumerate(tables):
+        pt[b, : len(ids)] = ids
+    pt_d = torch.from_numpy(pt).to(cuda_device)
+    lens_d = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = da.launches_paged
+    out = torch_pa.paged_decode_attention(q, kp, vp, pt_d, lens_d, impl="kernel")
+    ref = torch_pa.paged_decode_attention(q.float(), kp.float(), vp.float(), pt_d, lens_d, impl="plain")
+    torch.cuda.synchronize()
+    assert da.launches_paged == before + 1
+    assert (out.float() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
+    assert (out[lens_d == 0] == 0).all()
+
+
+def test_kernel_entries_reject_cpu_tensors():
+    """The bare launches take CUDA tensors only: a CPU tensor raises before
+    any library is built or any count moves."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    q = torch.zeros(2, 8, 64)
+    cache = torch.zeros(2, 256, 2, 64)
+    pages = torch.zeros(4, 2, 16, 64)
+    table = torch.zeros(2, 4, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    counts = (da.launches, da.launches_decode, da.launches_paged)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.decode_attention_kernel(q, cache, cache, lens, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.paged_decode_attention_kernel(q, pages, pages, table, lens, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        da.ragged_paged_attention(q[:, None], pages, pages, table, lens, lens, 0.125)
+    assert (da.launches, da.launches_decode, da.launches_paged) == counts

@@ -26,6 +26,7 @@ from deepspeed_tpu.models.transformer import _norm as jax_norm, _rope as jax_rop
 from deepspeed_tpu.moe.experts import apply_dense_ffn as jax_ffn
 from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
+from deepspeed_tpu_torch.inference.decode import init_cache
 from deepspeed_tpu_torch.inference.kv_pool import PagePool, init_paged_cache
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.models import TransformerLM
@@ -65,6 +66,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     bad = []
     files = _port_sources()
     assert len(files) > 10 and os.path.exists(files[0])
+    for module in ("inference/sampling.py", "inference/decode.py", "profiling/decode_profile.py"):
+        assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
@@ -101,6 +104,7 @@ LOWER_ENTRY_POINTS = {
         cfg, load_jax_params(TransformerLM(cfg), tree, device="cpu").param_tree(), num_pages=6, max_slots=2, **kw),
     "PagePool": lambda cfg, tree, **kw: PagePool(cfg, 6, 4, 2, **kw),
     "init_paged_cache": lambda cfg, tree, **kw: init_paged_cache(cfg, 6, 4, **kw),
+    "init_cache": lambda cfg, tree, **kw: init_cache(cfg, 2, 16, **kw),
     "load_jax_params": lambda cfg, tree, **kw: load_jax_params(TransformerLM(cfg), tree, **kw),
 }
 
@@ -121,7 +125,8 @@ def test_lower_entry_points_default_to_cuda(name):
 
 
 UNPORTED = {
-    "bucketed": {"paged_kv": {"ragged": False}},
+    # the bucketed oracle is ported; with speculative decoding it is not (S4)
+    "bucketed_spec": {"paged_kv": {"ragged": False}, "spec_decode": {"enable": True}},
     "spec_decode": {"spec_decode": {"enable": True}},
     "multi_step": {"paged_kv": {"multi_step": {"enable": True, "horizon": 4}}},
     "journal": {"journal": {"enabled": True, "dir": "/nonexistent"}},
@@ -141,6 +146,15 @@ def test_unported_switches_raise(name):
     model = TransformerLM(port_model_config.TransformerConfig(**TINY))
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         dst.init_inference(model, config=UNPORTED[name], device="cpu")
+
+
+def test_bucketed_with_spec_decode_names_s4():
+    """``paged_kv.ragged=False`` alone is served; with ``spec_decode`` the
+    refusal names the speculative-decoding item."""
+    model = TransformerLM(port_model_config.TransformerConfig(**TINY))
+    dst.init_inference(model, config={"paged_kv": {"ragged": False}}, device="cpu")
+    with pytest.raises(NotImplementedError, match="S4"):
+        dst.init_inference(model, config=UNPORTED["bucketed_spec"], device="cpu")
 
 
 @pytest.mark.parametrize("jax_name,port_name", [("pallas", "kernel"), ("xla", "plain"), ("auto", "auto"),
