@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
-drives the serving and the training main paths at full width. Phases,
+drives the serving, the training and the block-sparse attention main
+paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -76,7 +77,35 @@ non-zero without the final line:
    per step, MFU by bench.py's formula and peak device memory;
 12. the same model in fp32 (TF32 off) for 3 steps, once through the
    kernels and once with ``attn_impl="plain"``: step 1's loss and grad norm
-   agree within 1e-5 relative.
+   agree within 1e-5 relative;
+13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
+   against their plain versions: the main case at BERT-large widths (B=2,
+   16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
+   bidirectional, shared layout), the bench case of
+   ``tests/perf/block_sparse_bench.py`` (B=1, NH=8, T=8192, D=64,
+   ``BSLongformerSparsityConfig(block=64)``, causal), a per-head BigBird
+   layout (one launch per head), a causal Fixed layout, the dead-rows
+   layout of ``tests/unit/ops/test_pallas_block_sparse.py`` (exact zeros in
+   O and dQ) and blocks of 8 and 128; fp32 with TF32 off (O and LSE within
+   1e-4, each gradient within 1e-3 of the reference's largest magnitude)
+   and bf16 against the plain versions in fp32 on the same bf16 inputs (O
+   within 2e-2, each gradient within 3e-2 of that magnitude). At the main
+   and bench shapes it times each kernel, its plain version, its bound, a
+   yardstick (``scaled_dot_product_attention`` with the layout expanded to
+   an element mask, and its autograd backward for K8 and K9 together; the
+   port never calls either) and the port's dense K1-K3 at the same shape,
+   L2 flushed before every launch;
+14. the sparse main path: ``BertSparseSelfAttention`` at BERT-large width
+   (its default ``FixedDefault(16)`` layout) on bf16 hidden states [2,
+   4096, 1024], ``wq``, ``wk`` and ``wv`` with fp32 masters updated by
+   ``FusedAdam.apply`` and cast to bf16 for each forward, MSE against a
+   seeded target, 3 warm-up and 10 timed steps. The counts are zeroed just
+   before and each of K7-K9 must equal 13 just after, every other kernel 0;
+   every loss finite and the last below the first. Then one fp32 step
+   (TF32 off) through the kernels and through ``impl="plain"`` (loss within
+   1e-5 relative, gradients within 1e-3 of their largest magnitude), and one
+   call with a ``key_padding_mask``, which takes the emulation by JAX's rule
+   with no K7 launch.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -89,6 +118,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -96,9 +126,18 @@ import torch.nn.functional as F
 
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.inference import decode
-from deepspeed_tpu_torch.models import TransformerLM, gpt2_config, llama_config
+from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config
 from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops import native
+from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.sparse_attention import (
+    BertSparseSelfAttention,
+    BigBirdSparsityConfig,
+    BSLongformerSparsityConfig,
+    FixedSparsityConfig,
+)
+from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import build_block_tables
 from deepspeed_tpu_torch.ops.transformer import decode_attention
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
@@ -651,12 +690,14 @@ def phase_three_way(cfg, tree, seed, dev):
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = 0
 
 
 def _counts():
     return dict(ragged_paged_attention=decode_attention.launches, decode_attention=decode_attention.launches_decode,
                 paged_decode_attention=decode_attention.launches_paged, flash_fwd=fa.launches_fwd,
-                flash_dq=fa.launches_dq, flash_dkv=fa.launches_dkv)
+                flash_dq=fa.launches_dq, flash_dkv=fa.launches_dkv, block_sparse_fwd=bs.launches_fwd,
+                block_sparse_dq=bs.launches_dq, block_sparse_dkv=bs.launches_dkv)
 
 
 # --- phase 5: K1-K3 against their plain versions -------------------------------
@@ -869,6 +910,333 @@ def phase_train_fp32(seed, dev):
         raise AssertionError(f"fp32 training: step 1 kernel vs plain gap {gaps[0]} past 1e-5")
 
 
+# --- phases 13 and 14: block-sparse attention (K7-K9) --------------------------------
+SPARSE_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}  # (O and LSE abs, grads rel)
+SPARSE_MAIN = "main B=2 NH=16 T=4096 D=64 Fixed blk=16"
+SPARSE_BENCH = "bench B=1 NH=8 T=8192 D=64 BSLongformer blk=64 causal"
+SPARSE_B, SPARSE_T = 2, 4096  # the main path's batch and sequence
+SPARSE_WARMUP, SPARSE_TIMED = 3, 10
+
+
+def _dead_rows_layout():
+    """tests/unit/ops/test_pallas_block_sparse.py:136-171: q block 0 lists
+    only the future kv block 3, so under the causal mask its rows are dead."""
+    layout = np.zeros((1, 4, 4), bool)
+    layout[0, 0, 3] = layout[0, 1, 1] = layout[0, 2, 2] = layout[0, 2, 0] = layout[0, 3, 3] = True
+    return layout
+
+
+def _sparse_cases():
+    """name: (B, NH, T, D, layout [NH or 1, nb, nb], block, causal, timed)."""
+    cfg = bert_config("large")  # 16 heads of 64
+    nh, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    return {
+        SPARSE_MAIN: (SPARSE_B, nh, SPARSE_T, d, FixedSparsityConfig(num_heads=nh, block=16).make_layout(SPARSE_T)[:1],
+                      16, False, True),
+        # tests/perf/block_sparse_bench.py:31-39: its default bidirectional layout, causal=True to the kernel
+        SPARSE_BENCH: (1, 8, 8192, 64, BSLongformerSparsityConfig(num_heads=8, block=64).make_layout(8192)[:1],
+                       64, True, True),
+        "per-head BigBird B=1 NH=4 T=2048 D=128 blk=32": (
+            1, 4, 2048, 128, BigBirdSparsityConfig(num_heads=4, block=32, different_layout_per_head=True,
+                                                   num_random_blocks=1).make_layout(2048), 32, False, False),
+        "causal Fixed B=1 NH=8 T=2048 D=64 blk=16": (
+            1, 8, 2048, 64, FixedSparsityConfig(num_heads=8, block=16, attention="unidirectional").make_layout(2048)[:1],
+            16, True, False),
+        "dead rows B=2 NH=2 T=64 D=64 blk=16": (2, 2, 64, 64, _dead_rows_layout(), 16, True, False),
+        "block 8 B=1 NH=4 T=512 D=64 BigBird": (
+            1, 4, 512, 64, BigBirdSparsityConfig(num_heads=4, block=8).make_layout(512)[:1], 8, True, False),
+        "block 128 B=1 NH=4 T=2048 D=128 Fixed": (
+            1, 4, 2048, 128, FixedSparsityConfig(num_heads=4, block=128).make_layout(2048)[:1], 128, False, False),
+    }
+
+
+def _live_pairs(layout, block, causal, batch):
+    """(query, key) pairs the layout leaves, summed over heads and batch:
+    block^2 per live block pair, block(block+1)/2 on a causal diagonal and
+    none above it."""
+    total = 0
+    for layout_h in np.asarray(layout, bool):
+        qi, ki = np.nonzero(layout_h)
+        per = np.full(qi.shape, block * block, np.int64)
+        if causal:
+            per = np.where(qi > ki, per, np.where(qi == ki, block * (block + 1) // 2, 0))
+        total += int(per.sum())
+    return total * batch
+
+
+def _sparse_bound(B, NH, T, D, layout, block, causal, dtype):
+    """Least time of K7-K9 at these inputs: max(bytes / HBM rate, flops /
+    peak). Pairs = the (query, key) pairs of this layout (causal: on or
+    below the diagonal); K7 does 2 products of 2·D flops per pair (QK^T,
+    PV), K8 3 (QK^T, dO V^T, dS K), K9 4 (QK^T, dO V^T, P^T dO, dS^T Q).
+    Bytes: each [B·NH, T, D] operand read once and each output written once
+    (K7: q, k, v, o; K8: q, k, v, dO, dQ; K9: q, k, v, dO, dK, dV), the
+    fp32 [B·NH, T] rows (K7: lse; K8, K9: lse and delta) and the int32
+    tables each call reads (K7, K8: the row lists; K9: the column lists)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    heads = NH if layout.shape[0] == 1 else 1
+    pairs = _live_pairs(layout, block, causal, B * heads)
+    tensor, row = B * NH * T * D * item, B * NH * T * 4
+    table_bytes = {"rows": 0, "cols": 0}
+    for layout_h in layout:
+        ri, rc, ci, cc = build_block_tables(layout_h)
+        table_bytes["rows"] += 4 * (ri.size + rc.size)
+        table_bytes["cols"] += 4 * (ci.size + cc.size)
+    out = {}
+    for name, products, tensors, rows, tables in (("block_sparse_fwd", 2, 4, 1, "rows"),
+                                                  ("block_sparse_dq", 3, 5, 2, "rows"),
+                                                  ("block_sparse_dkv", 4, 6, 2, "cols")):
+        nbytes, flops = tensors * tensor + rows * row + table_bytes[tables], products * 2 * D * pairs
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+        out[name] = dict(bound_ms=max(t_bytes, t_ops) * 1e3, bound_by="bytes" if t_bytes >= t_ops else "operations",
+                         bytes=nbytes, flops=flops, live_pairs=pairs)
+    return out
+
+
+def _sparse_errors(groups, block, causal):
+    """Each kernel against its plain version in fp32 on the same inputs (the
+    backward pair on the kernel forward's LSE and delta), over the head
+    groups (one for a shared layout, one per head otherwise). Returns
+    {kernel: (max abs error, error relative to the reference's largest
+    magnitude)}, whether the dead rows (rows with no live score) are exact
+    zeros in O and dQ, and the kernel outputs of the first group."""
+    errs = {}
+    dead_zero = True
+    first = None
+    for q, k, v, do, tables in groups:
+        row_idx, row_cnt, col_idx, col_cnt = tables
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+        args = (scale, block, causal)
+        f = [t.float() for t in (q, k, v, do)]
+        o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
+        delta = bs.sparse_delta(o, do)
+        dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
+        dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
+        o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
+        dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
+        dk_ref, dv_ref = bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)
+        torch.cuda.synchronize()
+        for a in (o, dq, dk, dv):
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError("a block-sparse kernel wrote a non-finite value")
+        dead = lse_ref <= bs.NEG_INF / 2  # [BN, T]: rows with no live score
+        dead_zero &= bool((o[dead] == 0).all().item() and (dq[dead] == 0).all().item()
+                          and (lse[dead] == lse_ref[dead]).all().item())
+        for key, pairs in (("block_sparse_fwd", [(o, o_ref)]), ("block_sparse_lse", [(lse, lse_ref)]),
+                           ("block_sparse_dq", [(dq, dq_ref)]), ("block_sparse_dkv", [(dk, dk_ref), (dv, dv_ref)])):
+            for a, b in pairs:
+                if key == "block_sparse_lse":  # NEG_INF on dead rows, checked above
+                    a, b = a[~dead], b[~dead]
+                gap = (a.float() - b).abs().max().item()
+                rel = gap / max(b.abs().max().item(), 1e-30)
+                prev = errs.get(key, (0.0, 0.0))
+                errs[key] = (max(prev[0], gap), max(prev[1], rel))
+        if first is None:
+            first = (o, lse, delta)
+        del f, o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+    return errs, dead_zero, first
+
+
+def _sparse_groups(q4, k4, v4, do4, layout, block, dev):
+    """[B, NH, T, D] inputs as the fused path runs them: heads folded into
+    the batch for a shared layout, one [B, T, D] group per head otherwise."""
+    B, NH, T, D = q4.shape
+    if layout.shape[0] == 1:
+        tables = bs.block_tables(layout[0], dev)
+        return [tuple(x.reshape(B * NH, T, D) for x in (q4, k4, v4, do4)) + (tables,)]
+    return [tuple(x[:, h].contiguous() for x in (q4, k4, v4, do4)) + (bs.block_tables(layout[h], dev),)
+            for h in range(NH)]
+
+
+def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush, first):
+    """ms of each kernel, its plain version, its bound, the library
+    yardstick (SDPA with the layout as an element mask; its autograd
+    backward for K8 and K9 together) and the port's dense flash kernels K1-K3
+    at the same shape."""
+    B, NH, T, D = q4.shape
+    q, k, v, do, (row_idx, row_cnt, col_idx, col_cnt) = groups[0]
+    scale = 1.0 / float(np.sqrt(D))
+    args = (scale, block, causal)
+    _, lse, delta = first
+    f = [t.float() for t in (q, k, v, do)]
+    timed = {
+        "block_sparse_fwd": (lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args),
+                             lambda: bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)),
+        "block_sparse_dq": (lambda: bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args),
+                            lambda: bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)),
+        "block_sparse_dkv": (lambda: bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args),
+                             lambda: bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)),
+    }
+    bounds = _sparse_bound(B, NH, T, D, layout, block, causal, dtype)
+    # yardsticks the port never calls: SDPA over the layout expanded to an element mask, and its autograd
+    # backward (dQ, dK and dV together) for K8 and K9
+    elem = torch.from_numpy(np.kron(layout[0], np.ones((block, block), bool))).to(q.device)
+    if causal:
+        elem &= torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+    so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=elem, scale=scale)
+    lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=elem, scale=scale), 10, flush)
+    lib_bwd = _time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), do4, retain_graph=True), 10, flush)
+    del so, sq, sk, sv, elem
+    timing = {}
+    for key, (kernel, plain) in timed.items():
+        ms = _time_ms(kernel, 20, flush)
+        timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 3, flush),
+                           library_ms=lib_fwd if key == "block_sparse_fwd" else lib_bwd,
+                           roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
+    del f
+    torch.cuda.empty_cache()
+    # the port's dense flash kernels on the same inputs ([B, T, N, D]): block_sparse_bench's comparison
+    fq, fk, fv, fdo = (x.transpose(1, 2).contiguous() for x in (q4, k4, v4, do4))
+    fo, flse = fa.flash_fwd_kernel(fq, fk, fv, causal, scale)
+    fdelta = fa.flash_delta(fo, fdo)
+    dense = {
+        "flash_fwd": _time_ms(lambda: fa.flash_fwd_kernel(fq, fk, fv, causal, scale), 10, flush),
+        "flash_dq": _time_ms(lambda: fa.flash_dq_kernel(fq, fk, fv, fdo, flse, fdelta, causal, scale), 10, flush),
+        "flash_dkv": _time_ms(lambda: fa.flash_dkv_kernel(fq, fk, fv, fdo, flse, fdelta, causal, scale), 10, flush),
+    }
+    return timing, dense
+
+
+def phase_sparse_kernels(dev, flush):
+    rs = np.random.default_rng(2468)
+    main = {}
+    for name, (B, NH, T, D, layout, block, causal, timed) in _sparse_cases().items():
+        layout = np.asarray(layout, bool)
+        base = [torch.from_numpy(rs.standard_normal((B, NH, T, D), dtype=np.float32)).to(dev) for _ in range(4)]
+        live = float(layout.mean())
+        for dtype, (tol_o, tol_g) in SPARSE_TOL.items():
+            q4, k4, v4, do4 = (t.to(dtype) for t in base)
+            groups = _sparse_groups(q4, k4, v4, do4, layout, block, dev)
+            errs, dead_zero, first = _sparse_errors(groups, block, causal)
+            bad = [key for key, (abs_err, rel) in errs.items()
+                   if (abs_err > tol_o if key in ("block_sparse_fwd", "block_sparse_lse") else rel > tol_g)]
+            dt = str(dtype).replace("torch.", "")
+            rec = dict(phase="sparse_kernels", case=name, dtype=dt, causal=causal, block=block,
+                       shared_layout=layout.shape[0] == 1, live_block_share=live, tol_o_lse_abs=tol_o,
+                       tol_grad_rel=tol_g, dead_rows_exact_zero=dead_zero,
+                       errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
+            if name.startswith("dead rows") and not (first[1] <= bs.NEG_INF / 2).any():
+                raise AssertionError("the dead-rows layout left no dead row")
+            if timed:
+                rec["timing"], rec["dense_flash_ms"] = _sparse_timing(groups, q4, k4, v4, do4, layout, block,
+                                                                      causal, dtype, flush, first)
+                rec["library"] = ("block_sparse_fwd: scaled_dot_product_attention with the layout expanded to an "
+                                  "element-wise boolean mask (and the causal mask where set) on [B, NH, T, D]; "
+                                  "block_sparse_dq and block_sparse_dkv: the autograd backward of that call, dQ, dK "
+                                  "and dV together (the same number on both)")
+                main[(name, dt)] = rec
+            emit(**rec)
+            if bad or not dead_zero:
+                raise AssertionError(f"block-sparse {name} {dt}: {bad} past tolerance, dead rows exact zero "
+                                     f"{dead_zero}: {errs}")
+            del groups, first, q4, k4, v4, do4
+        del base
+        torch.cuda.empty_cache()
+    # one launch per head for a per-head layout through the fused entry, as JAX runs one kernel per head
+    name = "per-head BigBird B=1 NH=4 T=2048 D=128 blk=32"
+    B, NH, T, D, layout, block, causal, _ = _sparse_cases()[name]
+    q4 = torch.from_numpy(rs.standard_normal((B, NH, T, D), dtype=np.float32)).to(dev).to(torch.bfloat16)
+    before = bs.launches_fwd
+    out = bs.fused_block_sparse_attention(q4, q4, q4, layout, block, causal=causal)
+    torch.cuda.synchronize()
+    if bs.launches_fwd - before != NH or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"per-head fused call: {bs.launches_fwd - before} K7 launches for {NH} heads")
+    return main
+
+
+def _bert_step(attn, hidden, target, weights):
+    """One forward and backward of BertSparseSelfAttention with MSE against
+    ``target``; returns the loss and the weights' gradients."""
+    ws = [w.detach().requires_grad_(True) for w in weights]
+    out = attn(hidden, *ws)
+    loss = F.mse_loss(out.float(), target)
+    loss.backward()
+    return loss.detach(), [w.grad for w in ws]
+
+
+def phase_sparse_train(seed, dev):
+    """BertSparseSelfAttention at BERT-large width (16 heads, hidden 1024,
+    its default FixedDefault(16) layout) on bf16 hidden states [2, 4096,
+    1024]: wq, wk and wv with fp32 masters updated by FusedAdam.apply, cast
+    to bf16 for each forward; MSE against a seeded target."""
+    cfg = bert_config("large")
+    config = types.SimpleNamespace(num_attention_heads=cfg.num_heads, hidden_size=cfg.hidden_size)
+    H = cfg.hidden_size
+    rs = np.random.default_rng(seed + 4)
+    hidden32 = torch.from_numpy(rs.standard_normal((SPARSE_B, SPARSE_T, H), dtype=np.float32)).to(dev)
+    target = torch.from_numpy(rs.standard_normal((SPARSE_B, SPARSE_T, H), dtype=np.float32)).to(dev)
+    masters = {name: torch.from_numpy((0.02 * rs.standard_normal((H, H))).astype(np.float32)).to(dev)
+               for name in ("wq", "wk", "wv")}
+    hidden = hidden32.to(torch.bfloat16)
+    attn = BertSparseSelfAttention(config)
+    opt = FusedAdam(lr=1e-3)
+    state = opt.init_state(masters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # counts from here are the sparse main path's
+    losses = []
+    for i in range(SPARSE_WARMUP + SPARSE_TIMED):
+        if i == SPARSE_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, grads = _bert_step(attn, hidden, target, [m.to(torch.bfloat16) for m in masters.values()])
+        new, state = opt.apply(dict(zip(masters, grads)), state, masters, opt.defaults["lr"])
+        masters = new
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    losses = [float(x) for x in losses]
+    steps = SPARSE_WARMUP + SPARSE_TIMED
+    rec = dict(phase="sparse_train", model='BertSparseSelfAttention(bert_config("large") widths), FixedDefault(16)',
+               batch=SPARSE_B, seq=SPARSE_T, hidden=H, dtype="bfloat16", steps=steps, timed_steps=SPARSE_TIMED,
+               losses=losses, ms_per_step=wall * 1e3 / SPARSE_TIMED,
+               tokens_per_s=SPARSE_TIMED * SPARSE_B * SPARSE_T / wall,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+    emit(**rec)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"sparse train: losses not finite or not falling: {losses}")
+    sparse_keys = ("block_sparse_fwd", "block_sparse_dq", "block_sparse_dkv")
+    if any(counts[k] != steps for k in sparse_keys) or any(counts[k] for k in counts if k not in sparse_keys):
+        raise AssertionError(f"sparse train: launches {counts}, want {steps} for each of K7-K9 and 0 for the rest")
+
+    # fp32 (TF32 off): one step through the kernels and one through impl="plain"
+    arms = {}
+    for impl in ("kernel", "plain"):
+        before = bs.launches_fwd
+        loss, grads = _bert_step(BertSparseSelfAttention(config, impl=impl), hidden32, target,
+                                 list(masters.values()))
+        if (impl == "kernel") != (bs.launches_fwd > before):
+            raise AssertionError(f"fp32 {impl} arm launched K7 {bs.launches_fwd - before} times")
+        arms[impl] = (float(loss), grads)
+        torch.cuda.empty_cache()
+    loss_rel = abs(arms["kernel"][0] - arms["plain"][0]) / abs(arms["plain"][0])
+    grad_rel = {name: ((a - b).abs().max() / b.abs().max()).item()
+                for name, a, b in zip(masters, arms["kernel"][1], arms["plain"][1])}
+    emit(phase="sparse_train_fp32", loss_kernel=arms["kernel"][0], loss_plain=arms["plain"][0], loss_rel=loss_rel,
+         grad_rel=grad_rel, tol_loss_rel=1e-5, tol_grad_rel=1e-3)
+    if loss_rel > 1e-5 or any(r > 1e-3 for r in grad_rel.values()):
+        raise AssertionError(f"fp32 sparse step: kernel vs plain loss {loss_rel}, grads {grad_rel}")
+    del arms
+
+    # a key_padding_mask takes the emulation by JAX's rule: no K7 launch on that call
+    mask = torch.ones(SPARSE_B, SPARSE_T, dtype=torch.bool, device=dev)
+    mask[0, -300:] = False
+    mask[1, -1000:] = False
+    before = _counts()
+    with torch.no_grad():
+        out = attn(hidden, *(m.to(torch.bfloat16) for m in masters.values()), attention_mask=mask)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    finite = bool(torch.isfinite(out.float()).all().item())
+    emit(phase="sparse_masked_call", path="block_sparse_attention (emulation)", launches=moved, finite=finite,
+         shape=list(out.shape))
+    if moved or not finite or out.shape != (SPARSE_B, SPARSE_T, H):
+        raise AssertionError(f"masked call: launches {moved}, finite {finite}, shape {tuple(out.shape)}")
+    torch.cuda.empty_cache()
+    return counts
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -886,7 +1254,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
-    sources = ["ragged_paged_attention", "decode_attention", "flash_attention"]
+    sources = ["ragged_paged_attention", "decode_attention", "flash_attention", "block_sparse_attention"]
     libs = native.build_many(sources)  # one nvcc per source, all started together
     emit(phase="device", name=torch.cuda.get_device_name(0), nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, build_s=time.perf_counter() - t0,
@@ -921,6 +1289,11 @@ def main() -> int:
     train_counts = phase_train(args.seed, dev)
     phase_train_fp32(args.seed, dev)
 
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    sparse = phase_sparse_kernels(dev, flush)
+    del flush
+    sparse_counts = phase_sparse_train(args.seed, dev)
+
     main_case = next(c for c in cases if c["case"] == "W=1 bfloat16")
     k6_main = next(c for c in k6_cases if c["case"] == f"{DECODE_MAIN} bfloat16")
     k5_main = next(c for c in k5_cases if c["case"] == "bucket 8 W=1 bfloat16")
@@ -947,7 +1320,20 @@ def main() -> int:
         replaces=f"deepspeed_tpu/ops/transformer/decode_attention.py:{line}", launches=n,
         **{k: main_[k] for k in keys}, cases=[{k: c[k] for k in keys} for c in all_cases],
     ) for name, line, n, main_, all_cases in (("decode_attention", 42, k6_launches, k6_main, k6_cases),
-                                               ("paged_decode_attention", 110, k5_launches, k5_main, k5_cases))])
+                                               ("paged_decode_attention", 110, k5_launches, k5_main, k5_cases))] + [dict(
+        name=name, route="cuda", source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
+        replaces=f"deepspeed_tpu/ops/sparse_attention/pallas_block_sparse.py:{line}",
+        launches=sparse_counts[name],
+        max_abs_err=sparse[(SPARSE_MAIN, "bfloat16")]["errors"][name]["max_abs_err"],
+        case=f"{SPARSE_MAIN} bfloat16",
+        **{k: sparse[(SPARSE_MAIN, "bfloat16")]["timing"][name][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        fp32={k: sparse[(SPARSE_MAIN, "float32")]["timing"][name][k]
+              for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        bench={dt: {k: sparse[(SPARSE_BENCH, dt)]["timing"][name][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+               for dt in ("bfloat16", "float32")},
+    ) for name, line in (("block_sparse_fwd", 78), ("block_sparse_dq", 163), ("block_sparse_dkv", 194))])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})
     return 0

@@ -14,7 +14,14 @@ beside it slice by slice and mirrors its module paths. It imports neither
   ``csrc/decode_attention.cu``;
 * the single-card training path (``initialize(...)`` then ``engine(batch)``,
   ``backward``, ``step``), whose attention runs through the CUDA flash
-  kernels ``csrc/flash_attention.cu`` (forward, dQ, dK/dV).
+  kernels ``csrc/flash_attention.cu`` (forward, dQ, dK/dV);
+* block-sparse self-attention (``ops.sparse_attention``: the
+  ``SparsityConfig`` layouts, ``SparseSelfAttention``,
+  ``BertSparseSelfAttention``), differentiable, whose fused path runs the
+  CUDA kernels ``csrc/block_sparse_attention.cu`` (forward, dQ, dK/dV over
+  the layout's live blocks). As in JAX, a call with a ``key_padding_mask``
+  or a block that is not a multiple of 8 takes the dense-gather emulation
+  instead, chosen from the arguments before any launch.
 """
 
 from __future__ import annotations

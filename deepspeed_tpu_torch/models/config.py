@@ -159,3 +159,24 @@ def qwen2_config(size: str = "7b", **overrides) -> TransformerConfig:
     base.update(presets[size])
     base.update(overrides)
     return TransformerConfig(**base)
+
+
+def bert_config(size: str = "large", **overrides) -> TransformerConfig:
+    """Encoder config: bidirectional (non-causal) attention."""
+    presets = {
+        "base": dict(hidden_size=768, num_layers=12, num_heads=12),
+        "large": dict(hidden_size=1024, num_layers=24, num_heads=16),
+    }
+    base = dict(
+        vocab_size=30522,
+        max_seq_len=512,
+        causal=False,
+        norm="layernorm",
+        position="learned",
+        activation="gelu",
+        use_bias=True,
+        tie_embeddings=False,
+    )
+    base.update(presets[size])
+    base.update(overrides)
+    return TransformerConfig(**base)

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the ragged
 paged attention (K4), the flash attention forward and backward (K1-K3),
-and the decode attention over a contiguous cache (K6) and over pages (K5).
-A CPU tensor handed straight to a kernel entry raises (that test needs no
-card).
+the decode attention over a contiguous cache (K6) and over pages (K5), and
+the block-sparse attention forward and backward (K7-K9). A CPU tensor
+handed straight to a kernel entry raises (those tests need no card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest
@@ -192,3 +192,127 @@ def test_kernel_entries_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         da.ragged_paged_attention(q[:, None], pages, pages, table, lens, lens, 0.125)
     assert (da.launches, da.launches_decode, da.launches_paged) == counts
+
+
+SPARSE_CASES = {  # (BN, T, D, block, layout config, causal)
+    "Fixed blk=16 D=64": (4, 256, 64, 16, ("fixed", {}), False),
+    "Fixed uni blk=16 D=64 causal": (3, 256, 64, 16, ("fixed", {"attention": "unidirectional"}), True),
+    "Longformer blk=64 D=128 causal": (2, 512, 128, 64, ("longformer", {}), True),
+    "BigBird blk=24 D=64 causal": (2, 192, 64, 24, ("bigbird", {}), True),
+    "BigBird blk=128 D=64": (2, 512, 64, 128, ("bigbird", {}), False),
+}
+
+
+def _sparse_layout(kind, kw, T, block):
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
+
+    cls = {"fixed": sc.FixedSparsityConfig, "longformer": sc.BSLongformerSparsityConfig,
+           "bigbird": sc.BigBirdSparsityConfig}[kind]
+    return cls(num_heads=1, block=block, **kw).make_layout(T)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(SPARSE_CASES))
+def test_block_sparse_kernels_match_plain_on_card(cuda_device, case, dtype, monkeypatch):
+    """K7, K8 and K9 against their plain versions in fp32 on the same (cast)
+    inputs, TF32 off, the backward pair on the kernel forward's LSE and
+    delta. fp32: O and LSE within 1e-4, each gradient within 1e-3 of the
+    reference's largest magnitude; bf16/fp16: O within 2e-2 and each
+    gradient within 3e-2 of that magnitude (only the outputs are rounded to
+    the input type: the kernels compute in fp32, as the TPU kernels do)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    BN, T, D, block, (kind, kw), causal = SPARSE_CASES[case]
+    row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(_sparse_layout(kind, kw, T, block), cuda_device)
+    rs = np.random.RandomState(8)
+    q, k, v, do = (torch.from_numpy(rs.randn(BN, T, D).astype(np.float32)).to(cuda_device).to(dtype)
+                   for _ in range(4))
+    scale = 1.0 / np.sqrt(D)
+    args = (scale, block, causal)
+    before = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
+    delta = bs.sparse_delta(o, do)
+    dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
+    dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
+    f = [t.float() for t in (q, k, v, do)]
+    o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
+    dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
+    dk_ref, dv_ref = bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)
+    torch.cuda.synchronize()
+    assert (bs.launches_fwd, bs.launches_dq, bs.launches_dkv) == tuple(n + 1 for n in before)
+    exact = dtype == torch.float32
+    assert (o.float() - o_ref).abs().max().item() <= (1e-4 if exact else 2e-2)
+    assert (lse - lse_ref).abs().max().item() <= (1e-4 if exact else 2e-2)
+    for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert torch.isfinite(got.float()).all()
+        rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= (1e-3 if exact else 3e-2), (case, dtype, rel)
+
+
+def test_block_sparse_dead_rows_exact_zeros_on_card(cuda_device):
+    """The layout of tests/unit/ops/test_pallas_block_sparse.py: q block 0
+    lists only a future kv block under the causal mask, so its rows have no
+    live score: O and dQ are exact zeros there, LSE is NEG_INF."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    layout = np.zeros((1, 4, 4), bool)
+    layout[0, 0, 3] = layout[0, 1, 1] = layout[0, 2, 2] = layout[0, 2, 0] = layout[0, 3, 3] = True
+    q, k, v = (torch.randn(2, 2, 64, 64, device=cuda_device, requires_grad=True) for _ in range(3))
+    o = bs.fused_block_sparse_attention(q, k, v, layout, 16, causal=True)
+    (o * o.cos()).sum().backward()
+    torch.cuda.synchronize()
+    assert (o[:, :, :16] == 0).all() and (q.grad[:, :, :16] == 0).all()
+    assert torch.isfinite(o).all() and all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_block_sparse_autograd_launches_kernels(cuda_device):
+    """A CUDA tensor through ``fused_block_sparse_attention`` launches K7
+    forward and K8, K9 backward once for a shared layout, once per head for
+    per-head layouts."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import BigBirdSparsityConfig
+
+    q, k, v = (torch.randn(1, 3, 128, 64, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    layout = BigBirdSparsityConfig(num_heads=3, block=16, different_layout_per_head=True).make_layout(128)
+    for lay, n in ((layout[:1], 1), (layout, 3)):
+        before = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
+        bs.fused_block_sparse_attention(q, k, v, lay, 16).float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert (bs.launches_fwd, bs.launches_dq, bs.launches_dkv) == tuple(c + n for c in before)
+        assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("D,block", [(32, 16), (80, 16), (64, 136)])
+def test_block_sparse_unsupported_sizes_raise_on_card(cuda_device, D, block):
+    """Sizes the kernels do not take raise ``NotImplementedError`` on a CUDA
+    tensor: no quiet fallback to the plain version."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    T = 2 * block
+    q = torch.randn(1, 2, T, D, device=cuda_device)
+    layout = np.ones((1, 2, 2), bool)
+    before = bs.launches_fwd
+    with pytest.raises(NotImplementedError, match="block-sparse kernels"):
+        bs.fused_block_sparse_attention(q, q, q, layout, block)
+    assert bs.launches_fwd == before
+
+
+def test_block_sparse_entries_reject_cpu_tensors():
+    """The bare block-sparse launches take CUDA tensors only: a CPU tensor
+    raises before any library is built or any count moves."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    q = torch.zeros(2, 64, 64)
+    lse = torch.zeros(2, 64)
+    row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(np.eye(4, dtype=bool), "cpu")
+    counts = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
+    with pytest.raises(ValueError, match="CUDA"):
+        bs.sparse_fwd_kernel(q, q, q, row_idx, row_cnt, 0.125, 16, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        bs.sparse_dq_kernel(q, q, q, q, lse, lse, row_idx, row_cnt, 0.125, 16, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        bs.sparse_dkv_kernel(q, q, q, q, lse, lse, col_idx, col_cnt, 0.125, 16, False)
+    assert (bs.launches_fwd, bs.launches_dq, bs.launches_dkv) == counts

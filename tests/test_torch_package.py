@@ -181,7 +181,8 @@ def test_same_json_same_values():
 
 @pytest.mark.parametrize("family,size", [("gpt2_config", "125m"), ("llama_config", "1b"),
                                          ("llama_config", "7b"), ("qwen2_config", "0.5b"),
-                                         ("qwen2_config", "tiny")])
+                                         ("qwen2_config", "tiny"), ("bert_config", "large"),
+                                         ("bert_config", "base")])
 def test_presets_match(family, size):
     a = getattr(jax_model_config, family)(size)
     b = getattr(port_model_config, family)(size)
