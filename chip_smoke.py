@@ -61,23 +61,27 @@ non-zero without the final line:
    T=2048, N=32): O, LSE, dQ, dK and dV, fp32 with TF32 off (O and LSE
    within 1e-4, each gradient within 1e-3 of the reference's largest
    magnitude) and bf16 against the plain versions in fp32 on the same bf16
-   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude).
-   At the training shape it times each kernel, its plain version and a
-   yardstick (``scaled_dot_product_attention(is_causal=True)`` for K1, and
-   its autograd backward for K2 and K3 together; the port never calls
-   either), L2 flushed before every launch, beside its bound;
+   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude),
+   and fp16 at the training shape within bf16's bounds. K1 must take its
+   tensor-core variant in bf16 and fp16 and its FMA variant in fp32
+   (``launches_fwd_tc``). At the training shape it times each kernel, its
+   plain version and a yardstick (``scaled_dot_product_attention(
+   is_causal=True)`` for K1, and its autograd backward for K2 and K3
+   together; the port never calls either), L2 flushed before every launch,
+   beside its bound, with the yardstick's share of the kernel's time;
 11. the training main path: ``initialize(TransformerLM(gpt2_config("125m",
    max_seq_len=1024, remat=False)), config=<bench.py config 1>)`` (bf16,
    ZeRO-1, Adam with weight decay 0.01, clipping 1.0, micro batch 8) with
    seeded random weights in the JAX tree layout; one ``RandomState(0)``
    batch of ``[8, 1025]`` tokens placed once; 3 warm-up and 20 timed steps
    of ``engine(batch)``, ``backward``, ``step``. The flash launch counts
-   are zeroed just before and each must equal 12 × 23 just after; every
-   loss must be finite and the last below the first. Prints tokens/s, ms
-   per step, MFU by bench.py's formula and peak device memory;
+   are zeroed just before and each must equal 12 × 23 just after, every K1
+   launch on the tensor-core variant; every loss must be finite and the
+   last below the first. Prints tokens/s, ms per step, MFU by bench.py's
+   formula and peak device memory;
 12. the same model in fp32 (TF32 off) for 3 steps, once through the
-   kernels and once with ``attn_impl="plain"``: step 1's loss and grad norm
-   agree within 1e-5 relative;
+   kernels (K1's FMA variant) and once with ``attn_impl="plain"``: step 1's
+   loss and grad norm within 1e-5 relative and identical to the last bit;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -86,28 +90,36 @@ non-zero without the final line:
    ``BSLongformerSparsityConfig(block=64)``, causal), a per-head BigBird
    layout (one launch per head), a causal Fixed layout, the dead-rows
    layout of ``tests/unit/ops/test_pallas_block_sparse.py`` (exact zeros in
-   O and dQ) and blocks of 8 and 128; fp32 with TF32 off (O and LSE within
-   1e-4, each gradient within 1e-3 of the reference's largest magnitude)
-   and bf16 against the plain versions in fp32 on the same bf16 inputs (O
-   within 2e-2, each gradient within 3e-2 of that magnitude). At the main
-   and bench shapes it times each kernel, its plain version, its bound, a
-   yardstick (``scaled_dot_product_attention`` with the layout expanded to
-   an element mask, and its autograd backward for K8 and K9 together; the
-   port never calls either) and the port's dense K1-K3 at the same shape,
-   L2 flushed before every launch;
+   O and dQ), blocks of 8 and 128, and a layout whose key block 3 has no
+   live pair (exact zeros in its dK and dV); fp32 with TF32 off (O and LSE
+   within 1e-4, each gradient within 1e-3 of the reference's largest
+   magnitude) and bf16 against the plain versions in fp32 on the same bf16
+   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude). K9
+   must take its tensor-core variant in bf16 and its FMA variant in fp32
+   (``launches_dkv_tc``). At the main and bench shapes two bf16 K9 calls
+   must give bitwise-equal dK and dV, and it times each kernel, its plain
+   version, its bound, a yardstick (``scaled_dot_product_attention`` with
+   the layout expanded to an element mask, and its autograd backward for
+   K8 and K9 together; the port never calls either, with its share of the
+   kernel's time) and the port's dense K1-K3 at the same shape, L2 flushed
+   before every launch; K9's line carries its units, split key blocks and
+   fp32 workspace bytes;
 14. the sparse main path: ``BertSparseSelfAttention`` at BERT-large width
    (its default ``FixedDefault(16)`` layout) on bf16 hidden states [2,
    4096, 1024], ``wq``, ``wk`` and ``wv`` with fp32 masters updated by
    ``FusedAdam.apply`` and cast to bf16 for each forward, MSE against a
    seeded target, 3 warm-up and 10 timed steps. The counts are zeroed just
-   before and each of K7-K9 must equal 13 just after, every other kernel 0;
-   every loss finite and the last below the first. Then one fp32 step
+   before and each of K7-K9 must equal 13 just after, every other kernel 0,
+   every K9 call on the tensor-core variant; every loss finite and the last
+   below the first. Then one fp32 step
    (TF32 off) through the kernels and through ``impl="plain"`` (loss within
    1e-5 relative, gradients within 1e-3 of their largest magnitude), and one
    call with a ``key_padding_mask``, which takes the emulation by JAX's rule
    with no K7 launch.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}`` (K1 and K9 with their
+``variant`` by dtype and the main path's tensor-core launches); the last
+line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -143,7 +155,7 @@ from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # bf16 tensor core; fp32 without TF32
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}  # tensor cores; fp32 without TF32
 GARBAGE = 3.0e4  # finite in fp32 and bf16: pages past kv_len and page 0 hold it
 R, NH, NKV, D, P, MAXP, NP = 8, 32, 4, 64, 16, 128, 1025
 
@@ -689,8 +701,15 @@ def phase_three_way(cfg, tree, seed, dev):
 # --- launch counts -------------------------------------------------------------
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
-    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
-    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = 0
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = 0
+    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = bs.launches_dkv_tc = 0
+
+
+def _variants():
+    """Launches of the tensor-core variants of K1 and K9 (bf16, fp16) among
+    the counts above; the rest of those kernels' launches took the fp32 FMA
+    variants."""
+    return dict(flash_fwd_tc=fa.launches_fwd_tc, block_sparse_dkv_tc=bs.launches_dkv_tc)
 
 
 def _counts():
@@ -709,6 +728,8 @@ FLASH_CASES = {  # name: (B, T, N, D, causal)
 }
 FLASH_MAIN = "train B=8 T=1024 N=12 D=64 causal"
 FLASH_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}  # (O and LSE abs, grads rel)
+FLASH_FP16_TOL = FLASH_TOL[torch.bfloat16]  # fp16 (the training shape only) at bf16's bounds: it rounds finer
+VARIANT = {torch.float32: "fma", torch.bfloat16: "tensor_core", torch.float16: "tensor_core"}  # K1 and K9
 
 
 def _flash_bound(B, T, N, D, causal, dtype):
@@ -738,7 +759,10 @@ def _flash_errors(q, k, v, do, causal):
     {kernel: (max abs error, error relative to the reference's largest
     magnitude)} over its outputs, and the kernel residuals."""
     f = [t.float() for t in (q, k, v, do)]
+    before_tc = fa.launches_fwd_tc
     o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+    if fa.launches_fwd_tc - before_tc != int(VARIANT[q.dtype] == "tensor_core"):
+        raise AssertionError(f"K1 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
     o_ref, lse_ref = fa.flash_fwd_plain(*f[:3], causal)
     delta = fa.flash_delta(o, do)
     dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal)
@@ -764,14 +788,15 @@ def phase_flash(dev, flush):
     main = {}
     for name, (B, T, N, D, causal) in FLASH_CASES.items():
         base = [torch.from_numpy(rs.standard_normal((B, T, N, D), dtype=np.float32)).to(dev) for _ in range(4)]
-        for dtype, (tol_o, tol_g) in FLASH_TOL.items():
+        tols = {**FLASH_TOL, **({torch.float16: FLASH_FP16_TOL} if name == FLASH_MAIN else {})}
+        for dtype, (tol_o, tol_g) in tols.items():
             q, k, v, do = (t.to(dtype) for t in base)
             errs, (lse, delta) = _flash_errors(q, k, v, do, causal)
             bad = [key for key, (abs_err, rel) in errs.items()
                    if (abs_err > tol_o if key in ("flash_fwd", "flash_lse") else rel > tol_g)]
             dt = str(dtype).replace("torch.", "")
-            rec = dict(phase="flash", case=name, dtype=dt, tol_o_lse_abs=tol_o, tol_grad_rel=tol_g,
-                       errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
+            rec = dict(phase="flash", case=name, dtype=dt, flash_fwd_variant=VARIANT[dtype], tol_o_lse_abs=tol_o,
+                       tol_grad_rel=tol_g, errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
             if name == FLASH_MAIN:
                 bounds = _flash_bound(B, T, N, D, causal, dtype)
                 f = [t.float() for t in (q, k, v, do)]
@@ -794,9 +819,10 @@ def phase_flash(dev, flush):
                 timing = {}
                 for key, (kernel, plain) in timed.items():
                     ms = _time_ms(kernel, 20, flush)
-                    timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 5, flush),
-                                       library_ms=lib_fwd if key == "flash_fwd" else lib_bwd,
-                                       roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
+                    lib = lib_fwd if key == "flash_fwd" else lib_bwd
+                    timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 5, flush), library_ms=lib,
+                                       library_share=lib / ms, roofline_share=bounds[key]["bound_ms"] / ms,
+                                       **bounds[key])
                 rec["timing"] = timing
                 rec["library"] = ("flash_fwd: scaled_dot_product_attention(is_causal=True) on [B, N, T, D]; "
                                   "flash_dq and flash_dkv: the autograd backward of that call, dQ, dK and dV "
@@ -855,7 +881,7 @@ def phase_train(seed, dev):
         losses.append(loss.detach())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _counts()
+    counts, variants = _counts(), _variants()
     losses = [float(x) for x in losses]
     steps, L, H, T = WARMUP + TIMED, cfg.num_layers, cfg.hidden_size, cfg.max_seq_len
     tokens_per_s = TIMED * 8 * T / wall
@@ -866,7 +892,7 @@ def phase_train(seed, dev):
                tokens_per_s=tokens_per_s, mfu=tokens_per_s * flops_per_token / PEAK_FLOPS[torch.bfloat16],
                step_floor_ms=8 * T * flops_per_token / PEAK_FLOPS[torch.bfloat16] * 1e3,
                grad_norm=engine.get_global_grad_norm(), peak_memory_bytes=torch.cuda.max_memory_allocated(),
-               params=n_params, launches=counts)
+               params=n_params, launches=counts, variants=variants)
     emit(**rec)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses not finite or not falling: {losses}")
@@ -874,9 +900,12 @@ def phase_train(seed, dev):
     if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or \
             sum(counts[k] for k in ("ragged_paged_attention", "decode_attention", "paged_decode_attention")):
         raise AssertionError(f"train: launches {counts}, want {want} = {L} x {steps} for each flash kernel")
+    if variants["flash_fwd_tc"] != counts["flash_fwd"]:
+        raise AssertionError(f"train: {variants['flash_fwd_tc']} of {counts['flash_fwd']} bf16 K1 launches took the "
+                             f"tensor-core variant, want all")
     del engine, batch
     torch.cuda.empty_cache()
-    return counts
+    return counts, variants
 
 
 def phase_train_fp32(seed, dev):
@@ -890,24 +919,28 @@ def phase_train_fp32(seed, dev):
     for impl in ("kernel", "plain"):
         engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree,
                                          attn_impl=impl)
-        before = fa.launches_fwd
+        before = (fa.launches_fwd, fa.launches_fwd_tc)
         rec = []
         for _ in range(3):
             loss = engine(batch)
             engine.backward(loss)
             engine.step()
             rec.append((loss.item(), engine.get_global_grad_norm()))
-        launched = fa.launches_fwd - before
-        if (impl == "kernel") != (launched > 0):
-            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times")
+        launched = fa.launches_fwd - before[0]
+        if (impl == "kernel") != (launched > 0) or fa.launches_fwd_tc != before[1]:
+            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times, "
+                                 f"{fa.launches_fwd_tc - before[1]} on the tensor-core variant (want 0)")
         arms[impl] = rec
         del engine
         torch.cuda.empty_cache()
     gaps = [dict(step=i + 1, loss_rel=abs(k[0] - p[0]) / abs(p[0]), grad_norm_rel=abs(k[1] - p[1]) / abs(p[1]))
             for i, (k, p) in enumerate(zip(arms["kernel"], arms["plain"]))]
-    emit(phase="train_fp32", kernel=arms["kernel"], plain=arms["plain"], gaps=gaps, tol_step1=1e-5)
-    if gaps[0]["loss_rel"] > 1e-5 or gaps[0]["grad_norm_rel"] > 1e-5:
-        raise AssertionError(f"fp32 training: step 1 kernel vs plain gap {gaps[0]} past 1e-5")
+    # fp32 takes K1's FMA variant: step 1's loss and grad norm equal the plain arm's to the last bit
+    identical = arms["kernel"][0] == arms["plain"][0]
+    emit(phase="train_fp32", kernel=arms["kernel"], plain=arms["plain"], gaps=gaps, tol_step1=1e-5,
+         step1_bit_identical=identical, flash_fwd_variant=VARIANT[torch.float32])
+    if gaps[0]["loss_rel"] > 1e-5 or gaps[0]["grad_norm_rel"] > 1e-5 or not identical:
+        raise AssertionError(f"fp32 training: step 1 kernel vs plain gap {gaps[0]} past 1e-5 or not bit-identical")
 
 
 # --- phases 13 and 14: block-sparse attention (K7-K9) --------------------------------
@@ -924,6 +957,26 @@ def _dead_rows_layout():
     layout = np.zeros((1, 4, 4), bool)
     layout[0, 0, 3] = layout[0, 1, 1] = layout[0, 2, 2] = layout[0, 2, 0] = layout[0, 3, 3] = True
     return layout
+
+
+def _dead_keys_layout():
+    """Key block 3 is listed only by q block 0, which precedes it: under the
+    causal mask its keys have no live pair, so its dK and dV rows are exact
+    zeros (and q block 0's rows are dead)."""
+    layout = np.zeros((1, 4, 4), bool)
+    layout[0, 0, 3] = layout[0, 1, 1] = layout[0, 2, 0] = layout[0, 2, 2] = layout[0, 3, 1] = layout[0, 3, 2] = True
+    return layout
+
+
+def _dead_keys(layout_h, block, causal):
+    """[T] bool: keys with no live (query, key) pair in this layout. A listed
+    pair of blocks (q block >= k block under the causal mask) makes every key
+    of its k block live (on the diagonal, each key meets its own row)."""
+    qi, ki = np.nonzero(layout_h)
+    live = ki[qi >= ki] if causal else ki
+    dead = np.ones(layout_h.shape[1], bool)
+    dead[live] = False
+    return np.repeat(dead, block)
 
 
 def _sparse_cases():
@@ -947,6 +1000,7 @@ def _sparse_cases():
             1, 4, 512, 64, BigBirdSparsityConfig(num_heads=4, block=8).make_layout(512)[:1], 8, True, False),
         "block 128 B=1 NH=4 T=2048 D=128 Fixed": (
             1, 4, 2048, 128, FixedSparsityConfig(num_heads=4, block=128).make_layout(2048)[:1], 128, False, False),
+        "dead keys B=2 NH=2 T=64 D=64 blk=16": (2, 2, 64, 64, _dead_keys_layout(), 16, True, False),
     }
 
 
@@ -999,11 +1053,13 @@ def _sparse_errors(groups, block, causal):
     groups (one for a shared layout, one per head otherwise). Returns
     {kernel: (max abs error, error relative to the reference's largest
     magnitude)}, whether the dead rows (rows with no live score) are exact
-    zeros in O and dQ, and the kernel outputs of the first group."""
+    zeros in O and dQ and the dead keys (keys with no live pair) exact zeros
+    in dK and dV, and the kernel outputs of the first group. K9 must take the
+    variant of its dtype (tensor cores for bf16 and fp16, FMA for fp32)."""
     errs = {}
     dead_zero = True
     first = None
-    for q, k, v, do, tables in groups:
+    for q, k, v, do, tables, units, layout_h in groups:
         row_idx, row_cnt, col_idx, col_cnt = tables
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
         args = (scale, block, causal)
@@ -1011,7 +1067,10 @@ def _sparse_errors(groups, block, causal):
         o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
         delta = bs.sparse_delta(o, do)
         dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
-        dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
+        before_tc = bs.launches_dkv_tc
+        dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
+        if bs.launches_dkv_tc - before_tc != int(VARIANT[q.dtype] == "tensor_core"):
+            raise AssertionError(f"K9 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
         o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
         dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
         dk_ref, dv_ref = bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)
@@ -1020,8 +1079,10 @@ def _sparse_errors(groups, block, causal):
             if not torch.isfinite(a.float()).all():
                 raise AssertionError("a block-sparse kernel wrote a non-finite value")
         dead = lse_ref <= bs.NEG_INF / 2  # [BN, T]: rows with no live score
+        dead_keys = torch.from_numpy(_dead_keys(layout_h, block, causal)).to(q.device)
         dead_zero &= bool((o[dead] == 0).all().item() and (dq[dead] == 0).all().item()
-                          and (lse[dead] == lse_ref[dead]).all().item())
+                          and (lse[dead] == lse_ref[dead]).all().item()
+                          and (dk[:, dead_keys] == 0).all().item() and (dv[:, dead_keys] == 0).all().item())
         for key, pairs in (("block_sparse_fwd", [(o, o_ref)]), ("block_sparse_lse", [(lse, lse_ref)]),
                            ("block_sparse_dq", [(dq, dq_ref)]), ("block_sparse_dkv", [(dk, dk_ref), (dv, dv_ref)])):
             for a, b in pairs:
@@ -1039,13 +1100,14 @@ def _sparse_errors(groups, block, causal):
 
 def _sparse_groups(q4, k4, v4, do4, layout, block, dev):
     """[B, NH, T, D] inputs as the fused path runs them: heads folded into
-    the batch for a shared layout, one [B, T, D] group per head otherwise."""
+    the batch for a shared layout, one [B, T, D] group per head otherwise;
+    each with its tables, K9's units and its layout."""
     B, NH, T, D = q4.shape
     if layout.shape[0] == 1:
-        tables = bs.block_tables(layout[0], dev)
-        return [tuple(x.reshape(B * NH, T, D) for x in (q4, k4, v4, do4)) + (tables,)]
-    return [tuple(x[:, h].contiguous() for x in (q4, k4, v4, do4)) + (bs.block_tables(layout[h], dev),)
-            for h in range(NH)]
+        return [tuple(x.reshape(B * NH, T, D) for x in (q4, k4, v4, do4))
+                + (bs.block_tables(layout[0], dev), bs.dkv_units(layout[0], block, dev), layout[0])]
+    return [tuple(x[:, h].contiguous() for x in (q4, k4, v4, do4))
+            + (bs.block_tables(layout[h], dev), bs.dkv_units(layout[h], block, dev), layout[h]) for h in range(NH)]
 
 
 def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush, first):
@@ -1054,7 +1116,7 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
     backward for K8 and K9 together) and the port's dense flash kernels K1-K3
     at the same shape."""
     B, NH, T, D = q4.shape
-    q, k, v, do, (row_idx, row_cnt, col_idx, col_cnt) = groups[0]
+    q, k, v, do, (row_idx, row_cnt, col_idx, col_cnt), units, _ = groups[0]
     scale = 1.0 / float(np.sqrt(D))
     args = (scale, block, causal)
     _, lse, delta = first
@@ -1064,7 +1126,7 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
                              lambda: bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)),
         "block_sparse_dq": (lambda: bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args),
                             lambda: bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)),
-        "block_sparse_dkv": (lambda: bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args),
+        "block_sparse_dkv": (lambda: bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args),
                              lambda: bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)),
     }
     bounds = _sparse_bound(B, NH, T, D, layout, block, causal, dtype)
@@ -1081,9 +1143,13 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
     timing = {}
     for key, (kernel, plain) in timed.items():
         ms = _time_ms(kernel, 20, flush)
-        timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 3, flush),
-                           library_ms=lib_fwd if key == "block_sparse_fwd" else lib_bwd,
+        lib = lib_fwd if key == "block_sparse_fwd" else lib_bwd
+        timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 3, flush), library_ms=lib, library_share=lib / ms,
                            roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
+    if q.dtype != torch.float32:  # K9's fp32 workspace for the split key blocks at these shapes
+        timing["block_sparse_dkv"].update(units=int(units.units.shape[0]), split_key_blocks=int(units.reduce.shape[0]),
+                                          chunk_cap=units.cap, workspace_bytes=B * NH // len(groups) * units.n_slots
+                                          * 2 * block * D * 4)
     del f
     torch.cuda.empty_cache()
     # the port's dense flash kernels on the same inputs ([B, T, N, D]): block_sparse_bench's comparison
@@ -1112,12 +1178,27 @@ def phase_sparse_kernels(dev, flush):
             bad = [key for key, (abs_err, rel) in errs.items()
                    if (abs_err > tol_o if key in ("block_sparse_fwd", "block_sparse_lse") else rel > tol_g)]
             dt = str(dtype).replace("torch.", "")
+            dead_keys = int(_dead_keys(layout[0], block, causal).sum())
             rec = dict(phase="sparse_kernels", case=name, dtype=dt, causal=causal, block=block,
-                       shared_layout=layout.shape[0] == 1, live_block_share=live, tol_o_lse_abs=tol_o,
-                       tol_grad_rel=tol_g, dead_rows_exact_zero=dead_zero,
+                       shared_layout=layout.shape[0] == 1, live_block_share=live, block_sparse_dkv_variant=VARIANT[dtype],
+                       tol_o_lse_abs=tol_o, tol_grad_rel=tol_g, dead_rows_exact_zero=dead_zero, dead_keys=dead_keys,
                        errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
             if name.startswith("dead rows") and not (first[1] <= bs.NEG_INF / 2).any():
                 raise AssertionError("the dead-rows layout left no dead row")
+            if name.startswith("dead keys") and not dead_keys:
+                raise AssertionError("the dead-keys layout left no dead key")
+            if timed and dtype == torch.bfloat16:  # K9 twice on the same inputs: bitwise-equal dK and dV
+                q, k, v, do, tables, units, _ = groups[0]
+                _, lse, delta = first
+                runs = [bs.sparse_dkv_kernel(q, k, v, do, lse, delta, tables[2], tables[3], units,
+                                             1.0 / float(np.sqrt(D)), block, causal) for _ in range(2)]
+                torch.cuda.synchronize()
+                equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(*runs))
+                emit(phase="sparse_dkv_determinism", case=name, dtype=dt, bitwise_equal=equal,
+                     split_key_blocks=int(units.reduce.shape[0]))
+                if not equal:
+                    raise AssertionError(f"K9 {name}: two calls on the same inputs differ")
+                del runs
             if timed:
                 rec["timing"], rec["dense_flash_ms"] = _sparse_timing(groups, q4, k4, v4, do4, layout, block,
                                                                       causal, dtype, flush, first)
@@ -1128,7 +1209,7 @@ def phase_sparse_kernels(dev, flush):
                 main[(name, dt)] = rec
             emit(**rec)
             if bad or not dead_zero:
-                raise AssertionError(f"block-sparse {name} {dt}: {bad} past tolerance, dead rows exact zero "
+                raise AssertionError(f"block-sparse {name} {dt}: {bad} past tolerance, dead rows and keys exact zero "
                                      f"{dead_zero}: {errs}")
             del groups, first, q4, k4, v4, do4
         del base
@@ -1186,29 +1267,33 @@ def phase_sparse_train(seed, dev):
         losses.append(loss)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _counts()
+    counts, variants = _counts(), _variants()
     losses = [float(x) for x in losses]
     steps = SPARSE_WARMUP + SPARSE_TIMED
     rec = dict(phase="sparse_train", model='BertSparseSelfAttention(bert_config("large") widths), FixedDefault(16)',
                batch=SPARSE_B, seq=SPARSE_T, hidden=H, dtype="bfloat16", steps=steps, timed_steps=SPARSE_TIMED,
                losses=losses, ms_per_step=wall * 1e3 / SPARSE_TIMED,
                tokens_per_s=SPARSE_TIMED * SPARSE_B * SPARSE_T / wall,
-               peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts, variants=variants)
     emit(**rec)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"sparse train: losses not finite or not falling: {losses}")
     sparse_keys = ("block_sparse_fwd", "block_sparse_dq", "block_sparse_dkv")
     if any(counts[k] != steps for k in sparse_keys) or any(counts[k] for k in counts if k not in sparse_keys):
         raise AssertionError(f"sparse train: launches {counts}, want {steps} for each of K7-K9 and 0 for the rest")
+    if variants["block_sparse_dkv_tc"] != steps:
+        raise AssertionError(f"sparse train: {variants['block_sparse_dkv_tc']} of {steps} bf16 K9 calls took the "
+                             f"tensor-core variant, want all")
 
     # fp32 (TF32 off): one step through the kernels and one through impl="plain"
     arms = {}
     for impl in ("kernel", "plain"):
-        before = bs.launches_fwd
+        before = (bs.launches_fwd, bs.launches_dkv_tc)
         loss, grads = _bert_step(BertSparseSelfAttention(config, impl=impl), hidden32, target,
                                  list(masters.values()))
-        if (impl == "kernel") != (bs.launches_fwd > before):
-            raise AssertionError(f"fp32 {impl} arm launched K7 {bs.launches_fwd - before} times")
+        if (impl == "kernel") != (bs.launches_fwd > before[0]) or bs.launches_dkv_tc != before[1]:
+            raise AssertionError(f"fp32 {impl} arm launched K7 {bs.launches_fwd - before[0]} times, K9's tensor-core "
+                                 f"variant {bs.launches_dkv_tc - before[1]} (want 0)")
         arms[impl] = (float(loss), grads)
         torch.cuda.empty_cache()
     loss_rel = abs(arms["kernel"][0] - arms["plain"][0]) / abs(arms["plain"][0])
@@ -1235,7 +1320,7 @@ def phase_sparse_train(seed, dev):
     if moved or not finite or out.shape != (SPARSE_B, SPARSE_T, H):
         raise AssertionError(f"masked call: launches {moved}, finite {finite}, shape {tuple(out.shape)}")
     torch.cuda.empty_cache()
-    return counts
+    return counts, variants
 
 
 def main() -> int:
@@ -1286,13 +1371,13 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     flash = phase_flash(dev, flush)
     del flush
-    train_counts = phase_train(args.seed, dev)
+    train_counts, train_variants = phase_train(args.seed, dev)
     phase_train_fp32(args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
     del flush
-    sparse_counts = phase_sparse_train(args.seed, dev)
+    sparse_counts, sparse_variants = phase_sparse_train(args.seed, dev)
 
     main_case = next(c for c in cases if c["case"] == "W=1 bfloat16")
     k6_main = next(c for c in k6_cases if c["case"] == f"{DECODE_MAIN} bfloat16")
@@ -1313,8 +1398,13 @@ def main() -> int:
         launches=train_counts[name],
         max_abs_err=flash["bfloat16"]["errors"][name]["max_abs_err"],
         case=f"{FLASH_MAIN} bfloat16",
-        **{k: flash["bfloat16"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: flash["bfloat16"]["timing"][name][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")},
         fp32={k: flash["float32"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        **(dict(variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
+                tensor_core_launches=train_variants["flash_fwd_tc"],
+                fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")})
+           if name == "flash_fwd" else {}),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name=name, route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces=f"deepspeed_tpu/ops/transformer/decode_attention.py:{line}", launches=n,
@@ -1327,12 +1417,15 @@ def main() -> int:
         max_abs_err=sparse[(SPARSE_MAIN, "bfloat16")]["errors"][name]["max_abs_err"],
         case=f"{SPARSE_MAIN} bfloat16",
         **{k: sparse[(SPARSE_MAIN, "bfloat16")]["timing"][name][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")},
         fp32={k: sparse[(SPARSE_MAIN, "float32")]["timing"][name][k]
               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         bench={dt: {k: sparse[(SPARSE_BENCH, dt)]["timing"][name][k]
-                    for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")}
                for dt in ("bfloat16", "float32")},
+        **(dict(variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
+                tensor_core_launches=sparse_variants["block_sparse_dkv_tc"])
+           if name == "block_sparse_dkv" else {}),
     ) for name, line in (("block_sparse_fwd", 78), ("block_sparse_dq", 163), ("block_sparse_dkv", 194))])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -11,50 +11,72 @@
 // computed by the caller. q, k, v, o, dO are [BN, T, D] (heads folded into the batch), lse and
 // delta plain [BN, T] fp32, the tables int32 ([nq, width] / [nq], [nk, width] / [nk]).
 //
-// Numerics are the Pallas kernels', not the flash kernels': q, k, v and dO are widened to fp32
-// and every product (Q K^T, P V, dO V^T, dS K, P^T dO, dS^T Q) runs in fp32 with P and dS kept in
+// Numerics are the Pallas kernels', not the flash kernels': q, k, v and dO enter in their dtype
+// and every product (Q K^T, P V, dO V^T, dS K, P^T dO, dS^T Q) sums in fp32 with P and dS kept in
 // fp32; only the outputs are rounded to the inputs' dtype. Scores are scaled after the product;
 // the causal mask inside a pair (row >= column, global positions) uses the finite
 // NEG_INF = -1e30, and a masked probability is set to exactly 0, so a row with no live score
 // (no listed block, or every listed pair causally dead) ends with l = 0: O = 0 and
-// LSE = NEG_INF, and its dQ is exactly 0.
+// LSE = NEG_INF, and its dQ is exactly 0; a key with no live pair gets dK = dV = 0.
 //
-// What bounds it: at BERT-large width (D = 64, blocks of 16, 67 live blocks a row at T = 4096)
+// What bounds them: at BERT-large width (D = 64, blocks of 16, 67 live blocks a row at T = 4096)
 // each call does 2-4 products of 2 D operations per live (query, key) pair over about 5-7
-// operand-sized reads, so the tensor-core rate bounds it (K7 ~0.036 ms at B = 2, NH = 16 in
-// bf16). This first version multiplies with fp32 FMAs on the CUDA cores out of shared memory, as
-// the port's flash kernels do, so it sits well above that bound; it is written to be right
-// first, for fp32, bf16 and fp16 inputs.
+// operand-sized reads, so the tensor-core rate bounds it (K7 ~0.036 ms, K9 ~0.073 ms at B = 2,
+// NH = 16 in bf16).
+//
+// K9 for bf16 and fp16 (sparse_dkv_tc_kernel) runs on the tensor cores with mma.sync.m16n8k16
+// (csrc/tensor_core.cuh), over a unit table built on the host (block_sparse.build_dkv_units):
+//  * a key block is cut into 16-row key tiles (one mma M; blocks of 8 to 128, the last tile of a
+//    block masked). A unit is up to four key tiles whose key blocks list the same q blocks, one
+//    warp each, and a chunk of that list; its q blocks are walked in 16-row steps (the ragged
+//    part zero-filled), each step's Q, dO, LSE and delta staged once by 16-byte cp.async copies
+//    into a 3-stage ring and shared by the four warps. At blocks of 16 the 64 global key
+//    columns of a head list the same 256 q blocks and share every staged tile; at blocks of 64
+//    the four tiles of one key block do;
+//  * per step a warp forms S^T = K Q^T and dP^T = V dO^T (bf16/fp16 operands, exact products,
+//    fp32 sums), P^T and dS^T in fp32 in the mma C layout, and accumulates dV += P^T dO and
+//    dK += dS^T Q with P^T and dS^T repacked in registers as A fragments. Each fp32 operand is
+//    split into hi + lo in the input dtype (hi = T(x), lo = T(x - hi)) and both are multiplied,
+//    which carries it to about 2^-16 relative (bf16): 6 products a tile instead of 4, and the
+//    Pallas kernel's fp32 numerics held within SPARSE_TOL;
+//  * column lists longer than a cap (twice the mean list, at least 8) are cut into balanced
+//    chunks, and units run longest first, so a global column (every q block listed) no longer
+//    sets the launch's length. A split key block's chunks write fp32 partials to their own slots
+//    of a workspace; a second small kernel (sparse_dkv_reduce_kernel) sums each block's slots in
+//    chunk order and writes dK and dV. No atomics: two calls give bitwise-equal results;
+//  * what bounds it now: at the main shape the units are balanced and each staged tile feeds
+//    four warps; the kernel is limited by mma.sync issue and the per-step barrier and softmax
+//    work of 16 x 16 score tiles (about 10% of the operations bound).
+// K7, K8 and fp32 K9 keep the first version: fp32 FMAs on the CUDA cores out of padded fp32
+// shared memory (fp32 is the card's parity path, kernel vs plain to about 1e-6 with TF32 off).
 //
 // What the design does about the TPU kernels' shape. The Pallas kernels walk a padded list on a
 // sequential grid axis (q block, list step), skip padded steps with pl.when and carry m/l/acc
 // (or dQ, dK/dV) in VMEM scratch. Here:
 //  * one thread block per (b*h, q tile) walks exactly row_cnt[qi] entries of its row list (K7,
-//    K8), or per (b*h, k tile) exactly col_cnt[ki] entries of its column list (K9): no padded
-//    steps, and the running state stays in registers and shared memory;
-//  * a block of `blk` rows (any multiple of 8 up to 128) is cut into tiles of TB = 16 rows
-//    (blk < 64) or TB = 64 rows (blk >= 64); the last tile of a block may be partial and is
-//    masked. Query (K7, K8) or key (K9) tiles of one block are separate thread blocks; the other
-//    side's tiles are walked inside the listed block. So blocks of 16 (the configs' default)
-//    waste no lanes, and blocks of 64 (the bench) get the flash kernels' 64 x 64 tiles;
+//    K8), or per (b*h, k tile) exactly col_cnt[ki] entries of its column list (fp32 K9), or per
+//    (b*h, unit) one chunk of a column list (bf16/fp16 K9): no padded steps, and the running
+//    state stays in registers and shared memory;
+//  * in the FMA kernels a block of `blk` rows (any multiple of 8 up to 128) is cut into tiles of
+//    TB = 16 rows (blk < 64) or TB = 64 rows (blk >= 64); the last tile of a block may be
+//    partial and is masked. Query (K7, K8) or key (K9) tiles of one block are separate thread
+//    blocks; the other side's tiles are walked inside the listed block;
 //  * under the causal mask a key tile that starts past the q tile's last row (K7, K8), or a
 //    q tile that ends before the k tile's first key (K9), is skipped: it holds no live score;
-//  * K9 owns its dK and dV rows, so there are no atomics and the result is deterministic. Its
-//    load is uneven by design: a global key column lists every q block (256 at T = 4096) while a
-//    local one lists 4, and the heavy thread blocks set the launch's length;
-//  * 256 threads hold a (TB/16) x (TB/16) register tile of every TB x TB score tile (rows
-//    ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane shuffle, and the
-//    same rows of the output accumulator, so the online-softmax rescale needs no shared memory;
-//  * shared-memory rows are padded by one float, so row-wise and column-wise reads are free of
-//    bank conflicts.
-// Not done yet (later work): tensor-core tiles (mma.sync / wgmma), cp.async / TMA staging of the
-// listed blocks, several heads per thread block for the 16-row tiles, and an ordering of K9's
-// thread blocks that starts the heavy columns first.
+//  * the FMA kernels' 256 threads hold a (TB/16) x (TB/16) register tile of every TB x TB score
+//    tile (rows ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane
+//    shuffle; their shared-memory rows are padded by one float against bank conflicts.
+// Not done yet (later work): tensor cores for K7 and K8, several heads per thread block for the
+// 16-row tiles, wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -480,6 +502,249 @@ sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // ---------------------------------------------------------------------------------------------
+// K9 on the tensor cores: bf16 and fp16
+// ---------------------------------------------------------------------------------------------
+constexpr int DKV_WARPS = 4;  // key tiles of a unit, one a warp
+constexpr int DKV_THREADS = 32 * DKV_WARPS;
+constexpr int DKV_ROWS = 16;  // rows of a key tile and of a q step
+constexpr int DKV_STAGES = 3;  // depth of the Q/dO ring
+constexpr int UNIT_W = 3 + 2 * DKV_WARPS;  // list_kb, start, len, tile[WARPS], slot[WARPS]
+constexpr float LOG2E = 1.4426950408889634f;
+
+// async copy of rows r0 .. r0+15 of head bn of a [BN, T, D] tensor into a swizzled [16][D] tile,
+// by the `nthreads` threads numbered `tid`; rows at or past n are zero-filled
+template <typename T, int D>
+__device__ __forceinline__ void dkv_load_rows(T* dst, const T* __restrict__ src, int bn, int r0, int n, int Tn,
+                                              int tid, int nthreads) {
+  constexpr int CH = D / 8;
+  for (int e = tid; e < DKV_ROWS * CH; e += nthreads) {
+    const int r = e / CH, c = e % CH;
+    const bool valid = r < n;
+    tc::cp_async16(dst + tc::swz<D>(r, c * 8),
+                   src + (static_cast<size_t>(bn) * Tn + r0 + (valid ? r : 0)) * D + c * 8, valid);
+  }
+}
+
+// One thread block per (unit, b*h). A unit is up to four 16-row key tiles whose key blocks list
+// the same q blocks, and a chunk [start, start + len) of that list: every warp takes one key tile
+// and all of them share each staged 16-row Q/dO step. A unit either owns its key tiles' whole
+// list (slot -1: dK and dV written in T) or one chunk of it (fp32 partials into workspace slot).
+template <typename T, int D>
+__global__ void __launch_bounds__(DKV_THREADS)
+sparse_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     const int* __restrict__ col_idx, const int* __restrict__ units,
+                     float* __restrict__ ws, int n_slots, int width, int Tn, int blk, int causal,
+                     float scale) {
+  constexpr int KS = D / 16;  // k16 steps over the head dimension
+  constexpr int DT = D / 8;   // 8-wide tiles of a dK / dV row
+  constexpr bool KV_REGS = D == 64;  // K and V fragments in registers (D = 128: re-read them)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* kvs = reinterpret_cast<T*>(smem_raw);         // [WARPS][2][16][D]: each warp's K and V tile
+  T* ring = kvs + DKV_WARPS * 2 * DKV_ROWS * D;    // [STAGES][2][16][D]: Q and dO of a step
+  float* stats = reinterpret_cast<float*>(ring + DKV_STAGES * 2 * DKV_ROWS * D);  // [STAGES][2][16]
+
+  const int* unit = units + static_cast<size_t>(blockIdx.x) * UNIT_W;
+  const int bn = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int list_kb = unit[0], start = unit[1], len = unit[2];
+  const int tile = unit[3 + warp], slot = unit[3 + DKV_WARPS + warp];
+  const int nk = tile < 0 ? 0 : min(DKV_ROWS, blk - tile % blk);  // live rows of this key tile
+  int first_key = Tn;  // the unit's first key: a q step wholly before it is dead for every warp
+#pragma unroll
+  for (int w = 0; w < DKV_WARPS; ++w)
+    if (unit[3 + w] >= 0) first_key = min(first_key, unit[3 + w]);
+  const int subs = (blk + DKV_ROWS - 1) / DKV_ROWS;  // 16-row steps of a listed q block
+  const int n_steps = len * subs;
+  const int* list = col_idx + static_cast<size_t>(list_kb) * width + start;
+  const float scale_log2 = scale * LOG2E;
+
+  T* ks = kvs + warp * 2 * DKV_ROWS * D;
+  T* vs = ks + DKV_ROWS * D;
+  if (tile >= 0) {
+    dkv_load_rows<T, D>(ks, k, bn, tile, nk, Tn, lane, 32);
+    dkv_load_rows<T, D>(vs, v, bn, tile, nk, Tn, lane, 32);
+  }
+
+  // step s: rows q0 .. q0+nq-1 of the listed q block list[s / subs]; dead for the whole unit under
+  // the causal mask when its last row precedes the unit's first key
+  auto step_rows = [&](int s, int& q0, int& nq) {
+    const int qsub = s % subs;
+    q0 = __ldg(list + s / subs) * blk + qsub * DKV_ROWS;
+    nq = min(DKV_ROWS, blk - qsub * DKV_ROWS);
+  };
+  auto load_step = [&](int s) {
+    int q0, nq;
+    step_rows(s, q0, nq);
+    if (causal && q0 + nq - 1 < first_key) return;
+    T* qd = ring + (s % DKV_STAGES) * 2 * DKV_ROWS * D;
+    dkv_load_rows<T, D>(qd, q, bn, q0, nq, Tn, threadIdx.x, DKV_THREADS);
+    dkv_load_rows<T, D>(qd + DKV_ROWS * D, dout, bn, q0, nq, Tn, threadIdx.x, DKV_THREADS);
+    float* st = stats + (s % DKV_STAGES) * 2 * DKV_ROWS;
+    if (threadIdx.x < 8) {  // 4 chunks of 4 rows of lse, then of delta
+      const int which = threadIdx.x >> 2, c = threadIdx.x & 3;
+      const float* src = which ? delta : lse;
+      const bool valid = c * 4 < nq;
+      tc::cp_async16(st + which * DKV_ROWS + c * 4,
+                     src + static_cast<size_t>(bn) * Tn + q0 + (valid ? c * 4 : 0), valid);
+    }
+  };
+
+#pragma unroll
+  for (int i = 0; i < DKV_STAGES - 1; ++i) {
+    if (i < n_steps) load_step(i);
+    tc::cp_async_commit();
+  }
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+  uint32_t kf[KV_REGS ? KS : 1][4], vf[KV_REGS ? KS : 1][4];
+
+  for (int s = 0; s < n_steps; ++s) {
+    tc::cp_async_wait<DKV_STAGES - 2>();
+    __syncthreads();  // step s has landed, and every warp is done with step s - 1's stage
+    if (s + DKV_STAGES - 1 < n_steps) load_step(s + DKV_STAGES - 1);
+    tc::cp_async_commit();
+    if constexpr (KV_REGS) {
+      if (s == 0 && tile >= 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          tc::ldmatrix_x4(kf[kk], ks + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+          tc::ldmatrix_x4(vf[kk], vs + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+        }
+      }
+    }
+    int q0, nq;
+    step_rows(s, q0, nq);
+    // this warp's key tile is dead for the step under the causal mask if every row precedes it
+    if (tile < 0 || (causal && q0 + nq - 1 < tile)) continue;
+    const T* qst = ring + (s % DKV_STAGES) * 2 * DKV_ROWS * D;
+    const T* dost = qst + DKV_ROWS * D;
+    const float* lse_s = stats + (s % DKV_STAGES) * 2 * DKV_ROWS;
+    const float* delta_s = lse_s + DKV_ROWS;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 q rows, two 16 x 8 tiles each
+    float st[2][4], dpt[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4], bq[4], bo[4];
+      if constexpr (KV_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = kf[kk][i];
+          va[i] = vf[kk][i];
+        }
+      } else {
+        tc::ldmatrix_x4(ka, ks + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(va, vs + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+      }
+      const int r = (lane & 7) + ((lane >> 4) << 3), c = kk * 16 + ((lane >> 3) & 1) * 8;
+      tc::ldmatrix_x4(bq, qst + tc::swz<D>(r, c));
+      tc::ldmatrix_x4(bo, dost + tc::swz<D>(r, c));
+      tc::mma<T>(st[0], ka, bq[0], bq[1]);
+      tc::mma<T>(st[1], ka, bq[2], bq[3]);
+      tc::mma<T>(dpt[0], va, bo[0], bo[1]);
+      tc::mma<T>(dpt[1], va, bo[2], bo[3]);
+    }
+
+    // P^T = exp(scale S^T - lse) on live pairs, exactly 0 elsewhere; dS^T = P^T (dP^T - delta) scale
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = g + (e >> 1) * 8, qc = j * 8 + 2 * t4 + (e & 1);
+        const bool live = kr < nk && qc < nq && (!causal || q0 + qc >= tile + kr);
+        const float p = live ? exp2f(st[j][e] * scale_log2 - lse_s[qc] * LOG2E) : 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - delta_s[qc]) * scale;
+      }
+
+    // dV += P^T dO and dK += dS^T Q, each fp32 operand as hi + lo in T
+    uint32_t ph[4], pl[4], dh[4], dl[4];
+    tc::a_from_c_split<T>(ph, pl, st[0], st[1]);
+    tc::a_from_c_split<T>(dh, dl, dpt[0], dpt[1]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bo[4], bq[4];
+      tc::ldmatrix_x4_trans(bo, dost + tc::swz<D>(lane & 15, dp * 16 + (lane >> 4) * 8));
+      tc::ldmatrix_x4_trans(bq, qst + tc::swz<D>(lane & 15, dp * 16 + (lane >> 4) * 8));
+      tc::mma<T>(dv_acc[2 * dp], ph, bo[0], bo[1]);
+      tc::mma<T>(dv_acc[2 * dp], pl, bo[0], bo[1]);
+      tc::mma<T>(dv_acc[2 * dp + 1], ph, bo[2], bo[3]);
+      tc::mma<T>(dv_acc[2 * dp + 1], pl, bo[2], bo[3]);
+      tc::mma<T>(dk_acc[2 * dp], dh, bq[0], bq[1]);
+      tc::mma<T>(dk_acc[2 * dp], dl, bq[0], bq[1]);
+      tc::mma<T>(dk_acc[2 * dp + 1], dh, bq[2], bq[3]);
+      tc::mma<T>(dk_acc[2 * dp + 1], dl, bq[2], bq[3]);
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the block (the last groups are empty)
+
+  if (tile < 0) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kr = g + i * 8;
+    if (kr >= nk) continue;
+    if (slot < 0) {
+      const size_t at = (static_cast<size_t>(bn) * Tn + tile + kr) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + at + j * 8) = tc::pack2<T>(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + at + j * 8) = tc::pack2<T>(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      }
+    } else {
+      // workspace [BN][n_slots][2 (dK, dV)][blk][D] fp32; this tile's rows start at tile % blk
+      float* w = ws + ((static_cast<size_t>(bn) * n_slots + slot) * 2 * blk + tile % blk + kr) * D + 2 * t4;
+      const size_t half = static_cast<size_t>(blk) * D;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        *reinterpret_cast<float2*>(w + j * 8) = make_float2(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(w + half + j * 8) = make_float2(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// The split key blocks' partials summed in chunk order, so the result does not depend on which
+// chunk finished first: one thread block per (split key block, b*h); reduce[r] = (kb, first slot,
+// chunks).
+template <typename T>
+__global__ void __launch_bounds__(256)
+sparse_dkv_reduce_kernel(const float* __restrict__ ws, const int* __restrict__ reduce, T* __restrict__ dk,
+                         T* __restrict__ dv, int n_slots, int Tn, int D, int blk) {
+  const int* r = reduce + 3 * blockIdx.x;
+  const int kb = r[0], s0 = r[1], n = r[2];
+  const int bn = blockIdx.y;
+  const int quads = 2 * blk * D / 4;  // float4s of dK then dV
+  const float4* base = reinterpret_cast<const float4*>(ws + (static_cast<size_t>(bn) * n_slots + s0) * 2 * blk * D);
+  for (int e = threadIdx.x; e < quads; e += blockDim.x) {
+    float4 acc = base[e];
+    for (int c = 1; c < n; ++c) {
+      const float4 x = base[static_cast<size_t>(c) * quads + e];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const int which = e / (quads / 2), rem = e % (quads / 2);
+    T* dst = (which ? dv : dk) + (static_cast<size_t>(bn) * Tn + static_cast<size_t>(kb) * blk) * D + rem * 4;
+    uint2 packed;
+    packed.x = tc::pack2<T>(acc.x, acc.y);
+    packed.y = tc::pack2<T>(acc.z, acc.w);
+    *reinterpret_cast<uint2*>(dst) = packed;
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------------------------
 template <int D, int TB>
@@ -495,6 +760,12 @@ struct Args {
   int width, BN, T, blk, causal;
   float scale;
   cudaStream_t stream;
+  // K9's tensor-core variant: the unit and reduce tables, the fp32 workspace, and the variant
+  // launched (0 the fp32 FMA kernel, 1 tensor cores)
+  const void *units, *reduce;
+  void* ws;
+  int n_units, n_reduce, n_slots;
+  int* variant;
 };
 
 template <typename Kernel>
@@ -540,20 +811,46 @@ struct Dq {
   }
 };
 
+// fp32 runs the FMA kernel (the parity path); bf16 and fp16 the tensor-core kernel over the unit
+// table, then the chunk-order reduction of the split key blocks, if the layout has any
 template <typename T, int D, int TB>
 struct Dkv {
   static int run(const Args& a) {
-    const size_t smem = smem_bytes<D, TB>(4, 2, 2);
-    auto kernel = sparse_dkv_kernel<T, D, TB>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid_of<TB>(a), THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-        static_cast<const int*>(a.idx), static_cast<const int*>(a.cnt), a.width, a.T, a.blk,
-        a.causal, a.scale);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (std::is_same<T, float>::value) {
+      const size_t smem = smem_bytes<D, TB>(4, 2, 2);
+      auto kernel = sparse_dkv_kernel<T, D, TB>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid_of<TB>(a), THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+          static_cast<const int*>(a.idx), static_cast<const int*>(a.cnt), a.width, a.T, a.blk,
+          a.causal, a.scale);
+      *a.variant = 0;
+      return static_cast<int>(cudaGetLastError());
+    } else {
+      if (a.n_units <= 0 || a.n_reduce < 0 || (a.n_reduce > 0 && (a.n_slots <= 0 || a.ws == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const size_t smem = sizeof(T) * (DKV_WARPS + DKV_STAGES) * 2 * DKV_ROWS * D +
+                          sizeof(float) * DKV_STAGES * 2 * DKV_ROWS;
+      auto kernel = sparse_dkv_tc_kernel<T, D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<dim3(a.n_units, a.BN), DKV_THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+          static_cast<const int*>(a.idx), static_cast<const int*>(a.units), static_cast<float*>(a.ws),
+          a.n_slots, a.width, a.T, a.blk, a.causal, a.scale);
+      *a.variant = 1;
+      err = cudaGetLastError();
+      if (err != cudaSuccess || a.n_reduce == 0) return static_cast<int>(err);
+      sparse_dkv_reduce_kernel<T><<<dim3(a.n_reduce, a.BN), 256, 0, a.stream>>>(
+          static_cast<const float*>(a.ws), static_cast<const int*>(a.reduce), static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.n_slots, a.T, D, a.blk);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
 };
 
@@ -607,14 +904,21 @@ extern "C" int block_sparse_dq(int dtype, const void* q, const void* k, const vo
   return dispatch<Dq>(dtype, D, a);
 }
 
+// K9 also takes the unit table (int32 [n_units, 3 + 2 * 4]), the reduce table (int32
+// [n_reduce, 3]) and an fp32 workspace of [BN, n_slots, 2, blk, D] (bf16 and fp16; fp32 ignores
+// them), and writes the variant it launched to *variant: 0 the fp32 FMA kernel, 1 the
+// tensor-core kernel (and its reduction pass when n_reduce > 0).
 extern "C" int block_sparse_dkv(int dtype, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta, void* dk,
-                                void* dv, const void* col_idx, const void* col_cnt, int width,
-                                int BN, int T, int D, int blk, int causal, float scale,
-                                void* stream) {
+                                void* dv, const void* col_idx, const void* col_cnt, const void* units,
+                                const void* reduce, void* ws, int n_units, int n_reduce, int n_slots,
+                                int width, int BN, int T, int D, int blk, int causal, float scale,
+                                void* stream, int* variant) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dk = dk; a.dv = dv;
   a.idx = col_idx; a.cnt = col_cnt;
+  a.units = units; a.reduce = reduce; a.ws = ws;
+  a.n_units = n_units; a.n_reduce = n_reduce; a.n_slots = n_slots; a.variant = variant;
   a.width = width; a.BN = BN; a.T = T; a.blk = blk; a.causal = causal; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<Dkv>(dtype, D, a);

@@ -18,9 +18,34 @@
 // What bounds it: at the training shapes (T = 1024, D = 64, bf16) each kernel does 2-4 causal
 // T x T x D products per (b, n) over about 3 T D bytes per operand, far above the card's ~295
 // flops/byte balance point, so the tensor-core rate bounds it (K1 ~13 us, K2 ~19.5 us, K3 ~26 us
-// at B=8, N=12 against 989 TFLOP/s). This first version multiplies with fp32 FMAs on the CUDA
-// cores out of shared memory (no tensor cores), so it sits well above that bound; it is written
-// to be right first, for every dtype the engine trains in, fp32 included.
+// at B=8, N=12 against 989 TFLOP/s).
+//
+// K1 for bf16 and fp16 (flash_fwd_tc_kernel) runs on the tensor cores, FlashAttention-2's scheme
+// with mma.sync.m16n8k16 (csrc/tensor_core.cuh):
+//  * one block of 4 warps per (b*n, 64-row q tile), each warp 16 q rows; the warp's Q fragments
+//    stay in registers for the whole walk over the 64-key K/V tiles;
+//  * K and V come through a ring in shared memory (3 stages at D = 64, 2 at D = 128, so two
+//    blocks fit an SM) filled by 16-byte cp.async copies (rows past T are zero-filled): the copies
+//    of the next tiles overlap this tile's products, with one barrier per tile. Tiles are
+//    swizzled (chunk c of row r at c ^ (r & 7)), so ldmatrix (and ldmatrix.trans for V) reads are
+//    free of bank conflicts without padding;
+//  * S = Q K^T accumulates in fp32 registers in the mma C layout; the online softmax runs there,
+//    a row's max and sum reduced over the four lanes of a quad, in base 2 with the scale folded
+//    into one FMA; P is rounded to v's dtype and repacked from the C layout straight into the A
+//    fragments of P V (no shared memory);
+//  * only the diagonal tile (causal) and the ragged last tile are masked in registers; tiles
+//    above the diagonal are skipped by the loop bound, and the heaviest q tiles start first.
+// What bounds it now: about 18% of the bytes bound at the training shape on an H100. Each warp
+// re-reads every K/V fragment from shared memory for its 16 rows and waits at one barrier per
+// 64-key tile; 128-row tiles (two mma tiles a warp, or 8 warps) would halve those reads but need
+// more registers a block, which cuts the blocks an SM holds. mma.sync rather than wgmma: mma.sync keeps P in registers with the
+// layouts above and needs no shared-memory descriptors or warpgroup pipeline; wgmma with a TMA
+// producer warp is this kernel's next step.
+//
+// fp32 keeps the first version (flash_fwd_kernel), as do K2 and K3 for every dtype: fp32 FMAs on
+// the CUDA cores out of padded fp32 shared memory. fp32 is the card's parity path (kernel vs
+// plain to about 1e-6 with TF32 off), and tensor cores would need TF32. The entry flash_fwd
+// dispatches by dtype and reports the variant it launched.
 //
 // What the design does about the TPU kernels' shape: the Pallas kernels carry m/l/acc (or dQ,
 // dK/dV) in VMEM scratch across a sequential "arbitrary" grid axis of 512-row blocks. Hopper
@@ -33,18 +58,21 @@
 //  * causal tiles above the diagonal are skipped by the loop bounds, not by a per-tile test;
 //  * 64-row tiles give 16 x 96 = 1,536 blocks at B=8, N=12, T=1024, and the heaviest tiles
 //    (K1/K2: the last q tiles; K3: the first k tiles) are launched first;
-//  * 256 threads hold a 4 x 4 register tile of every 64 x 64 score tile (rows ty + 16 i, columns
-//    tx + 16 j), so a row's softmax reduction is a 16-lane shuffle, and the same rows of the
-//    output accumulator, so the online-softmax rescale needs no shared memory;
-//  * shared-memory rows are padded by one float, so both row-wise and column-wise reads are
-//    free of bank conflicts.
-// Not done yet (later work): tensor-core tiles (mma.sync / wgmma), cp.async / TMA double
-// buffering, 16-byte vector loads, a persistent causal schedule.
+//  * the FMA kernels' 256 threads hold a 4 x 4 register tile of every 64 x 64 score tile (rows
+//    ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane shuffle, and the
+//    same rows of the output accumulator, so the online-softmax rescale needs no shared memory;
+//    their shared-memory rows are padded by one float against bank conflicts.
+// Not done yet (later work): tensor cores for K2 and K3, wgmma / TMA for K1, a persistent
+// causal schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -215,6 +243,193 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int c = 0; c < DC; ++c) dst[tx + 16 * c] = from_f32<T>(acc[i][c] / safe_l);
       if (tx == 0) lse[static_cast<size_t>(bn) * Tn + row] = m[i] + logf(safe_l);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
+// K1 on the tensor cores: bf16 and fp16
+// ---------------------------------------------------------------------------------------------
+constexpr int TC_ROWS = 64;      // q rows of a block, 16 a warp
+constexpr int TC_KEYS = 64;      // keys of a K/V tile
+constexpr int TC_THREADS = 128;  // 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
+
+// depth of the K/V ring: 3 stages at D = 64 (57 KB of shared memory), 2 at D = 128 (80 KB), so
+// that two blocks fit an SM at either width
+template <int D>
+struct TcRing {
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+};
+
+// async copy of rows t0 .. t0+63 of head (b, n) of a [B, T, N, D] operand into a swizzled [64][D]
+// tile; rows at or past T are zero-filled
+template <typename T, int D>
+__device__ __forceinline__ void tc_load_tile(T* dst, const T* __restrict__ src, int b, int n, int t0,
+                                             int Tn, int N) {
+  constexpr int CH = D / 8;  // 16-byte chunks of a row
+#pragma unroll
+  for (int i = 0; i < TC_KEYS * CH / TC_THREADS; ++i) {
+    const int e = threadIdx.x + i * TC_THREADS;
+    const int r = e / CH, c = e % CH;
+    const int t = t0 + r;
+    const bool valid = t < Tn;
+    tc::cp_async16(dst + tc::swz<D>(r, c * 8), src + tok(b, valid ? t : 0, n, Tn, N, D) + c * 8, valid);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    T* __restrict__ o, float* __restrict__ lse, int Tn, int N, int causal,
+                    float scale) {
+  constexpr int KS = D / 16;  // k16 steps of Q K^T
+  constexpr int DT = D / 8;   // 8-wide output tiles
+  constexpr int TC_STAGES = TcRing<D>::STAGES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [64][D]
+  T* ks = qs + TC_ROWS * D;                // [STAGES][64][D]
+  T* vs = ks + TC_STAGES * TC_KEYS * D;    // [STAGES][64][D]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * TC_ROWS;
+  const int wq0 = q0 + warp * 16;  // this warp's rows: wq0 + g and wq0 + g + 8
+  const int n_kt = (Tn + TC_KEYS - 1) / TC_KEYS;
+  const int k_end = causal ? min(qt + 1, n_kt) : n_kt;
+  // scores are compared unscaled (scale > 0 keeps their order) and exponentiated in base 2:
+  // 2^(s * scale * log2(e) - m * scale * log2(e)) = exp(scale * s - scale * m)
+  const float sl2 = scale * LOG2E;
+
+  tc_load_tile<T, D>(qs, q, b, n, q0, Tn, N);
+#pragma unroll
+  for (int i = 0; i < TC_STAGES - 1; ++i) {
+    if (i < k_end) {
+      tc_load_tile<T, D>(ks + i * TC_KEYS * D, k, b, n, i * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + i * TC_KEYS * D, v, b, n, i * TC_KEYS, Tn, N);
+    }
+    tc::cp_async_commit();
+  }
+
+  uint32_t qf[KS][4];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // unscaled running max; this thread's share of the row sum
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < k_end; ++kt) {
+    tc::cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();  // tile kt has landed, and every warp is done with tile kt - 1's stage
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        tc::ldmatrix_x4(qf[kk], qs + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+    }
+    const int kn = kt + TC_STAGES - 1;  // the tile this step prefetches
+    if (kn < k_end) {
+      tc_load_tile<T, D>(ks + (kn % TC_STAGES) * TC_KEYS * D, k, b, n, kn * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + (kn % TC_STAGES) * TC_KEYS * D, v, b, n, kn * TC_KEYS, Tn, N);
+    }
+    tc::cp_async_commit();
+    const T* kst = ks + (kt % TC_STAGES) * TC_KEYS * D;
+    const T* vst = vs + (kt % TC_STAGES) * TC_KEYS * D;
+    const int k0 = kt * TC_KEYS;
+
+    // S = Q K^T: 8 tiles of 16 x 8 scores
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        tc::ldmatrix_x4(bf, kst + tc::swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                             kk * 16 + ((lane >> 3) & 1) * 8));
+        tc::mma<T>(s[2 * np], qf[kk], bf[0], bf[1]);
+        tc::mma<T>(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+      }
+    }
+
+    // online softmax; only the diagonal and the ragged last tile are masked
+    const bool masked = k0 + TC_KEYS > Tn || (causal && k0 + TC_KEYS - 1 > wq0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (masked) {
+          const int row = wq0 + g + (e >> 1) * 8, col = k0 + j * 8 + 2 * t4 + (e & 1);
+          if (!(col < Tn && (!causal || col <= row))) s[j][e] = NEG_INF;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float corr[2], msl[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = ex2((m[i] - mx[i]) * sl2);
+      m[i] = mx[i];
+      l[i] *= corr[i];
+      msl[i] = mx[i] * sl2;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // NEG_INF is finite: on a row whose every score so far is masked, exp(s - m) would be 1,
+        // so masked probabilities are zeroed explicitly
+        float p = ex2(fmaf(s[j][e], sl2, -msl[e >> 1]));
+        if (masked && s[j][e] == NEG_INF) p = 0.f;
+        s[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // O += P V, P rounded to v's dtype
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      tc::a_from_c<T>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t bf[4];
+        tc::ldmatrix_x4_trans(bf, vst + tc::swz<D>(kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
+        tc::mma<T>(acc[2 * dp], pa, bf[0], bf[1]);
+        tc::mma<T>(acc[2 * dp + 1], pa, bf[2], bf[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the block (the last groups are empty)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int row = wq0 + g + i * 8;
+    if (row < Tn) {
+      const float safe_l = li == 0.f ? 1.f : li;
+      T* dst = o + tok(b, row, n, Tn, N, D) + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) = tc::pack2<T>(acc[j][2 * i] / safe_l, acc[j][2 * i + 1] / safe_l);
+      if (t4 == 0) lse[static_cast<size_t>(bn) * Tn + row] = m[i] * scale + logf(safe_l);
     }
   }
 }
@@ -476,18 +691,34 @@ struct Args {
   int B, T, N, causal;
   float scale;
   cudaStream_t stream;
+  int* variant;  // K1 only: the variant launched
 };
 
+// fp32 runs the FMA kernel (the parity path), bf16 and fp16 the tensor-core kernel; *variant
+// says which: 0 FMA, 1 tensor cores
 template <typename T, int D>
 int launch_fwd(const Args& a) {
-  const size_t smem = tile_bytes<D>(3, 1, 0);
-  auto kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.T + TILE - 1) / TILE, a.B * a.N);
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.T, a.N, a.causal, a.scale);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t smem = tile_bytes<D>(3, 1, 0);
+    auto kernel = flash_fwd_kernel<T, D>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.T, a.N, a.causal, a.scale);
+    *a.variant = 0;
+  } else {
+    const size_t smem = sizeof(T) * (TC_ROWS + 2 * TcRing<D>::STAGES * TC_KEYS) * D;  // Q; the K/V ring
+    auto kernel = flash_fwd_tc_kernel<T, D>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.T, a.N, a.causal, a.scale);
+    *a.variant = 1;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -550,13 +781,16 @@ struct Dkv {
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16; D in {64, 128}. Each returns cudaGetLastError() after its launch
-// (or the error that stopped it) and does not synchronise.
+// (or the error that stopped it) and does not synchronise. flash_fwd writes the variant it
+// launched to *variant: 0 the fp32 FMA kernel, 1 the tensor-core kernel (bf16, fp16).
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-                         int B, int T, int N, int D, int causal, float scale, void* stream) {
+                         int B, int T, int N, int D, int causal, float scale, void* stream,
+                         int* variant) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.out_lse = lse;
   a.B = B; a.T = T; a.N = N; a.causal = causal; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.variant = variant;
   return dispatch<Fwd>(dtype, D, a);
 }
 

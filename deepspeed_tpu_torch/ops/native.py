@@ -6,14 +6,16 @@ use with ``nvcc`` into a shared library, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 The library lands in ``deepspeed_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. A missing ``nvcc``
-raises: there is no prebuilt fallback.
+``.gitignore``), named by a hash of the source, every ``csrc/*.cuh``
+header and the flags (``source_digest``), so an edited source or header
+rebuilds and an unchanged one loads at once. A missing ``nvcc`` raises:
+there is no prebuilt fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -44,14 +46,24 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda): cannot build the CUDA kernels")
 
 
+def source_digest(name: str, csrc: str = CSRC) -> str:
+    """Hash of ``<csrc>/<name>.cu``, every ``<csrc>/*.cuh`` (sorted by name:
+    a source may include any of them) and the flags."""
+    h = hashlib.sha256()
+    paths = [os.path.join(csrc, f"{name}.cu")] + sorted(glob.glob(os.path.join(csrc, "*.cuh")))
+    for path in paths:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a library of the same hash exists;
     returns the library's path. ``-Xptxas -v`` output (registers, shared
     memory, spills) is kept in ``build_log[name]``."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}_{source_digest(name)}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -14,8 +14,13 @@ bound through ``ctypes`` (``ops/native.py``):
 ``build_block_tables`` (``:44``) compacts a ``[nq, nk]`` layout into padded
 live lists; ``block_tables`` keeps them as int32 tensors per (layout,
 device), so a step makes no host-to-device copy (JAX builds them once at
-trace time). ``fused_block_sparse_attention(q, k, v, layout, block, causal,
-scale)`` is the counterpart of ``pallas_block_sparse_attention`` (``:316``):
+trace time). ``build_dkv_units`` turns the column lists into K9's work
+list for the tensor-core variant: 16-row key tiles, grouped four to a
+unit where their key blocks list the same q blocks, and lists longer than
+``dkv_cap`` cut into chunks whose fp32 partials are summed in chunk order;
+``dkv_units`` keeps them per (layout, block, device).
+``fused_block_sparse_attention(q, k, v, layout, block, causal, scale)`` is
+the counterpart of ``pallas_block_sparse_attention`` (``:316``):
 ``[B, NH, T, D]`` inputs, a shared layout (leading dim 1) folds heads into
 the batch, per-head layouts make one call per head. It is differentiable: a
 ``torch.autograd.Function`` whose forward runs K7 and saves ``(q, k, v, o,
@@ -39,14 +44,20 @@ arm). The kernels take ``D`` in ``HEAD_DIMS`` and blocks that are a multiple
 of 8 up to ``MAX_BLOCK``; any other size on a CUDA tensor raises
 ``NotImplementedError``.
 
-``launches_fwd``, ``launches_dq`` and ``launches_dkv`` count the kernels'
-launches and nothing else. Nothing CUDA is built or loaded at import time.
+K9 has two variants in the CUDA source, chosen by dtype: bf16 and fp16 run
+on the tensor cores (``mma.sync``; P and dS enter their products as hi + lo
+pairs in the input dtype, so the fp32 numerics hold to about 2⁻¹⁶), fp32
+keeps the FMA kernel as the card's parity path. ``launches_fwd``,
+``launches_dq`` and ``launches_dkv`` count the kernels' calls and nothing
+else (K9's reduction pass is part of its call); ``launches_dkv_tc`` counts
+the K9 calls that the CUDA entry reports as the tensor-core variant.
+Nothing CUDA is built or loaded at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,12 +68,17 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 MAX_BLOCK = 128
 
+DKV_WARPS = 4  # key tiles of a K9 unit (one warp each)
+DKV_TILE = 16  # rows of a K9 key tile
+
 launches_fwd = 0  # K7 launches since the caller last set it to 0
 launches_dq = 0  # K8
-launches_dkv = 0  # K9
+launches_dkv = 0  # K9 calls (its reduction pass included)
+launches_dkv_tc = 0  # of those, calls of the tensor-core variant (bf16, fp16)
 
 _entries = {}
 _tables = {}  # (layout shape, layout bytes, device) -> (row_idx, row_cnt, col_idx, col_cnt)
+_units = {}  # (layout shape, layout bytes, block, device) -> DkvUnits
 _TABLE_CACHE_SIZE = 256
 
 
@@ -101,6 +117,89 @@ def block_tables(layout_h: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
             _tables.clear()
         tables = _tables[key] = tuple(torch.from_numpy(t).to(device) for t in build_block_tables(layout_h))
     return tables
+
+
+class DkvUnits(NamedTuple):
+    """K9's work list for one (layout, block): ``units`` int32 ``[U, 3 + 2 ·
+    DKV_WARPS]`` rows of (list key block, start, length, key-tile starts,
+    workspace slots), heaviest first; ``reduce`` int32 ``[R, 3]`` rows of
+    (key block, first slot, chunks) for the split key blocks; the workspace's
+    slots; the chunk cap; the block; the number of key blocks."""
+
+    units: object
+    reduce: object
+    n_slots: int
+    cap: int
+    block: int
+    n_kb: int
+
+
+def dkv_cap(col_cnt: np.ndarray) -> int:
+    """Longest column-list chunk K9 takes as one unit: twice the mean list
+    length, at least 8. The heavy columns of a layout (a global key column
+    lists every q block) are cut to about the length of an average one, so
+    no single unit outlasts the rest of the launch."""
+    mean = float(np.mean(col_cnt)) if np.size(col_cnt) else 0.0
+    return max(8, int(np.ceil(2.0 * mean)))
+
+
+def build_dkv_units(layout_h: np.ndarray, block: int) -> DkvUnits:
+    """K9's units for a ``[nq, nk]`` layout at this block size, in numpy.
+
+    Each key block is cut into ``DKV_TILE``-row key tiles (the last one
+    partial when ``block`` is not a multiple of 16). Key blocks whose column
+    lists are equal are grouped, so that a unit's warps share each staged
+    Q/dO tile. A list longer than ``dkv_cap`` is cut into balanced chunks of
+    at most the cap; each chunk of a split key block writes fp32 partials to
+    its own workspace slot, and the reduction sums a block's slots in chunk
+    order (deterministic). A unit is (the list's key block, chunk start,
+    chunk length, up to ``DKV_WARPS`` key-tile start rows, their slots or -1
+    where the unit owns the whole list); unused warps carry -1. Units are
+    ordered by chunk length, longest first. A key block with an empty list
+    still has a unit of length 0, which writes its zero dK and dV."""
+    _, _, col_idx, col_cnt = build_block_tables(layout_h)
+    cap = dkv_cap(col_cnt)
+    subs = -(-block // DKV_TILE)
+    groups = {}
+    for kb in range(col_cnt.shape[0]):
+        groups.setdefault(tuple(col_idx[kb, : col_cnt[kb]].tolist()), []).append(kb)
+    units, reduce, n_slots = [], [], 0
+    for lst, kbs in groups.items():
+        n_chunks = max(1, -(-len(lst) // cap))
+        bounds = [len(lst) * c // n_chunks for c in range(n_chunks + 1)]
+        base = {}
+        if n_chunks > 1:
+            for kb in kbs:
+                base[kb] = n_slots
+                reduce.append((kb, n_slots, n_chunks))
+                n_slots += n_chunks
+        tiles = [(kb, kb * block + DKV_TILE * sub) for kb in kbs for sub in range(subs)]
+        for c in range(n_chunks):
+            for i in range(0, len(tiles), DKV_WARPS):
+                grp = tiles[i: i + DKV_WARPS]
+                pad = [-1] * (DKV_WARPS - len(grp))
+                units.append([kbs[0], bounds[c], bounds[c + 1] - bounds[c]] + [t for _, t in grp] + pad
+                             + [base[kb] + c if n_chunks > 1 else -1 for kb, _ in grp] + pad)
+    units = np.asarray(units, dtype=np.int32).reshape(-1, 3 + 2 * DKV_WARPS)
+    units = units[np.argsort(-units[:, 2], kind="stable")]
+    reduce = np.asarray(reduce, dtype=np.int32).reshape(-1, 3)
+    return DkvUnits(units, reduce, n_slots, cap, block, col_cnt.shape[0])
+
+
+def dkv_units(layout_h: np.ndarray, block: int, device) -> DkvUnits:
+    """``build_dkv_units`` with its tables as int32 tensors on ``device``,
+    built once per (layout, block, device) and kept."""
+    layout_h = np.ascontiguousarray(np.asarray(layout_h, dtype=bool))
+    device = torch.device(device)
+    key = (layout_h.shape, layout_h.tobytes(), int(block), str(device))
+    found = _units.get(key)
+    if found is None:
+        if len(_units) >= _TABLE_CACHE_SIZE:
+            _units.clear()
+        built = build_dkv_units(layout_h, int(block))
+        found = _units[key] = built._replace(units=torch.from_numpy(built.units).to(device),
+                                             reduce=torch.from_numpy(built.reduce).to(device))
+    return found
 
 
 # --- plain versions ------------------------------------------------------------
@@ -204,12 +303,15 @@ def _entry(name: str):
 
         fn = getattr(native.load("block_sparse_attention"), name)
         fn.restype = ctypes.c_int
-        n_ptrs = {"block_sparse_fwd": 7, "block_sparse_dq": 9, "block_sparse_dkv": 10}[name]
+        n_ptrs = {"block_sparse_fwd": 7, "block_sparse_dq": 9, "block_sparse_dkv": 13}[name]
+        dkv = name == "block_sparse_dkv"
         fn.argtypes = (
             [ctypes.c_int]  # dtype code
             + [ctypes.c_void_p] * n_ptrs
+            + [ctypes.c_int] * (3 if dkv else 0)  # n_units, n_reduce, n_slots
             + [ctypes.c_int] * 6  # width, BN, T, D, blk, causal
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            + ([ctypes.POINTER(ctypes.c_int)] if dkv else [])  # the variant launched
         )
         _entries[name] = fn
     return fn
@@ -262,13 +364,13 @@ def _check_residuals(q, do, lse, delta):
             raise ValueError(f"{name} must be fp32 [BN, T] = {(BN, T)}, got {tuple(t.shape)} {t.dtype}")
 
 
-def _launch(name: str, q, ptrs, idx, blk: int, causal: bool, scale: float) -> None:
+def _launch(name: str, q, ptrs, idx, blk: int, causal: bool, scale: float, counts=(), out=()) -> None:
     BN, T, D = q.shape
     fn = _entry(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], *ptrs, idx.shape[1], BN, T, D, blk, int(bool(causal)), float(scale),
-                 stream)
+        err = fn(_DTYPE_CODES[q.dtype], *ptrs, *counts, idx.shape[1], BN, T, D, blk, int(bool(causal)),
+                 float(scale), stream, *out)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
@@ -303,18 +405,40 @@ def sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, bl
     return dq
 
 
-def sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, scale: float, blk: int, causal: bool):
-    """Launch K9: ``(dK, dV)`` as ``sparse_dkv_plain``."""
-    global launches_dkv
+def _check_units(units: DkvUnits, q, blk: int):
+    T = q.shape[1]
+    if not isinstance(units, DkvUnits) or units.block != blk or units.n_kb != T // blk or \
+            units.units.device != q.device or units.reduce.device != q.device:
+        raise ValueError(f"K9 needs the unit tables of this layout at block {blk} on {q.device} "
+                         f"(dkv_units(layout, {blk}, device))")
+
+
+def sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units: DkvUnits, scale: float, blk: int,
+                      causal: bool):
+    """Launch K9: ``(dK, dV)`` as ``sparse_dkv_plain``. ``units`` is
+    ``dkv_units(layout, blk, device)`` of the layout whose column tables
+    these are: the tensor-core variant (bf16, fp16) walks them and, where the
+    layout has split key blocks, sums their fp32 partials from a workspace
+    allocated here; fp32 takes the FMA variant and ignores them."""
+    global launches_dkv, launches_dkv_tc
     _check(q, k, v, blk, (col_idx, col_cnt), ("do", do), ("lse", lse), ("delta", delta))
     _check_residuals(q, do, lse, delta)
+    _check_units(units, q, blk)
+    BN, T, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
+    ws = None
+    if q.dtype != torch.float32 and units.n_slots:
+        ws = torch.empty(BN, units.n_slots, 2, blk, D, dtype=torch.float32, device=q.device)
+    variant = ctypes.c_int(-1)
     _launch("block_sparse_dkv", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                                     delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), col_idx.data_ptr(),
-                                    col_cnt.data_ptr()), col_idx, blk, causal, scale)
+                                    col_cnt.data_ptr(), units.units.data_ptr(), units.reduce.data_ptr(),
+                                    0 if ws is None else ws.data_ptr()), col_idx, blk, causal, scale,
+            counts=(units.units.shape[0], units.reduce.shape[0], units.n_slots), out=(ctypes.byref(variant),))
     launches_dkv += 1
+    launches_dkv_tc += int(variant.value == 1)
     return dk, dv
 
 
@@ -323,12 +447,12 @@ class _BlockSparseAttention(torch.autograd.Function):
     """``_sparse_core`` (``pallas_block_sparse.py:297-313``) on ``[BN, T, D]``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, tables, scale: float, blk: int, causal: bool, impl: Optional[str]):
+    def forward(ctx, q, k, v, tables, units, scale: float, blk: int, causal: bool, impl: Optional[str]):
         row_idx, row_cnt, _, _ = tables
         kernel = _use_kernel(q, impl)
         o, lse = (sparse_fwd_kernel if kernel else sparse_fwd_plain)(q, k, v, row_idx, row_cnt, scale, blk, causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.tables, ctx.scale, ctx.blk, ctx.causal, ctx.kernel = tables, scale, blk, causal, kernel
+        ctx.tables, ctx.units, ctx.scale, ctx.blk, ctx.causal, ctx.kernel = tables, units, scale, blk, causal, kernel
         return o
 
     @staticmethod
@@ -340,11 +464,11 @@ class _BlockSparseAttention(torch.autograd.Function):
         args = (ctx.scale, ctx.blk, ctx.causal)
         if ctx.kernel:
             dq = sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
-            dk, dv = sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
+            dk, dv = sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, ctx.units, *args)
         else:
             dq = sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
             dk, dv = sparse_dkv_plain(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def fused_block_sparse_attention(q, k, v, layout, block: int, causal: bool = False, scale: Optional[float] = None,
@@ -367,8 +491,9 @@ def fused_block_sparse_attention(q, k, v, layout, block: int, causal: bool = Fal
 
     def run(qbn, kbn, vbn, layout_h):
         tables = block_tables(layout_h, qbn.device)
-        return _BlockSparseAttention.apply(qbn.contiguous(), kbn.contiguous(), vbn.contiguous(), tables, scale_f,
-                                           block, bool(causal), impl)
+        units = dkv_units(layout_h, block, qbn.device) if _use_kernel(qbn, impl) else None
+        return _BlockSparseAttention.apply(qbn.contiguous(), kbn.contiguous(), vbn.contiguous(), tables, units,
+                                           scale_f, block, bool(causal), impl)
 
     if layout.shape[0] == 1:
         fold = lambda x: x.reshape(B * NH, T, D)  # noqa: E731

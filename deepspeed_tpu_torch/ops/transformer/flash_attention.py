@@ -26,8 +26,12 @@ and dS → q's dtype before dSᵀ·Q. A CPU tensor takes the plain versions; a
 CUDA tensor launches the kernels or raises (``impl="plain"`` asks for the
 plain versions on the card, as the comparison arm).
 
-``launches_fwd``, ``launches_dq`` and ``launches_dkv`` count the kernels'
-launches and nothing else. Nothing CUDA is built or loaded at import time.
+K1 has two variants in the CUDA source, chosen by dtype: bf16 and fp16 run
+on the tensor cores (``mma.sync``), fp32 keeps the FMA kernel as the
+card's parity path. ``launches_fwd``, ``launches_dq`` and ``launches_dkv``
+count the kernels' launches and nothing else; ``launches_fwd_tc`` counts
+the K1 launches that the CUDA entry reports as the tensor-core variant.
+Nothing CUDA is built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 
 launches_fwd = 0  # K1 launches since the caller last set it to 0
+launches_fwd_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)
 launches_dq = 0  # K2
 launches_dkv = 0  # K3
 
@@ -128,6 +133,7 @@ def _entry(name: str):
             + [ctypes.c_void_p] * n_ptrs
             + [ctypes.c_int] * 5  # B, T, N, D, causal
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+            + ([ctypes.POINTER(ctypes.c_int)] if name == "flash_fwd" else [])  # the variant launched
         )
         _entries[name] = fn
     return fn
@@ -156,28 +162,30 @@ def _check(q, k, v, *more):
             raise TypeError(f"{name} dtype {t.dtype} must match q's {q.dtype}")
 
 
-def _launch(name: str, q, ptrs, causal: bool, scale: float) -> None:
+def _launch(name: str, q, ptrs, causal: bool, scale: float, *out) -> None:
     B, T, N, D = q.shape
     fn = _entry(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], *ptrs, B, T, N, D, int(bool(causal)), float(scale), stream)
+        err = fn(_DTYPE_CODES[q.dtype], *ptrs, B, T, N, D, int(bool(causal)), float(scale), stream, *out)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def flash_fwd_kernel(q, k, v, causal: bool = True, scale: Optional[float] = None):
     """Launch K1 on the current stream: ``(o, lse)`` as ``flash_fwd_plain``."""
-    global launches_fwd
+    global launches_fwd, launches_fwd_tc
     _check(q, k, v)
     B, T, N, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(B * N, T, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
+    variant = ctypes.c_int(-1)
     _launch("flash_fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()),
-            causal, _default_scale(D, scale))
+            causal, _default_scale(D, scale), ctypes.byref(variant))
     launches_fwd += 1
+    launches_fwd_tc += int(variant.value == 1)
     return o, lse
 
 

@@ -33,7 +33,7 @@ setup(
     ),
     include_package_data=True,
     # the PyTorch/CUDA port: its kernels ship as sources and build with nvcc at first use
-    package_data={"deepspeed_tpu_torch": ["csrc/*.cu"]},
+    package_data={"deepspeed_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     scripts=[
         "bin/deepspeed",
         "bin/ds_report",

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions, on the card: the ragged
 paged attention (K4), the flash attention forward and backward (K1-K3),
 the decode attention over a contiguous cache (K6) and over pages (K5), and
-the block-sparse attention forward and backward (K7-K9). A CPU tensor
+the block-sparse attention forward and backward (K7-K9), with K1 and K9
+on their tensor-core variants in bf16 and fp16 (the variant counters, K9's
+split columns, dead keys and bitwise-equal repeated calls). A CPU tensor
 handed straight to a kernel entry raises (those tests need no card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -79,7 +81,10 @@ def test_flash_kernels_match_plain_on_card(cuda_device, case, dtype, monkeypatch
     rs = np.random.RandomState(3)
     q, k, v, do = (torch.from_numpy(rs.randn(B, T, N, D).astype(np.float32)).to(cuda_device).to(dtype)
                    for _ in range(4))
+    before = (fa.launches_fwd, fa.launches_fwd_tc)
     o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+    # bf16 and fp16 take K1's tensor-core variant, fp32 the FMA variant
+    assert (fa.launches_fwd - before[0], fa.launches_fwd_tc - before[1]) == (1, int(dtype != torch.float32))
     o_ref, lse_ref = fa.flash_fwd_plain(q.float(), k.float(), v.float(), causal)
     delta = fa.flash_delta(o, do)
     dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal)
@@ -200,6 +205,10 @@ SPARSE_CASES = {  # (BN, T, D, block, layout config, causal)
     "Longformer blk=64 D=128 causal": (2, 512, 128, 64, ("longformer", {}), True),
     "BigBird blk=24 D=64 causal": (2, 192, 64, 24, ("bigbird", {}), True),
     "BigBird blk=128 D=64": (2, 512, 64, 128, ("bigbird", {}), False),
+    "BigBird blk=8 D=64 causal": (2, 256, 64, 8, ("bigbird", {}), True),
+    # the global column lists all 64 q blocks, past K9's cap: its chunks are summed by the reduction
+    "Longformer blk=16 T=1024 D=128 causal split": (2, 1024, 128, 16, ("longformer", {}), True),
+    "Fixed blk=64 T=2048 D=64 split": (2, 2048, 64, 64, ("fixed", {}), False),
 }
 
 
@@ -225,17 +234,23 @@ def test_block_sparse_kernels_match_plain_on_card(cuda_device, case, dtype, monk
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     BN, T, D, block, (kind, kw), causal = SPARSE_CASES[case]
-    row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(_sparse_layout(kind, kw, T, block), cuda_device)
+    layout_h = _sparse_layout(kind, kw, T, block)
+    row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(layout_h, cuda_device)
+    units = bs.dkv_units(layout_h, block, cuda_device)
+    assert units.n_slots > 0 or "split" not in case
     rs = np.random.RandomState(8)
     q, k, v, do = (torch.from_numpy(rs.randn(BN, T, D).astype(np.float32)).to(cuda_device).to(dtype)
                    for _ in range(4))
     scale = 1.0 / np.sqrt(D)
     args = (scale, block, causal)
     before = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
+    before_tc = bs.launches_dkv_tc
     o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
     delta = bs.sparse_delta(o, do)
     dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
-    dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
+    dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
+    # bf16 and fp16 take K9's tensor-core variant, fp32 the FMA variant
+    assert bs.launches_dkv_tc - before_tc == int(dtype != torch.float32)
     f = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
     dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
@@ -265,6 +280,80 @@ def test_block_sparse_dead_rows_exact_zeros_on_card(cuda_device):
     torch.cuda.synchronize()
     assert (o[:, :, :16] == 0).all() and (q.grad[:, :, :16] == 0).all()
     assert torch.isfinite(o).all() and all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_dkv_dead_keys_exact_zeros_on_card(cuda_device, dtype):
+    """K9's tensor-core variant writes exact zeros for a key block whose
+    only listed q block lies wholly before it under the causal mask, and
+    K7/K8 exact zeros for that q block's rows (no live score)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    layout = np.zeros((1, 4, 4), bool)  # key block 3 is listed only by q block 0
+    layout[0, 0, 3] = layout[0, 1, 1] = layout[0, 2, 0] = layout[0, 2, 2] = layout[0, 3, 1] = layout[0, 3, 2] = True
+    q, k, v = (torch.randn(2, 2, 64, 64, device=cuda_device, dtype=dtype, requires_grad=True) for _ in range(3))
+    before = bs.launches_dkv_tc
+    o = bs.fused_block_sparse_attention(q, k, v, layout, 16, causal=True)
+    (o.float() * o.float().cos()).sum().backward()
+    torch.cuda.synchronize()
+    assert bs.launches_dkv_tc == before + 1
+    assert (o[:, :, :16] == 0).all() and (q.grad[:, :, :16] == 0).all()
+    assert (k.grad[:, :, 48:] == 0).all() and (v.grad[:, :, 48:] == 0).all()
+    assert (k.grad[:, :, :48] != 0).any() and (v.grad[:, :, :48] != 0).any()
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.parametrize("case", ["Longformer blk=16 T=1024 D=128 causal split", "Fixed blk=64 T=2048 D=64 split",
+                                  "BigBird blk=24 D=64 causal"])
+def test_block_sparse_dkv_bitwise_deterministic_on_card(cuda_device, case):
+    """Two K9 calls on the same inputs give bitwise-equal dK and dV: the
+    split columns' partials are summed in chunk order, with no atomics."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    BN, T, D, block, (kind, kw), causal = SPARSE_CASES[case]
+    layout_h = _sparse_layout(kind, kw, T, block)
+    row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(layout_h, cuda_device)
+    units = bs.dkv_units(layout_h, block, cuda_device)
+    assert units.n_slots > 0 or "split" not in case
+    rs = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rs.randn(BN, T, D).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+                   for _ in range(4))
+    args = (1.0 / np.sqrt(D), block, causal)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
+    delta = bs.sparse_delta(o, do)
+    first = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
+    second = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_block_sparse_per_head_layout_on_card(cuda_device):
+    """A per-head BigBird layout (one K7-K9 call per head, each with its own
+    K9 units) through the fused autograd path in bf16 against the plain
+    versions on the same inputs: output within 2e-2, each gradient within
+    3e-2 of the reference's largest magnitude."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import BigBirdSparsityConfig
+
+    layout = BigBirdSparsityConfig(num_heads=3, block=32, different_layout_per_head=True).make_layout(512)
+    rs = np.random.RandomState(6)
+    base = [torch.from_numpy(rs.randn(2, 3, 512, 128).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
+            for _ in range(4)]
+    grads = {}
+    for impl in ("kernel", "plain"):
+        q, k, v = (t.clone().requires_grad_(True) for t in base[:3])
+        before = (bs.launches_fwd, bs.launches_dkv_tc)
+        o = bs.fused_block_sparse_attention(q, k, v, layout, 32, causal=True, impl=impl)
+        o.backward(base[3])
+        torch.cuda.synchronize()
+        moved = (bs.launches_fwd - before[0], bs.launches_dkv_tc - before[1])
+        assert moved == ((3, 3) if impl == "kernel" else (0, 0))
+        grads[impl] = [o.detach()] + [t.grad for t in (q, k, v)]
+    assert (grads["kernel"][0].float() - grads["plain"][0].float()).abs().max().item() <= 2e-2
+    for got, ref in zip(grads["kernel"][1:], grads["plain"][1:]):
+        rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        assert rel <= 3e-2, rel
 
 
 def test_block_sparse_autograd_launches_kernels(cuda_device):
@@ -308,11 +397,12 @@ def test_block_sparse_entries_reject_cpu_tensors():
     q = torch.zeros(2, 64, 64)
     lse = torch.zeros(2, 64)
     row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(np.eye(4, dtype=bool), "cpu")
+    units = bs.dkv_units(np.eye(4, dtype=bool), 16, "cpu")
     counts = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
     with pytest.raises(ValueError, match="CUDA"):
         bs.sparse_fwd_kernel(q, q, q, row_idx, row_cnt, 0.125, 16, False)
     with pytest.raises(ValueError, match="CUDA"):
         bs.sparse_dq_kernel(q, q, q, q, lse, lse, row_idx, row_cnt, 0.125, 16, False)
     with pytest.raises(ValueError, match="CUDA"):
-        bs.sparse_dkv_kernel(q, q, q, q, lse, lse, col_idx, col_cnt, 0.125, 16, False)
+        bs.sparse_dkv_kernel(q, q, q, q, lse, lse, col_idx, col_cnt, units, 0.125, 16, False)
     assert (bs.launches_fwd, bs.launches_dq, bs.launches_dkv) == counts

@@ -291,3 +291,27 @@ def test_page_allocator_matches_jax():
     assert a.prefix_stats() == b.prefix_stats()
     assert a.stats["cow_copies"] > 0 and a.stats["prefix_hit_tokens"] > 0
     b.integrity_check()
+
+
+def test_kernel_digest_covers_headers(tmp_path):
+    """The CUDA build is keyed by a hash of the source, every ``csrc/*.cuh``
+    header and the flags: an edited header gives a new digest (so a stale
+    library in ``_build/`` is not loaded), an untouched copy the same one.
+    No ``nvcc`` is needed."""
+    import shutil
+
+    from deepspeed_tpu_torch.ops import native
+
+    copy = tmp_path / "csrc"
+    shutil.copytree(native.CSRC, copy)
+    headers = sorted(p.name for p in copy.glob("*.cuh"))
+    assert headers, "the tensor-core kernels share a csrc/*.cuh header"
+    for name in ("flash_attention", "block_sparse_attention"):
+        assert native.source_digest(name, str(copy)) == native.source_digest(name)
+    before = {name: native.source_digest(name, str(copy)) for name in ("flash_attention", "ragged_paged_attention")}
+    with open(copy / headers[0], "a") as f:
+        f.write("\n// edited\n")
+    after = {name: native.source_digest(name, str(copy)) for name in before}
+    assert all(after[name] != before[name] for name in before)
+    (copy / "extra.cuh").write_text("// a new header\n")
+    assert native.source_digest("flash_attention", str(copy)) != after["flash_attention"]

@@ -168,6 +168,92 @@ def test_block_tables_kept_per_layout_and_device():
     assert other[0] is not first[0]
 
 
+# --- K9's unit tables --------------------------------------------------------------
+def _dead_rows_layout_h():
+    """tests/unit/ops/test_pallas_block_sparse.py:136-171."""
+    layout = np.zeros((4, 4), bool)
+    layout[0, 3] = layout[1, 1] = layout[2, 2] = layout[2, 0] = layout[3, 3] = True
+    return layout
+
+
+def _empty_columns_layout_h():
+    layout_h = np.random.RandomState(4).rand(9, 9) < 0.3
+    layout_h[2] = False
+    layout_h[:, 5] = False
+    return layout_h
+
+
+DKV_UNIT_CASES = {  # name: (layout [nq, nk], block)
+    "fixed blk=16": (lambda: sc.FixedSparsityConfig(num_heads=1, block=16).make_layout(256)[0], 16),
+    "fixed blk=8": (lambda: sc.FixedSparsityConfig(num_heads=1, block=8).make_layout(256)[0], 8),
+    "bigbird blk=16": (lambda: sc.BigBirdSparsityConfig(num_heads=1, block=16).make_layout(256)[0], 16),
+    "bigbird blk=128": (lambda: sc.BigBirdSparsityConfig(num_heads=1, block=128).make_layout(2048)[0], 128),
+    "longformer blk=64": (lambda: sc.BSLongformerSparsityConfig(num_heads=1, block=64).make_layout(2048)[0], 64),
+    "longformer blk=16 global": (lambda: sc.BSLongformerSparsityConfig(num_heads=1, block=16).make_layout(1024)[0],
+                                 16),
+    "dead rows blk=16": (_dead_rows_layout_h, 16),
+    "empty columns blk=24": (_empty_columns_layout_h, 24),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DKV_UNIT_CASES))
+def test_dkv_units_cover_each_pair_once_capped_heaviest_first(name):
+    """Every (key tile, listed q block) pair of ``build_block_tables``'s
+    column lists lies in exactly one unit chunk, every key tile has a unit
+    (an empty list a chunk of length 0), a unit's key tiles share its list,
+    no chunk is longer than the cap, units run longest first, and a split
+    key block's chunks own consecutive workspace slots."""
+    make, block = DKV_UNIT_CASES[name]
+    layout_h = make()
+    _, _, col_idx, col_cnt = bs.build_block_tables(layout_h)
+    u = bs.build_dkv_units(layout_h, block)
+    assert u.units.dtype == np.int32 and u.units.shape[1] == 3 + 2 * bs.DKV_WARPS
+    assert u.cap == bs.dkv_cap(col_cnt) and u.block == block and u.n_kb == col_cnt.shape[0]
+    lens = u.units[:, 2]
+    assert lens.max() <= u.cap and np.all(np.diff(lens) <= 0)
+    subs = -(-block // bs.DKV_TILE)
+    want = {(kb * block + bs.DKV_TILE * s, int(qb)) for kb in range(col_cnt.shape[0]) for s in range(subs)
+            for qb in col_idx[kb, : col_cnt[kb]]}
+    seen, tiles_seen, slots_seen = {}, set(), []
+    chunks_of = {int(kb): (int(s0), int(n)) for kb, s0, n in u.reduce}
+    for row in u.units:
+        list_kb, start, length = (int(x) for x in row[:3])
+        qbs = col_idx[list_kb, start: start + length]
+        assert start + length <= col_cnt[list_kb]
+        tiles, slots = row[3: 3 + bs.DKV_WARPS], row[3 + bs.DKV_WARPS:]
+        assert (tiles >= 0).any() and np.all(np.diff(np.flatnonzero(tiles >= 0)) == 1)
+        for tile, slot in zip(tiles, slots):
+            if tile < 0:
+                assert slot == -1
+                continue
+            kb = int(tile) // block
+            assert np.array_equal(col_idx[kb, : col_cnt[kb]], col_idx[list_kb, : col_cnt[list_kb]])
+            tiles_seen.add(int(tile))
+            if kb in chunks_of:
+                s0, n = chunks_of[kb]
+                assert s0 <= slot < s0 + n
+                slots_seen.append((int(tile), int(slot)))
+            else:
+                assert slot == -1 and length == col_cnt[kb]
+            for qb in qbs:
+                seen[(int(tile), int(qb))] = seen.get((int(tile), int(qb)), 0) + 1
+    assert set(seen) == want and set(seen.values()) <= {1}
+    assert tiles_seen == {kb * block + bs.DKV_TILE * s for kb in range(col_cnt.shape[0]) for s in range(subs)}
+    assert len(set(slots_seen)) == len(slots_seen)  # one chunk a slot for each key tile
+    assert u.n_slots == sum(n for _, n in chunks_of.values())
+    if name in ("fixed blk=16", "longformer blk=16 global"):
+        assert u.n_slots > 0  # lists longer than the cap are split
+
+
+def test_dkv_units_kept_per_layout_block_and_device():
+    layout_h = sc.FixedSparsityConfig(num_heads=1, block=16).make_layout(256)[0]
+    first = bs.dkv_units(layout_h, 16, "cpu")
+    again = bs.dkv_units(layout_h.astype(np.int64), 16, torch.device("cpu"))
+    assert again is first and first.units.dtype == torch.int32 and first.reduce.dtype == torch.int32
+    assert np.array_equal(first.units.numpy(), bs.build_dkv_units(layout_h, 16).units)
+    assert bs.dkv_units(layout_h, 8, "cpu") is not first
+
+
 # --- K7-K9 against the Pallas kernels ---------------------------------------------
 @pytest.fixture(scope="module")
 def kernel_refs():
