@@ -16,7 +16,12 @@ non-zero without the final line:
    at the serving shapes of llama-1B (R=8, NH=32, NKV=4, D=64, P=16,
    MAXP=128, NP=1025): a W=1 decode batch and a W=32 mixed batch, fp32 with
    TF32 off (max abs error <= 1e-4) and bf16 (<= 2e-2 against the plain
-   version in fp32 on the same bf16 inputs); dead rows must be exact zeros.
+   version in fp32 on the same bf16 inputs); dead rows and window slots past
+   q_len must be exact zeros, every call must run the split-KV kernel and its
+   combine (``launches_ragged_split``; each case prints its split count), and
+   two calls on the same inputs must be bitwise equal. Then kv_len on a split
+   boundary and one key past it, a row with a single key in its last split,
+   and D=128 with a GQA group of 7 and pages of 64 (correctness only).
    Times the kernel, the plain version and a yardstick
    (``scaled_dot_product_attention`` over K/V pre-gathered into a
    contiguous cache: it omits the page walk, and the port never calls it),
@@ -26,7 +31,10 @@ non-zero without the final line:
    random weights loaded through ``load_jax_params``, serving 16 requests
    twice (cold, then warm with cached prefixes); the kernel's launch count
    is zeroed just before and read just after, and must equal
-   22 × ``ragged_steps``;
+   22 × ``ragged_steps``, every call on the split-KV path. Then
+   ``engine(tokens)`` once on that engine ([2, 256] tokens, model profiling
+   on): the logits' shape, dtype, finiteness, ``model_times()`` entry and
+   the launches of that call;
 4. greedy-stream identity in fp32 (TF32 off): 4 requests × 32 tokens with
    ``attn_impl="kernel"`` against ``"plain"``; where streams part, the plain
    run's top-2 logit gap at that position must be below 1e-4;
@@ -62,9 +70,10 @@ non-zero without the final line:
    within 1e-4, each gradient within 1e-3 of the reference's largest
    magnitude) and bf16 against the plain versions in fp32 on the same bf16
    inputs (O within 2e-2, each gradient within 3e-2 of that magnitude),
-   and fp16 at the training shape within bf16's bounds. K1 must take its
-   tensor-core variant in bf16 and fp16 and its FMA variant in fp32
-   (``launches_fwd_tc``). At the training shape it times each kernel, its
+   and fp16 at the training shape within bf16's bounds. K1 and K3 must take
+   their tensor-core variants in bf16 and fp16 and their FMA variants in
+   fp32 (``launches_fwd_tc``, ``launches_dkv_tc``). At the training shape it
+   times each kernel, its
    plain version and a yardstick (``scaled_dot_product_attention(
    is_causal=True)`` for K1, and its autograd backward for K2 and K3
    together; the port never calls either), L2 flushed before every launch,
@@ -76,12 +85,13 @@ non-zero without the final line:
    batch of ``[8, 1025]`` tokens placed once; 3 warm-up and 20 timed steps
    of ``engine(batch)``, ``backward``, ``step``. The flash launch counts
    are zeroed just before and each must equal 12 × 23 just after, every K1
-   launch on the tensor-core variant; every loss must be finite and the
-   last below the first. Prints tokens/s, ms per step, MFU by bench.py's
+   and K3 launch on the tensor-core variant; every loss must be finite and
+   the last below the first. Prints tokens/s, ms per step, MFU by bench.py's
    formula and peak device memory;
 12. the same model in fp32 (TF32 off) for 3 steps, once through the
-   kernels (K1's FMA variant) and once with ``attn_impl="plain"``: step 1's
-   loss and grad norm within 1e-5 relative and identical to the last bit;
+   kernels (K1's and K3's FMA variants) and once with
+   ``attn_impl="plain"``: step 1's loss and grad norm within 1e-5 relative
+   and identical to the last bit;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -117,9 +127,9 @@ non-zero without the final line:
    call with a ``key_padding_mask``, which takes the emulation by JAX's rule
    with no K7 launch.
 
-The line before the last is ``{"kernels": [...]}`` (K1 and K9 with their
-``variant`` by dtype and the main path's tensor-core launches); the last
-line is
+The line before the last is ``{"kernels": [...]}`` (K1, K3 and K9 with
+their ``variant`` by dtype and the main path's tensor-core launches; K4
+with its split count and split-KV launches); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -194,22 +204,39 @@ def _batch(rs, W, rows, dev, nh=NH, nkv=NKV, d=D, p=P, maxp=MAXP, np_=NP):
 def _compare(label, args, scale, dtype, tol):
     """Run the kernel on ``args`` cast to ``dtype`` and hold it against the
     plain version in fp32 on the same (cast) inputs; raises past ``tol``,
-    on a non-finite live slot, or on a dead row that is not exact zeros.
-    Returns (max abs error on live slots, the cast inputs)."""
+    on a non-finite live slot, on a dead row or a slot past ``q_len`` that
+    is not exact zeros, or when the call did not run the split-KV kernel
+    and its combine. Returns (max abs error on live slots, the cast inputs,
+    the split count)."""
     q, kp, vp, pt, kv_lens, q_lens = args
     qd, kd, vd = q.to(dtype), kp.to(dtype), vp.to(dtype)
     ref = ragged_paged_attention(qd.float(), kd.float(), vd.float(), pt, kv_lens, q_lens, scale=scale,
                                  impl="plain")
+    before = decode_attention.launches_ragged_split
     out = ragged_paged_attention(qd, kd, vd, pt, kv_lens, q_lens, scale=scale, impl="kernel")
     torch.cuda.synchronize()
     live = torch.arange(q.shape[1], device=q.device)[None, :] < q_lens[:, None]  # [R, W]
     err = (out.float() - ref).abs()[live].max().item()
-    dead_zero = bool((out[kv_lens == 0] == 0).all().item())
+    dead_zero = bool((out[~live] == 0).all().item())
     finite = bool(torch.isfinite(out.float()[live]).all().item())
-    if not (err <= tol and dead_zero and finite):
-        raise AssertionError(f"K4 {label} {dtype}: max_abs_err {err} (tol {tol}), dead rows zero "
-                             f"{dead_zero}, finite {finite}")
-    return err, (qd, kd, vd, pt, kv_lens, q_lens)
+    split = decode_attention.launches_ragged_split - before
+    if not (err <= tol and dead_zero and finite and split == 1):
+        raise AssertionError(f"K4 {label} {dtype}: max_abs_err {err} (tol {tol}), dead rows and slots zero "
+                             f"{dead_zero}, finite {finite}, split-KV calls {split}")
+    return err, (qd, kd, vd, pt, kv_lens, q_lens), decode_attention.ragged_splits(pt.shape[1], kp.shape[2])
+
+
+def _bitwise_repeat(label, cast, scale):
+    """Two K4 calls on the same inputs: bitwise-equal outputs (the combine
+    merges the partials in split order, without atomics)."""
+    runs = [ragged_paged_attention(*cast, scale=scale, impl="kernel") for _ in range(2)]
+    torch.cuda.synchronize()
+    bits = torch.int32 if runs[0].dtype == torch.float32 else torch.int16
+    equal = torch.equal(runs[0].view(bits), runs[1].view(bits))
+    emit(phase="kernel_determinism", kernel="ragged_paged_attention", case=label, bitwise_equal=equal)
+    if not equal:
+        raise AssertionError(f"K4 {label}: two calls on the same inputs differ")
+    return equal
 
 
 def _bound(q, pt, kv_lens, q_lens, dtype):
@@ -276,7 +303,8 @@ def phase_kernel(dev, flush):
     for label, (W, rows) in batches.items():
         args = _batch(rs, W, rows, dev)
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            err, cast = _compare(label, args, scale, dtype, tol)
+            err, cast, splits = _compare(label, args, scale, dtype, tol)
+            bitwise = _bitwise_repeat(f"{label} {str(dtype).replace('torch.', '')}", cast, scale)
             ms = _time_ms(lambda: ragged_paged_attention(*cast, scale=scale, impl="kernel"), 50, flush)
             plain_ms = _time_ms(lambda: ragged_paged_attention(*cast, scale=scale, impl="plain"), 20, flush)
             sq, sk, sv, mask = _sdpa_inputs(*cast)
@@ -286,18 +314,31 @@ def phase_kernel(dev, flush):
             bound_ms, bound_by, nbytes, flops = _bound(q, pt, kv_lens, q_lens, dtype)
             case = dict(case=f"{label} {str(dtype).replace('torch.', '')}", max_abs_err=err, tol=tol,
                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                        bound_by=bound_by, bytes=nbytes, flops=flops, roofline_share=bound_ms / ms)
-            emit(phase="kernel", kernel="ragged_paged_attention", dead_rows_exact_zero=True, **case,
+                        bound_by=bound_by, bytes=nbytes, flops=flops, roofline_share=bound_ms / ms,
+                        library_share=library_ms / ms, splits=splits, bitwise_equal=bitwise)
+            emit(phase="kernel", kernel="ragged_paged_attention", dead_rows_and_slots_exact_zero=True, **case,
+                 launches_ragged_split=decode_attention.launches_ragged_split,
                  library="scaled_dot_product_attention over pre-gathered contiguous K/V (omits the page walk)")
             cases.append(case)
+    # split boundaries (correctness only; 16 splits of 128 keys at MAXP=128, P=16): kv_len on a
+    # boundary and one key past it (decode rows, and 8-token chunks that end on or cross one), a row
+    # with a single key in its last split, a full row, a partial chunk, a dead row
+    rows = [(128, 1), (129, 1), (1024, 8), (1025, 8), (1921, 1), (2048, 8), (5, 3), (0, 0)]
+    args = _batch(rs, 8, rows, dev)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        err, _, splits = _compare("split boundaries", args, scale, dtype, tol)
+        emit(phase="kernel", kernel="ragged_paged_attention", case=f"split boundaries W=8 {dtype}", rows=rows,
+             max_abs_err=err, tol=tol, splits=splits, dead_rows_and_slots_exact_zero=True,
+             launches_ragged_split=decode_attention.launches_ragged_split)
     # beyond the main path's shapes (correctness only): head_dim 128, a GQA
-    # group of 7, pages of 64 keys across the kernel's 32-key tiles
+    # group of 7, pages of 64 keys across the kernel's 64-key tiles
     other = dict(nh=28, nkv=4, d=128, p=64, maxp=8, np_=24)
     args = _batch(rs, 5, [(300, 1), (70, 5), (0, 0), (5, 5), (129, 3)], dev, **other)
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        err, _ = _compare("D=128 Hg=7 P=64", args, 1.0 / np.sqrt(128), dtype, tol)
+        err, _, splits = _compare("D=128 Hg=7 P=64", args, 1.0 / np.sqrt(128), dtype, tol)
         emit(phase="kernel", kernel="ragged_paged_attention", case=f"D=128 Hg=7 P=64 W=5 {dtype}",
-             max_abs_err=err, tol=tol, dead_rows_exact_zero=True)
+             max_abs_err=err, tol=tol, splits=splits, dead_rows_and_slots_exact_zero=True,
+             launches_ragged_split=decode_attention.launches_ragged_split)
     return cases
 
 
@@ -358,12 +399,13 @@ def phase_serve(cfg, tree, seed):
                    prefix_hit_rate=hit / query if query else 0.0)
         emit(**rec)
         passes.append(rec)
-    counts = _counts()
+    counts, split = _counts(), decode_attention.launches_ragged_split
     launches = counts["ragged_paged_attention"]
     s = engine.serve_stats()
     summary = dict(phase="serve", pass_="both", ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"],
                    ragged_steps=s["ragged_steps"], finished=s["finished"], preempted=s["preempted"],
-                   prefix=s["prefix"], k4_launches=launches, num_pages=engine._paged_server.pool.num_pages,
+                   prefix=s["prefix"], k4_launches=launches, k4_split_launches=split,
+                   num_pages=engine._paged_server.pool.num_pages,
                    kv_pool_bytes=engine._paged_server.pool.cache.hbm_bytes(),
                    peak_memory_bytes=torch.cuda.max_memory_allocated())
     emit(**summary)
@@ -371,9 +413,33 @@ def phase_serve(cfg, tree, seed):
         raise AssertionError(f"serve: finished {s['finished']} of 32, warm prefix hit rate {passes[1]['prefix_hit_rate']}")
     if launches != cfg.num_layers * s["ragged_steps"] or launches == 0 or sum(counts.values()) != launches:
         raise AssertionError(f"K4 launches {launches} != {cfg.num_layers} x ragged_steps {s['ragged_steps']}")
+    if split != launches:
+        raise AssertionError(f"serve: {split} of {launches} K4 calls ran the split-KV kernel and combine, want all")
+    phase_forward(engine, cfg, seed)
     del engine, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, split
+
+
+def phase_forward(engine, cfg, seed):
+    """``engine(tokens)`` once on the serving engine with model profiling on:
+    the logits' shape, dtype and finiteness, the ``model_times()`` entry and
+    the launches of that call (the CPU tests hold the values against the JAX
+    engine's forward)."""
+    tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 256),
+                                                                         dtype=np.int32)).cuda()
+    engine.profile_model_time()
+    before = _counts()
+    logits = engine(tokens)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    times = engine.model_times()
+    finite = bool(torch.isfinite(logits.float()).all().item())
+    emit(phase="forward", call="engine(tokens)", tokens=list(tokens.shape), logits_shape=list(logits.shape),
+         logits_dtype=str(logits.dtype).replace("torch.", ""), model_times_s=times, launches=got, finite=finite)
+    if logits.shape != (2, 256, cfg.vocab_size) or logits.dtype != torch.bfloat16 or not finite or len(times) != 1:
+        raise AssertionError(f"forward: logits {tuple(logits.shape)} {logits.dtype}, finite {finite}, "
+                             f"model_times {times}")
 
 
 # --- phase 4: fp32 greedy-stream identity ------------------------------------
@@ -701,15 +767,18 @@ def phase_three_way(cfg, tree, seed, dev):
 # --- launch counts -------------------------------------------------------------
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
-    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = 0
+    decode_attention.launches_ragged_split = 0
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dkv_tc = 0
     bs.launches_fwd = bs.launches_dq = bs.launches_dkv = bs.launches_dkv_tc = 0
 
 
 def _variants():
-    """Launches of the tensor-core variants of K1 and K9 (bf16, fp16) among
-    the counts above; the rest of those kernels' launches took the fp32 FMA
-    variants."""
-    return dict(flash_fwd_tc=fa.launches_fwd_tc, block_sparse_dkv_tc=bs.launches_dkv_tc)
+    """Launches of the tensor-core variants of K1, K3 and K9 (bf16, fp16)
+    among the counts above (the rest of those kernels' launches took the
+    fp32 FMA variants), and the K4 calls that ran its split-KV kernel and
+    combine."""
+    return dict(flash_fwd_tc=fa.launches_fwd_tc, flash_dkv_tc=fa.launches_dkv_tc,
+                block_sparse_dkv_tc=bs.launches_dkv_tc, ragged_split=decode_attention.launches_ragged_split)
 
 
 def _counts():
@@ -766,7 +835,10 @@ def _flash_errors(q, k, v, do, causal):
     o_ref, lse_ref = fa.flash_fwd_plain(*f[:3], causal)
     delta = fa.flash_delta(o, do)
     dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal)
+    before_tc = fa.launches_dkv_tc
     dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal)
+    if fa.launches_dkv_tc - before_tc != int(VARIANT[q.dtype] == "tensor_core"):
+        raise AssertionError(f"K3 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
     dq_ref = fa.flash_dq_plain(*f, lse, delta, causal)
     dk_ref, dv_ref = fa.flash_dkv_plain(*f, lse, delta, causal)
     torch.cuda.synchronize()
@@ -795,7 +867,8 @@ def phase_flash(dev, flush):
             bad = [key for key, (abs_err, rel) in errs.items()
                    if (abs_err > tol_o if key in ("flash_fwd", "flash_lse") else rel > tol_g)]
             dt = str(dtype).replace("torch.", "")
-            rec = dict(phase="flash", case=name, dtype=dt, flash_fwd_variant=VARIANT[dtype], tol_o_lse_abs=tol_o,
+            rec = dict(phase="flash", case=name, dtype=dt, flash_fwd_variant=VARIANT[dtype],
+                       flash_dkv_variant=VARIANT[dtype], tol_o_lse_abs=tol_o,
                        tol_grad_rel=tol_g, errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
             if name == FLASH_MAIN:
                 bounds = _flash_bound(B, T, N, D, causal, dtype)
@@ -900,9 +973,10 @@ def phase_train(seed, dev):
     if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or \
             sum(counts[k] for k in ("ragged_paged_attention", "decode_attention", "paged_decode_attention")):
         raise AssertionError(f"train: launches {counts}, want {want} = {L} x {steps} for each flash kernel")
-    if variants["flash_fwd_tc"] != counts["flash_fwd"]:
-        raise AssertionError(f"train: {variants['flash_fwd_tc']} of {counts['flash_fwd']} bf16 K1 launches took the "
-                             f"tensor-core variant, want all")
+    if variants["flash_fwd_tc"] != counts["flash_fwd"] or variants["flash_dkv_tc"] != counts["flash_dkv"]:
+        raise AssertionError(f"train: {variants['flash_fwd_tc']} of {counts['flash_fwd']} bf16 K1 launches and "
+                             f"{variants['flash_dkv_tc']} of {counts['flash_dkv']} K3 launches took the tensor-core "
+                             f"variant, want all")
     del engine, batch
     torch.cuda.empty_cache()
     return counts, variants
@@ -919,7 +993,7 @@ def phase_train_fp32(seed, dev):
     for impl in ("kernel", "plain"):
         engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree,
                                          attn_impl=impl)
-        before = (fa.launches_fwd, fa.launches_fwd_tc)
+        before = (fa.launches_fwd, fa.launches_fwd_tc, fa.launches_dkv_tc)
         rec = []
         for _ in range(3):
             loss = engine(batch)
@@ -927,9 +1001,10 @@ def phase_train_fp32(seed, dev):
             engine.step()
             rec.append((loss.item(), engine.get_global_grad_norm()))
         launched = fa.launches_fwd - before[0]
-        if (impl == "kernel") != (launched > 0) or fa.launches_fwd_tc != before[1]:
-            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times, "
-                                 f"{fa.launches_fwd_tc - before[1]} on the tensor-core variant (want 0)")
+        tc = (fa.launches_fwd_tc - before[1], fa.launches_dkv_tc - before[2])
+        if (impl == "kernel") != (launched > 0) or tc != (0, 0):
+            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times; K1 and K3 launches on the "
+                                 f"tensor-core variants {tc} (want 0)")
         arms[impl] = rec
         del engine
         torch.cuda.empty_cache()
@@ -1356,7 +1431,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tree = _weights(cfg, args.seed)
     emit(phase="serve", event="weights_made", seconds=time.perf_counter() - t0)
-    launches = phase_serve(cfg, tree, args.seed)
+    launches, split_launches = phase_serve(cfg, tree, args.seed)
     phase_streams(llama_config("1b", dtype="float32"), tree, args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -1389,9 +1464,10 @@ def main() -> int:
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:209",
         launches=launches, max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=main_case["library_ms"], case=main_case["case"],
+        library_ms=main_case["library_ms"], case=main_case["case"], variant="split_kv",
+        split_launches=split_launches, splits=main_case["splits"],
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")} for c in cases],
+                                  "library_ms", "splits", "bitwise_equal")} for c in cases],
     )] + [dict(
         name=name, route="cuda", source="deepspeed_tpu_torch/csrc/flash_attention.cu",
         replaces=f"deepspeed_tpu/ops/transformer/flash_attention.py:{line}",
@@ -1402,9 +1478,9 @@ def main() -> int:
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")},
         fp32={k: flash["float32"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         **(dict(variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
-                tensor_core_launches=train_variants["flash_fwd_tc"],
+                tensor_core_launches=train_variants[f"{name}_tc"],
                 fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")})
-           if name == "flash_fwd" else {}),
+           if name in ("flash_fwd", "flash_dkv") else {}),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name=name, route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces=f"deepspeed_tpu/ops/transformer/decode_attention.py:{line}", launches=n,

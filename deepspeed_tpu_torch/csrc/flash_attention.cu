@@ -42,10 +42,28 @@
 // layouts above and needs no shared-memory descriptors or warpgroup pipeline; wgmma with a TMA
 // producer warp is this kernel's next step.
 //
-// fp32 keeps the first version (flash_fwd_kernel), as do K2 and K3 for every dtype: fp32 FMAs on
-// the CUDA cores out of padded fp32 shared memory. fp32 is the card's parity path (kernel vs
-// plain to about 1e-6 with TF32 off), and tensor cores would need TF32. The entry flash_fwd
-// dispatches by dtype and reports the variant it launched.
+// K3 for bf16 and fp16 (flash_dkv_tc_kernel) runs on the tensor cores too, FlashAttention-2's
+// key-major backward with the same building blocks:
+//  * one block of 4 warps per (b*n, 64-key tile), heaviest (first) key tiles first; each warp
+//    owns 16 key rows and their fp32 dK and dV accumulators in registers (its K and V fragments
+//    are read from the block's K/V tiles by ldmatrix at each step);
+//  * the block walks the q tiles from the diagonal to the end; each 64-row Q and dO tile, with its
+//    lse and delta slices, comes through a cp.async ring (3 stages at D = 64, 2 at D = 128) of
+//    swizzled tiles, one barrier per q tile;
+//  * per q tile (two 32-query halves at D = 128, where dK and dV already hold 128 registers a
+//    lane): S^T = K Q^T (B from Q by ldmatrix); P^T = exp(scale S^T - lse) in fp32 registers,
+//    masked only on the diagonal and ragged tiles; dV += P^T dO with P^T rounded to dO's dtype
+//    and repacked from C to A fragments, B by ldmatrix.trans; dP^T = V dO^T; dS^T =
+//    P^T o (dP^T - delta) scale from the fp32 P, rounded to q's dtype; dK += dS^T Q, B by
+//    ldmatrix.trans. A warp skips the causal halves in which all of its keys follow every query;
+//  * the block owns its dK and dV rows: no atomics, deterministic.
+// Because the operands are in their own dtype (K1-K3 take bf16/fp16 products with fp32
+// accumulation, as the TPU kernels do), no hi/lo split is needed.
+//
+// fp32 keeps the first versions (flash_fwd_kernel, flash_dkv_kernel), as does K2 for every dtype:
+// fp32 FMAs on the CUDA cores out of padded fp32 shared memory. fp32 is the card's parity path
+// (kernel vs plain to about 1e-6 with TF32 off), and tensor cores would need TF32. The entries
+// flash_fwd and flash_dkv dispatch by dtype and report the variant they launched.
 //
 // What the design does about the TPU kernels' shape: the Pallas kernels carry m/l/acc (or dQ,
 // dK/dV) in VMEM scratch across a sequential "arbitrary" grid axis of 512-row blocks. Hopper
@@ -62,8 +80,8 @@
 //    ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane shuffle, and the
 //    same rows of the output accumulator, so the online-softmax rescale needs no shared memory;
 //    their shared-memory rows are padded by one float against bank conflicts.
-// Not done yet (later work): tensor cores for K2 and K3, wgmma / TMA for K1, a persistent
-// causal schedule.
+// Not done yet (later work): tensor cores for K2, wgmma / TMA for K1 and K3, a persistent causal
+// schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -669,6 +687,197 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------------------------
+// K3 on the tensor cores: bf16 and fp16
+// ---------------------------------------------------------------------------------------------
+// depth of the Q/dO ring: 3 stages at D = 64 (66 KB of shared memory with the K and V tiles), 2 at
+// D = 128 (97 KB); queries a warp takes per sub-step: the whole 64-row q tile at D = 64, half of it
+// at D = 128, where the two [16 x D] fp32 accumulators already take 128 registers a lane
+template <int D>
+struct DkvTc {
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int QS = D == 64 ? 64 : 32;
+};
+
+// async copy of the lse and delta entries t0 .. t0+63 of head bn into dst[0..63] and dst[64..127];
+// entries at or past T are zero-filled (their queries are masked)
+__device__ __forceinline__ void tc_load_stats(float* dst, const float* __restrict__ lse,
+                                              const float* __restrict__ delta, int bn, int t0, int Tn) {
+  const int i = threadIdx.x & (TC_ROWS - 1);
+  const float* src = threadIdx.x < TC_ROWS ? lse : delta;
+  const int t = t0 + i;
+  const bool valid = t < Tn;
+  tc::cp_async4(dst + threadIdx.x, src + static_cast<size_t>(bn) * Tn + (valid ? t : 0), valid);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tn,
+                    int N, int causal, float scale) {
+  constexpr int KS = D / 16;  // k16 steps over D
+  constexpr int DT = D / 8;   // 8-wide tiles of dK and dV
+  constexpr int STAGES = DkvTc<D>::STAGES;
+  constexpr int QS = DkvTc<D>::QS;
+  constexpr int NQ = QS / 8;  // 8-wide query tiles of a sub-step
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);   // [64][D]
+  T* vs = ks + TC_KEYS * D;                 // [64][D]
+  T* qs = vs + TC_KEYS * D;                 // [STAGES][64][D]
+  T* dos = qs + STAGES * TC_ROWS * D;       // [STAGES][64][D]
+  float* stats = reinterpret_cast<float*>(dos + STAGES * TC_ROWS * D);  // [STAGES][lse 64, delta 64]
+
+  const int kt = blockIdx.x;  // heaviest causal tiles (the first keys) first
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = kt * TC_KEYS;
+  const int wk0 = k0 + warp * 16;  // this warp's keys: wk0 + g and wk0 + g + 8
+  const int n_qt = (Tn + TC_ROWS - 1) / TC_ROWS;
+  const int qt0 = causal ? kt : 0;
+  const int n_it = n_qt - qt0;
+  const float sl2 = scale * LOG2E;
+
+  auto load_stage = [&](int stage, int qt) {
+    const int q0 = qt * TC_ROWS;
+    tc_load_tile<T, D>(qs + stage * TC_ROWS * D, q, b, n, q0, Tn, N);
+    tc_load_tile<T, D>(dos + stage * TC_ROWS * D, dout, b, n, q0, Tn, N);
+    tc_load_stats(stats + stage * 2 * TC_ROWS, lse, delta, bn, q0, Tn);
+  };
+  tc_load_tile<T, D>(ks, k, b, n, k0, Tn, N);  // rides in the first group
+  tc_load_tile<T, D>(vs, v, b, n, k0, Tn, N);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_it) load_stage(i, qt0 + i);
+    tc::cp_async_commit();
+  }
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // q tile it has landed, and every warp is done with tile it - 1's stage
+    const int nx = it + STAGES - 1;  // the tile this step prefetches
+    if (nx < n_it) load_stage(nx % STAGES, qt0 + nx);
+    tc::cp_async_commit();
+    const int stage = it % STAGES;
+    const T* qst = qs + stage * TC_ROWS * D;
+    const T* dost = dos + stage * TC_ROWS * D;
+    const float* lse_s = stats + stage * 2 * TC_ROWS;
+    const float* delta_s = lse_s + TC_ROWS;
+    const int q0 = (qt0 + it) * TC_ROWS;
+
+#pragma unroll
+    for (int sub = 0; sub < TC_ROWS / QS; ++sub) {
+      const int c0 = sub * QS;  // the sub-step's first row in the q tile
+      if (causal && q0 + c0 + QS - 1 < wk0) continue;  // every (key, query) pair here is masked
+      // S^T = K Q^T: this warp's 16 keys against the sub-step's queries, B from Q rows by ldmatrix
+      float s[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t kf[4];
+        tc::ldmatrix_x4(kf, ks + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4(bf, qst + tc::swz<D>(c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                               kk * 16 + ((lane >> 3) & 1) * 8));
+          tc::mma<T>(s[2 * np], kf, bf[0], bf[1]);
+          tc::mma<T>(s[2 * np + 1], kf, bf[2], bf[3]);
+        }
+      }
+      // P^T = exp(scale S^T - lse) in fp32; only the diagonal and ragged tiles are masked
+      const bool masked = (causal && wk0 + 15 > q0 + c0) || q0 + c0 + QS > Tn || wk0 + 16 > Tn;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + j * 8 + 2 * t4 + (e & 1);
+          float p = ex2(fmaf(s[j][e], sl2, -lse_s[col] * LOG2E));
+          if (masked) {
+            const int key = wk0 + g + (e >> 1) * 8, query = q0 + col;
+            if (!(query < Tn && key < Tn && (!causal || key <= query))) p = 0.f;
+          }
+          s[j][e] = p;
+        }
+      // dV += P^T dO, P^T rounded to dO's dtype and repacked from C to A fragments; B from dO by
+      // ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < QS / 16; ++kk) {
+        uint32_t pa[4];
+        tc::a_from_c<T>(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4_trans(bf, dost + tc::swz<D>(c0 + kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
+          tc::mma<T>(dv_acc[2 * dp], pa, bf[0], bf[1]);
+          tc::mma<T>(dv_acc[2 * dp + 1], pa, bf[2], bf[3]);
+        }
+      }
+      // dP^T = V dO^T
+      float dpt[NQ][4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t vf[4];
+        tc::ldmatrix_x4(vf, vs + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int np = 0; np < NQ / 2; ++np) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4(bf, dost + tc::swz<D>(c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+                                                kk * 16 + ((lane >> 3) & 1) * 8));
+          tc::mma<T>(dpt[2 * np], vf, bf[0], bf[1]);
+          tc::mma<T>(dpt[2 * np + 1], vf, bf[2], bf[3]);
+        }
+      }
+      // dS^T = P^T o (dP^T - delta) scale from the fp32 P (masked entries stay 0)
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + j * 8 + 2 * t4 + (e & 1);
+          s[j][e] = s[j][e] * (dpt[j][e] - delta_s[col]) * scale;
+        }
+      // dK += dS^T Q, dS^T rounded to q's dtype; B from Q by ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < QS / 16; ++kk) {
+        uint32_t da[4];
+        tc::a_from_c<T>(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4_trans(bf, qst + tc::swz<D>(c0 + kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
+          tc::mma<T>(dk_acc[2 * dp], da, bf[0], bf[1]);
+          tc::mma<T>(dk_acc[2 * dp + 1], da, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the block (the last groups are empty)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = wk0 + g + i * 8;
+    if (key < Tn) {
+      T* dkd = dk + tok(b, key, n, Tn, N, D) + 2 * t4;
+      T* dvd = dv + tok(b, key, n, Tn, N, D) + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        *reinterpret_cast<uint32_t*>(dkd + j * 8) = tc::pack2<T>(dk_acc[j][2 * i], dk_acc[j][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dvd + j * 8) = tc::pack2<T>(dv_acc[j][2 * i], dv_acc[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------------------------
 template <int D>
@@ -691,7 +900,7 @@ struct Args {
   int B, T, N, causal;
   float scale;
   cudaStream_t stream;
-  int* variant;  // K1 only: the variant launched
+  int* variant;  // K1 and K3: the variant launched
 };
 
 // fp32 runs the FMA kernel (the parity path), bf16 and fp16 the tensor-core kernel; *variant
@@ -736,18 +945,36 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// fp32 runs the FMA kernel, bf16 and fp16 the tensor-core kernel; *variant as for launch_fwd
 template <typename T, int D>
 int launch_dkv(const Args& a) {
-  const size_t smem = tile_bytes<D>(4, 2, 2);
-  auto kernel = flash_dkv_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.T + TILE - 1) / TILE, a.B * a.N);
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.T, a.N,
-      a.causal, a.scale);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t smem = tile_bytes<D>(4, 2, 2);
+    auto kernel = flash_dkv_kernel<T, D>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.T, a.N,
+        a.causal, a.scale);
+    *a.variant = 0;
+  } else {
+    // K and V; the Q/dO ring; the lse/delta ring
+    const size_t smem = sizeof(T) * (2 * TC_KEYS + 2 * DkvTc<D>::STAGES * TC_ROWS) * D +
+                        sizeof(float) * DkvTc<D>::STAGES * 2 * TC_ROWS;
+    auto kernel = flash_dkv_tc_kernel<T, D>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.T, a.N,
+        a.causal, a.scale);
+    *a.variant = 1;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -781,8 +1008,8 @@ struct Dkv {
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16; D in {64, 128}. Each returns cudaGetLastError() after its launch
-// (or the error that stopped it) and does not synchronise. flash_fwd writes the variant it
-// launched to *variant: 0 the fp32 FMA kernel, 1 the tensor-core kernel (bf16, fp16).
+// (or the error that stopped it) and does not synchronise. flash_fwd and flash_dkv write the
+// variant they launched to *variant: 0 the fp32 FMA kernel, 1 the tensor-core kernel (bf16, fp16).
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
                          int B, int T, int N, int D, int causal, float scale, void* stream,
                          int* variant) {
@@ -806,10 +1033,11 @@ extern "C" int flash_dq(int dtype, const void* q, const void* k, const void* v, 
 
 extern "C" int flash_dkv(int dtype, const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dk, void* dv, int B, int T, int N,
-                         int D, int causal, float scale, void* stream) {
+                         int D, int causal, float scale, void* stream, int* variant) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dk = dk; a.dv = dv;
   a.B = B; a.T = T; a.N = N; a.causal = causal; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.variant = variant;
   return dispatch<Dkv>(dtype, D, a);
 }

@@ -1,6 +1,7 @@
-// Tensor-core building blocks shared by the flash forward (K1) and the block-sparse dK/dV (K9)
-// kernels for bf16 and fp16 operands: 16-byte cp.async copies into swizzled shared-memory tiles,
-// ldmatrix fragment loads and mma.sync.m16n8k16 with fp32 accumulation.
+// Tensor-core building blocks shared by the flash forward and dK/dV (K1, K3), the ragged paged
+// attention (K4) and the block-sparse dK/dV (K9) kernels for bf16 and fp16 operands: cp.async
+// copies into swizzled shared-memory tiles, ldmatrix fragment loads and mma.sync.m16n8k16 with
+// fp32 accumulation.
 //
 // Fragments follow the PTX ISA's m16n8k16 layouts. Inside a warp, lane = 4 g + t (g = lane / 4,
 // t = lane % 4):
@@ -38,6 +39,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
                "r"(valid ? 16 : 0));
+}
+
+// 4 bytes (one fp32 row statistic) from global to shared memory, through L1; `valid` false
+// zero-fills as above
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

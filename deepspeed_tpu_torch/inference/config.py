@@ -4,7 +4,10 @@ The same JSON parses here. Switches whose code paths this package does not
 have yet parse too, and ``unported_switches`` names them so the engine can
 refuse them with ``NotImplementedError`` (each message names the ROADMAP
 item that will port it). ``analysis`` and ``tracing`` are accepted as
-plain dicts and not acted on.
+plain dicts; their defaults do nothing, and the values JAX acts on
+(``analysis.verify`` other than ``"off"``, a truthy
+``tracing.flight_recorder``) are refused, as is a set
+``save_mp_checkpoint_path``.
 
 ``paged_kv.attn_impl`` takes ``auto | kernel | plain``: ``auto`` and
 ``kernel`` launch the CUDA ragged paged-attention kernel on a CUDA tensor
@@ -254,4 +257,10 @@ def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
         found.append("zero (ZeRO-Inference offload): ROADMAP T2")
     if cfg.checkpoint is not None:
         found.append("checkpoint= loading (use engine.load_jax_params): ROADMAP T3")
+    if cfg.save_mp_checkpoint_path:
+        found.append("save_mp_checkpoint_path (MP checkpoint at set_params): ROADMAP T3")
+    if str(cfg.analysis.get("verify", "off")) != "off":
+        found.append("analysis.verify (static passes on each program): ROADMAP X1")
+    if cfg.tracing.get("flight_recorder"):
+        found.append("tracing.flight_recorder: ROADMAP X1")
     return found

@@ -199,8 +199,11 @@ def _paged_forward(cfg, params, tokens, k_pages, v_pages, page_table, positions_
 
 
 def _check_cached_cfg(cfg) -> None:
-    """The model forms the cached paths serve (JAX raises for alibi too; it
-    has no embed_norm / post-LN branch in its cached forward)."""
+    """The model forms the cached paths serve. ALiBi is refused on every
+    cached path: JAX's paged ``build_*`` functions raise for it, while its
+    dense ``generate`` drops the slopes without a word
+    (``_cached_attention`` applies none), which the port does not copy.
+    JAX has no embed_norm / post-LN branch in its cached forward."""
     if cfg.position == "alibi":
         raise NotImplementedError("the KV-cached paths do not support alibi attention biases")
     if cfg.embed_norm or not cfg.prenorm:

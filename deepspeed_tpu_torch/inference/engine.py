@@ -3,8 +3,10 @@
 Counterpart of ``deepspeed_tpu/inference/engine.py`` for the inference
 main paths: ``init_inference(TransformerLM(cfg), dtype=..., paged_kv={...})``,
 the weights (``set_params`` / ``load_jax_params``, the JAX tree as numpy),
-``generate`` (the dense KV-cached loop: greedy, sampling, beam search),
-``profile_model_time`` / ``model_times``, and ``serve`` / ``serve_stats``
+``forward`` / ``engine(batch)`` (the model's logits, or its loss when the
+batch carries labels), ``generate`` (the dense KV-cached loop: greedy,
+sampling, beam search), ``profile_model_time`` / ``model_times``, and
+``serve`` / ``serve_stats``
 over a ``PagedServer`` (ragged, or bucketed with ``paged_kv.ragged=False``)
 built as the JAX ``_build_paged_server`` builds it for the ported options.
 The port's ``TransformerLM`` is the converted family (JAX's
@@ -25,7 +27,7 @@ from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree, load_jax_params
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum, unported_switches
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
-from deepspeed_tpu_torch.models.transformer import TransformerLM
+from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
 from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -77,19 +79,53 @@ class InferenceEngine:
     def _weights_ready(self) -> bool:
         return not any(p.is_meta for p in self.module.parameters())
 
-    # --- generation -----------------------------------------------------
+    # --- forward --------------------------------------------------------
     def profile_model_time(self, use_cuda_events: bool = True) -> None:  # noqa: ARG002
-        """Record the wall time of each ``generate`` call, the device drained
-        before the clock stops (JAX ``engine.py:340``)."""
+        """Record the wall time of each ``forward`` and ``generate`` call, the
+        device drained before the clock stops (JAX ``engine.py:340``)."""
         self.model_profile_enabled = True
 
     def model_times(self):
-        """Collected ``generate`` latencies in seconds, cleared on read."""
+        """Collected ``forward`` / ``generate`` latencies in seconds, cleared
+        on read."""
         assert self.model_profile_enabled, "model profiling is not enabled"
         times = self._model_times
         self._model_times = []
         return times
 
+    def forward(self, *inputs, **kwargs):
+        """The model's forward in inference mode (JAX ``engine.py:354``):
+        ``TransformerLM.apply(params, batch, train=False)``, the logits
+        ``[B, T, V]``, or the scalar loss when the batch carries labels. The
+        batch is one argument (a token array, ``(tokens, labels)`` or
+        ``{"input_ids", "labels"}``), several positional arguments taken as
+        a tuple, or keyword arguments taken as a dict, as JAX reads them.
+        With ``profile_model_time()`` on, the wall time until one output
+        element reaches the host is appended to ``model_times()``. Raises
+        before weights are set: the port takes its weights only as the JAX
+        tree (``set_params`` / ``load_jax_params``), where JAX would build
+        them from its seed."""
+        if not self.model_profile_enabled:
+            return self._forward_impl(*inputs, **kwargs)
+        t0 = time.perf_counter()
+        out = self._forward_impl(*inputs, **kwargs)
+        out.reshape(-1)[:1].cpu()  # drain: wait for one output element
+        self._model_times.append(time.perf_counter() - t0)
+        return out
+
+    __call__ = forward
+
+    def _forward_impl(self, *inputs, **kwargs):
+        if not self._weights_ready():
+            raise RuntimeError("forward() before weights are set: call set_params / load_jax_params")
+        batch = inputs[0] if len(inputs) == 1 else (inputs if inputs else kwargs)
+        tokens, labels = _split_batch(batch)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        labels = None if labels is None else torch.as_tensor(labels, device=self.device)
+        with torch.no_grad():  # (tokens, None) is the unlabelled batch: apply returns the logits
+            return self.module.apply(self.module.param_tree(), (tokens, labels), train=False)
+
+    # --- generation -----------------------------------------------------
     def generate(self, *args, **kwargs):
         """Latency-recording wrapper over ``_generate_impl`` (whose
         signature this function adopts via ``functools.wraps`` below)."""

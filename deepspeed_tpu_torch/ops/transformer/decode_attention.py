@@ -9,8 +9,13 @@ with ``nvcc`` on first use and bound through ``ctypes`` (``ops/native.py``).
   sits at position ``kv_len[r] - q_len[r] + w`` and sees the keys
   ``kv_pos <= q_pos`` with ``kv_pos < kv_len[r]``; rows with
   ``kv_len == 0`` are exact zeros, and so are window slots past ``q_len``.
-  This entry takes CUDA tensors only; the dispatch with the plain version
-  is ``paged_attention.ragged_paged_attention``.
+  The CUDA side is split-KV: a split kernel writes per-split partials
+  ``(m, l, acc)`` into an fp32 workspace and a combine kernel merges them
+  in split order. ``ragged_split_partials_plain`` and
+  ``ragged_combine_plain`` are that arithmetic in plain torch (the CPU
+  tests hold it against the unsplit plain version; no main path calls
+  them). This entry takes CUDA tensors only; the dispatch with the plain
+  version is ``paged_attention.ragged_paged_attention``.
 * K6 ``decode_attention`` (``_decode_kernel`` :42, ``pallas_call`` :358 in
   ``_grouped_decode``; ``csrc/decode_attention.cu``): one token per row
   over a contiguous cache ``[B, S, NKV, D]``, keys ``< kv_len[b]``.
@@ -29,7 +34,8 @@ its dispatch on these and imports nothing back into this module.
 This module imports no CUDA tooling at import time: the library is built
 and loaded at the first launch. ``launches`` (K4), ``launches_decode`` (K6)
 and ``launches_paged`` (K5) count each kernel's launches (one per call that
-reaches the kernel) and nothing else.
+reaches the kernel) and nothing else; ``launches_ragged_split`` counts the
+K4 calls that ran the split-KV kernel and its combine (every K4 call today).
 """
 
 from __future__ import annotations
@@ -42,30 +48,42 @@ import torch
 NEG_INF = -1e30
 
 launches = 0  # K4 launches since the caller last set it to 0
+launches_ragged_split = 0  # of those, calls that ran the split kernel and the combine
 launches_decode = 0  # K6
 launches_paged = 0  # K5
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _fn = None
+_split_keys = None  # keys a split of K4 holds (the C side's SPLIT)
 _decode_fns = {}
 
 
 def _entry():
-    global _fn
+    global _fn, _split_keys
     if _fn is None:
         from deepspeed_tpu_torch.ops import native
 
-        fn = native.load("ragged_paged_attention").ragged_paged_attention
+        lib = native.load("ragged_paged_attention")
+        fn = lib.ragged_paged_attention
         fn.restype = ctypes.c_int
         fn.argtypes = (
             [ctypes.c_int]  # dtype code
-            + [ctypes.c_void_p] * 7  # q, k_pages, v_pages, page_table, kv_lens, q_lens, out
-            + [ctypes.c_int] * 8  # R, W, NH, NKV, NP, P, D, MAXP
+            + [ctypes.c_void_p] * 9  # q, k_pages, v_pages, page_table, kv_lens, q_lens, out, ws_ml, ws_acc
+            + [ctypes.c_int] * 9  # R, W, NH, NKV, NP, P, D, MAXP, nsplit
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
         )
+        lib.ragged_paged_attention_split_keys.restype = ctypes.c_int
+        _split_keys = int(lib.ragged_paged_attention_split_keys())
         _fn = fn
     return _fn
+
+
+def ragged_splits(maxp: int, page_size: int) -> int:
+    """The number of key splits K4 launches for a table of ``maxp`` pages of
+    ``page_size`` keys: from the shapes alone, never from ``kv_lens``."""
+    _entry()
+    return -(-maxp * page_size // _split_keys)
 
 
 def _check(q, k_pages, v_pages, page_table, kv_lens, q_lens):
@@ -107,10 +125,13 @@ def _check(q, k_pages, v_pages, page_table, kv_lens, q_lens):
 
 
 def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens, scale: float):
-    """Launch the CUDA kernel on the current stream; returns ``[R, W, NH, D]``
-    in q's dtype. Raises on a tensor the kernel does not take and on a
-    non-zero ``cudaError_t`` from the launch. Does not synchronise."""
-    global launches
+    """Launch the CUDA split kernel and its combine on the current stream;
+    returns ``[R, W, NH, D]`` in q's dtype. The fp32 partials go to a
+    workspace sized from the shapes (``torch.empty``: the caching allocator
+    hands the same block back to the next layer). Raises on a tensor the
+    kernel does not take and on a non-zero ``cudaError_t`` from either
+    launch. Does not synchronise."""
+    global launches, launches_ragged_split
     _check(q, k_pages, v_pages, page_table, kv_lens, q_lens)
     R, W, NH, D = q.shape
     NP, NKV, P, _ = k_pages.shape
@@ -118,19 +139,81 @@ def ragged_paged_attention(q, k_pages, v_pages, page_table, kv_lens, q_lens, sca
     if q.numel() == 0:
         return out
     fn = _entry()
+    maxp = page_table.shape[1]
+    nsplit = ragged_splits(maxp, P)
+    partials = R * NKV * nsplit * W * (NH // NKV)
+    ws_ml = torch.empty(2 * partials, dtype=torch.float32, device=q.device)
+    ws_acc = torch.empty(partials * D, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype],
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-            kv_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
-            R, W, NH, NKV, NP, P, D, page_table.shape[1],
+            kv_lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(), ws_ml.data_ptr(), ws_acc.data_ptr(),
+            R, W, NH, NKV, NP, P, D, maxp, nsplit,
             float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: cudaError_t {err}")
     launches += 1
+    launches_ragged_split += 1
     return out
+
+
+def ragged_split_partials_plain(q, k_pages, v_pages, page_table, kv_lens, q_lens, split_keys: int,
+                                scale: float):
+    """K4's split kernel in plain torch: for every key split of
+    ``split_keys`` keys (``ceil(MAXP·P / split_keys)`` of them), each query
+    slot's partial ``(m, l, acc)``: ``m`` its largest visible scaled score in
+    the split, ``l = Σ exp(s - m)`` and ``acc = Σ exp(s - m)·v`` over the
+    visible keys, in fp32. A slot with no visible key in a split has the
+    empty partial ``m = NEG_INF``, ``l = 0``, ``acc = 0``. Returns ``m``,
+    ``l`` as ``[R, W, NH, nsplit]`` and ``acc`` as ``[R, W, NH, nsplit, D]``."""
+    R, W, NH, D = q.shape
+    NP, NKV, P, _ = k_pages.shape
+    G = NH // NKV
+    S = page_table.shape[1] * P
+    nsplit = -(-S // split_keys)
+    pad = nsplit * split_keys - S
+    k = torch.nn.functional.pad(gather_pages(k_pages, page_table).float(), (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(gather_pages(v_pages, page_table).float(), (0, 0, 0, 0, 0, pad))
+    lens = kv_lens.to(torch.int32)
+    kv_pos = torch.arange(nsplit * split_keys, dtype=torch.int32, device=q.device)
+    q_pos = (lens - q_lens.to(torch.int32))[:, None] + torch.arange(W, dtype=torch.int32, device=q.device)[None, :]
+    live = (kv_pos[None, None, :] <= q_pos[:, :, None]) & (kv_pos[None, None, :] < lens[:, None, None])
+    live = live.reshape(R, W, 1, 1, nsplit, split_keys)  # [R, W, NKV, G, split, key]
+    qg = q.float().reshape(R, W, NKV, G, D)
+    kg = k.reshape(R, nsplit, split_keys, NKV, D)
+    s = torch.einsum("rwkgd,rnjkd->rwkgnj", qg, kg) * scale
+    s = torch.where(live, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(live, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("rwkgnj,rnjkd->rwkgnd", p, v.reshape(R, nsplit, split_keys, NKV, D))
+    m = torch.where(l > 0, m, torch.full_like(m, NEG_INF))
+    return m.reshape(R, W, NH, nsplit), l.reshape(R, W, NH, nsplit), acc.reshape(R, W, NH, nsplit, D)
+
+
+def ragged_combine_plain(m, l, acc, kv_lens, q_lens, dtype):
+    """K4's combine in plain torch, the kernel's formula in its order: over
+    the splits of each slot, skipping empty partials (``l == 0``),
+    ``M = max m``, then ``L += exp(m - M)·l`` and ``O += exp(m - M)·acc``
+    split by split, ``O / L`` (``L == 0`` divides by 1). Rows with
+    ``kv_len == 0`` and slots ``w >= q_len`` are exact zeros. Returns
+    ``[R, W, NH, D]`` in ``dtype``."""
+    W, nsplit = m.shape[1], m.shape[3]
+    full = l > 0
+    M = torch.where(full, m, torch.full_like(m, NEG_INF)).amax(dim=-1)
+    L = torch.zeros_like(M)
+    out = torch.zeros(acc.shape[:3] + acc.shape[4:], dtype=torch.float32, device=acc.device)
+    for s in range(nsplit):
+        wgt = torch.where(full[..., s], torch.exp(m[..., s] - M), torch.zeros_like(M))
+        L = L + wgt * l[..., s]
+        out = out + wgt[..., None] * torch.where(full[..., s, None], acc[..., s, :], torch.zeros_like(out))
+    out = out / torch.where(L == 0, torch.ones_like(L), L)[..., None]
+    w = torch.arange(W, device=m.device)
+    live = (kv_lens[:, None] > 0) & (w[None, :] < q_lens[:, None])  # [R, W]
+    return torch.where(live[:, :, None, None], out, torch.zeros_like(out)).to(dtype)
 
 
 # --- K5 and K6: one query token per row ---------------------------------------

@@ -26,11 +26,12 @@ and dS → q's dtype before dSᵀ·Q. A CPU tensor takes the plain versions; a
 CUDA tensor launches the kernels or raises (``impl="plain"`` asks for the
 plain versions on the card, as the comparison arm).
 
-K1 has two variants in the CUDA source, chosen by dtype: bf16 and fp16 run
-on the tensor cores (``mma.sync``), fp32 keeps the FMA kernel as the
-card's parity path. ``launches_fwd``, ``launches_dq`` and ``launches_dkv``
-count the kernels' launches and nothing else; ``launches_fwd_tc`` counts
-the K1 launches that the CUDA entry reports as the tensor-core variant.
+K1 and K3 have two variants in the CUDA source, chosen by dtype: bf16 and
+fp16 run on the tensor cores (``mma.sync``), fp32 keeps the FMA kernels as
+the card's parity path. ``launches_fwd``, ``launches_dq`` and
+``launches_dkv`` count the kernels' launches and nothing else;
+``launches_fwd_tc`` and ``launches_dkv_tc`` count the K1 and K3 launches
+that the CUDA entry reports as the tensor-core variant.
 Nothing CUDA is built or loaded at import time.
 """
 
@@ -49,6 +50,7 @@ launches_fwd = 0  # K1 launches since the caller last set it to 0
 launches_fwd_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)
 launches_dq = 0  # K2
 launches_dkv = 0  # K3
+launches_dkv_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _entries = {}
@@ -133,7 +135,7 @@ def _entry(name: str):
             + [ctypes.c_void_p] * n_ptrs
             + [ctypes.c_int] * 5  # B, T, N, D, causal
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
-            + ([ctypes.POINTER(ctypes.c_int)] if name == "flash_fwd" else [])  # the variant launched
+            + ([ctypes.POINTER(ctypes.c_int)] if name in ("flash_fwd", "flash_dkv") else [])  # the variant
         )
         _entries[name] = fn
     return fn
@@ -214,16 +216,18 @@ def flash_dq_kernel(q, k, v, do, lse, delta, causal: bool = True, scale: Optiona
 
 def flash_dkv_kernel(q, k, v, do, lse, delta, causal: bool = True, scale: Optional[float] = None):
     """Launch K3: ``(dK, dV)`` as ``flash_dkv_plain``."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_tc
     _check(q, k, v, ("do", do), ("lse", lse), ("delta", delta))
     _check_residuals(q, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
+    variant = ctypes.c_int(-1)
     _launch("flash_dkv", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                              delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            causal, _default_scale(q.shape[-1], scale))
+            causal, _default_scale(q.shape[-1], scale), ctypes.byref(variant))
     launches_dkv += 1
+    launches_dkv_tc += int(variant.value == 1)
     return dk, dv
 
 

@@ -15,7 +15,8 @@ steps, then:
   CUDA activities): device time per step (the sum of kernel and copy
   time), the device's idle share against the unprofiled step time
   (1 - device / step), device ops and the flash kernels' launches per
-  step, device time by kernel (the flash kernels K1-K3 by name, the rest
+  step, device time by kernel (the flash kernels K1-K3 and their
+  tensor-core variants by name, the rest
   grouped), and the top host ops by self time.
 
 Each part prints one JSON line beside the card's ``nvidia-smi`` name and
@@ -49,7 +50,9 @@ CONFIG = {  # bench.py:507-517, config 1
     "gradient_clipping": 1.0,
     "steps_per_print": 10_000,
 }
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# the FMA kernels and the tensor-core variants, each by its own name
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_fwd_tc_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                 "flash_dkv_tc_kernel")
 
 
 def _device_us(evt) -> float:
@@ -60,8 +63,8 @@ def _device_us(evt) -> float:
 
 
 def _group(name: str) -> str:
-    """Kernel families: the three flash kernels by name, GEMMs, the rest by
-    their leading word."""
+    """Kernel families: the flash kernels (and their tensor-core variants)
+    by name, GEMMs, the rest by their leading word."""
     for k in FLASH_KERNELS:
         if k in name:
             return k
@@ -70,7 +73,7 @@ def _group(name: str) -> str:
         return "gemm"
     if "memcpy" in low or "memset" in low:
         return "copy/memset"
-    return name.split("<")[0].split("(")[0][:60]
+    return name.replace("(anonymous namespace)::", "").split("<")[0].split("(")[0][:60]
 
 
 def _step(engine, batch):

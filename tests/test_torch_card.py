@@ -1,10 +1,12 @@
 """The CUDA kernels against their plain versions, on the card: the ragged
-paged attention (K4), the flash attention forward and backward (K1-K3),
-the decode attention over a contiguous cache (K6) and over pages (K5), and
-the block-sparse attention forward and backward (K7-K9), with K1 and K9
-on their tensor-core variants in bf16 and fp16 (the variant counters, K9's
-split columns, dead keys and bitwise-equal repeated calls). A CPU tensor
-handed straight to a kernel entry raises (those tests need no card).
+paged attention (K4, split-KV: kv_len on and past split boundaries,
+bitwise-equal repeated calls), the flash attention forward and backward
+(K1-K3), the decode attention over a contiguous cache (K6) and over pages
+(K5), and the block-sparse attention forward and backward (K7-K9), with
+K1, K3 and K9 on their tensor-core variants in bf16 and fp16 (the variant
+counters, K9's split columns, dead keys and bitwise-equal repeated calls).
+A CPU tensor handed straight to a kernel entry raises (those tests need no
+card).
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 with a card and no JAX: ``python -m pytest --noconftest
@@ -55,6 +57,79 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, monkeypatch):
     for r, ql in enumerate(q_lens):
         np.testing.assert_allclose(out[r, :ql], ref[r, :ql], atol=tol, rtol=0, err_msg=f"row {r}")
     assert (out[3] == 0).all()
+
+
+def _ragged_case(rs, rows, W, NH, NKV, D, P, maxp, dev):
+    """q [R, W, NH, D] and pools whose every slot is large garbage except
+    the live positions of each row's distinct pages; tables end in -1
+    sentinels. ``rows`` is a list of (kv_len, q_len)."""
+    NP = 1 + sum(-(-kv // P) for kv, _ in rows)
+    kp = np.full((NP, NKV, P, D), 3.0e4, np.float32)
+    vp = -kp
+    pt = np.full((len(rows), maxp), -1, np.int32)
+    free = rs.permutation(np.arange(1, NP))
+    used = 0
+    for r, (kv_len, _) in enumerate(rows):
+        n = -(-kv_len // P)
+        pt[r, :n] = free[used : used + n]
+        used += n
+        for i in range(n):
+            live = min(P, kv_len - i * P)
+            kp[pt[r, i], :, :live] = rs.randn(NKV, live, D)
+            vp[pt[r, i], :, :live] = rs.randn(NKV, live, D)
+    q = rs.randn(len(rows), W, NH, D).astype(np.float32)
+    kv_lens = np.array([r[0] for r in rows], np.int32)
+    q_lens = np.array([r[1] for r in rows], np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (q, kp, vp, pt, kv_lens, q_lens))
+
+
+# tables of 32 pages of 16 keys: 512 keys, four splits of 128. kv_len on a split boundary and one
+# past it (decode rows and chunks crossing the boundary), a row with one key in its last split, a
+# full row, a partial chunk, a dead row
+RAGGED_SPLIT_ROWS = [(128, 1), (129, 1), (256, 8), (257, 8), (385, 1), (512, 8), (5, 3), (0, 0)]
+RAGGED_SPLIT_SHAPES = {"D=64 Hg=4 P=16": (8, 16, 4, 64, 16, 32), "D=128 Hg=7 P=64": (8, 28, 4, 128, 64, 8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", sorted(RAGGED_SPLIT_SHAPES))
+def test_ragged_split_boundaries_match_plain_on_card(cuda_device, shape, dtype, monkeypatch):
+    """K4's split-KV kernel and combine against the plain version in fp32
+    on the same (cast) inputs, TF32 off, with kv_len on and one past split
+    boundaries: fp32 within 1e-4, bf16/fp16 within 2e-2 (output rounding;
+    P.V runs as hi + lo products, about 2^-16 of P); dead rows and window
+    slots past q_len exact zeros; one split-KV call counted."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    W, NH, NKV, D, P, maxp = RAGGED_SPLIT_SHAPES[shape]
+    q, kp, vp, pt, kv_lens, q_lens = _ragged_case(np.random.RandomState(12), RAGGED_SPLIT_ROWS, W, NH, NKV,
+                                                  D, P, maxp, cuda_device)
+    args = (q.to(dtype), kp.to(dtype), vp.to(dtype))
+    before = (da.launches, da.launches_ragged_split)
+    out = torch_pa.ragged_paged_attention(*args, pt, kv_lens, q_lens, impl="kernel")
+    ref = torch_pa.ragged_paged_attention(*(a.float() for a in args), pt, kv_lens, q_lens, impl="plain")
+    torch.cuda.synchronize()
+    assert (da.launches, da.launches_ragged_split) == (before[0] + 1, before[1] + 1)
+    assert da.ragged_splits(maxp, P) == 4
+    live = torch.arange(W, device=cuda_device)[None, :] < q_lens[:, None]
+    err = (out.float() - ref).abs()[live].max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-2), err
+    assert (out[~live] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_kernel_bitwise_deterministic_on_card(cuda_device, dtype):
+    """Two K4 calls on the same inputs are bitwise equal: the partials are
+    merged in split order, with no atomics."""
+    W, NH, NKV, D, P, maxp = RAGGED_SPLIT_SHAPES["D=64 Hg=4 P=16"]
+    q, kp, vp, pt, kv_lens, q_lens = _ragged_case(np.random.RandomState(13), RAGGED_SPLIT_ROWS, W, NH, NKV,
+                                                  D, P, maxp, cuda_device)
+    args = (q.to(dtype), kp.to(dtype), vp.to(dtype), pt, kv_lens, q_lens)
+    first = torch_pa.ragged_paged_attention(*args, impl="kernel")
+    second = torch_pa.ragged_paged_attention(*args, impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       second.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 FLASH_CASES = {  # (B, T, N, D, causal)
@@ -113,6 +188,57 @@ def test_flash_attention_autograd_launches_kernels(cuda_device):
     torch.cuda.synchronize()
     assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == tuple(n + 1 for n in before)
     assert all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+DKV_TC_CASES = {  # chip_smoke's four flash shapes and D=128 at T=130; (B, T, N, D, causal)
+    "train B=8 T=1024 N=12 D=64 causal": (8, 1024, 12, 64, True),
+    "ragged B=2 T=200 N=12 D=64 causal": (2, 200, 12, 64, True),
+    "full B=2 T=256 N=12 D=64": (2, 256, 12, 64, False),
+    "D=128 B=1 T=2048 N=32 causal": (1, 2048, 32, 128, True),
+    "D=128 B=1 T=130 N=2 full": (1, 130, 2, 128, False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(DKV_TC_CASES))
+def test_flash_dkv_tensor_cores_match_plain_on_card(cuda_device, case, dtype):
+    """K3's tensor-core variant against the plain version in fp32 on the
+    same (cast) inputs and the kernel forward's LSE and delta: dK and dV
+    each within 3e-2 of the reference's largest magnitude (P and dS are
+    rounded to the input type before their products, as the TPU kernel
+    does); one launch, counted as the tensor-core variant."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    B, T, N, D, causal = DKV_TC_CASES[case]
+    rs = np.random.RandomState(9)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, T, N, D).astype(np.float32)).to(cuda_device).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+    delta = fa.flash_delta(o, do)
+    before = (fa.launches_dkv, fa.launches_dkv_tc)
+    dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal)
+    assert (fa.launches_dkv - before[0], fa.launches_dkv_tc - before[1]) == (1, 1)
+    dk_ref, dv_ref = fa.flash_dkv_plain(q.float(), k.float(), v.float(), do.float(), lse, delta, causal)
+    torch.cuda.synchronize()
+    for got, ref in ((dk, dk_ref), (dv, dv_ref)):
+        assert torch.isfinite(got.float()).all()
+        rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+        assert rel <= 3e-2, (case, dtype, rel)
+
+
+def test_flash_attention_autograd_takes_dkv_tensor_cores(cuda_device):
+    """The autograd backward of a bf16 ``flash_attention`` launches K3's
+    tensor-core variant; fp32 takes the FMA variant."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        q, k, v = (torch.randn(2, 192, 2, 64, device=cuda_device, dtype=dtype, requires_grad=True)
+                   for _ in range(3))
+        before = (fa.launches_dkv, fa.launches_dkv_tc)
+        fa.flash_attention(q, k, v).float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert (fa.launches_dkv - before[0], fa.launches_dkv_tc - before[1]) == (1, tc)
+        assert all(torch.isfinite(t.grad.float()).all() for t in (k, v))
 
 
 DECODE_CASES = {  # (B, NH, NKV, D, S, lens)

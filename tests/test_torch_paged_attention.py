@@ -11,6 +11,14 @@ three implementations sum the same products in different orders (online
 softmax in the Pallas kernel), which moves results by a few fp32 ulps.
 Dead rows (kv_len 0) must be exact zeros. Window slots past q_len carry no
 contract and are not compared.
+
+K4's split-KV arithmetic (``decode_attention.ragged_split_partials_plain``
+and ``ragged_combine_plain``, the formula of the CUDA combine kernel): the
+partials of several split lengths, merged in split order, against the
+unsplit plain version at 1e-6 in fp32, with kv_len on and one past split
+boundaries, empty splits, dead rows and slots past q_len (exact zeros
+after the combine), and against the Pallas kernel in interpret mode at one
+shape.
 """
 
 from __future__ import annotations
@@ -137,3 +145,71 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         decode_attention.ragged_paged_attention(q, kp, vp, pt, kv_lens, q_lens, scale=0.25)
     assert decode_attention.launches == before
+
+
+# --- K4's split-KV arithmetic: partials per key split, merged in split order ----------
+def _boundary_fixture(rs):
+    """Tables of 8 pages of 4 keys (32 keys): kv_len on a boundary of 8-key
+    splits and one key past it (decode rows, and 4-token chunks that end on
+    or cross one), a row with one key in its last split, a full row, a
+    partial chunk, a dead row; distinct pages ending in -1 sentinels."""
+    rows = [(8, 1), (9, 1), (16, 4), (17, 4), (25, 1), (32, 4), (3, 2), (0, 0)]
+    R, W, NH, NKV, D, P, maxp = len(rows), 4, 6, 2, 16, 4, 8
+    NP = 1 + sum(-(-kv // P) for kv, _ in rows)
+    pt = np.full((R, maxp), -1, np.int32)
+    free = rs.permutation(np.arange(1, NP))
+    used = 0
+    for r, (kv, _) in enumerate(rows):
+        n = -(-kv // P)
+        pt[r, :n] = free[used : used + n]
+        used += n
+    q = rs.randn(R, W, NH, D).astype(np.float32)
+    kp = rs.randn(NP, NKV, P, D).astype(np.float32)
+    vp = rs.randn(NP, NKV, P, D).astype(np.float32)
+    kv_lens = np.array([r[0] for r in rows], np.int32)
+    q_lens = np.array([r[1] for r in rows], np.int32)
+    return q, kp, vp, pt, kv_lens, q_lens
+
+
+SPLIT_FIXTURES = dict(FIXTURES, boundaries=(_boundary_fixture, 8))
+
+
+def _split_then_combine(q, kp, vp, pt, kv_lens, q_lens, split_keys):
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    t = [torch.from_numpy(a) for a in (q, kp, vp, pt, kv_lens, q_lens)]
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    m, l, acc = da.ragged_split_partials_plain(*t, split_keys=split_keys, scale=scale)
+    return da.ragged_combine_plain(m, l, acc, t[4], t[5], torch.float32).numpy(), l.numpy()
+
+
+@pytest.mark.parametrize("split_keys", [1, 3, 4, 8, 16, 1000])
+@pytest.mark.parametrize("name", sorted(SPLIT_FIXTURES))
+def test_split_then_combine_matches_unsplit_plain(name, split_keys):
+    """The combine's merge of per-split partials equals the unsplit plain
+    version to 1e-6 in fp32 on live slots (the same exponentials, summed
+    in another order); dead rows and slots past q_len are exact zeros."""
+    make, seed = SPLIT_FIXTURES[name]
+    q, kp, vp, pt, kv_lens, q_lens = make(np.random.RandomState(seed))
+    out, l = _split_then_combine(q, kp, vp, pt, kv_lens, q_lens, split_keys)
+    ref = _torch_plain(q, kp, vp, pt, kv_lens, q_lens)
+    for r, ql in enumerate(q_lens):
+        np.testing.assert_allclose(out[r, :ql], ref[r, :ql], rtol=1e-6, atol=1e-6, err_msg=f"row {r}")
+        assert (out[r, ql:] == 0).all(), f"row {r}: slots past q_len are not exact zeros"
+    if name == "boundaries" and split_keys == 8:
+        # four splits; a row ending on a boundary leaves the next split empty
+        assert l.shape[-1] == 4
+        assert (l[0, 0, :, 1:] == 0).all() and (l[1, 0, :, 1] > 0).all() and (l[1, 0, :, 2:] == 0).all()
+        assert (l[4, 0, :, 3] > 0).all()
+
+
+def test_split_then_combine_matches_pallas_interpret():
+    """At one small shape the JAX Pallas kernel in interpret mode is the
+    outer reference for split-then-combine (2e-5, the JAX package's own
+    bound between its paths)."""
+    q, kp, vp, pt, kv_lens, q_lens = _boundary_fixture(np.random.RandomState(8))
+    ref = np.asarray(jax_ragged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+                                jnp.asarray(kv_lens), jnp.asarray(q_lens), impl="pallas"))
+    out, _ = _split_then_combine(q, kp, vp, pt, kv_lens, q_lens, 8)
+    for r, ql in enumerate(q_lens):
+        np.testing.assert_allclose(out[r, :ql], ref[r, :ql], rtol=RTOL, atol=ATOL, err_msg=f"row {r}")
