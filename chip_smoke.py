@@ -45,10 +45,13 @@ non-zero without the final line:
    inputs), rows of length 0 exact zeros; timed beside its bound and a
    yardstick (``scaled_dot_product_attention`` with a length mask over the
    same cache), L2 flushed before every launch;
-6. the paged decode kernel (K5) the same way at the bucketed decode shape
-   (bucket 8, llama-1B heads, P=16, MAXP=128, NP=1025, a dead row and -1
-   sentinels), yardstick SDPA over pre-gathered K/V as for K4; and at D=128
-   with a group of 7 (correctness only);
+6. the paged decode kernel (K5, split-KV) the same way at the bucketed
+   decode shape (bucket 8, llama-1B heads, P=16, MAXP=128, NP=1025, a dead
+   row and -1 sentinels) and at bucket 1 (bf16, one row of 1500 keys),
+   yardstick SDPA over pre-gathered K/V as for K4; and at D=128 with a
+   group of 7 (correctness only). Every call must run the split kernel and
+   its combine (``launches_paged_split``), two calls on the same inputs
+   must be bitwise equal, and each case prints its split count;
 7. the dense ``engine.generate`` path in bf16 on llama-1B: 16 prompts of 128
    tokens with 128 new (cache length 256), cold and warm, with
    ``profile_model_time``; K6 must launch 22 × 128 times per call and K4,
@@ -56,7 +59,7 @@ non-zero without the final line:
    K6 = 22 × 32;
 8. the bucketed server (``paged_kv.ragged=False``) in bf16 on phase 3's
    traffic, cold and warm: 32 of 32 finished, K5 = 22 × ``decode_steps``,
-   K4 never;
+   every K5 call on the split path, K4 never;
 9. fp32 (TF32 off) stream identity of the three decode kernels: 4 prompts
    of 224 tokens, 32 new tokens each, through the ragged server (K4), the
    bucketed server (K5) and ``generate`` (K6, cache length 256); where two
@@ -104,32 +107,36 @@ non-zero without the final line:
    live pair (exact zeros in its dK and dV); fp32 with TF32 off (O and LSE
    within 1e-4, each gradient within 1e-3 of the reference's largest
    magnitude) and bf16 against the plain versions in fp32 on the same bf16
-   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude). K9
-   must take its tensor-core variant in bf16 and its FMA variant in fp32
-   (``launches_dkv_tc``). At the main and bench shapes two bf16 K9 calls
-   must give bitwise-equal dK and dV, and it times each kernel, its plain
+   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude). K7
+   and K9 must take their tensor-core variants in bf16 and their FMA
+   variants in fp32 (``launches_fwd_tc``, ``launches_dkv_tc``); K7 alone
+   runs in fp16 too (O and LSE within 2e-2, dead rows exact zeros, every
+   call on the tensor cores; timed at the main and bench shapes). At the
+   main and bench shapes two bf16 K7 calls must give bitwise-equal O and
+   LSE and two K9 calls bitwise-equal dK and dV, and it times each kernel, its plain
    version, its bound, a yardstick (``scaled_dot_product_attention`` with
    the layout expanded to an element mask, and its autograd backward for
    K8 and K9 together; the port never calls either, with its share of the
    kernel's time) and the port's dense K1-K3 at the same shape, L2 flushed
-   before every launch; K9's line carries its units, split key blocks and
-   fp32 workspace bytes;
+   before every launch; K7's and K9's lines carry their units, split q or
+   key blocks and fp32 workspace bytes;
 14. the sparse main path: ``BertSparseSelfAttention`` at BERT-large width
    (its default ``FixedDefault(16)`` layout) on bf16 hidden states [2,
    4096, 1024], ``wq``, ``wk`` and ``wv`` with fp32 masters updated by
    ``FusedAdam.apply`` and cast to bf16 for each forward, MSE against a
    seeded target, 3 warm-up and 10 timed steps. The counts are zeroed just
    before and each of K7-K9 must equal 13 just after, every other kernel 0,
-   every K9 call on the tensor-core variant; every loss finite and the last
+   every K7 and K9 call on the tensor-core variant; every loss finite and the last
    below the first. Then one fp32 step
    (TF32 off) through the kernels and through ``impl="plain"`` (loss within
    1e-5 relative, gradients within 1e-3 of their largest magnitude), and one
    call with a ``key_padding_mask``, which takes the emulation by JAX's rule
    with no K7 launch.
 
-The line before the last is ``{"kernels": [...]}`` (K1, K3 and K9 with
-their ``variant`` by dtype and the main path's tensor-core launches; K4
-with its split count and split-KV launches); the last line is
+The line before the last is ``{"kernels": [...]}`` (K1, K3, K7 and K9 with
+their ``variant`` by dtype and the main path's tensor-core launches, K7
+with its fp16 times; K4 and K5 with their split counts and split-KV
+launches); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -280,10 +287,10 @@ def _time_ms(fn, iters, flush):
 def _sdpa_inputs(q, kp, vp, pt, kv_lens, q_lens):
     """q [R, NH, W, D], K/V gathered into a contiguous [R, NKV, S, D] cache,
     and the boolean mask of the same causal + length rule."""
-    W = q.shape[1]
+    rows, W = q.shape[:2]
     idx = pt.long().clamp(0, NP - 1)
-    kc = kp[idx].permute(0, 2, 1, 3, 4).reshape(R, NKV, MAXP * P, D).contiguous()
-    vc = vp[idx].permute(0, 2, 1, 3, 4).reshape(R, NKV, MAXP * P, D).contiguous()
+    kc = kp[idx].permute(0, 2, 1, 3, 4).reshape(rows, NKV, MAXP * P, D).contiguous()
+    vc = vp[idx].permute(0, 2, 1, 3, 4).reshape(rows, NKV, MAXP * P, D).contiguous()
     kv_pos = torch.arange(MAXP * P, device=q.device)
     q_pos = (kv_lens - q_lens)[:, None] + torch.arange(W, device=q.device)[None, :]
     mask = (kv_pos[None, None, :] <= q_pos[:, :, None]) & (kv_pos[None, None, :] < kv_lens[:, None, None])
@@ -559,53 +566,72 @@ PAGED_ROWS = [(1, 1), (17, 1), (300, 1), (0, 0), (1024, 1), (1500, 1), (2047, 1)
 def _paged_compare(label, args, scale, dtype, tol):
     """K5 on ``args`` (``_batch`` at W=1) cast to ``dtype`` against the plain
     version in fp32 on the same (cast) inputs; raises past ``tol``, on a
-    non-finite live row, or on a dead row that is not exact zeros."""
+    non-finite live row, on a dead row that is not exact zeros, when the
+    call did not run the split-KV kernel and its combine, or when a second
+    call on the same inputs is not bitwise equal. Returns (max abs error,
+    the cast inputs, the split count)."""
     q, kp, vp, pt, kv_lens, _ = args
     qd, kd, vd = q[:, 0].to(dtype), kp.to(dtype), vp.to(dtype)
     ref = paged_decode_attention(qd.float(), kd.float(), vd.float(), pt, kv_lens, scale=scale, impl="plain")
+    before = decode_attention.launches_paged_split
     out = paged_decode_attention(qd, kd, vd, pt, kv_lens, scale=scale, impl="kernel")
+    again = paged_decode_attention(qd, kd, vd, pt, kv_lens, scale=scale, impl="kernel")
     torch.cuda.synchronize()
     live = kv_lens > 0
     err = (out.float() - ref).abs()[live].max().item()
     dead_zero = bool((out[~live] == 0).all().item())
     finite = bool(torch.isfinite(out.float()[live]).all().item())
-    if not (err <= tol and dead_zero and finite):
+    split = decode_attention.launches_paged_split - before
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    equal = torch.equal(out.view(bits), again.view(bits))
+    splits = decode_attention.paged_splits(pt.shape[1], kp.shape[2])
+    emit(phase="kernel_determinism", kernel="paged_decode_attention", case=f"{label} {dtype}", bitwise_equal=equal,
+         splits=splits)
+    if not (err <= tol and dead_zero and finite and split == 2 and equal):
         raise AssertionError(f"K5 {label} {dtype}: max_abs_err {err} (tol {tol}), dead rows zero "
-                             f"{dead_zero}, finite {finite}")
-    return err, (qd, kd, vd, pt, kv_lens)
+                             f"{dead_zero}, finite {finite}, split-KV calls {split} of 2, bitwise equal {equal}")
+    return err, (qd, kd, vd, pt, kv_lens), splits
+
+
+def _paged_bound(kv_lens, dtype):
+    """K5's bound at the serving heads: the live rows, whole live pages (the
+    pool's unit) beyond them and the table entries."""
+    lens = kv_lens.cpu().numpy().astype(np.int64)
+    pages = -(-lens // P)
+    item = torch.tensor([], dtype=dtype).element_size()
+    extra = 2 * int((pages * P - lens).sum()) * NKV * D * item + 4 * int(pages.sum())
+    return _decode_bound(lens, NH, NKV, D, dtype, extra)
 
 
 def phase_paged_kernel(dev, flush):
     rs = np.random.default_rng(3456)
     scale = 1.0 / np.sqrt(D)
-    args = _batch(rs, 1, PAGED_ROWS, dev)
     cases = []
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        err, cast = _paged_compare("bucket 8", args, scale, dtype, tol)
-        ms = _time_ms(lambda: paged_decode_attention(*cast, scale=scale, impl="kernel"), 50, flush)
-        plain_ms = _time_ms(lambda: paged_decode_attention(*cast, scale=scale, impl="plain"), 20, flush)
-        qd, kd, vd, pt, kv_lens = cast
-        sq, sk, sv, mask = _sdpa_inputs(qd[:, None], kd, vd, pt, kv_lens, (kv_lens > 0).to(torch.int32))
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=mask, scale=scale, enable_gqa=True), 50, flush)
-        lens = kv_lens.cpu().numpy().astype(np.int64)
-        pages = -(-lens // P)
-        item = torch.tensor([], dtype=dtype).element_size()
-        # whole live pages (the pool's unit) beyond the live rows, and the table entries
-        extra = 2 * int((pages * P - lens).sum()) * NKV * D * item + 4 * int(pages.sum())
-        bound_ms, bound_by, nbytes, flops = _decode_bound(lens, NH, NKV, D, dtype, extra)
-        case = dict(case=f"bucket 8 W=1 {str(dtype).replace('torch.', '')}", max_abs_err=err, tol=tol, ms=ms,
-                    plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                    bytes=nbytes, flops=flops, roofline_share=bound_ms / ms)
-        emit(phase="paged_kernel", kernel="paged_decode_attention", dead_rows_exact_zero=True, **case,
-             library="scaled_dot_product_attention over pre-gathered contiguous K/V (omits the page walk)")
-        cases.append(case)
+    # bucket 8 (the main case, fp32 and bf16) and bucket 1 (bf16: one row, the fewest split blocks)
+    for bucket, rows, dtypes in ((8, PAGED_ROWS, ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))),
+                                 (1, [(1500, 1)], ((torch.bfloat16, 2e-2),))):
+        args = _batch(rs, 1, rows, dev)
+        for dtype, tol in dtypes:
+            err, cast, splits = _paged_compare(f"bucket {bucket}", args, scale, dtype, tol)
+            ms = _time_ms(lambda: paged_decode_attention(*cast, scale=scale, impl="kernel"), 50, flush)
+            plain_ms = _time_ms(lambda: paged_decode_attention(*cast, scale=scale, impl="plain"), 20, flush)
+            qd, kd, vd, pt, kv_lens = cast
+            sq, sk, sv, mask = _sdpa_inputs(qd[:, None], kd, vd, pt, kv_lens, (kv_lens > 0).to(torch.int32))
+            library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, scale=scale, enable_gqa=True), 50, flush)
+            bound_ms, bound_by, nbytes, flops = _paged_bound(kv_lens, dtype)
+            case = dict(case=f"bucket {bucket} W=1 {str(dtype).replace('torch.', '')}", max_abs_err=err, tol=tol,
+                        ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                        bytes=nbytes, flops=flops, roofline_share=bound_ms / ms, splits=splits, bitwise_equal=True)
+            emit(phase="paged_kernel", kernel="paged_decode_attention", dead_rows_exact_zero=True, **case,
+                 library="scaled_dot_product_attention over pre-gathered contiguous K/V (omits the page walk)")
+            cases.append(case)
     # beyond the main path's shapes (correctness only): head_dim 128, a GQA
     # group of 7, pages of 64 keys, sentinel ids and a dead row
     other = dict(nh=28, nkv=4, d=128, p=64, maxp=8, np_=24)
     args = _batch(rs, 1, [(300, 1), (70, 1), (0, 0), (5, 1), (129, 1)], dev, **other)
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        err, _ = _paged_compare("D=128 Hg=7 P=64", args, 1.0 / np.sqrt(128), dtype, tol)
+        err, _, _ = _paged_compare("D=128 Hg=7 P=64", args, 1.0 / np.sqrt(128), dtype, tol)
         emit(phase="paged_kernel", kernel="paged_decode_attention", case=f"D=128 Hg=7 P=64 {dtype}",
              max_abs_err=err, tol=tol, dead_rows_exact_zero=True)
     return cases
@@ -703,9 +729,12 @@ def phase_bucketed(cfg, tree, seed):
     if launches != cfg.num_layers * s["decode_steps"] or launches == 0 or sum(counts.values()) != launches:
         raise AssertionError(f"K5 launches {launches} != {cfg.num_layers} x decode_steps {s['decode_steps']}, "
                              f"or another kernel launched: {counts}")
+    split_launches = decode_attention.launches_paged_split
+    if split_launches != launches:
+        raise AssertionError(f"{split_launches} of {launches} K5 calls ran the split-KV kernel, want all")
     del engine, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, split_launches
 
 
 # --- phase 9: fp32 stream identity of K4, K5 and K6 --------------------------------
@@ -767,18 +796,20 @@ def phase_three_way(cfg, tree, seed, dev):
 # --- launch counts -------------------------------------------------------------
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
-    decode_attention.launches_ragged_split = 0
+    decode_attention.launches_ragged_split = decode_attention.launches_paged_split = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dkv_tc = 0
-    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = bs.launches_dkv_tc = 0
+    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = bs.launches_fwd_tc = bs.launches_dkv_tc = 0
 
 
 def _variants():
-    """Launches of the tensor-core variants of K1, K3 and K9 (bf16, fp16)
-    among the counts above (the rest of those kernels' launches took the
-    fp32 FMA variants), and the K4 calls that ran its split-KV kernel and
-    combine."""
+    """Launches of the tensor-core variants of K1, K3, K7 and K9 (bf16,
+    fp16) among the counts above (the rest of those kernels' launches took
+    the fp32 FMA variants), and the K4 and K5 calls that ran their split-KV
+    kernel and combine."""
     return dict(flash_fwd_tc=fa.launches_fwd_tc, flash_dkv_tc=fa.launches_dkv_tc,
-                block_sparse_dkv_tc=bs.launches_dkv_tc, ragged_split=decode_attention.launches_ragged_split)
+                block_sparse_fwd_tc=bs.launches_fwd_tc, block_sparse_dkv_tc=bs.launches_dkv_tc,
+                ragged_split=decode_attention.launches_ragged_split,
+                paged_split=decode_attention.launches_paged_split)
 
 
 def _counts():
@@ -1129,23 +1160,25 @@ def _sparse_errors(groups, block, causal):
     {kernel: (max abs error, error relative to the reference's largest
     magnitude)}, whether the dead rows (rows with no live score) are exact
     zeros in O and dQ and the dead keys (keys with no live pair) exact zeros
-    in dK and dV, and the kernel outputs of the first group. K9 must take the
-    variant of its dtype (tensor cores for bf16 and fp16, FMA for fp32)."""
+    in dK and dV, and the kernel outputs of the first group. K7 and K9 must
+    take the variant of their dtype (tensor cores for bf16 and fp16, FMA for
+    fp32)."""
     errs = {}
     dead_zero = True
     first = None
-    for q, k, v, do, tables, units, layout_h in groups:
+    for q, k, v, do, tables, f_units, units, layout_h in groups:
         row_idx, row_cnt, col_idx, col_cnt = tables
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
         args = (scale, block, causal)
         f = [t.float() for t in (q, k, v, do)]
-        o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
+        before_tc = (bs.launches_fwd_tc, bs.launches_dkv_tc)
+        o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
         delta = bs.sparse_delta(o, do)
         dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
-        before_tc = bs.launches_dkv_tc
         dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
-        if bs.launches_dkv_tc - before_tc != int(VARIANT[q.dtype] == "tensor_core"):
-            raise AssertionError(f"K9 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
+        tc = int(VARIANT[q.dtype] == "tensor_core")
+        if (bs.launches_fwd_tc - before_tc[0], bs.launches_dkv_tc - before_tc[1]) != (tc, tc):
+            raise AssertionError(f"K7 or K9 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
         o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
         dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
         dk_ref, dv_ref = bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)
@@ -1176,13 +1209,16 @@ def _sparse_errors(groups, block, causal):
 def _sparse_groups(q4, k4, v4, do4, layout, block, dev):
     """[B, NH, T, D] inputs as the fused path runs them: heads folded into
     the batch for a shared layout, one [B, T, D] group per head otherwise;
-    each with its tables, K9's units and its layout."""
+    each with its tables, K7's and K9's units and its layout."""
     B, NH, T, D = q4.shape
+
+    def tables(layout_h):
+        return (bs.block_tables(layout_h, dev), bs.fwd_units(layout_h, block, dev),
+                bs.dkv_units(layout_h, block, dev), layout_h)
+
     if layout.shape[0] == 1:
-        return [tuple(x.reshape(B * NH, T, D) for x in (q4, k4, v4, do4))
-                + (bs.block_tables(layout[0], dev), bs.dkv_units(layout[0], block, dev), layout[0])]
-    return [tuple(x[:, h].contiguous() for x in (q4, k4, v4, do4))
-            + (bs.block_tables(layout[h], dev), bs.dkv_units(layout[h], block, dev), layout[h]) for h in range(NH)]
+        return [tuple(x.reshape(B * NH, T, D) for x in (q4, k4, v4, do4)) + tables(layout[0])]
+    return [tuple(x[:, h].contiguous() for x in (q4, k4, v4, do4)) + tables(layout[h]) for h in range(NH)]
 
 
 def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush, first):
@@ -1191,13 +1227,13 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
     backward for K8 and K9 together) and the port's dense flash kernels K1-K3
     at the same shape."""
     B, NH, T, D = q4.shape
-    q, k, v, do, (row_idx, row_cnt, col_idx, col_cnt), units, _ = groups[0]
+    q, k, v, do, (row_idx, row_cnt, col_idx, col_cnt), f_units, units, _ = groups[0]
     scale = 1.0 / float(np.sqrt(D))
     args = (scale, block, causal)
     _, lse, delta = first
     f = [t.float() for t in (q, k, v, do)]
     timed = {
-        "block_sparse_fwd": (lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args),
+        "block_sparse_fwd": (lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args),
                              lambda: bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)),
         "block_sparse_dq": (lambda: bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args),
                             lambda: bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)),
@@ -1207,9 +1243,7 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
     bounds = _sparse_bound(B, NH, T, D, layout, block, causal, dtype)
     # yardsticks the port never calls: SDPA over the layout expanded to an element mask, and its autograd
     # backward (dQ, dK and dV together) for K8 and K9
-    elem = torch.from_numpy(np.kron(layout[0], np.ones((block, block), bool))).to(q.device)
-    if causal:
-        elem &= torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    elem = _element_mask(layout, block, causal, T, q.device)
     sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
     so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=elem, scale=scale)
     lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=elem, scale=scale), 10, flush)
@@ -1221,10 +1255,12 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
         lib = lib_fwd if key == "block_sparse_fwd" else lib_bwd
         timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 3, flush), library_ms=lib, library_share=lib / ms,
                            roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
-    if q.dtype != torch.float32:  # K9's fp32 workspace for the split key blocks at these shapes
+    if q.dtype != torch.float32:  # K7's and K9's fp32 workspaces for the split blocks at these shapes
+        bn = B * NH // len(groups)
+        timing["block_sparse_fwd"].update(units=int(f_units.units.shape[0]), split_q_blocks=int(f_units.reduce.shape[0]),
+                                          chunk_cap=f_units.cap, workspace_bytes=bn * f_units.n_slots * block * (D + 2) * 4)
         timing["block_sparse_dkv"].update(units=int(units.units.shape[0]), split_key_blocks=int(units.reduce.shape[0]),
-                                          chunk_cap=units.cap, workspace_bytes=B * NH // len(groups) * units.n_slots
-                                          * 2 * block * D * 4)
+                                          chunk_cap=units.cap, workspace_bytes=bn * units.n_slots * 2 * block * D * 4)
     del f
     torch.cuda.empty_cache()
     # the port's dense flash kernels on the same inputs ([B, T, N, D]): block_sparse_bench's comparison
@@ -1237,6 +1273,52 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
         "flash_dkv": _time_ms(lambda: fa.flash_dkv_kernel(fq, fk, fv, fdo, flse, fdelta, causal, scale), 10, flush),
     }
     return timing, dense
+
+
+def _sparse_fwd_fp16(name, base, layout, block, causal, timed, dev, flush):
+    """K7 alone in fp16 against its plain version in fp32 on the same (cast)
+    inputs: O and LSE within bf16's bound, dead rows exact zeros, every call
+    on the tensor-core variant; at the timed shapes its time and bound."""
+    q4, k4, v4 = (t.to(torch.float16) for t in base[:3])
+    groups = _sparse_groups(q4, k4, v4, q4, layout, block, dev)
+    tol = SPARSE_TOL[torch.bfloat16][0]
+    err, dead_zero = 0.0, True
+    for q, k, v, _, (row_idx, row_cnt, _, _), f_units, _, _ in groups:
+        args = (1.0 / float(np.sqrt(q.shape[-1])), block, causal)
+        before = bs.launches_fwd_tc
+        o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
+        o_ref, lse_ref = bs.sparse_fwd_plain(q.float(), k.float(), v.float(), row_idx, row_cnt, *args)
+        torch.cuda.synchronize()
+        if bs.launches_fwd_tc - before != 1 or not torch.isfinite(o.float()).all():
+            raise AssertionError(f"K7 {name} float16: not on the tensor-core variant, or a non-finite value")
+        dead = lse_ref <= bs.NEG_INF / 2
+        dead_zero &= bool((o[dead] == 0).all().item() and (lse[dead] == lse_ref[dead]).all().item())
+        err = max(err, (o.float() - o_ref).abs().max().item(), (lse - lse_ref)[~dead].abs().max().item())
+    rec = dict(phase="sparse_fwd_fp16", case=name, dtype="float16", block_sparse_fwd_variant="tensor_core",
+               max_abs_err=err, tol=tol, dead_rows_exact_zero=dead_zero)
+    if timed:
+        B, NH, T, D = q4.shape
+        q, k, v, _, (row_idx, row_cnt, _, _), f_units, _, _ = groups[0]
+        args = (1.0 / float(np.sqrt(D)), block, causal)
+        rec["timing"] = dict(ms=_time_ms(lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args),
+                                         20, flush),
+                             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                                 q4, k4, v4, attn_mask=_element_mask(layout, block, causal, T, dev),
+                                 scale=args[0]), 10, flush),
+                             **_sparse_bound(B, NH, T, D, layout, block, causal, torch.float16)["block_sparse_fwd"])
+    emit(**rec)
+    if err > tol or not dead_zero:
+        raise AssertionError(f"K7 {name} float16: max abs error {err} (tol {tol}), dead rows exact zero {dead_zero}")
+    return rec
+
+
+def _element_mask(layout, block, causal, T, dev):
+    """The shared layout as a [T, T] boolean element mask (and the causal
+    mask where set): the SDPA yardstick's mask."""
+    elem = torch.from_numpy(np.kron(layout[0], np.ones((block, block), bool))).to(dev)
+    if causal:
+        elem &= torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    return elem
 
 
 def phase_sparse_kernels(dev, flush):
@@ -1262,17 +1344,24 @@ def phase_sparse_kernels(dev, flush):
                 raise AssertionError("the dead-rows layout left no dead row")
             if name.startswith("dead keys") and not dead_keys:
                 raise AssertionError("the dead-keys layout left no dead key")
-            if timed and dtype == torch.bfloat16:  # K9 twice on the same inputs: bitwise-equal dK and dV
-                q, k, v, do, tables, units, _ = groups[0]
+            if timed and dtype == torch.bfloat16:  # K7 and K9 twice on the same inputs: bitwise-equal outputs
+                q, k, v, do, tables, f_units, units, _ = groups[0]
                 _, lse, delta = first
-                runs = [bs.sparse_dkv_kernel(q, k, v, do, lse, delta, tables[2], tables[3], units,
-                                             1.0 / float(np.sqrt(D)), block, causal) for _ in range(2)]
+                args = (1.0 / float(np.sqrt(D)), block, causal)
+                runs = [bs.sparse_fwd_kernel(q, k, v, tables[0], tables[1], f_units, *args) for _ in range(2)]
+                torch.cuda.synchronize()
+                equal_fwd = torch.equal(runs[0][0].view(torch.int16), runs[1][0].view(torch.int16)) and \
+                    torch.equal(runs[0][1].view(torch.int32), runs[1][1].view(torch.int32))
+                emit(phase="sparse_fwd_determinism", case=name, dtype=dt, bitwise_equal=equal_fwd,
+                     split_q_blocks=int(f_units.reduce.shape[0]))
+                runs = [bs.sparse_dkv_kernel(q, k, v, do, lse, delta, tables[2], tables[3], units, *args)
+                        for _ in range(2)]
                 torch.cuda.synchronize()
                 equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(*runs))
                 emit(phase="sparse_dkv_determinism", case=name, dtype=dt, bitwise_equal=equal,
                      split_key_blocks=int(units.reduce.shape[0]))
-                if not equal:
-                    raise AssertionError(f"K9 {name}: two calls on the same inputs differ")
+                if not (equal and equal_fwd):
+                    raise AssertionError(f"K7 or K9 {name}: two calls on the same inputs differ")
                 del runs
             if timed:
                 rec["timing"], rec["dense_flash_ms"] = _sparse_timing(groups, q4, k4, v4, do4, layout, block,
@@ -1287,6 +1376,7 @@ def phase_sparse_kernels(dev, flush):
                 raise AssertionError(f"block-sparse {name} {dt}: {bad} past tolerance, dead rows and keys exact zero "
                                      f"{dead_zero}: {errs}")
             del groups, first, q4, k4, v4, do4
+        main[(name, "float16")] = _sparse_fwd_fp16(name, base, layout, block, causal, timed, dev, flush)
         del base
         torch.cuda.empty_cache()
     # one launch per head for a per-head layout through the fused entry, as JAX runs one kernel per head
@@ -1356,19 +1446,20 @@ def phase_sparse_train(seed, dev):
     sparse_keys = ("block_sparse_fwd", "block_sparse_dq", "block_sparse_dkv")
     if any(counts[k] != steps for k in sparse_keys) or any(counts[k] for k in counts if k not in sparse_keys):
         raise AssertionError(f"sparse train: launches {counts}, want {steps} for each of K7-K9 and 0 for the rest")
-    if variants["block_sparse_dkv_tc"] != steps:
-        raise AssertionError(f"sparse train: {variants['block_sparse_dkv_tc']} of {steps} bf16 K9 calls took the "
-                             f"tensor-core variant, want all")
+    if variants["block_sparse_fwd_tc"] != steps or variants["block_sparse_dkv_tc"] != steps:
+        raise AssertionError(f"sparse train: {variants['block_sparse_fwd_tc']} K7 and {variants['block_sparse_dkv_tc']} "
+                             f"K9 of {steps} bf16 calls each took the tensor-core variant, want all")
 
     # fp32 (TF32 off): one step through the kernels and one through impl="plain"
     arms = {}
     for impl in ("kernel", "plain"):
-        before = (bs.launches_fwd, bs.launches_dkv_tc)
+        before = (bs.launches_fwd, bs.launches_fwd_tc, bs.launches_dkv_tc)
         loss, grads = _bert_step(BertSparseSelfAttention(config, impl=impl), hidden32, target,
                                  list(masters.values()))
-        if (impl == "kernel") != (bs.launches_fwd > before[0]) or bs.launches_dkv_tc != before[1]:
-            raise AssertionError(f"fp32 {impl} arm launched K7 {bs.launches_fwd - before[0]} times, K9's tensor-core "
-                                 f"variant {bs.launches_dkv_tc - before[1]} (want 0)")
+        if (impl == "kernel") != (bs.launches_fwd > before[0]) or (bs.launches_fwd_tc, bs.launches_dkv_tc) != before[1:]:
+            raise AssertionError(f"fp32 {impl} arm launched K7 {bs.launches_fwd - before[0]} times, the tensor-core "
+                                 f"variants of K7 and K9 {bs.launches_fwd_tc - before[1]} and "
+                                 f"{bs.launches_dkv_tc - before[2]} times (want 0)")
         arms[impl] = (float(loss), grads)
         torch.cuda.empty_cache()
     loss_rel = abs(arms["kernel"][0] - arms["plain"][0]) / abs(arms["plain"][0])
@@ -1439,7 +1530,7 @@ def main() -> int:
     k5_cases = phase_paged_kernel(dev, flush)
     del flush
     k6_launches = phase_generate(cfg, tree, args.seed)
-    k5_launches = phase_bucketed(cfg, tree, args.seed)
+    k5_launches, k5_split_launches = phase_bucketed(cfg, tree, args.seed)
     phase_three_way(llama_config("1b", dtype="float32"), tree, args.seed, dev)
     del tree
 
@@ -1482,11 +1573,15 @@ def main() -> int:
                 fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")})
            if name in ("flash_fwd", "flash_dkv") else {}),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
-        name=name, route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
-        replaces=f"deepspeed_tpu/ops/transformer/decode_attention.py:{line}", launches=n,
-        **{k: main_[k] for k in keys}, cases=[{k: c[k] for k in keys} for c in all_cases],
-    ) for name, line, n, main_, all_cases in (("decode_attention", 42, k6_launches, k6_main, k6_cases),
-                                               ("paged_decode_attention", 110, k5_launches, k5_main, k5_cases))] + [dict(
+        name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
+        replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,
+        **{k: k6_main[k] for k in keys}, cases=[{k: c[k] for k in keys} for c in k6_cases],
+    ), dict(
+        name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
+        replaces="deepspeed_tpu/ops/transformer/decode_attention.py:110", launches=k5_launches,
+        **{k: k5_main[k] for k in keys}, variant="split_kv", split_launches=k5_split_launches,
+        splits=k5_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k5_cases],
+    )] + [dict(
         name=name, route="cuda", source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         replaces=f"deepspeed_tpu/ops/sparse_attention/pallas_block_sparse.py:{line}",
         launches=sparse_counts[name],
@@ -1500,8 +1595,11 @@ def main() -> int:
                     for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")}
                for dt in ("bfloat16", "float32")},
         **(dict(variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
-                tensor_core_launches=sparse_variants["block_sparse_dkv_tc"])
-           if name == "block_sparse_dkv" else {}),
+                tensor_core_launches=sparse_variants[f"{name}_tc"])
+           if name in ("block_sparse_fwd", "block_sparse_dkv") else {}),
+        **(dict(fp16={k: sparse[(SPARSE_MAIN, "float16")]["timing"][k] for k in ("ms", "bound_ms", "library_ms")},
+                bench_fp16={k: sparse[(SPARSE_BENCH, "float16")]["timing"][k] for k in ("ms", "bound_ms", "library_ms")})
+           if name == "block_sparse_fwd" else {}),
     ) for name, line in (("block_sparse_fwd", 78), ("block_sparse_dq", 163), ("block_sparse_dkv", 194))])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -47,16 +47,39 @@
 //  * what bounds it now: at the main shape the units are balanced and each staged tile feeds
 //    four warps; the kernel is limited by mma.sync issue and the per-step barrier and softmax
 //    work of 16 x 16 score tiles (about 10% of the operations bound).
-// K7, K8 and fp32 K9 keep the first version: fp32 FMAs on the CUDA cores out of padded fp32
+// K7 for bf16 and fp16 (sparse_fwd_tc_kernel) is the same design on the query side, over a unit
+// table built from the row lists (block_sparse.build_fwd_units):
+//  * a q block is cut into 16-row q tiles; a unit is up to four q tiles whose q blocks list the
+//    same key blocks, one warp each, and a chunk of that list. Its key blocks are walked in 16-key
+//    steps, each step's K and V staged once by cp.async into a 4-stage ring and shared by the four
+//    warps: at blocks of 16 the 256 q blocks of a Fixed layout form 64 groups of four with equal
+//    lists, so each staged K/V tile feeds four q tiles instead of being staged four times;
+//  * each warp keeps its Q fragments, its rows' running max and sum and its O accumulators in
+//    registers; S = Q K^T takes the operands as stored (exact products, fp32 sums), the scores are
+//    scaled after the product, the online softmax runs in fp32 in base 2 with LSE in natural log,
+//    masked probabilities are exactly 0, and O += P V multiplies the fp32 P as hi + lo in the
+//    input dtype (K9's split; the Pallas kernel keeps P in fp32);
+//  * under the causal mask the list ascends, so the first step past the unit's last row ends the
+//    walk, and a warp skips a step past its own tile's last row; only steps that cross a tile's
+//    diagonal or ragged end are masked;
+//  * row lists longer than the same cap are cut into chunks; a split q block's chunks write fp32
+//    partials (acc, m, l) to their own workspace slots and sparse_fwd_merge_kernel merges them in
+//    chunk order (K4's combine): no atomics, two calls give bitwise-equal results;
+//  * what bounds it now: about 9% of the operations bound at the main shape. Each 16-key step is
+//    a serial chain per warp (mma.sync, row max by shuffles, exponentials, the C-to-A repack, the
+//    hi and lo products) behind one barrier, with four blocks of four warps an SM (126 registers
+//    a lane at D = 64). Staging 64 keys a step (four tiles a barrier, double-buffered) measured
+//    slower, and skipping the rescale once a warp's row maxima settle gained nothing.
+// K8 and fp32 K7 and K9 keep the first version: fp32 FMAs on the CUDA cores out of padded fp32
 // shared memory (fp32 is the card's parity path, kernel vs plain to about 1e-6 with TF32 off).
 //
 // What the design does about the TPU kernels' shape. The Pallas kernels walk a padded list on a
 // sequential grid axis (q block, list step), skip padded steps with pl.when and carry m/l/acc
 // (or dQ, dK/dV) in VMEM scratch. Here:
-//  * one thread block per (b*h, q tile) walks exactly row_cnt[qi] entries of its row list (K7,
-//    K8), or per (b*h, k tile) exactly col_cnt[ki] entries of its column list (fp32 K9), or per
-//    (b*h, unit) one chunk of a column list (bf16/fp16 K9): no padded steps, and the running
-//    state stays in registers and shared memory;
+//  * one thread block per (b*h, q tile) walks exactly row_cnt[qi] entries of its row list (fp32
+//    K7, K8), or per (b*h, k tile) exactly col_cnt[ki] entries of its column list (fp32 K9), or
+//    per (b*h, unit) one chunk of a row or column list (bf16/fp16 K7, K9): no padded steps, and
+//    the running state stays in registers and shared memory;
 //  * in the FMA kernels a block of `blk` rows (any multiple of 8 up to 128) is cut into tiles of
 //    TB = 16 rows (blk < 64) or TB = 64 rows (blk >= 64); the last tile of a block may be
 //    partial and is masked. Query (K7, K8) or key (K9) tiles of one block are separate thread
@@ -66,8 +89,7 @@
 //  * the FMA kernels' 256 threads hold a (TB/16) x (TB/16) register tile of every TB x TB score
 //    tile (rows ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane
 //    shuffle; their shared-memory rows are padded by one float against bank conflicts.
-// Not done yet (later work): tensor cores for K7 and K8, several heads per thread block for the
-// 16-row tiles, wgmma.
+// Not done yet (later work): tensor cores for K8 (the K7 unit table serves its row lists), wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -502,22 +524,21 @@ sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // ---------------------------------------------------------------------------------------------
-// K9 on the tensor cores: bf16 and fp16
+// the tensor-core variants (bf16 and fp16): units of four 16-row tiles walking one shared list
 // ---------------------------------------------------------------------------------------------
-constexpr int DKV_WARPS = 4;  // key tiles of a unit, one a warp
-constexpr int DKV_THREADS = 32 * DKV_WARPS;
-constexpr int DKV_ROWS = 16;  // rows of a key tile and of a q step
-constexpr int DKV_STAGES = 3;  // depth of the Q/dO ring
-constexpr int UNIT_W = 3 + 2 * DKV_WARPS;  // list_kb, start, len, tile[WARPS], slot[WARPS]
+constexpr int UNIT_WARPS = 4;  // tiles of a unit, one a warp
+constexpr int UNIT_THREADS = 32 * UNIT_WARPS;
+constexpr int TILE_ROWS = 16;  // rows of a tile and of a step
+constexpr int UNIT_W = 3 + 2 * UNIT_WARPS;  // list block, start, len, tile[WARPS], slot[WARPS]
 constexpr float LOG2E = 1.4426950408889634f;
 
 // async copy of rows r0 .. r0+15 of head bn of a [BN, T, D] tensor into a swizzled [16][D] tile,
 // by the `nthreads` threads numbered `tid`; rows at or past n are zero-filled
 template <typename T, int D>
-__device__ __forceinline__ void dkv_load_rows(T* dst, const T* __restrict__ src, int bn, int r0, int n, int Tn,
-                                              int tid, int nthreads) {
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int bn, int r0, int n, int Tn,
+                                          int tid, int nthreads) {
   constexpr int CH = D / 8;
-  for (int e = tid; e < DKV_ROWS * CH; e += nthreads) {
+  for (int e = tid; e < TILE_ROWS * CH; e += nthreads) {
     const int r = e / CH, c = e % CH;
     const bool valid = r < n;
     tc::cp_async16(dst + tc::swz<D>(r, c * 8),
@@ -525,12 +546,14 @@ __device__ __forceinline__ void dkv_load_rows(T* dst, const T* __restrict__ src,
   }
 }
 
-// One thread block per (unit, b*h). A unit is up to four 16-row key tiles whose key blocks list
+// K9: one thread block per (unit, b*h). A unit is up to four 16-row key tiles whose key blocks list
 // the same q blocks, and a chunk [start, start + len) of that list: every warp takes one key tile
 // and all of them share each staged 16-row Q/dO step. A unit either owns its key tiles' whole
 // list (slot -1: dK and dV written in T) or one chunk of it (fp32 partials into workspace slot).
+constexpr int DKV_STAGES = 3;  // depth of K9's Q/dO ring
+
 template <typename T, int D>
-__global__ void __launch_bounds__(DKV_THREADS)
+__global__ void __launch_bounds__(UNIT_THREADS)
 sparse_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
@@ -542,52 +565,52 @@ sparse_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   constexpr bool KV_REGS = D == 64;  // K and V fragments in registers (D = 128: re-read them)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* kvs = reinterpret_cast<T*>(smem_raw);         // [WARPS][2][16][D]: each warp's K and V tile
-  T* ring = kvs + DKV_WARPS * 2 * DKV_ROWS * D;    // [STAGES][2][16][D]: Q and dO of a step
-  float* stats = reinterpret_cast<float*>(ring + DKV_STAGES * 2 * DKV_ROWS * D);  // [STAGES][2][16]
+  T* ring = kvs + UNIT_WARPS * 2 * TILE_ROWS * D;    // [STAGES][2][16][D]: Q and dO of a step
+  float* stats = reinterpret_cast<float*>(ring + DKV_STAGES * 2 * TILE_ROWS * D);  // [STAGES][2][16]
 
   const int* unit = units + static_cast<size_t>(blockIdx.x) * UNIT_W;
   const int bn = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int list_kb = unit[0], start = unit[1], len = unit[2];
-  const int tile = unit[3 + warp], slot = unit[3 + DKV_WARPS + warp];
-  const int nk = tile < 0 ? 0 : min(DKV_ROWS, blk - tile % blk);  // live rows of this key tile
+  const int tile = unit[3 + warp], slot = unit[3 + UNIT_WARPS + warp];
+  const int nk = tile < 0 ? 0 : min(TILE_ROWS, blk - tile % blk);  // live rows of this key tile
   int first_key = Tn;  // the unit's first key: a q step wholly before it is dead for every warp
 #pragma unroll
-  for (int w = 0; w < DKV_WARPS; ++w)
+  for (int w = 0; w < UNIT_WARPS; ++w)
     if (unit[3 + w] >= 0) first_key = min(first_key, unit[3 + w]);
-  const int subs = (blk + DKV_ROWS - 1) / DKV_ROWS;  // 16-row steps of a listed q block
+  const int subs = (blk + TILE_ROWS - 1) / TILE_ROWS;  // 16-row steps of a listed q block
   const int n_steps = len * subs;
   const int* list = col_idx + static_cast<size_t>(list_kb) * width + start;
   const float scale_log2 = scale * LOG2E;
 
-  T* ks = kvs + warp * 2 * DKV_ROWS * D;
-  T* vs = ks + DKV_ROWS * D;
+  T* ks = kvs + warp * 2 * TILE_ROWS * D;
+  T* vs = ks + TILE_ROWS * D;
   if (tile >= 0) {
-    dkv_load_rows<T, D>(ks, k, bn, tile, nk, Tn, lane, 32);
-    dkv_load_rows<T, D>(vs, v, bn, tile, nk, Tn, lane, 32);
+    load_tile<T, D>(ks, k, bn, tile, nk, Tn, lane, 32);
+    load_tile<T, D>(vs, v, bn, tile, nk, Tn, lane, 32);
   }
 
   // step s: rows q0 .. q0+nq-1 of the listed q block list[s / subs]; dead for the whole unit under
   // the causal mask when its last row precedes the unit's first key
   auto step_rows = [&](int s, int& q0, int& nq) {
     const int qsub = s % subs;
-    q0 = __ldg(list + s / subs) * blk + qsub * DKV_ROWS;
-    nq = min(DKV_ROWS, blk - qsub * DKV_ROWS);
+    q0 = __ldg(list + s / subs) * blk + qsub * TILE_ROWS;
+    nq = min(TILE_ROWS, blk - qsub * TILE_ROWS);
   };
   auto load_step = [&](int s) {
     int q0, nq;
     step_rows(s, q0, nq);
     if (causal && q0 + nq - 1 < first_key) return;
-    T* qd = ring + (s % DKV_STAGES) * 2 * DKV_ROWS * D;
-    dkv_load_rows<T, D>(qd, q, bn, q0, nq, Tn, threadIdx.x, DKV_THREADS);
-    dkv_load_rows<T, D>(qd + DKV_ROWS * D, dout, bn, q0, nq, Tn, threadIdx.x, DKV_THREADS);
-    float* st = stats + (s % DKV_STAGES) * 2 * DKV_ROWS;
+    T* qd = ring + (s % DKV_STAGES) * 2 * TILE_ROWS * D;
+    load_tile<T, D>(qd, q, bn, q0, nq, Tn, threadIdx.x, UNIT_THREADS);
+    load_tile<T, D>(qd + TILE_ROWS * D, dout, bn, q0, nq, Tn, threadIdx.x, UNIT_THREADS);
+    float* st = stats + (s % DKV_STAGES) * 2 * TILE_ROWS;
     if (threadIdx.x < 8) {  // 4 chunks of 4 rows of lse, then of delta
       const int which = threadIdx.x >> 2, c = threadIdx.x & 3;
       const float* src = which ? delta : lse;
       const bool valid = c * 4 < nq;
-      tc::cp_async16(st + which * DKV_ROWS + c * 4,
+      tc::cp_async16(st + which * TILE_ROWS + c * 4,
                      src + static_cast<size_t>(bn) * Tn + q0 + (valid ? c * 4 : 0), valid);
     }
   };
@@ -623,10 +646,10 @@ sparse_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     step_rows(s, q0, nq);
     // this warp's key tile is dead for the step under the causal mask if every row precedes it
     if (tile < 0 || (causal && q0 + nq - 1 < tile)) continue;
-    const T* qst = ring + (s % DKV_STAGES) * 2 * DKV_ROWS * D;
-    const T* dost = qst + DKV_ROWS * D;
-    const float* lse_s = stats + (s % DKV_STAGES) * 2 * DKV_ROWS;
-    const float* delta_s = lse_s + DKV_ROWS;
+    const T* qst = ring + (s % DKV_STAGES) * 2 * TILE_ROWS * D;
+    const T* dost = qst + TILE_ROWS * D;
+    const float* lse_s = stats + (s % DKV_STAGES) * 2 * TILE_ROWS;
+    const float* delta_s = lse_s + TILE_ROWS;
 
     // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 q rows, two 16 x 8 tiles each
     float st[2][4], dpt[2][4];
@@ -745,6 +768,241 @@ sparse_dkv_reduce_kernel(const float* __restrict__ ws, const int* __restrict__ r
 }
 
 // ---------------------------------------------------------------------------------------------
+// K7 on the tensor cores: bf16 and fp16
+// ---------------------------------------------------------------------------------------------
+constexpr int FWD_STAGES = 4;  // depth of K7's K/V ring
+
+// One thread block per (unit, b*h). A unit is up to four 16-row q tiles whose q blocks list the
+// same key blocks, and a chunk [start, start + len) of that list: every warp takes one q tile and
+// all of them share each staged 16-key K/V step. A unit either owns its q tiles' whole list (slot
+// -1: O in T and the LSE written) or one chunk of it (fp32 partials m, l, acc into workspace slot).
+template <typename T, int D>
+__global__ void __launch_bounds__(UNIT_THREADS)
+sparse_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ row_idx,
+                     const int* __restrict__ units, float* __restrict__ ws, int n_slots, int width, int Tn,
+                     int blk, int causal, float scale) {
+  constexpr int KS = D / 16;  // k16 steps of Q K^T
+  constexpr int DT = D / 8;   // 8-wide tiles of an O row
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);          // [WARPS][16][D]: each warp's Q tile
+  T* ring = qs + UNIT_WARPS * TILE_ROWS * D;       // [STAGES][2][16][D]: K and V of a step
+
+  const int* unit = units + static_cast<size_t>(blockIdx.x) * UNIT_W;
+  const int bn = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int list_qb = unit[0], start = unit[1], len = unit[2];
+  const int tile = unit[3 + warp], slot = unit[3 + UNIT_WARPS + warp];
+  const int nq = tile < 0 ? 0 : min(TILE_ROWS, blk - tile % blk);  // live rows of this q tile
+  int last_row = -1;  // the unit's last row: a key step wholly after it is dead for every warp
+#pragma unroll
+  for (int w = 0; w < UNIT_WARPS; ++w) {
+    const int t = unit[3 + w];
+    if (t >= 0) last_row = max(last_row, t + min(TILE_ROWS, blk - t % blk) - 1);
+  }
+  const int subs = (blk + TILE_ROWS - 1) / TILE_ROWS;  // 16-key steps of a listed key block
+  const int n_steps = len * subs;
+  const int* list = row_idx + static_cast<size_t>(list_qb) * width + start;
+
+  T* qw = qs + warp * TILE_ROWS * D;
+  if (tile >= 0) load_tile<T, D>(qw, q, bn, tile, nq, Tn, lane, 32);  // lands with step 0's group
+
+  // step s: keys k0 .. k0+nk-1 of the listed key block list[s / subs]. The list ascends, so under
+  // the causal mask the first step that starts past the unit's last row ends the walk.
+  auto step_keys = [&](int s, int& k0, int& nk) {
+    const int ksub = s % subs;
+    k0 = __ldg(list + s / subs) * blk + ksub * TILE_ROWS;
+    nk = min(TILE_ROWS, blk - ksub * TILE_ROWS);
+  };
+  auto load_step = [&](int s) {
+    int k0, nk;
+    step_keys(s, k0, nk);
+    if (causal && k0 > last_row) return;
+    T* kd = ring + (s % FWD_STAGES) * 2 * TILE_ROWS * D;
+    load_tile<T, D>(kd, k, bn, k0, nk, Tn, threadIdx.x, UNIT_THREADS);
+    load_tile<T, D>(kd + TILE_ROWS * D, v, bn, k0, nk, Tn, threadIdx.x, UNIT_THREADS);
+  };
+
+#pragma unroll
+  for (int i = 0; i < FWD_STAGES - 1; ++i) {
+    if (i < n_steps) load_step(i);
+    tc::cp_async_commit();
+  }
+
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // scaled running max; this lane's share of l
+  uint32_t qf[KS][4];
+
+  for (int s = 0; s < n_steps; ++s) {
+    int k0, nk;
+    step_keys(s, k0, nk);
+    if (causal && k0 > last_row) break;  // block-uniform
+    tc::cp_async_wait<FWD_STAGES - 2>();
+    __syncthreads();  // step s has landed, and every warp is done with step s - 1's stage
+    if (s + FWD_STAGES - 1 < n_steps) load_step(s + FWD_STAGES - 1);
+    tc::cp_async_commit();
+    if (s == 0 && tile >= 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        tc::ldmatrix_x4(qf[kk], qw + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+    }
+    // this warp's q tile is dead for the step under the causal mask if every key follows its rows
+    if (tile < 0 || (causal && k0 > tile + nq - 1)) continue;
+    const T* kst = ring + (s % FWD_STAGES) * 2 * TILE_ROWS * D;
+    const T* vst = kst + TILE_ROWS * D;
+
+    // S = Q K^T: 16 q rows x 16 keys, two 16 x 8 tiles
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t bk[4];
+      tc::ldmatrix_x4(bk, kst + tc::swz<D>((lane & 7) + ((lane >> 4) << 3), kk * 16 + ((lane >> 3) & 1) * 8));
+      tc::mma<T>(sc[0], qf[kk], bk[0], bk[1]);
+      tc::mma<T>(sc[1], qf[kk], bk[2], bk[3]);
+    }
+
+    // online softmax on the scaled scores (scaled after the product, as the Pallas kernel does);
+    // only a step that crosses the diagonal or a tile's ragged end is masked
+    const bool masked = nk < TILE_ROWS || nq < TILE_ROWS || (causal && k0 + TILE_ROWS - 1 > tile);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale;
+        if (masked) {
+          const int r = g + (e >> 1) * 8, c = j * 8 + 2 * t4 + (e & 1);
+          if (!(r < nq && c < nk && (!causal || tile + r >= k0 + c))) x = NEG_INF;
+        }
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float corr[2], ml2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      corr[i] = exp2f((m[i] - mx[i]) * LOG2E);
+      m[i] = mx[i];
+      l[i] *= corr[i];
+      ml2[i] = mx[i] * LOG2E;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // NEG_INF is finite: on a row whose every score so far is masked, exp(s - m) would be 1,
+        // so masked probabilities are zeroed explicitly
+        float p = exp2f(fmaf(sc[j][e], LOG2E, -ml2[e >> 1]));
+        if (masked && sc[j][e] == NEG_INF) p = 0.f;
+        sc[j][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+
+    // acc += P V with the fp32 P as hi + lo in T; B from V by ldmatrix.trans
+    uint32_t ph[4], pl[4];
+    tc::a_from_c_split<T>(ph, pl, sc[0], sc[1]);
+#pragma unroll
+    for (int dp = 0; dp < D / 16; ++dp) {
+      uint32_t bv[4];
+      tc::ldmatrix_x4_trans(bv, vst + tc::swz<D>(lane & 15, dp * 16 + (lane >> 4) * 8));
+      tc::mma<T>(acc[2 * dp], ph, bv[0], bv[1]);
+      tc::mma<T>(acc[2 * dp + 1], ph, bv[2], bv[3]);
+      tc::mma<T>(acc[2 * dp], pl, bv[0], bv[1]);
+      tc::mma<T>(acc[2 * dp + 1], pl, bv[2], bv[3]);
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the block (the last groups are empty)
+
+  if (tile < 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lh = l[h];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    const int r = g + h * 8;
+    if (r >= nq) continue;
+    if (slot < 0) {
+      // a row with no live score ends with l = 0: O = 0 and LSE = NEG_INF
+      const float safe_l = lh == 0.f ? 1.f : lh;
+      T* dst = o + (static_cast<size_t>(bn) * Tn + tile + r) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) = tc::pack2<T>(acc[j][2 * h] / safe_l, acc[j][2 * h + 1] / safe_l);
+      if (t4 == 0) lse[static_cast<size_t>(bn) * Tn + tile + r] = lh == 0.f ? NEG_INF : m[h] + logf(safe_l);
+    } else {
+      // workspace: acc [BN][n_slots][blk][D], then (m, l) [BN][n_slots][blk] as float2; this
+      // tile's rows start at tile % blk of the slot
+      const size_t row = (static_cast<size_t>(bn) * n_slots + slot) * blk + tile % blk + r;
+      float* w = ws + row * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) *reinterpret_cast<float2*>(w + j * 8) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      if (t4 == 0) {
+        float2* ml = reinterpret_cast<float2*>(ws + static_cast<size_t>(gridDim.y) * n_slots * blk * D);
+        ml[row] = make_float2(lh == 0.f ? NEG_INF : m[h], lh);
+      }
+    }
+  }
+}
+
+// The split q blocks' partials merged in chunk order, so the result does not depend on which
+// chunk finished first: one thread block per (split q block, b*h), a warp per row; reduce[r] =
+// (qb, first slot, chunks). M = max m over the chunks with l > 0, L = sum exp(m - M) l,
+// O = sum exp(m - M) acc / L, LSE = M + log L (NEG_INF and O = 0 where L = 0).
+template <typename T, int D>
+__global__ void __launch_bounds__(128)
+sparse_fwd_merge_kernel(const float* __restrict__ ws, const int* __restrict__ reduce, T* __restrict__ o,
+                        float* __restrict__ lse, int n_slots, int Tn, int blk) {
+  constexpr int V = D / 32;  // output values a lane
+  const int* rd = reduce + 3 * blockIdx.x;
+  const int qb = rd[0], s0 = rd[1], n = rd[2];
+  const int bn = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const float2* ml = reinterpret_cast<const float2*>(ws + static_cast<size_t>(gridDim.y) * n_slots * blk * D);
+  for (int r = threadIdx.x >> 5; r < blk; r += blockDim.x >> 5) {
+    const size_t first = (static_cast<size_t>(bn) * n_slots + s0) * blk + r;  // chunk c at first + c * blk
+    float M = NEG_INF;
+    for (int c = 0; c < n; ++c) {
+      const float2 p = ml[first + static_cast<size_t>(c) * blk];
+      if (p.y > 0.f) M = fmaxf(M, p.x);
+    }
+    float L = 0.f, out[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) out[i] = 0.f;
+    for (int c = 0; c < n; ++c) {
+      const size_t at = first + static_cast<size_t>(c) * blk;
+      const float2 p = ml[at];
+      if (p.y > 0.f) {
+        const float wgt = expf(p.x - M);
+        L += wgt * p.y;
+        const float* a = ws + at * D + lane * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) out[i] += wgt * a[i];
+      }
+    }
+    const float safe_l = L == 0.f ? 1.f : L;
+    const size_t row = static_cast<size_t>(bn) * Tn + static_cast<size_t>(qb) * blk + r;
+    T* dst = o + row * D + lane * V;
+#pragma unroll
+    for (int i = 0; i < V; i += 2)
+      *reinterpret_cast<uint32_t*>(dst + i) = tc::pack2<T>(out[i] / safe_l, out[i + 1] / safe_l);
+    if (lane == 0) lse[row] = L == 0.f ? NEG_INF : M + logf(safe_l);
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------------------------
 template <int D, int TB>
@@ -760,8 +1018,8 @@ struct Args {
   int width, BN, T, blk, causal;
   float scale;
   cudaStream_t stream;
-  // K9's tensor-core variant: the unit and reduce tables, the fp32 workspace, and the variant
-  // launched (0 the fp32 FMA kernel, 1 tensor cores)
+  // the tensor-core variants of K7 and K9: the unit and reduce tables, the fp32 workspace, and
+  // the variant launched (0 the fp32 FMA kernel, 1 tensor cores)
   const void *units, *reduce;
   void* ws;
   int n_units, n_reduce, n_slots;
@@ -780,18 +1038,42 @@ dim3 grid_of(const Args& a) {
   return dim3((a.T / a.blk) * ((a.blk + TB - 1) / TB), a.BN);
 }
 
+// fp32 runs the FMA kernel (the parity path); bf16 and fp16 the tensor-core kernel over the unit
+// table, then the chunk-order merge of the split q blocks, if the layout has any
 template <typename T, int D, int TB>
 struct Fwd {
   static int run(const Args& a) {
-    const size_t smem = smem_bytes<D, TB>(3, 1, 0);
-    auto kernel = sparse_fwd_kernel<T, D, TB>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid_of<TB>(a), THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<T*>(a.o), static_cast<float*>(a.out_lse), static_cast<const int*>(a.idx),
-        static_cast<const int*>(a.cnt), a.width, a.T, a.blk, a.causal, a.scale);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (std::is_same<T, float>::value) {
+      const size_t smem = smem_bytes<D, TB>(3, 1, 0);
+      auto kernel = sparse_fwd_kernel<T, D, TB>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid_of<TB>(a), THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<T*>(a.o), static_cast<float*>(a.out_lse), static_cast<const int*>(a.idx),
+          static_cast<const int*>(a.cnt), a.width, a.T, a.blk, a.causal, a.scale);
+      *a.variant = 0;
+      return static_cast<int>(cudaGetLastError());
+    } else {
+      if (a.n_units <= 0 || a.n_reduce < 0 || (a.n_reduce > 0 && (a.n_slots <= 0 || a.ws == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const size_t smem = sizeof(T) * (UNIT_WARPS + FWD_STAGES * 2) * TILE_ROWS * D;
+      auto kernel = sparse_fwd_tc_kernel<T, D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<dim3(a.n_units, a.BN), UNIT_THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<T*>(a.o), static_cast<float*>(a.out_lse), static_cast<const int*>(a.idx),
+          static_cast<const int*>(a.units), static_cast<float*>(a.ws), a.n_slots, a.width, a.T, a.blk,
+          a.causal, a.scale);
+      *a.variant = 1;
+      err = cudaGetLastError();
+      if (err != cudaSuccess || a.n_reduce == 0) return static_cast<int>(err);
+      sparse_fwd_merge_kernel<T, D><<<dim3(a.n_reduce, a.BN), 128, 0, a.stream>>>(
+          static_cast<const float*>(a.ws), static_cast<const int*>(a.reduce), static_cast<T*>(a.o),
+          static_cast<float*>(a.out_lse), a.n_slots, a.T, a.blk);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
 };
 
@@ -832,12 +1114,12 @@ struct Dkv {
     } else {
       if (a.n_units <= 0 || a.n_reduce < 0 || (a.n_reduce > 0 && (a.n_slots <= 0 || a.ws == nullptr)))
         return static_cast<int>(cudaErrorInvalidValue);
-      const size_t smem = sizeof(T) * (DKV_WARPS + DKV_STAGES) * 2 * DKV_ROWS * D +
-                          sizeof(float) * DKV_STAGES * 2 * DKV_ROWS;
+      const size_t smem = sizeof(T) * (UNIT_WARPS + DKV_STAGES) * 2 * TILE_ROWS * D +
+                          sizeof(float) * DKV_STAGES * 2 * TILE_ROWS;
       auto kernel = sparse_dkv_tc_kernel<T, D>;
       cudaError_t err = prepare(kernel, smem);
       if (err != cudaSuccess) return static_cast<int>(err);
-      kernel<<<dim3(a.n_units, a.BN), DKV_THREADS, smem, a.stream>>>(
+      kernel<<<dim3(a.n_units, a.BN), UNIT_THREADS, smem, a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
           static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
           static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
@@ -881,12 +1163,20 @@ int dispatch(int dtype, int D, const Args& a) {
 // idx / cnt: the row tables (K7, K8) or the column tables (K9), int32, `width` entries a row.
 // Each returns cudaGetLastError() after its launch (or the error that stopped it) and does not
 // synchronise.
+//
+// K7 also takes its unit table (int32 [n_units, 3 + 2 * 4]), its reduce table (int32
+// [n_reduce, 3]) and an fp32 workspace of [BN, n_slots, blk, D + 2] (bf16 and fp16; fp32 ignores
+// them), and writes the variant it launched to *variant: 0 the fp32 FMA kernel, 1 the
+// tensor-core kernel (and its merge pass when n_reduce > 0).
 extern "C" int block_sparse_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
-                                void* lse, const void* row_idx, const void* row_cnt, int width,
-                                int BN, int T, int D, int blk, int causal, float scale,
-                                void* stream) {
+                                void* lse, const void* row_idx, const void* row_cnt, const void* units,
+                                const void* reduce, void* ws, int n_units, int n_reduce, int n_slots,
+                                int width, int BN, int T, int D, int blk, int causal, float scale,
+                                void* stream, int* variant) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.out_lse = lse; a.idx = row_idx; a.cnt = row_cnt;
+  a.units = units; a.reduce = reduce; a.ws = ws;
+  a.n_units = n_units; a.n_reduce = n_reduce; a.n_slots = n_slots; a.variant = variant;
   a.width = width; a.BN = BN; a.T = T; a.blk = blk; a.causal = causal; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<Fwd>(dtype, D, a);

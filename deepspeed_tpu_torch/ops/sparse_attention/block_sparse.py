@@ -14,11 +14,12 @@ bound through ``ctypes`` (``ops/native.py``):
 ``build_block_tables`` (``:44``) compacts a ``[nq, nk]`` layout into padded
 live lists; ``block_tables`` keeps them as int32 tensors per (layout,
 device), so a step makes no host-to-device copy (JAX builds them once at
-trace time). ``build_dkv_units`` turns the column lists into K9's work
-list for the tensor-core variant: 16-row key tiles, grouped four to a
-unit where their key blocks list the same q blocks, and lists longer than
-``dkv_cap`` cut into chunks whose fp32 partials are summed in chunk order;
-``dkv_units`` keeps them per (layout, block, device).
+trace time). ``build_fwd_units`` and ``build_dkv_units`` turn the row and
+column lists into the work lists of K7's and K9's tensor-core variants:
+16-row q (K7) or key (K9) tiles, grouped four to a unit where their blocks
+list the same blocks of the other side, and lists longer than ``list_cap``
+cut into chunks whose fp32 partials a second pass combines in chunk order;
+``fwd_units`` and ``dkv_units`` keep them per (layout, block, device).
 ``fused_block_sparse_attention(q, k, v, layout, block, causal, scale)`` is
 the counterpart of ``pallas_block_sparse_attention`` (``:316``):
 ``[B, NH, T, D]`` inputs, a shared layout (leading dim 1) folds heads into
@@ -44,13 +45,16 @@ arm). The kernels take ``D`` in ``HEAD_DIMS`` and blocks that are a multiple
 of 8 up to ``MAX_BLOCK``; any other size on a CUDA tensor raises
 ``NotImplementedError``.
 
-K9 has two variants in the CUDA source, chosen by dtype: bf16 and fp16 run
-on the tensor cores (``mma.sync``; P and dS enter their products as hi + lo
-pairs in the input dtype, so the fp32 numerics hold to about 2⁻¹⁶), fp32
-keeps the FMA kernel as the card's parity path. ``launches_fwd``,
+K7 and K9 have two variants in the CUDA source, chosen by dtype: bf16 and
+fp16 run on the tensor cores (``mma.sync``; the fp32 P, and K9's dS, enter
+their products as hi + lo pairs in the input dtype, so the fp32 numerics
+hold to about 2⁻¹⁶), fp32 keeps the FMA kernels as the card's parity path.
+``sparse_fwd_chunked_plain`` is the tensor-core K7's chunk-and-merge
+arithmetic in plain torch (CPU tests only). ``launches_fwd``,
 ``launches_dq`` and ``launches_dkv`` count the kernels' calls and nothing
-else (K9's reduction pass is part of its call); ``launches_dkv_tc`` counts
-the K9 calls that the CUDA entry reports as the tensor-core variant.
+else (K7's merge and K9's reduction pass are part of their calls);
+``launches_fwd_tc`` and ``launches_dkv_tc`` count the K7 and K9 calls that
+the CUDA entry reports as the tensor-core variant.
 Nothing CUDA is built or loaded at import time.
 """
 
@@ -68,17 +72,18 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 MAX_BLOCK = 128
 
-DKV_WARPS = 4  # key tiles of a K9 unit (one warp each)
-DKV_TILE = 16  # rows of a K9 key tile
+UNIT_WARPS = 4  # tiles of a K7 or K9 unit (one warp each)
+UNIT_TILE = 16  # rows of a tile
 
-launches_fwd = 0  # K7 launches since the caller last set it to 0
+launches_fwd = 0  # K7 calls since the caller last set it to 0 (its merge pass included)
+launches_fwd_tc = 0  # of those, calls of the tensor-core variant (bf16, fp16)
 launches_dq = 0  # K8
 launches_dkv = 0  # K9 calls (its reduction pass included)
 launches_dkv_tc = 0  # of those, calls of the tensor-core variant (bf16, fp16)
 
 _entries = {}
 _tables = {}  # (layout shape, layout bytes, device) -> (row_idx, row_cnt, col_idx, col_cnt)
-_units = {}  # (layout shape, layout bytes, block, device) -> DkvUnits
+_units = {}  # (build function name, layout shape, layout bytes, block, device) -> Units
 _TABLE_CACHE_SIZE = 256
 
 
@@ -119,87 +124,116 @@ def block_tables(layout_h: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
     return tables
 
 
-class DkvUnits(NamedTuple):
-    """K9's work list for one (layout, block): ``units`` int32 ``[U, 3 + 2 ·
-    DKV_WARPS]`` rows of (list key block, start, length, key-tile starts,
-    workspace slots), heaviest first; ``reduce`` int32 ``[R, 3]`` rows of
-    (key block, first slot, chunks) for the split key blocks; the workspace's
-    slots; the chunk cap; the block; the number of key blocks."""
+class Units(NamedTuple):
+    """The work list of K7's or K9's tensor-core variant for one (layout,
+    block): ``units`` int32 ``[U, 3 + 2 · UNIT_WARPS]`` rows of (list block,
+    start, length, tile starts, workspace slots), heaviest first; ``reduce``
+    int32 ``[R, 3]`` rows of (block, first slot, chunks) for the split
+    blocks; the workspace's slots; the chunk cap; the block; the number of
+    blocks on the tiled side (q blocks for K7, key blocks for K9)."""
 
     units: object
     reduce: object
     n_slots: int
     cap: int
     block: int
-    n_kb: int
+    n_blocks: int
 
 
-def dkv_cap(col_cnt: np.ndarray) -> int:
-    """Longest column-list chunk K9 takes as one unit: twice the mean list
-    length, at least 8. The heavy columns of a layout (a global key column
-    lists every q block) are cut to about the length of an average one, so
-    no single unit outlasts the rest of the launch."""
-    mean = float(np.mean(col_cnt)) if np.size(col_cnt) else 0.0
+def list_cap(cnt: np.ndarray) -> int:
+    """Longest list chunk a unit takes: twice the mean list length, at least
+    8. The heavy lists of a layout (a global key column lists every q block,
+    a global q row every key block) are cut to about the length of an
+    average one, so no single unit outlasts the rest of the launch."""
+    mean = float(np.mean(cnt)) if np.size(cnt) else 0.0
     return max(8, int(np.ceil(2.0 * mean)))
 
 
-def build_dkv_units(layout_h: np.ndarray, block: int) -> DkvUnits:
-    """K9's units for a ``[nq, nk]`` layout at this block size, in numpy.
-
-    Each key block is cut into ``DKV_TILE``-row key tiles (the last one
-    partial when ``block`` is not a multiple of 16). Key blocks whose column
-    lists are equal are grouped, so that a unit's warps share each staged
-    Q/dO tile. A list longer than ``dkv_cap`` is cut into balanced chunks of
-    at most the cap; each chunk of a split key block writes fp32 partials to
-    its own workspace slot, and the reduction sums a block's slots in chunk
-    order (deterministic). A unit is (the list's key block, chunk start,
-    chunk length, up to ``DKV_WARPS`` key-tile start rows, their slots or -1
-    where the unit owns the whole list); unused warps carry -1. Units are
-    ordered by chunk length, longest first. A key block with an empty list
-    still has a unit of length 0, which writes its zero dK and dV."""
-    _, _, col_idx, col_cnt = build_block_tables(layout_h)
-    cap = dkv_cap(col_cnt)
-    subs = -(-block // DKV_TILE)
+def _build_units(idx: np.ndarray, cnt: np.ndarray, block: int) -> Units:
+    """Units over the compacted lists ``idx`` / ``cnt`` of one side: each of
+    its blocks is cut into ``UNIT_TILE``-row tiles (the last one partial when
+    ``block`` is not a multiple of 16). Blocks whose lists are equal are
+    grouped, so that a unit's warps share each staged tile of the other
+    side. A list longer than ``list_cap`` is cut into balanced chunks of at
+    most the cap; each chunk of a split block writes fp32 partials to its
+    own workspace slot, and a second pass combines a block's slots in chunk
+    order (deterministic). A unit is (the list's block, chunk start, chunk
+    length, up to ``UNIT_WARPS`` tile start rows, their slots or -1 where the
+    unit owns the whole list); unused warps carry -1. Units are ordered by
+    chunk length, longest first. A block with an empty list still has a unit
+    of length 0, which writes its zeros."""
+    cap = list_cap(cnt)
+    subs = -(-block // UNIT_TILE)
     groups = {}
-    for kb in range(col_cnt.shape[0]):
-        groups.setdefault(tuple(col_idx[kb, : col_cnt[kb]].tolist()), []).append(kb)
+    for b in range(cnt.shape[0]):
+        groups.setdefault(tuple(idx[b, : cnt[b]].tolist()), []).append(b)
     units, reduce, n_slots = [], [], 0
-    for lst, kbs in groups.items():
+    for lst, blocks in groups.items():
         n_chunks = max(1, -(-len(lst) // cap))
         bounds = [len(lst) * c // n_chunks for c in range(n_chunks + 1)]
         base = {}
         if n_chunks > 1:
-            for kb in kbs:
-                base[kb] = n_slots
-                reduce.append((kb, n_slots, n_chunks))
+            for b in blocks:
+                base[b] = n_slots
+                reduce.append((b, n_slots, n_chunks))
                 n_slots += n_chunks
-        tiles = [(kb, kb * block + DKV_TILE * sub) for kb in kbs for sub in range(subs)]
+        tiles = [(b, b * block + UNIT_TILE * sub) for b in blocks for sub in range(subs)]
         for c in range(n_chunks):
-            for i in range(0, len(tiles), DKV_WARPS):
-                grp = tiles[i: i + DKV_WARPS]
-                pad = [-1] * (DKV_WARPS - len(grp))
-                units.append([kbs[0], bounds[c], bounds[c + 1] - bounds[c]] + [t for _, t in grp] + pad
-                             + [base[kb] + c if n_chunks > 1 else -1 for kb, _ in grp] + pad)
-    units = np.asarray(units, dtype=np.int32).reshape(-1, 3 + 2 * DKV_WARPS)
+            for i in range(0, len(tiles), UNIT_WARPS):
+                grp = tiles[i: i + UNIT_WARPS]
+                pad = [-1] * (UNIT_WARPS - len(grp))
+                units.append([blocks[0], bounds[c], bounds[c + 1] - bounds[c]] + [t for _, t in grp] + pad
+                             + [base[b] + c if n_chunks > 1 else -1 for b, _ in grp] + pad)
+    units = np.asarray(units, dtype=np.int32).reshape(-1, 3 + 2 * UNIT_WARPS)
     units = units[np.argsort(-units[:, 2], kind="stable")]
     reduce = np.asarray(reduce, dtype=np.int32).reshape(-1, 3)
-    return DkvUnits(units, reduce, n_slots, cap, block, col_cnt.shape[0])
+    return Units(units, reduce, n_slots, cap, block, cnt.shape[0])
 
 
-def dkv_units(layout_h: np.ndarray, block: int, device) -> DkvUnits:
-    """``build_dkv_units`` with its tables as int32 tensors on ``device``,
-    built once per (layout, block, device) and kept."""
+def build_fwd_units(layout_h: np.ndarray, block: int) -> Units:
+    """K7's units for a ``[nq, nk]`` layout at this block size, in numpy:
+    16-row q tiles grouped four to a unit where their q blocks list the same
+    key blocks, over the row lists of ``build_block_tables``. A split q
+    block's chunks write (acc, m, l) partials that the merge pass combines
+    with K4's formula."""
+    row_idx, row_cnt, _, _ = build_block_tables(layout_h)
+    return _build_units(row_idx, row_cnt, block)
+
+
+def build_dkv_units(layout_h: np.ndarray, block: int) -> Units:
+    """K9's units for a ``[nq, nk]`` layout at this block size, in numpy:
+    16-row key tiles grouped four to a unit where their key blocks list the
+    same q blocks, over the column lists of ``build_block_tables``. A split
+    key block's chunks write fp32 dK and dV partials that the reduction sums
+    in chunk order."""
+    _, _, col_idx, col_cnt = build_block_tables(layout_h)
+    return _build_units(col_idx, col_cnt, block)
+
+
+def _cached_units(build, layout_h: np.ndarray, block: int, device) -> Units:
     layout_h = np.ascontiguousarray(np.asarray(layout_h, dtype=bool))
     device = torch.device(device)
-    key = (layout_h.shape, layout_h.tobytes(), int(block), str(device))
+    key = (build.__name__, layout_h.shape, layout_h.tobytes(), int(block), str(device))
     found = _units.get(key)
     if found is None:
         if len(_units) >= _TABLE_CACHE_SIZE:
             _units.clear()
-        built = build_dkv_units(layout_h, int(block))
+        built = build(layout_h, int(block))
         found = _units[key] = built._replace(units=torch.from_numpy(built.units).to(device),
                                              reduce=torch.from_numpy(built.reduce).to(device))
     return found
+
+
+def fwd_units(layout_h: np.ndarray, block: int, device) -> Units:
+    """``build_fwd_units`` with its tables as int32 tensors on ``device``,
+    built once per (layout, block, device) and kept."""
+    return _cached_units(build_fwd_units, layout_h, block, device)
+
+
+def dkv_units(layout_h: np.ndarray, block: int, device) -> Units:
+    """``build_dkv_units`` with its tables as int32 tensors on ``device``,
+    built once per (layout, block, device) and kept."""
+    return _cached_units(build_dkv_units, layout_h, block, device)
 
 
 # --- plain versions ------------------------------------------------------------
@@ -232,8 +266,11 @@ def _row_scores(q, k, row_idx, row_cnt, scale: float, blk: int, causal: bool):
     return s.masked_fill(~mask, NEG_INF), mask
 
 
-def sparse_fwd_plain(q, k, v, row_idx, row_cnt, scale: float, blk: int, causal: bool):
-    """K7's function on ``[BN, T, D]``: ``(o in q's dtype, lse [BN, T] fp32)``."""
+def _fwd_partials_plain(q, k, v, row_idx, row_cnt, scale: float, blk: int, causal: bool):
+    """Each row's softmax partial over its listed kv blocks, fp32: ``m`` the
+    largest live scaled score (``NEG_INF`` where none is live), ``l = Σ
+    exp(s - m)`` and ``acc = Σ exp(s - m)·v`` over the live scores, as
+    ``[BN, T]``, ``[BN, T]`` and ``[BN, T, D]``."""
     BN, T, D = q.shape
     s, mask = _row_scores(q, k, row_idx, row_cnt, scale, blk, causal)
     nq, width = row_idx.shape
@@ -241,12 +278,62 @@ def sparse_fwd_plain(q, k, v, row_idx, row_cnt, scale: float, blk: int, causal: 
     mask = mask.reshape(nq, blk, width * blk)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m).masked_fill(~mask, 0.0)
-    l = p.sum(dim=-1, keepdim=True)
-    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    l = p.sum(dim=-1)
     vg = _blocks(v.float(), blk)[:, row_idx.long()].reshape(BN, nq, width * blk, D)
-    o = (torch.einsum("bqik,bqkd->bqid", p, vg) / safe_l).reshape(BN, T, D).to(q.dtype)
-    lse = torch.where(l == 0, torch.full_like(l, NEG_INF), m + torch.log(safe_l)).reshape(BN, T)
-    return o, lse
+    acc = torch.einsum("bqik,bqkd->bqid", p, vg)
+    return m.reshape(BN, T), l.reshape(BN, T), acc.reshape(BN, T, D)
+
+
+def _fwd_finish(m, l, acc, dtype):
+    """``(o in dtype, lse)`` from merged partials: ``o = acc / l`` and ``lse =
+    m + log l``; a row with ``l == 0`` gives O = 0 and LSE = ``NEG_INF``."""
+    safe_l = torch.where(l == 0, torch.ones_like(l), l)
+    o = (acc / safe_l[..., None]).to(dtype)
+    return o, torch.where(l == 0, torch.full_like(l, NEG_INF), m + torch.log(safe_l))
+
+
+def sparse_fwd_plain(q, k, v, row_idx, row_cnt, scale: float, blk: int, causal: bool):
+    """K7's function on ``[BN, T, D]``: ``(o in q's dtype, lse [BN, T] fp32)``."""
+    return _fwd_finish(*_fwd_partials_plain(q, k, v, row_idx, row_cnt, scale, blk, causal), q.dtype)
+
+
+def sparse_fwd_chunked_plain(q, k, v, row_idx, row_cnt, units: Units, scale: float, blk: int, causal: bool):
+    """The tensor-core K7's arithmetic over its unit table in plain torch:
+    each q block's list in the chunks ``units`` (``build_fwd_units``) give
+    it, one fp32 partial ``(m, l, acc)`` a chunk, merged in chunk order with
+    the merge kernel's formula (``M = max m`` over chunks with ``l > 0``,
+    then ``L += exp(m - M)·l`` and ``O += exp(m - M)·acc`` chunk by chunk,
+    ``O / L``). An unsplit q block is its own single chunk. Returns ``(o,
+    lse)`` as ``sparse_fwd_plain``; the CPU tests hold it against that and
+    the Pallas kernel (no main path calls it)."""
+    rows = np.asarray(units.units.cpu() if isinstance(units.units, torch.Tensor) else units.units)
+    nq, width = row_idx.shape
+    chunks = [set() for _ in range(nq)]
+    for row in rows:
+        for tile in row[3: 3 + UNIT_WARPS]:
+            if tile >= 0:
+                chunks[int(tile) // blk].add((int(row[1]), int(row[2])))
+    chunks = [sorted(c) for c in chunks]
+    ri = row_idx.cpu().numpy()
+    parts = []
+    for c in range(max(len(x) for x in chunks)):
+        idx_c = np.zeros((nq, width), np.int32)
+        cnt_c = np.zeros((nq,), np.int32)
+        for qb, lst in enumerate(chunks):
+            if c < len(lst):
+                s0, n = lst[c]
+                idx_c[qb, :n] = ri[qb, s0: s0 + n]
+                cnt_c[qb] = n
+        parts.append(_fwd_partials_plain(q, k, v, torch.from_numpy(idx_c).to(q.device),
+                                         torch.from_numpy(cnt_c).to(q.device), scale, blk, causal))
+    M = torch.stack([torch.where(l > 0, m, torch.full_like(m, NEG_INF)) for m, l, _ in parts]).amax(dim=0)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        wgt = torch.where(l > 0, torch.exp(m - M), torch.zeros_like(M))
+        L = L + wgt * l
+        O = O + wgt[..., None] * acc
+    return _fwd_finish(M, L, O, q.dtype)
 
 
 def sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, blk: int, causal: bool):
@@ -303,15 +390,15 @@ def _entry(name: str):
 
         fn = getattr(native.load("block_sparse_attention"), name)
         fn.restype = ctypes.c_int
-        n_ptrs = {"block_sparse_fwd": 7, "block_sparse_dq": 9, "block_sparse_dkv": 13}[name]
-        dkv = name == "block_sparse_dkv"
+        n_ptrs = {"block_sparse_fwd": 10, "block_sparse_dq": 9, "block_sparse_dkv": 13}[name]
+        units = name != "block_sparse_dq"  # K7 and K9 take unit tables and report their variant
         fn.argtypes = (
             [ctypes.c_int]  # dtype code
             + [ctypes.c_void_p] * n_ptrs
-            + [ctypes.c_int] * (3 if dkv else 0)  # n_units, n_reduce, n_slots
+            + [ctypes.c_int] * (3 if units else 0)  # n_units, n_reduce, n_slots
             + [ctypes.c_int] * 6  # width, BN, T, D, blk, causal
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
-            + ([ctypes.POINTER(ctypes.c_int)] if dkv else [])  # the variant launched
+            + ([ctypes.POINTER(ctypes.c_int)] if units else [])  # the variant launched
         )
         _entries[name] = fn
     return fn
@@ -375,18 +462,31 @@ def _launch(name: str, q, ptrs, idx, blk: int, causal: bool, scale: float, count
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
-def sparse_fwd_kernel(q, k, v, row_idx, row_cnt, scale: float, blk: int, causal: bool):
-    """Launch K7 on the current stream: ``(o, lse)`` as ``sparse_fwd_plain``."""
-    global launches_fwd
+def sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units: Units, scale: float, blk: int, causal: bool):
+    """Launch K7 on the current stream: ``(o, lse)`` as ``sparse_fwd_plain``.
+    ``units`` is ``fwd_units(layout, blk, device)`` of the layout whose row
+    tables these are: the tensor-core variant (bf16, fp16) walks them and,
+    where the layout has split q blocks, merges their fp32 partials from a
+    workspace allocated here; fp32 takes the FMA variant and ignores them."""
+    global launches_fwd, launches_fwd_tc
     _check(q, k, v, blk, (row_idx, row_cnt))
-    BN, T, _ = q.shape
+    _check_units(units, q, blk)
+    BN, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(BN, T, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
+    ws = None
+    if q.dtype != torch.float32 and units.n_slots:
+        ws = torch.empty(BN, units.n_slots, blk, D + 2, dtype=torch.float32, device=q.device)
+    variant = ctypes.c_int(-1)
     _launch("block_sparse_fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                    row_idx.data_ptr(), row_cnt.data_ptr()), row_idx, blk, causal, scale)
+                                    row_idx.data_ptr(), row_cnt.data_ptr(), units.units.data_ptr(),
+                                    units.reduce.data_ptr(), 0 if ws is None else ws.data_ptr()),
+            row_idx, blk, causal, scale, counts=(units.units.shape[0], units.reduce.shape[0], units.n_slots),
+            out=(ctypes.byref(variant),))
     launches_fwd += 1
+    launches_fwd_tc += int(variant.value == 1)
     return o, lse
 
 
@@ -405,15 +505,15 @@ def sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, bl
     return dq
 
 
-def _check_units(units: DkvUnits, q, blk: int):
+def _check_units(units: Units, q, blk: int):
     T = q.shape[1]
-    if not isinstance(units, DkvUnits) or units.block != blk or units.n_kb != T // blk or \
+    if not isinstance(units, Units) or units.block != blk or units.n_blocks != T // blk or \
             units.units.device != q.device or units.reduce.device != q.device:
-        raise ValueError(f"K9 needs the unit tables of this layout at block {blk} on {q.device} "
-                         f"(dkv_units(layout, {blk}, device))")
+        raise ValueError(f"the tensor-core kernels need the unit tables of this layout at block {blk} on "
+                         f"{q.device} (fwd_units / dkv_units(layout, {blk}, device))")
 
 
-def sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units: DkvUnits, scale: float, blk: int,
+def sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units: Units, scale: float, blk: int,
                       causal: bool):
     """Launch K9: ``(dK, dV)`` as ``sparse_dkv_plain``. ``units`` is
     ``dkv_units(layout, blk, device)`` of the layout whose column tables
@@ -450,7 +550,10 @@ class _BlockSparseAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, tables, units, scale: float, blk: int, causal: bool, impl: Optional[str]):
         row_idx, row_cnt, _, _ = tables
         kernel = _use_kernel(q, impl)
-        o, lse = (sparse_fwd_kernel if kernel else sparse_fwd_plain)(q, k, v, row_idx, row_cnt, scale, blk, causal)
+        if kernel:
+            o, lse = sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units[0], scale, blk, causal)
+        else:
+            o, lse = sparse_fwd_plain(q, k, v, row_idx, row_cnt, scale, blk, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.tables, ctx.units, ctx.scale, ctx.blk, ctx.causal, ctx.kernel = tables, units, scale, blk, causal, kernel
         return o
@@ -464,7 +567,7 @@ class _BlockSparseAttention(torch.autograd.Function):
         args = (ctx.scale, ctx.blk, ctx.causal)
         if ctx.kernel:
             dq = sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
-            dk, dv = sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, ctx.units, *args)
+            dk, dv = sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, ctx.units[1], *args)
         else:
             dq = sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
             dk, dv = sparse_dkv_plain(q, k, v, do, lse, delta, col_idx, col_cnt, *args)
@@ -491,7 +594,9 @@ def fused_block_sparse_attention(q, k, v, layout, block: int, causal: bool = Fal
 
     def run(qbn, kbn, vbn, layout_h):
         tables = block_tables(layout_h, qbn.device)
-        units = dkv_units(layout_h, block, qbn.device) if _use_kernel(qbn, impl) else None
+        units = None
+        if _use_kernel(qbn, impl):
+            units = (fwd_units(layout_h, block, qbn.device), dkv_units(layout_h, block, qbn.device))
         return _BlockSparseAttention.apply(qbn.contiguous(), kbn.contiguous(), vbn.contiguous(), tables, units,
                                            scale_f, block, bool(causal), impl)
 

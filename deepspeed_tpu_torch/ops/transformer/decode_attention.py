@@ -21,7 +21,12 @@ with ``nvcc`` on first use and bound through ``ctypes`` (``ops/native.py``).
   over a contiguous cache ``[B, S, NKV, D]``, keys ``< kv_len[b]``.
 * K5 ``paged_decode_attention`` (``_paged_kernel`` :110, ``pallas_call``
   :199; ``csrc/decode_attention.cu``): one token per row over its pages of
-  a shared pool ``[NP, NKV, P, D]``; page ids clamp into ``[0, NP)``.
+  a shared pool ``[NP, NKV, P, D]``; page ids clamp into ``[0, NP)``. The
+  CUDA side is split-KV as K4's is: a split kernel writes per-split
+  partials ``(m, l, acc)`` into an fp32 workspace and a combine kernel
+  merges them in split order. ``paged_split_partials_plain`` and
+  ``paged_combine_plain`` are that arithmetic in plain torch (CPU tests
+  only).
 
 All three read q, k and v in their dtype, run the softmax and P·V in fp32
 with the scale and write the result in q's dtype. K5 and K6 take a CPU
@@ -34,8 +39,9 @@ its dispatch on these and imports nothing back into this module.
 This module imports no CUDA tooling at import time: the library is built
 and loaded at the first launch. ``launches`` (K4), ``launches_decode`` (K6)
 and ``launches_paged`` (K5) count each kernel's launches (one per call that
-reaches the kernel) and nothing else; ``launches_ragged_split`` counts the
-K4 calls that ran the split-KV kernel and its combine (every K4 call today).
+reaches the kernel) and nothing else; ``launches_ragged_split`` and
+``launches_paged_split`` count the K4 and K5 calls that ran the split-KV
+kernel and its combine (every such call today).
 """
 
 from __future__ import annotations
@@ -51,12 +57,14 @@ launches = 0  # K4 launches since the caller last set it to 0
 launches_ragged_split = 0  # of those, calls that ran the split kernel and the combine
 launches_decode = 0  # K6
 launches_paged = 0  # K5
+launches_paged_split = 0  # of those, calls that ran the split kernel and the combine
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _fn = None
 _split_keys = None  # keys a split of K4 holds (the C side's SPLIT)
 _decode_fns = {}
+_paged_split_keys = None  # keys a split of K5 holds (the C side's SPLIT)
 
 
 def _entry():
@@ -235,12 +243,25 @@ def _decode_entry(name: str):
         else:
             fn.argtypes = (
                 [ctypes.c_int]
-                + [ctypes.c_void_p] * 6  # q, k_pages, v_pages, page_table, kv_lens, out
-                + [ctypes.c_int] * 7  # B, NH, NKV, NP, P, D, MAXP
+                + [ctypes.c_void_p] * 8  # q, k_pages, v_pages, page_table, kv_lens, out, ws_ml, ws_acc
+                + [ctypes.c_int] * 8  # B, NH, NKV, NP, P, D, MAXP, nsplit
                 + [ctypes.c_float, ctypes.c_void_p]
             )
         _decode_fns[name] = fn
     return fn
+
+
+def paged_splits(maxp: int, page_size: int) -> int:
+    """The number of key splits K5 launches for a table of ``maxp`` pages of
+    ``page_size`` keys: from the shapes alone, never from ``kv_lens``."""
+    global _paged_split_keys
+    if _paged_split_keys is None:
+        from deepspeed_tpu_torch.ops import native
+
+        lib = native.load("decode_attention")
+        lib.paged_decode_split_keys.restype = ctypes.c_int
+        _paged_split_keys = int(lib.paged_decode_split_keys())
+    return -(-maxp * page_size // _paged_split_keys)
 
 
 def _scale(scale, D: int) -> float:
@@ -396,13 +417,35 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, kv_len, scale=
     return out.reshape(B, NH, D)
 
 
+def paged_split_partials_plain(q, k_pages, v_pages, page_table, kv_lens, split_keys: int, scale: float):
+    """K5's split kernel in plain torch: K4's partials
+    (``ragged_split_partials_plain``) at one query token a row, with kv_len
+    clamped into ``[0, MAXP·P]`` as the kernel clamps it. Returns ``m``,
+    ``l`` as ``[B, NH, nsplit]`` and ``acc`` as ``[B, NH, nsplit, D]``; a
+    split with no live key holds the empty partial (``l == 0``)."""
+    lens = kv_lens.to(torch.int32).clamp(0, page_table.shape[1] * k_pages.shape[2])
+    m, l, acc = ragged_split_partials_plain(q[:, None], k_pages, v_pages, page_table, lens,
+                                            (lens > 0).to(torch.int32), split_keys, scale)
+    return m[:, 0], l[:, 0], acc[:, 0]
+
+
+def paged_combine_plain(m, l, acc, kv_lens, dtype):
+    """K5's combine in plain torch: ``ragged_combine_plain`` at one query
+    token a row (the splits below kv_len merged in split order, empty ones
+    skipped), rows with ``kv_len <= 0`` exact zeros. Returns ``[B, NH, D]``
+    in ``dtype``."""
+    lens = kv_lens.to(torch.int32)
+    return ragged_combine_plain(m[:, None], l[:, None], acc[:, None], lens, (lens > 0).to(torch.int32), dtype)[:, 0]
+
+
 def paged_decode_attention_kernel(q, k_pages, v_pages, page_table, kv_lens, scale: float):
-    """Launch K5 on the current stream: q ``[B, NH, D]``, pools
-    ``[NP, NKV, P, D]`` in q's dtype, ``page_table [B, MAXP]`` and
-    ``kv_lens [B]`` int32, all contiguous CUDA tensors; returns
-    ``[B, NH, D]``. Raises on a tensor the kernel does not take and on a
-    non-zero ``cudaError_t``. Does not synchronise."""
-    global launches_paged
+    """Launch K5's split kernel and its combine on the current stream: q
+    ``[B, NH, D]``, pools ``[NP, NKV, P, D]`` in q's dtype, ``page_table
+    [B, MAXP]`` and ``kv_lens [B]`` int32, all contiguous CUDA tensors;
+    returns ``[B, NH, D]``. The fp32 partials go to a workspace sized from
+    the shapes (``torch.empty``). Raises on a tensor the kernel does not
+    take and on a non-zero ``cudaError_t``. Does not synchronise."""
+    global launches_paged, launches_paged_split
     _check_kernel_tensors("paged decode attention", q, ("k", k_pages), ("v", v_pages),
                           ("page_table", page_table), ("kv_lens", kv_lens))
     _check_paged_args(q, k_pages, v_pages, page_table)
@@ -411,16 +454,22 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, page_table, kv_lens, scal
     if kv_lens.shape != (B,):
         raise ValueError(f"kv_lens {tuple(kv_lens.shape)} does not match B={B}")
     out = torch.empty_like(q)
+    fn = _decode_entry("paged_decode_attention")
+    maxp = page_table.shape[1]
+    nsplit = paged_splits(maxp, P)
+    ws_ml = torch.empty(2 * B * NH * nsplit, dtype=torch.float32, device=q.device)
+    ws_acc = torch.empty(B * NH * nsplit * D, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _decode_entry("paged_decode_attention")(
+        err = fn(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-            B, NH, NKV, NP, P, D, page_table.shape[1], float(scale),
+            page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), ws_ml.data_ptr(), ws_acc.data_ptr(),
+            B, NH, NKV, NP, P, D, maxp, nsplit, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError_t {err}")
     launches_paged += 1
+    launches_paged_split += 1
     return out
 
 

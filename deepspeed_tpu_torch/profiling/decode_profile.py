@@ -47,7 +47,8 @@ from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops.transformer import decode_attention as da
 
 ROUNDS = 24  # profiled decode rounds of the bucketed part
-KERNELS = {"K6": "dense_decode_kernel", "K5": "paged_decode_kernel", "K4": "ragged_paged_attention_kernel"}
+KERNELS = {"K6": ("dense_decode_kernel",), "K5": ("paged_decode_split_kernel", "decode_combine_kernel"),
+           "K4": ("ragged_split_kernel", "ragged_combine_kernel")}  # each kernel's device functions
 
 
 def _device_us(evt) -> float:
@@ -76,8 +77,8 @@ def _profiled(fn, trace=None):
             device_us += us
             ops += evt.count
             top[evt.key[:80]] = top.get(evt.key[:80], 0.0) + us
-            for k, name in KERNELS.items():
-                if name in evt.key:
+            for k, names in KERNELS.items():
+                if any(name in evt.key for name in names):
                     by_kernel[k] += us
         elif evt.key.startswith("cudaLaunch"):
             launch_calls += evt.count

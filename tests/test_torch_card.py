@@ -2,9 +2,11 @@
 paged attention (K4, split-KV: kv_len on and past split boundaries,
 bitwise-equal repeated calls), the flash attention forward and backward
 (K1-K3), the decode attention over a contiguous cache (K6) and over pages
-(K5), and the block-sparse attention forward and backward (K7-K9), with
-K1, K3 and K9 on their tensor-core variants in bf16 and fp16 (the variant
-counters, K9's split columns, dead keys and bitwise-equal repeated calls).
+(K5, split-KV: buckets 1/2/4/8, split boundaries, bitwise-equal repeated
+calls), and the block-sparse attention forward and backward (K7-K9), with
+K1, K3, K7 and K9 on their tensor-core variants in bf16 and fp16 (the
+variant counters, K7's split rows and dead rows, K9's split columns and
+dead keys, bitwise-equal repeated calls).
 A CPU tensor handed straight to a kernel entry raises (those tests need no
 card).
 
@@ -296,13 +298,87 @@ def test_paged_decode_kernel_matches_plain_on_card(cuda_device, case, dtype, mon
         pt[b, : len(ids)] = ids
     pt_d = torch.from_numpy(pt).to(cuda_device)
     lens_d = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    before = da.launches_paged
+    before = (da.launches_paged, da.launches_paged_split)
     out = torch_pa.paged_decode_attention(q, kp, vp, pt_d, lens_d, impl="kernel")
     ref = torch_pa.paged_decode_attention(q.float(), kp.float(), vp.float(), pt_d, lens_d, impl="plain")
     torch.cuda.synchronize()
-    assert da.launches_paged == before + 1
+    assert (da.launches_paged, da.launches_paged_split) == (before[0] + 1, before[1] + 1)
     assert (out.float() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
     assert (out[lens_d == 0] == 0).all()
+
+
+PAGED_SPLIT_SHAPES = {  # (NH, NKV, D, P, maxp): llama-1B's serving heads, and D=128 with a group of 7
+    "Hg=8 D=64 P=16": (32, 4, 64, 16, 128),
+    "Hg=7 D=128 P=64": (28, 4, 128, 64, 8),
+}
+# kv_len per row for each bucket: one key, on and one past split boundaries, the full table (MAXP·P = 2048
+# or 512), a dead row
+PAGED_SPLIT_LENS = {1: [1], 2: [64, 0], 4: [65, 128, 129, 1], 8: [0, 63, 64, 65, 300, 511, 512, 512]}
+
+
+def _paged_case(rs, lens, NH, NKV, D, P, maxp, dev):
+    """Pools whose every slot is large garbage except the live positions of
+    each row's distinct pages; tables end in -1 sentinels."""
+    lens = [min(n, maxp * P) for n in lens]
+    NP = 1 + sum(-(-n // P) for n in lens)
+    kp = np.full((NP, NKV, P, D), 3.0e4, np.float32)
+    vp = -kp
+    pt = np.full((len(lens), maxp), -1, np.int32)
+    free = rs.permutation(np.arange(1, NP))
+    used = 0
+    for r, n in enumerate(lens):
+        pages = -(-n // P)
+        pt[r, :pages] = free[used: used + pages]
+        used += pages
+        for i in range(pages):
+            live = min(P, n - i * P)
+            kp[pt[r, i], :, :live] = rs.randn(NKV, live, D)
+            vp[pt[r, i], :, :live] = rs.randn(NKV, live, D)
+    q = rs.randn(len(lens), NH, D).astype(np.float32)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(q), t(kp), t(vp), t(pt), torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bucket", sorted(PAGED_SPLIT_LENS))
+@pytest.mark.parametrize("shape", sorted(PAGED_SPLIT_SHAPES))
+def test_paged_decode_split_matches_plain_on_card(cuda_device, shape, bucket, dtype, monkeypatch):
+    """K5's split kernel and combine at buckets 1/2/4/8, kv_len on and one
+    past split boundaries, against the plain version in fp32 on the same
+    (cast) inputs, TF32 off: fp32 within 1e-4, bf16/fp16 within 2e-2; dead
+    rows exact zeros; every call on the split path."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    NH, NKV, D, P, maxp = PAGED_SPLIT_SHAPES[shape]
+    q, kp, vp, pt, lens = _paged_case(np.random.RandomState(bucket), PAGED_SPLIT_LENS[bucket], NH, NKV, D, P, maxp,
+                                      cuda_device)
+    args = (q.to(dtype), kp.to(dtype), vp.to(dtype))
+    before = (da.launches_paged, da.launches_paged_split)
+    out = torch_pa.paged_decode_attention(*args, pt, lens, impl="kernel")
+    ref = torch_pa.paged_decode_attention(*(a.float() for a in args), pt, lens, impl="plain")
+    torch.cuda.synchronize()
+    assert (da.launches_paged - before[0], da.launches_paged_split - before[1]) == (1, 1)
+    assert da.paged_splits(maxp, P) == -(-maxp * P // 64)
+    live = lens > 0
+    assert torch.isfinite(out.float()).all() and (out[~live] == 0).all()
+    if live.any():
+        assert (out.float() - ref)[live].abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_bitwise_deterministic_on_card(cuda_device, dtype):
+    """Two K5 calls on the same inputs are bitwise equal: the combine merges
+    the partials in split order, without atomics."""
+    NH, NKV, D, P, maxp = PAGED_SPLIT_SHAPES["Hg=8 D=64 P=16"]
+    q, kp, vp, pt, lens = _paged_case(np.random.RandomState(2), PAGED_SPLIT_LENS[8], NH, NKV, D, P, maxp,
+                                      cuda_device)
+    args = (q.to(dtype), kp.to(dtype), vp.to(dtype), pt, lens)
+    first = torch_pa.paged_decode_attention(*args, impl="kernel")
+    second = torch_pa.paged_decode_attention(*args, impl="kernel")
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
 
 
 def test_kernel_entries_reject_cpu_tensors():
@@ -363,6 +439,7 @@ def test_block_sparse_kernels_match_plain_on_card(cuda_device, case, dtype, monk
     layout_h = _sparse_layout(kind, kw, T, block)
     row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(layout_h, cuda_device)
     units = bs.dkv_units(layout_h, block, cuda_device)
+    f_units = bs.fwd_units(layout_h, block, cuda_device)
     assert units.n_slots > 0 or "split" not in case
     rs = np.random.RandomState(8)
     q, k, v, do = (torch.from_numpy(rs.randn(BN, T, D).astype(np.float32)).to(cuda_device).to(dtype)
@@ -370,13 +447,14 @@ def test_block_sparse_kernels_match_plain_on_card(cuda_device, case, dtype, monk
     scale = 1.0 / np.sqrt(D)
     args = (scale, block, causal)
     before = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
-    before_tc = bs.launches_dkv_tc
-    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
+    before_tc = (bs.launches_fwd_tc, bs.launches_dkv_tc)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
     delta = bs.sparse_delta(o, do)
     dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
     dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
-    # bf16 and fp16 take K9's tensor-core variant, fp32 the FMA variant
-    assert bs.launches_dkv_tc - before_tc == int(dtype != torch.float32)
+    # bf16 and fp16 take K7's and K9's tensor-core variants, fp32 the FMA variants
+    tc = int(dtype != torch.float32)
+    assert (bs.launches_fwd_tc - before_tc[0], bs.launches_dkv_tc - before_tc[1]) == (tc, tc)
     f = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
     dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
@@ -390,6 +468,106 @@ def test_block_sparse_kernels_match_plain_on_card(cuda_device, case, dtype, monk
         assert torch.isfinite(got.float()).all()
         rel = ((got.float() - ref).abs().max() / ref.abs().max()).item()
         assert rel <= (1e-3 if exact else 3e-2), (case, dtype, rel)
+
+
+def _dead_rows_blocks(n):
+    """A local window of three blocks, a global q block 1 (it lists every
+    key block: split past the cap), and q block 2 listing only the future
+    block n - 1: under the causal mask its rows have no live score."""
+    layout = np.zeros((n, n), bool)
+    for i in range(n):
+        layout[i, max(0, i - 2): i + 1] = True
+    layout[1] = True
+    layout[2] = False
+    layout[2, n - 1] = True
+    return layout
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block", [8, 16, 24, 64, 128])
+def test_block_sparse_fwd_tensor_cores_match_plain_on_card(cuda_device, block, causal, dtype):
+    """K7's tensor-core variant (a split global row, dead rows under the
+    causal mask) against the plain version in fp32 on the same (cast)
+    inputs: O and LSE within 2e-2 on live rows; dead rows exact zeros in O
+    with LSE = NEG_INF; the variant counter moves once a call."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    n = 12
+    layout_h = _dead_rows_blocks(n)
+    T, D = n * block, 64 if block != 24 else 128
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    units = bs.fwd_units(layout_h, block, cuda_device)
+    assert units.n_slots > 0
+    rs = np.random.RandomState(block)
+    q, k, v = (torch.from_numpy(rs.randn(3, T, D).astype(np.float32)).to(cuda_device).to(dtype) for _ in range(3))
+    args = (1.0 / np.sqrt(D), block, causal)
+    before = (bs.launches_fwd, bs.launches_fwd_tc)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units, *args)
+    o_ref, lse_ref = bs.sparse_fwd_plain(q.float(), k.float(), v.float(), row_idx, row_cnt, *args)
+    torch.cuda.synchronize()
+    assert (bs.launches_fwd - before[0], bs.launches_fwd_tc - before[1]) == (1, 1)
+    dead = lse_ref <= bs.NEG_INF / 2
+    assert bool(dead.any()) == causal
+    assert (o[dead] == 0).all() and (lse[dead] == bs.NEG_INF).all()
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref).abs().max().item() <= 2e-2
+    assert (lse - lse_ref)[~dead].abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_fwd_per_head_bigbird_on_card(cuda_device, dtype):
+    """A per-head BigBird layout through the fused path: one K7 call a head,
+    each on the tensor cores with its own unit table, against the plain
+    version (2e-2)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+    from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import BigBirdSparsityConfig
+
+    layout = BigBirdSparsityConfig(num_heads=4, block=32, different_layout_per_head=True,
+                                   num_random_blocks=1).make_layout(1024)
+    rs = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(rs.randn(2, 4, 1024, 128).astype(np.float32)).to(cuda_device).to(dtype)
+               for _ in range(3))
+    before = (bs.launches_fwd, bs.launches_fwd_tc)
+    with torch.no_grad():
+        o = bs.fused_block_sparse_attention(q, k, v, layout, 32)
+        ref = bs.fused_block_sparse_attention(q.float(), k.float(), v.float(), layout, 32, impl="plain")
+    torch.cuda.synchronize()
+    assert (bs.launches_fwd - before[0], bs.launches_fwd_tc - before[1]) == (4, 4)
+    assert (o.float() - ref).abs().max().item() <= 2e-2
+
+
+def test_block_sparse_fwd_fp32_stays_on_fma_on_card(cuda_device):
+    """fp32 K7 runs the FMA kernel (the parity path): the call counts, the
+    tensor-core count does not move, and it matches plain within 1e-4."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    layout_h = _dead_rows_blocks(8)
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    q, k, v = (torch.randn(2, 128, 64, device=cuda_device) for _ in range(3))
+    before = (bs.launches_fwd, bs.launches_fwd_tc)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, bs.fwd_units(layout_h, 16, cuda_device), 0.125, 16, True)
+    o_ref, _ = bs.sparse_fwd_plain(q, k, v, row_idx, row_cnt, 0.125, 16, True)
+    torch.cuda.synchronize()
+    assert (bs.launches_fwd - before[0], bs.launches_fwd_tc - before[1]) == (1, 0)
+    assert (o - o_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("block", [16, 64])
+def test_block_sparse_fwd_bitwise_deterministic_on_card(cuda_device, block):
+    """Two K7 calls on a layout with a split global row are bitwise equal:
+    the chunks' partials are merged in chunk order, with no atomics."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    layout_h = _dead_rows_blocks(16)
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    units = bs.fwd_units(layout_h, block, cuda_device)
+    assert units.n_slots > 0
+    q, k, v = (torch.randn(4, 16 * block, 64, device=cuda_device, dtype=torch.bfloat16) for _ in range(3))
+    runs = [bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units, 0.125, block, False) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0].view(torch.int16), runs[1][0].view(torch.int16))
+    assert torch.equal(runs[0][1].view(torch.int32), runs[1][1].view(torch.int32))
 
 
 def test_block_sparse_dead_rows_exact_zeros_on_card(cuda_device):
@@ -445,7 +623,7 @@ def test_block_sparse_dkv_bitwise_deterministic_on_card(cuda_device, case):
     q, k, v, do = (torch.from_numpy(rs.randn(BN, T, D).astype(np.float32)).to(cuda_device).to(torch.bfloat16)
                    for _ in range(4))
     args = (1.0 / np.sqrt(D), block, causal)
-    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, *args)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, bs.fwd_units(layout_h, block, cuda_device), *args)
     delta = bs.sparse_delta(o, do)
     first = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
     second = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
@@ -524,9 +702,10 @@ def test_block_sparse_entries_reject_cpu_tensors():
     lse = torch.zeros(2, 64)
     row_idx, row_cnt, col_idx, col_cnt = bs.block_tables(np.eye(4, dtype=bool), "cpu")
     units = bs.dkv_units(np.eye(4, dtype=bool), 16, "cpu")
+    f_units = bs.fwd_units(np.eye(4, dtype=bool), 16, "cpu")
     counts = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
     with pytest.raises(ValueError, match="CUDA"):
-        bs.sparse_fwd_kernel(q, q, q, row_idx, row_cnt, 0.125, 16, False)
+        bs.sparse_fwd_kernel(q, q, q, row_idx, row_cnt, f_units, 0.125, 16, False)
     with pytest.raises(ValueError, match="CUDA"):
         bs.sparse_dq_kernel(q, q, q, q, lse, lse, row_idx, row_cnt, 0.125, 16, False)
     with pytest.raises(ValueError, match="CUDA"):

@@ -207,12 +207,12 @@ def test_dkv_units_cover_each_pair_once_capped_heaviest_first(name):
     layout_h = make()
     _, _, col_idx, col_cnt = bs.build_block_tables(layout_h)
     u = bs.build_dkv_units(layout_h, block)
-    assert u.units.dtype == np.int32 and u.units.shape[1] == 3 + 2 * bs.DKV_WARPS
-    assert u.cap == bs.dkv_cap(col_cnt) and u.block == block and u.n_kb == col_cnt.shape[0]
+    assert u.units.dtype == np.int32 and u.units.shape[1] == 3 + 2 * bs.UNIT_WARPS
+    assert u.cap == bs.list_cap(col_cnt) and u.block == block and u.n_blocks == col_cnt.shape[0]
     lens = u.units[:, 2]
     assert lens.max() <= u.cap and np.all(np.diff(lens) <= 0)
-    subs = -(-block // bs.DKV_TILE)
-    want = {(kb * block + bs.DKV_TILE * s, int(qb)) for kb in range(col_cnt.shape[0]) for s in range(subs)
+    subs = -(-block // bs.UNIT_TILE)
+    want = {(kb * block + bs.UNIT_TILE * s, int(qb)) for kb in range(col_cnt.shape[0]) for s in range(subs)
             for qb in col_idx[kb, : col_cnt[kb]]}
     seen, tiles_seen, slots_seen = {}, set(), []
     chunks_of = {int(kb): (int(s0), int(n)) for kb, s0, n in u.reduce}
@@ -220,7 +220,7 @@ def test_dkv_units_cover_each_pair_once_capped_heaviest_first(name):
         list_kb, start, length = (int(x) for x in row[:3])
         qbs = col_idx[list_kb, start: start + length]
         assert start + length <= col_cnt[list_kb]
-        tiles, slots = row[3: 3 + bs.DKV_WARPS], row[3 + bs.DKV_WARPS:]
+        tiles, slots = row[3: 3 + bs.UNIT_WARPS], row[3 + bs.UNIT_WARPS:]
         assert (tiles >= 0).any() and np.all(np.diff(np.flatnonzero(tiles >= 0)) == 1)
         for tile, slot in zip(tiles, slots):
             if tile < 0:
@@ -238,7 +238,7 @@ def test_dkv_units_cover_each_pair_once_capped_heaviest_first(name):
             for qb in qbs:
                 seen[(int(tile), int(qb))] = seen.get((int(tile), int(qb)), 0) + 1
     assert set(seen) == want and set(seen.values()) <= {1}
-    assert tiles_seen == {kb * block + bs.DKV_TILE * s for kb in range(col_cnt.shape[0]) for s in range(subs)}
+    assert tiles_seen == {kb * block + bs.UNIT_TILE * s for kb in range(col_cnt.shape[0]) for s in range(subs)}
     assert len(set(slots_seen)) == len(slots_seen)  # one chunk a slot for each key tile
     assert u.n_slots == sum(n for _, n in chunks_of.values())
     if name in ("fixed blk=16", "longformer blk=16 global"):
