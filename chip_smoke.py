@@ -73,10 +73,11 @@ non-zero without the final line:
    within 1e-4, each gradient within 1e-3 of the reference's largest
    magnitude) and bf16 against the plain versions in fp32 on the same bf16
    inputs (O within 2e-2, each gradient within 3e-2 of that magnitude),
-   and fp16 at the training shape within bf16's bounds. K1 and K3 must take
-   their tensor-core variants in bf16 and fp16 and their FMA variants in
-   fp32 (``launches_fwd_tc``, ``launches_dkv_tc``). At the training shape it
-   times each kernel, its
+   and fp16 at the training shape within bf16's bounds. K1, K2 and K3 must
+   take their tensor-core variants in bf16 and fp16 and their FMA variants
+   in fp32 (``launches_fwd_tc``, ``launches_dq_tc``, ``launches_dkv_tc``);
+   two bf16 K2 calls on the same inputs must give a bitwise-equal dQ. At
+   the training shape it times each kernel, its
    plain version and a yardstick (``scaled_dot_product_attention(
    is_causal=True)`` for K1, and its autograd backward for K2 and K3
    together; the port never calls either), L2 flushed before every launch,
@@ -87,12 +88,12 @@ non-zero without the final line:
    seeded random weights in the JAX tree layout; one ``RandomState(0)``
    batch of ``[8, 1025]`` tokens placed once; 3 warm-up and 20 timed steps
    of ``engine(batch)``, ``backward``, ``step``. The flash launch counts
-   are zeroed just before and each must equal 12 × 23 just after, every K1
-   and K3 launch on the tensor-core variant; every loss must be finite and
+   are zeroed just before and each must equal 12 × 23 just after, every K1,
+   K2 and K3 launch on the tensor-core variant; every loss must be finite and
    the last below the first. Prints tokens/s, ms per step, MFU by bench.py's
    formula and peak device memory;
 12. the same model in fp32 (TF32 off) for 3 steps, once through the
-   kernels (K1's and K3's FMA variants) and once with
+   kernels (K1's, K2's and K3's FMA variants) and once with
    ``attn_impl="plain"``: step 1's loss and grad norm within 1e-5 relative
    and identical to the last bit;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
@@ -107,42 +108,56 @@ non-zero without the final line:
    live pair (exact zeros in its dK and dV); fp32 with TF32 off (O and LSE
    within 1e-4, each gradient within 1e-3 of the reference's largest
    magnitude) and bf16 against the plain versions in fp32 on the same bf16
-   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude). K7
-   and K9 must take their tensor-core variants in bf16 and their FMA
-   variants in fp32 (``launches_fwd_tc``, ``launches_dkv_tc``); K7 alone
-   runs in fp16 too (O and LSE within 2e-2, dead rows exact zeros, every
+   inputs (O within 2e-2, each gradient within 3e-2 of that magnitude). K7,
+   K8 and K9 must take their tensor-core variants in bf16 and their FMA
+   variants in fp32 (``launches_fwd_tc``, ``launches_dq_tc``,
+   ``launches_dkv_tc``); K7 and K8 run in fp16 too (O and LSE within 2e-2,
+   dQ within 3e-2 of its largest magnitude, dead rows exact zeros, every
    call on the tensor cores; timed at the main and bench shapes). At the
    main and bench shapes two bf16 K7 calls must give bitwise-equal O and
-   LSE and two K9 calls bitwise-equal dK and dV, and it times each kernel, its plain
+   LSE, two K8 calls a bitwise-equal dQ and two K9 calls bitwise-equal dK
+   and dV. K8 must keep dS in fp32: on keys within 0.03 of one shared
+   vector a head, where rounding dS to the operand dtype would move dQ some
+   30 times the output rounding, dQ within 1.5e-2 (bf16) or 3e-3 (fp16) of
+   its largest magnitude, a bound the plain version with dS rounded must
+   exceed. It times each kernel, its plain
    version, its bound, a yardstick (``scaled_dot_product_attention`` with
    the layout expanded to an element mask, and its autograd backward for
    K8 and K9 together; the port never calls either, with its share of the
    kernel's time) and the port's dense K1-K3 at the same shape, L2 flushed
-   before every launch; K7's and K9's lines carry their units, split q or
-   key blocks and fp32 workspace bytes;
+   before every launch; K7's, K8's and K9's lines carry their units, split
+   q or key blocks and fp32 workspace bytes;
 14. the sparse main path: ``BertSparseSelfAttention`` at BERT-large width
    (its default ``FixedDefault(16)`` layout) on bf16 hidden states [2,
    4096, 1024], ``wq``, ``wk`` and ``wv`` with fp32 masters updated by
    ``FusedAdam.apply`` and cast to bf16 for each forward, MSE against a
-   seeded target, 3 warm-up and 10 timed steps. The counts are zeroed just
+   seeded target, 3 warm-up and 10 timed steps enqueued back to back and
+   timed as one window from a synchronize to a synchronize (ms per step and
+   tokens/s over the whole window). Beside them, for a reading that
+   strays: each step's host enqueue time, each step's interval on the
+   card's stream (CUDA events between steps, no synchronize), the garbage
+   collections and the allocator's cudaMalloc / cudaFree calls and retries
+   inside the window.
+   The counts are zeroed just
    before and each of K7-K9 must equal 13 just after, every other kernel 0,
-   every K7 and K9 call on the tensor-core variant; every loss finite and the last
+   every K7, K8 and K9 call on the tensor-core variant; every loss finite and the last
    below the first. Then one fp32 step
    (TF32 off) through the kernels and through ``impl="plain"`` (loss within
    1e-5 relative, gradients within 1e-3 of their largest magnitude), and one
    call with a ``key_padding_mask``, which takes the emulation by JAX's rule
    with no K7 launch.
 
-The line before the last is ``{"kernels": [...]}`` (K1, K3, K7 and K9 with
-their ``variant`` by dtype and the main path's tensor-core launches, K7
-with its fp16 times; K4 and K5 with their split counts and split-KV
-launches); the last line is
+The line before the last is ``{"kernels": [...]}`` (K1-K3 and K7-K9 with
+their ``variant`` by dtype and the main path's tensor-core launches, K1-K3,
+K7 and K8 with their fp16 times; K4 and K5 with their split counts and
+split-KV launches); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -797,17 +812,20 @@ def phase_three_way(cfg, tree, seed, dev):
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
     decode_attention.launches_ragged_split = decode_attention.launches_paged_split = 0
-    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = fa.launches_fwd_tc = fa.launches_dkv_tc = 0
-    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = bs.launches_fwd_tc = bs.launches_dkv_tc = 0
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+    fa.launches_fwd_tc = fa.launches_dq_tc = fa.launches_dkv_tc = 0
+    bs.launches_fwd = bs.launches_dq = bs.launches_dkv = 0
+    bs.launches_fwd_tc = bs.launches_dq_tc = bs.launches_dkv_tc = 0
 
 
 def _variants():
-    """Launches of the tensor-core variants of K1, K3, K7 and K9 (bf16,
-    fp16) among the counts above (the rest of those kernels' launches took
-    the fp32 FMA variants), and the K4 and K5 calls that ran their split-KV
+    """Launches of the tensor-core variants of K1-K3 and K7-K9 (bf16, fp16)
+    among the counts above (the rest of those kernels' launches took the
+    fp32 FMA variants), and the K4 and K5 calls that ran their split-KV
     kernel and combine."""
-    return dict(flash_fwd_tc=fa.launches_fwd_tc, flash_dkv_tc=fa.launches_dkv_tc,
-                block_sparse_fwd_tc=bs.launches_fwd_tc, block_sparse_dkv_tc=bs.launches_dkv_tc,
+    return dict(flash_fwd_tc=fa.launches_fwd_tc, flash_dq_tc=fa.launches_dq_tc, flash_dkv_tc=fa.launches_dkv_tc,
+                block_sparse_fwd_tc=bs.launches_fwd_tc, block_sparse_dq_tc=bs.launches_dq_tc,
+                block_sparse_dkv_tc=bs.launches_dkv_tc,
                 ragged_split=decode_attention.launches_ragged_split,
                 paged_split=decode_attention.launches_paged_split)
 
@@ -829,7 +847,7 @@ FLASH_CASES = {  # name: (B, T, N, D, causal)
 FLASH_MAIN = "train B=8 T=1024 N=12 D=64 causal"
 FLASH_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}  # (O and LSE abs, grads rel)
 FLASH_FP16_TOL = FLASH_TOL[torch.bfloat16]  # fp16 (the training shape only) at bf16's bounds: it rounds finer
-VARIANT = {torch.float32: "fma", torch.bfloat16: "tensor_core", torch.float16: "tensor_core"}  # K1 and K9
+VARIANT = {torch.float32: "fma", torch.bfloat16: "tensor_core", torch.float16: "tensor_core"}  # K1-K3, K7-K9
 
 
 def _flash_bound(B, T, N, D, causal, dtype):
@@ -865,11 +883,12 @@ def _flash_errors(q, k, v, do, causal):
         raise AssertionError(f"K1 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
     o_ref, lse_ref = fa.flash_fwd_plain(*f[:3], causal)
     delta = fa.flash_delta(o, do)
+    before_tc = (fa.launches_dq_tc, fa.launches_dkv_tc)
     dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal)
-    before_tc = fa.launches_dkv_tc
     dk, dv = fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal)
-    if fa.launches_dkv_tc - before_tc != int(VARIANT[q.dtype] == "tensor_core"):
-        raise AssertionError(f"K3 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
+    tc = int(VARIANT[q.dtype] == "tensor_core")
+    if (fa.launches_dq_tc - before_tc[0], fa.launches_dkv_tc - before_tc[1]) != (tc, tc):
+        raise AssertionError(f"K2 or K3 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
     dq_ref = fa.flash_dq_plain(*f, lse, delta, causal)
     dk_ref, dv_ref = fa.flash_dkv_plain(*f, lse, delta, causal)
     torch.cuda.synchronize()
@@ -899,8 +918,16 @@ def phase_flash(dev, flush):
                    if (abs_err > tol_o if key in ("flash_fwd", "flash_lse") else rel > tol_g)]
             dt = str(dtype).replace("torch.", "")
             rec = dict(phase="flash", case=name, dtype=dt, flash_fwd_variant=VARIANT[dtype],
-                       flash_dkv_variant=VARIANT[dtype], tol_o_lse_abs=tol_o,
+                       flash_dq_variant=VARIANT[dtype], flash_dkv_variant=VARIANT[dtype], tol_o_lse_abs=tol_o,
                        tol_grad_rel=tol_g, errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
+            if name == FLASH_MAIN and dtype == torch.bfloat16:  # K2 twice on the same inputs: bitwise-equal dQ
+                runs = [fa.flash_dq_kernel(q, k, v, do, lse, delta, causal) for _ in range(2)]
+                torch.cuda.synchronize()
+                equal = torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
+                emit(phase="flash_dq_determinism", case=name, dtype=dt, bitwise_equal=equal)
+                if not equal:
+                    raise AssertionError(f"K2 {name}: two calls on the same inputs differ")
+                del runs
             if name == FLASH_MAIN:
                 bounds = _flash_bound(B, T, N, D, causal, dtype)
                 f = [t.float() for t in (q, k, v, do)]
@@ -1004,8 +1031,9 @@ def phase_train(seed, dev):
     if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or \
             sum(counts[k] for k in ("ragged_paged_attention", "decode_attention", "paged_decode_attention")):
         raise AssertionError(f"train: launches {counts}, want {want} = {L} x {steps} for each flash kernel")
-    if variants["flash_fwd_tc"] != counts["flash_fwd"] or variants["flash_dkv_tc"] != counts["flash_dkv"]:
-        raise AssertionError(f"train: {variants['flash_fwd_tc']} of {counts['flash_fwd']} bf16 K1 launches and "
+    if any(variants[f"{k}_tc"] != counts[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"train: {variants['flash_fwd_tc']} of {counts['flash_fwd']} bf16 K1 launches, "
+                             f"{variants['flash_dq_tc']} of {counts['flash_dq']} K2 launches and "
                              f"{variants['flash_dkv_tc']} of {counts['flash_dkv']} K3 launches took the tensor-core "
                              f"variant, want all")
     del engine, batch
@@ -1024,7 +1052,7 @@ def phase_train_fp32(seed, dev):
     for impl in ("kernel", "plain"):
         engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree,
                                          attn_impl=impl)
-        before = (fa.launches_fwd, fa.launches_fwd_tc, fa.launches_dkv_tc)
+        before = (fa.launches_fwd, fa.launches_fwd_tc, fa.launches_dq_tc, fa.launches_dkv_tc)
         rec = []
         for _ in range(3):
             loss = engine(batch)
@@ -1032,9 +1060,9 @@ def phase_train_fp32(seed, dev):
             engine.step()
             rec.append((loss.item(), engine.get_global_grad_norm()))
         launched = fa.launches_fwd - before[0]
-        tc = (fa.launches_fwd_tc - before[1], fa.launches_dkv_tc - before[2])
-        if (impl == "kernel") != (launched > 0) or tc != (0, 0):
-            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times; K1 and K3 launches on the "
+        tc = (fa.launches_fwd_tc - before[1], fa.launches_dq_tc - before[2], fa.launches_dkv_tc - before[3])
+        if (impl == "kernel") != (launched > 0) or tc != (0, 0, 0):
+            raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times; K1-K3 launches on the "
                                  f"tensor-core variants {tc} (want 0)")
         arms[impl] = rec
         del engine
@@ -1055,6 +1083,10 @@ SPARSE_MAIN = "main B=2 NH=16 T=4096 D=64 Fixed blk=16"
 SPARSE_BENCH = "bench B=1 NH=8 T=8192 D=64 BSLongformer blk=64 causal"
 SPARSE_B, SPARSE_T = 2, 4096  # the main path's batch and sequence
 SPARSE_WARMUP, SPARSE_TIMED = 3, 10
+# K8's dQ bound on keys where rounding dS shows (_sparse_dq_ds_fp32), relative to its largest magnitude:
+# above the output rounding with dS as hi + lo (at most 3.3e-3 in bf16, 9.6e-4 in fp16, emulated in plain
+# torch) and below the error of dS rounded to the operand dtype (at least 8.5e-2 and 1.1e-2)
+DS_FP32_TOL = {torch.bfloat16: 1.5e-2, torch.float16: 3e-3}
 
 
 def _dead_rows_layout():
@@ -1160,8 +1192,8 @@ def _sparse_errors(groups, block, causal):
     {kernel: (max abs error, error relative to the reference's largest
     magnitude)}, whether the dead rows (rows with no live score) are exact
     zeros in O and dQ and the dead keys (keys with no live pair) exact zeros
-    in dK and dV, and the kernel outputs of the first group. K7 and K9 must
-    take the variant of their dtype (tensor cores for bf16 and fp16, FMA for
+    in dK and dV, and the kernel outputs of the first group. K7-K9 must take
+    the variant of their dtype (tensor cores for bf16 and fp16, FMA for
     fp32)."""
     errs = {}
     dead_zero = True
@@ -1171,14 +1203,15 @@ def _sparse_errors(groups, block, causal):
         scale = 1.0 / float(np.sqrt(q.shape[-1]))
         args = (scale, block, causal)
         f = [t.float() for t in (q, k, v, do)]
-        before_tc = (bs.launches_fwd_tc, bs.launches_dkv_tc)
+        before_tc = (bs.launches_fwd_tc, bs.launches_dq_tc, bs.launches_dkv_tc)
         o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
         delta = bs.sparse_delta(o, do)
-        dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
+        dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, f_units, *args)
         dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
         tc = int(VARIANT[q.dtype] == "tensor_core")
-        if (bs.launches_fwd_tc - before_tc[0], bs.launches_dkv_tc - before_tc[1]) != (tc, tc):
-            raise AssertionError(f"K7 or K9 on {q.dtype} did not take the {VARIANT[q.dtype]} variant")
+        moved = (bs.launches_fwd_tc - before_tc[0], bs.launches_dq_tc - before_tc[1], bs.launches_dkv_tc - before_tc[2])
+        if moved != (tc, tc, tc):
+            raise AssertionError(f"K7, K8 or K9 on {q.dtype} did not take the {VARIANT[q.dtype]} variant: {moved}")
         o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
         dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
         dk_ref, dv_ref = bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)
@@ -1235,7 +1268,7 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
     timed = {
         "block_sparse_fwd": (lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args),
                              lambda: bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)),
-        "block_sparse_dq": (lambda: bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args),
+        "block_sparse_dq": (lambda: bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, f_units, *args),
                             lambda: bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)),
         "block_sparse_dkv": (lambda: bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args),
                              lambda: bs.sparse_dkv_plain(*f, lse, delta, col_idx, col_cnt, *args)),
@@ -1255,10 +1288,12 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
         lib = lib_fwd if key == "block_sparse_fwd" else lib_bwd
         timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 3, flush), library_ms=lib, library_share=lib / ms,
                            roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
-    if q.dtype != torch.float32:  # K7's and K9's fp32 workspaces for the split blocks at these shapes
+    if q.dtype != torch.float32:  # K7's, K8's and K9's fp32 workspaces for the split blocks at these shapes
         bn = B * NH // len(groups)
         timing["block_sparse_fwd"].update(units=int(f_units.units.shape[0]), split_q_blocks=int(f_units.reduce.shape[0]),
                                           chunk_cap=f_units.cap, workspace_bytes=bn * f_units.n_slots * block * (D + 2) * 4)
+        timing["block_sparse_dq"].update(units=int(f_units.units.shape[0]), split_q_blocks=int(f_units.reduce.shape[0]),
+                                         chunk_cap=f_units.cap, workspace_bytes=bn * f_units.n_slots * block * D * 4)
         timing["block_sparse_dkv"].update(units=int(units.units.shape[0]), split_key_blocks=int(units.reduce.shape[0]),
                                           chunk_cap=units.cap, workspace_bytes=bn * units.n_slots * 2 * block * D * 4)
     del f
@@ -1275,40 +1310,65 @@ def _sparse_timing(groups, q4, k4, v4, do4, layout, block, causal, dtype, flush,
     return timing, dense
 
 
-def _sparse_fwd_fp16(name, base, layout, block, causal, timed, dev, flush):
-    """K7 alone in fp16 against its plain version in fp32 on the same (cast)
-    inputs: O and LSE within bf16's bound, dead rows exact zeros, every call
-    on the tensor-core variant; at the timed shapes its time and bound."""
-    q4, k4, v4 = (t.to(torch.float16) for t in base[:3])
-    groups = _sparse_groups(q4, k4, v4, q4, layout, block, dev)
-    tol = SPARSE_TOL[torch.bfloat16][0]
-    err, dead_zero = 0.0, True
-    for q, k, v, _, (row_idx, row_cnt, _, _), f_units, _, _ in groups:
+def _sparse_fp16(name, base, layout, block, causal, timed, dev, flush):
+    """K7 and K8 in fp16 against their plain versions in fp32 on the same
+    (cast) inputs, K8 on the kernel forward's LSE and delta: O and LSE within
+    bf16's bound, dQ within 3e-2 of its largest magnitude, dead rows exact
+    zeros in O and dQ, every call on the tensor-core variant; at the timed
+    shapes their times, bounds and library yardsticks."""
+    q4, k4, v4, do4 = (t.to(torch.float16) for t in base)
+    groups = _sparse_groups(q4, k4, v4, do4, layout, block, dev)
+    tol, tol_g = SPARSE_TOL[torch.bfloat16]
+    err, dq_rel, dead_zero = 0.0, 0.0, True
+    for q, k, v, do, (row_idx, row_cnt, _, _), f_units, _, _ in groups:
         args = (1.0 / float(np.sqrt(q.shape[-1])), block, causal)
-        before = bs.launches_fwd_tc
+        before = (bs.launches_fwd_tc, bs.launches_dq_tc)
         o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
-        o_ref, lse_ref = bs.sparse_fwd_plain(q.float(), k.float(), v.float(), row_idx, row_cnt, *args)
+        delta = bs.sparse_delta(o, do)
+        dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, f_units, *args)
+        f = [t.float() for t in (q, k, v, do)]
+        o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
+        dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
         torch.cuda.synchronize()
-        if bs.launches_fwd_tc - before != 1 or not torch.isfinite(o.float()).all():
-            raise AssertionError(f"K7 {name} float16: not on the tensor-core variant, or a non-finite value")
+        if (bs.launches_fwd_tc - before[0], bs.launches_dq_tc - before[1]) != (1, 1) or \
+                not (torch.isfinite(o.float()).all() and torch.isfinite(dq.float()).all()):
+            raise AssertionError(f"K7 or K8 {name} float16: not on the tensor-core variant, or a non-finite value")
         dead = lse_ref <= bs.NEG_INF / 2
-        dead_zero &= bool((o[dead] == 0).all().item() and (lse[dead] == lse_ref[dead]).all().item())
+        dead_zero &= bool((o[dead] == 0).all().item() and (dq[dead] == 0).all().item()
+                          and (lse[dead] == lse_ref[dead]).all().item())
         err = max(err, (o.float() - o_ref).abs().max().item(), (lse - lse_ref)[~dead].abs().max().item())
-    rec = dict(phase="sparse_fwd_fp16", case=name, dtype="float16", block_sparse_fwd_variant="tensor_core",
-               max_abs_err=err, tol=tol, dead_rows_exact_zero=dead_zero)
+        dq_rel = max(dq_rel, (dq.float() - dq_ref).abs().max().item() / max(dq_ref.abs().max().item(), 1e-30))
+        del f, o_ref, lse_ref, dq_ref
+    rec = dict(phase="sparse_fp16", case=name, dtype="float16", block_sparse_fwd_variant="tensor_core",
+               block_sparse_dq_variant="tensor_core", max_abs_err=err, tol=tol, dq_rel_err=dq_rel, tol_grad_rel=tol_g,
+               dead_rows_exact_zero=dead_zero)
     if timed:
         B, NH, T, D = q4.shape
-        q, k, v, _, (row_idx, row_cnt, _, _), f_units, _, _ = groups[0]
+        q, k, v, do, (row_idx, row_cnt, _, _), f_units, _, _ = groups[0]
         args = (1.0 / float(np.sqrt(D)), block, causal)
-        rec["timing"] = dict(ms=_time_ms(lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args),
-                                         20, flush),
-                             library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
-                                 q4, k4, v4, attn_mask=_element_mask(layout, block, causal, T, dev),
-                                 scale=args[0]), 10, flush),
-                             **_sparse_bound(B, NH, T, D, layout, block, causal, torch.float16)["block_sparse_fwd"])
+        o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
+        delta = bs.sparse_delta(o, do)
+        bounds = _sparse_bound(B, NH, T, D, layout, block, causal, torch.float16)
+        elem = _element_mask(layout, block, causal, T, dev)
+        sq, sk, sv = (t.detach().clone().requires_grad_(True) for t in (q4, k4, v4))
+        so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=elem, scale=args[0])
+        rec["timing"] = {
+            "block_sparse_fwd": dict(
+                ms=_time_ms(lambda: bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args), 20, flush),
+                library_ms=_time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=elem, scale=args[0]),
+                                    10, flush),
+                **bounds["block_sparse_fwd"]),
+            "block_sparse_dq": dict(
+                ms=_time_ms(lambda: bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, f_units, *args),
+                            20, flush),
+                library_ms=_time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), do4, retain_graph=True), 10, flush),
+                **bounds["block_sparse_dq"]),
+        }
+        del so, sq, sk, sv, elem
     emit(**rec)
-    if err > tol or not dead_zero:
-        raise AssertionError(f"K7 {name} float16: max abs error {err} (tol {tol}), dead rows exact zero {dead_zero}")
+    if err > tol or dq_rel > tol_g or not dead_zero:
+        raise AssertionError(f"K7 or K8 {name} float16: max abs error {err} (tol {tol}), dQ relative error {dq_rel} "
+                             f"(tol {tol_g}), dead rows exact zero {dead_zero}")
     return rec
 
 
@@ -1319,6 +1379,40 @@ def _element_mask(layout, block, causal, T, dev):
     if causal:
         elem &= torch.ones(T, T, dtype=torch.bool, device=dev).tril()
     return elem
+
+
+def _sparse_dq_ds_fp32(dev):
+    """K8 keeps dS in fp32 (hi + lo in the operand dtype), as Pallas does, and
+    does not round it to k's dtype as K2 does. On keys within 0.03 of one
+    shared vector a head, Σ_k dS_k·c cancels, so dQ is small beside its terms
+    and rounding dS would move it some 30 times the output rounding: dQ must
+    lie within DS_FP32_TOL of the plain version with fp32 dS, and the plain
+    version with dS rounded must not (else the check could not tell)."""
+    recs = []
+    for dtype, block in ((torch.bfloat16, 16), (torch.bfloat16, 64), (torch.float16, 16)):
+        n = 16 if block == 16 else 8
+        layout_h = np.ones((n, n), np.int64)
+        row_idx, row_cnt, _, _ = bs.block_tables(layout_h, dev)
+        rs = np.random.RandomState(block)
+        q, v, do = (torch.from_numpy(rs.randn(3, n * block, 64).astype(np.float32)).to(dev).to(dtype) for _ in range(3))
+        c = rs.randn(3, 1, 64).astype(np.float32)
+        k = torch.from_numpy(c + 0.03 * rs.randn(3, n * block, 64).astype(np.float32)).to(dev).to(dtype)
+        args = (0.125, block, False)
+        f = [t.float() for t in (q, k, v, do)]
+        o, lse = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)  # fp32 O: delta = Σ P·dP to fp32
+        delta = bs.sparse_delta(o, f[3])
+        dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, bs.fwd_units(layout_h, block, dev), *args)
+        ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
+        foil = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args, ds_dtype=dtype)
+        top = ref.abs().max().item()
+        err, foil_err = ((x.float() - ref).abs().max().item() / top for x in (dq, foil))
+        recs.append(dict(dtype=str(dtype).replace("torch.", ""), block=block, rel_err=err,
+                         rounded_ds_rel_err=foil_err, tol=DS_FP32_TOL[dtype]))
+    emit(phase="sparse_dq_ds_fp32", cases=recs)
+    bad = [r for r in recs if not r["rel_err"] <= r["tol"] < r["rounded_ds_rel_err"]]
+    if bad:
+        raise AssertionError(f"K8 dS in fp32: {bad}")
+    return recs
 
 
 def phase_sparse_kernels(dev, flush):
@@ -1337,14 +1431,15 @@ def phase_sparse_kernels(dev, flush):
             dt = str(dtype).replace("torch.", "")
             dead_keys = int(_dead_keys(layout[0], block, causal).sum())
             rec = dict(phase="sparse_kernels", case=name, dtype=dt, causal=causal, block=block,
-                       shared_layout=layout.shape[0] == 1, live_block_share=live, block_sparse_dkv_variant=VARIANT[dtype],
+                       shared_layout=layout.shape[0] == 1, live_block_share=live, block_sparse_fwd_variant=VARIANT[dtype],
+                       block_sparse_dq_variant=VARIANT[dtype], block_sparse_dkv_variant=VARIANT[dtype],
                        tol_o_lse_abs=tol_o, tol_grad_rel=tol_g, dead_rows_exact_zero=dead_zero, dead_keys=dead_keys,
                        errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
             if name.startswith("dead rows") and not (first[1] <= bs.NEG_INF / 2).any():
                 raise AssertionError("the dead-rows layout left no dead row")
             if name.startswith("dead keys") and not dead_keys:
                 raise AssertionError("the dead-keys layout left no dead key")
-            if timed and dtype == torch.bfloat16:  # K7 and K9 twice on the same inputs: bitwise-equal outputs
+            if timed and dtype == torch.bfloat16:  # K7-K9 twice on the same inputs: bitwise-equal outputs
                 q, k, v, do, tables, f_units, units, _ = groups[0]
                 _, lse, delta = first
                 args = (1.0 / float(np.sqrt(D)), block, causal)
@@ -1354,14 +1449,20 @@ def phase_sparse_kernels(dev, flush):
                     torch.equal(runs[0][1].view(torch.int32), runs[1][1].view(torch.int32))
                 emit(phase="sparse_fwd_determinism", case=name, dtype=dt, bitwise_equal=equal_fwd,
                      split_q_blocks=int(f_units.reduce.shape[0]))
+                runs = [bs.sparse_dq_kernel(q, k, v, do, lse, delta, tables[0], tables[1], f_units, *args)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                equal_dq = torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
+                emit(phase="sparse_dq_determinism", case=name, dtype=dt, bitwise_equal=equal_dq,
+                     split_q_blocks=int(f_units.reduce.shape[0]))
                 runs = [bs.sparse_dkv_kernel(q, k, v, do, lse, delta, tables[2], tables[3], units, *args)
                         for _ in range(2)]
                 torch.cuda.synchronize()
                 equal = all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(*runs))
                 emit(phase="sparse_dkv_determinism", case=name, dtype=dt, bitwise_equal=equal,
                      split_key_blocks=int(units.reduce.shape[0]))
-                if not (equal and equal_fwd):
-                    raise AssertionError(f"K7 or K9 {name}: two calls on the same inputs differ")
+                if not (equal and equal_fwd and equal_dq):
+                    raise AssertionError(f"K7, K8 or K9 {name}: two calls on the same inputs differ")
                 del runs
             if timed:
                 rec["timing"], rec["dense_flash_ms"] = _sparse_timing(groups, q4, k4, v4, do4, layout, block,
@@ -1376,7 +1477,7 @@ def phase_sparse_kernels(dev, flush):
                 raise AssertionError(f"block-sparse {name} {dt}: {bad} past tolerance, dead rows and keys exact zero "
                                      f"{dead_zero}: {errs}")
             del groups, first, q4, k4, v4, do4
-        main[(name, "float16")] = _sparse_fwd_fp16(name, base, layout, block, causal, timed, dev, flush)
+        main[(name, "float16")] = _sparse_fp16(name, base, layout, block, causal, timed, dev, flush)
         del base
         torch.cuda.empty_cache()
     # one launch per head for a per-head layout through the fused entry, as JAX runs one kernel per head
@@ -1388,6 +1489,7 @@ def phase_sparse_kernels(dev, flush):
     torch.cuda.synchronize()
     if bs.launches_fwd - before != NH or not torch.isfinite(out.float()).all():
         raise AssertionError(f"per-head fused call: {bs.launches_fwd - before} K7 launches for {NH} heads")
+    _sparse_dq_ds_fp32(dev)
     return main
 
 
@@ -1398,7 +1500,50 @@ def _bert_step(attn, hidden, target, weights):
     out = attn(hidden, *ws)
     loss = F.mse_loss(out.float(), target)
     loss.backward()
-    return loss.detach(), [w.grad for w in ws]
+    # the clone: mse_loss's scalar keeps the storage of the elementwise loss ([B, T, H] fp32, 32 MiB at the
+    # main shape), so a list of the losses themselves grew by a new allocator segment every step
+    return loss.detach().clone(), [w.grad for w in ws]
+
+
+def _timed_window(step, n):
+    """Run ``step`` ``n`` times back to back, from a synchronize to a
+    synchronize: ``ms_per_step`` is the window's wall time over ``n``. Beside
+    it, what a stray reading needs to be read: each step's host enqueue time
+    (``host_ms``), each step's interval on the current stream between CUDA
+    events recorded at the step boundaries (``stream_ms``; no synchronize
+    inside the window), the garbage collections in it (``gc``: generation
+    and ms each) and the allocator's device allocations, frees, retries and
+    all-stream syncs in it (``allocator``)."""
+    collections, started = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started["t"] = time.perf_counter()
+        elif "t" in started:
+            collections.append(dict(generation=info["generation"], ms=(time.perf_counter() - started.pop("t")) * 1e3))
+
+    keys = ("num_device_alloc", "num_device_free", "num_alloc_retries", "num_sync_all_streams")
+    mem0 = torch.cuda.memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    stamps = []
+    torch.cuda.synchronize()
+    gc.callbacks.append(on_gc)
+    try:
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(n):
+            step()
+            events[i + 1].record()
+            stamps.append(time.perf_counter())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gc.callbacks.remove(on_gc)
+    mem1 = torch.cuda.memory_stats()
+    return dict(ms_per_step=wall * 1e3 / n, wall_ms=wall * 1e3,
+                host_ms=[(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)],
+                stream_ms=[a.elapsed_time(b) for a, b in zip(events, events[1:])],
+                gc=collections, allocator={k: mem1.get(k, 0) - mem0.get(k, 0) for k in keys})
 
 
 def phase_sparse_train(seed, dev):
@@ -1422,23 +1567,23 @@ def phase_sparse_train(seed, dev):
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()  # counts from here are the sparse main path's
     losses = []
-    for i in range(SPARSE_WARMUP + SPARSE_TIMED):
-        if i == SPARSE_WARMUP:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+
+    def step():
+        nonlocal masters, state
         loss, grads = _bert_step(attn, hidden, target, [m.to(torch.bfloat16) for m in masters.values()])
-        new, state = opt.apply(dict(zip(masters, grads)), state, masters, opt.defaults["lr"])
-        masters = new
+        masters, state = opt.apply(dict(zip(masters, grads)), state, masters, opt.defaults["lr"])
         losses.append(loss)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+    for _ in range(SPARSE_WARMUP):
+        step()
+    window = _timed_window(step, SPARSE_TIMED)
     counts, variants = _counts(), _variants()
     losses = [float(x) for x in losses]
     steps = SPARSE_WARMUP + SPARSE_TIMED
     rec = dict(phase="sparse_train", model='BertSparseSelfAttention(bert_config("large") widths), FixedDefault(16)',
                batch=SPARSE_B, seq=SPARSE_T, hidden=H, dtype="bfloat16", steps=steps, timed_steps=SPARSE_TIMED,
-               losses=losses, ms_per_step=wall * 1e3 / SPARSE_TIMED,
-               tokens_per_s=SPARSE_TIMED * SPARSE_B * SPARSE_T / wall,
+               losses=losses, ms_per_step=window["ms_per_step"],
+               tokens_per_s=SPARSE_B * SPARSE_T / (window["ms_per_step"] * 1e-3), window=window,
                peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts, variants=variants)
     emit(**rec)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1446,20 +1591,21 @@ def phase_sparse_train(seed, dev):
     sparse_keys = ("block_sparse_fwd", "block_sparse_dq", "block_sparse_dkv")
     if any(counts[k] != steps for k in sparse_keys) or any(counts[k] for k in counts if k not in sparse_keys):
         raise AssertionError(f"sparse train: launches {counts}, want {steps} for each of K7-K9 and 0 for the rest")
-    if variants["block_sparse_fwd_tc"] != steps or variants["block_sparse_dkv_tc"] != steps:
-        raise AssertionError(f"sparse train: {variants['block_sparse_fwd_tc']} K7 and {variants['block_sparse_dkv_tc']} "
-                             f"K9 of {steps} bf16 calls each took the tensor-core variant, want all")
+    if any(variants[f"{k}_tc"] != steps for k in sparse_keys):
+        raise AssertionError(f"sparse train: {variants['block_sparse_fwd_tc']} K7, {variants['block_sparse_dq_tc']} K8 "
+                             f"and {variants['block_sparse_dkv_tc']} K9 of {steps} bf16 calls each took the "
+                             f"tensor-core variant, want all")
 
     # fp32 (TF32 off): one step through the kernels and one through impl="plain"
     arms = {}
     for impl in ("kernel", "plain"):
-        before = (bs.launches_fwd, bs.launches_fwd_tc, bs.launches_dkv_tc)
+        before = (bs.launches_fwd, bs.launches_fwd_tc, bs.launches_dq_tc, bs.launches_dkv_tc)
         loss, grads = _bert_step(BertSparseSelfAttention(config, impl=impl), hidden32, target,
                                  list(masters.values()))
-        if (impl == "kernel") != (bs.launches_fwd > before[0]) or (bs.launches_fwd_tc, bs.launches_dkv_tc) != before[1:]:
+        tc = (bs.launches_fwd_tc, bs.launches_dq_tc, bs.launches_dkv_tc)
+        if (impl == "kernel") != (bs.launches_fwd > before[0]) or tc != before[1:]:
             raise AssertionError(f"fp32 {impl} arm launched K7 {bs.launches_fwd - before[0]} times, the tensor-core "
-                                 f"variants of K7 and K9 {bs.launches_fwd_tc - before[1]} and "
-                                 f"{bs.launches_dkv_tc - before[2]} times (want 0)")
+                                 f"variants of K7-K9 {[a - b for a, b in zip(tc, before[1:])]} times (want 0)")
         arms[impl] = (float(loss), grads)
         torch.cuda.empty_cache()
     loss_rel = abs(arms["kernel"][0] - arms["plain"][0]) / abs(arms["plain"][0])
@@ -1568,10 +1714,9 @@ def main() -> int:
         **{k: flash["bfloat16"]["timing"][name][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")},
         fp32={k: flash["float32"]["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        **(dict(variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
-                tensor_core_launches=train_variants[f"{name}_tc"],
-                fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")})
-           if name in ("flash_fwd", "flash_dkv") else {}),
+        variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
+        tensor_core_launches=train_variants[f"{name}_tc"],
+        fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")},
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,
@@ -1594,12 +1739,12 @@ def main() -> int:
         bench={dt: {k: sparse[(SPARSE_BENCH, dt)]["timing"][name][k]
                     for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_share")}
                for dt in ("bfloat16", "float32")},
-        **(dict(variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
-                tensor_core_launches=sparse_variants[f"{name}_tc"])
-           if name in ("block_sparse_fwd", "block_sparse_dkv") else {}),
-        **(dict(fp16={k: sparse[(SPARSE_MAIN, "float16")]["timing"][k] for k in ("ms", "bound_ms", "library_ms")},
-                bench_fp16={k: sparse[(SPARSE_BENCH, "float16")]["timing"][k] for k in ("ms", "bound_ms", "library_ms")})
-           if name == "block_sparse_fwd" else {}),
+        variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
+        tensor_core_launches=sparse_variants[f"{name}_tc"],
+        **(dict(fp16={k: sparse[(SPARSE_MAIN, "float16")]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")},
+                bench_fp16={k: sparse[(SPARSE_BENCH, "float16")]["timing"][name][k]
+                            for k in ("ms", "bound_ms", "library_ms")})
+           if name in ("block_sparse_fwd", "block_sparse_dq") else {}),
     ) for name, line in (("block_sparse_fwd", 78), ("block_sparse_dq", 163), ("block_sparse_dkv", 194))])
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

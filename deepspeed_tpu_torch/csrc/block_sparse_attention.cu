@@ -70,15 +70,33 @@
 //    hi and lo products) behind one barrier, with four blocks of four warps an SM (126 registers
 //    a lane at D = 64). Staging 64 keys a step (four tiles a barrier, double-buffered) measured
 //    slower, and skipping the rescale once a warp's row maxima settle gained nothing.
-// K8 and fp32 K7 and K9 keep the first version: fp32 FMAs on the CUDA cores out of padded fp32
-// shared memory (fp32 is the card's parity path, kernel vs plain to about 1e-6 with TF32 off).
+// K8 for bf16 and fp16 (sparse_dq_tc_kernel) walks K7's unit table as it is (the same 16-row q
+// tiles, four to a unit, the same chunks and order):
+//  * each warp keeps its Q and dO fragments, its rows' lse (base 2) and delta and its fp32 dQ
+//    accumulator in registers; each 16-key step's K and V are staged once into K7's 4-stage ring
+//    and shared by the four warps;
+//  * per step a warp forms S = Q K^T and dP = dO V^T (exact products, fp32 sums), P = exp(scale S -
+//    lse) and dS = P o (dP - delta) scale in fp32 in the C layout (a masked P exactly 0, also on a
+//    dead row whose lse is NEG_INF), and accumulates dQ += dS K with dS repacked to A fragments as
+//    hi + lo in the input dtype (K9's split: 4 products a step, the Pallas kernel's fp32 dS held
+//    to about 2^-16), B from K by ldmatrix.trans. The causal walk ends and skips as K7's;
+//  * a split q block's chunks write fp32 dQ partials to their own workspace slots, and
+//    sparse_dq_reduce_kernel sums each block's slots in chunk order: no atomics, two calls give
+//    bitwise-equal results;
+//  * what bounds it now: about 12% of the operations bound at the main shape on an H100 (0.435 ms
+//    against 0.0546). Per 16-key step a warp runs a serial chain (S and dP, the exponentials, the
+//    hi/lo repack, four dS K products) behind one barrier, as K7 and K9 do. ptxas gives it 128
+//    registers a lane at D = 64 (8 bytes of spill) and 205-208 at D = 128 (none);
+//    sparse_dq_reduce_kernel 44.
+// fp32 K7-K9 keep the first version: fp32 FMAs on the CUDA cores out of padded fp32 shared memory
+// (fp32 is the card's parity path, kernel vs plain to about 1e-6 with TF32 off).
 //
 // What the design does about the TPU kernels' shape. The Pallas kernels walk a padded list on a
 // sequential grid axis (q block, list step), skip padded steps with pl.when and carry m/l/acc
 // (or dQ, dK/dV) in VMEM scratch. Here:
 //  * one thread block per (b*h, q tile) walks exactly row_cnt[qi] entries of its row list (fp32
 //    K7, K8), or per (b*h, k tile) exactly col_cnt[ki] entries of its column list (fp32 K9), or
-//    per (b*h, unit) one chunk of a row or column list (bf16/fp16 K7, K9): no padded steps, and
+//    per (b*h, unit) one chunk of a row or column list (bf16/fp16 K7-K9): no padded steps, and
 //    the running state stays in registers and shared memory;
 //  * in the FMA kernels a block of `blk` rows (any multiple of 8 up to 128) is cut into tiles of
 //    TB = 16 rows (blk < 64) or TB = 64 rows (blk >= 64); the last tile of a block may be
@@ -89,7 +107,7 @@
 //  * the FMA kernels' 256 threads hold a (TB/16) x (TB/16) register tile of every TB x TB score
 //    tile (rows ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane
 //    shuffle; their shared-memory rows are padded by one float against bank conflicts.
-// Not done yet (later work): tensor cores for K8 (the K7 unit table serves its row lists), wgmma.
+// Not done yet (later work): wgmma, steps wider than 16 keys.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -770,7 +788,54 @@ sparse_dkv_reduce_kernel(const float* __restrict__ ws, const int* __restrict__ r
 // ---------------------------------------------------------------------------------------------
 // K7 on the tensor cores: bf16 and fp16
 // ---------------------------------------------------------------------------------------------
-constexpr int FWD_STAGES = 4;  // depth of K7's K/V ring
+constexpr int FWD_STAGES = 4;  // depth of K7's (and K8's) K/V ring
+
+// A unit of the row table (block_sparse.build_fwd_units) that K7 and K8 walk, as one warp of its
+// thread block sees it: the warp's q tile (-1 for an unused warp), its live rows and workspace
+// slot, the unit's last row, and the unit's chunk of the row list in 16-key steps.
+struct RowUnit {
+  const int* list;  // the chunk [start, start + len) of the row list
+  int tile, slot, nq, last_row, subs, n_steps, blk;
+
+  __device__ __forceinline__ RowUnit(const int* __restrict__ units, const int* __restrict__ row_idx, int width,
+                                     int blk_, int warp)
+      : blk(blk_) {
+    const int* unit = units + static_cast<size_t>(blockIdx.x) * UNIT_W;
+    tile = unit[3 + warp];
+    slot = unit[3 + UNIT_WARPS + warp];
+    nq = tile < 0 ? 0 : min(TILE_ROWS, blk - tile % blk);
+    last_row = -1;  // a key step wholly after it is dead for every warp
+#pragma unroll
+    for (int w = 0; w < UNIT_WARPS; ++w) {
+      const int t = unit[3 + w];
+      if (t >= 0) last_row = max(last_row, t + min(TILE_ROWS, blk - t % blk) - 1);
+    }
+    subs = (blk + TILE_ROWS - 1) / TILE_ROWS;  // 16-key steps of a listed key block
+    n_steps = unit[2] * subs;
+    list = row_idx + static_cast<size_t>(unit[0]) * width + unit[1];
+  }
+
+  // step s: keys k0 .. k0+nk-1 of the listed key block list[s / subs]. The list ascends, so under
+  // the causal mask the first step that starts past the unit's last row ends the walk.
+  __device__ __forceinline__ void step_keys(int s, int& k0, int& nk) const {
+    const int ksub = s % subs;
+    k0 = __ldg(list + s / subs) * blk + ksub * TILE_ROWS;
+    nk = min(TILE_ROWS, blk - ksub * TILE_ROWS);
+  }
+
+  // K and V of step s into its stage of the [STAGES][2][16][D] ring, by the whole block (nothing
+  // for a step past the causal end of the walk)
+  template <typename T, int D>
+  __device__ __forceinline__ void load_step(T* ring, const T* __restrict__ k, const T* __restrict__ v, int bn,
+                                            int Tn, int causal, int s) const {
+    int k0, nk;
+    step_keys(s, k0, nk);
+    if (causal && k0 > last_row) return;
+    T* kd = ring + (s % FWD_STAGES) * 2 * TILE_ROWS * D;
+    load_tile<T, D>(kd, k, bn, k0, nk, Tn, threadIdx.x, UNIT_THREADS);
+    load_tile<T, D>(kd + TILE_ROWS * D, v, bn, k0, nk, Tn, threadIdx.x, UNIT_THREADS);
+  }
+};
 
 // One thread block per (unit, b*h). A unit is up to four 16-row q tiles whose q blocks list the
 // same key blocks, and a chunk [start, start + len) of that list: every warp takes one q tile and
@@ -788,45 +853,18 @@ sparse_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   T* qs = reinterpret_cast<T*>(smem_raw);          // [WARPS][16][D]: each warp's Q tile
   T* ring = qs + UNIT_WARPS * TILE_ROWS * D;       // [STAGES][2][16][D]: K and V of a step
 
-  const int* unit = units + static_cast<size_t>(blockIdx.x) * UNIT_W;
   const int bn = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int list_qb = unit[0], start = unit[1], len = unit[2];
-  const int tile = unit[3 + warp], slot = unit[3 + UNIT_WARPS + warp];
-  const int nq = tile < 0 ? 0 : min(TILE_ROWS, blk - tile % blk);  // live rows of this q tile
-  int last_row = -1;  // the unit's last row: a key step wholly after it is dead for every warp
-#pragma unroll
-  for (int w = 0; w < UNIT_WARPS; ++w) {
-    const int t = unit[3 + w];
-    if (t >= 0) last_row = max(last_row, t + min(TILE_ROWS, blk - t % blk) - 1);
-  }
-  const int subs = (blk + TILE_ROWS - 1) / TILE_ROWS;  // 16-key steps of a listed key block
-  const int n_steps = len * subs;
-  const int* list = row_idx + static_cast<size_t>(list_qb) * width + start;
+  const RowUnit u(units, row_idx, width, blk, warp);
+  const int tile = u.tile, slot = u.slot, nq = u.nq;  // nq: live rows of this q tile
 
   T* qw = qs + warp * TILE_ROWS * D;
   if (tile >= 0) load_tile<T, D>(qw, q, bn, tile, nq, Tn, lane, 32);  // lands with step 0's group
 
-  // step s: keys k0 .. k0+nk-1 of the listed key block list[s / subs]. The list ascends, so under
-  // the causal mask the first step that starts past the unit's last row ends the walk.
-  auto step_keys = [&](int s, int& k0, int& nk) {
-    const int ksub = s % subs;
-    k0 = __ldg(list + s / subs) * blk + ksub * TILE_ROWS;
-    nk = min(TILE_ROWS, blk - ksub * TILE_ROWS);
-  };
-  auto load_step = [&](int s) {
-    int k0, nk;
-    step_keys(s, k0, nk);
-    if (causal && k0 > last_row) return;
-    T* kd = ring + (s % FWD_STAGES) * 2 * TILE_ROWS * D;
-    load_tile<T, D>(kd, k, bn, k0, nk, Tn, threadIdx.x, UNIT_THREADS);
-    load_tile<T, D>(kd + TILE_ROWS * D, v, bn, k0, nk, Tn, threadIdx.x, UNIT_THREADS);
-  };
-
 #pragma unroll
   for (int i = 0; i < FWD_STAGES - 1; ++i) {
-    if (i < n_steps) load_step(i);
+    if (i < u.n_steps) u.load_step<T, D>(ring, k, v, bn, Tn, causal, i);
     tc::cp_async_commit();
   }
 
@@ -836,13 +874,13 @@ sparse_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // scaled running max; this lane's share of l
   uint32_t qf[KS][4];
 
-  for (int s = 0; s < n_steps; ++s) {
+  for (int s = 0; s < u.n_steps; ++s) {
     int k0, nk;
-    step_keys(s, k0, nk);
-    if (causal && k0 > last_row) break;  // block-uniform
+    u.step_keys(s, k0, nk);
+    if (causal && k0 > u.last_row) break;  // block-uniform
     tc::cp_async_wait<FWD_STAGES - 2>();
     __syncthreads();  // step s has landed, and every warp is done with step s - 1's stage
-    if (s + FWD_STAGES - 1 < n_steps) load_step(s + FWD_STAGES - 1);
+    if (s + FWD_STAGES - 1 < u.n_steps) u.load_step<T, D>(ring, k, v, bn, Tn, causal, s + FWD_STAGES - 1);
     tc::cp_async_commit();
     if (s == 0 && tile >= 0) {
 #pragma unroll
@@ -1003,6 +1041,181 @@ sparse_fwd_merge_kernel(const float* __restrict__ ws, const int* __restrict__ re
 }
 
 // ---------------------------------------------------------------------------------------------
+// K8 on the tensor cores: bf16 and fp16
+// ---------------------------------------------------------------------------------------------
+// One thread block per (unit, b*h) over K7's unit table. A unit is up to four 16-row q tiles whose
+// q blocks list the same key blocks, and a chunk [start, start + len) of that list: every warp
+// takes one q tile and all of them share each staged 16-key K/V step (K7's ring). A unit either
+// owns its q tiles' whole list (slot -1: dQ written in T) or one chunk of it (an fp32 dQ partial
+// into workspace slot).
+template <typename T, int D>
+__global__ void __launch_bounds__(UNIT_THREADS)
+sparse_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, const int* __restrict__ row_idx,
+                    const int* __restrict__ units, float* __restrict__ ws, int n_slots, int width, int Tn,
+                    int blk, int causal, float scale) {
+  constexpr int KS = D / 16;  // k16 steps over the head dimension
+  constexpr int DT = D / 8;   // 8-wide tiles of a dQ row
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);          // [WARPS][2][16][D]: each warp's Q and dO tile
+  T* ring = qs + UNIT_WARPS * 2 * TILE_ROWS * D;   // [STAGES][2][16][D]: K and V of a step
+
+  const int bn = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const RowUnit u(units, row_idx, width, blk, warp);
+  const int tile = u.tile, slot = u.slot, nq = u.nq;  // nq: live rows of this q tile
+  const float scale_log2 = scale * LOG2E;
+
+  T* qw = qs + warp * 2 * TILE_ROWS * D;
+  T* ow = qw + TILE_ROWS * D;
+  if (tile >= 0) {  // lands with step 0's group
+    load_tile<T, D>(qw, q, bn, tile, nq, Tn, lane, 32);
+    load_tile<T, D>(ow, dout, bn, tile, nq, Tn, lane, 32);
+  }
+
+#pragma unroll
+  for (int i = 0; i < FWD_STAGES - 1; ++i) {
+    if (i < u.n_steps) u.load_step<T, D>(ring, k, v, bn, Tn, causal, i);
+    tc::cp_async_commit();
+  }
+
+  // this lane's rows g and g + 8 of the tile: lse in base 2 and delta (a row past the tile's live
+  // rows reads 0; it is masked and never written). A dead row's lse is NEG_INF: every one of its
+  // pairs is masked, so its P is 0 by selection, never inf times 0.
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool valid = g + h * 8 < nq;
+    const size_t at = static_cast<size_t>(bn) * Tn + (valid ? tile + g + h * 8 : 0);
+    lse2[h] = valid ? lse[at] * LOG2E : 0.f;
+    dlt[h] = valid ? delta[at] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t qf[KS][4], of[KS][4];
+
+  for (int s = 0; s < u.n_steps; ++s) {
+    int k0, nk;
+    u.step_keys(s, k0, nk);
+    if (causal && k0 > u.last_row) break;  // block-uniform
+    tc::cp_async_wait<FWD_STAGES - 2>();
+    __syncthreads();  // step s has landed, and every warp is done with step s - 1's stage
+    if (s + FWD_STAGES - 1 < u.n_steps) u.load_step<T, D>(ring, k, v, bn, Tn, causal, s + FWD_STAGES - 1);
+    tc::cp_async_commit();
+    if (s == 0 && tile >= 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        tc::ldmatrix_x4(qf[kk], qw + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(of[kk], ow + tc::swz<D>(lane & 15, kk * 16 + (lane >> 4) * 8));
+      }
+    }
+    // this warp's q tile is dead for the step under the causal mask if every key follows its rows
+    if (tile < 0 || (causal && k0 > tile + nq - 1)) continue;
+    const T* kst = ring + (s % FWD_STAGES) * 2 * TILE_ROWS * D;
+    const T* vst = kst + TILE_ROWS * D;
+
+    // S = Q K^T and dP = dO V^T: 16 q rows x 16 keys, two 16 x 8 tiles each
+    float sc[2][4], dp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int r = (lane & 7) + ((lane >> 4) << 3), c = kk * 16 + ((lane >> 3) & 1) * 8;
+      uint32_t bk[4], bv[4];
+      tc::ldmatrix_x4(bk, kst + tc::swz<D>(r, c));
+      tc::ldmatrix_x4(bv, vst + tc::swz<D>(r, c));
+      tc::mma<T>(sc[0], qf[kk], bk[0], bk[1]);
+      tc::mma<T>(sc[1], qf[kk], bk[2], bk[3]);
+      tc::mma<T>(dp[0], of[kk], bv[0], bv[1]);
+      tc::mma<T>(dp[1], of[kk], bv[2], bv[3]);
+    }
+
+    // P = exp(scale S - lse) on live pairs (the score scaled after the product), exactly 0
+    // elsewhere; dS = P o (dP - delta) scale, kept in fp32. Only a step that crosses the diagonal
+    // or a tile's ragged end is masked.
+    const bool masked = nk < TILE_ROWS || nq < TILE_ROWS || (causal && k0 + TILE_ROWS - 1 > tile);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bool live = true;
+        if (masked) {
+          const int r = g + (e >> 1) * 8, c = j * 8 + 2 * t4 + (e & 1);
+          live = r < nq && c < nk && (!causal || tile + r >= k0 + c);
+        }
+        const float p = live ? exp2f(sc[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
+        sc[j][e] = p * (dp[j][e] - dlt[e >> 1]) * scale;
+      }
+
+    // dQ += dS K with the fp32 dS as hi + lo in T; B from K by ldmatrix.trans
+    uint32_t dh[4], dl[4];
+    tc::a_from_c_split<T>(dh, dl, sc[0], sc[1]);
+#pragma unroll
+    for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+      uint32_t bk[4];
+      tc::ldmatrix_x4_trans(bk, kst + tc::swz<D>(lane & 15, dp2 * 16 + (lane >> 4) * 8));
+      tc::mma<T>(acc[2 * dp2], dh, bk[0], bk[1]);
+      tc::mma<T>(acc[2 * dp2 + 1], dh, bk[2], bk[3]);
+      tc::mma<T>(acc[2 * dp2], dl, bk[0], bk[1]);
+      tc::mma<T>(acc[2 * dp2 + 1], dl, bk[2], bk[3]);
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the block (the last groups are empty)
+
+  if (tile < 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = g + h * 8;
+    if (r >= nq) continue;
+    if (slot < 0) {
+      T* dst = dq + (static_cast<size_t>(bn) * Tn + tile + r) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) = tc::pack2<T>(acc[j][2 * h], acc[j][2 * h + 1]);
+    } else {
+      // workspace [BN][n_slots][blk][D] fp32; this tile's rows start at tile % blk of the slot
+      float* w = ws + ((static_cast<size_t>(bn) * n_slots + slot) * blk + tile % blk + r) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) *reinterpret_cast<float2*>(w + j * 8) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// The split q blocks' dQ partials summed in chunk order, so the result does not depend on which
+// chunk finished first: one thread block per (split q block, b*h); reduce[r] = (qb, first slot,
+// chunks).
+template <typename T>
+__global__ void __launch_bounds__(256)
+sparse_dq_reduce_kernel(const float* __restrict__ ws, const int* __restrict__ reduce, T* __restrict__ dq,
+                        int n_slots, int Tn, int D, int blk) {
+  const int* r = reduce + 3 * blockIdx.x;
+  const int qb = r[0], s0 = r[1], n = r[2];
+  const int bn = blockIdx.y;
+  const int quads = blk * D / 4;  // float4s of a slot
+  const float4* base = reinterpret_cast<const float4*>(ws + (static_cast<size_t>(bn) * n_slots + s0) * blk * D);
+  T* dst = dq + (static_cast<size_t>(bn) * Tn + static_cast<size_t>(qb) * blk) * D;
+  for (int e = threadIdx.x; e < quads; e += blockDim.x) {
+    float4 acc = base[e];
+    for (int c = 1; c < n; ++c) {
+      const float4 x = base[static_cast<size_t>(c) * quads + e];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    uint2 packed;
+    packed.x = tc::pack2<T>(acc.x, acc.y);
+    packed.y = tc::pack2<T>(acc.z, acc.w);
+    *reinterpret_cast<uint2*>(dst + static_cast<size_t>(e) * 4) = packed;
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
 // launch helpers
 // ---------------------------------------------------------------------------------------------
 template <int D, int TB>
@@ -1018,8 +1231,8 @@ struct Args {
   int width, BN, T, blk, causal;
   float scale;
   cudaStream_t stream;
-  // the tensor-core variants of K7 and K9: the unit and reduce tables, the fp32 workspace, and
-  // the variant launched (0 the fp32 FMA kernel, 1 tensor cores)
+  // the tensor-core variants of K7-K9: the unit and reduce tables, the fp32 workspace, and the
+  // variant launched (0 the fp32 FMA kernel, 1 tensor cores)
   const void *units, *reduce;
   void* ws;
   int n_units, n_reduce, n_slots;
@@ -1077,19 +1290,44 @@ struct Fwd {
   }
 };
 
+// fp32 runs the FMA kernel (the parity path); bf16 and fp16 the tensor-core kernel over K7's unit
+// table, then the chunk-order sum of the split q blocks, if the layout has any
 template <typename T, int D, int TB>
 struct Dq {
   static int run(const Args& a) {
-    const size_t smem = smem_bytes<D, TB>(4, 1, 2);
-    auto kernel = sparse_dq_kernel<T, D, TB>;
-    cudaError_t err = prepare(kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid_of<TB>(a), THREADS, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), static_cast<const int*>(a.idx),
-        static_cast<const int*>(a.cnt), a.width, a.T, a.blk, a.causal, a.scale);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (std::is_same<T, float>::value) {
+      const size_t smem = smem_bytes<D, TB>(4, 1, 2);
+      auto kernel = sparse_dq_kernel<T, D, TB>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid_of<TB>(a), THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(a.dq), static_cast<const int*>(a.idx),
+          static_cast<const int*>(a.cnt), a.width, a.T, a.blk, a.causal, a.scale);
+      *a.variant = 0;
+      return static_cast<int>(cudaGetLastError());
+    } else {
+      if (a.n_units <= 0 || a.n_reduce < 0 || (a.n_reduce > 0 && (a.n_slots <= 0 || a.ws == nullptr)))
+        return static_cast<int>(cudaErrorInvalidValue);
+      const size_t smem = sizeof(T) * (UNIT_WARPS + FWD_STAGES) * 2 * TILE_ROWS * D;
+      auto kernel = sparse_dq_tc_kernel<T, D>;
+      cudaError_t err = prepare(kernel, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<dim3(a.n_units, a.BN), UNIT_THREADS, smem, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<const float*>(a.delta), static_cast<T*>(a.dq), static_cast<const int*>(a.idx),
+          static_cast<const int*>(a.units), static_cast<float*>(a.ws), a.n_slots, a.width, a.T, a.blk,
+          a.causal, a.scale);
+      *a.variant = 1;
+      err = cudaGetLastError();
+      if (err != cudaSuccess || a.n_reduce == 0) return static_cast<int>(err);
+      sparse_dq_reduce_kernel<T><<<dim3(a.n_reduce, a.BN), 256, 0, a.stream>>>(
+          static_cast<const float*>(a.ws), static_cast<const int*>(a.reduce), static_cast<T*>(a.dq),
+          a.n_slots, a.T, D, a.blk);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
 };
 
@@ -1182,13 +1420,20 @@ extern "C" int block_sparse_fwd(int dtype, const void* q, const void* k, const v
   return dispatch<Fwd>(dtype, D, a);
 }
 
+// K8 takes K7's unit and reduce tables and an fp32 workspace of [BN, n_slots, blk, D] (bf16 and
+// fp16; fp32 ignores them), and writes the variant it launched to *variant: 0 the fp32 FMA kernel,
+// 1 the tensor-core kernel (and its reduction pass when n_reduce > 0).
 extern "C" int block_sparse_dq(int dtype, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta, void* dq,
-                               const void* row_idx, const void* row_cnt, int width, int BN, int T,
-                               int D, int blk, int causal, float scale, void* stream) {
+                               const void* row_idx, const void* row_cnt, const void* units,
+                               const void* reduce, void* ws, int n_units, int n_reduce, int n_slots,
+                               int width, int BN, int T, int D, int blk, int causal, float scale,
+                               void* stream, int* variant) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dq = dq;
   a.idx = row_idx; a.cnt = row_cnt;
+  a.units = units; a.reduce = reduce; a.ws = ws;
+  a.n_units = n_units; a.n_reduce = n_reduce; a.n_slots = n_slots; a.variant = variant;
   a.width = width; a.BN = BN; a.T = T; a.blk = blk; a.causal = causal; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch<Dq>(dtype, D, a);

@@ -57,13 +57,32 @@
 //    P^T o (dP^T - delta) scale from the fp32 P, rounded to q's dtype; dK += dS^T Q, B by
 //    ldmatrix.trans. A warp skips the causal halves in which all of its keys follow every query;
 //  * the block owns its dK and dV rows: no atomics, deterministic.
+// K2 for bf16 and fp16 (flash_dq_tc_kernel) is FlashAttention-2's query-major backward: K1's
+// skeleton with K3's arithmetic.
+//  * one block of 4 warps per (b*n, 64-row q tile), heaviest (last) q tiles first; each warp owns
+//    16 q rows, and keeps in registers its Q and dO fragments (loaded once by ldmatrix), its rows'
+//    lse (base 2) and delta, and its fp32 dQ accumulator;
+//  * K and V come through K1's ring (TcRing: 3 stages at D = 64, 2 at D = 128), one barrier per
+//    64-key tile; the walk ends at the causal diagonal;
+//  * per tile (two 32-key halves at D = 128, where Q, dO and dQ already take 128 registers a
+//    lane): S = Q K^T and dP = dO V^T (B from K and V by ldmatrix), P = exp(scale S - lse) by ex2
+//    with scale log2(e) folded into one FMA, masked only on the diagonal and ragged tiles;
+//    dS = P o (dP - delta) scale in fp32, rounded to k's dtype and repacked from C to A fragments;
+//    dQ += dS K (B from K by ldmatrix.trans). A warp skips the causal halves in which every key
+//    follows all of its rows;
+//  * the block owns its dQ rows: no atomics, deterministic;
+//  * what bounds it now: about 19% of the operations bound at the training shape on an H100
+//    (0.105 ms against 0.0196). ptxas gives it 175 registers a lane at D = 64 and 246 at D = 128,
+//    no spills, so two blocks (eight warps) fit an SM; like K3 it is limited by mma.sync issue, the
+//    ldmatrix reads of 16-row warps (each warp reads every K and V fragment for its own rows) and
+//    the per-tile barrier.
 // Because the operands are in their own dtype (K1-K3 take bf16/fp16 products with fp32
 // accumulation, as the TPU kernels do), no hi/lo split is needed.
 //
-// fp32 keeps the first versions (flash_fwd_kernel, flash_dkv_kernel), as does K2 for every dtype:
-// fp32 FMAs on the CUDA cores out of padded fp32 shared memory. fp32 is the card's parity path
-// (kernel vs plain to about 1e-6 with TF32 off), and tensor cores would need TF32. The entries
-// flash_fwd and flash_dkv dispatch by dtype and report the variant they launched.
+// fp32 keeps the first versions (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel): fp32 FMAs
+// on the CUDA cores out of padded fp32 shared memory. fp32 is the card's parity path (kernel vs
+// plain to about 1e-6 with TF32 off), and tensor cores would need TF32. The entries dispatch by
+// dtype and report the variant they launched.
 //
 // What the design does about the TPU kernels' shape: the Pallas kernels carry m/l/acc (or dQ,
 // dK/dV) in VMEM scratch across a sequential "arbitrary" grid axis of 512-row blocks. Hopper
@@ -80,8 +99,7 @@
 //    ty + 16 i, columns tx + 16 j), so a row's softmax reduction is a 16-lane shuffle, and the
 //    same rows of the output accumulator, so the online-softmax rescale needs no shared memory;
 //    their shared-memory rows are padded by one float against bank conflicts.
-// Not done yet (later work): tensor cores for K2, wgmma / TMA for K1 and K3, a persistent causal
-// schedule.
+// Not done yet (later work): wgmma / TMA for K1-K3, a persistent causal schedule.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -563,6 +581,152 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // ---------------------------------------------------------------------------------------------
+// K2 on the tensor cores: bf16 and fp16
+// ---------------------------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq, int Tn, int N, int causal,
+                   float scale) {
+  constexpr int KS = D / 16;  // k16 steps over D
+  constexpr int DT = D / 8;   // 8-wide tiles of a dQ row
+  constexpr int STAGES = TcRing<D>::STAGES;
+  // keys a warp takes per sub-step of a 64-key tile: the whole tile at D = 64, half of it at D = 128,
+  // where the Q and dO fragments and the dQ accumulator already take 128 registers a lane
+  constexpr int KH = D == 64 ? 64 : 32;
+  constexpr int NK = KH / 8;  // 8-key tiles of a sub-step
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [64][D]
+  T* dos = qs + TC_ROWS * D;               // [64][D]
+  T* ks = dos + TC_ROWS * D;               // [STAGES][64][D]
+  T* vs = ks + STAGES * TC_KEYS * D;       // [STAGES][64][D]
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bn = blockIdx.y, b = bn / N, n = bn % N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = qt * TC_ROWS;
+  const int wq0 = q0 + warp * 16;  // this warp's rows: wq0 + g and wq0 + g + 8
+  const int n_kt = (Tn + TC_KEYS - 1) / TC_KEYS;
+  const int k_end = causal ? min(qt + 1, n_kt) : n_kt;
+  const float sl2 = scale * LOG2E;
+
+  tc_load_tile<T, D>(qs, q, b, n, q0, Tn, N);  // Q and dO ride in the first group
+  tc_load_tile<T, D>(dos, dout, b, n, q0, Tn, N);
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < k_end) {
+      tc_load_tile<T, D>(ks + i * TC_KEYS * D, k, b, n, i * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + i * TC_KEYS * D, v, b, n, i * TC_KEYS, Tn, N);
+    }
+    tc::cp_async_commit();
+  }
+
+  // this lane's two rows: lse in base 2 and delta (a row past T reads 0: its Q and dO rows are zero,
+  // so its dS is 0, and it is never written)
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wq0 + g + i * 8;
+    const size_t at = static_cast<size_t>(bn) * Tn + (row < Tn ? row : 0);
+    lse2[i] = row < Tn ? lse[at] * LOG2E : 0.f;
+    dlt[i] = row < Tn ? delta[at] : 0.f;
+  }
+  uint32_t qf[KS][4], of[KS][4];
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int kt = 0; kt < k_end; ++kt) {
+    tc::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // tile kt has landed, and every warp is done with tile kt - 1's stage
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        tc::ldmatrix_x4(qf[kk], qs + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(of[kk], dos + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+      }
+    }
+    const int kn = kt + STAGES - 1;  // the tile this step prefetches
+    if (kn < k_end) {
+      tc_load_tile<T, D>(ks + (kn % STAGES) * TC_KEYS * D, k, b, n, kn * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + (kn % STAGES) * TC_KEYS * D, v, b, n, kn * TC_KEYS, Tn, N);
+    }
+    tc::cp_async_commit();
+    const T* kst = ks + (kt % STAGES) * TC_KEYS * D;
+    const T* vst = vs + (kt % STAGES) * TC_KEYS * D;
+    const int k0 = kt * TC_KEYS;
+
+#pragma unroll
+    for (int h = 0; h < TC_KEYS / KH; ++h) {
+      const int c0 = h * KH;  // the sub-step's first key in the tile
+      if (causal && k0 + c0 > wq0 + 15) continue;  // every key here follows every row of this warp
+      // S = Q K^T and dP = dO V^T: 16 rows x KH keys, B from K and V rows by ldmatrix
+      float s[NK][4], dp[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int np = 0; np < NK / 2; ++np) {
+          const int r = c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3), c = kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t bk[4], bv[4];
+          tc::ldmatrix_x4(bk, kst + tc::swz<D>(r, c));
+          tc::ldmatrix_x4(bv, vst + tc::swz<D>(r, c));
+          tc::mma<T>(s[2 * np], qf[kk], bk[0], bk[1]);
+          tc::mma<T>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
+          tc::mma<T>(dp[2 * np], of[kk], bv[0], bv[1]);
+          tc::mma<T>(dp[2 * np + 1], of[kk], bv[2], bv[3]);
+        }
+      }
+      // P = exp(scale S - lse) in fp32, then dS = P o (dP - delta) scale; only the diagonal and the
+      // ragged last tile are masked (a masked P is exactly 0)
+      const bool masked = k0 + c0 + KH > Tn || (causal && k0 + c0 + KH - 1 > wq0);
+#pragma unroll
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[j][e], sl2, -lse2[e >> 1]));
+          if (masked) {
+            const int row = wq0 + g + (e >> 1) * 8, col = k0 + c0 + j * 8 + 2 * t4 + (e & 1);
+            if (!(col < Tn && (!causal || col <= row))) p = 0.f;
+          }
+          s[j][e] = p * (dp[j][e] - dlt[e >> 1]) * scale;
+        }
+      // dQ += dS K, dS rounded to k's dtype and repacked from C to A fragments; B from K by
+      // ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < KH / 16; ++kk) {
+        uint32_t da[4];
+        tc::a_from_c<T>(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+          uint32_t bf[4];
+          tc::ldmatrix_x4_trans(bf, kst + tc::swz<D>(c0 + kk * 16 + (lane & 15), dp2 * 16 + (lane >> 4) * 8));
+          tc::mma<T>(acc[2 * dp2], da, bf[0], bf[1]);
+          tc::mma<T>(acc[2 * dp2 + 1], da, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();  // no copy may outlive the block (the last groups are empty)
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wq0 + g + i * 8;
+    if (row < Tn) {
+      T* dst = dq + tok(b, row, n, Tn, N, D) + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) = tc::pack2<T>(acc[j][2 * i], acc[j][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------------------------
 // K3: dK, dV
 // ---------------------------------------------------------------------------------------------
 template <typename T, int D>
@@ -900,7 +1064,7 @@ struct Args {
   int B, T, N, causal;
   float scale;
   cudaStream_t stream;
-  int* variant;  // K1 and K3: the variant launched
+  int* variant;  // the variant launched
 };
 
 // fp32 runs the FMA kernel (the parity path), bf16 and fp16 the tensor-core kernel; *variant
@@ -931,17 +1095,32 @@ int launch_fwd(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// fp32 runs the FMA kernel, bf16 and fp16 the tensor-core kernel; *variant as for launch_fwd
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  const size_t smem = tile_bytes<D>(4, 1, 2);
-  auto kernel = flash_dq_kernel<T, D>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.T + TILE - 1) / TILE, a.B * a.N);
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.T, a.N, a.causal, a.scale);
+  cudaError_t err;
+  if constexpr (std::is_same<T, float>::value) {
+    const size_t smem = tile_bytes<D>(4, 1, 2);
+    auto kernel = flash_dq_kernel<T, D>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.T, a.N, a.causal, a.scale);
+    *a.variant = 0;
+  } else {
+    const size_t smem = sizeof(T) * (2 * TC_ROWS + 2 * TcRing<D>::STAGES * TC_KEYS) * D;  // Q, dO; the K/V ring
+    auto kernel = flash_dq_tc_kernel<T, D>;
+    err = prepare(kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.T, a.N, a.causal, a.scale);
+    *a.variant = 1;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1008,8 +1187,8 @@ struct Dkv {
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16; D in {64, 128}. Each returns cudaGetLastError() after its launch
-// (or the error that stopped it) and does not synchronise. flash_fwd and flash_dkv write the
-// variant they launched to *variant: 0 the fp32 FMA kernel, 1 the tensor-core kernel (bf16, fp16).
+// (or the error that stopped it) and does not synchronise, and writes the variant it launched to
+// *variant: 0 the fp32 FMA kernel, 1 the tensor-core kernel (bf16, fp16).
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
                          int B, int T, int N, int D, int causal, float scale, void* stream,
                          int* variant) {
@@ -1023,11 +1202,12 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v,
 
 extern "C" int flash_dq(int dtype, const void* q, const void* k, const void* v, const void* dout,
                         const void* lse, const void* delta, void* dq, int B, int T, int N, int D,
-                        int causal, float scale, void* stream) {
+                        int causal, float scale, void* stream, int* variant) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta; a.dq = dq;
   a.B = B; a.T = T; a.N = N; a.causal = causal; a.scale = scale;
   a.stream = static_cast<cudaStream_t>(stream);
+  a.variant = variant;
   return dispatch<Dq>(dtype, D, a);
 }
 

@@ -15,11 +15,12 @@ bound through ``ctypes`` (``ops/native.py``):
 live lists; ``block_tables`` keeps them as int32 tensors per (layout,
 device), so a step makes no host-to-device copy (JAX builds them once at
 trace time). ``build_fwd_units`` and ``build_dkv_units`` turn the row and
-column lists into the work lists of K7's and K9's tensor-core variants:
-16-row q (K7) or key (K9) tiles, grouped four to a unit where their blocks
-list the same blocks of the other side, and lists longer than ``list_cap``
-cut into chunks whose fp32 partials a second pass combines in chunk order;
-``fwd_units`` and ``dkv_units`` keep them per (layout, block, device).
+column lists into the work lists of the tensor-core variants: 16-row q
+tiles (K7 and K8 share one table) or key tiles (K9), grouped four to a unit
+where their blocks list the same blocks of the other side, and lists longer
+than ``list_cap`` cut into chunks whose fp32 partials a second pass combines
+in chunk order; ``fwd_units`` and ``dkv_units`` keep them per (layout,
+block, device).
 ``fused_block_sparse_attention(q, k, v, layout, block, causal, scale)`` is
 the counterpart of ``pallas_block_sparse_attention`` (``:316``):
 ``[B, NH, T, D]`` inputs, a shared layout (leading dim 1) folds heads into
@@ -27,7 +28,7 @@ the batch, per-head layouts make one call per head. It is differentiable: a
 ``torch.autograd.Function`` whose forward runs K7 and saves ``(q, k, v, o,
 lse)`` and the tables, and whose backward computes Δ in fp32 with plain torch
 ops (JAX computes it in XLA outside the kernels, ``:232``) and runs K8 and
-K9. LSE is a plain ``[B·NH, T]`` fp32 array (``[BN, T, 128]`` lane-broadcast
+K9 (K8 on the forward's unit table). LSE is a plain ``[B·NH, T]`` fp32 array (``[BN, T, 128]`` lane-broadcast
 on the TPU).
 
 Each kernel has a plain PyTorch version here (``sparse_fwd_plain``,
@@ -45,16 +46,17 @@ arm). The kernels take ``D`` in ``HEAD_DIMS`` and blocks that are a multiple
 of 8 up to ``MAX_BLOCK``; any other size on a CUDA tensor raises
 ``NotImplementedError``.
 
-K7 and K9 have two variants in the CUDA source, chosen by dtype: bf16 and
-fp16 run on the tensor cores (``mma.sync``; the fp32 P, and K9's dS, enter
-their products as hi + lo pairs in the input dtype, so the fp32 numerics
-hold to about 2⁻¹⁶), fp32 keeps the FMA kernels as the card's parity path.
-``sparse_fwd_chunked_plain`` is the tensor-core K7's chunk-and-merge
-arithmetic in plain torch (CPU tests only). ``launches_fwd``,
-``launches_dq`` and ``launches_dkv`` count the kernels' calls and nothing
-else (K7's merge and K9's reduction pass are part of their calls);
-``launches_fwd_tc`` and ``launches_dkv_tc`` count the K7 and K9 calls that
-the CUDA entry reports as the tensor-core variant.
+K7-K9 have two variants in the CUDA source, chosen by dtype: bf16 and
+fp16 run on the tensor cores (``mma.sync``; the fp32 P and dS enter their
+products as hi + lo pairs in the input dtype, so the fp32 numerics hold to
+about 2⁻¹⁶), fp32 keeps the FMA kernels as the card's parity path.
+``sparse_fwd_chunked_plain`` and ``sparse_dq_chunked_plain`` are the
+tensor-core K7's chunk-and-merge and K8's chunk-and-sum arithmetic in plain
+torch (CPU tests only). ``launches_fwd``, ``launches_dq`` and
+``launches_dkv`` count the kernels' calls and nothing else (K7's merge and
+K8's and K9's reduction passes are part of their calls);
+``launches_fwd_tc``, ``launches_dq_tc`` and ``launches_dkv_tc`` count the
+calls that the CUDA entry reports as the tensor-core variant.
 Nothing CUDA is built or loaded at import time.
 """
 
@@ -77,7 +79,8 @@ UNIT_TILE = 16  # rows of a tile
 
 launches_fwd = 0  # K7 calls since the caller last set it to 0 (its merge pass included)
 launches_fwd_tc = 0  # of those, calls of the tensor-core variant (bf16, fp16)
-launches_dq = 0  # K8
+launches_dq = 0  # K8 calls (its reduction pass included)
+launches_dq_tc = 0  # of those, calls of the tensor-core variant (bf16, fp16)
 launches_dkv = 0  # K9 calls (its reduction pass included)
 launches_dkv_tc = 0  # of those, calls of the tensor-core variant (bf16, fp16)
 
@@ -125,12 +128,13 @@ def block_tables(layout_h: np.ndarray, device) -> Tuple[torch.Tensor, ...]:
 
 
 class Units(NamedTuple):
-    """The work list of K7's or K9's tensor-core variant for one (layout,
-    block): ``units`` int32 ``[U, 3 + 2 · UNIT_WARPS]`` rows of (list block,
-    start, length, tile starts, workspace slots), heaviest first; ``reduce``
-    int32 ``[R, 3]`` rows of (block, first slot, chunks) for the split
-    blocks; the workspace's slots; the chunk cap; the block; the number of
-    blocks on the tiled side (q blocks for K7, key blocks for K9)."""
+    """The work list of the tensor-core K7 and K8 (``side`` "rows") or K9
+    (``side`` "cols") for one (layout, block): ``units`` int32 ``[U, 3 + 2
+    · UNIT_WARPS]`` rows of (list block, start, length, tile starts,
+    workspace slots), heaviest first; ``reduce`` int32 ``[R, 3]`` rows of
+    (block, first slot, chunks) for the split blocks; the workspace's slots;
+    the chunk cap; the block; the number of blocks on the tiled side (q
+    blocks for K7 and K8, key blocks for K9)."""
 
     units: object
     reduce: object
@@ -138,6 +142,7 @@ class Units(NamedTuple):
     cap: int
     block: int
     n_blocks: int
+    side: str
 
 
 def list_cap(cnt: np.ndarray) -> int:
@@ -149,7 +154,7 @@ def list_cap(cnt: np.ndarray) -> int:
     return max(8, int(np.ceil(2.0 * mean)))
 
 
-def _build_units(idx: np.ndarray, cnt: np.ndarray, block: int) -> Units:
+def _build_units(idx: np.ndarray, cnt: np.ndarray, block: int, side: str) -> Units:
     """Units over the compacted lists ``idx`` / ``cnt`` of one side: each of
     its blocks is cut into ``UNIT_TILE``-row tiles (the last one partial when
     ``block`` is not a multiple of 16). Blocks whose lists are equal are
@@ -187,17 +192,18 @@ def _build_units(idx: np.ndarray, cnt: np.ndarray, block: int) -> Units:
     units = np.asarray(units, dtype=np.int32).reshape(-1, 3 + 2 * UNIT_WARPS)
     units = units[np.argsort(-units[:, 2], kind="stable")]
     reduce = np.asarray(reduce, dtype=np.int32).reshape(-1, 3)
-    return Units(units, reduce, n_slots, cap, block, cnt.shape[0])
+    return Units(units, reduce, n_slots, cap, block, cnt.shape[0], side)
 
 
 def build_fwd_units(layout_h: np.ndarray, block: int) -> Units:
-    """K7's units for a ``[nq, nk]`` layout at this block size, in numpy:
-    16-row q tiles grouped four to a unit where their q blocks list the same
-    key blocks, over the row lists of ``build_block_tables``. A split q
-    block's chunks write (acc, m, l) partials that the merge pass combines
-    with K4's formula."""
+    """K7's and K8's units for a ``[nq, nk]`` layout at this block size, in
+    numpy: 16-row q tiles grouped four to a unit where their q blocks list
+    the same key blocks, over the row lists of ``build_block_tables``. A
+    split q block's chunks write (acc, m, l) partials that K7's merge pass
+    combines with K4's formula, and fp32 dQ partials that K8's reduction
+    sums in chunk order."""
     row_idx, row_cnt, _, _ = build_block_tables(layout_h)
-    return _build_units(row_idx, row_cnt, block)
+    return _build_units(row_idx, row_cnt, block, "rows")
 
 
 def build_dkv_units(layout_h: np.ndarray, block: int) -> Units:
@@ -207,7 +213,7 @@ def build_dkv_units(layout_h: np.ndarray, block: int) -> Units:
     key block's chunks write fp32 dK and dV partials that the reduction sums
     in chunk order."""
     _, _, col_idx, col_cnt = build_block_tables(layout_h)
-    return _build_units(col_idx, col_cnt, block)
+    return _build_units(col_idx, col_cnt, block, "cols")
 
 
 def _cached_units(build, layout_h: np.ndarray, block: int, device) -> Units:
@@ -297,15 +303,11 @@ def sparse_fwd_plain(q, k, v, row_idx, row_cnt, scale: float, blk: int, causal: 
     return _fwd_finish(*_fwd_partials_plain(q, k, v, row_idx, row_cnt, scale, blk, causal), q.dtype)
 
 
-def sparse_fwd_chunked_plain(q, k, v, row_idx, row_cnt, units: Units, scale: float, blk: int, causal: bool):
-    """The tensor-core K7's arithmetic over its unit table in plain torch:
-    each q block's list in the chunks ``units`` (``build_fwd_units``) give
-    it, one fp32 partial ``(m, l, acc)`` a chunk, merged in chunk order with
-    the merge kernel's formula (``M = max m`` over chunks with ``l > 0``,
-    then ``L += exp(m - M)·l`` and ``O += exp(m - M)·acc`` chunk by chunk,
-    ``O / L``). An unsplit q block is its own single chunk. Returns ``(o,
-    lse)`` as ``sparse_fwd_plain``; the CPU tests hold it against that and
-    the Pallas kernel (no main path calls it)."""
+def _chunk_tables(row_idx, units: Units, blk: int):
+    """The row tables of each chunk of ``units`` (``build_fwd_units``), in
+    chunk order: table c lists, for every q block, the c-th chunk of its row
+    list (nothing where the block has fewer chunks; an unsplit block is its
+    own single chunk)."""
     rows = np.asarray(units.units.cpu() if isinstance(units.units, torch.Tensor) else units.units)
     nq, width = row_idx.shape
     chunks = [set() for _ in range(nq)]
@@ -315,7 +317,7 @@ def sparse_fwd_chunked_plain(q, k, v, row_idx, row_cnt, units: Units, scale: flo
                 chunks[int(tile) // blk].add((int(row[1]), int(row[2])))
     chunks = [sorted(c) for c in chunks]
     ri = row_idx.cpu().numpy()
-    parts = []
+    tables = []
     for c in range(max(len(x) for x in chunks)):
         idx_c = np.zeros((nq, width), np.int32)
         cnt_c = np.zeros((nq,), np.int32)
@@ -324,8 +326,20 @@ def sparse_fwd_chunked_plain(q, k, v, row_idx, row_cnt, units: Units, scale: flo
                 s0, n = lst[c]
                 idx_c[qb, :n] = ri[qb, s0: s0 + n]
                 cnt_c[qb] = n
-        parts.append(_fwd_partials_plain(q, k, v, torch.from_numpy(idx_c).to(q.device),
-                                         torch.from_numpy(cnt_c).to(q.device), scale, blk, causal))
+        tables.append((torch.from_numpy(idx_c).to(row_idx.device), torch.from_numpy(cnt_c).to(row_idx.device)))
+    return tables
+
+
+def sparse_fwd_chunked_plain(q, k, v, row_idx, row_cnt, units: Units, scale: float, blk: int, causal: bool):
+    """The tensor-core K7's arithmetic over its unit table in plain torch:
+    each q block's list in the chunks ``units`` (``build_fwd_units``) give
+    it, one fp32 partial ``(m, l, acc)`` a chunk, merged in chunk order with
+    the merge kernel's formula (``M = max m`` over chunks with ``l > 0``,
+    then ``L += exp(m - M)·l`` and ``O += exp(m - M)·acc`` chunk by chunk,
+    ``O / L``). Returns ``(o, lse)`` as ``sparse_fwd_plain``; the CPU tests
+    hold it against that and the Pallas kernel (no main path calls it)."""
+    parts = [_fwd_partials_plain(q, k, v, idx_c, cnt_c, scale, blk, causal)
+             for idx_c, cnt_c in _chunk_tables(row_idx, units, blk)]
     M = torch.stack([torch.where(l > 0, m, torch.full_like(m, NEG_INF)) for m, l, _ in parts]).amax(dim=0)
     L = torch.zeros_like(M)
     O = torch.zeros_like(parts[0][2])
@@ -336,9 +350,11 @@ def sparse_fwd_chunked_plain(q, k, v, row_idx, row_cnt, units: Units, scale: flo
     return _fwd_finish(M, L, O, q.dtype)
 
 
-def sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, blk: int, causal: bool):
-    """K8's function: dQ in q's dtype. ``lse`` and ``delta`` are ``[BN, T]``
-    fp32."""
+def _dq_partial_plain(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, blk: int, causal: bool,
+                      ds_dtype=None):
+    """K8's sum over the listed kv blocks of each row list, in fp32
+    ``[BN, T, D]``. ``ds_dtype`` rounds dS to that dtype before dS·K (K2's
+    rule, not K8's: the foil the card checks hold K8's fp32 dS against)."""
     BN, T, D = q.shape
     s, mask = _row_scores(q, k, row_idx, row_cnt, scale, blk, causal)
     lse_b = _blocks(lse, blk)[:, :, :, None, None]
@@ -346,8 +362,32 @@ def sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, blk
     vg = _blocks(v.float(), blk)[:, row_idx.long()]
     dp = torch.einsum("bqid,bqljd->bqilj", _blocks(do.float(), blk), vg)
     ds = p * (dp - _blocks(delta, blk)[:, :, :, None, None]) * scale
+    if ds_dtype is not None:
+        ds = ds.to(ds_dtype).float()
     kg = _blocks(k.float(), blk)[:, row_idx.long()]
-    return torch.einsum("bqilj,bqljd->bqid", ds, kg).reshape(BN, T, D).to(q.dtype)
+    return torch.einsum("bqilj,bqljd->bqid", ds, kg).reshape(BN, T, D)
+
+
+def sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, blk: int, causal: bool,
+                    ds_dtype=None):
+    """K8's function: dQ in q's dtype. ``lse`` and ``delta`` are ``[BN, T]``
+    fp32; ``ds_dtype`` as ``_dq_partial_plain``."""
+    return _dq_partial_plain(q, k, v, do, lse, delta, row_idx, row_cnt, scale, blk, causal, ds_dtype).to(q.dtype)
+
+
+def sparse_dq_chunked_plain(q, k, v, do, lse, delta, row_idx, row_cnt, units: Units, scale: float, blk: int,
+                            causal: bool):
+    """The tensor-core K8's arithmetic over K7's unit table in plain torch:
+    each q block's list in the chunks ``units`` (``build_fwd_units``) give
+    it, one fp32 dQ partial a chunk, summed in chunk order as the reduction
+    kernel sums them, then rounded to q's dtype. Returns dQ as
+    ``sparse_dq_plain``; the CPU tests hold it against that and the Pallas
+    kernel (no main path calls it)."""
+    dq = None
+    for idx_c, cnt_c in _chunk_tables(row_idx, units, blk):
+        part = _dq_partial_plain(q, k, v, do, lse, delta, idx_c, cnt_c, scale, blk, causal)
+        dq = part if dq is None else dq + part
+    return dq.to(q.dtype)
 
 
 def sparse_dkv_plain(q, k, v, do, lse, delta, col_idx, col_cnt, scale: float, blk: int, causal: bool):
@@ -390,15 +430,14 @@ def _entry(name: str):
 
         fn = getattr(native.load("block_sparse_attention"), name)
         fn.restype = ctypes.c_int
-        n_ptrs = {"block_sparse_fwd": 10, "block_sparse_dq": 9, "block_sparse_dkv": 13}[name]
-        units = name != "block_sparse_dq"  # K7 and K9 take unit tables and report their variant
+        n_ptrs = {"block_sparse_fwd": 10, "block_sparse_dq": 12, "block_sparse_dkv": 13}[name]
         fn.argtypes = (
             [ctypes.c_int]  # dtype code
             + [ctypes.c_void_p] * n_ptrs
-            + [ctypes.c_int] * (3 if units else 0)  # n_units, n_reduce, n_slots
+            + [ctypes.c_int] * 3  # n_units, n_reduce, n_slots
             + [ctypes.c_int] * 6  # width, BN, T, D, blk, causal
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
-            + ([ctypes.POINTER(ctypes.c_int)] if units else [])  # the variant launched
+            + [ctypes.POINTER(ctypes.c_int)]  # the variant launched
         )
         _entries[name] = fn
     return fn
@@ -451,15 +490,28 @@ def _check_residuals(q, do, lse, delta):
             raise ValueError(f"{name} must be fp32 [BN, T] = {(BN, T)}, got {tuple(t.shape)} {t.dtype}")
 
 
-def _launch(name: str, q, ptrs, idx, blk: int, causal: bool, scale: float, counts=(), out=()) -> None:
+def _launch(name: str, q, ptrs, idx, units: Units, ws, blk: int, causal: bool, scale: float) -> int:
+    """Launch ``name`` with the unit tables and workspace after the pointers;
+    returns the variant the entry reports (0 FMA, 1 tensor cores)."""
     BN, T, D = q.shape
     fn = _entry(name)
+    variant = ctypes.c_int(-1)
+    ptrs = (*ptrs, units.units.data_ptr(), units.reduce.data_ptr(), 0 if ws is None else ws.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], *ptrs, *counts, idx.shape[1], BN, T, D, blk, int(bool(causal)),
-                 float(scale), stream, *out)
+        err = fn(_DTYPE_CODES[q.dtype], *ptrs, units.units.shape[0], units.reduce.shape[0], units.n_slots,
+                 idx.shape[1], BN, T, D, blk, int(bool(causal)), float(scale), stream, ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    return variant.value
+
+
+def _workspace(q, units: Units, *inner):
+    """The fp32 workspace of the split blocks' partials, ``[BN, n_slots,
+    *inner]`` (bf16 and fp16 only; fp32 takes the FMA kernels), or None."""
+    if q.dtype == torch.float32 or not units.n_slots:
+        return None
+    return torch.empty(q.shape[0], units.n_slots, *inner, dtype=torch.float32, device=q.device)
 
 
 def sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units: Units, scale: float, blk: int, causal: bool):
@@ -469,48 +521,55 @@ def sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units: Units, scale: float, blk
     where the layout has split q blocks, merges their fp32 partials from a
     workspace allocated here; fp32 takes the FMA variant and ignores them."""
     global launches_fwd, launches_fwd_tc
+    _check_units(units, "rows", q, blk)
     _check(q, k, v, blk, (row_idx, row_cnt))
-    _check_units(units, q, blk)
     BN, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(BN, T, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    ws = None
-    if q.dtype != torch.float32 and units.n_slots:
-        ws = torch.empty(BN, units.n_slots, blk, D + 2, dtype=torch.float32, device=q.device)
-    variant = ctypes.c_int(-1)
-    _launch("block_sparse_fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                                    row_idx.data_ptr(), row_cnt.data_ptr(), units.units.data_ptr(),
-                                    units.reduce.data_ptr(), 0 if ws is None else ws.data_ptr()),
-            row_idx, blk, causal, scale, counts=(units.units.shape[0], units.reduce.shape[0], units.n_slots),
-            out=(ctypes.byref(variant),))
+    variant = _launch("block_sparse_fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                              lse.data_ptr(), row_idx.data_ptr(), row_cnt.data_ptr()),
+                      row_idx, units, _workspace(q, units, blk, D + 2), blk, causal, scale)
     launches_fwd += 1
-    launches_fwd_tc += int(variant.value == 1)
+    launches_fwd_tc += int(variant == 1)
     return o, lse
 
 
-def sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, scale: float, blk: int, causal: bool):
-    """Launch K8: dQ as ``sparse_dq_plain``."""
-    global launches_dq
+def sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, units: Units, scale: float, blk: int,
+                     causal: bool):
+    """Launch K8: dQ as ``sparse_dq_plain``. ``units`` is ``fwd_units(layout,
+    blk, device)``, K7's table of the layout whose row tables these are: the
+    tensor-core variant (bf16, fp16) walks it and, where the layout has
+    split q blocks, sums their fp32 partials from a workspace allocated
+    here; fp32 takes the FMA variant and ignores it."""
+    global launches_dq, launches_dq_tc
+    _check_units(units, "rows", q, blk)
     _check(q, k, v, blk, (row_idx, row_cnt), ("do", do), ("lse", lse), ("delta", delta))
     _check_residuals(q, do, lse, delta)
+    D = q.shape[-1]
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    _launch("block_sparse_dq", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                   delta.data_ptr(), dq.data_ptr(), row_idx.data_ptr(), row_cnt.data_ptr()),
-            row_idx, blk, causal, scale)
+    variant = _launch("block_sparse_dq", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), row_idx.data_ptr(),
+                                             row_cnt.data_ptr()),
+                      row_idx, units, _workspace(q, units, blk, D), blk, causal, scale)
     launches_dq += 1
+    launches_dq_tc += int(variant == 1)
     return dq
 
 
-def _check_units(units: Units, q, blk: int):
-    T = q.shape[1]
-    if not isinstance(units, Units) or units.block != blk or units.n_blocks != T // blk or \
-            units.units.device != q.device or units.reduce.device != q.device:
-        raise ValueError(f"the tensor-core kernels need the unit tables of this layout at block {blk} on "
-                         f"{q.device} (fwd_units / dkv_units(layout, {blk}, device))")
+def _check_units(units: Units, side: str, q, blk: int):
+    """``units`` must be this layout's table of ``side`` ("rows": ``fwd_units``
+    for K7 and K8; "cols": ``dkv_units`` for K9) at this block, on q's
+    device."""
+    T = q.shape[-2] if q.dim() >= 2 else -1
+    if not isinstance(units, Units) or units.side != side or units.block != blk or \
+            units.n_blocks != T // blk or units.units.device != q.device or units.reduce.device != q.device:
+        build = "fwd_units" if side == "rows" else "dkv_units"
+        raise ValueError(f"this kernel needs the unit tables of its layout at block {blk} on {q.device} "
+                         f"({build}(layout, {blk}, device))")
 
 
 def sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units: Units, scale: float, blk: int,
@@ -521,24 +580,19 @@ def sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units: Units, s
     layout has split key blocks, sums their fp32 partials from a workspace
     allocated here; fp32 takes the FMA variant and ignores them."""
     global launches_dkv, launches_dkv_tc
+    _check_units(units, "cols", q, blk)
     _check(q, k, v, blk, (col_idx, col_cnt), ("do", do), ("lse", lse), ("delta", delta))
     _check_residuals(q, do, lse, delta)
-    _check_units(units, q, blk)
-    BN, T, D = q.shape
+    D = q.shape[-1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
-    ws = None
-    if q.dtype != torch.float32 and units.n_slots:
-        ws = torch.empty(BN, units.n_slots, 2, blk, D, dtype=torch.float32, device=q.device)
-    variant = ctypes.c_int(-1)
-    _launch("block_sparse_dkv", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), col_idx.data_ptr(),
-                                    col_cnt.data_ptr(), units.units.data_ptr(), units.reduce.data_ptr(),
-                                    0 if ws is None else ws.data_ptr()), col_idx, blk, causal, scale,
-            counts=(units.units.shape[0], units.reduce.shape[0], units.n_slots), out=(ctypes.byref(variant),))
+    variant = _launch("block_sparse_dkv", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                              col_idx.data_ptr(), col_cnt.data_ptr()),
+                      col_idx, units, _workspace(q, units, 2, blk, D), blk, causal, scale)
     launches_dkv += 1
-    launches_dkv_tc += int(variant.value == 1)
+    launches_dkv_tc += int(variant == 1)
     return dk, dv
 
 
@@ -566,7 +620,7 @@ class _BlockSparseAttention(torch.autograd.Function):
         delta = sparse_delta(o, do)
         args = (ctx.scale, ctx.blk, ctx.causal)
         if ctx.kernel:
-            dq = sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
+            dq = sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, ctx.units[0], *args)
             dk, dv = sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, ctx.units[1], *args)
         else:
             dq = sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, *args)

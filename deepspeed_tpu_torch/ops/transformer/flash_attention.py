@@ -26,12 +26,12 @@ and dS → q's dtype before dSᵀ·Q. A CPU tensor takes the plain versions; a
 CUDA tensor launches the kernels or raises (``impl="plain"`` asks for the
 plain versions on the card, as the comparison arm).
 
-K1 and K3 have two variants in the CUDA source, chosen by dtype: bf16 and
+K1-K3 have two variants in the CUDA source, chosen by dtype: bf16 and
 fp16 run on the tensor cores (``mma.sync``), fp32 keeps the FMA kernels as
 the card's parity path. ``launches_fwd``, ``launches_dq`` and
 ``launches_dkv`` count the kernels' launches and nothing else;
-``launches_fwd_tc`` and ``launches_dkv_tc`` count the K1 and K3 launches
-that the CUDA entry reports as the tensor-core variant.
+``launches_fwd_tc``, ``launches_dq_tc`` and ``launches_dkv_tc`` count the
+launches that the CUDA entry reports as the tensor-core variant.
 Nothing CUDA is built or loaded at import time.
 """
 
@@ -49,6 +49,7 @@ HEAD_DIMS = (64, 128)
 launches_fwd = 0  # K1 launches since the caller last set it to 0
 launches_fwd_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)
 launches_dq = 0  # K2
+launches_dq_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)
 launches_dkv = 0  # K3
 launches_dkv_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)
 
@@ -135,7 +136,7 @@ def _entry(name: str):
             + [ctypes.c_void_p] * n_ptrs
             + [ctypes.c_int] * 5  # B, T, N, D, causal
             + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
-            + ([ctypes.POINTER(ctypes.c_int)] if name in ("flash_fwd", "flash_dkv") else [])  # the variant
+            + [ctypes.POINTER(ctypes.c_int)]  # the variant launched
         )
         _entries[name] = fn
     return fn
@@ -164,14 +165,19 @@ def _check(q, k, v, *more):
             raise TypeError(f"{name} dtype {t.dtype} must match q's {q.dtype}")
 
 
-def _launch(name: str, q, ptrs, causal: bool, scale: float, *out) -> None:
+def _launch(name: str, q, ptrs, causal: bool, scale: float) -> int:
+    """Launch ``name``; returns the variant the entry reports (0 FMA, 1
+    tensor cores)."""
     B, T, N, D = q.shape
     fn = _entry(name)
+    variant = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODES[q.dtype], *ptrs, B, T, N, D, int(bool(causal)), float(scale), stream, *out)
+        err = fn(_DTYPE_CODES[q.dtype], *ptrs, B, T, N, D, int(bool(causal)), float(scale), stream,
+                 ctypes.byref(variant))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    return variant.value
 
 
 def flash_fwd_kernel(q, k, v, causal: bool = True, scale: Optional[float] = None):
@@ -183,11 +189,10 @@ def flash_fwd_kernel(q, k, v, causal: bool = True, scale: Optional[float] = None
     lse = torch.empty(B * N, T, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    variant = ctypes.c_int(-1)
-    _launch("flash_fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()),
-            causal, _default_scale(D, scale), ctypes.byref(variant))
+    variant = _launch("flash_fwd", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr()),
+                      causal, _default_scale(D, scale))
     launches_fwd += 1
-    launches_fwd_tc += int(variant.value == 1)
+    launches_fwd_tc += int(variant == 1)
     return o, lse
 
 
@@ -202,15 +207,16 @@ def _check_residuals(q, do, lse, delta):
 
 def flash_dq_kernel(q, k, v, do, lse, delta, causal: bool = True, scale: Optional[float] = None):
     """Launch K2: dQ as ``flash_dq_plain``."""
-    global launches_dq
+    global launches_dq, launches_dq_tc
     _check(q, k, v, ("do", do), ("lse", lse), ("delta", delta))
     _check_residuals(q, do, lse, delta)
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
-    _launch("flash_dq", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                            delta.data_ptr(), dq.data_ptr()), causal, _default_scale(q.shape[-1], scale))
+    variant = _launch("flash_dq", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                      delta.data_ptr(), dq.data_ptr()), causal, _default_scale(q.shape[-1], scale))
     launches_dq += 1
+    launches_dq_tc += int(variant == 1)
     return dq
 
 
@@ -222,12 +228,11 @@ def flash_dkv_kernel(q, k, v, do, lse, delta, causal: bool = True, scale: Option
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dk, dv
-    variant = ctypes.c_int(-1)
-    _launch("flash_dkv", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                             delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
-            causal, _default_scale(q.shape[-1], scale), ctypes.byref(variant))
+    variant = _launch("flash_dkv", q, (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                                       delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+                      causal, _default_scale(q.shape[-1], scale))
     launches_dkv += 1
-    launches_dkv_tc += int(variant.value == 1)
+    launches_dkv_tc += int(variant == 1)
     return dk, dv
 
 

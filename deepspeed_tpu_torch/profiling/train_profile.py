@@ -62,9 +62,10 @@ CONFIG = {  # bench.py:507-517, config 1
     "steps_per_print": 10_000,
 }
 # the FMA kernels, the tensor-core variants and their second passes, each by its own name
-NAMED_KERNELS = ("flash_fwd_tc_kernel", "flash_dkv_tc_kernel", "flash_fwd_kernel", "flash_dq_kernel",
-                 "flash_dkv_kernel", "sparse_fwd_tc_kernel", "sparse_fwd_merge_kernel", "sparse_dkv_tc_kernel",
-                 "sparse_dkv_reduce_kernel", "sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")
+NAMED_KERNELS = ("flash_fwd_tc_kernel", "flash_dq_tc_kernel", "flash_dkv_tc_kernel", "flash_fwd_kernel",
+                 "flash_dq_kernel", "flash_dkv_kernel", "sparse_fwd_tc_kernel", "sparse_fwd_merge_kernel",
+                 "sparse_dq_tc_kernel", "sparse_dq_reduce_kernel", "sparse_dkv_tc_kernel", "sparse_dkv_reduce_kernel",
+                 "sparse_fwd_kernel", "sparse_dq_kernel", "sparse_dkv_kernel")
 
 
 def _device_us(evt) -> float:
@@ -90,7 +91,7 @@ def _group(name: str) -> str:
 
 def _train(seed):
     """The GPT-2 training step: (step function, tokens a step, launch
-    counters of K1-K3)."""
+    counters of K1-K3 and K2's tensor-core variant)."""
     cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
     engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(CONFIG),
                                      model_parameters=init_params(cfg, seed))
@@ -103,7 +104,8 @@ def _train(seed):
         engine.backward(loss)
         engine.step()
 
-    counters = lambda: dict(flash_fwd=fa.launches_fwd, flash_dq=fa.launches_dq, flash_dkv=fa.launches_dkv)  # noqa: E731
+    counters = lambda: dict(flash_fwd=fa.launches_fwd, flash_dq=fa.launches_dq, flash_dq_tc=fa.launches_dq_tc,  # noqa: E731
+                            flash_dkv=fa.launches_dkv)
     return step, 8 * cfg.max_seq_len, counters
 
 
@@ -131,7 +133,8 @@ def _sparse(seed):
                                                    state["masters"], opt.defaults["lr"])
 
     counters = lambda: dict(block_sparse_fwd=bs.launches_fwd, block_sparse_fwd_tc=bs.launches_fwd_tc,  # noqa: E731
-                            block_sparse_dq=bs.launches_dq, block_sparse_dkv=bs.launches_dkv,
+                            block_sparse_dq=bs.launches_dq, block_sparse_dq_tc=bs.launches_dq_tc,
+                            block_sparse_dkv=bs.launches_dkv,
                             block_sparse_dkv_tc=bs.launches_dkv_tc)
     return step, B * T, counters
 

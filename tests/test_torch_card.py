@@ -4,9 +4,10 @@ bitwise-equal repeated calls), the flash attention forward and backward
 (K1-K3), the decode attention over a contiguous cache (K6) and over pages
 (K5, split-KV: buckets 1/2/4/8, split boundaries, bitwise-equal repeated
 calls), and the block-sparse attention forward and backward (K7-K9), with
-K1, K3, K7 and K9 on their tensor-core variants in bf16 and fp16 (the
-variant counters, K7's split rows and dead rows, K9's split columns and
-dead keys, bitwise-equal repeated calls).
+K1-K3 and K7-K9 on their tensor-core variants in bf16 and fp16 and on FMA
+in fp32 (the variant counters, K7's and K8's split rows and dead rows,
+K9's split columns and dead keys, bitwise-equal repeated calls, K8's dS
+kept in fp32 on keys where rounding it would show).
 A CPU tensor handed straight to a kernel entry raises (those tests need no
 card).
 
@@ -243,6 +244,52 @@ def test_flash_attention_autograd_takes_dkv_tensor_cores(cuda_device):
         assert all(torch.isfinite(t.grad.float()).all() for t in (k, v))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(DKV_TC_CASES))
+def test_flash_dq_tensor_cores_match_plain_on_card(cuda_device, case, dtype):
+    """K2's tensor-core variant against the plain version in fp32 on the
+    same (cast) inputs and the kernel forward's LSE and delta: dQ within
+    3e-2 of the reference's largest magnitude (dS is rounded to the input
+    type before dS K, as the TPU kernel does); one launch, counted as the
+    tensor-core variant."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    B, T, N, D, causal = DKV_TC_CASES[case]
+    rs = np.random.RandomState(10)
+    q, k, v, do = (torch.from_numpy(rs.randn(B, T, N, D).astype(np.float32)).to(cuda_device).to(dtype)
+                   for _ in range(4))
+    o, lse = fa.flash_fwd_kernel(q, k, v, causal)
+    delta = fa.flash_delta(o, do)
+    before = (fa.launches_dq, fa.launches_dq_tc)
+    dq = fa.flash_dq_kernel(q, k, v, do, lse, delta, causal)
+    assert (fa.launches_dq - before[0], fa.launches_dq_tc - before[1]) == (1, 1)
+    ref = fa.flash_dq_plain(q.float(), k.float(), v.float(), do.float(), lse, delta, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq.float()).all()
+    rel = ((dq.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 3e-2, (case, dtype, rel)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_dq_fp32_on_fma_and_bitwise_repeat_on_card(cuda_device, D):
+    """fp32 K2 stays on the FMA kernel (the tensor-core count does not
+    move); two bf16 calls on the same inputs give a bitwise-equal dQ (each
+    block owns its rows: no atomics)."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    q, k, v, do = (torch.randn(2, 300, 3, D, device=cuda_device) for _ in range(4))
+    o, lse = fa.flash_fwd_kernel(q, k, v, True)
+    before = (fa.launches_dq, fa.launches_dq_tc)
+    fa.flash_dq_kernel(q, k, v, do, lse, fa.flash_delta(o, do), True)
+    assert (fa.launches_dq - before[0], fa.launches_dq_tc - before[1]) == (1, 0)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    o, lse = fa.flash_fwd_kernel(q, k, v, True)
+    delta = fa.flash_delta(o, do)
+    first, second = (fa.flash_dq_kernel(q, k, v, do, lse, delta, True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
 DECODE_CASES = {  # (B, NH, NKV, D, S, lens)
     "GQA D=64": (3, 8, 2, 64, 512, [0, 200, 512]),
     "MHA D=128": (2, 4, 4, 128, 256, [77, 256]),
@@ -447,14 +494,15 @@ def test_block_sparse_kernels_match_plain_on_card(cuda_device, case, dtype, monk
     scale = 1.0 / np.sqrt(D)
     args = (scale, block, causal)
     before = (bs.launches_fwd, bs.launches_dq, bs.launches_dkv)
-    before_tc = (bs.launches_fwd_tc, bs.launches_dkv_tc)
+    before_tc = (bs.launches_fwd_tc, bs.launches_dq_tc, bs.launches_dkv_tc)
     o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, f_units, *args)
     delta = bs.sparse_delta(o, do)
-    dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, *args)
+    dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, f_units, *args)
     dk, dv = bs.sparse_dkv_kernel(q, k, v, do, lse, delta, col_idx, col_cnt, units, *args)
-    # bf16 and fp16 take K7's and K9's tensor-core variants, fp32 the FMA variants
+    # bf16 and fp16 take K7's, K8's and K9's tensor-core variants, fp32 the FMA variants
     tc = int(dtype != torch.float32)
-    assert (bs.launches_fwd_tc - before_tc[0], bs.launches_dkv_tc - before_tc[1]) == (tc, tc)
+    assert (bs.launches_fwd_tc - before_tc[0], bs.launches_dq_tc - before_tc[1],
+            bs.launches_dkv_tc - before_tc[2]) == (tc, tc, tc)
     f = [t.float() for t in (q, k, v, do)]
     o_ref, lse_ref = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)
     dq_ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
@@ -568,6 +616,127 @@ def test_block_sparse_fwd_bitwise_deterministic_on_card(cuda_device, block):
     torch.cuda.synchronize()
     assert torch.equal(runs[0][0].view(torch.int16), runs[1][0].view(torch.int16))
     assert torch.equal(runs[0][1].view(torch.int32), runs[1][1].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("block", [8, 16, 24, 64, 128])
+def test_block_sparse_dq_tensor_cores_match_plain_on_card(cuda_device, block, causal, dtype):
+    """K8's tensor-core variant over K7's unit table (a split global row,
+    dead rows under the causal mask) against the plain version in fp32 on
+    the same (cast) inputs and the kernel forward's LSE and delta: dQ within
+    3e-2 of the reference's largest magnitude; dead rows exact zeros; the
+    variant counter moves once a call."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    n = 12
+    layout_h = _dead_rows_blocks(n)
+    T, D = n * block, 64 if block != 24 else 128
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    units = bs.fwd_units(layout_h, block, cuda_device)
+    assert units.n_slots > 0
+    rs = np.random.RandomState(block + 1)
+    q, k, v, do = (torch.from_numpy(rs.randn(3, T, D).astype(np.float32)).to(cuda_device).to(dtype)
+                   for _ in range(4))
+    args = (1.0 / np.sqrt(D), block, causal)
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units, *args)
+    delta = bs.sparse_delta(o, do)
+    before = (bs.launches_dq, bs.launches_dq_tc)
+    dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, units, *args)
+    ref = bs.sparse_dq_plain(q.float(), k.float(), v.float(), do.float(), lse, delta, row_idx, row_cnt, *args)
+    torch.cuda.synchronize()
+    assert (bs.launches_dq - before[0], bs.launches_dq_tc - before[1]) == (1, 1)
+    dead = lse <= bs.NEG_INF / 2
+    assert bool(dead.any()) == causal
+    assert (dq[dead] == 0).all() and torch.isfinite(dq.float()).all()
+    rel = ((dq.float() - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 3e-2, (block, causal, dtype, rel)
+
+
+def _ds_cancel_case(rs, BN, T, D, dtype, dev, eta=0.03):
+    """q, v, dO random and each head's keys within ``eta`` of one shared
+    vector c: Σ_k dS_k = 0 (delta = Σ_k P_k·dP_k), so c's part of dQ = Σ_k
+    dS_k·k_k cancels and dQ is small beside its terms. Rounding dS to the
+    operand dtype then moves dQ by some 30 times the output rounding."""
+    q, v, do = (torch.from_numpy(rs.randn(BN, T, D).astype(np.float32)).to(dev).to(dtype) for _ in range(3))
+    c = rs.randn(BN, 1, D).astype(np.float32)
+    k = torch.from_numpy(c + eta * rs.randn(BN, T, D).astype(np.float32)).to(dev).to(dtype)
+    return q, k, v, do
+
+
+# dQ's error bound on ``_ds_cancel_case``, relative to its largest magnitude: above the output rounding
+# with dS in fp32 (at most 3.3e-3 in bf16 and 9.6e-4 in fp16 with dS as hi + lo, emulated in plain torch)
+# and below the error of dS rounded to the operand dtype (at least 8.5e-2 and 1.1e-2)
+DS_FP32_TOL = {torch.bfloat16: 1.5e-2, torch.float16: 3e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("block", [16, 64])
+def test_block_sparse_dq_keeps_ds_in_fp32_on_card(cuda_device, block, dtype):
+    """K8 multiplies dS·K with dS in fp32 (hi + lo in the operand dtype), as
+    Pallas keeps it, and does not round dS to k's dtype as K2 does: on keys
+    where that rounding shows, dQ is within ``DS_FP32_TOL`` of the plain
+    version with fp32 dS, and the plain version with dS rounded is not."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    n = 16 if block == 16 else 8
+    layout_h = np.ones((n, n), np.int64)
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    units = bs.fwd_units(layout_h, block, cuda_device)
+    q, k, v, do = _ds_cancel_case(np.random.RandomState(block), 3, n * block, 64, dtype, cuda_device)
+    args = (0.125, block, False)
+    f = [t.float() for t in (q, k, v, do)]
+    o, lse = bs.sparse_fwd_plain(*f[:3], row_idx, row_cnt, *args)  # fp32 O, so delta = Σ P·dP to fp32
+    delta = bs.sparse_delta(o, f[3])
+    before = bs.launches_dq_tc
+    dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, units, *args)
+    ref = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args)
+    foil = bs.sparse_dq_plain(*f, lse, delta, row_idx, row_cnt, *args, ds_dtype=dtype)
+    torch.cuda.synchronize()
+    assert bs.launches_dq_tc - before == 1
+    scale = ref.abs().max()
+    err, foil_err = ((x.float() - ref).abs().max().item() / scale.item() for x in (dq, foil))
+    assert foil_err > DS_FP32_TOL[dtype], (block, dtype, foil_err)
+    assert err <= DS_FP32_TOL[dtype], (block, dtype, err, foil_err)
+
+
+def test_block_sparse_dq_fp32_stays_on_fma_on_card(cuda_device):
+    """fp32 K8 runs the FMA kernel (the parity path): the call counts, the
+    tensor-core count does not move, and it matches plain within 1e-3 of the
+    reference's largest magnitude."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    layout_h = _dead_rows_blocks(8)
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    units = bs.fwd_units(layout_h, 16, cuda_device)
+    q, k, v, do = (torch.randn(2, 128, 64, device=cuda_device) for _ in range(4))
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units, 0.125, 16, True)
+    delta = bs.sparse_delta(o, do)
+    before = (bs.launches_dq, bs.launches_dq_tc)
+    dq = bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, units, 0.125, 16, True)
+    ref = bs.sparse_dq_plain(q, k, v, do, lse, delta, row_idx, row_cnt, 0.125, 16, True)
+    torch.cuda.synchronize()
+    assert (bs.launches_dq - before[0], bs.launches_dq_tc - before[1]) == (1, 0)
+    assert ((dq - ref).abs().max() / ref.abs().max()).item() <= 1e-3
+
+
+@pytest.mark.parametrize("block", [16, 64])
+def test_block_sparse_dq_bitwise_deterministic_on_card(cuda_device, block):
+    """Two K8 calls on a layout with a split global row are bitwise equal:
+    the chunks' dQ partials are summed in chunk order, with no atomics."""
+    from deepspeed_tpu_torch.ops.sparse_attention import block_sparse as bs
+
+    layout_h = _dead_rows_blocks(16)
+    row_idx, row_cnt, _, _ = bs.block_tables(layout_h, cuda_device)
+    units = bs.fwd_units(layout_h, block, cuda_device)
+    assert units.n_slots > 0
+    q, k, v, do = (torch.randn(4, 16 * block, 64, device=cuda_device, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = bs.sparse_fwd_kernel(q, k, v, row_idx, row_cnt, units, 0.125, block, False)
+    delta = bs.sparse_delta(o, do)
+    runs = [bs.sparse_dq_kernel(q, k, v, do, lse, delta, row_idx, row_cnt, units, 0.125, block, False)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
 
 
 def test_block_sparse_dead_rows_exact_zeros_on_card(cuda_device):
@@ -707,7 +876,7 @@ def test_block_sparse_entries_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         bs.sparse_fwd_kernel(q, q, q, row_idx, row_cnt, f_units, 0.125, 16, False)
     with pytest.raises(ValueError, match="CUDA"):
-        bs.sparse_dq_kernel(q, q, q, q, lse, lse, row_idx, row_cnt, 0.125, 16, False)
+        bs.sparse_dq_kernel(q, q, q, q, lse, lse, row_idx, row_cnt, f_units, 0.125, 16, False)
     with pytest.raises(ValueError, match="CUDA"):
         bs.sparse_dkv_kernel(q, q, q, q, lse, lse, col_idx, col_cnt, units, 0.125, 16, False)
     assert (bs.launches_fwd, bs.launches_dq, bs.launches_dkv) == counts
