@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
-drives the serving, the training and the block-sparse attention main
-paths at full width. Phases,
+drives the serving (single-step and multi-step windows), the training and
+the block-sparse attention main paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -38,13 +38,18 @@ non-zero without the final line:
 4. greedy-stream identity in fp32 (TF32 off): 4 requests × 32 tokens with
    ``attn_impl="kernel"`` against ``"plain"``; where streams part, the plain
    run's top-2 logit gap at that position must be below 1e-4;
-5. the dense decode kernel (K6) against its plain version at the generate
-   shape of llama-1B (B=16, S=256, NH=32, NKV=4, D=64, ragged lengths with
-   0 and 256) and an MHA shape (NH=NKV=12), fp32 with TF32 off (<= 1e-4)
-   and bf16 (<= 2e-2 against the plain version in fp32 on the same bf16
-   inputs), rows of length 0 exact zeros; timed beside its bound and a
-   yardstick (``scaled_dot_product_attention`` with a length mask over the
-   same cache), L2 flushed before every launch;
+5. the dense decode kernel (K6, split-KV) against its plain version at the
+   generate shape of llama-1B (B=16, S=256, NH=32, NKV=4, D=64, ragged
+   lengths with 0 and 256; fp32, bf16 and fp16) and an MHA shape
+   (NH=NKV=12; fp32, bf16), fp32 with TF32 off (<= 1e-4) and bf16/fp16
+   (<= 2e-2 against the plain version in fp32 on the same cast inputs),
+   rows of length 0 exact zeros; timed beside its bound and a yardstick
+   (``scaled_dot_product_attention`` with a length mask over the same
+   cache), L2 flushed before every launch. Then (correctness only) a GQA
+   group of 7 at D=128, and S=100 with kv_len on a 64-key split boundary,
+   one past it, S and past S. Every call must run the split kernel and its
+   combine (``launches_decode_split``), two calls on the same inputs must
+   be bitwise equal, and each case prints its split count;
 6. the paged decode kernel (K5, split-KV) the same way at the bucketed
    decode shape (bucket 8, llama-1B heads, P=16, MAXP=128, NP=1025, a dead
    row and -1 sentinels) and at bucket 1 (bf16, one row of 1500 keys),
@@ -56,7 +61,7 @@ non-zero without the final line:
    tokens with 128 new (cache length 256), cold and warm, with
    ``profile_model_time``; K6 must launch 22 × 128 times per call and K4,
    K5 never. Then beam search (4 beams, 2 prompts of 224 tokens, 32 new):
-   K6 = 22 × 32;
+   K6 = 22 × 32. Every K6 call on the split path;
 8. the bucketed server (``paged_kv.ragged=False``) in bf16 on phase 3's
    traffic, cold and warm: 32 of 32 finished, K5 = 22 × ``decode_steps``,
    every K5 call on the split path, K4 never;
@@ -65,7 +70,29 @@ non-zero without the final line:
    bucketed server (K5) and ``generate`` (K6, cache length 256); where two
    streams part, the plain top-2 logit gap must be below 1e-4. Beam search
    there too: the 4-beam answer's joint log-probability (rescored by a full
-   fp32 forward) must be at least the greedy answer's less 1e-3;
+   fp32 forward) must be at least the greedy answer's less 1e-3. And the
+   ragged server with multi-step windows (horizon 8, CUDA graph replays):
+   its streams must equal the single-step ragged server's exactly;
+9b. multi-step serving windows: phase 3's engine with
+   ``paged_kv={"page_size": 16, "max_slots": 8, "ragged": True,
+   "multi_step": {"enable": True, "horizon": 8}}`` in bf16 on phase 3's 16
+   requests, cold then warm: every stream equal to phase 3's, windows
+   formed, one CUDA graph captured, and K4's counter equal to 22 x
+   ``ragged_steps`` + 2 x 22 x 8 x captures (a capture passes the wrapper
+   for the warm-up's launch and for the graph's record; a replay never
+   passes it), every other kernel 0. Then steady traffic, 8 requests of
+   128 tokens with 128 new, on fresh servers in turns (single-step,
+   windows, windows, single-step): streams equal, TPOT p50, tokens/s,
+   windows, captures and replays, each window's host wall beside its
+   replay's device time (CUDA events at every replay, from
+   ``serve_stats()["window_device_ms"]``) and the window's idle share,
+   with the same counter accounting. Last, a fifth server on the steady
+   traffic runs two steps after its capture under ``torch.profiler``,
+   which counts K4's split and combine kernels on the device, those
+   inside the replays included: each must equal 22 x (``ragged_steps`` +
+   8 x ``window_steps``) of those steps and K4's counter 22 x
+   ``ragged_steps``; the server then runs to its end with its streams
+   equal to the single-step server's;
 10. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
    against their plain versions at the training shape (B=8, T=1024, N=12,
    D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
@@ -149,8 +176,8 @@ non-zero without the final line:
 
 The line before the last is ``{"kernels": [...]}`` (K1-K3 and K7-K9 with
 their ``variant`` by dtype and the main path's tensor-core launches, K1-K3,
-K7 and K8 with their fp16 times; K4 and K5 with their split counts and
-split-KV launches); the last line is
+K7 and K8 with their fp16 times; K4, K5 and K6 with their split counts and
+split-KV launches, K4 with phase 9b's window numbers); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -167,9 +194,11 @@ import types
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.inference import decode
+from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config
 from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops import native
@@ -400,12 +429,12 @@ def phase_serve(cfg, tree, seed):
     prompts, budgets = _requests(seed, cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()  # counts from here are the serving main path's
-    passes = []
+    passes, streams = [], {}
     for name in ("cold", "warm"):
         before = engine.serve_stats() or {"prefix": {"prefix_hit_tokens": 0, "prefix_query_tokens": 0},
                                           "ragged_steps": 0}
         t0 = time.perf_counter()
-        outs = engine.serve(prompts, max_new_tokens=budgets)
+        outs = streams[name] = engine.serve(prompts, max_new_tokens=budgets)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         s = engine.serve_stats()
@@ -440,7 +469,7 @@ def phase_serve(cfg, tree, seed):
     phase_forward(engine, cfg, seed)
     del engine, model
     torch.cuda.empty_cache()
-    return launches, split
+    return launches, split, streams
 
 
 def phase_forward(engine, cfg, seed):
@@ -537,6 +566,48 @@ DECODE_SHAPES = {  # name: (B, S, NH, NKV, D)
     "MHA B=16 S=256 NH=NKV=12 D=64": (16, 256, 12, 12, 64),
 }
 DECODE_MAIN = "generate B=16 S=256 NH=32 NKV=4 D=64"
+# correctness only, (B, S, NH, NKV, D, kv_lens): a GQA group of 7 at D=128, and S=100 (not a multiple of the
+# 64-key split) with kv_len on a split boundary, one past it, S and past S (clamped to S)
+DECODE_EXTRA = {
+    "Hg=7 D=128 S=256": (5, 256, 28, 4, 128, [1, 64, 65, 200, 256]),
+    "S=100 kv_len>S": (6, 100, 32, 4, 64, [0, 1, 64, 65, 100, 150]),
+}
+
+
+def _decode_check(label, args, scale, dtype, tol):
+    """K6 on ``args`` (q, k, v in fp32, kv_lens) cast to ``dtype`` against the
+    plain version in fp32 on the same (cast) inputs; raises past ``tol``, on
+    a non-finite value, on a dead row that is not exact zeros, when a call
+    did not run the split kernel and its combine, or when a second call on
+    the same inputs is not bitwise equal. Returns (max abs error, the cast
+    inputs, the split count)."""
+    q, k, v, lens_d = args
+    qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+    ref = decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(), lens_d, scale)
+    before = decode_attention.launches_decode_split
+    out = decode_attention.decode_attention_kernel(qd, kd, vd, lens_d, scale)
+    again = decode_attention.decode_attention_kernel(qd, kd, vd, lens_d, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    dead_zero = bool((out[lens_d == 0] == 0).all().item())
+    finite = bool(torch.isfinite(out.float()).all().item())
+    split = decode_attention.launches_decode_split - before
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    equal = torch.equal(out.view(bits), again.view(bits))
+    splits = decode_attention.dense_splits(k.shape[1])
+    dt = str(dtype).replace("torch.", "")
+    emit(phase="kernel_determinism", kernel="decode_attention", case=f"{label} {dt}", bitwise_equal=equal,
+         splits=splits)
+    if not (err <= tol and dead_zero and finite and split == 2 and equal):
+        raise AssertionError(f"K6 {label} {dt}: max_abs_err {err} (tol {tol}), dead rows zero {dead_zero}, "
+                             f"finite {finite}, split-KV calls {split} of 2, bitwise equal {equal}")
+    return err, (qd, kd, vd, lens_d), splits
+
+
+def _decode_inputs(rs, B, S, nh, nkv, d, lens, dev):
+    q = torch.from_numpy(rs.standard_normal((B, nh, d), dtype=np.float32)).to(dev)
+    k, v = (torch.from_numpy(rs.standard_normal((B, S, nkv, d), dtype=np.float32)).to(dev) for _ in range(2))
+    return q, k, v, torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
 
 
 def phase_decode_kernel(dev, flush):
@@ -544,21 +615,12 @@ def phase_decode_kernel(dev, flush):
     cases = []
     for label, (B, S, nh, nkv, d) in DECODE_SHAPES.items():
         lens = np.linspace(0, S, B).astype(np.int32)  # 0 .. S, ragged
-        q = torch.from_numpy(rs.standard_normal((B, nh, d), dtype=np.float32)).to(dev)
-        k, v = (torch.from_numpy(rs.standard_normal((B, S, nkv, d), dtype=np.float32)).to(dev) for _ in range(2))
-        lens_d = torch.from_numpy(lens).to(dev)
+        args = _decode_inputs(rs, B, S, nh, nkv, d, lens, dev)
         scale = 1.0 / np.sqrt(d)
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
-            ref = decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(), lens_d, scale)
-            out = decode_attention.decode_attention_kernel(qd, kd, vd, lens_d, scale)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs().max().item()
-            dead_zero = bool((out[lens_d == 0] == 0).all().item())
-            finite = bool(torch.isfinite(out.float()).all().item())
-            if not (err <= tol and dead_zero and finite):
-                raise AssertionError(f"K6 {label} {dtype}: max_abs_err {err} (tol {tol}), dead rows zero "
-                                     f"{dead_zero}, finite {finite}")
+        dtypes = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2))
+        for dtype, tol in dtypes if label == DECODE_MAIN else dtypes[:2]:
+            err, cast, splits = _decode_check(label, args, scale, dtype, tol)
+            qd, kd, vd, lens_d = cast
             ms = _time_ms(lambda: decode_attention.decode_attention_kernel(qd, kd, vd, lens_d, scale), 50, flush)
             plain_ms = _time_ms(lambda: decode_attention.decode_attention_plain(qd, kd, vd, lens_d, scale), 20, flush)
             sq, sk, sv = qd[:, :, None], kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
@@ -568,10 +630,19 @@ def phase_decode_kernel(dev, flush):
             bound_ms, bound_by, nbytes, flops = _decode_bound(lens, nh, nkv, d, dtype)
             case = dict(case=f"{label} {str(dtype).replace('torch.', '')}", max_abs_err=err, tol=tol, ms=ms,
                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                        bytes=nbytes, flops=flops, roofline_share=bound_ms / ms)
+                        bytes=nbytes, flops=flops, roofline_share=bound_ms / ms, library_share=library_ms / ms,
+                        splits=splits, bitwise_equal=True)
             emit(phase="decode_kernel", kernel="decode_attention", dead_rows_exact_zero=True, **case,
+                 launches_decode_split=decode_attention.launches_decode_split,
                  library="scaled_dot_product_attention with a length mask over the same cache")
             cases.append(case)
+    for label, (B, S, nh, nkv, d, lens) in DECODE_EXTRA.items():
+        args = _decode_inputs(rs, B, S, nh, nkv, d, lens, dev)
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2), (torch.float16, 2e-2)):
+            err, _, splits = _decode_check(label, args, 1.0 / np.sqrt(d), dtype, tol)
+            emit(phase="decode_kernel", kernel="decode_attention", case=f"{label} {dtype}", kv_lens=lens,
+                 max_abs_err=err, tol=tol, splits=splits, dead_rows_exact_zero=True,
+                 launches_decode_split=decode_attention.launches_decode_split)
     return cases
 
 
@@ -694,12 +765,16 @@ def phase_generate(cfg, tree, seed):
     if got["decode_attention"] != cfg.num_layers * 32 or sum(got.values()) != got["decode_attention"]:
         raise AssertionError(f"beam: launches {got}, want K6 = {cfg.num_layers} x 32 and no other")
     counts = _counts()
+    split = decode_attention.launches_decode_split
     summary = dict(phase="generate", pass_="all", model_times_s=engine.model_times(), beam_wall_s=beam_wall,
-                   beam_launches=got, launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated())
+                   beam_launches=got, launches=counts, k6_split_launches=split,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
     emit(**summary)
+    if split != counts["decode_attention"]:
+        raise AssertionError(f"generate: {split} of {counts['decode_attention']} K6 calls ran the split-KV kernel")
     del engine, model
     torch.cuda.empty_cache()
-    return counts["decode_attention"]
+    return counts["decode_attention"], split
 
 
 # --- phase 8: the bucketed server -------------------------------------------------
@@ -769,6 +844,7 @@ def phase_three_way(cfg, tree, seed, dev):
     ragged = dst.init_inference(model, dtype="fp32", paged_kv=paged)
     ragged.load_jax_params(tree)
     bucketed = dst.init_inference(model, dtype="fp32", paged_kv=dict(paged, ragged=False))
+    windows = dst.init_inference(model, dtype="fp32", paged_kv=WINDOWS)
     rs = np.random.default_rng(seed + 2)
     prompts = rs.integers(0, cfg.vocab_size, (4, 224), dtype=np.int32)
     before = _counts()
@@ -781,6 +857,15 @@ def phase_three_way(cfg, tree, seed, dev):
     if not (got["ragged_paged_attention"] and got["paged_decode_attention"]
             and got["decode_attention"] == cfg.num_layers * 32):
         raise AssertionError(f"fp32 three-way: launches {got}")
+    # the window server (CUDA graph replays of K4) must give the ragged streams exactly: same kernels, same rows
+    window_streams = windows.serve(list(prompts), max_new_tokens=32)
+    ws = windows.serve_stats()
+    same = sum(1 for a, b in zip(window_streams, streams["ragged (K4)"]) if np.array_equal(a, b))
+    emit(phase="three_way", dtype="float32", arm="ragged windows (K4, CUDA graph)", identical_to_ragged=same,
+         window_steps=ws["window_steps"], window_captures=ws["window_captures"])
+    if same != len(prompts) or ws["window_steps"] == 0:
+        raise AssertionError(f"fp32 windows: {same} of {len(prompts)} streams equal the ragged server's, "
+                             f"window_steps {ws['window_steps']}")
     partings = []
     names = list(streams)
     for other in names[1:]:
@@ -804,14 +889,182 @@ def phase_three_way(cfg, tree, seed, dev):
          partings=partings, launches=got, beam_logprob=b_scores, greedy_logprob=g_scores)
     if beam.shape != greedy.shape or any(b < g - 1e-3 for g, b in zip(g_scores, b_scores)):
         raise AssertionError(f"fp32 beam joint log-prob {b_scores} below greedy's {g_scores}")
-    del ragged, bucketed, model
+    del ragged, bucketed, windows, model
     torch.cuda.empty_cache()
+
+
+# --- phase 9b: multi-step serving windows (one CUDA graph replay a window) -------------
+HORIZON = 8
+WINDOWS = {"page_size": 16, "max_slots": 8, "ragged": True, "multi_step": {"enable": True, "horizon": HORIZON}}
+
+
+def _k4_counter_want(cfg, s):
+    """K4's wrapper counter from a window server's stats: one a layer a
+    single step; a capture passes the wrapper twice a layer and round (the
+    warm-up's launch and the graph's record); a replay never passes it."""
+    return cfg.num_layers * (s["ragged_steps"] + 2 * HORIZON * s["window_captures"])
+
+
+K4_KERNELS = ("ragged_split_kernel", "ragged_combine_kernel")
+
+
+PROFILED_STEPS = 2  # window replays under the profiler: ~32k device events
+
+
+def _profiled_windows(cfg, params, prompts, new, ref):
+    """K4's kernels counted on the device by ``torch.profiler`` (CUDA
+    activity) over PROFILED_STEPS steps of a window server whose graph is
+    already captured: one split and one combine a layer per single step and
+    a layer and round per replay, which the wrappers' counters cannot see.
+    The region is kept short: a whole serve pass under the profiler holds
+    ~400k device events, and one such run on the card counted one K4 pair
+    fewer than the replays and steps launch (ten more passes, in
+    tools/torch_window_launches.py, counted every pair). The server then
+    runs to its end, and its streams must equal ``ref``."""
+    server = PagedServer(cfg, params, page_size=16, max_slots=8, dtype=torch.bfloat16,
+                         prefix_cache=True, multi_step=WINDOWS["multi_step"])
+    uids = [server.submit(p, max_new_tokens=new) for p in prompts]
+    while server.has_work() and (server.prefilling() or server.stats["window_captures"] == 0):
+        server.step()
+    before = dict(server.stats)
+    _zero_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            server.step()
+        torch.cuda.synchronize()
+    counter = decode_attention.launches
+    device = dict.fromkeys(K4_KERNELS, 0)
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            for name in K4_KERNELS:
+                if name in evt.key:
+                    device[name] += evt.count
+    d_ragged = server.stats["ragged_steps"] - before["ragged_steps"]
+    d_windows = server.stats["window_steps"] - before["window_steps"]
+    server.run()
+    outs = [server.take_result(u) for u in uids]
+    return dict(steps=PROFILED_STEPS, window_steps=d_windows, ragged_steps=d_ragged,
+                window_captures=server.stats["window_captures"] - before["window_captures"],
+                k4_counter=counter, k4_counter_want=cfg.num_layers * d_ragged, k4_device_launches=device,
+                k4_device_launches_want=cfg.num_layers * (d_ragged + HORIZON * d_windows),
+                identical=sum(1 for a, b in zip(outs, ref) if np.array_equal(a, b)))
+
+
+def _steady_run(server, prompts, new):
+    """Serve ``prompts`` x ``new`` tokens on a fresh server, stepping by hand:
+    the host wall of every step after prefill, split into windows and single
+    steps (the first window holds the server's capture: a warm-up run and
+    the graph's recording), and the device time of each window's replay
+    from the server's stats. K4's counter is zeroed first."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    uids = [server.submit(p, max_new_tokens=new) for p in prompts]
+    while server.prefilling():
+        server.step()
+    windows, singles = [], []
+    while server.has_work():
+        w0, t = server.stats["window_steps"], time.perf_counter()
+        server.step()
+        (windows if server.stats["window_steps"] > w0 else singles).append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [server.take_result(u) for u in uids]
+    s = server.serve_stats()
+    return outs, dict(wall_s=wall, tokens_per_s=len(prompts) * new / wall, tpot_ms=s["tpot_ms"], ttft_ms=s["ttft_ms"],
+                      window_steps=s["window_steps"], window_captures=s["window_captures"],
+                      window_replays=s["window_device_ms"]["count"], ragged_steps=s["ragged_steps"],
+                      window_break_reasons=s["window_break_reasons"],
+                      window_ms_p50=float(np.median(windows)) * 1e3 if windows else None,
+                      first_window_ms=windows[0] * 1e3 if windows else None,  # a fresh server's capture
+                      window_device_ms=s["window_device_ms"],
+                      single_step_ms_p50=float(np.median(singles)) * 1e3 if singles else None,
+                      k4_counter=decode_attention.launches, launches=_counts())
+
+
+def phase_windows(cfg, tree, seed, streams):
+    model = TransformerLM(cfg)
+    engine = dst.init_inference(model, dtype="bf16", paged_kv=WINDOWS)
+    engine.load_jax_params(tree)
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    _zero_counts()  # counts from here are the window serving path's
+    for name in ("cold", "warm"):
+        before = engine.serve_stats() or {"window_steps": 0, "ragged_steps": 0}
+        t0 = time.perf_counter()
+        outs = engine.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = engine.serve_stats()
+        same = sum(1 for a, b in zip(outs, streams[name]) if np.array_equal(a, b))
+        emit(phase="windows", pass_=name, requests=len(outs), generated_tokens=sum(budgets), wall_s=wall,
+             tokens_per_s=sum(budgets) / wall, identical_to_phase_3=same,
+             window_steps=s["window_steps"] - before["window_steps"],
+             ragged_steps=s["ragged_steps"] - before["ragged_steps"])
+        if same != len(outs):
+            raise AssertionError(f"windows {name}: {same} of {len(outs)} streams equal phase 3's single-step streams")
+    s = engine.serve_stats()
+    counts = _counts()
+    counter = _k4_counter_want(cfg, s)
+    emit(phase="windows", pass_="both", ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"], window_steps=s["window_steps"],
+         window_captures=s["window_captures"], window_replays=s["window_device_ms"]["count"],
+         window_break_reasons=s["window_break_reasons"], ragged_steps=s["ragged_steps"],
+         dispatches_per_token=s["dispatches_per_token"], finished=s["finished"], launches=counts,
+         k4_counter_want=counter)
+    if s["finished"] != 32 or s["window_steps"] == 0 or s["window_captures"] != 1:
+        raise AssertionError(f"windows: finished {s['finished']} of 32, window_steps {s['window_steps']}, "
+                             f"captures {s['window_captures']}")
+    if s["window_device_ms"]["count"] != s["window_steps"]:
+        raise AssertionError(f"windows: {s['window_device_ms']['count']} timed replays, {s['window_steps']} windows")
+    if counts["ragged_paged_attention"] != counter or sum(counts.values()) != counter:
+        raise AssertionError(f"windows: launches {counts}, want K4 = {counter} and no other")
+    # steady traffic: 8 requests x 128 new tokens, the single-step server and the window server in turns
+    # (single, window, window, single), each a fresh server with the serving engine's settings
+    rs = np.random.default_rng(seed + 7)
+    steady = [rs.integers(0, cfg.vocab_size, 128, dtype=np.int32) for _ in range(8)]
+    params = engine.module.param_tree()
+    runs, ref = [], None
+    for multi_step in (None, WINDOWS["multi_step"], WINDOWS["multi_step"], None):
+        server = PagedServer(cfg, params, page_size=16, max_slots=8, dtype=torch.bfloat16,
+                             prefix_cache=True, multi_step=multi_step)
+        outs, rec = _steady_run(server, steady, 128)
+        ref = ref or outs
+        rec.update(mode="windows" if multi_step else "single-step",
+                   identical=sum(1 for a, b in zip(outs, ref) if np.array_equal(a, b)))
+        want = _k4_counter_want(cfg, rec)
+        if multi_step:
+            rec.update(k4_counter_want=want,
+                       window_idle_share=1.0 - rec["window_device_ms"]["p50"] / rec["window_ms_p50"])
+        emit(phase="windows_steady", requests=8, new_tokens=128, **rec)
+        if rec["identical"] != 8 or rec["k4_counter"] != want or sum(rec["launches"].values()) != want:
+            raise AssertionError(f"windows steady {rec['mode']}: {rec['identical']} of 8 streams equal, "
+                                 f"K4 counter {rec['k4_counter']} want {want}, launches {rec['launches']}")
+        if multi_step and (rec["window_steps"] == 0 or rec["window_captures"] != 1
+                           or rec["window_replays"] != rec["window_steps"]):
+            raise AssertionError(f"windows steady: window_steps {rec['window_steps']}, captures "
+                                 f"{rec['window_captures']}, timed replays {rec['window_replays']}")
+        runs.append(rec)
+        del server
+    # the replays launch K4 without passing its wrapper: count its kernels on the device
+    profiled = _profiled_windows(cfg, params, steady, 128, ref)
+    emit(phase="windows", pass_="profiled", **profiled)
+    if (profiled["identical"] != 8 or profiled["window_steps"] == 0 or profiled["window_captures"] != 0
+            or any(n != profiled["k4_device_launches_want"] for n in profiled["k4_device_launches"].values())
+            or profiled["k4_counter"] != profiled["k4_counter_want"]):
+        raise AssertionError(f"windows profiled: {profiled}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return dict(serve=dict(window_steps=s["window_steps"], window_captures=s["window_captures"],
+                           k4_counter=counts["ragged_paged_attention"], k4_counter_want=counter),
+                profiled=profiled,
+                steady=[{k: r[k] for k in ("mode", "tokens_per_s", "tpot_ms", "window_steps", "window_ms_p50",
+                                          "window_device_ms", "single_step_ms_p50") if k in r} for r in runs])
 
 
 # --- launch counts -------------------------------------------------------------
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
     decode_attention.launches_ragged_split = decode_attention.launches_paged_split = 0
+    decode_attention.launches_decode_split = 0
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
     fa.launches_fwd_tc = fa.launches_dq_tc = fa.launches_dkv_tc = 0
     bs.launches_fwd = bs.launches_dq = bs.launches_dkv = 0
@@ -821,12 +1074,13 @@ def _zero_counts():
 def _variants():
     """Launches of the tensor-core variants of K1-K3 and K7-K9 (bf16, fp16)
     among the counts above (the rest of those kernels' launches took the
-    fp32 FMA variants), and the K4 and K5 calls that ran their split-KV
+    fp32 FMA variants), and the K4, K6 and K5 calls that ran their split-KV
     kernel and combine."""
     return dict(flash_fwd_tc=fa.launches_fwd_tc, flash_dq_tc=fa.launches_dq_tc, flash_dkv_tc=fa.launches_dkv_tc,
                 block_sparse_fwd_tc=bs.launches_fwd_tc, block_sparse_dq_tc=bs.launches_dq_tc,
                 block_sparse_dkv_tc=bs.launches_dkv_tc,
                 ragged_split=decode_attention.launches_ragged_split,
+                decode_split=decode_attention.launches_decode_split,
                 paged_split=decode_attention.launches_paged_split)
 
 
@@ -1668,16 +1922,17 @@ def main() -> int:
     t0 = time.perf_counter()
     tree = _weights(cfg, args.seed)
     emit(phase="serve", event="weights_made", seconds=time.perf_counter() - t0)
-    launches, split_launches = phase_serve(cfg, tree, args.seed)
+    launches, split_launches, serve_streams = phase_serve(cfg, tree, args.seed)
     phase_streams(llama_config("1b", dtype="float32"), tree, args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     k6_cases = phase_decode_kernel(dev, flush)
     k5_cases = phase_paged_kernel(dev, flush)
     del flush
-    k6_launches = phase_generate(cfg, tree, args.seed)
+    k6_launches, k6_split_launches = phase_generate(cfg, tree, args.seed)
     k5_launches, k5_split_launches = phase_bucketed(cfg, tree, args.seed)
     phase_three_way(llama_config("1b", dtype="float32"), tree, args.seed, dev)
+    windows = phase_windows(cfg, tree, args.seed, serve_streams)
     del tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -1702,7 +1957,7 @@ def main() -> int:
         launches=launches, max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"], case=main_case["case"], variant="split_kv",
-        split_launches=split_launches, splits=main_case["splits"],
+        split_launches=split_launches, splits=main_case["splits"], windows=windows,
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "splits", "bitwise_equal")} for c in cases],
     )] + [dict(
@@ -1720,7 +1975,8 @@ def main() -> int:
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,
-        **{k: k6_main[k] for k in keys}, cases=[{k: c[k] for k in keys} for c in k6_cases],
+        **{k: k6_main[k] for k in keys}, variant="split_kv", split_launches=k6_split_launches,
+        splits=k6_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k6_cases],
     ), dict(
         name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:110", launches=k5_launches,

@@ -12,9 +12,9 @@
 // head h / (NH / NKV). q, k and v are read in their dtype and converted to
 // fp32; scores, the softmax (finite NEG_INF = -1e30 masking) and P.V run in
 // fp32 with the scale; the output is written in q's dtype. Rows with
-// kv_len == 0 are written as exact zeros. K5 clamps page ids into [0, NP),
-// so a -1 sentinel reads page 0, which the length then masks, and kv_len
-// into [0, MAXP * P].
+// kv_len == 0 are written as exact zeros. K6 clamps kv_len into [0, S]; K5
+// clamps page ids into [0, NP), so a -1 sentinel reads page 0, which the
+// length then masks, and kv_len into [0, MAXP * P].
 //
 // What bounds it: memory. Each key row read (2 * D * dtype bytes of K and V)
 // feeds 4 * D flops per query head, 4 * Hg * D per group: at Hg = 8 and bf16
@@ -22,39 +22,36 @@
 // point. The least time is the bytes of q, the output and the LIVE K/V rows
 // (whole live pages for K5) over HBM bandwidth.
 //
-// K6 (dense_decode_kernel over decode_block): one block per (row, kv head,
-// tile of up to QH = 8 query heads of that kv head's group), so each K/V row
-// is read from HBM once per group (Hg <= 8); the block walks only the live
-// keys, staging K/V a tile of KT = 4096 / D keys at a time with 16-byte
-// vector loads, with the online-softmax state in shared memory and registers
-// (the TPU kernel carried it across a sequential grid axis over cache blocks).
-//
-// K5 (paged_decode_split_kernel over decode_split_block, then
-// decode_combine_kernel): flash-decoding, K4's layout at one query token.
+// Both are flash-decoding: a split kernel over decode_split_block, then
+// decode_combine_kernel. The split body is written over a Rows addressing
+// functor, so the two differ only in how a key row is found: DenseRows for
+// K6 (dense_decode_split_kernel), PagedRows through the page table for K5
+// (paged_decode_split_kernel).
 //  * the grid is (split, kv head, row): each row's keys are cut into splits
-//    of SPLIT = 64 keys, and the number of splits, ceil(MAXP * P / SPLIT),
-//    comes from the shapes alone (no kv_lens on the host: no sync, and the
-//    bucketed round stays capturable in a CUDA graph). At bucket 8 of
-//    llama-1B (MAXP * P = 2048, NKV = 4) that is 32 x 4 x 8 = 1024 blocks on
-//    132 SMs instead of 32 blocks walking up to 2048 keys each;
+//    of SPLIT = 64 keys, and the number of splits, ceil(S / SPLIT) for K6 and
+//    ceil(MAXP * P / SPLIT) for K5, comes from the shapes alone (no kv_lens on
+//    the host: no sync, and the calls stay capturable in a CUDA graph). At the
+//    generate shape of llama-1B (B = 16, S = 256, NKV = 4) K6 runs 4 x 4 x 16
+//    = 256 blocks on 132 SMs; at bucket 8 (MAXP * P = 2048) K5 runs 1024;
 //  * a block stages its split's K and V once by 16-byte cp.async into
-//    swizzled tiles, looking up each key row's page (so a split may span
+//    swizzled tiles, finding each key row on its own (so a K5 split may span
 //    pages or cover part of one; keys at or past kv_len are zero-filled and
-//    never fetched), and serves every query head of its GQA group from that
-//    copy, QH heads at a time; a split at or past kv_len does nothing;
+//    never fetched, and kv_len is clamped to the cache, so no key past S or
+//    MAXP * P is read), and serves every query head of its GQA group from
+//    that copy, QH heads at a time; a split at or past kv_len does nothing;
 //  * fp32 FMAs for every dtype (the call is bound by bytes: 8 x 64 scores a
 //    block): a thread per (key, half of the heads) for the scores, a warp per
 //    head for the split's softmax, and in P.V a thread per output column of
-//    several heads, reading each V value once for all of them;
+//    several heads, reading each V value once for all of them. A group
+//    smaller than QH leaves the other head slots' score and softmax work
+//    undone, and at MHA (one head) their P.V work too;
 //  * each block writes per head a partial (m, l, acc); the combine merges a
 //    row's splits below kv_len in split order (M = max m, L = sum
 //    exp(m - M) l, O = sum exp(m - M) acc / L): no atomics, so two calls give
 //    bitwise-equal results, and it writes the exact zeros of dead rows. The
 //    fp32 workspace is sized from the shapes by the wrapper (torch.empty).
-// The split body is written over the Rows addressing functor, so K6
-// (DenseRows) can take it too; K6 keeps decode_block for now.
-// Not done yet (later work): tensor cores for K5's scores (S^T = K Q^T fits
-// m16n8k16 with keys as M and the 8 heads as N), and K6 on the split body.
+// Not done yet (later work): tensor cores for the scores (S^T = K Q^T fits
+// m16n8k16 with keys as M and the 8 heads as N).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -116,133 +113,8 @@ struct PagedRows {
   }
 };
 
-// One block: row r = blockIdx.z, kv head g = blockIdx.y, query heads
-// h0 .. h0 + nq - 1 of that kv head's group (h0 = blockIdx.x * QH), over the
-// keys 0 .. kv_len - 1.
-template <typename T, int D, typename Rows>
-__device__ __forceinline__ void decode_block(const T* __restrict__ q, const T* __restrict__ k,
-                                             const T* __restrict__ v, int kv_len, T* __restrict__ out,
-                                             int NH, int NKV, float scale, const Rows& rows) {
-  constexpr int KT = 4096 / D;            // keys per staged kv tile
-  constexpr int ACC = QH * D / THREADS;   // output elements per thread
-  constexpr int VEC = 16 / sizeof(T);     // elements per 16-byte load
-  __shared__ float qs[QH][D];
-  __shared__ float ks[KT][D + 1];         // +1: conflict-free column reads
-  __shared__ float vs[KT][D];
-  __shared__ float ps[QH][KT + 1];        // scores, then probabilities
-  __shared__ float m_s[QH], l_s[QH], corr_s[QH];
-
-  const int r = blockIdx.z;
-  const int g = blockIdx.y;
-  const int Hg = NH / NKV;
-  const int h0 = blockIdx.x * QH;
-  const int nq = min(QH, Hg - h0);
-  const int tid = threadIdx.x;
-  const size_t qbase = ((size_t)r * NH + g * Hg + h0) * D;
-
-  if (tid < QH) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  float acc[ACC];
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
-
-  if (kv_len > 0) {  // block-uniform
-    for (int e = tid; e < QH * D; e += THREADS) {
-      const int i = e / D, d = e % D;
-      qs[i][d] = i < nq ? to_f32(q[qbase + (size_t)i * D + d]) : 0.f;
-    }
-    const int warp = tid / 32, lane = tid % 32;
-    for (int base = 0; base < kv_len; base += KT) {
-      const int nkeys = min(KT, kv_len - base);
-      __syncthreads();  // the previous tile is consumed; q and m/l are written
-      for (int c = tid; c < nkeys * D / VEC; c += THREADS) {
-        const int e = c * VEC;
-        const int row = e / D, col = e % D;
-        const size_t off = rows(r, g, base + row, D) + col;
-        const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k + off));
-        const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v + off));
-        const T* kv = reinterpret_cast<const T*>(&kr);
-        const T* vv = reinterpret_cast<const T*>(&vr);
-#pragma unroll
-        for (int t = 0; t < VEC; ++t) {
-          ks[row][col + t] = to_f32(kv[t]);
-          vs[row][col + t] = to_f32(vv[t]);
-        }
-      }
-      __syncthreads();
-      // scores: entries past the tile's keys or the block's heads hold NEG_INF
-      for (int e = tid; e < QH * KT; e += THREADS) {
-        const int i = e / KT, j = e % KT;
-        float s = NEG_INF;
-        if (i < nq && j < nkeys) {
-          float dot = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < D; ++d) dot += qs[i][d] * ks[j][d];
-          s = dot * scale;
-        }
-        ps[i][j] = s;
-      }
-      __syncthreads();
-      // online softmax, one warp per query head; a masked entry contributes
-      // p = 0 even while the running max is still NEG_INF
-      for (int i = warp; i < QH; i += THREADS / 32) {
-        float mx = NEG_INF;
-        for (int j = lane; j < KT; j += 32) mx = fmaxf(mx, ps[i][j]);
-        mx = warp_max(mx);
-        const float m_prev = m_s[i];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int j = lane; j < KT; j += 32) {
-          const float p = (i < nq && j < nkeys) ? expf(ps[i][j] - m_new) : 0.f;
-          ps[i][j] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float corr = expf(m_prev - m_new);
-          corr_s[i] = corr;
-          l_s[i] = l_s[i] * corr + sum;
-          m_s[i] = m_new;
-        }
-      }
-      __syncthreads();
-      // acc = acc * corr + P.V over the tile's keys
-#pragma unroll
-      for (int a = 0; a < ACC; ++a) {
-        const int e = tid + a * THREADS;
-        const int i = e / D, d = e % D;
-        float val = acc[a] * corr_s[i];
-        for (int j = 0; j < nkeys; ++j) val += ps[i][j] * vs[j][d];
-        acc[a] = val;
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int e = tid + a * THREADS;
-    const int i = e / D, d = e % D;
-    if (i < nq) {
-      const float l = l_s[i];
-      out[qbase + (size_t)i * D + d] = from_f32<T>(acc[a] / (l == 0.f ? 1.f : l));
-    }
-  }
-}
-
-// K6: the contiguous cache.
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_cache,
-                    const T* __restrict__ v_cache, const int* __restrict__ kv_lens,
-                    T* __restrict__ out, int NH, int NKV, int S, float scale) {
-  const int kv_len = min(max(kv_lens[blockIdx.z], 0), S);
-  decode_block<T, D>(q, k_cache, v_cache, kv_len, out, NH, NKV, scale, DenseRows{S, NKV});
-}
-
 // ---------------------------------------------------------------------------------------------
-// K5: split-KV over the page pool, then an in-order combine
+// K5 and K6: split-KV over the keys, then an in-order combine
 // ---------------------------------------------------------------------------------------------
 constexpr int SPLIT = 64;  // keys of a split (one staged tile)
 
@@ -252,6 +124,28 @@ template <typename T, int D>
 __device__ __forceinline__ int swz(int row, int col) {
   constexpr int E = 16 / sizeof(T);
   return row * D + (((col / E) ^ (row & 7)) * E);
+}
+
+// o[a] = sum_j ps[row0 + a * RSTEP][j] * V[j][d] over the nk keys of the split, for the NA rows
+// a < NA (a count fixed at compile time, so o stays in registers); each V value is read once for
+// all of them, four keys' probabilities a float4.
+template <int NA, int RSTEP, int SP, typename T, int D>
+__device__ __forceinline__ void pv_rows(const float* __restrict__ ps, const T* __restrict__ vs, int row0, int d,
+                                        int nk, float* o) {
+  constexpr int E = 16 / sizeof(T);
+  for (int j = 0; j < nk; j += 4) {
+    float vv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) vv[u] = to_f32(vs[swz<T, D>(j + u, d - d % E) + d % E]);
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      const float4 p = *reinterpret_cast<const float4*>(ps + (row0 + a * RSTEP) * SP + j);
+      o[a] = fmaf(p.x, vv[0], o[a]);
+      o[a] = fmaf(p.y, vv[1], o[a]);
+      o[a] = fmaf(p.z, vv[2], o[a]);
+      o[a] = fmaf(p.w, vv[3], o[a]);
+    }
+  }
 }
 
 // One block: row r = blockIdx.z, kv head g = blockIdx.y, keys s0 .. s0 + SPLIT - 1 (s0 =
@@ -308,9 +202,12 @@ __device__ __forceinline__ void decode_split_block(const T* __restrict__ q, cons
     if (h0 == 0) tc::cp_async_wait<0>();
     __syncthreads();
 
-    // scores: thread = (key j, heads hb .. hb + HPT - 1); masked keys hold NEG_INF
-    {
-      const int j = tid % SPLIT, hb = (tid / SPLIT) * HPT;
+    // scores: thread = (key j, heads hb .. hb + HPT - 1); masked keys hold NEG_INF. Threads whose
+    // heads all lie past the group (nh <= hb: at MHA the half with hb = HPT) skip them; no later
+    // step reads those rows into an output.
+    const int hb = (tid / SPLIT) * HPT;
+    if (hb < nh) {
+      const int j = tid % SPLIT;
       float sc[HPT];
 #pragma unroll
       for (int i = 0; i < HPT; ++i) sc[i] = 0.f;
@@ -335,8 +232,8 @@ __device__ __forceinline__ void decode_split_block(const T* __restrict__ q, cons
       for (int i = 0; i < HPT; ++i) ps[(hb + i) * SP + j] = j < nk ? sc[i] * scale : NEG_INF;
     }
     __syncthreads();
-    // softmax over the split, a warp per head; masked keys give p = 0
-    for (int i = warp; i < QH; i += THREADS / 32) {
+    // softmax over the split, a warp per live head; masked keys give p = 0
+    for (int i = warp; i < nh; i += THREADS / 32) {
       float mx = NEG_INF;
       for (int j = lane; j < SPLIT; j += 32) mx = fmaxf(mx, ps[i * SP + j]);
       mx = warp_max(mx);
@@ -353,32 +250,25 @@ __device__ __forceinline__ void decode_split_block(const T* __restrict__ q, cons
       }
     }
     __syncthreads();
-    // acc = P V: a thread owns column d of rows row0 + a * RSTEP, so each V value is read once for
-    // all of them; four keys' probabilities a float4
+    // acc = P V: a thread owns column d of rows row0 + a * RSTEP, its na rows below nh live (row0
+    // is warp-uniform, D >= 32). A full group runs all ACC rows; at MHA (na = 1 for row0 = 0, 0
+    // past it) only the live row runs. A partial group between them (2 <= nh < QH) computes the
+    // ACC rows and keeps its na: one code path for such groups, not one a count.
     {
       const int d = tid % D, row0 = tid / D;
+      const int na = row0 < nh ? min(ACC, (nh - row0 + RSTEP - 1) / RSTEP) : 0;
       float o[ACC];
 #pragma unroll
       for (int a = 0; a < ACC; ++a) o[a] = 0.f;
-      for (int j = 0; j < nk; j += 4) {
-        float vv[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) vv[u] = to_f32(vs[swz<T, D>(j + u, d - d % E) + d % E]);
-#pragma unroll
-        for (int a = 0; a < ACC; ++a) {
-          const float4 p = *reinterpret_cast<const float4*>(ps + (row0 + a * RSTEP) * SP + j);
-          o[a] = fmaf(p.x, vv[0], o[a]);
-          o[a] = fmaf(p.y, vv[1], o[a]);
-          o[a] = fmaf(p.z, vv[2], o[a]);
-          o[a] = fmaf(p.w, vv[3], o[a]);
-        }
-      }
+      if (na == 1)
+        pv_rows<1, RSTEP, SP, T, D>(ps, vs, row0, d, nk, o);
+      else if (na > 0)
+        pv_rows<ACC, RSTEP, SP, T, D>(ps, vs, row0, d, nk, o);
       // partials [B][NKV][nsplit][Hg] (m, l) and [..][D] acc
       const size_t base = (((size_t)r * NKV + g) * nsplit + blockIdx.x) * Hg + h0;
 #pragma unroll
       for (int a = 0; a < ACC; ++a) {
-        const int i = row0 + a * RSTEP;
-        if (i < nh) ws_acc[(base + i) * D + d] = o[a];
+        if (a < na) ws_acc[(base + row0 + a * RSTEP) * D + d] = o[a];
       }
       if (tid < nh) ws_ml[base + tid] = make_float2(m_s[tid], l_s[tid]);
     }
@@ -394,6 +284,16 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pages
   const int kv_len = min(max(kv_lens[blockIdx.z], 0), MAXP * P);
   decode_split_block<T, D>(q, k_pages, v_pages, kv_len, ws_ml, ws_acc, NH, NKV, nsplit, scale,
                            PagedRows{page_table, NP, NKV, P, MAXP});
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+dense_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_cache, const T* __restrict__ v_cache,
+                          const int* __restrict__ kv_lens, float2* __restrict__ ws_ml, float* __restrict__ ws_acc,
+                          int NH, int NKV, int S, int nsplit, float scale) {
+  const int kv_len = min(max(kv_lens[blockIdx.z], 0), S);
+  decode_split_block<T, D>(q, k_cache, v_cache, kv_len, ws_ml, ws_acc, NH, NKV, nsplit, scale,
+                           DenseRows{S, NKV});
 }
 
 // The combine: one warp per output row (b, h), the partials of the splits below kv_len merged in
@@ -437,45 +337,20 @@ decode_combine_kernel(const float2* __restrict__ ws_ml, const float* __restrict_
   for (int i = 0; i < V; ++i) dst[i] = from_f32<T>(o[i]);
 }
 
-dim3 grid_of(int B, int NH, int NKV) {
-  const int Hg = NH / NKV;
-  return dim3((Hg + QH - 1) / QH, NKV, B);
-}
-
-template <typename T>
-int dense_launch(int D, const void* q, const void* k, const void* v, const void* kv_lens, void* out,
-                 int B, int NH, int NKV, int S, float scale, cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const int* lens = static_cast<const int*>(kv_lens);
-  T* o = static_cast<T*>(out);
-  if (D == 64)
-    dense_decode_kernel<T, 64><<<grid_of(B, NH, NKV), THREADS, 0, stream>>>(qt, kt, vt, lens, o, NH, NKV, S, scale);
-  else if (D == 128)
-    dense_decode_kernel<T, 128><<<grid_of(B, NH, NKV), THREADS, 0, stream>>>(qt, kt, vt, lens, o, NH, NKV, S, scale);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T, int D>
 size_t split_smem() {  // K and V, q, scores, m and l
   return sizeof(T) * 2 * SPLIT * D + sizeof(float) * (QH * D + QH * (SPLIT + 4) + 2 * QH);
 }
 
-template <typename T, int D>
-int paged_launch_d(const void* q, const void* k, const void* v, const void* page_table, const void* kv_lens,
-                   void* out, void* ws_ml, void* ws_acc, int B, int NH, int NKV, int NP, int P, int MAXP,
-                   int nsplit, float scale, cudaStream_t stream) {
+// The split kernel `split` over a (nsplit, NKV, B) grid with `args`, then the combine over the keys
+// below each row's kv_len clamped to max_len; returns the first non-zero cudaError_t of the two.
+template <typename T, int D, typename... Params, typename... Args>
+int split_then_combine(void (*split)(Params...), const void* kv_lens, void* out, void* ws_ml, void* ws_acc, int B,
+                       int NH, int NKV, int nsplit, int max_len, cudaStream_t stream, Args... args) {
   const size_t smem = split_smem<T, D>();
-  auto split = paged_decode_split_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  split<<<dim3(nsplit, NKV, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(page_table), static_cast<const int*>(kv_lens), static_cast<float2*>(ws_ml),
-      static_cast<float*>(ws_acc), NH, NKV, NP, P, MAXP, nsplit, scale);
+  split<<<dim3(nsplit, NKV, B), THREADS, smem, stream>>>(args...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(B) * NH;
@@ -483,8 +358,38 @@ int paged_launch_d(const void* q, const void* k, const void* v, const void* page
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   decode_combine_kernel<T, D><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const float2*>(ws_ml), static_cast<const float*>(ws_acc), static_cast<const int*>(kv_lens),
-      static_cast<T*>(out), B, NH, NKV, nsplit, MAXP * P);
+      static_cast<T*>(out), B, NH, NKV, nsplit, max_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int dense_launch_d(const void* q, const void* k, const void* v, const void* kv_lens, void* out, void* ws_ml,
+                   void* ws_acc, int B, int NH, int NKV, int S, int nsplit, float scale, cudaStream_t stream) {
+  return split_then_combine<T, D>(
+      dense_decode_split_kernel<T, D>, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, nsplit, S, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int*>(kv_lens),
+      static_cast<float2*>(ws_ml), static_cast<float*>(ws_acc), NH, NKV, S, nsplit, scale);
+}
+
+template <typename T>
+int dense_launch(int D, const void* q, const void* k, const void* v, const void* kv_lens, void* out, void* ws_ml,
+                 void* ws_acc, int B, int NH, int NKV, int S, int nsplit, float scale, cudaStream_t stream) {
+  if (D == 64)
+    return dense_launch_d<T, 64>(q, k, v, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, S, nsplit, scale, stream);
+  if (D == 128)
+    return dense_launch_d<T, 128>(q, k, v, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, S, nsplit, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int D>
+int paged_launch_d(const void* q, const void* k, const void* v, const void* page_table, const void* kv_lens,
+                   void* out, void* ws_ml, void* ws_acc, int B, int NH, int NKV, int NP, int P, int MAXP,
+                   int nsplit, float scale, cudaStream_t stream) {
+  return split_then_combine<T, D>(
+      paged_decode_split_kernel<T, D>, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, nsplit, MAXP * P, stream,
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int*>(page_table), static_cast<const int*>(kv_lens), static_cast<float2*>(ws_ml),
+      static_cast<float*>(ws_acc), NH, NKV, NP, P, MAXP, nsplit, scale);
 }
 
 template <typename T>
@@ -507,30 +412,38 @@ bool bad_heads(int B, int NH, int NKV, int D) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 float16. Each returns the launch's
-// cudaError_t (0 = launched); neither synchronises.
+// dtype: 0 float32, 1 bfloat16, 2 float16. Neither entry synchronises.
+
+// Keys a split holds (K5 and K6): the wrapper sizes the workspace from it, nsplit = ceil(S / split)
+// for K6 and ceil(MAXP * P / split) for K5.
+extern "C" int decode_split_keys() { return SPLIT; }
 
 // K6: q [B, NH, D], k_cache / v_cache [B, S, NKV, D], kv_lens [B] int32,
-// out [B, NH, D].
-extern "C" int dense_decode_attention(int dtype, const void* q, const void* k_cache,
-                                      const void* v_cache, const void* kv_lens, void* out, int B,
-                                      int NH, int NKV, int S, int D, float scale, void* stream) {
-  if (bad_heads(B, NH, NKV, D) || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// out [B, NH, D]; ws_ml holds B * NH * nsplit float2 and ws_acc D times as
+// many floats, nsplit = ceil(S / split_keys); their contents on entry do not
+// matter. Runs the split kernel and the combine; returns the first non-zero
+// cudaError_t of the two.
+extern "C" int dense_decode_attention(int dtype, const void* q, const void* k_cache, const void* v_cache,
+                                      const void* kv_lens, void* out, void* ws_ml, void* ws_acc, int B, int NH,
+                                      int NKV, int S, int D, int nsplit, float scale, void* stream) {
+  if (bad_heads(B, NH, NKV, D) || S <= 0 || nsplit <= 0 || nsplit > 65535 ||
+      static_cast<long long>(nsplit) * SPLIT < S)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return dense_launch<float>(D, q, k_cache, v_cache, kv_lens, out, B, NH, NKV, S, scale, s);
+      return dense_launch<float>(D, q, k_cache, v_cache, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, S, nsplit,
+                                 scale, s);
     case 1:
-      return dense_launch<__nv_bfloat16>(D, q, k_cache, v_cache, kv_lens, out, B, NH, NKV, S, scale, s);
+      return dense_launch<__nv_bfloat16>(D, q, k_cache, v_cache, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, S,
+                                         nsplit, scale, s);
     case 2:
-      return dense_launch<__half>(D, q, k_cache, v_cache, kv_lens, out, B, NH, NKV, S, scale, s);
+      return dense_launch<__half>(D, q, k_cache, v_cache, kv_lens, out, ws_ml, ws_acc, B, NH, NKV, S, nsplit,
+                                  scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-// Keys a K5 split holds: the wrapper sizes the workspace from it, nsplit = ceil(MAXP * P / split).
-extern "C" int paged_decode_split_keys() { return SPLIT; }
 
 // K5: q [B, NH, D], k_pages / v_pages [NP, NKV, P, D], page_table [B, MAXP]
 // int32, kv_lens [B] int32, out [B, NH, D]; ws_ml holds B * NH * nsplit

@@ -73,10 +73,17 @@ class CheckpointConfig(DeepSpeedConfigModel):
 
 
 class MultiStepConfig(DeepSpeedConfigModel):
-    """Multi-step serving windows (not ported yet: ROADMAP S5)."""
+    """Multi-step serving windows (``decode.py:build_ragged_multistep``,
+    ``scheduler.py:PagedServer._ragged_window``). With ``enable``, a
+    ragged scheduler step whose running set is stable (nothing queued,
+    nothing prefilling, the whole window's pages reservable without
+    preemption) runs ``horizon`` plain-decode rounds as one window: one
+    CUDA graph replay on a card, with one host fetch. Any scheduling event
+    falls back to the single-step ragged path, and greedy streams stay
+    byte-identical to it."""
 
     enable: bool = False
-    horizon: int = 8
+    horizon: int = 8  # decode rounds a window runs (>= 2)
 
     @model_validator(mode="after")
     def _check_horizon(self):
@@ -241,8 +248,6 @@ def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
     found = []
     if cfg.spec_decode.enable:
         found.append("spec_decode.enable: ROADMAP S4")
-    if p.multi_step.enable:
-        found.append("paged_kv.multi_step.enable: ROADMAP S5")
     if cfg.journal.enabled:
         found.append("journal.enabled: ROADMAP S6")
     if cfg.traffic.enabled:

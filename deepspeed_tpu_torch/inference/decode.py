@@ -9,16 +9,20 @@ Counterpart of ``deepspeed_tpu/inference/decode.py``:
   cache length is a multiple of 256 attend through the CUDA kernel K6
   (``decode_attention.decode_attention``), under JAX's own condition;
 * the paged serving programs over the page pool: the ragged step
-  (``build_ragged_step``, K4) and the bucketed oracle's decode step
+  (``build_ragged_step``, K4), the multi-step window of ``horizon`` ragged
+  decode rounds (``build_ragged_multistep``; on a card one CUDA graph,
+  ``WindowGraph``) and the bucketed oracle's decode step
   (``build_paged_decode_step``, K5) and prefill chunk
   (``build_paged_prefill``, plain causal attention), all through one
   ``_paged_forward``; with the per-layer pieces (``_layer_project_qkv``,
   ``_ffn_body``, ``_post_attention``, ``_softmax_scale``,
   ``_final_logits``), the page scatter and ``_accepted_prefix``.
 
-PyTorch runs eagerly, so a "program" is a plain callable; there is no jit,
-no compile count and no device-side loop: ``generate``'s token loop runs on
-the host, one forward per token, and synchronises only to test EOS.
+PyTorch runs eagerly, so a "program" is a plain callable; there is no jit
+and no compile count. ``generate``'s token loop runs on the host, one
+forward per token, and synchronises only to test EOS; the serving window is
+the one program replayed as a whole (a CUDA graph stands where JAX runs one
+jitted ``lax.scan``).
 
 Numerics follow the JAX functions op for op: norms and RoPE in fp32 cast
 back, matmuls in the activation dtype, attention scores softmaxed in fp32.
@@ -35,6 +39,7 @@ own just-written tokens.
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -256,6 +261,121 @@ def build_ragged_step(cfg, width: int, attn_impl: str = "auto"):
         return torch.cat([accepted[:, None].to(torch.int32), greedy], dim=1)
 
     return _step
+
+
+def build_ragged_multistep(cfg, rows: int, width: int, horizon: int, attn_impl: str = "auto"):
+    """``horizon`` plain-decode rounds of the ragged step body in one call:
+    the counterpart of JAX's one-dispatch ``lax.scan`` window, run eagerly
+    on the CPU and captured as one CUDA graph on a card (``WindowGraph``).
+
+    ``window(params, tokens [R], k_pages, v_pages, page_table [R, MAXP],
+    lengths [R], live [R], eos_ids [R], budgets [R]) -> packed [R, 1+N]``
+    (int32, on the device). Row r starts from its pending token
+    ``tokens[r]`` at live length ``lengths[r]`` (``live[r] == 0``: a dead
+    padding row). Each round writes the carried token at the row's next
+    position, attends through the ragged step's entry with per-row
+    ``(kv_len, q_len)``, ``q_len`` in {0, 1} (K4), takes the greedy argmax
+    (lowest index on ties, as ``jnp.argmax``) and advances the carry. A
+    row freezes the round it emits its ``eos_ids[r]`` token (-1: none) or
+    its ``budgets[r]``-th token: its ``q_len`` drops to 0, so its writes go
+    to the trash page and its length stops, which makes a frozen row look
+    like a dead one to every other row. ``packed[:, 0]`` is each row's
+    emitted count n and ``packed[:, 1 : 1+n]`` its tokens (-1 after it
+    froze). The page table must already cover ``lengths + min(N,
+    budget)`` (the scheduler reserves it). The pools update in place. The
+    body reads nothing back to the host, so it can be captured. ``width``
+    must be 1 (drafted windows are JAX's reserved case)."""
+    _check_cached_cfg(cfg)
+    if width != 1:
+        raise ValueError(f"multi-step windows run plain decode only (width 1), got {width}")
+    if rows < 1 or horizon < 2:
+        raise ValueError(f"multi-step window needs rows >= 1 and horizon >= 2, got {rows} rows x horizon {horizon}")
+    N = int(horizon)
+    layers_of = _layer_views()
+
+    @torch.no_grad()
+    def _window(params, tokens, k_pages, v_pages, page_table, lengths, live, eos_ids, budgets):
+        tok, lens, alive = tokens, lengths, live > 0
+        emitted = torch.zeros_like(lengths)
+        out = []
+        for _ in range(N):
+            q_lens = alive.to(torch.int32)  # 1 live, 0 frozen or dead
+            kv_lens = torch.where(alive, lens + 1, torch.zeros_like(lens))
+            logits = _paged_forward(
+                cfg, params, tok[:, None], k_pages, v_pages, page_table, lens[:, None], attn_impl,
+                write_valid=alive[:, None], kv_lens=kv_lens, q_lens=q_lens, layers=layers_of(params),
+            )
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            out.append(torch.where(alive, nxt, torch.full_like(nxt, -1)))
+            emitted = emitted + q_lens
+            lens = lens + q_lens
+            # freeze after emitting the EOS / budget-hitting token: the
+            # scheduler's emit includes that token, as sequential decode does
+            alive = alive & (nxt != eos_ids) & (emitted < budgets)
+            tok = torch.where(alive, nxt, tok)
+        return torch.cat([emitted[:, None], torch.stack(out, dim=1)], dim=1)
+
+    return _window
+
+
+class WindowGraph:
+    """A window (``build_ragged_multistep``) captured once as a
+    ``torch.cuda.CUDAGraph`` over fixed buffers: the six int32 inputs in one
+    device buffer, the pools' own ``k_pages`` / ``v_pages`` (the page pool
+    updates them in place, a copy-on-write included, so their storage
+    never moves) and the weights. The kernels' workspaces come from the
+    graph's memory pool. A call copies its inputs into the buffer (one
+    host-to-device copy), replays, and fetches the packed result (the one
+    device-to-host copy). The first call runs the window once eagerly on a
+    side stream before the capture (PyTorch's warm-up; its page writes are
+    redone by the replay that follows, which writes each position before
+    reading it): a kernel wrapper's counter then moves twice per call
+    site, once for the warm-up's launch and once for the capture, and the
+    replays launch again without passing the wrappers. CUDA events around
+    each replay give its device time (``device_ms``, one entry a call; the
+    fetch that follows has waited for them). A failed capture raises;
+    nothing runs the window eagerly instead."""
+
+    def __init__(self, window, params, k_pages, v_pages, rows: int, max_pages: int):
+        self.window = window
+        self.params = params
+        self.k_pages, self.v_pages = k_pages, v_pages
+        self.static = torch.zeros(rows * (5 + max_pages), dtype=torch.int32, device=k_pages.device)
+        self.tokens, self.lengths, self.live, self.eos_ids, self.budgets = (
+            self.static[i * rows:(i + 1) * rows] for i in range(5))
+        self.page_table = self.static[5 * rows:].view(rows, max_pages)
+        self.graph = None
+        self.out = None
+        self.start, self.end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        self.device_ms: deque = deque(maxlen=4096)
+
+    def _run(self):
+        return self.window(self.params, self.tokens, self.k_pages, self.v_pages, self.page_table, self.lengths,
+                           self.live, self.eos_ids, self.budgets)
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.static.device)
+        side.wait_stream(torch.cuda.current_stream(self.static.device))
+        with torch.cuda.stream(side):
+            self._run()
+        torch.cuda.current_stream(self.static.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self._run()
+        self.graph = graph
+
+    def __call__(self, tokens, page_table, lengths, live, eos_ids, budgets) -> np.ndarray:
+        flat = np.concatenate([np.ascontiguousarray(a, np.int32).ravel()
+                               for a in (tokens, lengths, live, eos_ids, budgets, page_table)])
+        self.static.copy_(torch.from_numpy(flat), non_blocking=True)
+        if self.graph is None:
+            self._capture()
+        self.start.record()
+        self.graph.replay()
+        self.end.record()
+        packed = self.out.cpu().numpy()
+        self.device_ms.append(self.start.elapsed_time(self.end))
+        return packed
 
 
 # --- the bucketed oracle's programs -------------------------------------------

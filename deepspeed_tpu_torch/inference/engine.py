@@ -7,8 +7,9 @@ the weights (``set_params`` / ``load_jax_params``, the JAX tree as numpy),
 batch carries labels), ``generate`` (the dense KV-cached loop: greedy,
 sampling, beam search), ``profile_model_time`` / ``model_times``, and
 ``serve`` / ``serve_stats``
-over a ``PagedServer`` (ragged, or bucketed with ``paged_kv.ragged=False``)
-built as the JAX ``_build_paged_server`` builds it for the ported options.
+over a ``PagedServer`` (ragged, with multi-step windows under
+``paged_kv.multi_step``, or bucketed with ``paged_kv.ragged=False``) built
+as the JAX ``_build_paged_server`` builds it for the ported options.
 The port's ``TransformerLM`` is the converted family (JAX's
 ``_ds_config`` path), so ``generate`` always takes the KV-cached loop. The
 engine runs on ``cuda`` unless the caller passes another device; without
@@ -200,6 +201,7 @@ class InferenceEngine:
             prefix_cache=pcfg.prefix_cache,
             metrics=self.metrics,
             ragged=pcfg.ragged,
+            multi_step=pcfg.multi_step,
         )
 
     def serve(self, prompts, max_new_tokens=32, eos_token_id=None):
@@ -207,7 +209,9 @@ class InferenceEngine:
         requests are admitted and evicted every step; prompts prefill in
         chunks riding the same step as running decoders, each step one call
         of the ragged step (or, with ``paged_kv.ragged=False``, one call per
-        chunk and one bucketed decode round per step). Takes a list of 1-D
+        chunk and one bucketed decode round per step; with
+        ``paged_kv.multi_step`` a stable running set takes windows of
+        ``horizon`` decode rounds in one call). Takes a list of 1-D
         prompts and a scalar or per-request ``max_new_tokens``; returns one
         1-D array per request (prompt + generated) in submission order. The
         server and its page pool persist across calls."""

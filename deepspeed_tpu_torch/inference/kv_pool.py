@@ -371,6 +371,15 @@ class PagePool:
         del self._chain_keys[slot][min(len(self._chain_keys[slot]), keep):]
         return freed
 
+    def trim_reservation(self, slot: int) -> int:
+        """Release the pages reserved past the slot's live length: a
+        multi-step window reserves ``prepare_write(slot, len + N)`` before
+        its one dispatch, and rows that freeze early (EOS, budget) or a
+        window that falls back before dispatching hand the unused tail back
+        here. ``rollback``'s refcount rules (a zero-token rollback). Returns
+        pages released."""
+        return self.rollback(slot, 0)
+
     def free_slot(self, slot: int) -> int:
         """Release the slot and drop its page references; returns how many
         pages the slot held."""

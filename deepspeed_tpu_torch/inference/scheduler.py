@@ -22,9 +22,19 @@ grid. Two modes:
   smallest slot bucket that covers them (attention K5). Greedy streams are
   byte-identical to the ragged mode's.
 
+With ``multi_step`` armed (ragged mode only), a step whose running set is
+stable (nothing queued, nothing prefilling, every row's pages for the whole
+window reservable without preemption) runs ONE window of ``horizon``
+plain-decode rounds (``decode.build_ragged_multistep``): on a card one
+replay of a CUDA graph captured once per server (``decode.WindowGraph``,
+over ``max_slots`` rows), on the CPU the same body eagerly; one host
+fetch of the packed ``[R, 1+N]`` tokens either way. Any scheduling event
+breaks the window back to the single-step path (``window_break_reasons``
+names it), and greedy streams stay byte-identical.
+
 Not ported yet (the engine refuses their switches, naming the ROADMAP
-item): speculative decoding, multi-step windows, the crash-recovery
-journal, traffic tenancy and tensor-parallel serving.
+item): speculative decoding, the crash-recovery journal, traffic tenancy
+and tensor-parallel serving.
 """
 
 from __future__ import annotations
@@ -40,13 +50,24 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.inference.config import canonical_attn_impl
 from deepspeed_tpu_torch.inference.decode import (
+    WindowGraph,
     build_paged_decode_step,
     build_paged_prefill,
+    build_ragged_multistep,
     build_ragged_step,
 )
 from deepspeed_tpu_torch.inference.kv_pool import PagePool
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
+
+
+def _knob(block, name, default):
+    """A knob off a config object, a plain dict, or None."""
+    if block is None:
+        return default
+    if isinstance(block, dict):
+        return block.get(name, default)
+    return getattr(block, name, default)
 
 
 def _default_buckets(max_slots: int) -> List[int]:
@@ -148,6 +169,7 @@ class PagedServer:
         policy: Optional[SchedulingPolicy] = None,
         metrics: Optional[MetricsRegistry] = None,
         ragged: bool = True,
+        multi_step=None,
     ):
         self.cfg = cfg
         self.params = params
@@ -159,6 +181,14 @@ class PagedServer:
         self.prefix_cache = bool(prefix_cache)
         self.policy = policy or YoungestFirstPolicy()
         self.ragged = bool(ragged)
+        # multi-step windows (paged_kv.multi_step, a MultiStepConfig or a dict)
+        self.ms_enable = bool(_knob(multi_step, "enable", False))
+        self.ms_horizon = int(_knob(multi_step, "horizon", 8))
+        if self.ms_enable and not self.ragged:
+            raise ValueError("multi_step windows run over the ragged serving path: enable paged_kv.ragged "
+                             "(or disable paged_kv.multi_step)")
+        if self.ms_enable and self.ms_horizon < 2:
+            raise ValueError(f"multi_step.horizon must be >= 2 (1 is the single-step path), got {self.ms_horizon}")
         max_seq = int(max_seq_len or cfg.max_seq_len)
         if num_pages <= 0:
             # worst-case sizing: every slot at max length, plus the trash
@@ -173,6 +203,7 @@ class PagedServer:
             raise ValueError(f"slot buckets must be >= 1, got {buckets}")
         self.buckets = buckets
         self._steps: Dict = {}  # ragged step callables by window width
+        self._window = None  # the window callable, built at the first window (a WindowGraph on a card)
         if not self.ragged:
             self._prefill_fn = build_paged_prefill(cfg, attn_impl=self.attn_impl)
             self._decode_fn = build_paged_decode_step(cfg, attn_impl=self.attn_impl)
@@ -187,9 +218,17 @@ class PagedServer:
             "finished": 0,
             "prefix_cached_tokens": 0,  # context tokens attached, not prefilled
             "prefill_chunks": 0,
-            "ragged_steps": 0,  # one per scheduler step (ragged mode)
-            "dispatches": 0,  # every step call: ragged steps, bucketed prefill chunks and decode rounds
+            "ragged_steps": 0,  # single-step calls (ragged mode)
+            "window_steps": 0,  # multi-step windows, one call (one graph replay on a card) each
+            "window_captures": 0,  # CUDA graphs captured for windows (0 on the CPU)
+            # every step call: ragged steps, windows, bucketed prefill chunks and decode rounds
+            "dispatches": 0,
             "emitted_tokens": 0,
+            # why a window did not form (admission waiting, a row mid prefill, page-pool pressure) or
+            # ended before its horizon (EOS, token budget); "pool" and "budget" call for opposite
+            # remedies (grow the pool, shorten the horizon). "draft" stays 0 until speculative
+            # decoding is ported (ROADMAP S4)
+            "window_break_reasons": {"admission": 0, "prefill": 0, "draft": 0, "eos": 0, "budget": 0, "pool": 0},
             # ragged: steps that carried plain-decode rows; bucketed: decode rounds
             "decode_steps": 0,
         }
@@ -233,6 +272,11 @@ class PagedServer:
     def has_work(self) -> bool:
         return bool(self._queue or self._active)
 
+    def prefilling(self) -> bool:
+        """A request waits for admission or a running row is mid prefill
+        (False once every row decodes: the steady state where windows form)."""
+        return bool(self._queue) or any(r.pending is None for r in self._active)
+
     def take_result(self, uid: int) -> Optional[np.ndarray]:
         """Pop a finished output (a long-lived server keeps none)."""
         return self._results.pop(uid, None)
@@ -240,13 +284,17 @@ class PagedServer:
     # --- one scheduler iteration ---------------------------------------
     def step(self) -> None:
         """Admit what fits, then the round's device work: in ragged mode ONE
-        step covering every active row's next tokens; in bucketed mode one
-        prefill call per chunk, then one decode round over the running set."""
+        step covering every active row's next tokens, or, with
+        ``multi_step`` armed and the running set stable, ONE window of
+        ``horizon`` decode rounds; in bucketed mode one prefill call per
+        chunk, then one decode round over the running set. (JAX's journal
+        sync and chaos points here wait for ROADMAP S6 and S7.)"""
         with self.tracer.span("serve.step"):
             with self.tracer.span("serve.admit"):
                 self._admit()
             if self.ragged:
-                self._ragged_step()
+                if not (self.ms_enable and self._ragged_window()):
+                    self._ragged_step()
             else:
                 with self.tracer.span("serve.prefill"):
                     self._prefill_step()
@@ -453,16 +501,132 @@ class PagedServer:
         if had_decode:
             self.stats["decode_steps"] += 1
 
-    def _reserve_for_growth(self, running: List[Request], need: Dict[int, int]) -> List[Request]:
+    # --- the multi-step window (one call = N decode rounds) ----------------
+    def _window_break(self, reason: str) -> None:
+        self.stats["window_break_reasons"][reason] += 1
+
+    def _window_fn(self):
+        """The window over ``max_slots`` rows and ``ms_horizon`` rounds (every
+        window has that shape), built at the first window."""
+        if self._window is None:
+            rows = self.pool.max_slots
+            window = build_ragged_multistep(self.cfg, rows, 1, self.ms_horizon, attn_impl=self.attn_impl)
+            if self.device.type == "cuda":
+                self._window = WindowGraph(window, self.params, self.pool.cache.k_pages, self.pool.cache.v_pages,
+                                           rows, self.pool.max_pages_per_slot)
+            else:
+                def eager(tokens, page_table, lengths, live, eos_ids, budgets):
+                    args = self._to_device(tokens, page_table, lengths, live, eos_ids, budgets)
+                    return window(self.params, args[0], self.pool.cache.k_pages, self.pool.cache.v_pages,
+                                  *args[1:]).cpu().numpy()
+                self._window = eager
+        return self._window
+
+    def _ragged_window(self) -> bool:
+        """Serve this step as ONE window of ``ms_horizon`` plain-decode
+        rounds, if the running set is stable: nothing queued, no row mid
+        prefill, some row with a budget of at least a horizon left, and
+        every row's pages for the whole window reservable WITHOUT
+        preemption. Otherwise record the break reason and return False: the
+        caller takes the single-step path, whose streams are byte-identical
+        (the window freezes rows in the program exactly where single steps
+        would retire them). Each row's EOS id and token budget ride in as
+        arrays. (JAX's "draft" break waits for speculative decoding, ROADMAP
+        S4; its journal sync and the mid-window chaos point for S6 and S7.)"""
+        rows = [r for r in self._active if not r.done]
+        if not rows:
+            return False
+        if self._queue:
+            # an admission is waiting: a window would hold its TTFT back for
+            # up to N rounds, so serve single steps until the queue drains
+            self._window_break("admission")
+            return False
+        if any(r.pending is None for r in rows):
+            self._window_break("prefill")
+            return False
+        H = self.ms_horizon
+        if max(r.max_new_tokens - len(r.generated) for r in rows) < H:
+            # every row would freeze before the horizon: single steps are cheaper
+            self._window_break("budget")
+            return False
+        # reserve the whole window's growth, min(H, remaining budget) a row (the in-window budget
+        # freeze bounds a row's writes, so a near-finished row never asks for room past max_seq_len)
+        # and WITHOUT preemption: pool pressure is a scheduling event, and the single step owns it
+        need = {r.uid: min(H, r.max_new_tokens - len(r.generated)) for r in rows}
+        if self._reserve_for_growth(rows, need, preempt=False) is None:
+            self._window_break("pool")
+            return False
+        with self.tracer.span("serve.window", rows=len(rows), horizon=H):
+            with self.tracer.span("serve.pack") as pack_span:
+                R, page_table, lengths = self._dispatch_rows(rows, pad_to=self.pool.max_slots)
+                tokens = np.zeros(R, np.int32)
+                live = np.zeros(R, np.int32)
+                eos_ids = np.full(R, -1, np.int32)
+                budgets = np.zeros(R, np.int32)
+                for i, r in enumerate(rows):
+                    tokens[i] = r.pending
+                    live[i] = 1
+                    if r.eos_token_id is not None:
+                        eos_ids[i] = r.eos_token_id
+                    budgets[i] = r.max_new_tokens - len(r.generated)  # >= 1
+                pack_span.set(rows=len(rows), horizon=H)
+            with self.tracer.span("serve.dispatch", rows=len(rows), width=1, horizon=H):
+                fn = self._window_fn()
+                captures = isinstance(fn, WindowGraph) and fn.graph is None
+                out = fn(tokens, page_table, lengths, live, eos_ids, budgets)
+            self.stats["window_steps"] += 1
+            self.stats["window_captures"] += int(captures)
+            self.stats["dispatches"] += 1
+            with self.tracer.span("serve.emit"):
+                self._settle_window_rows(rows, out, H)
+        return True
+
+    def _settle_window_rows(self, rows, out, horizon: int) -> None:
+        """The window's one host fetch (``[R, 1+N]``: each row's emitted
+        count, then its tokens), then per-row advance, emit and publish.
+        Rows that froze before the horizon name the break (EOS or budget);
+        pages reserved past a live row's length go back to the pool, so a
+        parked reservation never starves the next admission."""
+        eos_broke = budget_broke = False
+        for i, r in enumerate(rows):
+            n = int(out[i, 0])
+            self.pool.advance(r.slot, n)
+            for tok in out[i, 1 : 1 + n]:
+                self._emit(r, int(tok))
+            if r.done and n < horizon:
+                if r.eos_token_id is not None and r.generated and r.generated[-1] == r.eos_token_id:
+                    eos_broke = True
+                else:
+                    budget_broke = True
+            if not r.done:
+                if self.prefix_cache:
+                    self.pool.register_prefix(r.slot, r.context(), int(self.pool.seq_lens[r.slot]))
+                self.pool.trim_reservation(r.slot)
+        if eos_broke:
+            self._window_break("eos")
+        if budget_broke:
+            self._window_break("budget")
+
+    def _reserve_for_growth(self, running: List[Request], need: Dict[int, int],
+                            preempt: bool = True) -> Optional[List[Request]]:
         """Make every running row writable for its next ``need[uid]`` tokens
         (page growth plus the copy-on-write barrier), preempting the
         policy's victim when the pool is dry. Mutates and returns
-        ``running`` (preempted rows leave the round)."""
+        ``running`` (preempted rows leave the round).
+
+        ``preempt=False`` is the window's mode (a whole horizon's pages a
+        row, up front): on the first row the pool cannot host, every
+        reservation this call made is handed back (``trim_reservation``)
+        and None is returned, so the caller takes the single-step path."""
         idx = 0
         while idx < len(running):
             req = running[idx]
             grow = need.get(req.uid, 1)
             while not self.pool.prepare_write(req.slot, int(self.pool.seq_lens[req.slot]) + grow):
+                if not preempt:
+                    for r in running[: idx + 1]:
+                        self.pool.trim_reservation(r.slot)
+                    return None
                 candidates = [r for r in self._active if r is not req]
                 if not candidates:
                     raise RuntimeError(
@@ -555,12 +719,20 @@ class PagedServer:
 
     # --- observability ---------------------------------------------------
     def serve_stats(self) -> Dict:
-        """Scheduler counters (``ragged_steps`` is one per step), pool
+        """Scheduler counters (``ragged_steps`` one per single step; the
+        window block: ``window_steps``, ``window_horizon`` (0 when windows
+        are off), ``window_captures``, ``window_break_reasons``,
+        ``window_device_ms``: the device time of each window's graph replay,
+        from CUDA events, ``{'count': 0}`` on the CPU), pool
         occupancy and utilization, prefix-cache counters (``prefix``: hit
         rate, CoW copies, cached pages) and latency SLOs: aggregate and
         per-tenant p50/p99 TTFT (submit -> first token, queue wait
         included) and TPOT (per generated token after the first)."""
         s = dict(self.stats)
+        s["window_break_reasons"] = dict(self.stats["window_break_reasons"])
+        s["window_horizon"] = self.ms_horizon if self.ms_enable else 0
+        s["window_device_ms"] = percentile_summary(
+            self._window.device_ms if isinstance(self._window, WindowGraph) else ())
         s["dispatches_per_token"] = s["dispatches"] / s["emitted_tokens"] if s["emitted_tokens"] else 0.0
         s["tp_degree"] = 1
         s.update(

@@ -18,7 +18,11 @@ with ``nvcc`` on first use and bound through ``ctypes`` (``ops/native.py``).
   version is ``paged_attention.ragged_paged_attention``.
 * K6 ``decode_attention`` (``_decode_kernel`` :42, ``pallas_call`` :358 in
   ``_grouped_decode``; ``csrc/decode_attention.cu``): one token per row
-  over a contiguous cache ``[B, S, NKV, D]``, keys ``< kv_len[b]``.
+  over a contiguous cache ``[B, S, NKV, D]``, keys ``< kv_len[b]``
+  (clamped into ``[0, S]``). The CUDA side is split-KV with K5's split body
+  and combine (``dense_splits(S)`` splits, from the shape alone).
+  ``dense_split_partials_plain`` with ``paged_combine_plain`` is that
+  arithmetic in plain torch (CPU tests only).
 * K5 ``paged_decode_attention`` (``_paged_kernel`` :110, ``pallas_call``
   :199; ``csrc/decode_attention.cu``): one token per row over its pages of
   a shared pool ``[NP, NKV, P, D]``; page ids clamp into ``[0, NP)``. The
@@ -39,9 +43,11 @@ its dispatch on these and imports nothing back into this module.
 This module imports no CUDA tooling at import time: the library is built
 and loaded at the first launch. ``launches`` (K4), ``launches_decode`` (K6)
 and ``launches_paged`` (K5) count each kernel's launches (one per call that
-reaches the kernel) and nothing else; ``launches_ragged_split`` and
-``launches_paged_split`` count the K4 and K5 calls that ran the split-KV
-kernel and its combine (every such call today).
+reaches the kernel) and nothing else; ``launches_ragged_split``,
+``launches_decode_split`` and ``launches_paged_split`` count the K4, K6
+and K5 calls that ran the split-KV kernel and its combine (every such call
+today). A call made while a CUDA graph is being captured counts once, at
+the capture: the graph's replays launch again without passing here.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ NEG_INF = -1e30
 launches = 0  # K4 launches since the caller last set it to 0
 launches_ragged_split = 0  # of those, calls that ran the split kernel and the combine
 launches_decode = 0  # K6
+launches_decode_split = 0  # of those, calls that ran the split kernel and the combine
 launches_paged = 0  # K5
 launches_paged_split = 0  # of those, calls that ran the split kernel and the combine
 
@@ -64,7 +71,7 @@ _HEAD_DIMS = (64, 128)
 _fn = None
 _split_keys = None  # keys a split of K4 holds (the C side's SPLIT)
 _decode_fns = {}
-_paged_split_keys = None  # keys a split of K5 holds (the C side's SPLIT)
+_decode_split_keys = None  # keys a split of K5 and K6 holds (the C side's SPLIT)
 
 
 def _entry():
@@ -236,8 +243,8 @@ def _decode_entry(name: str):
         if name == "dense_decode_attention":
             fn.argtypes = (
                 [ctypes.c_int]  # dtype code
-                + [ctypes.c_void_p] * 5  # q, k_cache, v_cache, kv_lens, out
-                + [ctypes.c_int] * 5  # B, NH, NKV, S, D
+                + [ctypes.c_void_p] * 7  # q, k_cache, v_cache, kv_lens, out, ws_ml, ws_acc
+                + [ctypes.c_int] * 6  # B, NH, NKV, S, D, nsplit
                 + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
             )
         else:
@@ -251,17 +258,28 @@ def _decode_entry(name: str):
     return fn
 
 
-def paged_splits(maxp: int, page_size: int) -> int:
-    """The number of key splits K5 launches for a table of ``maxp`` pages of
-    ``page_size`` keys: from the shapes alone, never from ``kv_lens``."""
-    global _paged_split_keys
-    if _paged_split_keys is None:
+def _k5_k6_split_keys() -> int:
+    """Keys a K5 or K6 split holds, read once from the built library."""
+    global _decode_split_keys
+    if _decode_split_keys is None:
         from deepspeed_tpu_torch.ops import native
 
         lib = native.load("decode_attention")
-        lib.paged_decode_split_keys.restype = ctypes.c_int
-        _paged_split_keys = int(lib.paged_decode_split_keys())
-    return -(-maxp * page_size // _paged_split_keys)
+        lib.decode_split_keys.restype = ctypes.c_int
+        _decode_split_keys = int(lib.decode_split_keys())
+    return _decode_split_keys
+
+
+def paged_splits(maxp: int, page_size: int) -> int:
+    """The number of key splits K5 launches for a table of ``maxp`` pages of
+    ``page_size`` keys: from the shapes alone, never from ``kv_lens``."""
+    return -(-maxp * page_size // _k5_k6_split_keys())
+
+
+def dense_splits(S: int) -> int:
+    """The number of key splits K6 launches for a cache of ``S`` positions:
+    from the shape alone, never from ``kv_lens``."""
+    return -(-S // _k5_k6_split_keys())
 
 
 def _scale(scale, D: int) -> float:
@@ -343,11 +361,13 @@ def decode_attention_plain(q, k_cache, v_cache, kv_len, scale=None):
 
 
 def decode_attention_kernel(q, k_cache, v_cache, kv_lens, scale: float):
-    """Launch K6 on the current stream: q ``[B, NH, D]``, caches
-    ``[B, S, NKV, D]`` in q's dtype, ``kv_lens [B]`` int32, all contiguous
-    CUDA tensors; returns ``[B, NH, D]``. Raises on a tensor the kernel
-    does not take and on a non-zero ``cudaError_t``. Does not synchronise."""
-    global launches_decode
+    """Launch K6's split kernel and its combine on the current stream: q
+    ``[B, NH, D]``, caches ``[B, S, NKV, D]`` in q's dtype, ``kv_lens [B]``
+    int32, all contiguous CUDA tensors; returns ``[B, NH, D]``. The fp32
+    partials go to a workspace sized from the shapes (``torch.empty``).
+    Raises on a tensor the kernel does not take and on a non-zero
+    ``cudaError_t``. Does not synchronise."""
+    global launches_decode, launches_decode_split
     _check_kernel_tensors("decode attention", q, ("k", k_cache), ("v", v_cache), ("kv_lens", kv_lens))
     _check_dense_args(q, k_cache, v_cache)
     B, NH, D = q.shape
@@ -355,16 +375,34 @@ def decode_attention_kernel(q, k_cache, v_cache, kv_lens, scale: float):
     if kv_lens.shape != (B,):
         raise ValueError(f"kv_lens {tuple(kv_lens.shape)} does not match B={B}")
     out = torch.empty_like(q)
+    fn = _decode_entry("dense_decode_attention")
+    nsplit = dense_splits(S)
+    ws_ml = torch.empty(2 * B * NH * nsplit, dtype=torch.float32, device=q.device)
+    ws_acc = torch.empty(B * NH * nsplit * D, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _decode_entry("dense_decode_attention")(
+        err = fn(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_lens.data_ptr(), out.data_ptr(), B, NH, NKV, S, D, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            kv_lens.data_ptr(), out.data_ptr(), ws_ml.data_ptr(), ws_acc.data_ptr(), B, NH, NKV, S, D, nsplit,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError_t {err}")
     launches_decode += 1
+    launches_decode_split += 1
     return out
+
+
+def dense_split_partials_plain(q, k_cache, v_cache, kv_lens, split_keys: int, scale: float):
+    """K6's split kernel in plain torch: the contiguous cache read as one
+    page of ``S`` keys a row, then K5's partials
+    (``paged_split_partials_plain``), kv_len clamped into ``[0, S]`` as the
+    kernel clamps it. ``paged_combine_plain`` is its combine. Returns
+    ``m``, ``l`` as ``[B, NH, nsplit]`` and ``acc`` as
+    ``[B, NH, nsplit, D]``, ``nsplit = ceil(S / split_keys)``."""
+    B = q.shape[0]
+    table = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    return paged_split_partials_plain(q, k_cache.transpose(1, 2), v_cache.transpose(1, 2), table, kv_lens,
+                                      split_keys, scale)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, scale=None, block_k: int = 256):

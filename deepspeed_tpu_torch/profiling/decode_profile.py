@@ -47,8 +47,10 @@ from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops.transformer import decode_attention as da
 
 ROUNDS = 24  # profiled decode rounds of the bucketed part
-KERNELS = {"K6": ("dense_decode_kernel",), "K5": ("paged_decode_split_kernel", "decode_combine_kernel"),
-           "K4": ("ragged_split_kernel", "ragged_combine_kernel")}  # each kernel's device functions
+# each kernel's device functions; K5 and K6 share decode_combine_kernel, and a profiled window runs one of them
+KERNELS = {"K6": ("dense_decode_split_kernel", "decode_combine_kernel"),
+           "K5": ("paged_decode_split_kernel", "decode_combine_kernel"),
+           "K4": ("ragged_split_kernel", "ragged_combine_kernel")}
 
 
 def _device_us(evt) -> float:

@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card: the ragged
 paged attention (K4, split-KV: kv_len on and past split boundaries,
 bitwise-equal repeated calls), the flash attention forward and backward
-(K1-K3), the decode attention over a contiguous cache (K6) and over pages
-(K5, split-KV: buckets 1/2/4/8, split boundaries, bitwise-equal repeated
-calls), and the block-sparse attention forward and backward (K7-K9), with
+(K1-K3), the decode attention over a contiguous cache (K6, split-KV:
+fp32/bf16/fp16, a group of 7, S = 100, kv_len on and past split boundaries
+and past S, bitwise-equal repeated calls) and over pages (K5, split-KV:
+buckets 1/2/4/8, split boundaries, bitwise-equal repeated calls), and the block-sparse attention forward and backward (K7-K9), with
 K1-K3 and K7-K9 on their tensor-core variants in bf16 and fp16 and on FMA
 in fp32 (the variant counters, K7's and K8's split rows and dead rows,
 K9's split columns and dead keys, bitwise-equal repeated calls, K8's dS
@@ -290,33 +291,56 @@ def test_flash_dq_fp32_on_fma_and_bitwise_repeat_on_card(cuda_device, D):
     assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
-DECODE_CASES = {  # (B, NH, NKV, D, S, lens)
+DECODE_CASES = {  # (B, NH, NKV, D, S, lens): kv_len 0, on a 64-key split boundary and one past it, S, past S
     "GQA D=64": (3, 8, 2, 64, 512, [0, 200, 512]),
     "MHA D=128": (2, 4, 4, 128, 256, [77, 256]),
+    "Hg=7 D=128": (4, 28, 4, 128, 256, [1, 64, 65, 256]),
+    "S=100 kv_len>S": (4, 8, 2, 64, 100, [0, 64, 65, 150]),
 }
+
+
+def _decode_case(case, dtype, dev):
+    B, NH, NKV, D, S, lens = DECODE_CASES[case]
+    rs = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev).to(dtype)
+               for shape in ((B, NH, D), (B, S, NKV, D), (B, S, NKV, D)))
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_kernel_matches_plain_on_card(cuda_device, case, dtype, monkeypatch):
+    """K6 (split kernel and combine) against its plain version in fp32 on
+    the same (cast) inputs, TF32 off: fp32 within 1e-4, bf16/fp16 within
+    2e-2 (output rounding); rows of length 0 exact zeros; every call on the
+    split path."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, lens_d = _decode_case(case, dtype, cuda_device)
+    before = (da.launches_decode, da.launches_decode_split)
+    out = da.decode_attention(q, k, v, lens_d)
+    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), lens_d)
+    torch.cuda.synchronize()
+    assert (da.launches_decode - before[0], da.launches_decode_split - before[1]) == (1, 1)
+    assert da.dense_splits(k.shape[1]) == -(-k.shape[1] // 64)
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
+    assert (out[lens_d == 0] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
-def test_decode_kernel_matches_plain_on_card(cuda_device, case, dtype, monkeypatch):
-    """K6 against its plain version in fp32 on the same (cast) inputs, TF32
-    off: fp32 within 1e-4, bf16 within 2e-2 (bf16 output rounding); rows
-    of length 0 exact zeros."""
+def test_decode_kernel_bitwise_deterministic_on_card(cuda_device, case, dtype):
+    """Two K6 calls on the same inputs are bitwise equal: the combine merges
+    the partials in split order, without atomics."""
     from deepspeed_tpu_torch.ops.transformer import decode_attention as da
 
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    B, NH, NKV, D, S, lens = DECODE_CASES[case]
-    rs = np.random.RandomState(5)
-    q, k, v = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda_device).to(dtype)
-               for shape in ((B, NH, D), (B, S, NKV, D), (B, S, NKV, D)))
-    lens_d = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
-    before = da.launches_decode
-    out = da.decode_attention(q, k, v, lens_d)
-    ref = da.decode_attention_plain(q.float(), k.float(), v.float(), lens_d)
+    q, k, v, lens_d = _decode_case(case, dtype, cuda_device)
+    first, second = (da.decode_attention(q, k, v, lens_d) for _ in range(2))
     torch.cuda.synchronize()
-    assert da.launches_decode == before + 1
-    assert (out.float() - ref).abs().max().item() <= (1e-4 if dtype == torch.float32 else 2e-2)
-    assert (out[lens_d == 0] == 0).all()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), second.view(bits))
 
 
 PAGED_CASES = {  # (NH, NKV, D, P, NP, tables, lens)
@@ -880,3 +904,85 @@ def test_block_sparse_entries_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         bs.sparse_dkv_kernel(q, q, q, q, lse, lse, col_idx, col_cnt, units, 0.125, 16, False)
     assert (bs.launches_fwd, bs.launches_dq, bs.launches_dkv) == counts
+
+
+WINDOW_CFG = dict(vocab_size=128, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128,
+                  norm="rmsnorm", position="rope", activation="swiglu", use_bias=False, tie_embeddings=False,
+                  flash_attention=False, dtype="float32")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_graph_streams_match_single_step_on_card(cuda_device, dtype, monkeypatch):
+    """Multi-step windows replayed as one captured CUDA graph give the same
+    greedy streams as the eager single-step ragged server, byte for byte;
+    one graph is captured per server and every window is a replay; K4's
+    counter moves by layers x ragged steps, plus layers x horizon twice per
+    capture (the warm-up's launches and the capture's)."""
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = TransformerConfig(**WINDOW_CFG)
+    params = load_jax_params(TransformerLM(cfg), init_params(cfg, 3), device=cuda_device, dtype=dtype).param_tree()
+    rs = np.random.RandomState(8)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9)]
+    budgets = [40, 33, 25, 37]
+    H = 4
+    streams, stats = {}, {}
+    for ms in (None, {"enable": True, "horizon": H}):
+        server = PagedServer(cfg, params, page_size=8, max_slots=4, prefill_chunk=8, dtype=dtype,
+                             device=cuda_device, multi_step=ms)
+        before = da.launches
+        streams[ms is not None] = server.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        stats[ms is not None] = (server.serve_stats(), da.launches - before)
+    for a, b in zip(streams[True], streams[False]):
+        np.testing.assert_array_equal(a, b)
+    st, k4 = stats[True]
+    assert st["window_steps"] >= 2 and st["window_captures"] == 1, st
+    assert st["window_device_ms"]["count"] == st["window_steps"] and st["window_device_ms"]["p50"] > 0
+    L = cfg.num_layers
+    assert k4 == L * st["ragged_steps"] + 2 * L * H * st["window_captures"]
+    assert stats[False][1] == L * stats[False][0]["ragged_steps"]
+
+
+def test_window_replays_launch_k4_each_round_on_card(cuda_device):
+    """Counted on the device by the profiler (the wrappers' counters do not
+    see a replay): once the window graph exists, a serve runs K4's split and
+    combine kernels once a layer per single step and once a layer and round
+    per window replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+    from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+
+    cfg = TransformerConfig(**WINDOW_CFG)
+    params = load_jax_params(TransformerLM(cfg), init_params(cfg, 3), device=cuda_device,
+                             dtype=torch.bfloat16).param_tree()
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9)]
+    H = 4
+    server = PagedServer(cfg, params, page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.bfloat16,
+                         device=cuda_device, multi_step={"enable": True, "horizon": H})
+    first = server.serve(prompts, max_new_tokens=[40, 33, 25, 37])
+    before = server.serve_stats()
+    assert before["window_captures"] == 1
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = server.serve(prompts, max_new_tokens=[40, 33, 25, 37])
+        torch.cuda.synchronize()
+    after = server.serve_stats()
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    windows = after["window_steps"] - before["window_steps"]
+    assert windows >= 2 and after["window_captures"] == 1
+    want = cfg.num_layers * (after["ragged_steps"] - before["ragged_steps"] + H * windows)
+    for name in ("ragged_split_kernel", "ragged_combine_kernel"):
+        got = sum(e.count for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA") and name in e.key)
+        assert got == want, (name, got, want)

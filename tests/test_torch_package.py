@@ -128,7 +128,8 @@ UNPORTED = {
     # the bucketed oracle is ported; with speculative decoding it is not (S4)
     "bucketed_spec": {"paged_kv": {"ragged": False}, "spec_decode": {"enable": True}},
     "spec_decode": {"spec_decode": {"enable": True}},
-    "multi_step": {"paged_kv": {"multi_step": {"enable": True, "horizon": 4}}},
+    # windows are ported; with speculative decoding they are not (S4)
+    "multi_step": {"paged_kv": {"multi_step": {"enable": True, "horizon": 4}}, "spec_decode": {"enable": True}},
     "journal": {"journal": {"enabled": True, "dir": "/nonexistent"}},
     "traffic": {"traffic": {"enabled": True, "tenants": [{"name": "a"}]}},
     "tp_degree": {"paged_kv": {"sharded": {"tp_degree": 2}}},
@@ -155,6 +156,26 @@ def test_bucketed_with_spec_decode_names_s4():
     dst.init_inference(model, config={"paged_kv": {"ragged": False}}, device="cpu")
     with pytest.raises(NotImplementedError, match="S4"):
         dst.init_inference(model, config=UNPORTED["bucketed_spec"], device="cpu")
+
+
+def test_multi_step_alone_builds():
+    """``paged_kv.multi_step`` alone is served (the window path is ported)."""
+    model = TransformerLM(port_model_config.TransformerConfig(**TINY))
+    engine = dst.init_inference(model, config={"paged_kv": {"multi_step": {"enable": True, "horizon": 4}}},
+                                device="cpu")
+    assert engine._config.paged_kv.multi_step.horizon == 4
+
+
+@pytest.mark.parametrize("paged_kv", [{"ragged": False, "multi_step": {"enable": True}},
+                                      {"multi_step": {"enable": True, "horizon": 1}}])
+def test_multi_step_bad_settings_raise_as_jax(paged_kv):
+    """Windows without the ragged path, or with a horizon of 1, raise
+    ``ValueError`` in both packages."""
+    with pytest.raises(ValueError):
+        JaxInferenceConfig(paged_kv=paged_kv)
+    model = TransformerLM(port_model_config.TransformerConfig(**TINY))
+    with pytest.raises(ValueError):
+        dst.init_inference(model, config={"paged_kv": paged_kv}, device="cpu")
 
 
 @pytest.mark.parametrize("jax_name,port_name", [("pallas", "kernel"), ("xla", "plain"), ("auto", "auto"),

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of a deepspeed_tpu_torch serving step goes, on one card.
 
-    python3 tools/torch_serve_profile.py [--seed N] [--repeats N]
+    python3 tools/torch_serve_profile.py [--seed N] [--repeats N] [--horizon H]
 
 Builds the chip_smoke.py serving engine (llama-1B at full width, bf16,
-page_size 16, max_slots 8, seeded random weights) and serves the smoke
-request mix once to warm up. Then:
+page_size 16, max_slots 8, seeded random weights; with ``--horizon H``
+multi-step windows of H rounds, ``paged_kv.multi_step``) and serves the
+smoke request mix once to warm up (a window server captures its CUDA graph
+there). Then:
 
 * ``spread``: the same mix served ``--repeats`` more times (warm prefix
   cache, no profiler), one JSON line with each run's tokens/s and TPOT /
@@ -14,7 +16,8 @@ request mix once to warm up. Then:
 
   ``mixed``, the first 8 steps after 8 new requests arrive (prefill
   chunks riding with decode rows, width 32), and ``decode``, 24 steps once
-  every row decodes (width 1).
+  every row decodes (width 1); with ``--horizon H``, 24 // H steps, each
+  one window (one graph replay of H rounds).
 
 For each profiled window it prints one JSON line: host wall time per step, device
 time per step (the sum of kernel and copy time on the card), the device's
@@ -103,6 +106,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--repeats", type=int, default=10)
+    ap.add_argument("--horizon", type=int, default=0, help="multi-step window rounds (0: single steps)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA card", file=sys.stderr)
@@ -110,7 +114,10 @@ def main() -> int:
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     cfg = llama_config("1b")
     tree = chip_smoke._weights(cfg, args.seed)
-    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv={"page_size": 16, "max_slots": 8})
+    paged = {"page_size": 16, "max_slots": 8}
+    if args.horizon:
+        paged["multi_step"] = {"enable": True, "horizon": args.horizon}
+    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=paged)
     engine.load_jax_params(tree)
     prompts, budgets = chip_smoke._requests(args.seed, cfg.vocab_size)
     engine.serve(prompts, max_new_tokens=budgets)  # warm-up: kernel build, allocator, caches
@@ -120,9 +127,10 @@ def main() -> int:
     for n in np.linspace(96, 480, 8).astype(int):
         server.submit(rs.integers(0, cfg.vocab_size, int(n), dtype=np.int32), max_new_tokens=200)
     print(json.dumps(dict(card=smi, **_window(server, 8, "mixed"))), flush=True)
-    while any(r.pending is None for r in server._active):
+    while server.prefilling():
         server.step()
-    print(json.dumps(dict(card=smi, **_window(server, 24, "decode"))), flush=True)
+    steps = 24 // args.horizon if args.horizon else 24
+    print(json.dumps(dict(card=smi, horizon=args.horizon, **_window(server, steps, "decode"))), flush=True)
     server.run()
     return 0
 
