@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
-drives the serving (single-step and multi-step windows), the training and
-the block-sparse attention main paths at full width. Phases,
+drives the serving (single-step, multi-step windows, speculative decoding,
+crash recovery from the journal), the training and the block-sparse
+attention main paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -14,7 +15,8 @@ non-zero without the final line:
    ptxas register/shared-memory report);
 2. the ragged paged-attention kernel (K4) against its plain PyTorch version
    at the serving shapes of llama-1B (R=8, NH=32, NKV=4, D=64, P=16,
-   MAXP=128, NP=1025): a W=1 decode batch and a W=32 mixed batch, fp32 with
+   MAXP=128, NP=1025): a W=1 decode batch, a W=32 mixed batch and a W=5
+   speculative verify batch (q_lens 1, 2, 3, 4, 5, 5, 1, 0), fp32 with
    TF32 off (max abs error <= 1e-4) and bf16 (<= 2e-2 against the plain
    version in fp32 on the same bf16 inputs); dead rows and window slots past
    q_len must be exact zeros, every call must run the split-KV kernel and its
@@ -72,7 +74,15 @@ non-zero without the final line:
    there too: the 4-beam answer's joint log-probability (rescored by a full
    fp32 forward) must be at least the greedy answer's less 1e-3. And the
    ragged server with multi-step windows (horizon 8, CUDA graph replays):
-   its streams must equal the single-step ragged server's exactly;
+   its streams must equal the single-step ragged server's exactly. Then,
+   on the same prompts, speculation (an oracle drafter of the ragged
+   streams, K = 4; ragged verify rows on K4 and the bucketed oracle's plain
+   verify with every third round a K5 round) and a journaled ragged server
+   killed at ``serve.mid_step`` (hit 12) and recovered by a fresh server
+   from the replayed journal: streams equal to the ragged server's or
+   parting where the plain top-2 gap is below 1e-4, exact counts; and the
+   largest logit difference of one token scored as a decode row (width 1)
+   and as a verify row's first slot (width 5);
 9b. multi-step serving windows: phase 3's engine with
    ``paged_kv={"page_size": 16, "max_slots": 8, "ragged": True,
    "multi_step": {"enable": True, "horizon": 8}}`` in bf16 on phase 3's 16
@@ -93,6 +103,28 @@ non-zero without the final line:
    8 x ``window_steps``) of those steps and K4's counter 22 x
    ``ragged_steps``; the server then runs to its end with its streams
    equal to the single-step server's;
+9c. speculative serving in bf16, each run on a fresh server with the
+   counts zeroed just before (K4 = 22 x ``ragged_steps``, K5 = 22 x plain
+   bucketed rounds, every other kernel 0, every page back): the steady
+   traffic with an oracle drafter of phase 9b's single-step streams
+   (K = 4), the oracle corrupted at index 2 (no accepted prefix past 2),
+   one bucketed pass with the oracle (every third round plain, so K5 runs
+   between verify rounds); then phase 3's traffic through
+   ``init_inference(..., spec_decode={"enable": True})`` (the n-gram
+   drafter). Each prints the streams equal to speculation-off (counted,
+   not required: bf16 GEMMs round by width), ``spec_rounds``, the
+   acceptance, dispatches per token, tok/s and TPOT p50; and the decode
+   row vs verify row logit difference in bf16;
+9d. crash and recovery in bf16: a journaled engine
+   (``journal={"enabled": True, "dir": ...}``) on phase 3's traffic killed
+   by ``utils.chaos`` at ``serve.mid_step`` (hit 40), dropped, and a fresh
+   engine on the same directory recovers: ``stats["recovered"]`` equals
+   the live requests, every request finishes, the counts are exact (the
+   killed pass's too); again with windows, killed at ``serve.mid_window``
+   (hit 2). Streams equal to phase 3's are counted. Then the journal's
+   cost on the steady traffic (64 new), off, on, on, off, off, on on fresh
+   servers:
+   tok/s, TPOT p50 and each step's ``journal.sync`` time;
 10. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
    against their plain versions at the training shape (B=8, T=1024, N=12,
    D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
@@ -177,7 +209,9 @@ non-zero without the final line:
 The line before the last is ``{"kernels": [...]}`` (K1-K3 and K7-K9 with
 their ``variant`` by dtype and the main path's tensor-core launches, K1-K3,
 K7 and K8 with their fp16 times; K4, K5 and K6 with their split counts and
-split-KV launches, K4 with phase 9b's window numbers); the last line is
+split-KV launches, K4 with phase 9b's window numbers, its ``spec`` field
+(the verify-shape case, phase 9c's and the fp32 speculation's runs and
+counts) and its ``recovery`` field (phase 9d's and the fp32 recovery's)); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -188,6 +222,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -198,7 +233,9 @@ from torch.profiler import ProfilerActivity, profile
 
 import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.inference import decode
+from deepspeed_tpu_torch.inference.journal import RequestJournal
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
+from deepspeed_tpu_torch.inference.spec_decode import Drafter
 from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config
 from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops import native
@@ -214,6 +251,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import build_block_ta
 from deepspeed_tpu_torch.ops.transformer import decode_attention
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
+from deepspeed_tpu_torch.utils import chaos
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}  # tensor cores; fp32 without TF32
@@ -349,6 +387,9 @@ def phase_kernel(dev, flush):
         # chunk at 0, chunk mid-sequence, partial chunk (q_len 7), decode rows,
         # a dead row, a chunk ending at max_seq_len
         "W=32": (32, [(32, 32), (1032, 32), (71, 7), (2048, 1), (513, 1), (0, 0), (2048, 32), (1, 1)]),
+        # a speculative verify step (K = 4 drafts): rows of 1 + d tokens in a width-5 window, decode rows
+        # and a dead row (q_lens 1, 2, 3, 4, 5, 5, 1, 0)
+        "W=5 verify": (5, [(129, 1), (300, 2), (511, 3), (700, 4), (1024, 5), (1500, 5), (2048, 1), (0, 0)]),
     }
     cases = []
     for label, (W, rows) in batches.items():
@@ -531,17 +572,7 @@ def phase_streams(cfg, tree, seed, dev):
     outs_p = plain.serve(prompts, max_new_tokens=32)
     if decode_attention.launches != mid:
         raise AssertionError("the plain arm launched the kernel")
-    partings = []
-    for i, (a, b) in enumerate(zip(outs_k, outs_p)):
-        if a.shape != b.shape:
-            raise AssertionError(f"stream {i}: shapes {a.shape} vs {b.shape}")
-        diff = np.nonzero(a != b)[0]
-        if diff.size:
-            at = int(diff[0])
-            gap = _top2_gap(cfg, model.param_tree(), b[:at], dev)
-            partings.append({"request": i, "position": at, "plain_top2_gap": gap})
-            if gap >= 1e-4:
-                raise AssertionError(f"stream {i} parts at {at} with plain top-2 gap {gap} >= 1e-4")
+    partings = _partings(cfg, model.param_tree(), outs_k, outs_p, dev, "kernel vs plain")
     emit(phase="streams", dtype="float32", requests=len(prompts), new_tokens=32,
          identical=sum(1 for a, b in zip(outs_k, outs_p) if np.array_equal(a, b)), partings=partings)
 
@@ -866,19 +897,9 @@ def phase_three_way(cfg, tree, seed, dev):
     if same != len(prompts) or ws["window_steps"] == 0:
         raise AssertionError(f"fp32 windows: {same} of {len(prompts)} streams equal the ragged server's, "
                              f"window_steps {ws['window_steps']}")
-    partings = []
     names = list(streams)
-    for other in names[1:]:
-        for i, (a, b) in enumerate(zip(streams[names[0]], streams[other])):
-            if a.shape != b.shape:
-                raise AssertionError(f"{other} stream {i}: shapes {a.shape} vs {b.shape}")
-            diff = np.nonzero(a != b)[0]
-            if diff.size:
-                at = int(diff[0])
-                gap = _top2_gap(cfg, model.param_tree(), a[:at], dev)
-                partings.append({"pair": f"{names[0]} vs {other}", "request": i, "position": at, "plain_top2_gap": gap})
-                if gap >= 1e-4:
-                    raise AssertionError(f"{other} stream {i} parts from {names[0]} at {at} with plain top-2 gap {gap}")
+    partings = [dict(pair=f"{names[0]} vs {other}", **p) for other in names[1:]
+                for p in _partings(cfg, model.param_tree(), streams[other], streams[names[0]], dev, other)]
     identical = {other: sum(1 for a, b in zip(streams[names[0]], streams[other]) if np.array_equal(a, b))
                  for other in names[1:]}
     greedy = ragged.generate(prompts[:2], max_new_tokens=32)
@@ -889,8 +910,15 @@ def phase_three_way(cfg, tree, seed, dev):
          partings=partings, launches=got, beam_logprob=b_scores, greedy_logprob=g_scores)
     if beam.shape != greedy.shape or any(b < g - 1e-3 for g, b in zip(g_scores, b_scores)):
         raise AssertionError(f"fp32 beam joint log-prob {b_scores} below greedy's {g_scores}")
-    del ragged, bucketed, windows, model
+    del bucketed, windows
     torch.cuda.empty_cache()
+    # speculation and recovery in fp32 against the ragged server's streams (phases 9c and 9d)
+    params = model.param_tree()
+    fp32 = dict(spec=_spec_fp32(cfg, params, prompts, streams["ragged (K4)"], dev),
+                recovery=_recovery_fp32(cfg, params, prompts, streams["ragged (K4)"], dev))
+    del ragged, model, params
+    torch.cuda.empty_cache()
+    return fp32
 
 
 # --- phase 9b: multi-step serving windows (one CUDA graph replay a window) -------------
@@ -1053,11 +1081,388 @@ def phase_windows(cfg, tree, seed, streams):
         raise AssertionError(f"windows profiled: {profiled}")
     del engine, model
     torch.cuda.empty_cache()
-    return dict(serve=dict(window_steps=s["window_steps"], window_captures=s["window_captures"],
-                           k4_counter=counts["ragged_paged_attention"], k4_counter_want=counter),
-                profiled=profiled,
-                steady=[{k: r[k] for k in ("mode", "tokens_per_s", "tpot_ms", "window_steps", "window_ms_p50",
-                                          "window_device_ms", "single_step_ms_p50") if k in r} for r in runs])
+    record = dict(serve=dict(window_steps=s["window_steps"], window_captures=s["window_captures"],
+                             k4_counter=counts["ragged_paged_attention"], k4_counter_want=counter),
+                  profiled=profiled,
+                  steady=[{k: r[k] for k in ("mode", "tokens_per_s", "tpot_ms", "window_steps", "window_ms_p50",
+                                            "window_device_ms", "single_step_ms_p50") if k in r} for r in runs])
+    return record, steady, ref
+
+
+# --- phase 9c: speculative serving (S4) ------------------------------------------------------
+SPEC_K = 4  # drafts a verify row carries (paged_kv's draft width, a K4 window of 5)
+SERVE = {"page_size": 16, "max_slots": 8}
+
+
+class OracleDrafter(Drafter):
+    """Drafts each request's known future (a speculation-off stream of the
+    same traffic), so every draft the model agrees with is accepted;
+    ``corrupt_at`` changes that index of every proposal, capping the
+    accepted prefix there; with ``skip_every`` each request's n-th, 2n-th,
+    ... proposal is empty (rows in step skip together, so the bucketed
+    server runs plain K5 rounds between its verify rounds)."""
+
+    def __init__(self, futures, vocab, corrupt_at=None, skip_every=0):
+        self.futures, self.vocab, self.corrupt_at, self.skip_every = futures, vocab, corrupt_at, skip_every
+        self.asked = {}
+
+    def propose(self, uid, context, k):
+        self.asked[uid] = n = self.asked.get(uid, 0) + 1
+        if self.skip_every and n % self.skip_every == 0:
+            return np.zeros(0, np.int32)
+        cont = self.futures[uid][context.size : context.size + k].astype(np.int32)
+        if self.corrupt_at is not None and cont.size > self.corrupt_at:
+            cont[self.corrupt_at] = (cont[self.corrupt_at] + 1) % self.vocab
+        return cont
+
+
+def _same(outs, ref):
+    return sum(1 for a, b in zip(outs, ref) if np.array_equal(a, b))
+
+
+def _want_counts(cfg, server, s):
+    """The counts a serving pass must leave: K4 = layers x ragged steps (and
+    the window captures' warm-up and record), K5 = layers x plain bucketed
+    rounds, every other kernel 0 (a bucketed verify round and a prefill
+    chunk attend through the plain version, as JAX's XLA does)."""
+    want = dict.fromkeys(_counts(), 0)
+    if server.ragged:
+        want["ragged_paged_attention"] = _k4_counter_want(cfg, s)
+    else:
+        want["paged_decode_attention"] = cfg.num_layers * s["decode_steps"]
+    return want
+
+
+def _spec_stats(s):
+    return {k: s[k] for k in ("spec_rounds", "spec_drafted", "spec_accepted", "spec_accept_rate",
+                              "spec_mean_accepted_per_round", "spec_accept_hist", "decode_steps", "ragged_steps",
+                              "dispatches", "dispatches_per_token")}
+
+
+def _spec_run(cfg, server, prompts, new, ref):
+    """One serve on a fresh server, the counts zeroed just before: streams
+    equal to ``ref`` (counted), tok/s, TPOT p50, the speculation stats and
+    the kernel counts, which must be the pass's exactly."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = server.serve(prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = server.serve_stats()
+    counts, want = _counts(), _want_counts(cfg, server, s)
+    gen = sum(o.size - p.size for o, p in zip(outs, prompts))
+    rec = dict(identical=_same(outs, ref), requests=len(prompts), generated_tokens=gen, wall_s=wall,
+               tokens_per_s=gen / wall, tpot_ms=s["tpot_ms"], **_spec_stats(s), launches=counts)
+    if counts != want or s["finished"] != len(prompts) or server.pool.used_pages() != 0:
+        raise AssertionError(f"spec run: launches {counts} want {want}, finished {s['finished']}, "
+                             f"pages left {server.pool.used_pages()}")
+    return outs, rec
+
+
+def width_logits(cfg, params, contexts, drafts, dev):
+    """Each context's next token scored as a decode row (a width-1 ragged
+    step) and as the first slot of a verify row (width 5: the token and 4
+    drafts, which it cannot see), in steps of 8 rows (the contexts live,
+    the rest dead, as the server pads) through K4, after the contexts were
+    written into fresh pools (plain attention): the [len(contexts), V]
+    logits of both steps, in fp32."""
+    R = 8
+    dtype = params["embed"]["tokens"].dtype
+    maxp = -(-cfg.max_seq_len // P)
+    per_row = [-(-(c.size + SPEC_K) // P) for c in contexts]
+    shape = (cfg.num_layers, sum(per_row) + 1, cfg.num_kv_heads, P, cfg.head_dim)
+    kp, vp = torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev)
+    pt = np.full((R, maxp), -1, np.int32)
+    first = 1
+    for r, n in enumerate(per_row):
+        pt[r, :n] = np.arange(first, first + n)
+        first += n
+    t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)  # noqa: E731
+    live = len(contexts)
+    lens = np.zeros(R, np.int32)
+    lens[:live] = [c.size - 1 for c in contexts]
+    out = []
+    with torch.no_grad():
+        for r, c in enumerate(contexts):
+            n = int(lens[r])
+            decode._paged_forward(cfg, params, t(c[:n])[None], kp, vp, t(pt[r : r + 1]), t(np.arange(n))[None],
+                                  "plain", kv_lens=t([n]), q_lens=t([n]))
+        for W in (1, SPEC_K + 1):
+            tokens = np.zeros((R, W), np.int32)
+            tokens[:live] = [np.concatenate([c[-1:], d[: W - 1]]) for c, d in zip(contexts, drafts)]
+            q_lens = np.where(np.arange(R) < live, W, 0).astype(np.int32)
+            positions = np.where(q_lens[:, None] > 0, lens[:, None] + np.arange(W)[None, :], 0)
+            logits = decode._paged_forward(cfg, params, t(tokens), kp.clone(), vp.clone(), t(pt), t(positions), "auto",
+                                           write_valid=t(np.arange(W)[None, :] < q_lens[:, None]).bool(),
+                                           kv_lens=t(np.where(q_lens > 0, lens + W, 0)), q_lens=t(q_lens))
+            out.append(logits[:live, 0].float())
+    return out
+
+
+def _width_rounding(cfg, params, streams, prompt_len, dev):
+    """``width_logits`` over the 8 streams at 4 positions of their
+    generated part (each stream's own next tokens as the drafts): the
+    largest and mean logit difference, the rows whose argmax moved, and
+    the smallest top-2 gap of the decode rows."""
+    diffs, moved, gaps = [], 0, []
+    for at in (prompt_len + 1, prompt_len + 9, prompt_len + 17, prompt_len + 25):
+        w1, w5 = width_logits(cfg, params, [o[:at] for o in streams], [o[at : at + SPEC_K] for o in streams], dev)
+        diffs += (w1 - w5).abs().amax(dim=1).tolist()
+        moved += int((w1.argmax(dim=1) != w5.argmax(dim=1)).sum())
+        top = torch.topk(w1, 2, dim=1).values
+        gaps += (top[:, 0] - top[:, 1]).tolist()
+    return dict(positions=len(diffs), max_abs_logit_diff=max(diffs), mean_abs_logit_diff=float(np.mean(diffs)),
+                argmax_moved=moved, min_top2_gap=min(gaps))
+
+
+def phase_spec(cfg, tree, seed, streams, steady, steady_ref, dev):
+    """(a) the steady traffic with an oracle drafter, then the oracle
+    corrupted at index 2, against phase 9b's single-step streams; (c) one
+    bucketed pass with the oracle; (b) phase 3's traffic through
+    ``init_inference(..., spec_decode={"enable": True})`` (the n-gram
+    drafter); and the logit difference of a token scored at width 1 and
+    at width 5. bf16: streams that part from speculation-off are counted,
+    not refused (the card's GEMMs round by width)."""
+    model = TransformerLM(cfg)
+    engine = dst.init_inference(model, dtype="bf16", paged_kv=SERVE, spec_decode={"enable": True})
+    engine.load_jax_params(tree)
+    params = engine.module.param_tree()
+    futures = dict(enumerate(steady_ref))
+    runs = {}
+    for name, corrupt, ragged in (("oracle", None, True), ("oracle corrupt@2", 2, True),
+                                  ("bucketed oracle, every 3rd round plain", None, False)):
+        server = PagedServer(cfg, params, dtype=torch.bfloat16, prefix_cache=True, ragged=ragged,
+                             drafter=OracleDrafter(futures, cfg.vocab_size, corrupt, skip_every=0 if ragged else 3),
+                             spec_decode={"max_draft": SPEC_K}, **SERVE)
+        _, rec = _spec_run(cfg, server, steady, 128, steady_ref)
+        emit(phase="spec", run=name, traffic="steady 8 x 128 new", dtype="bfloat16", **rec)
+        runs[name] = rec
+        del server
+    bucketed = runs["bucketed oracle, every 3rd round plain"]
+    if (runs["oracle"]["spec_rounds"] == 0 or runs["oracle corrupt@2"]["spec_accept_hist"][3:] != [0, 0]
+            or bucketed["spec_rounds"] == 0 or bucketed["decode_steps"] == 0):
+        raise AssertionError(f"spec: {runs}")
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = engine.serve(prompts, max_new_tokens=budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = engine.serve_stats()
+    counts, want = _counts(), _want_counts(cfg, engine._paged_server, s)
+    rec = dict(identical_to_phase_3=_same(outs, streams["cold"]), requests=len(outs), tokens_per_s=sum(budgets) / wall,
+               wall_s=wall, tpot_ms=s["tpot_ms"], **_spec_stats(s), launches=counts)
+    emit(phase="spec", run="n-gram (init_inference spec_decode)", traffic="phase 3", dtype="bfloat16", **rec)
+    runs["ngram"] = rec
+    if counts != want or s["finished"] != len(prompts):
+        raise AssertionError(f"spec n-gram: launches {counts} want {want}, finished {s['finished']}")
+    rounding = _width_rounding(cfg, params, steady_ref, 128, dev)
+    emit(phase="spec", run="decode row (W=1) vs verify row (W=5) logits", dtype="bfloat16", **rounding)
+    del engine, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs={k: {f: v[f] for f in ("identical", "identical_to_phase_3", "spec_rounds", "spec_accept_rate",
+                                             "ragged_steps", "decode_steps", "launches", "tokens_per_s")
+                          if f in v} for k, v in runs.items()},
+                width_rounding_bf16=rounding)
+
+
+def _spec_fp32(cfg, params, prompts, ref, dev):
+    """fp32 speculation (TF32 off) on phase 9's prompts: the oracle drafter
+    from the ragged server's streams, ragged (K4 verify rows) and bucketed
+    (plain verify): streams equal to speculation-off, or parting where the
+    plain top-2 gap is below 1e-4; the width-rounding logits in fp32."""
+    recs = {}
+    for name, ragged in (("ragged oracle", True), ("bucketed oracle, every 3rd round plain", False)):
+        server = PagedServer(cfg, params, dtype=torch.float32, prefix_cache=True, ragged=ragged,
+                             drafter=OracleDrafter(dict(enumerate(ref)), cfg.vocab_size,
+                                                   skip_every=0 if ragged else 3),
+                             spec_decode={"max_draft": SPEC_K}, **SERVE)
+        outs, rec = _spec_run(cfg, server, list(prompts), 32, ref)
+        rec["partings"] = _partings(cfg, params, outs, ref, dev, f"fp32 spec {name}")
+        emit(phase="spec", run=name, dtype="float32", **rec)
+        recs[name] = {k: rec[k] for k in ("identical", "spec_rounds", "spec_accept_rate", "partings", "launches")}
+        del server
+    recs["width_rounding_fp32"] = _width_rounding(cfg, params, ref, prompts.shape[1], dev)
+    emit(phase="spec", run="decode row (W=1) vs verify row (W=5) logits", dtype="float32",
+         **recs["width_rounding_fp32"])
+    return recs
+
+
+def _partings(cfg, params, outs, ref, dev, label):
+    """Where each stream first parts from ``ref``, with the plain fp32 top-2
+    logit gap there; raises at a gap of 1e-4 or more."""
+    partings = []
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        if a.shape != b.shape:
+            raise AssertionError(f"{label} stream {i}: shapes {a.shape} vs {b.shape}")
+        diff = np.nonzero(a != b)[0]
+        if diff.size:
+            at = int(diff[0])
+            gap = _top2_gap(cfg, params, b[:at], dev)
+            partings.append({"request": i, "position": at, "plain_top2_gap": gap})
+            if gap >= 1e-4:
+                raise AssertionError(f"{label} stream {i} parts at {at} with plain top-2 gap {gap} >= 1e-4")
+    return partings
+
+
+# --- phase 9d: crash and recovery (S6) ---------------------------------------------------------
+def _recovery_fp32(cfg, params, prompts, ref, dev):
+    """fp32 (TF32 off): a journaled ragged server on phase 9's prompts
+    killed at ``serve.mid_step`` (hit 12: prefill done, decoding), a fresh
+    server on the replayed journal recovers every request, and its streams
+    equal the uncrashed ones (or part where the plain top-2 gap is below
+    1e-4)."""
+    with tempfile.TemporaryDirectory(prefix="journal_") as jdir:
+        server = PagedServer(cfg, params, dtype=torch.float32, prefix_cache=True, journal=RequestJournal(jdir),
+                             **SERVE)
+        for p in prompts:
+            server.submit(p, max_new_tokens=32)
+        chaos.install(chaos.ChaosSchedule([chaos.ChaosRule("serve.mid_step", hit=12)]))
+        try:
+            server.run()
+            raise AssertionError("chaos never fired at serve.mid_step hit 12")
+        except chaos.ChaosKilled:
+            pass
+        finally:
+            chaos.uninstall()
+        live, emitted = len(server._queue) + len(server._active), server.stats["emitted_tokens"]
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+        states, next_uid = RequestJournal.replay(jdir)
+        server = PagedServer(cfg, params, dtype=torch.float32, prefix_cache=True, journal=RequestJournal(jdir),
+                             **SERVE)
+        _zero_counts()
+        recovered = server.recover(states, next_uid)
+        server.run()
+        outs = [server.take_result(u) for u in range(len(prompts))]
+        s = server.serve_stats()
+        counts, want = _counts(), _want_counts(cfg, server, s)
+    rec = dict(killed_live=live, killed_emitted=emitted, recovered=recovered, identical=_same(outs, ref),
+               partings=_partings(cfg, params, outs, ref, dev, "fp32 recovery"), launches=counts)
+    emit(phase="recovery", point="serve.mid_step", hit=12, dtype="float32", **rec)
+    if recovered != live or live == 0 or counts != want:
+        raise AssertionError(f"fp32 recovery: recovered {recovered} of {live} live; launches {counts} want {want}")
+    return rec
+
+
+def _killed(engine, prompts, budgets, point, hit):
+    """``engine.serve`` until ``chaos`` kills it at ``point``'s ``hit``-th
+    arrival: the dead server's stats, its live requests and its counts."""
+    chaos.install(chaos.ChaosSchedule([chaos.ChaosRule(point, hit=hit)]))
+    try:
+        engine.serve(prompts, max_new_tokens=budgets)
+        raise AssertionError(f"chaos never fired at {point} hit {hit}")
+    except chaos.ChaosKilled:
+        pass
+    finally:
+        chaos.uninstall()
+    dead = engine._paged_server
+    return dead, dead.serve_stats(), len(dead._queue) + len(dead._active)
+
+
+def phase_recovery(cfg, tree, seed, streams):
+    """A journaled engine on phase 3's traffic killed at ``serve.mid_step``
+    (hit 40), then with windows at ``serve.mid_window`` (hit 2); the dead
+    engine is dropped and a fresh engine on the same ``journal.dir``
+    recovers (``stats["recovered"]`` = the live requests) and finishes every
+    request. bf16: streams equal to phase 3's are counted. Then the journal's
+    cost on the steady traffic (8 x 64 new), off and on in turns."""
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    recs = {}
+    for name, paged, point, hit in (("mid_step", SERVE, "serve.mid_step", 40),
+                                    ("mid_window", WINDOWS, "serve.mid_window", 2)):
+        with tempfile.TemporaryDirectory(prefix="journal_") as jdir:
+            jcfg = {"enabled": True, "dir": jdir}
+            engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=paged, journal=jcfg)
+            engine.load_jax_params(tree)
+            _zero_counts()
+            dead, s, live = _killed(engine, prompts, budgets, point, hit)
+            counts, want = _counts(), _want_counts(cfg, dead, s)
+            killed = dict(finished=s["finished"], live=live, emitted_tokens=s["emitted_tokens"],
+                          ragged_steps=s["ragged_steps"], window_steps=s["window_steps"], launches=counts)
+            if counts != want:
+                raise AssertionError(f"recovery {name}: the killed pass launched {counts}, want {want}")
+            del dead, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=paged, journal=jcfg)
+            engine.load_jax_params(tree)
+            _zero_counts()
+            t0 = time.perf_counter()
+            engine.serve([])  # builds the server, which replays the journal and recovers; runs them to the end
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            server = engine._paged_server
+            s2 = server.serve_stats()
+            outs = [server.take_result(u) for u in range(len(prompts))]
+            counts, want = _counts(), _want_counts(cfg, server, s2)
+            rec = dict(killed=killed, recovered=s2["recovered"], finished_after=s2["finished"], wall_s=wall,
+                       identical_to_phase_3=_same(outs, streams["cold"]), ragged_steps=s2["ragged_steps"],
+                       window_steps=s2["window_steps"], window_captures=s2["window_captures"], launches=counts,
+                       segments=len(RequestJournal.segments(jdir)))
+            emit(phase="recovery", point=point, hit=hit, dtype="bfloat16", **rec)
+            for p, b, o in zip(prompts, budgets, outs):
+                if o is None or o.shape != (p.size + b,) or not (o[: p.size] == p).all():
+                    raise AssertionError(f"recovery {name}: a request is missing or malformed")
+            if s2["recovered"] != live or live == 0 or counts != want:
+                raise AssertionError(f"recovery {name}: recovered {s2['recovered']} of {live} live; launches "
+                                     f"{counts} want {want}")
+            recs[name] = {k: rec[k] for k in ("recovered", "identical_to_phase_3", "launches")}
+            del server, engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    recs["journal_cost"] = _journal_cost(cfg, tree, seed)
+    return recs
+
+
+def _journal_cost(cfg, tree, seed):
+    """The steady traffic (8 x 64 new) on fresh single-step servers, the
+    journal off and on in turns (off, on, on, off, off, on): tok/s, TPOT
+    p50 and, journal on, each step's ``journal.sync`` (write, flush,
+    fsync)."""
+    model = TransformerLM(cfg)
+    engine = dst.init_inference(model, dtype="bf16", paged_kv=SERVE)
+    engine.load_jax_params(tree)
+    params = engine.module.param_tree()
+    rs = np.random.default_rng(seed + 7)
+    steady = [rs.integers(0, cfg.vocab_size, 128, dtype=np.int32) for _ in range(8)]
+    sync_s = []
+    original = RequestJournal.sync
+
+    def timed(self):
+        t0 = time.perf_counter()
+        original(self)
+        sync_s.append(time.perf_counter() - t0)
+
+    runs, ref = [], None
+    RequestJournal.sync = timed
+    try:
+        for on in (False, True, True, False, False, True):
+            with tempfile.TemporaryDirectory(prefix="journal_") as jdir:
+                server = PagedServer(cfg, params, dtype=torch.bfloat16, prefix_cache=True,
+                                     journal=RequestJournal(jdir) if on else None, **SERVE)
+                del sync_s[:]
+                t0 = time.perf_counter()
+                outs = server.serve(steady, max_new_tokens=64)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                ref = ref or outs
+                s = server.serve_stats()
+                rec = dict(journal=on, tokens_per_s=8 * 64 / wall, tpot_ms_p50=s["tpot_ms"]["p50"],
+                           identical=_same(outs, ref), steps=s["ragged_steps"])
+                if on:
+                    rec.update(syncs=len(sync_s), sync_ms_p50=float(np.median(sync_s)) * 1e3,
+                               sync_ms_mean=float(np.mean(sync_s)) * 1e3, sync_ms_max=float(np.max(sync_s)) * 1e3)
+                emit(phase="recovery", run="journal cost", traffic="steady 8 x 64 new", **rec)
+                runs.append(rec)
+                del server
+    finally:
+        RequestJournal.sync = original
+    del engine, model
+    torch.cuda.empty_cache()
+    return runs
 
 
 # --- launch counts -------------------------------------------------------------
@@ -1931,8 +2336,10 @@ def main() -> int:
     del flush
     k6_launches, k6_split_launches = phase_generate(cfg, tree, args.seed)
     k5_launches, k5_split_launches = phase_bucketed(cfg, tree, args.seed)
-    phase_three_way(llama_config("1b", dtype="float32"), tree, args.seed, dev)
-    windows = phase_windows(cfg, tree, args.seed, serve_streams)
+    fp32 = phase_three_way(llama_config("1b", dtype="float32"), tree, args.seed, dev)
+    windows, steady, steady_ref = phase_windows(cfg, tree, args.seed, serve_streams)
+    spec = phase_spec(cfg, tree, args.seed, serve_streams, steady, steady_ref, dev)
+    recovery = phase_recovery(cfg, tree, args.seed, serve_streams)
     del tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -1958,6 +2365,10 @@ def main() -> int:
         plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"], case=main_case["case"], variant="split_kv",
         split_launches=split_launches, splits=main_case["splits"], windows=windows,
+        spec=dict(verify_case={c["case"]: {k: c[k] for k in keys[1:] + ("splits", "bitwise_equal")}
+                               for c in cases if c["case"].startswith("W=5 verify")},
+                  bf16=spec, fp32=fp32["spec"]),
+        recovery=dict(bf16=recovery, fp32={k: fp32["recovery"][k] for k in ("recovered", "identical", "launches")}),
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "splits", "bitwise_equal")} for c in cases],
     )] + [dict(

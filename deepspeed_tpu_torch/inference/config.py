@@ -177,7 +177,15 @@ class TrafficConfig(DeepSpeedConfigModel):
 
 
 class JournalConfig(DeepSpeedConfigModel):
-    """Serving crash-recovery journal (not ported yet: ROADMAP S6)."""
+    """Serving crash-recovery journal (``inference/journal.py``). With
+    ``enabled`` (and a ``dir``) every admitted request and emitted token is
+    appended to an on-disk journal, durable once a scheduler step, and a
+    server built on a directory that already holds records replays it
+    first: finished results come back and live requests resume
+    byte-identically from their last emitted token. Segments seal at
+    ``segment_bytes``; ``fsync=False`` trades the last step's durability for
+    write latency (replay still reads no torn record: a CRC gates each
+    line)."""
 
     enabled: bool = False
     dir: Optional[str] = None
@@ -186,7 +194,13 @@ class JournalConfig(DeepSpeedConfigModel):
 
 
 class SpecDecodeConfig(DeepSpeedConfigModel):
-    """Speculative decoding (not ported yet: ROADMAP S4)."""
+    """Speculative decoding for paged serving (``inference/spec_decode.py``).
+    Each round drafts up to ``max_draft`` tokens a request on the host
+    (n-gram prompt lookup of order ``ngram_order``) and verifies them in the
+    same step's call; greedy streams stay byte-identical to speculation-off
+    serving. ``spec_lens`` are the bucketed oracle's verify widths K (a
+    round takes the smallest covering its longest draft; ``[]`` means
+    ``[max_draft]``)."""
 
     enable: bool = False
     max_draft: int = 4
@@ -246,10 +260,6 @@ def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
     does not have yet, each naming its ROADMAP item."""
     p = cfg.paged_kv
     found = []
-    if cfg.spec_decode.enable:
-        found.append("spec_decode.enable: ROADMAP S4")
-    if cfg.journal.enabled:
-        found.append("journal.enabled: ROADMAP S6")
     if cfg.traffic.enabled:
         found.append("traffic.enabled: ROADMAP S7")
     if p.sharded.weight_quant_bits == 8:

@@ -12,8 +12,10 @@ Counterpart of ``deepspeed_tpu/inference/decode.py``:
   (``build_ragged_step``, K4), the multi-step window of ``horizon`` ragged
   decode rounds (``build_ragged_multistep``; on a card one CUDA graph,
   ``WindowGraph``) and the bucketed oracle's decode step
-  (``build_paged_decode_step``, K5) and prefill chunk
-  (``build_paged_prefill``, plain causal attention), all through one
+  (``build_paged_decode_step``, K5), prefill chunk
+  (``build_paged_prefill``) and speculative verify round
+  (``build_paged_verify_step``), the last two on the plain causal
+  attention (JAX computes it outside any Pallas kernel), all through one
   ``_paged_forward``; with the per-layer pieces (``_layer_project_qkv``,
   ``_ffn_body``, ``_post_attention``, ``_softmax_scale``,
   ``_final_logits``), the page scatter and ``_accepted_prefix``.
@@ -230,15 +232,17 @@ def _layer_views():
 
 def build_ragged_step(cfg, width: int, attn_impl: str = "auto"):
     """The one serving step: an ``R × width`` ragged window of mixed
-    prefill-chunk, decode and dead rows.
+    prefill-chunk, decode, verify (the pending token and ``q_len - 1``
+    drafts) and dead rows.
 
     ``step(params, tokens [R, W], k_pages, v_pages, page_table [R, MAXP],
     lengths [R], q_lens [R]) -> out [R, W+1]`` (int32, on the device).
     Row r carries ``q_lens[r]`` real tokens written at positions
     ``lengths[r] + j``; window slots past ``q_lens[r]`` write to the trash
     page. ``out[r, 1 + j]`` is the greedy token after position j, and
-    ``out[r, 0]`` the accepted-prefix length of drafted rows (0 wherever
-    nothing was drafted). The pools update in place. All arguments are
+    ``out[r, 0]`` the accepted-prefix length of verify rows (leading drafts
+    equal to the model's own greedy argmax; 0 wherever nothing was
+    drafted). The pools update in place. All arguments are
     tensors on the pools' device."""
     _check_cached_cfg(cfg)
     if width < 1:
@@ -428,6 +432,51 @@ def build_paged_prefill(cfg, attn_impl: str = "auto"):
         return torch.argmax(logits[:, last_idx], dim=-1).to(torch.int32)
 
     return _prefill
+
+
+def build_paged_verify_step(cfg, K: int, attn_impl: str = "auto"):
+    """One speculative round of the bucketed oracle: every row's pending
+    token and up to ``K`` host drafts, scored in one causal pass.
+
+    ``verify(params, tokens [B, K+1], k_pages, v_pages, page_table [B, MAXP],
+    lengths [B], draft_lens [B]) -> packed [B, K+2]`` (int32, on the
+    device). Row b's tokens are its pending token followed by its drafts
+    (garbage past ``draft_lens[b]``), written at ``lengths[b] + j``; pad
+    slots (``j > draft_lens[b]``) write to the trash page, since their
+    positions may reach past the row's reserved pages. The pass attends
+    through the causal prefill attention capped at ``lengths + draft_lens +
+    1`` live keys (0 for a dead row), plain as in JAX (XLA there).
+    ``packed[:, 0]`` is the accepted-prefix length n (leading drafts equal
+    to the model's own greedy argmax, bounded by ``draft_lens``) and
+    ``packed[:, 1:]`` the greedy token after each position, so the round
+    emits ``packed[b, 1 : n + 2]``. The pools update in place; the host
+    rolls the rejected tail back (``PagePool.rollback``).
+
+    Greedy streams equal speculation-off streams when decode rounds and
+    verify rounds score through one backend; on a card the decode rounds
+    take K5 and this pass the plain attention, so an argmax near-tie may
+    resolve differently (JAX states the same of its Pallas decode and XLA
+    verify)."""
+    _check_cached_cfg(cfg)
+    if K < 1:
+        raise ValueError(f"speculative verify needs K >= 1 drafted slots, got {K}")
+    T = int(K) + 1
+    layers_of = _layer_views()
+
+    @torch.no_grad()
+    def _verify(params, tokens, k_pages, v_pages, page_table, lengths, draft_lens):
+        offs = torch.arange(T, dtype=torch.int32, device=tokens.device)
+        positions_b = lengths[:, None] + offs[None, :]
+        kv_lens = torch.where(lengths > 0, lengths + draft_lens + 1, torch.zeros_like(lengths))
+        logits = _paged_forward(
+            cfg, params, tokens, k_pages, v_pages, page_table, positions_b, attn_impl,
+            write_valid=offs[None, :] <= draft_lens[:, None], kv_lens=kv_lens, layers=layers_of(params),
+        )
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K+1]
+        accepted = _accepted_prefix(tokens, greedy, draft_lens)
+        return torch.cat([accepted[:, None].to(torch.int32), greedy], dim=1)
+
+    return _verify
 
 
 # --- the dense KV-cached path -----------------------------------------------------

@@ -8,8 +8,10 @@ batch carries labels), ``generate`` (the dense KV-cached loop: greedy,
 sampling, beam search), ``profile_model_time`` / ``model_times``, and
 ``serve`` / ``serve_stats``
 over a ``PagedServer`` (ragged, with multi-step windows under
-``paged_kv.multi_step``, or bucketed with ``paged_kv.ragged=False``) built
-as the JAX ``_build_paged_server`` builds it for the ported options.
+``paged_kv.multi_step``, or bucketed with ``paged_kv.ragged=False``; with
+speculative decoding under ``spec_decode`` and the crash-recovery journal
+under ``journal``) built as the JAX ``_build_paged_server`` builds it for
+the ported options.
 The port's ``TransformerLM`` is the converted family (JAX's
 ``_ds_config`` path), so ``generate`` always takes the KV-cached loop. The
 engine runs on ``cuda`` unless the caller passes another device; without
@@ -27,6 +29,7 @@ import torch
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree, load_jax_params
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum, unported_switches
+from deepspeed_tpu_torch.inference.journal import RequestJournal
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
 from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
@@ -186,7 +189,16 @@ class InferenceEngine:
         pcfg = self._config.paged_kv
         if not pcfg.enabled:
             raise ValueError("paged serving is disabled (inference config paged_kv.enabled)")
-        return PagedServer(
+        # the crash-recovery journal: replay the directory before the new writer opens its segment,
+        # then hand the replayed state to the fresh server, which resumes every journaled stream
+        journal, states, next_uid = None, None, 0
+        jcfg = self._config.journal
+        if jcfg.enabled:
+            if not jcfg.dir:
+                raise ValueError("inference.journal.enabled requires journal.dir")
+            states, next_uid = RequestJournal.replay(jcfg.dir)
+            journal = RequestJournal(jcfg.dir, segment_bytes=jcfg.segment_bytes, fsync=jcfg.fsync)
+        server = PagedServer(
             self._ds_config,
             self.module.param_tree(),
             page_size=pcfg.page_size,
@@ -202,7 +214,12 @@ class InferenceEngine:
             metrics=self.metrics,
             ragged=pcfg.ragged,
             multi_step=pcfg.multi_step,
+            spec_decode=self._config.spec_decode,
+            journal=journal,
         )
+        if states:
+            server.recover(states, next_uid)
+        return server
 
     def serve(self, prompts, max_new_tokens=32, eos_token_id=None):
         """Continuous-batching greedy generation over the paged KV pool:
@@ -211,7 +228,11 @@ class InferenceEngine:
         of the ragged step (or, with ``paged_kv.ragged=False``, one call per
         chunk and one bucketed decode round per step; with
         ``paged_kv.multi_step`` a stable running set takes windows of
-        ``horizon`` decode rounds in one call). Takes a list of 1-D
+        ``horizon`` decode rounds in one call). With
+        ``spec_decode.enable`` host-side n-gram drafts verify inside the
+        same step, token-exact under greedy; with ``journal.enabled`` a
+        server built on a journal that holds records recovers it first
+        (its requests' results are then the server's, by uid). Takes a list of 1-D
         prompts and a scalar or per-request ``max_new_tokens``; returns one
         1-D array per request (prompt + generated) in submission order. The
         server and its page pool persist across calls."""

@@ -11,16 +11,26 @@ grid. Two modes:
 
 * ragged (the default): every scheduler step is ONE call of
   ``decode.build_ragged_step``: every active row contributes a prefill
-  chunk or its pending decode token to a ``[max_slots, W]`` window with
-  per-row ``(kv_len, q_len)`` arrays (attention K4). Per step the host
+  chunk, its pending decode token, or its pending token and its drafts (a
+  verify row), to a ``[max_slots, W]`` window with per-row
+  ``(kv_len, q_len)`` arrays (attention K4). Per step the host
   makes one small host->device copy (tokens, page table, lengths and
   q_lens packed into one int32 buffer) and one ``[R, W+1]`` device->host
   fetch, which is the step's only synchronisation;
 * bucketed (``ragged=False``, the token-exactness oracle): each step runs
   one ``build_paged_prefill`` call per prefilling row's next chunk, then
   one ``build_paged_decode_step`` call over the running rows padded to the
-  smallest slot bucket that covers them (attention K5). Greedy streams are
+  smallest slot bucket that covers them (attention K5), or, when some row
+  drafted, one ``build_paged_verify_step`` call of the smallest compiled
+  draft width that covers the longest draft. Greedy streams are
   byte-identical to the ragged mode's.
+
+With speculative decoding (``spec_decode``, or an explicit ``drafter``)
+each round first asks a host-side ``Drafter`` (``spec_decode.py``) for up
+to ``draft_cap`` tokens a running request, clamped to its budget; the verify
+rows accept the longest prefix equal to the model's own greedy argmax, the
+rejected tail's pages roll back to the pool, and greedy streams stay
+byte-identical to speculation-off serving.
 
 With ``multi_step`` armed (ragged mode only), a step whose running set is
 stable (nothing queued, nothing prefilling, every row's pages for the whole
@@ -30,11 +40,23 @@ replay of a CUDA graph captured once per server (``decode.WindowGraph``,
 over ``max_slots`` rows), on the CPU the same body eagerly; one host
 fetch of the packed ``[R, 1+N]`` tokens either way. Any scheduling event
 breaks the window back to the single-step path (``window_break_reasons``
-names it), and greedy streams stay byte-identical.
+names it; a step where some row drafted breaks with "draft" and hands its
+drafts to the single step, so the drafter is asked once a step), and greedy
+streams stay byte-identical.
+
+With a ``journal`` (``journal.py``) every submit, first token, emitted
+token and finish is appended, and made durable once a step
+(``journal.sync()`` at the end of ``step()``; a submit at once). A
+restarted server replays the directory and ``recover`` re-queues every live
+request with its journaled tokens pre-seeded: its re-admission re-prefills
+``prompt + generated`` on the cold chunk grid, which is what makes a
+recompute preemption invisible, and the stream resumes byte-identically.
+The chaos points ``serve.mid_step`` and ``serve.mid_window``
+(``utils/chaos.py``) sit just before the journal flush.
 
 Not ported yet (the engine refuses their switches, naming the ROADMAP
-item): speculative decoding, the crash-recovery journal, traffic tenancy
-and tensor-parallel serving.
+item): traffic tenancy and the fleet's migrations (S7) and tensor-parallel
+serving (S9).
 """
 
 from __future__ import annotations
@@ -53,12 +75,17 @@ from deepspeed_tpu_torch.inference.decode import (
     WindowGraph,
     build_paged_decode_step,
     build_paged_prefill,
+    build_paged_verify_step,
     build_ragged_multistep,
     build_ragged_step,
 )
+from deepspeed_tpu_torch.inference.journal import JournaledRequest, RequestJournal
 from deepspeed_tpu_torch.inference.kv_pool import PagePool
+from deepspeed_tpu_torch.inference.spec_decode import Drafter, NGramDrafter
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
+from deepspeed_tpu_torch.utils import chaos
+from deepspeed_tpu_torch.utils.logging import logger
 
 
 def _knob(block, name, default):
@@ -121,6 +148,8 @@ class Request:
     done: bool = False
     admissions: int = 0  # > 1 means the request was preempted and resumed
     prefix_cached: int = 0  # context tokens attached from the prefix index
+    spec_drafted: int = 0  # draft tokens this request sent to verification
+    spec_accepted: int = 0  # of those, accepted
     t_submit: float = 0.0  # perf_counter timestamps for TTFT / TPOT
     t_first: Optional[float] = None
     t_finish: Optional[float] = None
@@ -170,6 +199,9 @@ class PagedServer:
         metrics: Optional[MetricsRegistry] = None,
         ragged: bool = True,
         multi_step=None,
+        spec_decode=None,
+        drafter: Optional[Drafter] = None,
+        journal: Optional[RequestJournal] = None,
     ):
         self.cfg = cfg
         self.params = params
@@ -189,6 +221,32 @@ class PagedServer:
                              "(or disable paged_kv.multi_step)")
         if self.ms_enable and self.ms_horizon < 2:
             raise ValueError(f"multi_step.horizon must be >= 2 (1 is the single-step path), got {self.ms_horizon}")
+        # drafts a window probe proposed, handed to the single step it fell back to
+        self._predrafts: Optional[Dict[int, np.ndarray]] = None
+        self.journal = journal
+        # speculation: a SpecDecodeConfig or a dict of knobs, or an explicit Drafter (either enables it)
+        self.max_draft = int(_knob(spec_decode, "max_draft", 4))
+        lens = [int(n) for n in (_knob(spec_decode, "spec_lens", None) or [])]
+        self.spec_lens = sorted(set(lens)) or [self.max_draft]
+        if drafter is None and _knob(spec_decode, "enable", False):
+            drafter = NGramDrafter(ngram_order=int(_knob(spec_decode, "ngram_order", 3)))
+        self.drafter = drafter
+        if self.drafter is not None and (self.max_draft < 1 or any(n < 1 for n in self.spec_lens)):
+            raise ValueError(f"speculation needs max_draft >= 1 and spec_lens >= 1, got "
+                             f"max_draft={self.max_draft} spec_lens={self.spec_lens}")
+        if self.drafter is not None and self.attn_impl != "plain":
+            # decode rows and verify rows score through different attention calls on a card (K4 at
+            # width 1 and at width draft_cap + 1; bucketed, K5 rounds and plain verify passes), so an
+            # argmax near-tie could resolve differently in the two
+            logger.warning(f"speculative serving with attn_impl={self.attn_impl!r}: greedy streams are exact "
+                           "per attention path; pin attn_impl='plain' for a strict byte-identical guarantee "
+                           "against speculation-off serving")
+        # drafts are clamped to the widest verify (bucketed) or the decode-row width (ragged)
+        self._draft_cap = min(self.max_draft, self.spec_lens[-1])
+        # the two ragged widths: decode and verify rows need 1 + draft_cap slots, prefill chunks
+        # the chunk; a step takes the narrow one unless it carries a chunk row
+        self._ragged_w_decode = (self._draft_cap + 1) if self.drafter is not None else 1
+        self._ragged_w_mixed = max(self.prefill_chunk, self._ragged_w_decode)
         max_seq = int(max_seq_len or cfg.max_seq_len)
         if num_pages <= 0:
             # worst-case sizing: every slot at max length, plus the trash
@@ -207,6 +265,7 @@ class PagedServer:
         if not self.ragged:
             self._prefill_fn = build_paged_prefill(cfg, attn_impl=self.attn_impl)
             self._decode_fn = build_paged_decode_step(cfg, attn_impl=self.attn_impl)
+            self._verify_fns: Dict = {}  # bucketed verify callables by draft width K
         self._queue: deque[Request] = deque()
         self._active: List[Request] = []  # admission order (oldest first)
         self._results: Dict[int, np.ndarray] = {}
@@ -216,6 +275,8 @@ class PagedServer:
             "admitted": 0,
             "preempted": 0,
             "finished": 0,
+            "recovered": 0,  # live requests rebuilt from the journal
+            "journal_compactions": 0,  # full-state rewrites of the journal
             "prefix_cached_tokens": 0,  # context tokens attached, not prefilled
             "prefill_chunks": 0,
             "ragged_steps": 0,  # single-step calls (ragged mode)
@@ -225,12 +286,17 @@ class PagedServer:
             "dispatches": 0,
             "emitted_tokens": 0,
             # why a window did not form (admission waiting, a row mid prefill, page-pool pressure) or
-            # ended before its horizon (EOS, token budget); "pool" and "budget" call for opposite
-            # remedies (grow the pool, shorten the horizon). "draft" stays 0 until speculative
-            # decoding is ported (ROADMAP S4)
+            # ended before its horizon (EOS, token budget), or a row drafted; "pool" and "budget" call
+            # for opposite remedies (grow the pool, shorten the horizon)
             "window_break_reasons": {"admission": 0, "prefill": 0, "draft": 0, "eos": 0, "budget": 0, "pool": 0},
             # ragged: steps that carried plain-decode rows; bucketed: decode rounds
             "decode_steps": 0,
+            # ragged: steps that carried verify rows; bucketed: verify rounds
+            "spec_rounds": 0,
+            "spec_drafted": 0,  # draft tokens sent to verification
+            "spec_accepted": 0,  # of those, accepted
+            # spec_accept_hist[n]: (request, round) pairs whose accepted prefix was n drafts long
+            "spec_accept_hist": [0] * (self._draft_cap + 1),
         }
 
     # --- request intake -------------------------------------------------
@@ -263,11 +329,81 @@ class PagedServer:
             )
         uid = self._next_uid
         self._next_uid += 1
+        now = time.perf_counter()
         self._queue.append(Request(uid=uid, prompt=prompt, max_new_tokens=int(max_new_tokens),
-                                   eos_token_id=eos_token_id, tenant=tenant, t_submit=time.perf_counter()))
+                                   eos_token_id=eos_token_id, tenant=tenant, t_submit=now))
         self._tenant(tenant)["submitted"] += 1
         self.tracer.begin_async("request", uid, f"req{uid}", tenant=tenant)
+        if self.journal is not None:
+            self.journal.append_submit(uid, prompt, int(max_new_tokens), eos_token_id, tenant, t_submit=now)
+            # durable at submit, not at the next step: an accepted request must survive a crash
+            self.journal.sync()
         return uid
+
+    def recover(self, states: Dict[int, JournaledRequest], next_uid: int = 0, migrated_in: bool = False) -> int:
+        """Rebuild the server from replayed journal state (a restart after a
+        crash). Finished requests go straight to the results; every live one
+        is re-queued with its journaled tokens pre-seeded, so its
+        re-admission prefills ``prompt + generated`` on the cold chunk grid
+        and the stream resumes byte-identically from its last emitted token
+        (with prefix caching, shared prompts re-prefill almost free). Every
+        replayed request is journaled again into this writer's fresh segment
+        (live ones as seeded submits, finished ones as submit and finish),
+        which alone replays to the same state, so the older segments are
+        retired: the journal stays bounded across crash and recover cycles.
+        Returns the number of live requests recovered. ``migrated_in`` (a
+        fleet migration's target) belongs to ROADMAP S7."""
+        if migrated_in:
+            raise NotImplementedError("recover(migrated_in=True) is the fleet's migration path: ROADMAP S7")
+        recovered = 0
+        for uid in sorted(states):
+            st = states[uid]
+            if st.done:
+                self._results[uid] = np.concatenate([np.asarray(st.prompt, np.int32),
+                                                     np.asarray(st.generated, np.int32)])
+                if self.journal is not None:
+                    self.journal.append_submit(uid, st.prompt, st.max_new_tokens, st.eos_token_id, st.tenant,
+                                               generated=st.generated)
+                    self.journal.append_finish(uid)
+                continue
+            # a fresh process restarts the clock: the stamps are this server's
+            req = Request(uid=uid, prompt=np.asarray(st.prompt, np.int32), max_new_tokens=int(st.max_new_tokens),
+                          eos_token_id=st.eos_token_id, tenant=st.tenant, generated=[int(t) for t in st.generated],
+                          t_submit=time.perf_counter())
+            self._queue.append(req)
+            self.tracer.begin_async("request", uid, f"req{uid}", tenant=st.tenant)
+            self._tenant(st.tenant)["submitted"] += 1
+            if self.journal is not None:
+                self.journal.append_submit(uid, st.prompt, st.max_new_tokens, st.eos_token_id, st.tenant,
+                                           generated=st.generated, t_submit=req.t_submit)
+            recovered += 1
+        self._next_uid = max(self._next_uid, int(next_uid))
+        self.stats["recovered"] += recovered
+        if self.journal is not None:
+            # the compaction is durable before the superseded segments go
+            self.journal.sync()
+            self.journal.retire_older_segments()
+        return recovered
+
+    def compact_journal(self) -> int:
+        """Journal this server's full current state into a fresh segment and
+        retire every older one (``journal.begin_compaction``): queued and
+        live requests as seeded submits, unclaimed results as submit and
+        finish records of the output array (the replayed result is that
+        array verbatim). The live-server form of ``recover``'s compaction.
+        Returns the number of segments retired."""
+        if self.journal is None:
+            return 0
+        self.stats["journal_compactions"] += 1
+        self.journal.begin_compaction()
+        for req in list(self._queue) + list(self._active):
+            self.journal.append_submit(req.uid, req.prompt, req.max_new_tokens, req.eos_token_id, req.tenant,
+                                       generated=req.generated, t_submit=req.t_submit, t_first=req.t_first)
+        for uid, out in self._results.items():
+            self.journal.append_submit(uid, out, 1, None, "default")
+            self.journal.append_finish(uid)
+        self.journal.sync()
+        return self.journal.retire_older_segments()
 
     def has_work(self) -> bool:
         return bool(self._queue or self._active)
@@ -284,22 +420,28 @@ class PagedServer:
     # --- one scheduler iteration ---------------------------------------
     def step(self) -> None:
         """Admit what fits, then the round's device work: in ragged mode ONE
-        step covering every active row's next tokens, or, with
-        ``multi_step`` armed and the running set stable, ONE window of
-        ``horizon`` decode rounds; in bucketed mode one prefill call per
-        chunk, then one decode round over the running set. (JAX's journal
-        sync and chaos points here wait for ROADMAP S6 and S7.)"""
+        step covering every active row's next tokens (prefill chunks,
+        decode rows and verify rows together), or, with ``multi_step`` armed
+        and the running set stable, ONE window of ``horizon`` decode rounds;
+        in bucketed mode one prefill call per chunk, then one decode or
+        verify round over the running set. Then the chaos point
+        ``serve.mid_step`` (a kill there loses only tokens that recovery
+        re-derives) and one ``journal.sync()``."""
         with self.tracer.span("serve.step"):
             with self.tracer.span("serve.admit"):
                 self._admit()
             if self.ragged:
                 if not (self.ms_enable and self._ragged_window()):
-                    self._ragged_step()
+                    self._ragged_step(drafts=self._take_predrafts())
             else:
                 with self.tracer.span("serve.prefill"):
                     self._prefill_step()
                 with self.tracer.span("serve.decode"):
                     self._decode_step()
+            chaos.point("serve.mid_step")
+            if self.journal is not None:
+                with self.tracer.span("serve.journal_sync"):
+                    self.journal.sync()
         self.metrics.counter("serve.steps").inc()
 
     def run(self) -> Dict[int, np.ndarray]:
@@ -410,8 +552,15 @@ class PagedServer:
 
     def _decode_step(self) -> None:
         running = [r for r in self._active if r.pending is not None and not r.done]
-        if running:
-            self._plain_decode_step(running)
+        if not running:
+            return
+        if self.drafter is not None:
+            drafts = self._propose_drafts(running)
+            if any(d.size for d in drafts.values()):
+                self._verify_round(running, drafts)
+                return
+            # nothing drafted anywhere: the plain one-token round
+        self._plain_decode_step(running)
 
     def _plain_decode_step(self, running: List[Request]) -> None:
         """One decode round: every running row's pending token, padded to
@@ -436,25 +585,40 @@ class PagedServer:
                 # publish any page this write just filled
                 self.pool.register_prefix(req.slot, req.context(), int(self.pool.seq_lens[req.slot]))
 
-    def _ragged_step(self) -> None:
+    # --- the ragged one-call step -----------------------------------------
+    def _take_predrafts(self) -> Optional[Dict[int, np.ndarray]]:
+        """Drafts a failed window probe already proposed this step (the
+        drafter is asked at most once a step: it may keep state)."""
+        drafts, self._predrafts = self._predrafts, None
+        return drafts
+
+    def _ragged_step(self, drafts: Optional[Dict[int, np.ndarray]] = None) -> None:
         """ONE step for the whole round: every active row contributes a
-        prefill chunk or its pending decode token."""
+        prefill chunk, its pending decode token, or its pending token and
+        its drafts (``drafts``: a window probe's, else asked here)."""
         rows = [r for r in self._active if not r.done]
         if not rows:
             return
         with self.tracer.span("serve.pack") as pack_span:
+            if drafts is None:
+                drafts = {}
+                if self.drafter is not None:
+                    drafts = self._propose_drafts([r for r in rows if r.pending is not None])
             chunk_len: Dict[int, int] = {}
             need: Dict[int, int] = {}
             for r in rows:
                 if r.pending is None:
                     chunk_len[r.uid] = need[r.uid] = self._next_chunk_len(r, r.context().size)
                 else:
-                    need[r.uid] = 1
+                    d = drafts.get(r.uid)
+                    if d is None:
+                        d = drafts[r.uid] = np.zeros(0, np.int32)
+                    need[r.uid] = d.size + 1
             rows = self._reserve_for_growth(rows, need)
             if not rows:
                 return
-            # the two widths: 1 for decode-only steps, the chunk when a row prefills
-            W = self.prefill_chunk if any(r.pending is None for r in rows) else 1
+            # the two widths: 1 + draft_cap for decode and verify steps, the chunk's when a row prefills
+            W = self._ragged_w_mixed if any(r.pending is None for r in rows) else self._ragged_w_decode
             # pad to the fixed row budget; lengths == consumed for prefill rows
             R, page_table, lengths = self._dispatch_rows(rows, pad_to=self.pool.max_slots)
             tokens = np.zeros((R, W), np.int32)
@@ -465,8 +629,10 @@ class PagedServer:
                     tokens[i, :real] = r.context()[r.consumed : r.consumed + real]
                     q_lens[i] = real
                 else:
+                    d = drafts[r.uid]
                     tokens[i, 0] = r.pending
-                    q_lens[i] = 1
+                    tokens[i, 1 : 1 + d.size] = d
+                    q_lens[i] = 1 + d.size
             pack_span.set(rows=len(rows), width=W)
         with self.tracer.span("serve.dispatch", rows=len(rows), width=W):
             d_tokens, d_table, d_lengths, d_qlens = self._to_device(tokens, page_table, lengths, q_lens)
@@ -482,7 +648,7 @@ class PagedServer:
     def _settle_ragged_rows(self, rows, out, chunk_len, q_lens) -> None:
         """The step's single host fetch, then per-row advance/emit/publish."""
         out = out.cpu().numpy()  # [R, W+1]: accepted counts + greedy tokens
-        had_decode = False
+        had_decode = had_spec = False
         for i, r in enumerate(rows):
             if r.pending is None:
                 real = chunk_len[r.uid]
@@ -496,10 +662,16 @@ class PagedServer:
                     # the first generated token: greedy after the chunk's last real position
                     self._emit(r, int(out[i, real]))
                 continue
-            had_decode = True
-            self._settle_spec_row(r, int(q_lens[i]) - 1, int(out[i, 0]), out[i])
+            d = int(q_lens[i]) - 1
+            if d:
+                had_spec = True
+            else:
+                had_decode = True
+            self._settle_spec_row(r, d, int(out[i, 0]), out[i])
         if had_decode:
             self.stats["decode_steps"] += 1
+        if had_spec:
+            self.stats["spec_rounds"] += 1
 
     # --- the multi-step window (one call = N decode rounds) ----------------
     def _window_break(self, reason: str) -> None:
@@ -530,9 +702,12 @@ class PagedServer:
         preemption. Otherwise record the break reason and return False: the
         caller takes the single-step path, whose streams are byte-identical
         (the window freezes rows in the program exactly where single steps
-        would retire them). Each row's EOS id and token budget ride in as
-        arrays. (JAX's "draft" break waits for speculative decoding, ROADMAP
-        S4; its journal sync and the mid-window chaos point for S6 and S7.)"""
+        would retire them). With a drafter the probe asks it once: any row
+        with drafts breaks the window ("draft"), and the drafts go to the
+        single step (``_take_predrafts``). Each row's EOS id and token
+        budget ride in as arrays. After the window settles, the chaos point
+        ``serve.mid_window``: its tokens are in the journal's buffer, none
+        durable."""
         rows = [r for r in self._active if not r.done]
         if not rows:
             return False
@@ -549,6 +724,13 @@ class PagedServer:
             # every row would freeze before the horizon: single steps are cheaper
             self._window_break("budget")
             return False
+        if self.drafter is not None:
+            # stash the proposals whichever way the probe goes: the single step takes them rather
+            # than asking the drafter twice in one step
+            self._predrafts = drafts = self._propose_drafts(rows)
+            if any(d.size for d in drafts.values()):
+                self._window_break("draft")
+                return False
         # reserve the whole window's growth, min(H, remaining budget) a row (the in-window budget
         # freeze bounds a row's writes, so a near-finished row never asks for room past max_seq_len)
         # and WITHOUT preemption: pool pressure is a scheduling event, and the single step owns it
@@ -556,6 +738,8 @@ class PagedServer:
         if self._reserve_for_growth(rows, need, preempt=False) is None:
             self._window_break("pool")
             return False
+        # the window runs: drop the (all-empty) stash, so a later step asks the drafter afresh
+        self._predrafts = None
         with self.tracer.span("serve.window", rows=len(rows), horizon=H):
             with self.tracer.span("serve.pack") as pack_span:
                 R, page_table, lengths = self._dispatch_rows(rows, pad_to=self.pool.max_slots)
@@ -579,6 +763,9 @@ class PagedServer:
             self.stats["dispatches"] += 1
             with self.tracer.span("serve.emit"):
                 self._settle_window_rows(rows, out, H)
+            # a kill inside the window's host phase: the window's tokens are buffered, none durable;
+            # recovery re-derives them by the greedy re-prefill
+            chaos.point("serve.mid_window")
         return True
 
     def _settle_window_rows(self, rows, out, horizon: int) -> None:
@@ -658,12 +845,22 @@ class PagedServer:
         return pad_to, page_table, lengths
 
     def _settle_spec_row(self, req: Request, d: int, acc: int, out_row) -> None:
-        """Accounting for one decode row (``d`` drafts, ``acc`` accepted —
-        both 0 until speculative decoding is ported): advance the written
-        positions, roll back a rejected tail, emit the accepted prefix plus
-        the bonus token, and republish the prefix."""
+        """Accounting for one decode or verify row (``d`` drafts, ``acc``
+        accepted, bounded by ``d`` in the step), shared by the ragged step
+        and the bucketed verify round: advance all ``d + 1`` written
+        positions, roll the rejected tail's pages back, count the
+        speculation, emit the accepted prefix and the bonus token (stopping
+        at EOS or the budget), and republish the prefix from the
+        rolled-back length, so a rejected draft's page is never published."""
         self.pool.advance(req.slot, d + 1)
         self.pool.rollback(req.slot, d - acc)
+        self.stats["spec_drafted"] += d
+        self.stats["spec_accepted"] += acc
+        req.spec_drafted += d
+        req.spec_accepted += acc
+        if d:
+            hist = self.stats["spec_accept_hist"]
+            hist[min(acc, len(hist) - 1)] += 1
         for tok in out_row[1 : acc + 2]:
             self._emit(req, int(tok))
             if req.done:
@@ -671,17 +868,72 @@ class PagedServer:
         if self.prefix_cache and not req.done:
             self.pool.register_prefix(req.slot, req.context(), int(self.pool.seq_lens[req.slot]))
 
+    # --- speculative rounds ---------------------------------------------
+    def _propose_drafts(self, running: List[Request]) -> Dict[int, np.ndarray]:
+        """Host-side drafting: up to ``_draft_cap`` tokens a request, clamped
+        to its remaining budget less one (the bonus token needs a slot),
+        which also keeps every write inside ``max_seq_len``."""
+        drafts: Dict[int, np.ndarray] = {}
+        for req in running:
+            budget = req.max_new_tokens - len(req.generated)  # >= 1 while running
+            k = min(self._draft_cap, budget - 1)
+            d = np.zeros(0, np.int32)
+            if k > 0:
+                d = np.asarray(self.drafter.propose(req.uid, req.context(), k), np.int32).reshape(-1)[:k]
+            drafts[req.uid] = d
+        return drafts
+
+    def _verify_fn(self, K: int):
+        fn = self._verify_fns.get(K)
+        if fn is None:
+            fn = self._verify_fns[K] = build_paged_verify_step(self.cfg, K, attn_impl=self.attn_impl)
+        return fn
+
+    def _verify_round(self, running: List[Request], drafts: Dict[int, np.ndarray]) -> None:
+        """One bucketed speculative round: reserve every row's drafts and
+        bonus slot, ONE verify call of the smallest compiled width covering
+        the longest draft, then each row's accepted prefix and bonus token;
+        the rejected tails roll back. The round's one host fetch is the
+        ``[bucket, K+2]`` packed result."""
+        running = self._reserve_for_growth(running, {uid: d.size + 1 for uid, d in drafts.items()})
+        if not running:
+            return
+        d_max = max(drafts[r.uid].size for r in running)
+        # preemption may have evicted every drafting row: any width serves then
+        K = next((n for n in self.spec_lens if n >= d_max), self.spec_lens[-1])
+        bucket, page_table, lengths = self._dispatch_rows(running)
+        tokens = np.zeros((bucket, K + 1), np.int32)
+        draft_lens = np.zeros(bucket, np.int32)
+        for i, req in enumerate(running):
+            d = drafts[req.uid]
+            tokens[i, 0] = req.pending
+            tokens[i, 1 : 1 + d.size] = d
+            draft_lens[i] = d.size
+        d_tokens, d_table, d_lengths, d_dlens = self._to_device(tokens, page_table, lengths, draft_lens)
+        out = self._verify_fn(K)(self.params, d_tokens, self.pool.cache.k_pages, self.pool.cache.v_pages,
+                                 d_table, d_lengths, d_dlens)
+        self.stats["spec_rounds"] += 1
+        self.stats["dispatches"] += 1
+        out = out.cpu().numpy()
+        for i, req in enumerate(running):
+            self._settle_spec_row(req, int(draft_lens[i]), int(out[i, 0]), out[i])
+
     # --- bookkeeping ----------------------------------------------------
     def _emit(self, req: Request, token: int) -> None:
-        """Record a newly sampled token and retire the request on EOS or
-        budget (the token is included)."""
+        """Record a newly sampled token (journaled, with the first token's
+        stamp) and retire the request on EOS or budget (the token is
+        included)."""
         if req.t_first is None:
             req.t_first = time.perf_counter()
             self.tracer.instant_async("request", req.uid, "first_token")
+            if self.journal is not None:
+                self.journal.append_first_token(req.uid, req.t_first)
         req.generated.append(token)
         req.pending = token
         self.stats["emitted_tokens"] += 1
         self.metrics.counter("serve.tokens").inc()
+        if self.journal is not None:
+            self.journal.append_emit(req.uid, token)
         self._tenant(req.tenant)["tokens"] += 1
         self.policy.on_emit(req, self)
         if (req.eos_token_id is not None and token == req.eos_token_id) or len(req.generated) >= req.max_new_tokens:
@@ -705,7 +957,11 @@ class PagedServer:
             self.metrics.histogram("serve.tpot_ms").observe(tpot_ms)
         self.metrics.histogram("serve.ttft_ms").observe(ttft_ms)
         self.tracer.end_async("request", req.uid, f"req{req.uid}", tokens=len(req.generated))
+        if self.journal is not None:
+            self.journal.append_finish(req.uid)
         self.policy.on_finish(req, self)
+        if self.drafter is not None:
+            self.drafter.drop(req.uid)
 
     def _preempt(self, req: Request) -> None:
         self.pool.free_slot(req.slot)
@@ -723,13 +979,20 @@ class PagedServer:
         window block: ``window_steps``, ``window_horizon`` (0 when windows
         are off), ``window_captures``, ``window_break_reasons``,
         ``window_device_ms``: the device time of each window's graph replay,
-        from CUDA events, ``{'count': 0}`` on the CPU), pool
+        from CUDA events, ``{'count': 0}`` on the CPU), speculation
+        (``spec_rounds``, ``spec_drafted``, ``spec_accepted``,
+        ``spec_accept_hist`` and the derived ``spec_accept_rate`` and
+        ``spec_mean_accepted_per_round``), pool
         occupancy and utilization, prefix-cache counters (``prefix``: hit
         rate, CoW copies, cached pages) and latency SLOs: aggregate and
         per-tenant p50/p99 TTFT (submit -> first token, queue wait
         included) and TPOT (per generated token after the first)."""
         s = dict(self.stats)
+        s["spec_accept_hist"] = list(self.stats["spec_accept_hist"])
         s["window_break_reasons"] = dict(self.stats["window_break_reasons"])
+        drafted, rounds = s["spec_drafted"], s["spec_rounds"]
+        s["spec_accept_rate"] = s["spec_accepted"] / drafted if drafted else 0.0
+        s["spec_mean_accepted_per_round"] = s["spec_accepted"] / rounds if rounds else 0.0
         s["window_horizon"] = self.ms_horizon if self.ms_enable else 0
         s["window_device_ms"] = percentile_summary(
             self._window.device_ms if isinstance(self._window, WindowGraph) else ())

@@ -8,7 +8,10 @@ buckets 1/2/4/8, split boundaries, bitwise-equal repeated calls), and the block-
 K1-K3 and K7-K9 on their tensor-core variants in bf16 and fp16 and on FMA
 in fp32 (the variant counters, K7's and K8's split rows and dead rows,
 K9's split columns and dead keys, bitwise-equal repeated calls, K8's dS
-kept in fp32 on keys where rounding it would show).
+kept in fp32 on keys where rounding it would show); K4 at the speculative
+verify shape (width 5), fp32 speculation equal to speculation-off (ragged
+on K4, bucketed with K5 rounds), and a journaled server killed at a chaos
+point and recovered with its streams unchanged.
 A CPU tensor handed straight to a kernel entry raises (those tests need no
 card).
 
@@ -986,3 +989,122 @@ def test_window_replays_launch_k4_each_round_on_card(cuda_device):
         got = sum(e.count for e in prof.key_averages()
                   if str(getattr(e, "device_type", "")).endswith("CUDA") and name in e.key)
         assert got == want, (name, got, want)
+
+
+# --- speculative decoding and crash recovery on the card ----------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_ragged_verify_shape_matches_plain_on_card(cuda_device, dtype, monkeypatch):
+    """K4 at the speculative verify shape (8 rows in a width-5 window,
+    q_lens 1, 2, 3, 4, 5, 5, 1, 0; llama-1B heads) against the plain version
+    in fp32 on the same (cast) inputs, TF32 off: fp32 within 1e-4, bf16 and
+    fp16 within 2e-2; the dead row and slots past q_len exact zeros; two
+    calls bitwise equal."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rows = [(129, 1), (300, 2), (511, 3), (700, 4), (1024, 5), (1500, 5), (2048, 1), (0, 0)]
+    q, kp, vp, pt, kv_lens, q_lens = _ragged_case(np.random.RandomState(14), rows, 5, 32, 4, 64, 16, 128,
+                                                  cuda_device)
+    args = (q.to(dtype), kp.to(dtype), vp.to(dtype))
+    out = torch_pa.ragged_paged_attention(*args, pt, kv_lens, q_lens, impl="kernel")
+    again = torch_pa.ragged_paged_attention(*args, pt, kv_lens, q_lens, impl="kernel")
+    ref = torch_pa.ragged_paged_attention(*(a.float() for a in args), pt, kv_lens, q_lens, impl="plain")
+    torch.cuda.synchronize()
+    live = torch.arange(5, device=cuda_device)[None, :] < q_lens[:, None]
+    err = (out.float() - ref).abs()[live].max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-2), err
+    assert (out[~live] == 0).all()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), again.view(bits))
+
+
+def _serving_model(dtype, device):
+    from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(**WINDOW_CFG)
+    return cfg, load_jax_params(TransformerLM(cfg), init_params(cfg, 3), device=device, dtype=dtype).param_tree()
+
+
+class _Oracle:
+    """Drafts each request's known future, but nothing in every third round
+    of the server's (so the bucketed server also runs plain K5 rounds)."""
+
+    def __init__(self, futures):
+        self.futures, self.server = futures, None
+
+    def propose(self, uid, context, k):
+        st = self.server.stats
+        if (st["spec_rounds"] + st["decode_steps"]) % 3 == 2:
+            return np.zeros(0, np.int32)
+        return self.futures[uid][context.size : context.size + k].astype(np.int32)
+
+    def drop(self, uid):
+        pass
+
+
+@pytest.mark.parametrize("ragged", [True, False])
+def test_spec_server_fp32_equals_spec_off_on_card(cuda_device, ragged, monkeypatch):
+    """fp32 (TF32 off) speculation with an oracle of the speculation-off
+    streams: ragged verify rows through K4 and the bucketed oracle's plain
+    verify rounds give the speculation-off streams, every draft accepted;
+    K4 = layers x ragged steps, K5 = layers x plain bucketed rounds."""
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _serving_model(torch.float32, cuda_device)
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9)]
+    budgets = [40, 33, 25, 37]
+    kw = dict(page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.float32, device=cuda_device)
+    ref = PagedServer(cfg, params, **kw).serve(prompts, max_new_tokens=budgets)
+    drafter = _Oracle(dict(enumerate(ref)))
+    server = drafter.server = PagedServer(cfg, params, ragged=ragged, drafter=drafter, spec_decode={"max_draft": 4},
+                                          **kw)
+    before = (da.launches, da.launches_paged)
+    outs = server.serve(prompts, max_new_tokens=budgets)
+    torch.cuda.synchronize()
+    for a, b in zip(outs, ref):
+        np.testing.assert_array_equal(a, b)
+    st = server.serve_stats()
+    assert st["spec_rounds"] >= 2 and st["spec_accept_rate"] == 1.0 and st["decode_steps"] >= 1, st
+    L = cfg.num_layers
+    assert (da.launches - before[0], da.launches_paged - before[1]) == (
+        (L * st["ragged_steps"], 0) if ragged else (0, L * st["decode_steps"]))
+    assert server.pool.used_pages() == 0
+
+
+@pytest.mark.parametrize("point,hit", [("serve.mid_step", 9), ("serve.mid_window", 2)])
+def test_recover_on_card(cuda_device, tmp_path, point, hit, monkeypatch):
+    """A journaled fp32 server (windows on: CUDA graph replays) killed at a
+    chaos point and a fresh server recovering from the replayed journal:
+    the streams equal the uncrashed run's, every page back."""
+    from deepspeed_tpu_torch.inference.journal import RequestJournal
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.utils import chaos
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _serving_model(torch.float32, cuda_device)
+    rs = np.random.RandomState(11)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9)]
+    budgets = [40, 33, 25, 37]
+    kw = dict(page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.float32, device=cuda_device,
+              multi_step={"enable": True, "horizon": 4})
+    ref = PagedServer(cfg, params, **kw).serve(prompts, max_new_tokens=budgets)
+    server = PagedServer(cfg, params, journal=RequestJournal(str(tmp_path)), **kw)
+    uids = [server.submit(p, max_new_tokens=b) for p, b in zip(prompts, budgets)]
+    chaos.install(chaos.ChaosSchedule([chaos.ChaosRule(point, hit=hit)]))
+    try:
+        with pytest.raises(chaos.ChaosKilled):
+            server.run()
+    finally:
+        chaos.uninstall()
+    live = len(server._queue) + len(server._active)
+    del server
+    states, next_uid = RequestJournal.replay(str(tmp_path))
+    fresh = PagedServer(cfg, params, journal=RequestJournal(str(tmp_path)), **kw)
+    assert fresh.recover(states, next_uid) == live > 0
+    fresh.run()
+    for uid, want in zip(uids, ref):
+        np.testing.assert_array_equal(fresh.take_result(uid), want)
+    assert fresh.pool.used_pages() == 0

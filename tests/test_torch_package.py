@@ -125,12 +125,6 @@ def test_lower_entry_points_default_to_cuda(name):
 
 
 UNPORTED = {
-    # the bucketed oracle is ported; with speculative decoding it is not (S4)
-    "bucketed_spec": {"paged_kv": {"ragged": False}, "spec_decode": {"enable": True}},
-    "spec_decode": {"spec_decode": {"enable": True}},
-    # windows are ported; with speculative decoding they are not (S4)
-    "multi_step": {"paged_kv": {"multi_step": {"enable": True, "horizon": 4}}, "spec_decode": {"enable": True}},
-    "journal": {"journal": {"enabled": True, "dir": "/nonexistent"}},
     "traffic": {"traffic": {"enabled": True, "tenants": [{"name": "a"}]}},
     "tp_degree": {"paged_kv": {"sharded": {"tp_degree": 2}}},
     "tp_size": {"tensor_parallel": {"tp_size": 2}},
@@ -147,15 +141,6 @@ def test_unported_switches_raise(name):
     model = TransformerLM(port_model_config.TransformerConfig(**TINY))
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         dst.init_inference(model, config=UNPORTED[name], device="cpu")
-
-
-def test_bucketed_with_spec_decode_names_s4():
-    """``paged_kv.ragged=False`` alone is served; with ``spec_decode`` the
-    refusal names the speculative-decoding item."""
-    model = TransformerLM(port_model_config.TransformerConfig(**TINY))
-    dst.init_inference(model, config={"paged_kv": {"ragged": False}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="S4"):
-        dst.init_inference(model, config=UNPORTED["bucketed_spec"], device="cpu")
 
 
 def test_multi_step_alone_builds():
