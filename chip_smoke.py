@@ -5,8 +5,9 @@
 
 Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
 drives the serving (single-step, multi-step windows, speculative decoding,
-crash recovery from the journal), the training and the block-sparse
-attention main paths at full width. Phases,
+crash recovery from the journal, int8 weights, multi-tenant SLA serving
+and a two-replica fleet), the training and the block-sparse attention main
+paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -125,6 +126,46 @@ non-zero without the final line:
    cost on the steady traffic (64 new), off, on, on, off, off, on on fresh
    servers:
    tok/s, TPOT p50 and each step's ``journal.sync`` time;
+9e. int8 serving weights (S8): a bf16 engine with
+   ``paged_kv={"page_size": 16, "max_slots": 8, "sharded":
+   {"weight_quant_bits": 8}}`` serves phase 3's 16 requests cold then
+   warm: every request finishes and K4 = 22 x ``ragged_steps``, every
+   other kernel 0. Prints the served tree's bytes (codes, scales and
+   exact leaves) beside the bf16 tree's, TTFT/TPOT, the streams equal to
+   phase 3's (counted, not required) and the largest logit difference of
+   one [2, 256] forward (plain attention) against the unquantized tree on
+   the logit scale. Then the steady traffic with windows on fresh servers,
+   int8, bf16, bf16, int8: tok/s, TPOT p50, a replay's device time per
+   round and the round's weight-read bound (every leaf once, 8 rows of the
+   embedding table, over 3.35 TB/s), K4's counter exact. In fp32 (TF32
+   off) on phase 9's prompts: an int8 server through K4 and one through
+   ``attn_impl="plain"`` (streams equal or parting at a plain top-2 gap
+   below 1e-4) and a bucketed int8 server (K5 = 22 x plain rounds). Last,
+   a bf16 ``quant.enabled`` engine: ``engine(tokens)`` finite, and one
+   ``generate`` (2 prompts of 128, 128 new) with K6 = 22 x 128 and no
+   other kernel;
+9f. multi-tenant SLA serving (S7): ``init_inference(..., traffic={"enabled":
+   True, "tenants": [gold (weight 3, priority 1), free (weight 1)]})`` in
+   bf16 on phase 3's traffic, the tenants alternating: every request
+   finishes, K4 exact; per-tenant TTFT/TPOT, budget and goodput shares, SLA
+   attainment and the streams equal to phase 3's (counted). In fp32 on
+   phase 9's prompts the multi-tenant server's streams must equal the
+   single-tenant server's (or part at a plain top-2 gap below 1e-4);
+9g. the serving fleet (S7): two replicas of llama-1B on the one card (one
+   device, not a multi-card fleet), each a ``PagedServer`` with its own
+   pool and journal directory, sharing one weight tree, behind a
+   ``FleetRouter``. fp32 (TF32 off), phase 9's prompts: one run migrates a
+   request mid-stream and drains the busier replica; one kills a replica
+   at ``fleet.replica_kill`` (hit 6) and re-routes its requests from its
+   journal (re-routed = its live requests at the kill). Every request
+   finishes, ``migrated_token_divergence`` is 0, K4 = 22 x the replicas'
+   ``ragged_steps``, and the streams equal the single server's (or part at
+   a plain top-2 gap below 1e-4). Then bf16: a ``make_trace`` of the two
+   tenants (3 s at 3 requests a second each) replayed by
+   ``utils.loadgen.replay`` on the real clock into two SLA replicas, one
+   killed at 1.5 s: routing shares, TTFT/TPOT, ``fleet_stats()`` and the
+   streams equal to one server's (counted); every request finished, the
+   kill fired, divergence 0 and K4 exact are required;
 10. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
    against their plain versions at the training shape (B=8, T=1024, N=12,
    D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
@@ -211,7 +252,10 @@ their ``variant`` by dtype and the main path's tensor-core launches, K1-K3,
 K7 and K8 with their fp16 times; K4, K5 and K6 with their split counts and
 split-KV launches, K4 with phase 9b's window numbers, its ``spec`` field
 (the verify-shape case, phase 9c's and the fp32 speculation's runs and
-counts) and its ``recovery`` field (phase 9d's and the fp32 recovery's)); the last line is
+counts), its ``recovery`` field (phase 9d's and the fp32 recovery's) and
+its ``int8``, ``traffic`` and ``fleet`` fields (phases 9e-9g); K5 with the
+fp32 int8 bucketed server's launches, K6 with the ``quant.enabled``
+generate's); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -232,10 +276,13 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import deepspeed_tpu_torch as dst
+from deepspeed_tpu_torch.compression.int8 import QuantizedTensor, quantize_params_int8, tree_nbytes
 from deepspeed_tpu_torch.inference import decode
+from deepspeed_tpu_torch.inference.fleet import FleetRouter, ReplicaHandle
 from deepspeed_tpu_torch.inference.journal import RequestJournal
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.inference.spec_decode import Drafter
+from deepspeed_tpu_torch.inference.traffic import MultiTenantServer, TenantSpec
 from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config
 from deepspeed_tpu_torch.models.transformer import init_params
 from deepspeed_tpu_torch.ops import native
@@ -252,6 +299,7 @@ from deepspeed_tpu_torch.ops.transformer import decode_attention
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
 from deepspeed_tpu_torch.utils import chaos
+from deepspeed_tpu_torch.utils.loadgen import TenantLoad, make_trace, replay
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}  # tensor cores; fp32 without TF32
@@ -1465,6 +1513,389 @@ def _journal_cost(cfg, tree, seed):
     return runs
 
 
+# --- phase 9e: int8 serving weights and quant.enabled (S8) ------------------------------------
+INT8 = dict(SERVE, sharded={"weight_quant_bits": 8})
+
+
+def _round_bytes(cfg, params, rows):
+    """Bytes a decode round must read of the weights: every leaf once (the
+    codes and scales of the int8 ones), but only ``rows`` rows of the
+    embedding table, which a round gathers."""
+    table = params["embed"]["tokens"]
+    return tree_nbytes(params) - tree_nbytes(table) + rows * cfg.hidden_size * table.element_size()
+
+
+def _tree_logits(cfg, params, tokens, dev):
+    """Logits ``[B, T, V]`` of ``tokens`` over fresh pools, one prefill row a
+    sequence through the plain attention (no kernel launch)."""
+    B, T = tokens.shape
+    pages = -(-T // P)
+    maxp = -(-cfg.max_seq_len // P)
+    dtype = params["final_norm_scale"].dtype
+    kp = torch.zeros((cfg.num_layers, B * pages + 1, cfg.num_kv_heads, P, cfg.head_dim), dtype=dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    pt = torch.full((B, maxp), -1, dtype=torch.int32, device=dev)
+    pt[:, :pages] = torch.arange(1, B * pages + 1, dtype=torch.int32, device=dev).view(B, pages)
+    positions = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(B, T).contiguous()
+    lens = torch.full((B,), T, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        return decode._paged_forward(cfg, params, tokens, kp, vp, pt, positions, "plain",
+                                     write_valid=positions < T, kv_lens=lens, q_lens=lens)
+
+
+def phase_int8(cfg, tree, seed, streams, steady, steady_ref, dev):
+    """``paged_kv.sharded.weight_quant_bits=8`` in bf16 on phase 3's traffic
+    (cold, warm), the logit difference to the unquantized tree, the steady
+    traffic with windows taking int8 and bf16 servers in turns, fp32
+    identities (K4 vs plain, a bucketed K5 server) and a ``quant.enabled``
+    engine's forward and ``generate``."""
+    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=INT8)
+    engine.load_jax_params(tree)
+    server = engine._paged_server = engine._build_paged_server()
+    qparams, params = server.params, engine.module.param_tree()
+    sizes = dict(served_tree_bytes=tree_nbytes(qparams), bf16_tree_bytes=tree_nbytes(params),
+                 int8_leaves=sorted(k for k, v in qparams["layers"].items() if isinstance(v, QuantizedTensor))
+                 + (["lm_head"] if isinstance(qparams["lm_head"], QuantizedTensor) else []))
+    emit(phase="int8", event="server_built", **sizes)
+    if not isinstance(qparams["layers"]["wq"], QuantizedTensor) or isinstance(params["layers"]["wq"], QuantizedTensor):
+        raise AssertionError("int8: the server's tree is not quantized, or the engine's tree is")
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    _zero_counts()
+    passes = {}
+    for name in ("cold", "warm"):
+        before = server.serve_stats()
+        t0 = time.perf_counter()
+        outs = server.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for p, b, o in zip(prompts, budgets, outs):
+            if o is None or o.shape != (p.size + b,) or not (o[: p.size] == p).all():
+                raise AssertionError(f"int8 {name}: a request is missing or malformed")
+        s = server.serve_stats()
+        passes[name] = dict(wall_s=wall, tokens_per_s=sum(budgets) / wall, identical_to_phase_3=_same(outs, streams[name]),
+                            ragged_steps=s["ragged_steps"] - before["ragged_steps"])
+        emit(phase="int8", pass_=name, requests=len(outs), generated_tokens=sum(budgets), **passes[name])
+    s = server.serve_stats()
+    counts, want = _counts(), _want_counts(cfg, server, s)
+    emit(phase="int8", pass_="both", ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"], finished=s["finished"],
+         ragged_steps=s["ragged_steps"], launches=counts)
+    if s["finished"] != 2 * len(prompts) or counts != want or counts["ragged_paged_attention"] == 0:
+        raise AssertionError(f"int8 serve: finished {s['finished']} of {2 * len(prompts)}, launches {counts} "
+                             f"want {want}")
+    tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 256),
+                                                                         dtype=np.int32)).to(dev)
+    ref_logits = _tree_logits(cfg, params, tokens, dev).float()
+    q_logits = _tree_logits(cfg, qparams, tokens, dev).float()
+    scale = ref_logits.abs().max().item()
+    diff = (q_logits - ref_logits).abs().max().item()
+    finite = bool(torch.isfinite(q_logits).all().item())
+    emit(phase="int8", event="logits [2, 256]", max_abs_diff=diff, logit_scale=scale, relative=diff / scale,
+         jax_test_bound_relative=1e-2, finite=finite)
+    if not finite:
+        raise AssertionError("int8: the quantized forward's logits are not finite")
+    del ref_logits, q_logits, server, engine
+    torch.cuda.empty_cache()
+    # steady traffic with windows, int8 and bf16 servers in turns
+    runs = []
+    for label, tree_ in (("int8", qparams), ("bf16", params), ("bf16", params), ("int8", qparams)):
+        srv = PagedServer(cfg, tree_, dtype=torch.bfloat16, prefix_cache=True, multi_step=WINDOWS["multi_step"],
+                          **SERVE)
+        outs, rec = _steady_run(srv, steady, 128)
+        round_ms = rec["window_device_ms"]["p50"] / HORIZON if rec["window_device_ms"]["count"] else None
+        bound_ms = _round_bytes(cfg, tree_, SERVE["max_slots"]) / HBM_BYTES_PER_S * 1e3
+        rec.update(weights=label, replay_ms_per_round=round_ms, weight_read_bound_ms=bound_ms,
+                   identical_to_bf16_single_step=_same(outs, steady_ref), k4_counter_want=_k4_counter_want(cfg, rec))
+        emit(phase="int8_steady", requests=8, new_tokens=128, **rec)
+        if rec["k4_counter"] != rec["k4_counter_want"] or rec["window_steps"] == 0 or rec["window_captures"] != 1:
+            raise AssertionError(f"int8 steady {label}: K4 counter {rec['k4_counter']} want {rec['k4_counter_want']}, "
+                                 f"window_steps {rec['window_steps']}, captures {rec['window_captures']}")
+        runs.append({k: rec[k] for k in ("weights", "tokens_per_s", "tpot_ms", "replay_ms_per_round",
+                                         "weight_read_bound_ms", "identical_to_bf16_single_step")})
+        del srv
+        torch.cuda.empty_cache()
+    del qparams, params
+    torch.cuda.empty_cache()
+    fp32 = _int8_fp32(llama_config("1b", dtype="float32"), tree, seed, dev)
+    quant = _quant_enabled(cfg, tree, seed, dev)
+    return dict(serve=dict(passes=passes, launches=counts["ragged_paged_attention"], **sizes), logits_relative=diff / scale,
+                steady=runs, fp32=fp32, quant=quant)
+
+
+def _int8_fp32(cfg, tree, seed, dev):
+    """fp32 (TF32 off), phase 9's prompts: int8 ragged servers through K4
+    and through ``attn_impl="plain"`` (streams identical, or parting where
+    the plain top-2 gap is below 1e-4), and a bucketed int8 server (K5 =
+    22 x plain rounds)."""
+    engine = dst.init_inference(TransformerLM(cfg), dtype="fp32", paged_kv=SERVE)
+    engine.load_jax_params(tree)
+    qparams = quantize_params_int8(engine.module.param_tree())
+    prompts = list(np.random.default_rng(seed + 2).integers(0, cfg.vocab_size, (4, 224), dtype=np.int32))
+    arms = {}
+    for name, kw in (("kernel", {}), ("plain", {"attn_impl": "plain"}), ("bucketed", {"ragged": False})):
+        srv = PagedServer(cfg, qparams, dtype=torch.float32, prefix_cache=True, **SERVE, **kw)
+        _zero_counts()
+        outs = srv.serve(prompts, max_new_tokens=32)
+        s = srv.serve_stats()
+        counts = _counts()
+        want = dict.fromkeys(counts, 0) if name == "plain" else _want_counts(cfg, srv, s)
+        arms[name] = dict(outs=outs, launches=counts, decode_steps=s["decode_steps"], ragged_steps=s["ragged_steps"])
+        if counts != want or s["finished"] != 4:
+            raise AssertionError(f"int8 fp32 {name}: launches {counts} want {want}, finished {s['finished']}")
+        del srv
+    ref = arms["kernel"]["outs"]
+    rec = {name: dict(identical_to_kernel=_same(a["outs"], ref), launches=a["launches"],
+                      partings=_partings(cfg, qparams, a["outs"], ref, dev, f"int8 fp32 {name}"))
+           for name, a in arms.items() if name != "kernel"}
+    emit(phase="int8", dtype="float32", requests=4, new_tokens=32, kernel_launches=arms["kernel"]["launches"], **rec)
+    del engine, qparams
+    torch.cuda.empty_cache()
+    return dict(k4=arms["kernel"]["launches"]["ragged_paged_attention"], identical_plain=rec["plain"]["identical_to_kernel"],
+                k5=arms["bucketed"]["launches"]["paged_decode_attention"],
+                identical_bucketed=rec["bucketed"]["identical_to_kernel"])
+
+
+def _quant_enabled(cfg, tree, seed, dev):
+    """``quant.enabled`` on a bf16 engine: every leaf of rank >= 2
+    fake-quantized by groups of 64; the forward is finite and one
+    ``generate`` (2 prompts of 128, 128 new: cache length 256) runs K6
+    22 x 128 times."""
+    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", quant={"enabled": True})
+    engine.load_jax_params(tree)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 256),
+                                                                         dtype=np.int32)).to(dev)
+    logits = engine(tokens)
+    finite = bool(torch.isfinite(logits.float()).all().item())
+    prompts = np.random.default_rng(seed + 11).integers(0, cfg.vocab_size, (2, 128), dtype=np.int32)
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new_tokens=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_generated("quant.enabled generate", out, prompts, 128, cfg.vocab_size)
+    counts = _counts()
+    emit(phase="int8", run="quant.enabled", forward_finite=finite, logits_shape=list(logits.shape),
+         generate_wall_s=wall, launches=counts)
+    if not finite or counts["decode_attention"] != cfg.num_layers * 128 or sum(counts.values()) != counts["decode_attention"]:
+        raise AssertionError(f"quant.enabled: forward finite {finite}, launches {counts}, want K6 = "
+                             f"{cfg.num_layers} x 128 and no other")
+    del engine, logits
+    torch.cuda.empty_cache()
+    return dict(k6=counts["decode_attention"], forward_finite=finite)
+
+
+# --- phase 9f: multi-tenant SLA serving (S7) ----------------------------------------------------
+TENANTS = [{"name": "gold", "weight": 3.0, "priority": 1, "ttft_target_ms": 2000.0, "tpot_target_ms": 60.0},
+           {"name": "free", "weight": 1.0, "ttft_target_ms": 5000.0, "tpot_target_ms": 80.0}]
+
+
+def _tenant_summary(s):
+    keys = ("submitted", "finished", "tokens", "budget_share", "goodput_share", "rejected", "ttft_sla_attainment",
+            "tpot_sla_attainment", "ttft_ms", "tpot_ms")
+    return {name: {k: rec.get(k) for k in keys} for name, rec in s["tenants"].items()}
+
+
+def phase_traffic(cfg, tree, seed, streams, dev):
+    """``traffic.enabled`` in bf16 on phase 3's traffic, two tenants (weights
+    3:1, gold one priority class higher), then in fp32 on phase 9's prompts
+    against the single-tenant server."""
+    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=dict(SERVE, prefix_cache=True),
+                                traffic={"enabled": True, "tenants": TENANTS})
+    engine.load_jax_params(tree)
+    front = engine._paged_server = engine._build_paged_server()
+    if not isinstance(front, MultiTenantServer):
+        raise AssertionError(f"traffic.enabled built a {type(front).__name__}")
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    tenants = ["gold" if i % 2 else "free" for i in range(len(prompts))]
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = front.serve(prompts, max_new_tokens=budgets, tenant=tenants)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = front.serve_stats()
+    counts, want = _counts(), _want_counts(cfg, front.server, s)
+    rec = dict(requests=len(outs), generated_tokens=sum(budgets), wall_s=wall, tokens_per_s=sum(budgets) / wall,
+               identical_to_phase_3=_same(outs, streams["cold"]), preempted=s["preempted"],
+               tenants=_tenant_summary(s), launches=counts)
+    emit(phase="traffic", dtype="bfloat16", traffic="phase 3", **rec)
+    if s["finished"] != len(prompts) or counts != want or any(o is None for o in outs):
+        raise AssertionError(f"traffic bf16: finished {s['finished']}, launches {counts} want {want}")
+    bf16 = dict(identical_to_phase_3=rec["identical_to_phase_3"], launches=counts["ragged_paged_attention"])
+    del front, engine
+    torch.cuda.empty_cache()
+    cfg32 = llama_config("1b", dtype="float32")
+    engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", paged_kv=SERVE)
+    engine.load_jax_params(tree)
+    params32 = engine.module.param_tree()
+    prompts = list(np.random.default_rng(seed + 2).integers(0, cfg32.vocab_size, (4, 224), dtype=np.int32))
+    single = PagedServer(cfg32, params32, dtype=torch.float32, prefix_cache=True, **SERVE)
+    ref = single.serve(prompts, max_new_tokens=32)
+    del single
+    front = MultiTenantServer(PagedServer(cfg32, params32, dtype=torch.float32, prefix_cache=True, **SERVE),
+                              tenants=[TenantSpec(**t) for t in TENANTS])
+    _zero_counts()
+    outs = front.serve(prompts, max_new_tokens=32, tenant=["free", "gold", "free", "gold"])
+    s = front.serve_stats()
+    counts, want = _counts(), _want_counts(cfg32, front.server, s)
+    fp32 = dict(identical=_same(outs, ref), partings=_partings(cfg32, params32, outs, ref, dev, "fp32 tenancy"),
+                launches=counts)
+    emit(phase="traffic", dtype="float32", requests=4, new_tokens=32, **fp32)
+    if counts != want or s["finished"] != 4:
+        raise AssertionError(f"traffic fp32: launches {counts} want {want}, finished {s['finished']}")
+    del front, engine, params32
+    torch.cuda.empty_cache()
+    return dict(bf16=bf16, fp32=dict(identical=fp32["identical"], launches=counts["ragged_paged_attention"]))
+
+
+# --- phase 9g: the serving fleet (S7) -------------------------------------------------------------
+def _fleet_of(cfg, params, dtype, jroot, n=2, tenants=None):
+    """``n`` replicas of one weight tree on the card, each a ``PagedServer``
+    with its own pool and journal directory under ``jroot``."""
+    handles = []
+    for i in range(n):
+        jdir = f"{jroot}/r{i}"
+        srv = PagedServer(cfg, params, dtype=dtype, prefix_cache=True, journal=RequestJournal(jdir), **SERVE)
+        if tenants:
+            srv = MultiTenantServer(srv, tenants=[TenantSpec(**t) for t in tenants])
+        handles.append(ReplicaHandle(name=f"r{i}", server=srv, journal_dir=jdir))
+    return FleetRouter(handles)
+
+
+def _fleet_counts_want(cfg, router):
+    want = dict.fromkeys(_counts(), 0)
+    want["ragged_paged_attention"] = cfg.num_layers * sum(h.inner.stats["ragged_steps"]
+                                                          for h in router.replicas.values())
+    return want
+
+
+def _fleet_fp32_run(cfg, params, prompts, ref, dev, scenario):
+    """One fp32 fleet run of phase 9's prompts: ``"move"`` migrates a request
+    mid-stream and then drains the busier replica; ``"kill"`` kills a
+    replica at ``fleet.replica_kill`` (hit 6) and re-routes its requests
+    from its journal."""
+    with tempfile.TemporaryDirectory(prefix="fleet_") as jroot:
+        router = _fleet_of(cfg, params, torch.float32, jroot)
+        _zero_counts()
+        uids = [router.submit(p, max_new_tokens=32) for p in prompts]
+        routed = {u: router._where[u] for u in uids}
+        live_at_kill = {}
+
+        def snapshot(point, action):  # noqa: ARG001
+            live_at_kill.update({n: h.inner.queued_count() + h.inner.live_count() for n, h in router.replicas.items()})
+
+        if scenario == "move":
+            mid = None
+            while mid is None:
+                router.step()
+                mid = next((r.uid for h in router.replicas.values() for r in h.inner._active
+                            if len(r.generated) >= 2 and not r.done), None)
+            if not router.migrate(mid):
+                raise AssertionError("fleet fp32: the migration found nothing to move")
+            for _ in range(3):
+                router.step()
+            busy = max(router.replicas.values(), key=lambda h: h.inner.queued_count() + h.inner.live_count())
+            drained = router.drain(busy.name)
+        else:
+            chaos.add_kill_hook(snapshot)
+            chaos.install(chaos.ChaosSchedule([chaos.ChaosRule("fleet.replica_kill", hit=6)]))
+        try:
+            router.run()
+        finally:
+            chaos.uninstall()
+            chaos.remove_kill_hook(snapshot)
+        outs = [router.take_result(u) for u in uids]
+        fs = router.fleet_stats()
+        counts, want = _counts(), _fleet_counts_want(cfg, router)
+    rec = dict(scenario=scenario, routed=routed, identical_to_single=_same(outs, ref),
+               partings=_partings(cfg, params, outs, ref, dev, f"fleet fp32 {scenario}"),
+               fleet={k: fs[k] for k in ("routed", "migrations", "drains", "replica_kills", "rerouted",
+                                          "migrated_token_divergence", "n_active")}, launches=counts)
+    if scenario == "move":
+        rec["drained"] = drained
+    else:
+        dead = next(n for n, h in router.replicas.items() if h.state == "dead")
+        rec.update(killed=dead, live_at_kill=live_at_kill.get(dead), recovered=fs["rerouted"])
+    emit(phase="fleet", dtype="float32", requests=len(prompts), new_tokens=32, **rec)
+    if any(o is None for o in outs) or fs["migrated_token_divergence"] != 0 or counts != want:
+        raise AssertionError(f"fleet fp32 {scenario}: outputs {[o is None for o in outs]}, divergence "
+                             f"{fs['migrated_token_divergence']}, launches {counts} want {want}")
+    if scenario == "move" and (fs["migrations"] < 2 or fs["drains"] != 1):
+        raise AssertionError(f"fleet fp32 move: migrations {fs['migrations']}, drains {fs['drains']}")
+    if scenario == "kill" and (fs["replica_kills"] != 1 or rec["live_at_kill"] != rec["recovered"]
+                               or not rec["recovered"]):
+        raise AssertionError(f"fleet fp32 kill: kills {fs['replica_kills']}, live at the kill "
+                             f"{rec['live_at_kill']}, re-routed {rec['recovered']}")
+    return rec
+
+
+def phase_fleet(cfg, tree, seed, dev):
+    """Two replicas of llama-1B on the one card (one device; not a
+    multi-card fleet), each a ``PagedServer`` with its own pool and journal,
+    sharing one weight tree: fp32 migration, drain and a replica kill
+    against the single server's streams; then a bf16 two-tenant trace
+    replayed on the real clock with a kill mid-trace."""
+    cfg32 = llama_config("1b", dtype="float32")
+    engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", paged_kv=SERVE)
+    engine.load_jax_params(tree)
+    params = engine.module.param_tree()
+    prompts = list(np.random.default_rng(seed + 2).integers(0, cfg32.vocab_size, (4, 224), dtype=np.int32))
+    ref = PagedServer(cfg32, params, dtype=torch.float32, prefix_cache=True, **SERVE).serve(prompts, max_new_tokens=32)
+    fp32 = {s: _fleet_fp32_run(cfg32, params, prompts, ref, dev, s) for s in ("move", "kill")}
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=SERVE)
+    engine.load_jax_params(tree)
+    params = engine.module.param_tree()
+    loads = [TenantLoad(name=t["name"], rate=3.0, pareto_alpha=1.5, prompt_len=(32, 192), max_new_tokens=(16, 64),
+                        shared_prefix_prob=0.8, n_prefixes=2, prefix_len=64) for t in TENANTS]
+    trace = make_trace(loads, horizon_s=3.0, vocab_size=cfg.vocab_size, seed=seed + 13)
+    single = PagedServer(cfg, params, dtype=torch.bfloat16, prefix_cache=True, **SERVE)
+    ref = single.serve([r.prompt for r in trace], max_new_tokens=[r.max_new_tokens for r in trace])
+    del single
+    with tempfile.TemporaryDirectory(prefix="fleet_") as jroot:
+        router = _fleet_of(cfg, params, torch.bfloat16, jroot, tenants=TENANTS)
+        routed = {}
+        submit = router.submit
+
+        def counted_submit(*a, **kw):
+            uid = submit(*a, **kw)
+            if uid is not None:
+                routed[router._where[uid]] = routed.get(router._where[uid], 0) + 1
+            return uid
+
+        router.submit = counted_submit
+        kill = (1.5, lambda srv: srv.kill_replica(next(n for n, h in srv.replicas.items() if h.inner.has_work())))
+        _zero_counts()
+        rep = replay(router, trace, events=[kill])
+        torch.cuda.synchronize()
+        outputs = rep.pop("outputs")
+        outs = [outputs.get(r.index) for r in trace]
+        fs = router.fleet_stats()
+        counts, want = _counts(), _fleet_counts_want(cfg, router)
+    finished = sum(rec["finished"] for rec in rep["tenants"].values())
+    rec = dict(requests=len(trace), finished=finished, rejected=rep["n_rejected"], events_fired=rep["events_fired"],
+               routing_shares={n: c / max(len(trace), 1) for n, c in sorted(routed.items())},
+               duration_s=rep["duration_s"], steps=rep["steps"], ttft_ms=rep["ttft_ms"], tpot_ms=rep["tpot_ms"],
+               goodput_tokens_per_s=rep["goodput_tokens_per_s"], starved_tenants=rep["starved_tenants"],
+               tenants={n: {k: t[k] for k in ("offered", "finished", "goodput_share", "budget_share", "ttft_ms",
+                                                 "tpot_ms")} for n, t in rep["tenants"].items()},
+               fleet={k: v for k, v in fs.items() if k != "replicas"},
+               identical_to_single=_same(outs, ref), launches=counts)
+    emit(phase="fleet", dtype="bfloat16", traffic="make_trace, 2 tenants, real clock, kill at 1.5 s", **rec)
+    if (finished != len(trace) or rep["n_rejected"] or any(o is None for o in outs) or rep["events_fired"] != 1
+            or fs["replica_kills"] != 1 or fs["migrated_token_divergence"] != 0 or counts != want):
+        raise AssertionError(f"fleet bf16 replay: finished {finished} of {len(trace)}, events {rep['events_fired']}, "
+                             f"kills {fs['replica_kills']}, divergence {fs['migrated_token_divergence']}, launches "
+                             f"{counts} want {want}")
+    del router, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(fp32={s: dict(identical=r["identical_to_single"], launches=r["launches"]["ragged_paged_attention"])
+                      for s, r in fp32.items()},
+                bf16=dict(identical=rec["identical_to_single"], launches=counts["ragged_paged_attention"],
+                          routing_shares=rec["routing_shares"]))
+
+
 # --- launch counts -------------------------------------------------------------
 def _zero_counts():
     decode_attention.launches = decode_attention.launches_decode = decode_attention.launches_paged = 0
@@ -2340,6 +2771,9 @@ def main() -> int:
     windows, steady, steady_ref = phase_windows(cfg, tree, args.seed, serve_streams)
     spec = phase_spec(cfg, tree, args.seed, serve_streams, steady, steady_ref, dev)
     recovery = phase_recovery(cfg, tree, args.seed, serve_streams)
+    int8 = phase_int8(cfg, tree, args.seed, serve_streams, steady, steady_ref, dev)
+    traffic = phase_traffic(cfg, tree, args.seed, serve_streams, dev)
+    fleet = phase_fleet(cfg, tree, args.seed, dev)
     del tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -2369,6 +2803,9 @@ def main() -> int:
                                for c in cases if c["case"].startswith("W=5 verify")},
                   bf16=spec, fp32=fp32["spec"]),
         recovery=dict(bf16=recovery, fp32={k: fp32["recovery"][k] for k in ("recovered", "identical", "launches")}),
+        int8=dict(serve=int8["serve"], logits_relative=int8["logits_relative"], steady=int8["steady"],
+                  fp32={k: int8["fp32"][k] for k in ("k4", "identical_plain")}),
+        traffic=traffic, fleet=fleet,
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "splits", "bitwise_equal")} for c in cases],
     )] + [dict(
@@ -2388,11 +2825,13 @@ def main() -> int:
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,
         **{k: k6_main[k] for k in keys}, variant="split_kv", split_launches=k6_split_launches,
         splits=k6_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k6_cases],
+        quant_enabled=int8["quant"],
     ), dict(
         name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:110", launches=k5_launches,
         **{k: k5_main[k] for k in keys}, variant="split_kv", split_launches=k5_split_launches,
         splits=k5_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k5_cases],
+        int8_fp32=dict(launches=int8["fp32"]["k5"], identical_to_k4=int8["fp32"]["identical_bucketed"]),
     )] + [dict(
         name=name, route="cuda", source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         replaces=f"deepspeed_tpu/ops/sparse_attention/pallas_block_sparse.py:{line}",

@@ -96,8 +96,8 @@ class MultiStepConfig(DeepSpeedConfigModel):
 
 
 class ShardedServingConfig(DeepSpeedConfigModel):
-    """Tensor-parallel serving knobs (not ported yet: ROADMAP S9, int8
-    weights S8)."""
+    """Tensor-parallel serving knobs (not ported yet: ROADMAP S9) and the
+    serving tree's int8 weights (``weight_quant_bits=8``, ported)."""
 
     tp_degree: int = 0
     quantized_allreduce: bool = False
@@ -170,7 +170,7 @@ class TenantConfig(DeepSpeedConfigModel):
 
 
 class TrafficConfig(DeepSpeedConfigModel):
-    """Multi-tenant SLA serving (not ported yet: ROADMAP S7)."""
+    """Multi-tenant SLA serving (``inference/traffic.py``)."""
 
     enabled: bool = False
     tenants: List[TenantConfig] = Field(default_factory=list)
@@ -260,14 +260,8 @@ def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
     does not have yet, each naming its ROADMAP item."""
     p = cfg.paged_kv
     found = []
-    if cfg.traffic.enabled:
-        found.append("traffic.enabled: ROADMAP S7")
-    if p.sharded.weight_quant_bits == 8:
-        found.append("paged_kv.sharded.weight_quant_bits=8: ROADMAP S8")
     if max(p.sharded.tp_degree, cfg.tensor_parallel.tp_size) > 1:
         found.append("tensor-parallel serving (sharded.tp_degree / tp_size > 1): ROADMAP S9")
-    if cfg.quant.enabled:
-        found.append("quant.enabled (weight quantization): ROADMAP S8")
     if cfg.zero:
         found.append("zero (ZeRO-Inference offload): ROADMAP T2")
     if cfg.checkpoint is not None:

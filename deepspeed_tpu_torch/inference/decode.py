@@ -28,10 +28,12 @@ jitted ``lax.scan``).
 
 Numerics follow the JAX functions op for op: norms and RoPE in fp32 cast
 back, matmuls in the activation dtype, attention scores softmaxed in fp32.
-Weights stay in the engine dtype (``checkpoint/jax_params.py``) and are cast
-to the activation dtype at each matmul, as JAX's ``qmatmul`` casts them: the
-dense cache takes the model config's dtype, which may differ from the
-engine's.
+Weights stay in the engine dtype (``checkpoint/jax_params.py``) and every
+projection goes through ``compression.int8.qmatmul``, as in JAX: a plain
+weight is cast to the activation dtype (the dense cache takes the model
+config's dtype, which may differ from the engine's), and an int8 serving
+weight (``quantize_params_int8``, a ``QuantizedTensor`` leaf) multiplies
+its codes and scales the product. The tied-embedding head stays exact.
 
 Caches update in place where JAX donates them: the dense cache's layer l
 takes its new k/v rows before that layer's attention, and the page pools
@@ -48,6 +50,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.compression.int8 import QuantizedTensor, qmatmul
 from deepspeed_tpu_torch.inference.sampling import sample_logits
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.models.transformer import _FFN_LEAVES, _norm, _rope
@@ -68,9 +71,9 @@ def _layer_project_qkv(cfg: TransformerConfig, p, h):
     B, T, _ = h.shape
     NH, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     hn = _norm(h, p["attn_norm_scale"], p.get("attn_norm_bias"), cfg.norm, cfg.norm_eps)
-    q = hn @ p["wq"].to(hn.dtype)
-    k = hn @ p["wk"].to(hn.dtype)
-    v = hn @ p["wv"].to(hn.dtype)
+    q = qmatmul(hn, p["wq"])
+    k = qmatmul(hn, p["wk"])
+    v = qmatmul(hn, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(hn.dtype)
         k = k + p["bk"].to(hn.dtype)
@@ -83,8 +86,7 @@ def _ffn_body(cfg: TransformerConfig, p, x, norm_scale, norm_bias):
     h = _norm(x, norm_scale, norm_bias, cfg.norm, cfg.norm_eps)
     if "moe" in p:
         raise NotImplementedError("MoE serving is not ported yet (ROADMAP M1)")
-    ffn = {name: p[name].to(h.dtype) for name in _FFN_LEAVES if name in p}
-    return apply_dense_ffn(ffn, h, cfg.activation)
+    return apply_dense_ffn({name: p[name] for name in _FFN_LEAVES if name in p}, h, cfg.activation)
 
 
 def _softmax_scale(cfg, head_dim: int) -> float:
@@ -100,7 +102,7 @@ def _post_attention(cfg, p, x, attn):
     every cached-attention layer."""
     B, T = x.shape[:2]
     a = attn.reshape(B, T, cfg.num_heads * cfg.head_dim)
-    attn = (a @ p["wo"].to(a.dtype)).to(x.dtype)
+    attn = qmatmul(a, p["wo"]).to(x.dtype)
     if cfg.use_bias:
         attn = attn + p["bo"].to(x.dtype)
     if cfg.parallel_residual:
@@ -117,17 +119,24 @@ def _final_logits(cfg, params, x):
     x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"), cfg.norm, cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"]["tokens"].to(x.dtype).T
-    logits = x @ params["lm_head"].to(x.dtype)
+    logits = qmatmul(x, params["lm_head"])
     if cfg.lm_head_bias:
         logits = logits + params["lm_head_bias"].to(logits.dtype)
     return logits
 
 
+def _layer_leaf(w, l: int):
+    if isinstance(w, QuantizedTensor):
+        return QuantizedTensor(q=w.q[l], scale=w.scale[l])
+    return w[l]
+
+
 def split_layers(params) -> List[Dict[str, torch.Tensor]]:
-    """Per-layer views ``{name: layers[name][l]}`` of the stacked tree."""
+    """Per-layer views ``{name: layers[name][l]}`` of the stacked tree (an
+    int8 leaf gives ``QuantizedTensor(q[l], scale[l])``)."""
     layers = params["layers"]
     L = next(iter(layers.values())).shape[0]
-    return [{name: w[l] for name, w in layers.items()} for l in range(L)]
+    return [{name: _layer_leaf(w, l) for name, w in layers.items()} for l in range(L)]
 
 
 def _accepted_prefix(tokens, greedy, n_drafts):

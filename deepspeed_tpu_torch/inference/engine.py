@@ -9,9 +9,15 @@ sampling, beam search), ``profile_model_time`` / ``model_times``, and
 ``serve`` / ``serve_stats``
 over a ``PagedServer`` (ragged, with multi-step windows under
 ``paged_kv.multi_step``, or bucketed with ``paged_kv.ragged=False``; with
-speculative decoding under ``spec_decode`` and the crash-recovery journal
-under ``journal``) built as the JAX ``_build_paged_server`` builds it for
-the ported options.
+speculative decoding under ``spec_decode``, the crash-recovery journal
+under ``journal``, int8 serving weights under
+``paged_kv.sharded.weight_quant_bits=8`` and, under ``traffic``, the
+multi-tenant SLA front ``MultiTenantServer``) built as the JAX
+``_build_paged_server`` builds it for the ported options. With
+``quant.enabled`` every floating leaf of rank >= 2 of the installed tree is
+fake-quantized by groups (``ops/quantizer.fake_quantize``), as JAX's
+``set_params`` does, so ``forward``, ``generate`` and ``serve`` all see the
+round-tripped weights.
 The port's ``TransformerLM`` is the converted family (JAX's
 ``_ds_config`` path), so ``generate`` always takes the KV-cached loop. The
 engine runs on ``cuda`` unless the caller passes another device; without
@@ -28,10 +34,13 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree, load_jax_params
+from deepspeed_tpu_torch.compression.int8 import quantize_params_int8
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum, unported_switches
 from deepspeed_tpu_torch.inference.journal import RequestJournal
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
+from deepspeed_tpu_torch.inference.traffic import MultiTenantServer
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
+from deepspeed_tpu_torch.ops.quantizer import fake_quantize
 from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -45,7 +54,13 @@ class InferenceEngine:
         if unported:
             raise NotImplementedError("not ported to deepspeed_tpu_torch yet: " + "; ".join(unported))
         if self._config.dtype not in _DTYPES:
-            raise NotImplementedError("dtype int8 (weight quantization) is not ported yet (ROADMAP S8)")
+            # JAX's dtype int8 casts each weight with astype (no scales); the port's int8 paths are
+            # paged_kv.sharded.weight_quant_bits=8 and quant.enabled
+            raise NotImplementedError(
+                "dtype int8 is not ported: JAX casts each weight to int8 without scales, which is not "
+                "quantization; use paged_kv.sharded.weight_quant_bits=8 or quant.enabled "
+                "(ROADMAP, Reference caveats)"
+            )
         if not isinstance(model, TransformerLM):
             raise NotImplementedError(
                 "deepspeed_tpu_torch serves its own TransformerLM; other modules are not ported yet"
@@ -69,6 +84,7 @@ class InferenceEngine:
             with torch.no_grad():
                 for path, leaf in flatten_tree(model.param_tree()).items():
                     model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype))
+            self._quantize_weights()
         log_dist(f"InferenceEngine: dtype={self._config.dtype.value} device={self.device}", ranks=[0])
 
     # --- weights --------------------------------------------------------
@@ -76,9 +92,28 @@ class InferenceEngine:
         """Install the JAX parameter tree (numpy arrays, nested or under
         flat paths) on the engine's device in the engine dtype."""
         load_jax_params(self.module, params, device=self.device, dtype=self.dtype)
+        self._quantize_weights()
         self._paged_server = None
 
     load_jax_params = set_params
+
+    @torch.no_grad()
+    def _quantize_weights(self) -> None:
+        """``quant.enabled``: after the cast to the engine dtype, each
+        floating leaf of rank >= 2 of the JAX tree layout (norm scales and
+        embeddings too) becomes its quantize-dequantize round trip, in
+        ``size // group_size`` groups when that divides evenly, else one
+        (JAX ``inference/engine.py:196-212``)."""
+        qcfg = self._config.quant
+        if not qcfg.enabled:
+            return
+        gs = int(qcfg.group_size or 64)
+        bits = int(qcfg.num_bits or 8)
+        for path, leaf in flatten_tree(self.module.param_tree()).items():
+            if leaf.ndim < 2 or not leaf.is_floating_point():
+                continue
+            groups = leaf.numel() // gs if gs and leaf.numel() % gs == 0 else 1
+            self.module.set_leaf(path, fake_quantize(leaf, num_groups=groups, num_bits=bits))
 
     def _weights_ready(self) -> bool:
         return not any(p.is_meta for p in self.module.parameters())
@@ -183,7 +218,7 @@ class InferenceEngine:
     generate = functools.wraps(_generate_impl)(generate)
 
     # --- paged serving --------------------------------------------------
-    def _build_paged_server(self) -> PagedServer:
+    def _build_paged_server(self):
         if not self._weights_ready():
             raise RuntimeError("serve() before weights are set: call set_params / load_jax_params")
         pcfg = self._config.paged_kv
@@ -198,9 +233,13 @@ class InferenceEngine:
                 raise ValueError("inference.journal.enabled requires journal.dir")
             states, next_uid = RequestJournal.replay(jcfg.dir)
             journal = RequestJournal(jcfg.dir, segment_bytes=jcfg.segment_bytes, fsync=jcfg.fsync)
+        params = self.module.param_tree()
+        if pcfg.sharded.weight_quant_bits == 8:
+            # the server's tree only: forward and generate keep the engine's weights, as in JAX
+            params = quantize_params_int8(params)
         server = PagedServer(
             self._ds_config,
-            self.module.param_tree(),
+            params,
             page_size=pcfg.page_size,
             num_pages=pcfg.num_pages,
             max_slots=pcfg.max_slots,
@@ -219,6 +258,10 @@ class InferenceEngine:
         )
         if states:
             server.recover(states, next_uid)
+        tcfg = self._config.traffic
+        if tcfg.enabled:
+            # weighted-deficit and priority admission, queue caps, per-tenant stats: the same surface
+            server = MultiTenantServer(server, tenants=[t.model_dump() for t in tcfg.tenants])
         return server
 
     def serve(self, prompts, max_new_tokens=32, eos_token_id=None):

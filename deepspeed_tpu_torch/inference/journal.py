@@ -26,8 +26,8 @@ Layout: numbered segments under the journal directory.
 
 Records: ``s`` submit (uid, prompt, budget, eos, tenant, and for recovery
 re-submits the tokens already emitted), ``e`` emit, ``t`` first-token
-stamp, ``f`` finish, ``m`` migrated out (written by the fleet, which the
-port has not yet; replay honours it). A later ``s`` for a uid replaces its
+stamp, ``f`` finish, ``m`` migrated out (the request now lives in another
+replica's journal; the fleet writes it after a migration lands). A later ``s`` for a uid replaces its
 state, which is how recovery compacts: the restarted server journals one
 seeded submit a request into a fresh segment, then retires the older ones.
 """
@@ -137,6 +137,7 @@ class RequestJournal:
         self._fh = None
         self._buffer: List[bytes] = []
         self.segments_sealed = 0
+        self.records_written = 0
 
     # --- writing ---------------------------------------------------------
     def append_submit(self, uid: int, prompt: np.ndarray, max_new_tokens: int, eos_token_id: Optional[int],
@@ -168,6 +169,13 @@ class RequestJournal:
     def append_finish(self, uid: int) -> None:
         self._buffer.append(_encode({"t": "f", "uid": int(uid)}))
 
+    def append_migrate(self, uid: int) -> None:
+        """The request migrated to another replica, whose journal holds its
+        state (seeded there before this record is written): replaying this
+        journal must no longer produce it. A crash between the two journals
+        double-claims the uid, and the fleet's adoption dedupes."""
+        self._buffer.append(_encode({"t": "m", "uid": int(uid)}))
+
     def sync(self) -> None:
         """Write the buffered records to the active segment and make them
         durable (once per scheduler step); seal the segment past
@@ -176,6 +184,7 @@ class RequestJournal:
             return
         fh = self._ensure_open()
         data = b"".join(self._buffer)
+        self.records_written += len(self._buffer)
         self._buffer.clear()
         fh.write(data)
         fh.flush()
@@ -183,6 +192,12 @@ class RequestJournal:
             os.fsync(fh.fileno())
         chaos.point("journal.append", path=fh.name)
         if fh.tell() >= self.segment_bytes:
+            self._seal()
+
+    def close(self) -> None:
+        """Make the buffered records durable and seal the active segment."""
+        self.sync()
+        if self._fh is not None:
             self._seal()
 
     def begin_compaction(self) -> None:

@@ -13,7 +13,9 @@ rounded up to a page, and any free page can serve any sequence.
 * ``PagePool`` — the host-side allocator, a near-verbatim copy: free list,
   per-slot page tables and live lengths (numpy int32; they ride into each
   step as plain arrays), and the prefix index (chain hash per full page,
-  refcounts, copy-on-write barrier, cached LRU of released prefix pages).
+  refcounts, copy-on-write barrier, cached LRU of released prefix pages)
+  and ``defrag``, which compacts live pages into the lowest ids by one
+  gather a pool, written back into the pools' own storage.
 
 Page 0 is the reserved TRASH page: it is never allocated, table sentinels
 (-1) clamp onto it, and dead-slot writes land there, so a padded row can
@@ -136,6 +138,10 @@ class PagePool:
         """Pages referenced by at least one live slot."""
         return self.num_pages - 1 - self.free_pages()
 
+    def cached_pages(self) -> int:
+        """Refcount-0 prefix pages parked on the LRU (reclaimable)."""
+        return len(self._cached)
+
     def pages_for(self, n_tokens: int) -> int:
         return -(-int(n_tokens) // self.page_size)
 
@@ -235,12 +241,21 @@ class PagePool:
         tokens served by attaching cached pages."""
         s = dict(self.stats)
         s["indexed_pages"] = len(self._page_hash)
-        s["cached_pages"] = len(self._cached)
+        s["cached_pages"] = self.cached_pages()
         q = s["prefix_query_tokens"]
         s["prefix_hit_rate"] = s["prefix_hit_tokens"] / q if q else 0.0
         return s
 
     # --- slot lifecycle -------------------------------------------------
+    def can_admit(self, n_tokens: int) -> bool:
+        """A free slot exists and the pool can hold ``n_tokens`` now (before
+        any prefix credit: attaching cached pages only helps)."""
+        return (
+            bool(self._free_slots)
+            and n_tokens <= self.max_seq_len
+            and self.pages_for(n_tokens) <= self.free_pages()
+        )
+
     def alloc_slot(self, n_tokens: int = 0, prefix_tokens=None) -> Optional[int]:
         """Claim a slot, pre-reserving pages for ``n_tokens``; None if the
         pool cannot host it now. With ``prefix_tokens`` the longest indexed
@@ -431,6 +446,53 @@ class PagePool:
         for p in cached:
             if p not in self._page_hash:
                 raise RuntimeError(f"pool integrity: cached page {p} is not in the prefix index")
+
+    def defrag(self) -> int:
+        """Compact live pages into the lowest ids after the trash page, in
+        first-reference order (slot by slot, then the cached LRU), and
+        rewrite tables, refcounts, the prefix index, the LRU and the free
+        list to follow. Live means referenced by a slot or parked on the
+        cached LRU (its bytes still serve prefix matches); a shared page
+        moves once. The page data moves by one gather a pool, copied back
+        into the pools' own storage: a captured window graph holds their
+        addresses and must keep replaying into them. Returns the number of
+        pages moved."""
+        live: List[int] = []
+        seen = set()
+        for s in range(self.max_slots):
+            for i in range(int(self._owned[s])):
+                p = int(self.page_table[s, i])
+                if p not in seen:
+                    seen.add(p)
+                    live.append(p)
+        live += [int(p) for p in self._cached]  # refcount 0: never in a table
+        perm = np.arange(self.num_pages, dtype=np.int64)  # new id -> old id
+        remap = {}  # old id -> new id
+        nxt = TRASH_PAGE + 1
+        for old in live:
+            remap[old] = nxt
+            perm[nxt] = old
+            nxt += 1
+        # the tail: the free pages, in id order
+        perm[nxt:] = [p for p in range(TRASH_PAGE + 1, self.num_pages) if p not in remap]
+        moves = sum(1 for old, new in remap.items() if old != new)
+        if moves == 0:
+            return 0
+        gather = torch.from_numpy(perm).to(self.cache.k_pages.device)
+        for pages in (self.cache.k_pages, self.cache.v_pages):
+            pages.copy_(pages[:, gather])
+        for s in range(self.max_slots):
+            for i in range(int(self._owned[s])):
+                self.page_table[s, i] = remap[int(self.page_table[s, i])]
+        new_rc = np.zeros_like(self._refcount)
+        for old, new in remap.items():
+            new_rc[new] = self._refcount[old]
+        self._refcount = new_rc
+        self._page_hash = {remap[p]: k for p, k in self._page_hash.items()}
+        self._hash_index = {k: remap[p] for k, p in self._hash_index.items()}
+        self._cached = OrderedDict((remap[int(p)], None) for p in self._cached)
+        self._free = list(range(self.num_pages - 1, nxt - 1, -1))
+        return moves
 
     # --- dispatch views -------------------------------------------------
     def rows(self, slots) -> Tuple[np.ndarray, np.ndarray]:

@@ -54,9 +54,18 @@ recompute preemption invisible, and the stream resumes byte-identically.
 The chaos points ``serve.mid_step`` and ``serve.mid_window``
 (``utils/chaos.py``) sit just before the journal flush.
 
-Not ported yet (the engine refuses their switches, naming the ROADMAP
-item): traffic tenancy and the fleet's migrations (S7) and tensor-parallel
-serving (S9).
+The fleet half (``inference/fleet.py``) moves live requests between
+servers: ``extract_request`` takes one off this server as replay state,
+``recover(..., migrated_in=True)`` seeds it on another with its stamps kept,
+and the journal hand-off (``finalize_migration``, or a retained claim while
+the target runs without a journal) writes the source's migrated-out record
+only after the target holds the request durably. Admission order and
+preemption victims go through a ``SchedulingPolicy`` (``traffic.py``'s
+``SLAPolicy`` is the multi-tenant one), and every stamp reads the server's
+injectable ``clock`` (the load harness's virtual clock, ``utils/loadgen.py``).
+
+Not ported yet (the engine refuses its switch, naming the ROADMAP item):
+tensor-parallel serving (S9).
 """
 
 from __future__ import annotations
@@ -150,7 +159,7 @@ class Request:
     prefix_cached: int = 0  # context tokens attached from the prefix index
     spec_drafted: int = 0  # draft tokens this request sent to verification
     spec_accepted: int = 0  # of those, accepted
-    t_submit: float = 0.0  # perf_counter timestamps for TTFT / TPOT
+    t_submit: float = 0.0  # server-clock stamps for TTFT / TPOT
     t_first: Optional[float] = None
     t_finish: Optional[float] = None
     _ctx_buf: Optional[np.ndarray] = field(default=None, repr=False)
@@ -202,6 +211,7 @@ class PagedServer:
         spec_decode=None,
         drafter: Optional[Drafter] = None,
         journal: Optional[RequestJournal] = None,
+        clock=None,
     ):
         self.cfg = cfg
         self.params = params
@@ -224,6 +234,8 @@ class PagedServer:
         # drafts a window probe proposed, handed to the single step it fell back to
         self._predrafts: Optional[Dict[int, np.ndarray]] = None
         self.journal = journal
+        # TTFT/TPOT stamps and the load harness's virtual time both read this clock
+        self.clock = clock or time.perf_counter
         # speculation: a SpecDecodeConfig or a dict of knobs, or an explicit Drafter (either enables it)
         self.max_draft = int(_knob(spec_decode, "max_draft", 4))
         lens = [int(n) for n in (_knob(spec_decode, "spec_lens", None) or [])]
@@ -271,11 +283,20 @@ class PagedServer:
         self._results: Dict[int, np.ndarray] = {}
         self._next_uid = 0
         self._tenant_stats: Dict[str, Dict] = {}
+        # (tenant, ttft_ms, tpot_ms or None, n_tokens) a finished request: the load harness's goodput input
+        self._finished_log: deque = deque(maxlen=65536)
+        # migrated-out records since the last full compaction (the journal's garbage counter)
+        self._migrated_since_compact = 0
+        # requests that migrated to a journal-less replica: this journal keeps their only durable claim
+        # (the state at the move) until the fleet reports them finished
+        self._foreign_claims: Dict[int, JournaledRequest] = {}
         self.stats = {
             "admitted": 0,
             "preempted": 0,
             "finished": 0,
             "recovered": 0,  # live requests rebuilt from the journal
+            "migrated_out": 0,  # live requests extracted for a fleet migration
+            "migrated_in": 0,  # live requests adopted from another replica
             "journal_compactions": 0,  # full-state rewrites of the journal
             "prefix_cached_tokens": 0,  # context tokens attached, not prefilled
             "prefill_chunks": 0,
@@ -309,6 +330,16 @@ class PagedServer:
             }
         return ts
 
+    def queued_count(self, tenant: Optional[str] = None) -> int:
+        if tenant is None:
+            return len(self._queue)
+        return sum(1 for r in self._queue if r.tenant == tenant)
+
+    def live_count(self, tenant: Optional[str] = None) -> int:
+        if tenant is None:
+            return len(self._active)
+        return sum(1 for r in self._active if r.tenant == tenant)
+
     def submit(self, prompt, max_new_tokens: int = 32, eos_token_id: Optional[int] = None,
                tenant: str = "default") -> int:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -329,7 +360,7 @@ class PagedServer:
             )
         uid = self._next_uid
         self._next_uid += 1
-        now = time.perf_counter()
+        now = self.clock()
         self._queue.append(Request(uid=uid, prompt=prompt, max_new_tokens=int(max_new_tokens),
                                    eos_token_id=eos_token_id, tenant=tenant, t_submit=now))
         self._tenant(tenant)["submitted"] += 1
@@ -351,10 +382,15 @@ class PagedServer:
         (live ones as seeded submits, finished ones as submit and finish),
         which alone replays to the same state, so the older segments are
         retired: the journal stays bounded across crash and recover cycles.
-        Returns the number of live requests recovered. ``migrated_in`` (a
-        fleet migration's target) belongs to ROADMAP S7."""
-        if migrated_in:
-            raise NotImplementedError("recover(migrated_in=True) is the fleet's migration path: ROADMAP S7")
+        Returns the number of live requests recovered.
+
+        ``migrated_in=True`` is the live fleet's form (this server is a
+        migration or re-route target): the requests keep their
+        ``t_submit`` and ``t_first`` stamps (the fleet shares one clock, and
+        a reset would drop the queue wait before the move from TTFT), the
+        tenant ``submitted`` counter is not raised (the source counted the
+        request), and the requests count under ``migrated_in``, not
+        ``recovered``."""
         recovered = 0
         for uid in sorted(states):
             st = states[uid]
@@ -366,36 +402,124 @@ class PagedServer:
                                                generated=st.generated)
                     self.journal.append_finish(uid)
                 continue
-            # a fresh process restarts the clock: the stamps are this server's
+            # a fresh process restarts the clock, so its stamps are this server's; a migration keeps them
+            keep = migrated_in and st.t_submit is not None
             req = Request(uid=uid, prompt=np.asarray(st.prompt, np.int32), max_new_tokens=int(st.max_new_tokens),
                           eos_token_id=st.eos_token_id, tenant=st.tenant, generated=[int(t) for t in st.generated],
-                          t_submit=time.perf_counter())
+                          t_submit=st.t_submit if keep else self.clock(),
+                          t_first=st.t_first if migrated_in else None)
             self._queue.append(req)
             self.tracer.begin_async("request", uid, f"req{uid}", tenant=st.tenant)
-            self._tenant(st.tenant)["submitted"] += 1
+            if not migrated_in:
+                self._tenant(st.tenant)["submitted"] += 1
             if self.journal is not None:
+                # the Request's own stamps: they are in this server's clock domain either way
                 self.journal.append_submit(uid, st.prompt, st.max_new_tokens, st.eos_token_id, st.tenant,
-                                           generated=st.generated, t_submit=req.t_submit)
+                                           generated=st.generated, t_submit=req.t_submit, t_first=req.t_first)
             recovered += 1
         self._next_uid = max(self._next_uid, int(next_uid))
-        self.stats["recovered"] += recovered
+        self.stats["migrated_in" if migrated_in else "recovered"] += recovered
         if self.journal is not None:
             # the compaction is durable before the superseded segments go
             self.journal.sync()
             self.journal.retire_older_segments()
         return recovered
 
+    def extract_request(self, uid: int) -> Optional[JournaledRequest]:
+        """Take a live or queued request off this server and return its
+        replay state: the source half of a fleet migration. The target
+        re-admits it through ``recover(..., migrated_in=True)`` and
+        re-prefills ``prompt + generated`` on the cold chunk grid, so the
+        stream continues byte-identically. Nothing is journaled here: the
+        hand-off (``finalize_migration``) comes after the target has seeded
+        the request durably, so no instant leaves it in neither journal.
+        None when the uid is not live here."""
+        req = next((r for r in self._active if r.uid == uid), None)
+        if req is not None:
+            self.pool.free_slot(req.slot)
+            req.slot = None
+            req.pending = None
+            req.consumed = 0
+            self._active.remove(req)
+        else:
+            req = next((r for r in self._queue if r.uid == uid), None)
+            if req is None:
+                return None
+            self._queue.remove(req)
+        if self.drafter is not None:
+            self.drafter.drop(uid)
+        self.stats["migrated_out"] += 1
+        self.tracer.end_async("request", uid, f"req{uid}", migrated=True, tokens=len(req.generated))
+        return JournaledRequest(uid=req.uid, prompt=np.asarray(req.prompt, np.int32),
+                                max_new_tokens=int(req.max_new_tokens), eos_token_id=req.eos_token_id,
+                                tenant=req.tenant, generated=[int(t) for t in req.generated],
+                                t_submit=req.t_submit, t_first=req.t_first)
+
+    def restore_request(self, state: JournaledRequest) -> None:
+        """Undo ``extract_request`` for a migration that found no target:
+        re-queue the state here, stamps kept, and take back the migration
+        counts (nothing moved)."""
+        self.recover({state.uid: state}, 0, migrated_in=True)
+        self.stats["migrated_out"] -= 1
+        self.stats["migrated_in"] -= 1
+
+    def retain_migrated_claim(self, uid: int, state: JournaledRequest) -> None:
+        """The request migrated to a journal-less replica, which can never
+        claim it durably: this journal keeps the claim (its state at the
+        move) through every compaction until ``release_migrated_claim``.
+        Tokens the target emits after the move are durable nowhere, which is
+        what running a replica without a journal means."""
+        if self.journal is None:
+            return
+        self._foreign_claims[uid] = state
+
+    def release_migrated_claim(self, uid: int) -> None:
+        """The migrated request finished and its output was delivered:
+        disclaim it, so a later replay cannot bring it back."""
+        if self._foreign_claims.pop(uid, None) is None:
+            return
+        if self.journal is not None:
+            self.journal.append_migrate(uid)
+            self.journal.sync()
+            self._migrated_since_compact += 1
+            self._maybe_compact_migrated()
+
+    def _maybe_compact_migrated(self) -> None:
+        """Compact once migrated-out records outnumber the live state worth
+        rewriting (both disclaim paths share it), so the journal stays
+        bounded however requests leave."""
+        if self._migrated_since_compact > len(self._queue) + len(self._active):
+            self.compact_journal()
+
+    def finalize_migration(self, uid: int) -> None:
+        """The source's journal hand-off once a migration landed on the
+        target: the migrated-out record, durable at once (a later replay
+        must not bring the request back), then a compaction only when
+        migrated-out records outweigh the live state. A drain of N requests
+        so costs O(N) journal writes in all."""
+        if self.journal is None:
+            return
+        self.journal.append_migrate(uid)
+        self.journal.sync()
+        self._migrated_since_compact += 1
+        self._maybe_compact_migrated()
+
     def compact_journal(self) -> int:
         """Journal this server's full current state into a fresh segment and
-        retire every older one (``journal.begin_compaction``): queued and
-        live requests as seeded submits, unclaimed results as submit and
-        finish records of the output array (the replayed result is that
-        array verbatim). The live-server form of ``recover``'s compaction.
-        Returns the number of segments retired."""
+        retire every older one (``journal.begin_compaction``): claims kept
+        for requests on journal-less replicas, queued and live requests as
+        seeded submits, unclaimed results as submit and finish records of
+        the output array (the replayed result is that array verbatim). The
+        live-server form of ``recover``'s compaction. Returns the number of
+        segments retired."""
         if self.journal is None:
             return 0
+        self._migrated_since_compact = 0
         self.stats["journal_compactions"] += 1
         self.journal.begin_compaction()
+        for st in self._foreign_claims.values():
+            self.journal.append_submit(st.uid, st.prompt, st.max_new_tokens, st.eos_token_id, st.tenant,
+                                       generated=st.generated, t_submit=st.t_submit, t_first=st.t_first)
         for req in list(self._queue) + list(self._active):
             self.journal.append_submit(req.uid, req.prompt, req.max_new_tokens, req.eos_token_id, req.tenant,
                                        generated=req.generated, t_submit=req.t_submit, t_first=req.t_first)
@@ -412,6 +536,10 @@ class PagedServer:
         """A request waits for admission or a running row is mid prefill
         (False once every row decodes: the steady state where windows form)."""
         return bool(self._queue) or any(r.pending is None for r in self._active)
+
+    def result(self, uid: int) -> Optional[np.ndarray]:
+        """A finished output, left in place (``take_result`` removes it)."""
+        return self._results.get(uid)
 
     def take_result(self, uid: int) -> Optional[np.ndarray]:
         """Pop a finished output (a long-lived server keeps none)."""
@@ -924,7 +1052,7 @@ class PagedServer:
         stamp) and retire the request on EOS or budget (the token is
         included)."""
         if req.t_first is None:
-            req.t_first = time.perf_counter()
+            req.t_first = self.clock()
             self.tracer.instant_async("request", req.uid, "first_token")
             if self.journal is not None:
                 self.journal.append_first_token(req.uid, req.t_first)
@@ -941,7 +1069,7 @@ class PagedServer:
 
     def _finish(self, req: Request) -> None:
         req.done = True
-        req.t_finish = time.perf_counter()
+        req.t_finish = self.clock()
         self.pool.free_slot(req.slot)
         req.slot = None
         self._active.remove(req)
@@ -951,10 +1079,12 @@ class PagedServer:
         ts["finished"] += 1
         ttft_ms = (req.t_first - req.t_submit) * 1e3
         ts["ttft_ms"].append(ttft_ms)
+        tpot_ms = None
         if len(req.generated) > 1:
             tpot_ms = (req.t_finish - req.t_first) * 1e3 / (len(req.generated) - 1)
             ts["tpot_ms"].append(tpot_ms)
             self.metrics.histogram("serve.tpot_ms").observe(tpot_ms)
+        self._finished_log.append((req.tenant, ttft_ms, tpot_ms, len(req.generated)))
         self.metrics.histogram("serve.ttft_ms").observe(ttft_ms)
         self.tracer.end_async("request", req.uid, f"req{req.uid}", tokens=len(req.generated))
         if self.journal is not None:
@@ -974,6 +1104,11 @@ class PagedServer:
         self.tracer.instant_async("request", req.uid, "preempt", tokens=len(req.generated))
 
     # --- observability ---------------------------------------------------
+    def finished_log(self) -> List:
+        """``(tenant, ttft_ms, tpot_ms or None, n_tokens)`` a finished
+        request, oldest first (bounded): the load harness's goodput input."""
+        return list(self._finished_log)
+
     def serve_stats(self) -> Dict:
         """Scheduler counters (``ragged_steps`` one per single step; the
         window block: ``window_steps``, ``window_horizon`` (0 when windows

@@ -1,10 +1,11 @@
 """Dense FFN: the dense half of ``deepspeed_tpu/moe/experts.py``.
 
 ``apply_dense_ffn`` is the single source of activation semantics for the
-decoder's MLP. The JAX version's ``qmatmul`` (``compression/int8.py:97``)
-is ``h @ w.astype(h.dtype)`` for plain weights; the port stores weights in
-the engine dtype once (``checkpoint/jax_params.py``), so it is ``h @ w``.
-Expert stacks are not ported yet.
+decoder's MLP. Every projection goes through ``compression.int8.qmatmul``,
+as in JAX: ``h @ w.to(h.dtype)`` for a plain weight (a no-op cast for the
+engine-dtype weights ``checkpoint/jax_params.py`` stores), the codes and
+scales of a ``QuantizedTensor`` for an int8 serving weight. Expert stacks
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+
+from deepspeed_tpu_torch.compression.int8 import qmatmul
 
 
 def _pointwise_activation(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -29,16 +32,16 @@ def apply_dense_ffn(params: Dict[str, Any], x: torch.Tensor, activation: str = "
     """``[..., H] -> [..., H]`` dense FFN over one layer's weights."""
     dt = x.dtype
     if activation in ("swiglu", "geglu"):
-        gate = x @ params["w_gate"]
-        up = x @ params["w_up"]
+        gate = qmatmul(x, params["w_gate"])
+        up = qmatmul(x, params["w_up"])
         act = F.silu(gate) if activation == "swiglu" else F.gelu(gate, approximate="tanh")
         inner = act * up
     else:
-        inner = x @ params["w_in"]
+        inner = qmatmul(x, params["w_in"])
         if "b_in" in params:
             inner = inner + params["b_in"].to(dt)
         inner = _pointwise_activation(inner, activation)
-    out = (inner @ params["w_out"]).to(dt)
+    out = qmatmul(inner, params["w_out"]).to(dt)
     if "b_out" in params:
         out = out + params["b_out"].to(dt)
     return out

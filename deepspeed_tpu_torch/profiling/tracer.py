@@ -42,6 +42,9 @@ class NullTracer:
     instant_async = begin_async
     end_async = begin_async
 
+    def event(self, name: str, **attrs) -> None:  # noqa: ARG002
+        pass
+
 
 NULL_TRACER = NullTracer()
 

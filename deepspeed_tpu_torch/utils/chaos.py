@@ -13,7 +13,16 @@ Injection points (sites call ``chaos.point(NAME, ...)``):
 * ``serve.mid_window`` inside a multi-step window's host phase: every token
   of the window sits in the journal buffer, none is durable;
 * ``journal.append``   right after a journal record batch reaches the OS
-  (the torn-tail instant; pair it with the ``truncate`` action).
+  (the torn-tail instant; pair it with the ``truncate`` action);
+* ``fleet.replica_kill``  at the top of one replica's turn in the fleet
+  router's step loop (``inference/fleet.py``): a ``raise`` there is that
+  replica dying while the router and the other replicas survive (the
+  router re-routes its live requests from its journal); ``exit`` still
+  kills the whole process;
+* ``fleet.mid_migration`` inside a live migration, after the state left
+  the source's scheduler and before the target durably re-seeded it;
+* ``fleet.mid_drain``     between two migrations of a drain: the draining
+  replica dies half emptied, and the rest re-routes from its journal.
 
 Actions: ``raise`` (``ChaosKilled``, a ``BaseException``, so recovery code
 that catches ``Exception`` cannot survive it), ``exit`` (``os._exit(137)``),
@@ -45,6 +54,9 @@ POINTS = (
     "serve.mid_step",
     "serve.mid_window",
     "journal.append",
+    "fleet.replica_kill",
+    "fleet.mid_migration",
+    "fleet.mid_drain",
 )
 
 _ACTIONS = ("raise", "exit", "truncate", "corrupt")

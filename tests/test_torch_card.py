@@ -10,8 +10,11 @@ in fp32 (the variant counters, K7's and K8's split rows and dead rows,
 K9's split columns and dead keys, bitwise-equal repeated calls, K8's dS
 kept in fp32 on keys where rounding it would show); K4 at the speculative
 verify shape (width 5), fp32 speculation equal to speculation-off (ragged
-on K4, bucketed with K5 rounds), and a journaled server killed at a chaos
-point and recovered with its streams unchanged.
+on K4, bucketed with K5 rounds), a journaled server killed at a chaos
+point and recovered with its streams unchanged; a window graph replaying
+after the pool defrags under it, int8 codes and ``qmatmul`` on the card
+against the CPU, an int8 tree in a window graph, and a two-replica fleet
+with a migration and a replica kill.
 A CPU tensor handed straight to a kernel entry raises (those tests need no
 card).
 
@@ -1108,3 +1111,139 @@ def test_recover_on_card(cuda_device, tmp_path, point, hit, monkeypatch):
     for uid, want in zip(uids, ref):
         np.testing.assert_array_equal(fresh.take_result(uid), want)
     assert fresh.pool.used_pages() == 0
+
+
+# --- the pool's defrag, int8 weights and the fleet on the card ----------------------------------
+def _window_params(dtype, device, seed=3):
+    from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(**WINDOW_CFG)
+    return cfg, load_jax_params(TransformerLM(cfg), init_params(cfg, seed), device=device, dtype=dtype).param_tree()
+
+
+def _stepped(server, prompts, budgets, defrag=False):
+    uids = [server.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    moved = 0
+    while server.has_work():
+        server.step()
+        if defrag:
+            moved += server.pool.defrag()
+            server.pool.integrity_check()
+    return [server.take_result(u) for u in uids], moved
+
+
+def test_window_graph_replays_after_defrag_on_card(cuda_device, monkeypatch):
+    """A window server whose pool defrags after every step: the captured
+    graph keeps replaying into the pools (defrag gathers in place, so their
+    storage never moves) and the streams equal the single-step server's
+    without defrag, fp32, TF32 off."""
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _window_params(torch.float32, cuda_device)
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9, 12, 21)]
+    budgets = [40, 12, 25, 37, 9, 30]
+    kw = dict(page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.float32, device=cuda_device, prefix_cache=True)
+    ref, _ = _stepped(PagedServer(cfg, params, **kw), prompts, budgets)
+    server = PagedServer(cfg, params, multi_step={"enable": True, "horizon": 4}, **kw)
+    ptr = (server.pool.cache.k_pages.data_ptr(), server.pool.cache.v_pages.data_ptr())
+    outs, moved = _stepped(server, prompts, budgets, defrag=True)
+    for a, b in zip(outs, ref):
+        np.testing.assert_array_equal(a, b)
+    st = server.serve_stats()
+    assert moved > 0 and st["window_steps"] >= 2 and st["window_captures"] == 1, (moved, st["window_steps"])
+    assert (server.pool.cache.k_pages.data_ptr(), server.pool.cache.v_pages.data_ptr()) == ptr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_qmatmul_matches_cpu_on_card(cuda_device, dtype, monkeypatch):
+    """``quantize_weight_int8`` gives the same codes and scales on the card
+    as on the CPU; ``qmatmul`` on the card matches its CPU result (fp32
+    within 1e-5 with TF32 off, bf16 within 2e-2 of the output's largest
+    magnitude)."""
+    from deepspeed_tpu_torch.compression import int8
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    rs = np.random.RandomState(12)
+    w = torch.from_numpy((0.02 * rs.randn(3, 256, 192)).astype(np.float32)).to(dtype)
+    h = torch.from_numpy(rs.randn(8, 256).astype(np.float32)).to(dtype)
+    cpu = int8.quantize_weight_int8(w)
+    card = int8.quantize_weight_int8(w.to(cuda_device))
+    np.testing.assert_array_equal(card.q.cpu().numpy(), cpu.q.numpy())
+    np.testing.assert_array_equal(card.scale.cpu().numpy(), cpu.scale.numpy())
+    layer = int8.QuantizedTensor(card.q[1], card.scale[1])
+    got = int8.qmatmul(h.to(cuda_device), layer).float().cpu()
+    want = int8.qmatmul(h, int8.QuantizedTensor(cpu.q[1], cpu.scale[1])).float()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=tol, rtol=0)
+
+
+def test_int8_window_server_matches_int8_single_step_on_card(cuda_device, monkeypatch):
+    """An int8 serving tree in a window server (its codes and scales held by
+    the captured graph) gives the int8 single-step server's streams, fp32,
+    TF32 off; K4's counter follows the window accounting."""
+    from deepspeed_tpu_torch.compression.int8 import QuantizedTensor, quantize_params_int8
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _window_params(torch.float32, cuda_device)
+    qparams = quantize_params_int8(params)
+    assert isinstance(qparams["layers"]["wq"], QuantizedTensor) and qparams["layers"]["wq"].q.is_cuda
+    rs = np.random.RandomState(13)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9)]
+    budgets = [40, 33, 25, 37]
+    H = 4
+    streams = {}
+    for ms in (None, {"enable": True, "horizon": H}):
+        server = PagedServer(cfg, qparams, page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.float32,
+                             device=cuda_device, multi_step=ms)
+        before = da.launches
+        streams[ms is not None] = server.serve(prompts, max_new_tokens=budgets)
+        st = server.serve_stats()
+        L = cfg.num_layers
+        assert da.launches - before == L * st["ragged_steps"] + 2 * L * H * st["window_captures"]
+    for a, b in zip(streams[True], streams[False]):
+        np.testing.assert_array_equal(a, b)
+    assert st["window_steps"] >= 2 and st["window_captures"] == 1
+
+
+def test_fleet_streams_match_single_server_on_card(cuda_device, tmp_path, monkeypatch):
+    """Two replicas on the card behind a ``FleetRouter``, fp32 with TF32
+    off: a migration mid-stream and a replica killed at
+    ``fleet.replica_kill`` re-routed from its journal leave every stream
+    equal to one server's, and ``migrated_token_divergence`` 0."""
+    from deepspeed_tpu_torch.inference.fleet import FleetRouter, ReplicaHandle
+    from deepspeed_tpu_torch.inference.journal import RequestJournal
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.utils import chaos
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, params = _window_params(torch.float32, cuda_device)
+    kw = dict(page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.float32, device=cuda_device, prefix_cache=True)
+    rs = np.random.RandomState(14)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9, 12, 21)]
+    budgets = [20, 12, 25, 17, 9, 30]
+    ref = PagedServer(cfg, params, **kw).serve(prompts, max_new_tokens=budgets)
+    router = FleetRouter([ReplicaHandle(name=f"r{i}", journal_dir=str(tmp_path / f"r{i}"),
+                                        server=PagedServer(cfg, params, journal=RequestJournal(str(tmp_path / f"r{i}")),
+                                                           **kw)) for i in range(2)])
+    uids = [router.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    mid = None
+    while mid is None:
+        router.step()
+        mid = next((r.uid for h in router.replicas.values() for r in h.inner._active
+                    if len(r.generated) >= 2 and not r.done), None)
+    assert router.migrate(mid)
+    chaos.install(chaos.ChaosSchedule([chaos.ChaosRule("fleet.replica_kill", hit=4)]))
+    try:
+        router.run()
+    finally:
+        chaos.uninstall()
+    fs = router.fleet_stats()
+    assert fs["replica_kills"] == 1 and fs["migrations"] == 1 and fs["migrated_token_divergence"] == 0
+    for u, want in zip(uids, ref):
+        np.testing.assert_array_equal(router.take_result(u), want)

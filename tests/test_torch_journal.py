@@ -19,7 +19,7 @@ its tiny llama-style GQA model in fp32 (weights from the JAX
   the same directory with streams byte-identical to the uncrashed run;
   finished results survive, new uids continue, recovery compacts and
   retires segments, one sync a step (a window's tokens share one), a live
-  ``compact_journal``, the fleet's ``migrated_in`` refused, the knobs.
+  ``compact_journal``, the knobs.
 """
 
 from __future__ import annotations
@@ -507,12 +507,6 @@ def test_one_journal_sync_per_step(tmp_path):
     st = srv.serve_stats()
     assert st["window_steps"] >= 1
     assert calls["sync"] == calls["steps"] + len(PROMPTS) < st["emitted_tokens"]
-
-
-def test_recover_migrated_in_names_s7(tmp_path):
-    srv = _engine()._paged_server
-    with pytest.raises(NotImplementedError, match="S7"):
-        srv.recover({}, 0, migrated_in=True)
 
 
 def test_journal_knob_without_dir_raises():

@@ -25,10 +25,13 @@ from deepspeed_tpu.models import config as jax_model_config
 from deepspeed_tpu.models.transformer import _norm as jax_norm, _rope as jax_rope
 from deepspeed_tpu.moe.experts import apply_dense_ffn as jax_ffn
 from deepspeed_tpu_torch.checkpoint.jax_params import load_jax_params
+from deepspeed_tpu_torch.compression.int8 import quantize_params_int8
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig
 from deepspeed_tpu_torch.inference.decode import init_cache
+from deepspeed_tpu_torch.inference.fleet import FleetRouter, ReplicaHandle
 from deepspeed_tpu_torch.inference.kv_pool import PagePool, init_paged_cache
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
+from deepspeed_tpu_torch.inference.traffic import MultiTenantServer
 from deepspeed_tpu_torch.models import TransformerLM
 from deepspeed_tpu_torch.models import config as port_model_config
 from deepspeed_tpu_torch.models.transformer import _norm, _rope
@@ -66,7 +69,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     bad = []
     files = _port_sources()
     assert len(files) > 10 and os.path.exists(files[0])
-    for module in ("inference/sampling.py", "inference/decode.py", "profiling/decode_profile.py"):
+    for module in ("inference/sampling.py", "inference/decode.py", "profiling/decode_profile.py",
+                   "compression/int8.py", "ops/quantizer/__init__.py", "elasticity/fleet_policy.py",
+                   "elasticity/elasticity.py", "utils/loadgen.py", "inference/traffic.py", "inference/fleet.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
@@ -99,9 +104,21 @@ def _tiny_tree():
     return jax.tree_util.tree_map(np.asarray, JaxLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32)))
 
 
+def _server(cfg, tree, **kw):
+    return PagedServer(cfg, load_jax_params(TransformerLM(cfg), tree, device="cpu").param_tree(), num_pages=6,
+                       max_slots=2, **kw)
+
+
 LOWER_ENTRY_POINTS = {
-    "PagedServer": lambda cfg, tree, **kw: PagedServer(
-        cfg, load_jax_params(TransformerLM(cfg), tree, device="cpu").param_tree(), num_pages=6, max_slots=2, **kw),
+    "PagedServer": _server,
+    # TINY's FFN is empty (intermediate size 0): the attention projections and the head take int8
+    "PagedServer_int8": lambda cfg, tree, **kw: PagedServer(
+        cfg, quantize_params_int8(load_jax_params(TransformerLM(cfg), tree, device="cpu").param_tree(),
+                                  leaves=frozenset({"wq", "wk", "wv", "wo", "lm_head"})),
+        num_pages=6, max_slots=2, **kw),
+    "MultiTenantServer": lambda cfg, tree, **kw: MultiTenantServer(_server(cfg, tree, **kw), tenants=[]),
+    "FleetRouter": lambda cfg, tree, **kw: FleetRouter(
+        [ReplicaHandle(name=f"r{i}", server=_server(cfg, tree, **kw)) for i in range(2)]),
     "PagePool": lambda cfg, tree, **kw: PagePool(cfg, 6, 4, 2, **kw),
     "init_paged_cache": lambda cfg, tree, **kw: init_paged_cache(cfg, 6, 4, **kw),
     "init_cache": lambda cfg, tree, **kw: init_cache(cfg, 2, 16, **kw),
@@ -125,10 +142,8 @@ def test_lower_entry_points_default_to_cuda(name):
 
 
 UNPORTED = {
-    "traffic": {"traffic": {"enabled": True, "tenants": [{"name": "a"}]}},
     "tp_degree": {"paged_kv": {"sharded": {"tp_degree": 2}}},
     "tp_size": {"tensor_parallel": {"tp_size": 2}},
-    "int8_weights": {"paged_kv": {"sharded": {"weight_quant_bits": 8}}},
     "int8_dtype": {"dtype": "int8"},
 }
 
