@@ -5,9 +5,10 @@
 
 Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
 drives the serving (single-step, multi-step windows, speculative decoding,
-crash recovery from the journal, int8 weights, multi-tenant SLA serving
-and a two-replica fleet), the training and the block-sparse attention main
-paths at full width. Phases,
+crash recovery from the journal, int8 weights, multi-tenant SLA serving,
+a two-replica fleet and tensor-parallel serving, forward and generate on
+two ranks), the training and the block-sparse attention main paths at
+full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -166,6 +167,32 @@ non-zero without the final line:
    killed at 1.5 s: routing shares, TTFT/TPOT, ``fleet_stats()`` and the
    streams equal to one server's (counted); every request finished, the
    kill fired, divergence 0 and K4 exact are required;
+9h. tensor parallelism (S9) on two gloo ranks that share the one card
+   (the sharded math and collectives on the device, not a TP speed). K4,
+   K6 and K1 against their plain versions at a rank's head counts under
+   tp = 2 (16 query heads over 2 kv heads, D 64; one launch each, fp32
+   within 1e-4 and bf16 within 2e-2). The single-rank fp32 references
+   are made first; then the tree goes to one memory-mapped file and two
+   ranks are spawned (``spawn``; ``init_distributed("gloo")`` through a
+   file store with a timeout; the parent kills both at a time limit and
+   fails on any rank's error). Each rank: ``init_inference(...,
+   paged_kv={"sharded": {"tp_degree": 2}})`` serving phase 3's 16
+   requests in bf16 (every request finished, K4 = 22 x ragged steps,
+   TTFT/TPOT, streams equal to phase 3's counted); a bf16 server with the
+   quantized all-reduce (4 requests of 8 new tokens finished) and the largest logit
+   difference of one [2, 256] forward against the fp all-reduce; fp32
+   (TF32 off) servers on phase 9's 4 prompts, 16 new tokens each: ragged, windows (eager
+   rounds under tp, K4 = 22 x (steps + 8 x windows)), an oracle drafter
+   and int8 weights, each stream equal to the single-rank server's or
+   parting at a plain top-2 gap below 1e-4; ``tensor_parallel={"tp_size":
+   2}``: ``engine(tokens)`` [2, 256] within 1e-4 of the logit scale of
+   tp = 1 with K1 = 22, greedy ``generate`` (16 x 32 new) equal to tp =
+   1's with K6 = 22 x 32; ``save_mp_checkpoint`` (rank 0 writes), then
+   fresh tp = 2 and (rank 0) tp = 1 engines booted with ``checkpoint=``,
+   logits bitwise those of the saving engine and of the tp = 1 engine.
+   The ranks' step fingerprints must be equal in every serve; the port
+   stages no collective through the host itself (``staged_collectives``
+   0: gloo takes every one on CUDA tensors);
 10. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
    against their plain versions at the training shape (B=8, T=1024, N=12,
    D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
@@ -255,7 +282,9 @@ split-KV launches, K4 with phase 9b's window numbers, its ``spec`` field
 counts), its ``recovery`` field (phase 9d's and the fp32 recovery's) and
 its ``int8``, ``traffic`` and ``fleet`` fields (phases 9e-9g); K5 with the
 fp32 int8 bucketed server's launches, K6 with the ``quant.enabled``
-generate's); the last line is
+generate's; K4, K6 and K1 with a ``tp`` field: each rank's launches on
+the tensor-parallel paths of phase 9h and the local-shape checks); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -264,6 +293,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1927,6 +1957,341 @@ def _counts():
                 block_sparse_dq=bs.launches_dq, block_sparse_dkv=bs.launches_dkv)
 
 
+# --- phase 9h: tensor-parallel serving (S9), two gloo ranks sharing the one card ---------------
+TP = 2
+TP_SERVE = {"page_size": 16, "max_slots": 8, "sharded": {"tp_degree": TP}}
+TP_LIMIT_S = 480  # the parent's hard limit on the ranks
+TP_PG_TIMEOUT_S = 300
+TP_NEW = 16  # new tokens a request in the fp32 tp runs (a tp step costs ~90 gloo collectives on the shared card)
+
+
+def _save_tree(tree, path):
+    """The flat tree as one float32 file and its index, which every rank
+    memory-maps (the tree is made once, in the parent)."""
+    index, off = [], 0
+    with open(path + ".bin", "wb") as f:
+        for name, leaf in tree.items():
+            a = np.ascontiguousarray(leaf, np.float32)
+            f.write(memoryview(a).cast("B"))
+            index.append((name, list(a.shape), off))
+            off += a.nbytes
+    with open(path + ".json", "w") as f:
+        json.dump(index, f)
+
+
+def _load_tree(path):
+    with open(path + ".json") as f:
+        index = json.load(f)
+    mm = np.memmap(path + ".bin", dtype=np.float32, mode="r")
+    return {name: mm[off // 4 : off // 4 + int(np.prod(shape))].reshape(shape) for name, shape, off in index}
+
+
+def _tp_serve_run(cfg, server, prompts, budgets, label):
+    """One serve on ``server`` (an engine or a ``PagedServer``) with the
+    counts zeroed just before: every
+    request finishes with its budget, and the launches are exactly K4 = 22
+    x (ragged steps + 8 x window steps) on this rank (windows under tp run
+    their rounds eagerly: no capture)."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = server.serve(prompts, max_new_tokens=budgets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = server.serve_stats()
+    counts = _counts()
+    want = {k: 0 for k in counts}
+    want["ragged_paged_attention"] = cfg.num_layers * (s["ragged_steps"] + s["window_horizon"] * s["window_steps"])
+    bad = [i for i, (p, b, o) in enumerate(zip(prompts, budgets, outs))
+           if o is None or o.shape != (p.size + b,) or not (o[: p.size] == p).all()]
+    if bad or s["finished"] != len(prompts) or counts != want or s["tp_degree"] != TP or s["window_graph"]:
+        raise AssertionError(f"tp {label}: malformed {bad}, finished {s['finished']}, launches {counts} "
+                             f"want {want}, tp_degree {s['tp_degree']}, window_graph {s['window_graph']}")
+    gen = sum(budgets)
+    return outs, dict(requests=len(prompts), generated_tokens=gen, wall_s=wall, tokens_per_s=gen / wall,
+                      ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"], ragged_steps=s["ragged_steps"],
+                      window_steps=s["window_steps"], spec_rounds=s["spec_rounds"], launches=counts,
+                      fingerprint=s["step_fingerprint"], fingerprint_steps=s["fingerprint_steps"])
+
+
+def _tp_rank_work(rank, tree, prompts, budgets, small, small_ref, dense_prompts, tokens, ckpt):
+    """Everything one rank runs, in order (see the module docstring, phase
+    9h). Returns this rank's records, streams and logits."""
+    from deepspeed_tpu_torch.inference.tp import TPServing
+
+    out = {}
+    # bf16 tp = 2 ragged serving of phase 3's traffic, through init_inference
+    cfg = llama_config("1b")
+    engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=TP_SERVE)
+    engine.set_params(tree)
+    outs, out["bf16"] = _tp_serve_run(cfg, engine, prompts, budgets, "bf16 serve")
+    out["bf16_streams"] = outs
+    params = engine.module.param_tree()
+    # bf16 with the quantized all-reduce: the serve, and one [2, 256] forward's logits against the fp all-reduce's
+    qar = PagedServer(cfg, params, dtype=torch.bfloat16, tp=TPServing(degree=TP, quantized_allreduce=True), **SERVE)
+    _, out["bf16_qar"] = _tp_serve_run(cfg, qar, small, [8] * len(small), "bf16 quantized all-reduce")
+    del qar
+    tok = torch.from_numpy(tokens).cuda()
+    with torch.no_grad():
+        logits = {}
+        for quantized in (False, True):
+            ctx = TPServing(degree=TP, quantized_allreduce=quantized)
+            logits[quantized] = engine.module.apply(ctx.shard_params(cfg, params), tok, train=False, tp=ctx).float()
+        out["bf16_qar"]["logit_max_abs_diff"] = (logits[True] - logits[False]).abs().max().item()
+        out["bf16_qar"]["logit_scale"] = logits[False].abs().max().item()
+    del engine, params, logits
+    torch.cuda.empty_cache()
+
+    # fp32 (TF32 off): ragged, windows (eager rounds), an oracle drafter and int8 weights
+    cfg32 = llama_config("1b", dtype="float32")
+    engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", paged_kv=TP_SERVE)
+    engine.set_params(tree)
+    params = engine.module.param_tree()
+    new = [TP_NEW] * len(small)
+    servers = {
+        "ragged": lambda: engine,
+        "windows": lambda: PagedServer(cfg32, params, dtype=torch.float32, tp=TPServing(degree=TP),
+                                       multi_step={"enable": True, "horizon": HORIZON}, **SERVE),
+        "oracle": lambda: PagedServer(cfg32, params, dtype=torch.float32, tp=TPServing(degree=TP),
+                                      drafter=OracleDrafter(dict(enumerate(small_ref)), cfg32.vocab_size),
+                                      spec_decode={"max_draft": SPEC_K}, **SERVE),
+        "int8": lambda: PagedServer(cfg32, quantize_params_int8(params), dtype=torch.float32, tp=TPServing(degree=TP),
+                                    **SERVE),
+    }
+    out["fp32"], out["fp32_streams"] = {}, {}
+    for name, make in servers.items():
+        server = make()
+        out["fp32_streams"][name], out["fp32"][name] = _tp_serve_run(cfg32, server, small, new, f"fp32 {name}")
+        del server
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # the dense tensor-parallel forward and generate (fp32), then the pre-sharded checkpoint
+    engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", tensor_parallel={"tp_size": TP})
+    engine.set_params(tree)
+    _zero_counts()
+    logits = engine(tok)
+    torch.cuda.synchronize()
+    out["dense_forward_launches"] = _counts()
+    _zero_counts()
+    t0 = time.perf_counter()
+    gen = engine.generate(dense_prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    out["dense_generate"] = dict(wall_s=time.perf_counter() - t0, launches=_counts(),
+                                 split_launches=decode_attention.launches_decode_split)
+    out["dense_logits"] = logits.cpu().numpy()
+    out["dense_streams"] = gen.cpu().numpy()
+    t0 = time.perf_counter()
+    mpath = engine.save_mp_checkpoint(ckpt)
+    out["ckpt_save_s"] = time.perf_counter() - t0
+    del engine
+    torch.cuda.empty_cache()
+    booted = dst.init_inference(TransformerLM(cfg32), dtype="fp32", tensor_parallel={"tp_size": TP}, checkpoint=mpath)
+    out["ckpt_tp_bitwise"] = bool(torch.equal(booted(tok), logits))
+    del booted
+    torch.cuda.empty_cache()
+    if rank == 0:
+        single = dst.init_inference(TransformerLM(cfg32), dtype="fp32", checkpoint=mpath)
+        out["ckpt_tp1_logits"] = single(tok).cpu().numpy()
+        del single
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank, store, tree_path, result_path, work_args):
+    """One spawned rank of phase 9h: joins the gloo group through a file
+    store (with a timeout), runs ``_tp_rank_work`` and pickles its result
+    or its traceback."""
+    import pickle
+    import traceback
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dst.init_distributed("gloo", init_method=f"file://{store}", rank=rank, world_size=TP,
+                             timeout=TP_PG_TIMEOUT_S)
+        res = _tp_rank_work(rank, _load_tree(tree_path), **work_args)
+        dst.comm.barrier()
+        dst.comm.destroy_process_group()
+        payload = ("ok", res)
+    except BaseException:  # the parent raises it
+        payload = ("error", traceback.format_exc())
+    with open(result_path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def _run_tp_ranks(tmp, tree_path, work_args):
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    results = [f"{tmp}/rank{r}.pkl" for r in range(TP)]
+    procs = [ctx.Process(target=_tp_rank, args=(r, f"{tmp}/store", tree_path, results[r], work_args))
+             for r in range(TP)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + TP_LIMIT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    out, errors = [], [f"ranks {hung} still running after {TP_LIMIT_S} s: killed"] if hung else []
+    for r, path in enumerate(results):
+        try:
+            with open(path, "rb") as f:
+                status, value = pickle.load(f)
+        except OSError:
+            errors.append(f"rank {r}: no result (exit code {procs[r].exitcode})")
+            continue
+        if status == "ok":
+            out.append(value)
+        else:
+            errors.append(f"rank {r}:\n{value}")
+    if errors:
+        raise AssertionError("tp ranks failed:\n" + "\n".join(errors))
+    return out
+
+
+def _tp_local_kernels(dev):
+    """K4, K6 and K1 against their plain versions at llama-1B's per-rank
+    shapes under tp = 2 (16 query heads over 2 kv heads, D 64; K1 over 16
+    heads at the [2, 256] forward), one launch each, fp32 (TF32 off) and
+    bf16."""
+    rs = np.random.default_rng(5432)
+    nh, nkv = NH // TP, NKV // TP
+    recs = {}
+    k4_args = _batch(rs, 1, [(1, 1), (17, 1), (300, 1), (511, 1), (1024, 1), (1500, 1), (0, 0), (2048, 1)], dev,
+                     nh=nh, nkv=nkv)
+    q6, k6, v6, lens6 = _decode_inputs(rs, 16, 256, nh, nkv, D, np.linspace(0, 256, 16).astype(np.int32), dev)
+    q1, k1, v1 = (torch.from_numpy(rs.standard_normal((2, 256, nh, D), dtype=np.float32)).to(dev) for _ in range(3))
+    scale = 1.0 / np.sqrt(D)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        dt = str(dtype).replace("torch.", "")
+        err4, _, splits = _compare(f"tp{TP} local W=1", k4_args, scale, dtype, tol)
+        before = decode_attention.launches_decode
+        qd, kd, vd = q6.to(dtype), k6.to(dtype), v6.to(dtype)
+        got6 = decode_attention.decode_attention_kernel(qd, kd, vd, lens6, scale)
+        ref6 = decode_attention.decode_attention_plain(qd.float(), kd.float(), vd.float(), lens6, scale)
+        launched6 = decode_attention.launches_decode - before
+        before = fa.launches_fwd
+        o, lse = fa.flash_fwd_kernel(q1.to(dtype), k1.to(dtype), v1.to(dtype), True)
+        o_ref, lse_ref = fa.flash_fwd_plain(q1.to(dtype).float(), k1.to(dtype).float(), v1.to(dtype).float(), True)
+        launched1 = fa.launches_fwd - before
+        torch.cuda.synchronize()
+        err6 = (got6.float() - ref6).abs().max().item()
+        err1 = max((o.float() - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+        recs[dt] = dict(k4=dict(case=f"W=1 NH={nh} NKV={nkv} D={D}", max_abs_err=err4, splits=splits),
+                        k6=dict(case=f"B=16 S=256 NH={nh} NKV={nkv} D={D}", max_abs_err=err6),
+                        k1=dict(case=f"B=2 T=256 N={nh} D={D} causal", max_abs_err=err1), tol=tol)
+        emit(phase="tp_kernels", dtype=dt, **recs[dt])
+        if not (err6 <= tol and err1 <= tol and launched6 == 1 and launched1 == 1):
+            raise AssertionError(f"tp local kernels {dt}: K6 err {err6} ({launched6} launches), K1 err {err1} "
+                                 f"({launched1} launches), tol {tol}")
+    return recs
+
+
+def phase_tp(cfg, tree, seed, streams, dev):
+    """Phase 9h: two spawned ranks share the card over gloo (not a TP speed
+    measurement); the tp = 1 references are made here first."""
+    import shutil
+
+    local = _tp_local_kernels(dev)
+    prompts, budgets = _requests(seed, cfg.vocab_size)
+    rs = np.random.default_rng(seed + 2)
+    small = list(rs.integers(0, cfg.vocab_size, (4, 224), dtype=np.int32))
+    dense_prompts = np.random.default_rng(seed + 9).integers(0, cfg.vocab_size, (16, 224), dtype=np.int32)
+    tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 256), dtype=np.int32)
+    # the single-rank fp32 references: ragged and int8 streams, the dense forward's logits and greedy generate
+    cfg32 = llama_config("1b", dtype="float32")
+    ref_engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", paged_kv=SERVE)
+    ref_engine.load_jax_params(tree)
+    params32 = ref_engine.module.param_tree()
+    small_ref = PagedServer(cfg32, params32, dtype=torch.float32, **SERVE).serve(small, max_new_tokens=TP_NEW)
+    params_int8 = quantize_params_int8(params32)
+    small_int8_ref = PagedServer(cfg32, params_int8, dtype=torch.float32, **SERVE).serve(small, max_new_tokens=TP_NEW)
+    with torch.no_grad():
+        ref_logits = ref_engine(torch.from_numpy(tokens).to(dev)).cpu().numpy()
+    ref_dense = ref_engine.generate(dense_prompts, max_new_tokens=32).cpu().numpy()
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="tp_smoke_", dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    try:
+        t0 = time.perf_counter()
+        _save_tree(tree, f"{tmp}/tree")
+        emit(phase="tp", event="tree_written", seconds=time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ranks = _run_tp_ranks(tmp, f"{tmp}/tree", dict(
+            prompts=prompts, budgets=budgets, small=small, small_ref=small_ref, dense_prompts=dense_prompts, tokens=tokens, ckpt=f"{tmp}/ckpt"))
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    L = cfg.num_layers
+    rec = dict(ranks=TP, backend="gloo", note="two gloo ranks on one card, not a TP speed", ranks_wall_s=ranks_s)
+    # bf16 serving of phase 3's traffic
+    rec["bf16"] = [r["bf16"] for r in ranks]
+    rec["bf16_identical_to_phase3"] = [_same(r["bf16_streams"], streams["cold"]) for r in ranks]
+    rec["bf16_qar"] = [r["bf16_qar"] for r in ranks]
+    # fp32 identities against the single-rank streams (or a parting at a plain top-2 gap below 1e-4)
+    rec["fp32"] = {}
+    for name in ranks[0]["fp32"]:
+        ref, params = (small_int8_ref, params_int8) if name == "int8" else (small_ref, params32)
+        rec["fp32"][name] = [dict(r["fp32"][name], identical=_same(r["fp32_streams"][name], ref),
+                                  partings=_partings(cfg32, params, r["fp32_streams"][name], ref, dev,
+                                                     f"tp fp32 {name}")) for r in ranks]
+    # the dense forward and generate, and the checkpoint round trip
+    scale = float(np.abs(ref_logits).max())
+    dense = []
+    for rank, r in enumerate(ranks):
+        err = float(np.abs(r["dense_logits"] - ref_logits).max())
+        same = int(sum(np.array_equal(a, b) for a, b in zip(r["dense_streams"], ref_dense)))
+        fwd, gen = r["dense_forward_launches"], r["dense_generate"]["launches"]
+        want_fwd = {k: (L if k == "flash_fwd" else 0) for k in fwd}
+        want_gen = {k: (L * 32 if k == "decode_attention" else 0) for k in gen}
+        dense.append(dict(logit_max_abs_err=err, logit_scale=scale, streams_identical=same,
+                          forward_launches=fwd, generate_launches=gen, generate_wall_s=r["dense_generate"]["wall_s"],
+                          ckpt_save_s=r["ckpt_save_s"], ckpt_tp_bitwise=r["ckpt_tp_bitwise"]))
+        if err > 1e-4 * scale or same != len(ref_dense) or fwd != want_fwd or gen != want_gen \
+                or not r["ckpt_tp_bitwise"]:
+            raise AssertionError(f"tp dense rank {rank}: {dense[-1]}")
+    ckpt_tp1 = bool(np.array_equal(ranks[0]["ckpt_tp1_logits"], ref_logits))
+    rec["dense"] = dense
+    rec["ckpt_tp1_bitwise"] = ckpt_tp1
+    if not ckpt_tp1:
+        raise AssertionError("tp checkpoint: the tp = 1 engine booted from it differs from the one loaded from the tree")
+    # every rank shipped the same host arrays in the same steps, in every serve
+    prints = {}
+    for label, get in (("bf16", lambda r: r["bf16"]), ("bf16_qar", lambda r: r["bf16_qar"]),
+                       *((f"fp32 {n}", lambda r, n=n: r["fp32"][n]) for n in ranks[0]["fp32"])):
+        seen = {(get(r)["fingerprint"], get(r)["fingerprint_steps"]) for r in ranks}
+        prints[label] = dict(equal=len(seen) == 1, fingerprint=get(ranks[0])["fingerprint"],
+                             steps=get(ranks[0])["fingerprint_steps"])
+        if len(seen) != 1:
+            raise AssertionError(f"tp {label}: the ranks' step fingerprints differ: {seen}")
+    rec["fingerprints"] = prints
+    # the comm layer hands every collective to gloo as a CUDA tensor (gloo copies through the host inside)
+    rec["staged_collectives"] = 0
+    rec["local_kernels"] = local
+    emit(phase="tp", **rec)
+    # the kernels line: each rank's launches on the tp main paths, and the local-shape checks
+    rec["kernels"] = {
+        "ragged_paged_attention": dict(launches_per_rank=[r["bf16"]["launches"]["ragged_paged_attention"]
+                                                          for r in ranks], path="bf16 tp = 2 serve",
+                                       local={dt: v["k4"] for dt, v in local.items()}),
+        "decode_attention": dict(launches_per_rank=[r["dense_generate"]["launches"]["decode_attention"]
+                                                    for r in ranks], path="fp32 tp = 2 generate, 16 x 32 new",
+                                 local={dt: v["k6"] for dt, v in local.items()}),
+        "flash_fwd": dict(launches_per_rank=[r["dense_forward_launches"]["flash_fwd"] for r in ranks],
+                          path="fp32 tp = 2 engine(tokens) [2, 256]",
+                          local={dt: v["k1"] for dt, v in local.items()}),
+    }
+    del ref_engine, params32, params_int8
+    torch.cuda.empty_cache()
+    return rec
+
+
 # --- phase 5: K1-K3 against their plain versions -------------------------------
 FLASH_CASES = {  # name: (B, T, N, D, causal)
     "train B=8 T=1024 N=12 D=64 causal": (8, 1024, 12, 64, True),
@@ -2774,6 +3139,7 @@ def main() -> int:
     int8 = phase_int8(cfg, tree, args.seed, serve_streams, steady, steady_ref, dev)
     traffic = phase_traffic(cfg, tree, args.seed, serve_streams, dev)
     fleet = phase_fleet(cfg, tree, args.seed, dev)
+    tp = phase_tp(cfg, tree, args.seed, serve_streams, dev)
     del tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -2805,7 +3171,7 @@ def main() -> int:
         recovery=dict(bf16=recovery, fp32={k: fp32["recovery"][k] for k in ("recovered", "identical", "launches")}),
         int8=dict(serve=int8["serve"], logits_relative=int8["logits_relative"], steady=int8["steady"],
                   fp32={k: int8["fp32"][k] for k in ("k4", "identical_plain")}),
-        traffic=traffic, fleet=fleet,
+        traffic=traffic, fleet=fleet, tp=tp["kernels"]["ragged_paged_attention"],
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "splits", "bitwise_equal")} for c in cases],
     )] + [dict(
@@ -2820,12 +3186,13 @@ def main() -> int:
         variant={"bfloat16": "tensor_core", "float16": "tensor_core", "float32": "fma"},
         tensor_core_launches=train_variants[f"{name}_tc"],
         fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")},
+        **({"tp": tp["kernels"]["flash_fwd"]} if name == "flash_fwd" else {}),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,
         **{k: k6_main[k] for k in keys}, variant="split_kv", split_launches=k6_split_launches,
         splits=k6_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k6_cases],
-        quant_enabled=int8["quant"],
+        quant_enabled=int8["quant"], tp=tp["kernels"]["decode_attention"],
     ), dict(
         name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:110", launches=k5_launches,

@@ -21,12 +21,21 @@ beside it slice by slice and mirrors its module paths. It imports neither
   CUDA kernels ``csrc/block_sparse_attention.cu`` (forward, dQ, dK/dV over
   the layout's live blocks). As in JAX, a call with a ``key_padding_mask``
   or a block that is not a multiple of 8 takes the dense-gather emulation
-  instead, chosen from the arguments before any launch.
+  instead, chosen from the arguments before any launch;
+* tensor parallelism over ``torch.distributed`` (``comm``, one process a
+  rank): sharded paged serving (``paged_kv.sharded.tp_degree``), the
+  sharded forward and ``generate`` (``tensor_parallel.tp_size``), and the
+  pre-sharded inference checkpoint (``save_mp_checkpoint``,
+  ``checkpoint=``).
 """
 
 from __future__ import annotations
 
+from deepspeed_tpu_torch import comm as comm
+from deepspeed_tpu_torch.comm.comm import init_distributed
+
 __version__ = "0.1.0"
+dist = comm
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,

@@ -6,8 +6,7 @@ refuse them with ``NotImplementedError`` (each message names the ROADMAP
 item that will port it). ``analysis`` and ``tracing`` are accepted as
 plain dicts; their defaults do nothing, and the values JAX acts on
 (``analysis.verify`` other than ``"off"``, a truthy
-``tracing.flight_recorder``) are refused, as is a set
-``save_mp_checkpoint_path``.
+``tracing.flight_recorder``) are refused.
 
 ``paged_kv.attn_impl`` takes ``auto | kernel | plain``: ``auto`` and
 ``kernel`` launch the CUDA ragged paged-attention kernel on a CUDA tensor
@@ -96,8 +95,16 @@ class MultiStepConfig(DeepSpeedConfigModel):
 
 
 class ShardedServingConfig(DeepSpeedConfigModel):
-    """Tensor-parallel serving knobs (not ported yet: ROADMAP S9) and the
-    serving tree's int8 weights (``weight_quant_bits=8``, ported)."""
+    """Tensor-parallel serving and the serving tree's int8 weights. With an
+    effective degree > 1 (``tp_degree``, or ``tensor_parallel.tp_size``
+    when it is 0) the ragged server runs one rank per process
+    (``inference/tp.py``): column- and row-parallel weights, pools of
+    ``NKV / tp`` kv heads, host structures whole on every rank.
+    ``quantized_allreduce`` swaps the row-parallel fp all-reduce for the
+    int8 exchange (allclose, not byte-identical); ``comm_chunks`` splits
+    each row-parallel projection's output into chunks reduced one by one.
+    ``weight_quant_bits=8`` quantizes the serving tree to int8
+    (``compression/int8.py``) before it is sharded."""
 
     tp_degree: int = 0
     quantized_allreduce: bool = False
@@ -258,16 +265,9 @@ class DeepSpeedInferenceConfig(DeepSpeedConfigModel):
 def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
     """Messages for every switch set in ``cfg`` whose path this package
     does not have yet, each naming its ROADMAP item."""
-    p = cfg.paged_kv
     found = []
-    if max(p.sharded.tp_degree, cfg.tensor_parallel.tp_size) > 1:
-        found.append("tensor-parallel serving (sharded.tp_degree / tp_size > 1): ROADMAP S9")
     if cfg.zero:
         found.append("zero (ZeRO-Inference offload): ROADMAP T2")
-    if cfg.checkpoint is not None:
-        found.append("checkpoint= loading (use engine.load_jax_params): ROADMAP T3")
-    if cfg.save_mp_checkpoint_path:
-        found.append("save_mp_checkpoint_path (MP checkpoint at set_params): ROADMAP T3")
     if str(cfg.analysis.get("verify", "off")) != "off":
         found.append("analysis.verify (static passes on each program): ROADMAP X1")
     if cfg.tracing.get("flight_recorder"):

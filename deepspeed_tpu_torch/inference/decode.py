@@ -81,12 +81,19 @@ def _layer_project_qkv(cfg: TransformerConfig, p, h):
     return q.reshape(B, T, NH, D), k.reshape(B, T, NKV, D), v.reshape(B, T, NKV, D)
 
 
-def _ffn_body(cfg: TransformerConfig, p, x, norm_scale, norm_bias):
-    """norm → ffn, NO residual — callers place the residual per architecture."""
+def _ffn_body(cfg: TransformerConfig, p, x, norm_scale, norm_bias, tp=None):
+    """norm → ffn, NO residual — callers place the residual per architecture.
+    Under tensor parallelism (``tp``) the down projection is row-parallel
+    (``apply_dense_ffn``)."""
     h = _norm(x, norm_scale, norm_bias, cfg.norm, cfg.norm_eps)
     if "moe" in p:
+        if tp is not None:
+            raise NotImplementedError(
+                "tensor-parallel MoE serving is not supported: expert "
+                "placement is the 'expert' mesh axis, not a TP weight split"
+            )
         raise NotImplementedError("MoE serving is not ported yet (ROADMAP M1)")
-    return apply_dense_ffn({name: p[name] for name in _FFN_LEAVES if name in p}, h, cfg.activation)
+    return apply_dense_ffn({name: p[name] for name in _FFN_LEAVES if name in p}, h, cfg.activation, tp=tp)
 
 
 def _softmax_scale(cfg, head_dim: int) -> float:
@@ -97,25 +104,29 @@ def _softmax_scale(cfg, head_dim: int) -> float:
     )
 
 
-def _post_attention(cfg, p, x, attn):
+def _post_attention(cfg, p, x, attn, tp=None):
     """Output projection + residual placement + MLP: the shared tail of
-    every cached-attention layer."""
+    every cached-attention layer. Under tensor parallelism (``tp``) the
+    output projection is row-parallel: each rank holds its heads' rows of
+    ``wo``, the partial sums meet in ``tp.row_matmul``'s all-reduces, and
+    the replicated bias is added once, after the reduce."""
     B, T = x.shape[:2]
     a = attn.reshape(B, T, cfg.num_heads * cfg.head_dim)
-    attn = qmatmul(a, p["wo"]).to(x.dtype)
+    attn = (tp.row_matmul(a, p["wo"]) if tp is not None else qmatmul(a, p["wo"])).to(x.dtype)
     if cfg.use_bias:
         attn = attn + p["bo"].to(x.dtype)
     if cfg.parallel_residual:
         # GPT-J/NeoX: the mlp branch reads x (shared ln_1 or its own norm)
         norm_scale = p["attn_norm_scale"] if cfg.shared_parallel_norm else p["mlp_norm_scale"]
         norm_bias = p.get("attn_norm_bias") if cfg.shared_parallel_norm else p.get("mlp_norm_bias")
-        return x + attn + _ffn_body(cfg, p, x, norm_scale, norm_bias)
+        return x + attn + _ffn_body(cfg, p, x, norm_scale, norm_bias, tp=tp)
     x = x + attn
-    return x + _ffn_body(cfg, p, x, p["mlp_norm_scale"], p.get("mlp_norm_bias"))
+    return x + _ffn_body(cfg, p, x, p["mlp_norm_scale"], p.get("mlp_norm_bias"), tp=tp)
 
 
 def _final_logits(cfg, params, x):
-    """Final norm + LM head."""
+    """Final norm + LM head (this rank's vocabulary slice when the head is
+    sharded)."""
     x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"), cfg.norm, cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"]["tokens"].to(x.dtype).T
@@ -123,6 +134,13 @@ def _final_logits(cfg, params, x):
     if cfg.lm_head_bias:
         logits = logits + params["lm_head_bias"].to(logits.dtype)
     return logits
+
+
+def _greedy(logits, tp=None):
+    """Greedy tokens over the last dim (int32, the first maximum on ties,
+    as ``jnp.argmax``); under tensor parallelism the global argmax over the
+    ranks' vocabulary slices (``tp.argmax``)."""
+    return tp.argmax(logits) if tp is not None else torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _layer_leaf(w, l: int):
@@ -166,7 +184,7 @@ def _scatter_pages(pages_l, vals, page_table, positions, page_size, valid=None):
 
 def _paged_forward(cfg, params, tokens, k_pages, v_pages, page_table, positions_b,
                    attn_impl, write_valid=None, kv_lens=None, q_lens=None, attn_lens=None,
-                   layers=None):
+                   layers=None, tp=None):
     """Forward ``[B, T]`` tokens against the paged cache: per layer, scatter
     the rows' k/v into the pool (``write_valid`` sends masked positions to
     the trash page), then attend. Three branches, as in JAX:
@@ -179,8 +197,11 @@ def _paged_forward(cfg, params, tokens, k_pages, v_pages, page_table, positions_
       ``positions_b`` (and capped by ``kv_lens`` when given), plain.
 
     ``attn_lens`` is what tells decode from prefill: a ``prefill_chunk=1``
-    chunk also has ``T == 1`` but takes the causal path. Returns logits
-    ``[B, T, V]``; the pools are updated in place."""
+    chunk also has ``T == 1`` but takes the causal path. Under tensor
+    parallelism (``tp``) ``cfg`` is the rank's local view (its heads, its
+    kv heads of every page), the row-parallel projections all-reduce, and
+    the logits are this rank's vocabulary slice when the head is sharded.
+    Returns logits ``[B, T, V]``; the pools are updated in place."""
     dtype = k_pages.dtype
     P = k_pages.shape[3]
     T = tokens.shape[1]
@@ -210,7 +231,7 @@ def _paged_forward(cfg, params, tokens, k_pages, v_pages, page_table, positions_
             attn = paged_prefill_attention(
                 q, k_pages[l], v_pages[l], page_table, positions_b, scale=scale, kv_lens=kv_lens,
             )
-        x = _post_attention(cfg, p, x, attn)
+        x = _post_attention(cfg, p, x, attn, tp=tp)
     return _final_logits(cfg, params, x)
 
 
@@ -239,7 +260,7 @@ def _layer_views():
     return layers_of
 
 
-def build_ragged_step(cfg, width: int, attn_impl: str = "auto"):
+def build_ragged_step(cfg, width: int, attn_impl: str = "auto", tp=None):
     """The one serving step: an ``R × width`` ragged window of mixed
     prefill-chunk, decode, verify (the pending token and ``q_len - 1``
     drafts) and dead rows.
@@ -252,12 +273,19 @@ def build_ragged_step(cfg, width: int, attn_impl: str = "auto"):
     ``out[r, 0]`` the accepted-prefix length of verify rows (leading drafts
     equal to the model's own greedy argmax; 0 wherever nothing was
     drafted). The pools update in place. All arguments are
-    tensors on the pools' device."""
+    tensors on the pools' device.
+
+    With ``tp`` (``inference/tp.py:TPServing``) each rank runs this body
+    on its shard: the local head counts over its kv heads of every page,
+    the row-parallel all-reduces, and the greedy and accepted-prefix
+    resolution through the global ``tp.argmax``, so every rank returns the
+    same ``out``."""
     _check_cached_cfg(cfg)
     if width < 1:
         raise ValueError(f"ragged step needs width >= 1, got {width}")
     W = int(width)
     layers_of = _layer_views()
+    run_cfg = cfg if tp is None else tp.local_cfg(cfg)
 
     @torch.no_grad()
     def _step(params, tokens, k_pages, v_pages, page_table, lengths, q_lens):
@@ -266,17 +294,17 @@ def build_ragged_step(cfg, width: int, attn_impl: str = "auto"):
         valid = offs[None, :] < q_lens[:, None]
         kv_lens = torch.where(q_lens > 0, lengths + q_lens, torch.zeros_like(lengths))
         logits = _paged_forward(
-            cfg, params, tokens, k_pages, v_pages, page_table, positions_b, attn_impl,
-            write_valid=valid, kv_lens=kv_lens, q_lens=q_lens, layers=layers_of(params),
+            run_cfg, params, tokens, k_pages, v_pages, page_table, positions_b, attn_impl,
+            write_valid=valid, kv_lens=kv_lens, q_lens=q_lens, layers=layers_of(params), tp=tp,
         )
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [R, W], first max on ties
+        greedy = _greedy(logits, tp)  # [R, W]
         accepted = _accepted_prefix(tokens, greedy, q_lens - 1)
         return torch.cat([accepted[:, None].to(torch.int32), greedy], dim=1)
 
     return _step
 
 
-def build_ragged_multistep(cfg, rows: int, width: int, horizon: int, attn_impl: str = "auto"):
+def build_ragged_multistep(cfg, rows: int, width: int, horizon: int, attn_impl: str = "auto", tp=None):
     """``horizon`` plain-decode rounds of the ragged step body in one call:
     the counterpart of JAX's one-dispatch ``lax.scan`` window, run eagerly
     on the CPU and captured as one CUDA graph on a card (``WindowGraph``).
@@ -297,7 +325,8 @@ def build_ragged_multistep(cfg, rows: int, width: int, horizon: int, attn_impl: 
     froze). The page table must already cover ``lengths + min(N,
     budget)`` (the scheduler reserves it). The pools update in place. The
     body reads nothing back to the host, so it can be captured. ``width``
-    must be 1 (drafted windows are JAX's reserved case)."""
+    must be 1 (drafted windows are JAX's reserved case). With ``tp`` each
+    rank runs the rounds on its shard, as ``build_ragged_step`` does."""
     _check_cached_cfg(cfg)
     if width != 1:
         raise ValueError(f"multi-step windows run plain decode only (width 1), got {width}")
@@ -305,6 +334,7 @@ def build_ragged_multistep(cfg, rows: int, width: int, horizon: int, attn_impl: 
         raise ValueError(f"multi-step window needs rows >= 1 and horizon >= 2, got {rows} rows x horizon {horizon}")
     N = int(horizon)
     layers_of = _layer_views()
+    run_cfg = cfg if tp is None else tp.local_cfg(cfg)
 
     @torch.no_grad()
     def _window(params, tokens, k_pages, v_pages, page_table, lengths, live, eos_ids, budgets):
@@ -315,10 +345,10 @@ def build_ragged_multistep(cfg, rows: int, width: int, horizon: int, attn_impl: 
             q_lens = alive.to(torch.int32)  # 1 live, 0 frozen or dead
             kv_lens = torch.where(alive, lens + 1, torch.zeros_like(lens))
             logits = _paged_forward(
-                cfg, params, tok[:, None], k_pages, v_pages, page_table, lens[:, None], attn_impl,
-                write_valid=alive[:, None], kv_lens=kv_lens, q_lens=q_lens, layers=layers_of(params),
+                run_cfg, params, tok[:, None], k_pages, v_pages, page_table, lens[:, None], attn_impl,
+                write_valid=alive[:, None], kv_lens=kv_lens, q_lens=q_lens, layers=layers_of(params), tp=tp,
             )
-            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            nxt = _greedy(logits[:, -1, :], tp)
             out.append(torch.where(alive, nxt, torch.full_like(nxt, -1)))
             emitted = emitted + q_lens
             lens = lens + q_lens
@@ -410,7 +440,7 @@ def build_paged_decode_step(cfg, attn_impl: str = "auto"):
             cfg, params, tokens[:, None], k_pages, v_pages, page_table, lengths[:, None], attn_impl,
             attn_lens=lengths + 1, layers=layers_of(params),
         )
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return _greedy(logits[:, -1, :])
 
     return _decode
 
@@ -438,7 +468,7 @@ def build_paged_prefill(cfg, attn_impl: str = "auto"):
             cfg, params, tokens, k_pages, v_pages, page_table, positions_b, attn_impl,
             write_valid=(offs <= last_idx)[None, :], layers=layers_of(params),
         )
-        return torch.argmax(logits[:, last_idx], dim=-1).to(torch.int32)
+        return _greedy(logits[:, last_idx])
 
     return _prefill
 
@@ -481,7 +511,7 @@ def build_paged_verify_step(cfg, K: int, attn_impl: str = "auto"):
             cfg, params, tokens, k_pages, v_pages, page_table, positions_b, attn_impl,
             write_valid=offs[None, :] <= draft_lens[:, None], kv_lens=kv_lens, layers=layers_of(params),
         )
-        greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, K+1]
+        greedy = _greedy(logits)  # [B, K+1]
         accepted = _accepted_prefix(tokens, greedy, draft_lens)
         return torch.cat([accepted[:, None].to(torch.int32), greedy], dim=1)
 
@@ -536,9 +566,12 @@ def _cached_attention(cfg, q, k_cache, v_cache, q_positions, kv_len_mask, kv_len
     return torch.einsum("bkgts,bskd->btkgd", probs, v_cache).reshape(B, T, NH, D)
 
 
-def _forward_with_cache(cfg, params, tokens, cache: KVCache, start_pos: int, layers=None):
+def _forward_with_cache(cfg, params, tokens, cache: KVCache, start_pos: int, layers=None, tp=None):
     """Run ``[B, T]`` tokens starting at ``start_pos``, reading and writing
-    the cache in place. Returns ``(logits of the last token [B, V], cache)``."""
+    the cache in place. Returns ``(logits of the last token [B, V], cache)``.
+    Under tensor parallelism (``tp``) ``cfg`` is the rank's local view, the
+    cache holds its kv heads, and the logits are its vocabulary slice when
+    the head is sharded."""
     B, T = tokens.shape
     dtype = cache.k.dtype
     dev = cache.k.device
@@ -561,26 +594,28 @@ def _forward_with_cache(cfg, params, tokens, cache: KVCache, start_pos: int, lay
         cache.k[l, :, start_pos:end] = k_new.to(dtype)
         cache.v[l, :, start_pos:end] = v_new.to(dtype)
         attn = _cached_attention(cfg, q, cache.k[l], cache.v[l], positions_b, kv_len_mask, kv_len=kv_len)
-        x = _post_attention(cfg, p, x, attn)
+        x = _post_attention(cfg, p, x, attn, tp=tp)
     return _final_logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
-def build_decoder(cfg: TransformerConfig):
+def build_decoder(cfg: TransformerConfig, tp=None):
     """``(prefill, decode_step)`` for a model config:
     ``prefill(params, tokens [B, T], cache)`` consumes the prompt and
     ``decode_step(params, token [B], cache, pos)`` appends one token at
     ``pos``; both return ``(logits [B, V], cache)`` and write the cache in
-    place (JAX donates it)."""
+    place (JAX donates it). With ``tp`` they run this rank's shard
+    (``tp.local_cfg(cfg)``), and the logits are its vocabulary slice."""
     _check_cached_cfg(cfg)
     layers_of = _layer_views()
+    run_cfg = cfg if tp is None else tp.local_cfg(cfg)
 
     @torch.no_grad()
     def prefill(params, tokens, cache):
-        return _forward_with_cache(cfg, params, tokens, cache, 0, layers_of(params))
+        return _forward_with_cache(run_cfg, params, tokens, cache, 0, layers_of(params), tp=tp)
 
     @torch.no_grad()
     def decode_step(params, token, cache, pos: int):
-        return _forward_with_cache(cfg, params, token[:, None], cache, pos, layers_of(params))
+        return _forward_with_cache(run_cfg, params, token[:, None], cache, pos, layers_of(params), tp=tp)
 
     return prefill, decode_step
 
@@ -604,10 +639,16 @@ def generate(
     top_p: float = 1.0,
     pad_token_id: int = 0,
     dtype=None,
+    tp=None,
 ):
     """KV-cached generation: one prefill, then one single-token forward per
     new token (greedy, or temperature / top-k / top-p sampling drawn from
     ``generator``; no generator means greedy, as no rng does in JAX).
+
+    With ``tp`` (``inference/tp.py:TPServing``) ``params`` is this rank's
+    shard (``tp.shard_params``) and every rank gets the same tokens: greedy
+    through ``tp.argmax``; a sampled draw on the full logits (gathered
+    along the vocabulary) made on the group's rank 0 and broadcast.
 
     As in JAX, the token sampled last is written and then run through one
     more forward, so a call without EOS runs ``max_new_tokens`` decode
@@ -620,17 +661,29 @@ def generate(
     tokens = _as_tokens(input_ids, device)
     B, prompt_len = tokens.shape
     max_len = prompt_len + max_new_tokens
-    cache = init_cache(cfg, B, max_len, dtype=dtype, device=device)
-    prefill, decode_step = build_decoder(cfg)
+    cache = init_cache(cfg if tp is None else tp.local_cfg(cfg), B, max_len, dtype=dtype, device=device)
+    prefill, decode_step = build_decoder(cfg, tp=tp)
     logits, cache = prefill(params, tokens, cache)
     if generator is None:
         temperature = 0.0
+
+    def draw(logits):
+        if tp is None or tp.degree == 1:
+            return sample_logits(logits, generator, temperature, top_k, top_p)
+        if temperature <= 0.0:
+            return _greedy(logits, tp)
+        full = tp.gather_vocab(logits)
+        tok = torch.empty(B, dtype=torch.int64, device=device)
+        if tp.rank == 0:
+            tok.copy_(sample_logits(full, generator, temperature, top_k, top_p))
+        return tp.broadcast(tok)
+
     out = torch.full((B, max_len), pad_token_id, dtype=torch.int32, device=device)
     out[:, :prompt_len] = tokens
     finished = torch.zeros(B, dtype=torch.bool, device=device)
     emitted = 0
     for step in range(max_new_tokens):
-        tok = sample_logits(logits, generator, temperature, top_k, top_p).to(torch.int32)
+        tok = draw(logits).to(torch.int32)
         if eos_token_id is not None:
             tok = tok.masked_fill(finished, eos_token_id)
             finished |= tok == eos_token_id
@@ -660,6 +713,7 @@ def beam_generate(
     pad_token_id: int = 0,
     length_penalty: float = 1.0,
     dtype=None,
+    tp=None,
 ):
     """KV-cached beam search with the JAX loop's semantics (HF's
     BeamSearchScorer with ``early_stopping=True``): the prompt prefills
@@ -673,16 +727,24 @@ def beam_generate(
     hypothesis and the best live beam. Beam 0 starts at cum 0 and the rest
     at ``-1e30``, so the first draw expands distinct tokens. Ties select the
     lower index, as ``jax.lax.top_k`` and ``jnp.argmax`` do. Returns
-    ``[B, prompt_len + emitted]`` int32."""
+    ``[B, prompt_len + emitted]`` int32.
+
+    With ``tp`` each rank runs its shard, and every step's logits are
+    gathered along the vocabulary, so each rank scores the same full
+    distribution; the step's choice (the beams' sources and tokens) is
+    then broadcast from the group's rank 0, so every rank's cache and
+    output follow the same beams."""
     K = int(num_beams)
     device = params["embed"]["tokens"].device
     tokens = _as_tokens(input_ids, device)
     B, prompt_len = tokens.shape
     max_len = prompt_len + max_new_tokens
     V = cfg.vocab_size
-    prefill, decode_step = build_decoder(cfg)
-    cache = init_cache(cfg, B, max_len, dtype=dtype, device=device)
+    prefill, decode_step = build_decoder(cfg, tp=tp)
+    cache = init_cache(cfg if tp is None else tp.local_cfg(cfg), B, max_len, dtype=dtype, device=device)
     logits, cache = prefill(params, tokens, cache)  # [B, V]
+    full_vocab = (lambda x: x) if tp is None else tp.gather_vocab
+    logits = full_vocab(logits)
     cache = KVCache(k=cache.k.repeat_interleave(K, dim=1), v=cache.v.repeat_interleave(K, dim=1))
     out = torch.full((B * K, max_len), pad_token_id, dtype=torch.int32, device=device)
     out[:, :prompt_len] = tokens.repeat_interleave(K, dim=0)
@@ -728,12 +790,16 @@ def beam_generate(
         new_cum, pick = _top_stable(live_vals, K)  # [B, K] into 2K
         beam_src = cand_beam.gather(1, pick)
         tok = cand_tok.gather(1, pick).to(torch.int32)
+        if tp is not None and tp.degree > 1:
+            choice = tp.broadcast(torch.stack([beam_src, tok.to(beam_src.dtype)]))
+            beam_src, tok = choice[0], choice[1].to(torch.int32)
         flat_src = (beam_src + rows[:, None] * K).reshape(B * K)
         out = out.index_select(0, flat_src)
         cache = KVCache(k=cache.k.index_select(1, flat_src), v=cache.v.index_select(1, flat_src))
         flat_tok = tok.reshape(B * K)
         out[:, prompt_len + step] = flat_tok
         logits, cache = decode_step(params, flat_tok, cache, prompt_len + step)
+        logits = full_vocab(logits)
         cum = new_cum
         step += 1
     live = norm_score(cum, step)  # every live beam emitted `step` tokens

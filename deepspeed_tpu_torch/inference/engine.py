@@ -11,9 +11,10 @@ over a ``PagedServer`` (ragged, with multi-step windows under
 ``paged_kv.multi_step``, or bucketed with ``paged_kv.ragged=False``; with
 speculative decoding under ``spec_decode``, the crash-recovery journal
 under ``journal``, int8 serving weights under
-``paged_kv.sharded.weight_quant_bits=8`` and, under ``traffic``, the
-multi-tenant SLA front ``MultiTenantServer``) built as the JAX
-``_build_paged_server`` builds it for the ported options. With
+``paged_kv.sharded.weight_quant_bits=8``, tensor-parallel under
+``paged_kv.sharded.tp_degree`` (or ``tensor_parallel.tp_size``) and, under
+``traffic``, the multi-tenant SLA front ``MultiTenantServer``) built as the
+JAX ``_build_paged_server`` builds it for the ported options. With
 ``quant.enabled`` every floating leaf of rank >= 2 of the installed tree is
 fake-quantized by groups (``ops/quantizer.fake_quantize``), as JAX's
 ``set_params`` does, so ``forward``, ``generate`` and ``serve`` all see the
@@ -22,24 +23,45 @@ The port's ``TransformerLM`` is the converted family (JAX's
 ``_ds_config`` path), so ``generate`` always takes the KV-cached loop. The
 engine runs on ``cuda`` unless the caller passes another device; without
 a card it raises.
+
+Tensor parallelism runs one rank per process over ``torch.distributed``
+(``deepspeed_tpu_torch.comm``; every rank builds the same engine and makes
+the same calls). With ``tensor_parallel.tp_size > 1`` each rank keeps only
+its shard of the weights (``inference/tp.py``'s layout, sliced from the
+whole tree at ``set_params``), and ``forward`` and ``generate`` run
+sharded: ``forward`` returns the full logits on every rank, and every
+``generate`` mode gives every rank the same tokens. The serving degree is
+``paged_kv.sharded.tp_degree``, or ``tensor_parallel.tp_size`` when that
+is 0 (JAX ``engine.py:666-683``). ``save_mp_checkpoint`` writes the
+pre-sharded inference checkpoint (``inference/mp_checkpoint.py``; rank 0
+writes every file from the gathered leaves), ``save_mp_checkpoint_path``
+writes it at ``set_params``, and ``checkpoint=`` /
+``load_checkpoint`` boot from one.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree, load_jax_params
+from deepspeed_tpu_torch.checkpoint.jax_params import _checked_flat, flatten_tree, load_jax_params, unflatten_tree
 from deepspeed_tpu_torch.compression.int8 import quantize_params_int8
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum, unported_switches
 from deepspeed_tpu_torch.inference.journal import RequestJournal
+from deepspeed_tpu_torch.inference.mp_checkpoint import MANIFEST_NAME, is_mp_checkpoint, load_mp_checkpoint
+from deepspeed_tpu_torch.inference.mp_checkpoint import save_mp_checkpoint as write_mp_checkpoint
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
+from deepspeed_tpu_torch.inference.tp import TPServing, gather_tree, require_ranks
 from deepspeed_tpu_torch.inference.traffic import MultiTenantServer
-from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
+from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch, param_shapes
+from deepspeed_tpu_torch.module_inject.auto_tp import AutoTP
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize
 from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
 from deepspeed_tpu_torch.utils.logging import log_dist
@@ -73,6 +95,14 @@ class InferenceEngine:
         self._ds_config = model.config
         self.metrics = MetricsRegistry()
         self._paged_server = None
+        # the dense path's tensor-parallel group (JAX builds a model-axis mesh here, engine.py:44-53): each
+        # rank then holds only its shard of the weights (self._tp_params)
+        tp_size = int(self._config.tensor_parallel.tp_size or 1)
+        require_ranks(self.serving_tp_degree())
+        self._tp = TPServing(degree=tp_size, comm_chunks=1) if tp_size > 1 else None
+        if self._tp is not None:
+            self._tp.validate_cfg(model.config)
+        self._tp_params = None
         # the counterpart of JAX's PRNGKey(0): sampled generate calls draw
         # from (and advance) this generator
         self._generator = torch.Generator(device=self.device)
@@ -80,22 +110,70 @@ class InferenceEngine:
         self.model_profile_enabled = False
         self._model_times = []
         if not any(p.is_meta for p in model.parameters()):
-            # weights already made (e.g. init_weights): move them once
-            with torch.no_grad():
-                for path, leaf in flatten_tree(model.param_tree()).items():
-                    model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype))
-            self._quantize_weights()
-        log_dist(f"InferenceEngine: dtype={self._config.dtype.value} device={self.device}", ranks=[0])
+            # weights already made (e.g. init_weights): move them once (a tensor-parallel rank keeps its shard)
+            if self._tp is not None:
+                self._install_tp(flatten_tree(model.param_tree()))
+            else:
+                with torch.no_grad():
+                    for path, leaf in flatten_tree(model.param_tree()).items():
+                        model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype))
+                self._quantize_weights()
+        # a checkpoint handed to init_inference (JAX engine.py:117-136): a pre-sharded manifest or its dir
+        if self._config.checkpoint is not None:
+            self.load_checkpoint(self._config.checkpoint)
+        log_dist(f"InferenceEngine: dtype={self._config.dtype.value} device={self.device} "
+                 f"tp_size={tp_size}", ranks=[0])
+
+    def serving_tp_degree(self) -> int:
+        """The paged server's tensor-parallel degree: ``sharded.tp_degree``,
+        or ``tensor_parallel.tp_size`` when that is 0 (FOLLOW mode), where
+        the bucketed oracle (``ragged=False``) stays single-rank (JAX
+        ``engine.py:666-683``)."""
+        pcfg = self._config.paged_kv
+        scfg = pcfg.sharded
+        degree = int(scfg.tp_degree or self._config.tensor_parallel.tp_size or 1)
+        if degree > 1 and not pcfg.ragged and scfg.tp_degree == 0:
+            return 1
+        return degree
 
     # --- weights --------------------------------------------------------
     def set_params(self, params) -> None:
         """Install the JAX parameter tree (numpy arrays, nested or under
-        flat paths) on the engine's device in the engine dtype."""
-        load_jax_params(self.module, params, device=self.device, dtype=self.dtype)
-        self._quantize_weights()
+        flat paths) on the engine's device in the engine dtype; a
+        tensor-parallel rank keeps its shard. With
+        ``save_mp_checkpoint_path`` the pre-sharded checkpoint is written
+        at once (JAX ``engine.py:230-234``)."""
+        if self._tp is not None:
+            self._install_tp(params)
+        else:
+            load_jax_params(self.module, params, device=self.device, dtype=self.dtype)
+            self._quantize_weights()
         self._paged_server = None
+        if self._config.save_mp_checkpoint_path:
+            self.save_mp_checkpoint(self._config.save_mp_checkpoint_path)
 
     load_jax_params = set_params
+
+    @torch.no_grad()
+    def _install_tp(self, params) -> None:
+        """This rank's shard of the tree: each leaf cast to the engine
+        dtype on the device and fake-quantized whole (``quant.enabled``),
+        then sliced by the tensor-parallel layout. The module keeps no
+        weights."""
+        full = {}
+        for path, leaf in _checked_flat(self.module.config, params).items():
+            t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf, np.float32, order="C"))
+            full[path] = self._fake_quantize(t.to(device=self.device, dtype=self.dtype))
+        self._tp_params = self._tp.shard_params(self.module.config, unflatten_tree(full))
+        for path, shape in param_shapes(self.module.config).items():
+            self.module.set_leaf(path, torch.empty(shape, device="meta"))
+
+    def _full_params(self):
+        """The whole tree on this rank: the module's, or a tensor-parallel
+        rank's shards gathered from the group (every rank must call it)."""
+        if self._tp is not None:
+            return gather_tree(self._tp, self._tp_params)
+        return self.module.param_tree()
 
     @torch.no_grad()
     def _quantize_weights(self) -> None:
@@ -104,19 +182,70 @@ class InferenceEngine:
         embeddings too) becomes its quantize-dequantize round trip, in
         ``size // group_size`` groups when that divides evenly, else one
         (JAX ``inference/engine.py:196-212``)."""
-        qcfg = self._config.quant
-        if not qcfg.enabled:
+        if not self._config.quant.enabled:
             return
-        gs = int(qcfg.group_size or 64)
-        bits = int(qcfg.num_bits or 8)
         for path, leaf in flatten_tree(self.module.param_tree()).items():
-            if leaf.ndim < 2 or not leaf.is_floating_point():
-                continue
-            groups = leaf.numel() // gs if gs and leaf.numel() % gs == 0 else 1
-            self.module.set_leaf(path, fake_quantize(leaf, num_groups=groups, num_bits=bits))
+            self.module.set_leaf(path, self._fake_quantize(leaf))
+
+    def _fake_quantize(self, leaf: torch.Tensor) -> torch.Tensor:
+        """One leaf through ``quant.enabled``'s round trip (unchanged when
+        the switch is off, or the leaf is not a floating matrix)."""
+        qcfg = self._config.quant
+        if not qcfg.enabled or leaf.ndim < 2 or not leaf.is_floating_point():
+            return leaf
+        gs = int(qcfg.group_size or 64)
+        groups = leaf.numel() // gs if gs and leaf.numel() % gs == 0 else 1
+        return fake_quantize(leaf, num_groups=groups, num_bits=int(qcfg.num_bits or 8))
 
     def _weights_ready(self) -> bool:
+        if self._tp is not None:
+            return self._tp_params is not None
         return not any(p.is_meta for p in self.module.parameters())
+
+    # --- pre-sharded inference checkpoints ---------------------------------
+    def _tp_rules(self, params):
+        """The checkpoint's shard dims: the model's ``tp_partition_rules``
+        when it has them, else the AutoTP walk (JAX ``engine.py:236-247``)."""
+        rules = None
+        if hasattr(self.module, "tp_partition_rules"):
+            rules = self.module.tp_partition_rules(params)
+        if rules is None:
+            rules = AutoTP().partition_specs(params)
+        return rules
+
+    def save_mp_checkpoint(self, save_path: str, tag: str = "ds-inference") -> str:
+        """Write the pre-sharded inference checkpoint and its manifest,
+        split ``tensor_parallel.tp_size`` ways by the model's rules (JAX
+        ``engine.py:249-273``); returns the manifest path. Under tensor
+        parallelism every rank gathers the shards and rank 0 writes every
+        file while the others wait at a barrier. Boot from it with
+        ``init_inference(..., checkpoint=<manifest or its dir>)`` or
+        ``load_checkpoint``."""
+        if not self._weights_ready():
+            raise RuntimeError("save_mp_checkpoint before weights are set")
+        params = self._full_params()
+        mpath = os.path.join(save_path, MANIFEST_NAME)
+        if self._tp is None or self._tp.rank == 0:
+            mpath = write_mp_checkpoint(params, self._tp_rules(params), save_path, tag=tag,
+                                        tp_size=max(1, int(self._config.tensor_parallel.tp_size or 1)))
+        if self._tp is not None:
+            comm.barrier(self._tp.group)
+        return mpath
+
+    def load_checkpoint(self, path) -> None:
+        """Install the weights of a pre-sharded inference checkpoint (the
+        manifest or its directory; written by either package): the whole
+        tree is loaded, then a tensor-parallel rank slices its shard (JAX
+        ``engine.py:323-333``)."""
+        if isinstance(path, str) and is_mp_checkpoint(path):
+            params, _ = load_mp_checkpoint(path)
+            self.set_params(params)
+            return
+        raise NotImplementedError(
+            f"checkpoint={path!r}: only the pre-sharded inference checkpoint (a ds_inference_config.json "
+            "manifest or its directory) is ported; engine checkpoint directories and SD-loader "
+            "descriptors wait for the checkpoint engine (ROADMAP T3)"
+        )
 
     # --- forward --------------------------------------------------------
     def profile_model_time(self, use_cuda_events: bool = True) -> None:  # noqa: ARG002
@@ -161,8 +290,9 @@ class InferenceEngine:
         tokens, labels = _split_batch(batch)
         tokens = torch.as_tensor(tokens, device=self.device)
         labels = None if labels is None else torch.as_tensor(labels, device=self.device)
+        params = self._tp_params if self._tp is not None else self.module.param_tree()
         with torch.no_grad():  # (tokens, None) is the unlabelled batch: apply returns the logits
-            return self.module.apply(self.module.param_tree(), (tokens, labels), train=False)
+            return self.module.apply(params, (tokens, labels), train=False, tp=self._tp)
 
     # --- generation -----------------------------------------------------
     def generate(self, *args, **kwargs):
@@ -197,7 +327,7 @@ class InferenceEngine:
 
         if not self._weights_ready():
             raise RuntimeError("generate() before weights are set: call set_params / load_jax_params")
-        params = self.module.param_tree()
+        params = self._tp_params if self._tp is not None else self.module.param_tree()
         if num_beams > 1:
             if temperature or top_k or top_p < 1.0:
                 raise ValueError(
@@ -206,12 +336,12 @@ class InferenceEngine:
                 )
             return beam_generate(
                 self._ds_config, params, input_ids, max_new_tokens, num_beams=num_beams,
-                eos_token_id=eos_token_id, pad_token_id=pad_token_id, length_penalty=length_penalty,
+                eos_token_id=eos_token_id, pad_token_id=pad_token_id, length_penalty=length_penalty, tp=self._tp,
             )
         return generate(
             self._ds_config, params, input_ids, max_new_tokens, eos_token_id=eos_token_id,
             temperature=temperature, generator=self._generator, top_k=top_k, top_p=top_p,
-            pad_token_id=pad_token_id,
+            pad_token_id=pad_token_id, tp=self._tp,
         )
 
     # the public generate adopts _generate_impl's signature and doc
@@ -224,17 +354,39 @@ class InferenceEngine:
         pcfg = self._config.paged_kv
         if not pcfg.enabled:
             raise ValueError("paged serving is disabled (inference config paged_kv.enabled)")
+        scfg = pcfg.sharded
+        tp_degree = self.serving_tp_degree()
+        if not pcfg.ragged and scfg.tp_degree == 0 and int(self._config.tensor_parallel.tp_size or 1) > 1:
+            log_dist(
+                "paged_kv.ragged=False: bucketed serving stays single-rank "
+                f"(tensor_parallel.tp_size={self._config.tensor_parallel.tp_size} keeps driving the "
+                "dense generate path; enable ragged or set paged_kv.sharded.tp_degree to shard serving)",
+                ranks=[0],
+            )
+        # tensor-parallel serving: every rank runs the same scheduler on its shard; the TP context slices
+        # the whole tree (quantized first: per-output-channel scales stay global)
+        tp_ctx = None
+        if tp_degree > 1:
+            tp_ctx = TPServing(degree=tp_degree, quantized_allreduce=scfg.quantized_allreduce,
+                               comm_chunks=scfg.comm_chunks)
         # the crash-recovery journal: replay the directory before the new writer opens its segment,
-        # then hand the replayed state to the fresh server, which resumes every journaled stream
+        # then hand the replayed state to the fresh server, which resumes every journaled stream. Under
+        # tensor parallelism every rank replays and rank 0 alone writes: the barriers keep every rank
+        # from reading before rank 0's earlier writes are synced, or after its new segment opened
         journal, states, next_uid = None, None, 0
         jcfg = self._config.journal
         if jcfg.enabled:
             if not jcfg.dir:
                 raise ValueError("inference.journal.enabled requires journal.dir")
+            if tp_ctx is not None:
+                comm.barrier(tp_ctx.group)
             states, next_uid = RequestJournal.replay(jcfg.dir)
-            journal = RequestJournal(jcfg.dir, segment_bytes=jcfg.segment_bytes, fsync=jcfg.fsync)
-        params = self.module.param_tree()
-        if pcfg.sharded.weight_quant_bits == 8:
+            if tp_ctx is not None:
+                comm.barrier(tp_ctx.group)
+            if tp_ctx is None or tp_ctx.rank == 0:
+                journal = RequestJournal(jcfg.dir, segment_bytes=jcfg.segment_bytes, fsync=jcfg.fsync)
+        params = self._full_params()
+        if scfg.weight_quant_bits == 8:
             # the server's tree only: forward and generate keep the engine's weights, as in JAX
             params = quantize_params_int8(params)
         server = PagedServer(
@@ -255,6 +407,7 @@ class InferenceEngine:
             multi_step=pcfg.multi_step,
             spec_decode=self._config.spec_decode,
             journal=journal,
+            tp=tp_ctx,
         )
         if states:
             server.recover(states, next_uid)

@@ -57,6 +57,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from deepspeed_tpu_torch.inference.journal import JournalCorruptError, JournaledRequest, RequestJournal
+from deepspeed_tpu_torch.inference.tp import refuse_tp
 from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.logging import logger
@@ -186,6 +187,8 @@ class FleetRouter:
     ):
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
+        for replica in replicas:
+            refuse_tp(replica.server, "the serving fleet")
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.affinity = bool(affinity)

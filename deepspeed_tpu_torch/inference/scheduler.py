@@ -64,13 +64,22 @@ preemption victims go through a ``SchedulingPolicy`` (``traffic.py``'s
 ``SLAPolicy`` is the multi-tenant one), and every stamp reads the server's
 injectable ``clock`` (the load harness's virtual clock, ``utils/loadgen.py``).
 
-Not ported yet (the engine refuses its switch, naming the ROADMAP item):
-tensor-parallel serving (S9).
+With ``tp`` (``inference/tp.py:TPServing``) the server is one rank of a
+tensor-parallel group, one process a rank: the weights are this rank's
+shard, the pools hold ``NKV / tp`` kv heads, and page tables, the prefix
+index, copy-on-write and the journal stay whole on every rank, as in JAX.
+Every rank runs the same scheduler on the same submitted requests, and
+the steps' tokens agree through ``tp.argmax``; the host arrays each step
+ships are folded into a running CRC (``serve_stats()["step_fingerprint"]``),
+which a caller compares across ranks after a run. Windows under ``tp``
+run their rounds eagerly with the same tokens: a gloo collective cannot
+be captured in a CUDA graph, so no ``WindowGraph`` is built.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -212,10 +221,28 @@ class PagedServer:
         drafter: Optional[Drafter] = None,
         journal: Optional[RequestJournal] = None,
         clock=None,
+        tp=None,
     ):
         self.cfg = cfg
-        self.params = params
         self.device = resolve_device(device)
+        # tensor-parallel serving (inference/tp.py:TPServing): this rank's shard of the weights, pools of
+        # its kv heads, every host structure whole (JAX scheduler.py:246-283)
+        self.tp = tp
+        if tp is not None:
+            if "moe" in params.get("layers", {}) and tp.degree > 1:
+                raise NotImplementedError(
+                    "tensor-parallel MoE serving is not supported: expert "
+                    "placement is the 'expert' mesh axis, not a TP weight split"
+                )
+            if not ragged:
+                raise ValueError(
+                    "tensor-parallel serving runs the ragged path: enable "
+                    "paged_kv.ragged (the bucketed oracle is single-rank)"
+                )
+            params = tp.shard_params(cfg, params)
+        self.params = params
+        self._fingerprint = 0  # CRC-32 of every step's host arrays, in order
+        self._fingerprint_steps = 0
         self.tracer = NULL_TRACER  # span names mirror the JAX server's; recording is not ported yet
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.prefill_chunk = int(prefill_chunk)
@@ -264,8 +291,8 @@ class PagedServer:
             # worst-case sizing: every slot at max length, plus the trash
             # page — no preemption can ever trigger
             num_pages = max_slots * (-(-max_seq // page_size)) + 1
-        self.pool = PagePool(cfg, num_pages, page_size, max_slots, max_seq_len=max_seq,
-                             dtype=dtype, device=self.device)
+        self.pool = PagePool(cfg if tp is None else tp.local_cfg(cfg), num_pages, page_size, max_slots,
+                             max_seq_len=max_seq, dtype=dtype, device=self.device)
         buckets = sorted(set(int(b) for b in (slot_buckets or _default_buckets(max_slots))))
         if buckets[-1] < max_slots:
             buckets.append(max_slots)
@@ -634,8 +661,11 @@ class PagedServer:
 
     def _to_device(self, *arrays: np.ndarray) -> List[torch.Tensor]:
         """One host->device copy of several small int32 arrays, returned as
-        contiguous views of one device buffer."""
+        contiguous views of one device buffer; the arrays also extend the
+        step fingerprint."""
         flat = np.concatenate([np.ascontiguousarray(a, np.int32).ravel() for a in arrays])
+        self._fingerprint = zlib.crc32(flat.tobytes(), self._fingerprint)
+        self._fingerprint_steps += 1
         dev = torch.from_numpy(flat).to(self.device, non_blocking=True)
         out, i = [], 0
         for a in arrays:
@@ -646,7 +676,7 @@ class PagedServer:
     def _step_fn(self, W: int):
         fn = self._steps.get(W)
         if fn is None:
-            fn = self._steps[W] = build_ragged_step(self.cfg, W, attn_impl=self.attn_impl)
+            fn = self._steps[W] = build_ragged_step(self.cfg, W, attn_impl=self.attn_impl, tp=self.tp)
         return fn
 
     # --- the bucketed rounds ----------------------------------------------
@@ -807,11 +837,14 @@ class PagedServer:
 
     def _window_fn(self):
         """The window over ``max_slots`` rows and ``ms_horizon`` rounds (every
-        window has that shape), built at the first window."""
+        window has that shape), built at the first window: a CUDA graph on a
+        card, the eager rounds on the CPU and under tensor parallelism (the
+        collectives cannot be captured)."""
         if self._window is None:
             rows = self.pool.max_slots
-            window = build_ragged_multistep(self.cfg, rows, 1, self.ms_horizon, attn_impl=self.attn_impl)
-            if self.device.type == "cuda":
+            window = build_ragged_multistep(self.cfg, rows, 1, self.ms_horizon, attn_impl=self.attn_impl,
+                                            tp=self.tp)
+            if self.device.type == "cuda" and not self._tp_active():
                 self._window = WindowGraph(window, self.params, self.pool.cache.k_pages, self.pool.cache.v_pages,
                                            rows, self.pool.max_pages_per_slot)
             else:
@@ -1103,6 +1136,9 @@ class PagedServer:
         self.stats["preempted"] += 1
         self.tracer.instant_async("request", req.uid, "preempt", tokens=len(req.generated))
 
+    def _tp_active(self) -> bool:
+        return self.tp is not None and self.tp.degree > 1
+
     # --- observability ---------------------------------------------------
     def finished_log(self) -> List:
         """``(tenant, ttft_ms, tpot_ms or None, n_tokens)`` a finished
@@ -1121,7 +1157,12 @@ class PagedServer:
         occupancy and utilization, prefix-cache counters (``prefix``: hit
         rate, CoW copies, cached pages) and latency SLOs: aggregate and
         per-tenant p50/p99 TTFT (submit -> first token, queue wait
-        included) and TPOT (per generated token after the first)."""
+        included) and TPOT (per generated token after the first). Tensor
+        parallelism: ``tp_degree``, ``tp_quantized_allreduce``,
+        ``window_graph`` (whether windows replay a CUDA graph: never under
+        tp), and ``step_fingerprint`` / ``fingerprint_steps`` (the CRC of
+        every step's host arrays and the number of steps it covers, equal
+        on every rank of a group)."""
         s = dict(self.stats)
         s["spec_accept_hist"] = list(self.stats["spec_accept_hist"])
         s["window_break_reasons"] = dict(self.stats["window_break_reasons"])
@@ -1132,7 +1173,12 @@ class PagedServer:
         s["window_device_ms"] = percentile_summary(
             self._window.device_ms if isinstance(self._window, WindowGraph) else ())
         s["dispatches_per_token"] = s["dispatches"] / s["emitted_tokens"] if s["emitted_tokens"] else 0.0
-        s["tp_degree"] = 1
+        s["tp_degree"] = self.tp.degree if self.tp is not None else 1
+        s["tp_quantized_allreduce"] = bool(self.tp.quantized_allreduce) if self.tp is not None else False
+        # windows under tensor parallelism replay no CUDA graph: their rounds run eagerly
+        s["window_graph"] = self.ms_enable and self.device.type == "cuda" and not self._tp_active()
+        s["step_fingerprint"] = f"{self._fingerprint:08x}"
+        s["fingerprint_steps"] = self._fingerprint_steps
         s.update(
             live_tokens=self.pool.live_tokens(),
             used_pages=self.pool.used_pages(),

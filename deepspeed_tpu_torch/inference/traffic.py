@@ -37,6 +37,7 @@ from deepspeed_tpu_torch.inference.scheduler import (
     Request,
     SchedulingPolicy,
 )
+from deepspeed_tpu_torch.inference.tp import refuse_tp
 
 
 @dataclass
@@ -166,6 +167,7 @@ class MultiTenantServer:
         tenants: Sequence[Union[TenantSpec, Dict]],
         default_tenant: str = "default",
     ):
+        refuse_tp(server, "multi-tenant SLA serving")
         specs: Dict[str, TenantSpec] = {}
         for t in tenants or []:
             spec = t if isinstance(t, TenantSpec) else TenantSpec(**dict(t))

@@ -171,25 +171,73 @@ class TransformerLM(nn.Module):
             tree[name] = p
         return tree
 
+    # --- TP sharding rules ----------------------------------------------
+    def tp_partition_rules(self, params_shapes=None):
+        """Megatron-style shard dims (JAX ``transformer.py:221-262``, whose
+        PartitionSpecs name the ``model`` axis): column-parallel
+        qkv/gate/up (the output features, the heads), row-parallel
+        ``wo`` / ``w_out`` (the input features), a vocab-parallel token
+        embedding (dim 0) and an output-vocab-parallel ``lm_head``; the
+        stacked layer dim stays whole. A tree of the ``params_shapes``
+        structure whose leaves are the dim to split or None (replicated);
+        None without ``params_shapes``. The pre-sharded inference
+        checkpoint (``inference/mp_checkpoint.py``) splits by it; the
+        serving layout is ``inference/tp.py``'s (embeddings replicated)."""
+        if params_shapes is None:
+            return None
+
+        def dim_for(path: str, ndim: int):
+            stacked = ndim == 3  # [L, in, out]
+            name = path.split("/")[-1]
+            if name in ("wq", "wk", "wv", "w_gate", "w_up", "w_in"):
+                return 2 if stacked else 1
+            if name in ("wo", "w_out"):
+                return 1 if stacked else 0
+            if name in ("bq", "bk", "bv", "b_in"):
+                return 1 if ndim == 2 else 0
+            if name == "tokens":
+                return 0  # vocab-parallel embedding
+            if name == "lm_head":
+                return 1
+            return None
+
+        def walk(prefix, tree):
+            if isinstance(tree, dict):
+                return {k: walk(f"{prefix}/{k}", v) for k, v in tree.items()}
+            return dim_for(prefix, len(tree.shape))
+
+        return walk("", params_shapes)
+
     # --- training forward ------------------------------------------------
     def apply(self, params, batch, *, dropout_seed: Optional[int] = None, train: bool = True,
-              attn_impl: Optional[str] = None, pld_theta=None, ltd_idx=None):
+              attn_impl: Optional[str] = None, pld_theta=None, ltd_idx=None, tp=None):
         """JAX ``apply`` (``transformer.py:821``): the scalar LM loss when the
         batch carries labels (``(tokens, labels)`` or ``{"input_ids",
         "labels"}``), else the logits ``[B, T, V]``. ``params`` is the nested
         tree of tensors; ``dropout_seed`` seeds this step's dropout masks;
         ``attn_impl="plain"`` asks for the plain flash functions on the card
-        (the comparison arm)."""
+        (the comparison arm).
+
+        With ``tp`` (``inference/tp.py:TPServing``, inference only)
+        ``params`` is this rank's shard (``tp.shard_params``): each layer
+        runs the rank's heads, the row-parallel ``wo`` and ``w_out`` sum
+        their partials in ``tp.row_matmul``'s all-reduces, and the sharded
+        head's logits are gathered along the vocabulary, so every rank
+        returns the full logits (JAX runs the same layout by GSPMD)."""
         if pld_theta is not None or ltd_idx is not None:
             raise NotImplementedError("progressive layer drop and random-LTD are not ported yet (ROADMAP T5)")
+        if tp is not None and train:
+            raise NotImplementedError("tensor-parallel training is not ported yet (ROADMAP P1)")
         tokens, labels = _split_batch(batch)
-        logits = self._forward(params, tokens, dropout_seed, train, attn_impl)
+        logits = self._forward(params, tokens, dropout_seed, train, attn_impl, tp)
+        if tp is not None:
+            logits = tp.gather_vocab(logits)
         if labels is None:
             return logits
         return cross_entropy_loss(logits, labels)
 
-    def _forward(self, params, tokens, dropout_seed, train, attn_impl):
-        cfg = self.config
+    def _forward(self, params, tokens, dropout_seed, train, attn_impl, tp=None):
+        cfg = self.config if tp is None else tp.local_cfg(self.config)
         if cfg.sequence_parallel:
             raise NotImplementedError("sequence parallelism is not ported yet (ROADMAP P1)")
         if cfg.sparse_embedding_grads:
@@ -211,7 +259,7 @@ class TransformerLM(nn.Module):
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(self._layer, x, per, positions, seed, train, attn_impl, use_reentrant=False)
             else:
-                x = self._layer(x, per, positions, seed, train, attn_impl)
+                x = self._layer(x, per, positions, seed, train, attn_impl, cfg, tp)
         if cfg.prenorm:
             x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"), cfg.norm, cfg.norm_eps)
         if cfg.tie_embeddings:
@@ -221,10 +269,12 @@ class TransformerLM(nn.Module):
             logits = logits + params["lm_head_bias"].to(logits.dtype)
         return logits
 
-    def _layer(self, x, p, positions, seed, train, attn_impl):
+    def _layer(self, x, p, positions, seed, train, attn_impl, cfg=None, tp=None):
         """One block (``transformer.py:412``): pre-LN or post-LN, parallel
-        residual, biases; weights cast to the activation dtype at use."""
-        cfg = self.config
+        residual, biases; weights cast to the activation dtype at use.
+        ``cfg`` is the rank's local view under ``tp`` (the model's config
+        otherwise)."""
+        cfg = cfg if cfg is not None else self.config
         B, T, _ = x.shape
         NH, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dt = x.dtype
@@ -245,7 +295,8 @@ class TransformerLM(nn.Module):
             q = _rope(q, positions, cfg.rope_theta, cfg.rope_dim)
             k = _rope(k, positions, cfg.rope_theta, cfg.rope_dim)
         attn = self._attention(q, k, v, positions, gen, train, attn_impl)
-        attn = attn.reshape(B, T, NH * D) @ p["wo"].to(dt)
+        attn = attn.reshape(B, T, NH * D)
+        attn = tp.row_matmul(attn, p["wo"]).to(dt) if tp is not None else attn @ p["wo"].to(dt)
         if cfg.use_bias:
             attn = attn + p["bo"].to(dt)
         if train and cfg.hidden_dropout > 0 and gen is not None:
@@ -254,14 +305,14 @@ class TransformerLM(nn.Module):
         if cfg.parallel_residual:
             h_mlp = h if cfg.shared_parallel_norm else _norm(
                 x, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
-            return x + attn + apply_dense_ffn(ffn, h_mlp, cfg.activation)
+            return x + attn + apply_dense_ffn(ffn, h_mlp, cfg.activation, tp=tp)
         if cfg.prenorm:
             x = x + attn
             h = _norm(x, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
         else:
             x = _norm(x + attn, p["attn_norm_scale"], p.get("attn_norm_bias"), cfg.norm, cfg.norm_eps)
             h = x
-        out = apply_dense_ffn(ffn, h, cfg.activation)
+        out = apply_dense_ffn(ffn, h, cfg.activation, tp=tp)
         if cfg.prenorm:
             return x + out
         return _norm(x + out, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)

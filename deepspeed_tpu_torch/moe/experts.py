@@ -28,8 +28,13 @@ def _pointwise_activation(x: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown pointwise activation {activation!r}")
 
 
-def apply_dense_ffn(params: Dict[str, Any], x: torch.Tensor, activation: str = "gelu") -> torch.Tensor:
-    """``[..., H] -> [..., H]`` dense FFN over one layer's weights."""
+def apply_dense_ffn(params: Dict[str, Any], x: torch.Tensor, activation: str = "gelu", tp=None) -> torch.Tensor:
+    """``[..., H] -> [..., H]`` dense FFN over one layer's weights. Under
+    tensor parallelism (``tp``, an ``inference/tp.py:TPServing``) the
+    up and gate projections are column-parallel (this rank's slices), the
+    down projection is row-parallel through ``tp.row_matmul``'s
+    all-reduces, and the replicated output bias is added once, after the
+    reduce."""
     dt = x.dtype
     if activation in ("swiglu", "geglu"):
         gate = qmatmul(x, params["w_gate"])
@@ -41,7 +46,7 @@ def apply_dense_ffn(params: Dict[str, Any], x: torch.Tensor, activation: str = "
         if "b_in" in params:
             inner = inner + params["b_in"].to(dt)
         inner = _pointwise_activation(inner, activation)
-    out = qmatmul(inner, params["w_out"]).to(dt)
+    out = (tp.row_matmul(inner, params["w_out"]) if tp is not None else qmatmul(inner, params["w_out"])).to(dt)
     if "b_out" in params:
         out = out + params["b_out"].to(dt)
     return out

@@ -31,6 +31,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from deepspeed_tpu_torch.inference.tp import refuse_tp
+
 
 @dataclass
 class TenantLoad:
@@ -172,6 +174,7 @@ def replay(
     never fire; the report counts the fired ones."""
     wall = clock is None
     if wall:
+        refuse_tp(server, "replay on the wall clock")
         t0 = time.perf_counter()
 
         def now_fn() -> float:

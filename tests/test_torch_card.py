@@ -1247,3 +1247,113 @@ def test_fleet_streams_match_single_server_on_card(cuda_device, tmp_path, monkey
     assert fs["replica_kills"] == 1 and fs["migrations"] == 1 and fs["migrated_token_divergence"] == 0
     for u, want in zip(uids, ref):
         np.testing.assert_array_equal(router.take_result(u), want)
+
+
+# --- tensor parallelism (S9): the kernels at a rank's head counts, gloo ranks on the card ------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tp_local_head_kernels_on_card(cuda_device, dtype, monkeypatch):
+    """K4, K6 and K1 at llama-1B's per-rank head counts under tp = 2 (16
+    query heads over 2 kv heads, D 64) against their plain versions in
+    fp32 on the same inputs: fp32 within 1e-4, bf16 within 2e-2."""
+    from deepspeed_tpu_torch.ops.transformer import decode_attention as da
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    rs = np.random.RandomState(21)
+    NH, NKV, D = 16, 2, 64
+    q, kp, vp, pt, kl, ql = _ragged_case(rs, [(300, 1), (17, 1), (0, 0), (1024, 1)], 1, NH, NKV, D, 16, 64,
+                                         cuda_device)
+    args = (q.to(dtype), kp.to(dtype), vp.to(dtype))
+    out = torch_pa.ragged_paged_attention(*args, pt, kl, ql, impl="kernel").float()
+    ref = torch_pa.ragged_paged_attention(*(a.float() for a in args), pt, kl, ql, impl="plain")
+    assert (out - ref)[ql > 0].abs().max().item() <= tol
+    q6 = torch.from_numpy(rs.randn(4, NH, D).astype(np.float32)).to(cuda_device).to(dtype)
+    k6, v6 = (torch.from_numpy(rs.randn(4, 256, NKV, D).astype(np.float32)).to(cuda_device).to(dtype)
+              for _ in range(2))
+    lens = torch.tensor([0, 1, 130, 256], dtype=torch.int32, device=cuda_device)
+    got = da.decode_attention_kernel(q6, k6, v6, lens, 0.125).float()
+    want = da.decode_attention_plain(q6.float(), k6.float(), v6.float(), lens, 0.125)
+    assert (got - want).abs().max().item() <= tol
+    q1, k1, v1 = (torch.from_numpy(rs.randn(2, 256, NH, D).astype(np.float32)).to(cuda_device).to(dtype)
+                  for _ in range(3))
+    o, lse = fa.flash_fwd_kernel(q1, k1, v1, True)
+    o_ref, lse_ref = fa.flash_fwd_plain(q1.float(), k1.float(), v1.float(), True)
+    assert (o.float() - o_ref).abs().max().item() <= tol and (lse - lse_ref).abs().max().item() <= tol
+
+
+def _tp_card_rank(rank, world):
+    """One gloo rank on ``cuda:0``: the collectives on CUDA tensors, the
+    quantized exchange, and a tensor-parallel fp32 serve."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference.scheduler import PagedServer
+    from deepspeed_tpu_torch.inference.tp import TPServing, quantized_all_reduce
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = (torch.arange(24, device=dev).reshape(4, 6) * (rank + 1)).to(dt)
+        out[f"all_reduce {dt}"] = comm.all_reduce(x).float().cpu().numpy()
+    a = (torch.arange(3 * world, device=dev) + 10 * rank).to(torch.int8)
+    out["all_to_all_single int8"] = comm.all_to_all_single(torch.empty_like(a), a).cpu().numpy()
+    mine = torch.full((2, 3), float(rank), device=dev)
+    out["all_gather"] = torch.cat(comm.all_gather(None, mine)).cpu().numpy()
+    out["all_gather_into_tensor"] = comm.all_gather_into_tensor(torch.empty(2 * world, 3, device=dev),
+                                                                mine).cpu().numpy()
+    out["broadcast"] = comm.broadcast(mine.clone(), src=0).cpu().numpy()
+    partial = torch.from_numpy(np.random.RandomState(rank).randn(3, 8).astype(np.float32))
+    out["qar_cuda"] = quantized_all_reduce(partial.to(dev)).cpu().numpy()
+    out["qar_partial"] = partial.numpy()
+    cfg, params = _window_params(torch.float32, dev)
+    kw = dict(page_size=8, max_slots=4, prefill_chunk=8, dtype=torch.float32, device=dev)
+    rs = np.random.RandomState(31)
+    prompts = [rs.randint(0, 128, (n,)).astype(np.int32) for n in (5, 17, 30, 9)]
+    server = PagedServer(cfg, params, tp=TPServing(degree=world), **kw)
+    out["tp_streams"] = [o.tolist() for o in server.serve(prompts, max_new_tokens=[20, 12, 25, 17])]
+    out["fingerprint"] = server.serve_stats()["step_fingerprint"]
+    if rank == 0:
+        ref = PagedServer(cfg, params, **kw).serve(prompts, max_new_tokens=[20, 12, 25, 17])
+        out["tp1_streams"] = [o.tolist() for o in ref]
+    return out
+
+
+@pytest.fixture(scope="module")
+def tp_card_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: two gloo ranks share cuda:0")
+    from torch_rank_group import join_ranks, start_ranks
+
+    return join_ranks(start_ranks(_tp_card_rank, 2, str(tmp_path_factory.mktemp("tp_card"))))
+
+
+def test_tp_gloo_collectives_on_card(tp_card_ranks):
+    """Two gloo ranks on ``cuda:0``: all-reduce in fp32 and bf16, int8
+    all-to-all, all-gather (list and into one tensor) and broadcast on CUDA
+    tensors, every value as the collective defines it; the quantized
+    all-reduce on CUDA equal to its arithmetic on the CPU."""
+    from deepspeed_tpu_torch.inference.tp import quantized_all_reduce_local
+
+    base = np.arange(24, dtype=np.float32).reshape(4, 6)
+    for rank, res in enumerate(tp_card_ranks):
+        for dt in (torch.float32, torch.bfloat16):
+            np.testing.assert_array_equal(res[f"all_reduce {dt}"], base * 3)
+        np.testing.assert_array_equal(res["all_to_all_single int8"], [3 * rank + i + 10 * src
+                                                                      for src in range(2) for i in range(3)])
+        want = np.repeat(np.arange(2, dtype=np.float32), 2)[:, None] * np.ones((1, 3), np.float32)
+        np.testing.assert_array_equal(res["all_gather"], want)
+        np.testing.assert_array_equal(res["all_gather_into_tensor"], want)
+        np.testing.assert_array_equal(res["broadcast"], np.zeros((2, 3), np.float32))
+    local = quantized_all_reduce_local([torch.from_numpy(r["qar_partial"]) for r in tp_card_ranks])[0].numpy()
+    for res in tp_card_ranks:
+        np.testing.assert_allclose(res["qar_cuda"], local, rtol=0, atol=1e-6)
+
+
+def test_tp_serve_equals_single_rank_on_card(tp_card_ranks):
+    """A tp = 2 fp32 serve on the card (K4 at each rank's heads, TF32 off)
+    gives the single-rank server's streams on both ranks, with equal step
+    fingerprints."""
+    ref = tp_card_ranks[0]["tp1_streams"]
+    for res in tp_card_ranks:
+        assert res["tp_streams"] == ref
+    assert tp_card_ranks[0]["fingerprint"] == tp_card_ranks[1]["fingerprint"]

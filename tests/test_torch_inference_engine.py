@@ -13,9 +13,10 @@ batch form).
   fp32 keeps that at a few ulps of values of order 1);
 * ``model_times()`` gets one entry per forward with profiling on;
 * ``forward`` before weights are set raises;
-* each of ``analysis.verify``, ``tracing.flight_recorder`` and
-  ``save_mp_checkpoint_path`` raises ``NotImplementedError`` naming its
-  ROADMAP item, and the default config builds an engine.
+* each of ``analysis.verify`` and ``tracing.flight_recorder`` raises
+  ``NotImplementedError`` naming its ROADMAP item; the default config and
+  ``save_mp_checkpoint_path`` (ported: ``test_torch_mp_checkpoint.py``)
+  build an engine.
 """
 
 from __future__ import annotations
@@ -128,15 +129,16 @@ REFUSED = {
     "analysis.verify": ({"analysis": {"verify": "warn"}}, "ROADMAP X1"),
     "tracing.flight_recorder": ({"tracing": {"flight_recorder": True, "flight_recorder_dir": "/nonexistent"}},
                                 "ROADMAP X1"),
-    "save_mp_checkpoint_path": ({"save_mp_checkpoint_path": "mp_ckpt"}, "ROADMAP T3"),
+    "save_mp_checkpoint_path": ({"save_mp_checkpoint_path": "mp_ckpt"}, None),
     "default": ({"analysis": {"verify": "off"}, "tracing": {"flight_recorder": False}}, None),
 }
 
 
 @pytest.mark.parametrize("switch", sorted(REFUSED))
 def test_unported_inference_switches_raise(switch):
-    """Each switch JAX acts on raises ``NotImplementedError`` naming its
-    ROADMAP item; their off values (and the default config) build."""
+    """Each unported switch JAX acts on raises ``NotImplementedError``
+    naming its ROADMAP item; their off values, the default config and the
+    ported ``save_mp_checkpoint_path`` build."""
     config, item = REFUSED[switch]
     model = TransformerLM(TransformerConfig(**CONFIG))
     if item is None:

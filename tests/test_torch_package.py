@@ -71,7 +71,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert len(files) > 10 and os.path.exists(files[0])
     for module in ("inference/sampling.py", "inference/decode.py", "profiling/decode_profile.py",
                    "compression/int8.py", "ops/quantizer/__init__.py", "elasticity/fleet_policy.py",
-                   "elasticity/elasticity.py", "utils/loadgen.py", "inference/traffic.py", "inference/fleet.py"):
+                   "elasticity/elasticity.py", "utils/loadgen.py", "inference/traffic.py", "inference/fleet.py",
+                   "comm/comm.py", "comm/__init__.py", "comm/reduce_op.py", "inference/tp.py",
+                   "inference/mp_checkpoint.py", "module_inject/auto_tp.py", "utils/tensor_fragment.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
@@ -141,21 +143,25 @@ def test_lower_entry_points_default_to_cuda(name):
     build(cfg, tree, device="cpu")
 
 
+# switch -> (config, the refusal, its message)
 UNPORTED = {
-    "tp_degree": {"paged_kv": {"sharded": {"tp_degree": 2}}},
-    "tp_size": {"tensor_parallel": {"tp_size": 2}},
-    "int8_dtype": {"dtype": "int8"},
+    # tensor parallelism is ported: without a torch.distributed group the engine refuses the degree
+    "tp_degree": ({"paged_kv": {"sharded": {"tp_degree": 2}}}, ValueError, "torch.distributed"),
+    "tp_size": ({"tensor_parallel": {"tp_size": 2}}, ValueError, "torch.distributed"),
+    "int8_dtype": ({"dtype": "int8"}, NotImplementedError, "ROADMAP|not ported"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_switches_raise(name):
     """The same JSON parses in both packages; the port then refuses the
-    switch by name, pointing at its ROADMAP item."""
-    JaxInferenceConfig(**UNPORTED[name])
+    switch by name: an unported one pointing at its ROADMAP item, a
+    tensor-parallel degree without the process group it needs."""
+    config, exc, match = UNPORTED[name]
+    JaxInferenceConfig(**config)
     model = TransformerLM(port_model_config.TransformerConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
-        dst.init_inference(model, config=UNPORTED[name], device="cpu")
+    with pytest.raises(exc, match=match):
+        dst.init_inference(model, config=config, device="cpu")
 
 
 def test_multi_step_alone_builds():
