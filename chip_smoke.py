@@ -7,8 +7,9 @@ Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
 drives the serving (single-step, multi-step windows, speculative decoding,
 crash recovery from the journal, int8 weights, multi-tenant SLA serving,
 a two-replica fleet and tensor-parallel serving, forward and generate on
-two ranks), the training and the block-sparse attention main paths at
-full width. Phases,
+two ranks), the training (with checkpoints: save, async save, bit-exact
+resume, serving booted from one) and the block-sparse attention main
+paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -223,6 +224,23 @@ non-zero without the final line:
    kernels (K1's, K2's and K3's FMA variants) and once with
    ``attn_impl="plain"``: step 1's loss and grad norm within 1e-5 relative
    and identical to the last bit;
+12b. training checkpoints (T3) on the same bf16 model, config 1 with a
+   4-step ``WarmupLR``, the batch of step i drawn from seed + i: two
+   uninterrupted 8-step runs must agree bit for bit (losses, grad norms,
+   every master leaf); an engine saves synchronously at step 4 and
+   asynchronously at step 6 and takes steps 7-8 while the writer persists;
+   a fresh engine ``load_checkpoint(dir, auto_resume=True)`` must land on
+   step 6 and a third one loads step 4 by tag, and both must finish the
+   run bitwise equal to the uninterrupted one; a save of step 8 killed at
+   ``ckpt.pre_commit`` must leave ``latest`` and ``find_latest_valid`` on
+   step 6; ``init_inference(..., checkpoint=<step 6>)`` must hold the
+   checkpoint's module bitwise and launch K6 12 x 16 times for a greedy
+   ``generate`` of 4 prompts of 240 with 16 new. K1-K3 = 12 x the phase's
+   30 steps, all on the tensor-core variants, every other kernel 0. Prints
+   the bytes on disk and the file system, the sync save's wall, the async
+   stall beside its bound (the state over 64 GB/s), the async persist,
+   the steps in flight beside the clean step, the restore and the peak
+   memory. It writes into a fresh directory off tmpfs and removes it;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -275,14 +293,15 @@ non-zero without the final line:
    with no K7 launch.
 
 The line before the last is ``{"kernels": [...]}`` (K1-K3 and K7-K9 with
-their ``variant`` by dtype and the main path's tensor-core launches, K1-K3,
+their ``variant`` by dtype and the main path's tensor-core launches and
+phase 12b's ``checkpoint`` launches, K1-K3,
 K7 and K8 with their fp16 times; K4, K5 and K6 with their split counts and
 split-KV launches, K4 with phase 9b's window numbers, its ``spec`` field
 (the verify-shape case, phase 9c's and the fp32 speculation's runs and
 counts), its ``recovery`` field (phase 9d's and the fp32 recovery's) and
 its ``int8``, ``traffic`` and ``fleet`` fields (phases 9e-9g); K5 with the
 fp32 int8 bucketed server's launches, K6 with the ``quant.enabled``
-generate's; K4, K6 and K1 with a ``tp`` field: each rank's launches on
+generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a ``tp`` field: each rank's launches on
 the tensor-parallel paths of phase 9h and the local-shape checks); the
 last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -294,6 +313,7 @@ import argparse
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -306,6 +326,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import deepspeed_tpu_torch as dst
+from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
 from deepspeed_tpu_torch.compression.int8 import QuantizedTensor, quantize_params_int8, tree_nbytes
 from deepspeed_tpu_torch.inference import decode
 from deepspeed_tpu_torch.inference.fleet import FleetRouter, ReplicaHandle
@@ -328,6 +349,8 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse import build_block_ta
 from deepspeed_tpu_torch.ops.transformer import decode_attention
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
+from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import find_latest_valid, read_latest_marker
+from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import TorchCheckpointEngine
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.loadgen import TenantLoad, make_trace, replay
 
@@ -2532,6 +2555,216 @@ def phase_train_fp32(seed, dev):
         raise AssertionError(f"fp32 training: step 1 kernel vs plain gap {gaps[0]} past 1e-5 or not bit-identical")
 
 
+# --- phase 12b: training checkpoints (T3) -------------------------------------------------
+CKPT_SCHEDULER = {"type": "WarmupLR", "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 3e-4, "warmup_num_steps": 4}}
+CKPT_STEPS = 8
+PCIE_BYTES_PER_S = 64e9  # PCIe Gen5 x16, one direction: the async stall's bound
+CKPT_NEW = 16  # greedy tokens the serving engine booted from the checkpoint generates
+
+
+def _fs_type(path):
+    return subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _ckpt_root(need_bytes):
+    """A fresh directory on a file system that holds ``need_bytes``: the
+    temporary directory unless it is memory (tmpfs, ramfs), else beside this
+    script. Returns (dir, filesystem type)."""
+    for base in (tempfile.gettempdir(), os.path.dirname(os.path.abspath(__file__))):
+        if _fs_type(base) not in ("tmpfs", "ramfs") and shutil.disk_usage(base).free > need_bytes:
+            break
+    else:
+        base = tempfile.gettempdir()
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=base)
+    return d, _fs_type(d)
+
+
+def _ckpt_batch(cfg, dev, step, seed):
+    """Step ``step``'s batch, drawn from seed + step: a resume at the wrong
+    step trains on other tokens."""
+    toks = np.random.RandomState(seed + step).randint(0, cfg.vocab_size, (8, cfg.max_seq_len + 1)).astype(np.int32)
+    return {"input_ids": torch.from_numpy(toks[:, :-1]).to(dev), "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+
+
+def _ckpt_steps(engine, cfg, dev, seed, n, rec, times=None):
+    """``n`` steps, each step's (loss, grad norm) appended to ``rec`` and,
+    with ``times``, its wall time (ending in a synchronize) and whether a
+    checkpoint write was in flight when it started."""
+    for _ in range(n):
+        batch = _ckpt_batch(cfg, dev, engine.global_steps, seed)
+        in_flight = engine.checkpoint_stats()["pending"] > 0
+        t0 = time.perf_counter()
+        loss = engine(batch)
+        engine.backward(loss)
+        engine.step()
+        rec.append((loss.item(), engine.get_global_grad_norm()))
+        if times is not None:
+            times.append((time.perf_counter() - t0, in_flight))
+
+
+def _same_masters(label, master, ref):
+    differ = [k for k, m in master.items() if not torch.equal(m, ref[k])]
+    if differ:
+        raise AssertionError(f"train_checkpoint: {label}: {len(differ)} master leaves differ from the "
+                             f"uninterrupted run's, e.g. {differ[:3]}")
+
+
+def _same_records(label, got, want):
+    if got != want:
+        first = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        raise AssertionError(f"train_checkpoint: {label}: (loss, grad norm) {got[first]} at record {first} is not "
+                             f"bitwise the uninterrupted run's {want[first]}")
+
+
+def phase_train_checkpoint(seed, dev):
+    """GPT-2 125M bf16 (config 1 plus a 4-step warm-up lr): two uninterrupted
+    8-step runs bitwise equal; a sync save at step 4 and an async save at
+    step 6 (steps 7-8 run while it persists); fresh engines resumed from
+    each take the remaining steps bitwise; a save killed at
+    ``ckpt.pre_commit`` leaves ``latest`` on step 6; a serving engine
+    booted from step 6 holds its module bitwise and generates through K6."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    tree = _weights(cfg, seed)
+    config = dict(TRAIN_CONFIG, scheduler=CKPT_SCHEDULER)
+    engine_of = lambda: dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree)[0]  # noqa: E731
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # counts from here are the phase's training steps'
+    steps_taken = 0
+
+    # 1. two uninterrupted runs
+    runs = []
+    for _ in range(2):
+        engine = engine_of()
+        rec, times = [], []
+        _ckpt_steps(engine, cfg, dev, seed, CKPT_STEPS, rec, times)
+        steps_taken += CKPT_STEPS
+        runs.append((rec, times, {k: m.clone() for k, m in engine._master.items()}))
+        del engine
+    (ref, ref_times, ref_master), (rec2, times2, master2) = runs
+    _same_records("second uninterrupted run", rec2, ref)
+    _same_masters("second uninterrupted run", master2, ref_master)
+    del master2, runs
+    clean_ms = float(np.median([t for t, _ in times2])) * 1e3
+
+    state_bytes = sum(m.numel() * (4 + 2 + 4 + 4) for m in ref_master.values())
+    save_dir, fs = _ckpt_root(4 * state_bytes)
+    try:
+        # 2. engine A: a sync save at step 4, an async one at step 6, steps 7-8 while it persists
+        a = engine_of()
+        rec_a, times_a = [], []
+        _ckpt_steps(a, cfg, dev, seed, 4, rec_a)
+        t0 = time.perf_counter()
+        a.save_checkpoint(save_dir)
+        sync_s = time.perf_counter() - t0
+        _ckpt_steps(a, cfg, dev, seed, 2, rec_a)
+        a.save_checkpoint(save_dir, asynchronous=True)
+        stats = a.checkpoint_stats()
+        stall_ms, pending = stats["last_stall_ms"], stats["pending"]
+        _ckpt_steps(a, cfg, dev, seed, 2, rec_a, times_a)
+        t0 = time.perf_counter()
+        a.wait_pending_checkpoint()
+        drain_s = time.perf_counter() - t0
+        persist_s = a.checkpoint_stats()["last_save_s"]
+        steps_taken += CKPT_STEPS
+        _same_records("engine A (saving)", rec_a, ref)
+        pinned_bytes = a._pinned.nbytes()
+        del a
+        tag6 = os.path.join(save_dir, "global_step6")
+        disk_bytes = sum(os.path.getsize(os.path.join(tag6, f)) for f in os.listdir(tag6))
+
+        # 3. engine B: auto_resume lands on the async checkpoint, steps 7-8
+        b = engine_of()
+        t0 = time.perf_counter()
+        path, _ = b.load_checkpoint(save_dir, auto_resume=True)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if path != tag6 or b.global_steps != 6:
+            raise AssertionError(f"train_checkpoint: auto_resume landed on {path} at step {b.global_steps}, "
+                                 f"want {tag6} at 6")
+        rec_b = []
+        _ckpt_steps(b, cfg, dev, seed, 2, rec_b)
+        steps_taken += 2
+        _same_records("engine B (resumed from the async save)", rec_b, ref[6:])
+        _same_masters("engine B after step 8", b._master, ref_master)
+        del b
+
+        # 4. engine C: the sync checkpoint by tag, steps 5-8
+        c = engine_of()
+        c.load_checkpoint(save_dir, tag="global_step4")
+        rec_c = []
+        _ckpt_steps(c, cfg, dev, seed, 4, rec_c)
+        steps_taken += 4
+        _same_records("engine C (resumed from the sync save)", rec_c, ref[4:])
+        _same_masters("engine C after step 8", c._master, ref_master)
+        counts, variants = _counts(), _variants()
+
+        # 5. a save of step 8 killed before its commit rename
+        chaos.install(chaos.ChaosSchedule([chaos.ChaosRule("ckpt.pre_commit")]))
+        killed = False
+        try:
+            c.save_checkpoint(save_dir)
+        except chaos.ChaosKilled:
+            killed = True
+        finally:
+            chaos.uninstall()
+        latest, newest = read_latest_marker(save_dir), find_latest_valid(save_dir)
+        if not killed or latest != "global_step6" or newest != "global_step6":
+            raise AssertionError(f"train_checkpoint: the killed save of step 8 (killed={killed}) left latest "
+                                 f"{latest!r} and the newest valid tag {newest!r}, want global_step6")
+        del c
+        torch.cuda.empty_cache()
+
+        # 6. serving booted from the async checkpoint
+        saved_module = flatten_tree(TorchCheckpointEngine().load(tag6)["module"])
+        t0 = time.perf_counter()
+        server = dst.init_inference(TransformerLM(cfg), dtype="bf16", checkpoint=tag6)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        held = flatten_tree(server.module.param_tree())
+        differ = [k for k, t in saved_module.items() if not torch.equal(held[k].cpu(), t)]
+        if set(held) != set(saved_module) or differ:
+            raise AssertionError(f"train_checkpoint: the serving engine's weights differ from the checkpoint's "
+                                 f"module at {differ[:3]}")
+        # 240 + 16 = a cache of 256, a multiple of 256: the single-token steps take K6 (JAX's rule)
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (4, 240), dtype=np.int32)
+        _zero_counts()
+        out = server.generate(prompts, max_new_tokens=CKPT_NEW)
+        torch.cuda.synchronize()
+        _check_generated("train_checkpoint generate", out, prompts, CKPT_NEW, cfg.vocab_size)
+        served = _counts()
+        if served["decode_attention"] != L * CKPT_NEW or sum(served.values()) != served["decode_attention"] or \
+                decode_attention.launches_decode_split != served["decode_attention"]:
+            raise AssertionError(f"train_checkpoint generate: launches {served}, want K6 = {L} x {CKPT_NEW} "
+                                 f"on the split path and no other")
+        del server, saved_module, held
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+    stall_bound_ms = state_bytes / PCIE_BYTES_PER_S * 1e3
+    in_flight = [t for t, busy in times_a if busy]
+    rec = dict(phase="train_checkpoint", model='gpt2_config("125m", max_seq_len=1024, remat=False)',
+               config=config, steps=steps_taken, uninterrupted_bitwise=True, resume_bitwise={"async": True,
+                                                                                             "sync": True},
+               filesystem=fs, state_bytes=state_bytes, checkpoint_bytes_on_disk=disk_bytes, sync_save_s=sync_s,
+               async_stall_ms=stall_ms, async_stall_bound_ms=stall_bound_ms, async_pending_after_save=pending,
+               async_persist_s=persist_s, async_drain_wait_s=drain_s, pinned_pool_bytes=pinned_bytes,
+               in_flight_step_ms=[t * 1e3 for t in in_flight], clean_step_ms=clean_ms, restore_s=restore_s,
+               serve_boot_s=boot_s, latest_after_killed_save=latest, generate_launches=served,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts, variants=variants)
+    emit(**rec)
+    want = L * steps_taken
+    if any(counts[k] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")) or \
+            sum(v for k, v in counts.items() if not k.startswith("flash_")):
+        raise AssertionError(f"train_checkpoint: launches {counts}, want {want} = {L} x {steps_taken} for each "
+                             f"flash kernel and no other")
+    if any(variants[f"{k}_tc"] != counts[k] for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"train_checkpoint: tensor-core launches {variants}, want all of {counts}")
+    return dict(steps=steps_taken, launches=counts, k6_launches=served["decode_attention"],
+                stall_ms=stall_ms, stall_bound_ms=stall_bound_ms)
+
+
 # --- phases 13 and 14: block-sparse attention (K7-K9) --------------------------------
 SPARSE_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 3e-2)}  # (O and LSE abs, grads rel)
 SPARSE_MAIN = "main B=2 NH=16 T=4096 D=64 Fixed blk=16"
@@ -3147,6 +3380,7 @@ def main() -> int:
     del flush
     train_counts, train_variants = phase_train(args.seed, dev)
     phase_train_fp32(args.seed, dev)
+    ckpt = phase_train_checkpoint(args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
@@ -3187,12 +3421,14 @@ def main() -> int:
         tensor_core_launches=train_variants[f"{name}_tc"],
         fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")},
         **({"tp": tp["kernels"]["flash_fwd"]} if name == "flash_fwd" else {}),
+        checkpoint=dict(launches=ckpt["launches"][name], steps=ckpt["steps"]),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,
         **{k: k6_main[k] for k in keys}, variant="split_kv", split_launches=k6_split_launches,
         splits=k6_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k6_cases],
         quant_enabled=int8["quant"], tp=tp["kernels"]["decode_attention"],
+        checkpoint=dict(launches=ckpt["k6_launches"]),
     ), dict(
         name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:110", launches=k5_launches,

@@ -26,7 +26,11 @@ beside it slice by slice and mirrors its module paths. It imports neither
   rank): sharded paged serving (``paged_kv.sharded.tp_degree``), the
   sharded forward and ``generate`` (``tensor_parallel.tp_size``), and the
   pre-sharded inference checkpoint (``save_mp_checkpoint``,
-  ``checkpoint=``).
+  ``checkpoint=``);
+* training checkpoints (``engine.save_checkpoint`` / ``load_checkpoint``:
+  atomic, synchronous or through the async snapshot writer, bit-exact
+  ``auto_resume``), the reference-layout, universal and 16-bit exports,
+  and ``init_inference(checkpoint=<engine checkpoint tag dir>)``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ or flat under the path convention of
 JAX layout (stacked ``[L, ...]`` layers, ``[in, out]`` weights), so every
 leaf is copied as it is.
 
-``jax_tree_to_tensors`` checks a tree against the config and gives a flat
+``jax_tree_to_tensors`` checks a tree (numpy leaves, or tensors such as a
+training checkpoint's module) against the config and gives a flat
 ``path -> tensor`` dict on a device in a dtype (the training engine's
 master and compute leaves); ``tensors_to_jax_tree`` is its inverse, the
 nested numpy tree ``get_params`` / ``get_master_params`` return.
@@ -81,6 +82,9 @@ def jax_tree_to_tensors(cfg, params: Mapping[str, Any], device=None,
     device = resolve_device(device)
     out = {}
     for path, leaf in _checked_flat(cfg, params).items():
+        if isinstance(leaf, torch.Tensor):  # e.g. a checkpoint's bf16 module, which numpy cannot hold
+            out[path] = leaf.detach().to(device=device, dtype=dtype, copy=True)
+            continue
         arr = np.array(leaf, dtype=np.float32, order="C")  # a copy: training must not write the caller's tree
         out[path] = torch.from_numpy(arr).to(device=device, dtype=dtype)
     return out

@@ -36,7 +36,8 @@ is 0 (JAX ``engine.py:666-683``). ``save_mp_checkpoint`` writes the
 pre-sharded inference checkpoint (``inference/mp_checkpoint.py``; rank 0
 writes every file from the gathered leaves), ``save_mp_checkpoint_path``
 writes it at ``set_params``, and ``checkpoint=`` /
-``load_checkpoint`` boot from one.
+``load_checkpoint`` boot from one or from a training engine checkpoint's
+tag directory.
 """
 
 from __future__ import annotations
@@ -64,6 +65,7 @@ from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch, 
 from deepspeed_tpu_torch.module_inject.auto_tp import AutoTP
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize
 from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
+from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import TorchCheckpointEngine
 from deepspeed_tpu_torch.utils.logging import log_dist
 
 _DTYPES = {DtypeEnum.fp32: torch.float32, DtypeEnum.fp16: torch.float16, DtypeEnum.bf16: torch.bfloat16}
@@ -118,7 +120,8 @@ class InferenceEngine:
                     for path, leaf in flatten_tree(model.param_tree()).items():
                         model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype))
                 self._quantize_weights()
-        # a checkpoint handed to init_inference (JAX engine.py:117-136): a pre-sharded manifest or its dir
+        # a checkpoint handed to init_inference (JAX engine.py:117-136): a pre-sharded manifest or its
+        # dir, or a training engine checkpoint's tag dir
         if self._config.checkpoint is not None:
             self.load_checkpoint(self._config.checkpoint)
         log_dist(f"InferenceEngine: dtype={self._config.dtype.value} device={self.device} "
@@ -233,19 +236,29 @@ class InferenceEngine:
         return mpath
 
     def load_checkpoint(self, path) -> None:
-        """Install the weights of a pre-sharded inference checkpoint (the
-        manifest or its directory; written by either package): the whole
-        tree is loaded, then a tensor-parallel rank slices its shard (JAX
-        ``engine.py:323-333``)."""
-        if isinstance(path, str) and is_mp_checkpoint(path):
+        """Install the weights of a checkpoint (JAX ``engine.py:117-136``,
+        ``:324-337``): a pre-sharded inference checkpoint (the manifest or
+        its directory; written by either package; the whole tree is loaded,
+        then a tensor-parallel rank slices its shard), or a training engine
+        checkpoint's tag directory, whose ``module`` becomes the weights.
+        SD-loader descriptors (a dict, or a ``.json`` that is not a
+        manifest) need the module_inject container policies and raise."""
+        if isinstance(path, dict) or (isinstance(path, str) and path.endswith(".json")
+                                      and not is_mp_checkpoint(path)):
+            raise NotImplementedError(
+                f"checkpoint={path!r}: SD-loader descriptors convert through the module_inject container "
+                "policies (runtime/state_dict_factory.py, module_inject/containers.py), which are not ported "
+                "yet (ROADMAP P1, module_inject containers)")
+        if not isinstance(path, str):
+            raise NotImplementedError(
+                "init_inference checkpoint= takes a path string (an engine checkpoint tag directory or a "
+                "pre-sharded manifest or its directory)")
+        if is_mp_checkpoint(path):
             params, _ = load_mp_checkpoint(path)
             self.set_params(params)
             return
-        raise NotImplementedError(
-            f"checkpoint={path!r}: only the pre-sharded inference checkpoint (a ds_inference_config.json "
-            "manifest or its directory) is ported; engine checkpoint directories and SD-loader "
-            "descriptors wait for the checkpoint engine (ROADMAP T3)"
-        )
+        state = TorchCheckpointEngine().load(path)
+        self.set_params(state.get("module", state))
 
     # --- forward --------------------------------------------------------
     def profile_model_time(self, use_cuda_events: bool = True) -> None:  # noqa: ARG002

@@ -1,7 +1,8 @@
 """Append-only request journal for serving crash recovery.
 
 Counterpart of ``deepspeed_tpu/inference/journal.py`` (no JAX; the port
-keeps its own copy, and its ``fsync_dir``). The on-disk format is the JAX
+keeps its own copy, and takes ``fsync_dir`` from its ``atomic.py`` as JAX
+does). The on-disk format is the JAX
 package's byte for byte, so a journal written by either package replays in
 the other.
 
@@ -43,27 +44,12 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import fsync_dir
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.logging import logger
 
 _SEG_SEALED = re.compile(r"^seg_(\d{6})\.jrnl$")
 _SEG_OPEN = re.compile(r"^seg_(\d{6})\.open$")
-
-
-def fsync_dir(path: str) -> None:
-    """Make directory-entry changes (renames, creates, removals) under
-    ``path`` durable. Best effort where a file system has no directory
-    fsync."""
-    try:
-        fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
 
 
 class JournalCorruptError(RuntimeError):

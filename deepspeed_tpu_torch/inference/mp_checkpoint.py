@@ -29,7 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.inference.journal import fsync_dir
+from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import atomic_write_text
 from deepspeed_tpu_torch.utils.tensor_fragment import _flatten_with_paths
 
 MANIFEST_NAME = "ds_inference_config.json"
@@ -67,16 +67,6 @@ def _check_dict_tree(t, where="params"):
             "lists/tuples of weights do not round-trip through the "
             "path-keyed npz layout"
         )
-
-
-def _atomic_write_text(path: str, text: str) -> None:
-    tmp = f"{path}.tmp-{os.getpid()}"
-    with open(tmp, "w") as f:
-        f.write(text)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-    fsync_dir(os.path.dirname(os.path.abspath(path)))
 
 
 def save_mp_checkpoint(
@@ -134,7 +124,7 @@ def save_mp_checkpoint(
         "dtypes": dtypes,
     }
     mpath = os.path.join(save_path, MANIFEST_NAME)
-    _atomic_write_text(mpath, json.dumps(manifest, indent=2))
+    atomic_write_text(mpath, json.dumps(manifest, indent=2))
     return mpath
 
 

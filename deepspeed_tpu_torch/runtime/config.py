@@ -635,7 +635,4 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
         found.append("curriculum_learning.enabled: ROADMAP T5")
     if (cfg.data_efficiency_config or {}).get("enabled"):
         found.append("data_efficiency.enabled (random-LTD, data sampling): ROADMAP T5")
-    ck = cfg.checkpoint_config
-    if ck.async_snapshot or ck.interval_steps > 0:
-        found.append("checkpoint.async_snapshot / interval_steps: ROADMAP T3")
     return found

@@ -22,6 +22,16 @@ gradients (reported by ``get_global_grad_norm``, before clipping);
 under fp16 an overflow keeps the old state and shrinks the scale; the
 compute parameters are re-cast from the master, never updated in bf16.
 
+Checkpoints (JAX ``engine.py:3240-3736``): ``save_checkpoint`` writes the
+full replay state (module, fp32 master, Adam moments, loss scale, lr
+schedule, counters, the dropout generator's state) through the torch
+checkpoint engine, staged and committed atomically, synchronously or
+through the async writer (``checkpoint.async_snapshot``: the step pays only
+the device→host copy); ``checkpoint.interval_steps`` with ``save_dir``
+saves from inside ``step``; ``load_checkpoint(auto_resume=True)`` resumes
+from the newest valid tag, and the resumed losses are bit-identical to an
+uninterrupted run's.
+
 ZeRO stage 1 at a data-parallel world of 1 shards nothing; the engine
 records the stage. Stage ≥ 2, a ``torch.distributed`` group of more than
 one rank, and the other unported switches raise ``NotImplementedError``
@@ -31,21 +41,43 @@ names another device, and raises without a card.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import os
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.checkpoint.jax_params import jax_tree_to_tensors, tensors_to_jax_tree, unflatten_tree
+from deepspeed_tpu_torch.checkpoint.jax_params import (
+    flatten_tree,
+    jax_tree_to_tensors,
+    tensors_to_jax_tree,
+    unflatten_tree,
+)
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
 from deepspeed_tpu_torch.ops.adam.fused_adam import AdamW, FusedAdam
 from deepspeed_tpu_torch.ops.optimizer import DSOptimizer
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.checkpoint_engine.async_snapshot import (
+    AsyncCheckpointWriter,
+    PinnedPool,
+    host_snapshot,
+)
+from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import (
+    CheckpointCorruptError,
+    CheckpointLoadError,
+    list_valid_tags,
+    read_latest_marker,
+    write_latest_marker,
+)
+from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import TorchCheckpointEngine
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, unported_switches
-from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, has_inf_or_nan
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, LossScaleState, has_inf_or_nan
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils import chaos
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.tensor_fragment import _flatten_with_paths
 
 # "adam" is FusedAdam with decoupled decay, as in JAX (engine.py:118-120)
 _OPTIMIZERS = {
@@ -121,6 +153,18 @@ class DeepSpeedEngine:
         self._grad_acc = {k: torch.zeros(p.shape, dtype=self._acc_dtype, device=self.device)
                           for k, p in self._params.items()}
         self._scale_state = self.loss_scaler.init_state()
+
+        self.checkpoint_engine = TorchCheckpointEngine(self._config)
+        self._ckpt_writer: Optional[AsyncCheckpointWriter] = None  # built at the first async save
+        self._pinned = PinnedPool()  # host buffers of device snapshots, reused across saves
+        self._ckpt_metrics = {
+            "saves": 0,
+            "async_saves": 0,
+            "last_stall_ms": 0.0,  # device->host snapshot time (async path)
+            "total_stall_ms": 0.0,
+            "last_save_s": 0.0,  # full persist wall time (staging + commit)
+            "last_restore_s": 0.0,
+        }
         log_dist(
             f"DeepSpeedEngine: zero_stage={self.zero_optimization_stage()} dtype={self.compute_dtype} "
             f"device={self.device} batch triad=({self.train_batch_size()},"
@@ -284,10 +328,17 @@ class DeepSpeedEngine:
     def step(self, lr_kwargs=None):  # noqa: ARG002
         if self._in_forward:
             raise RuntimeError("step() called before backward()")
-        if self.is_gradient_accumulation_boundary():
+        boundary = self.is_gradient_accumulation_boundary()
+        if boundary:
             self._take_model_step()
         self.micro_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu()
+        # interval auto-save (JAX engine.py:2424-2429), after this microbatch
+        # is counted: a save before the count would resume one microbatch
+        # early and, at gas > 1, take the next step after a single microbatch
+        ccfg = self._config.checkpoint_config
+        if boundary and ccfg.save_dir and ccfg.interval_steps > 0 and self.global_steps % ccfg.interval_steps == 0:
+            self.save_checkpoint(ccfg.save_dir)
 
     @torch.no_grad()
     def _update_from_grads(self, lr: float):
@@ -317,6 +368,9 @@ class DeepSpeedEngine:
 
     def _take_model_step(self) -> None:
         overflow = self._update_from_grads(self.optimizer.param_groups[0]["lr"])
+        # the preemption instant: the master holds the update, nothing of the
+        # step is committed on the host yet
+        chaos.point("train.mid_step")
         self.global_steps += 1
         if overflow:
             self.skipped_steps += 1
@@ -356,12 +410,301 @@ class DeepSpeedEngine:
         cut = lambda x, g: None if x is None else x[g * b:(g + 1) * b]  # noqa: E731
         return [(cut(tokens, g), cut(labels, g)) if labels is not None else cut(tokens, g) for g in range(gas)]
 
+    # --- checkpoints (JAX engine.py:3240-3736) --------------------------------------
+    def _ckpt_dir(self, save_dir: str, tag: str) -> str:
+        return os.path.join(save_dir, str(tag))
+
+    def _checkpoint_state(self, client_state: Optional[Dict]) -> Dict[str, Any]:
+        """The full replay state under JAX's keys and tree paths. Tensors
+        are the live ones (the caller snapshots them); the optimizer and
+        loss-scale scalars ride as 0-d tensors, where JAX has arrays."""
+        from deepspeed_tpu_torch import __version__
+
+        s = self._scale_state
+        return {
+            "module": unflatten_tree(self._params),
+            "master": unflatten_tree(self._master) if self.mixed_precision else None,
+            "optimizer": _opt_state_to_tree(self._opt_state),
+            "loss_scaler": {"scale": torch.tensor(float(s.scale), dtype=torch.float64),
+                            "good_steps": torch.tensor(int(s.good_steps)),
+                            "hysteresis": torch.tensor(int(s.hysteresis))},
+            "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None,
+            "random_ltd": None,
+            "moq": None,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            # exact-resume replay state: the dropout generator the next
+            # microbatch draws its seed from (JAX's PRNG key), no data cursor
+            # (the port has no engine dataloader), the one-rank mesh
+            "rng": self._dropout_rng.bit_generator.state,
+            "data_cursor": None,
+            "mesh": self._mesh_shape(),
+            "ds_config": self._config._param_dict,
+            "ds_version": __version__,
+            "client_state": client_state or {},
+        }
+
+    def _mesh_shape(self) -> Dict[str, int]:
+        return {"data": self.data_parallel_world_size()}
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None, client_state: Optional[Dict] = None,
+                        save_latest: bool = True, exclude_frozen_parameters: bool = False,  # noqa: ARG002
+                        asynchronous: Optional[bool] = None):
+        """Write one atomic checkpoint under ``save_dir/tag`` (default
+        ``global_step<N>``) holding the full replay state, so that
+        ``load_checkpoint(auto_resume=True)`` resumes bit-identically.
+        Staged, committed by one rename, then the ``latest`` marker: a kill
+        at any instant leaves the newest valid checkpoint discoverable.
+        ``asynchronous`` (default ``checkpoint.async_snapshot``) copies the
+        state to pinned host memory and persists it from a background
+        writer, so the step pays only the copy
+        (``checkpoint_stats()["last_stall_ms"]``)."""
+        if self._in_forward:
+            raise RuntimeError("save_checkpoint() between forward() and backward(): the step's graph is "
+                               "not part of a checkpoint; call backward() and step() first")
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        tag = self._validate_checkpoint_tag(tag)
+        path = self._ckpt_dir(save_dir, tag)
+        self.checkpoint_engine.create(tag)
+        use_async = self._config.checkpoint_config.async_snapshot if asynchronous is None else bool(asynchronous)
+        if not use_async:
+            # a synchronous save must not interleave with queued async writes:
+            # an older snapshot committing after it would regress `latest`
+            self.wait_pending_checkpoint()
+        t0 = time.perf_counter()
+        pool = self._pinned if self.device.type == "cuda" else None
+        host_state, pinned = host_snapshot(self._checkpoint_state(client_state), pool)
+        release = (lambda: pool.give(pinned)) if pool is not None else None  # noqa: E731
+        if use_async:
+            stall_ms = (time.perf_counter() - t0) * 1e3
+            if self._ckpt_writer is None:
+                self._ckpt_writer = AsyncCheckpointWriter(
+                    self.checkpoint_engine, max_inflight=self._config.checkpoint_config.max_inflight_snapshots)
+            self._ckpt_writer.submit(host_state, path, tag, save_dir if save_latest else None, release=release)
+            self._ckpt_metrics["async_saves"] += 1
+            self._ckpt_metrics["last_stall_ms"] = stall_ms
+            self._ckpt_metrics["total_stall_ms"] += stall_ms
+        else:
+            try:
+                self.checkpoint_engine.save(host_state, path)
+                # the commit rename comes before the marker, which may only
+                # ever name a committed checkpoint
+                self.checkpoint_engine.commit(tag)
+                if save_latest:
+                    write_latest_marker(save_dir, tag)
+            finally:
+                if release is not None:
+                    release()
+            self._ckpt_metrics["last_save_s"] = time.perf_counter() - t0
+        self._ckpt_metrics["saves"] += 1
+        return True
+
+    def wait_pending_checkpoint(self) -> None:
+        """Fence the async writer: returns once every queued snapshot is
+        committed; re-raises a background persist failure."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
+            if self._ckpt_writer.saves:
+                self._ckpt_metrics["last_save_s"] = self._ckpt_writer.last_save_s
+
+    def checkpoint_stats(self) -> Dict[str, Any]:
+        """Save counts, the async snapshot stall (``last_stall_ms``), the
+        full persist and restore wall times, and the writer's queue depth
+        (JAX ``engine.py:3393-3402``)."""
+        out = dict(self._ckpt_metrics)
+        out["async_snapshot"] = self._config.checkpoint_config.async_snapshot
+        out["pending"] = self._ckpt_writer.pending() if self._ckpt_writer else 0
+        return out
+
+    def _validate_checkpoint_tag(self, tag: str) -> str:
+        """The cross-rank tag check (JAX ``engine.py:3404``); at the port's
+        one rank every tag agrees with itself."""
+        return tag
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None, load_module_strict: bool = True,
+                        load_optimizer_states: bool = True, load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False, custom_load_fn: Optional[Callable] = None,  # noqa: ARG002
+                        auto_resume: bool = False):
+        """Load a checkpoint; returns ``(path, client_state)``, or ``(None,
+        {})`` when there is nothing to load. ``auto_resume`` scans for the
+        newest valid tag (the ``latest`` marker is only a hint) and falls
+        back past a tag that turns out torn at load time. With
+        ``load_module_strict`` every module leaf is checked against the live
+        state first: a mismatch raises one ``CheckpointLoadError`` naming
+        the leaf and both shapes or dtypes."""
+        self.wait_pending_checkpoint()
+        t_load = time.perf_counter()
+        state = None
+        if tag is None:
+            if auto_resume:
+                for cand in reversed(list_valid_tags(load_dir)):
+                    try:
+                        state = self.checkpoint_engine.load(self._ckpt_dir(load_dir, cand))
+                        tag = cand
+                        break
+                    except CheckpointCorruptError as e:
+                        logger.warning(f"auto_resume: skipping torn checkpoint {cand}: {e}")
+                if state is None:
+                    logger.warning(f"auto_resume: no valid checkpoint under {load_dir}; nothing loaded "
+                                   "(fresh start)")
+                    return None, {}
+            else:
+                tag = read_latest_marker(load_dir)
+                if tag is None:
+                    logger.warning(f"no 'latest' file at {os.path.join(load_dir, 'latest')}; nothing loaded")
+                    return None, {}
+        path = self._ckpt_dir(load_dir, tag)
+        if state is None:
+            state = self.checkpoint_engine.load(path)
+        if load_module_strict:
+            self._validate_checkpoint_state(state, path)
+        self._adopt_weights(state)
+        if load_optimizer_states and not load_module_only and state.get("optimizer") is not None:
+            self._opt_state = _opt_state_from_tree(state["optimizer"], self._opt_state, self.device)
+        if state.get("loss_scaler") is not None:
+            ls = state["loss_scaler"]
+            self._scale_state = LossScaleState(scale=float(ls["scale"]), good_steps=int(ls["good_steps"]),
+                                               hysteresis=int(ls["hysteresis"]))
+        if load_lr_scheduler_states and self.lr_scheduler is not None and state.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        if not load_module_only:
+            self.global_steps = state.get("global_steps", 0)
+            self.global_samples = state.get("global_samples", 0)
+            self.micro_steps = state.get("micro_steps", 0)
+            self.skipped_steps = state.get("skipped_steps", 0)
+            self._restore_replay_state(state)
+        with torch.no_grad():  # a loaded state starts at an accumulation boundary
+            for g in self._grad_acc.values():
+                g.zero_()
+        self._in_forward = False
+        self._ckpt_metrics["last_restore_s"] = time.perf_counter() - t_load
+        return path, state.get("client_state", {})
+
+    @torch.no_grad()
+    def _adopt_weights(self, state: Dict) -> None:
+        """The module (compute dtype) and the fp32 master. A checkpoint
+        without a master (fp32 training, or module-only) rebuilds it from
+        the module, or the next step would recast the stale one over it."""
+        module = flatten_tree(state["module"])
+        master = flatten_tree(state["master"]) if state.get("master") is not None else None
+        for k, m in self._master.items():
+            if master is not None and k in master:
+                m.copy_(master[k])
+            elif k in module:
+                m.copy_(module[k])
+            if self.mixed_precision and k in module:
+                self._params[k].copy_(module[k])
+
+    def _restore_replay_state(self, state: Dict) -> None:
+        """The dropout generator the next microbatch draws from (JAX's PRNG
+        key); the port has no data cursor to restore."""
+        rng = state.get("rng")
+        if isinstance(rng, dict):
+            self._dropout_rng.bit_generator.state = rng
+        else:
+            logger.warning("checkpoint carries no dropout generator state: resumed dropout masks will "
+                           "diverge from the uninterrupted run")
+
+    def _validate_checkpoint_state(self, state: Dict, path: str) -> None:
+        """Fail fast, with names (JAX ``engine.py:3624-3683``): a checkpoint
+        whose mesh or module leaves disagree with the live run raises one
+        ``CheckpointLoadError``."""
+        saved_mesh = state.get("mesh")
+        cur_mesh = self._mesh_shape()
+        if saved_mesh is not None and dict(saved_mesh) != cur_mesh:
+            raise CheckpointLoadError(
+                f"mesh topology mismatch loading {path}: checkpoint was saved on mesh {dict(saved_mesh)} but "
+                f"this run uses {cur_mesh}; re-shard the checkpoint or rebuild the engine with the saved "
+                "topology")
+        module = state.get("module")
+        if module is None:
+            raise CheckpointLoadError(f"{path} holds no module state")
+        saved = _flatten_with_paths(module)
+        cur = _flatten_with_paths(unflatten_tree(self._params))
+        missing = sorted(set(cur) - set(saved))
+        extra = sorted(set(saved) - set(cur))
+        if missing or extra:
+            raise CheckpointLoadError(
+                f"module tree mismatch loading {path}: "
+                + (f"checkpoint lacks {missing[:3]}" if missing else "")
+                + (" and " if missing and extra else "")
+                + (f"checkpoint has unknown {extra[:3]}" if extra else "")
+                + " (pass load_module_strict=False to adopt loosely)")
+        for name, c_leaf in cur.items():
+            s_leaf = saved[name]
+            s_shape, c_shape = tuple(s_leaf.shape), tuple(c_leaf.shape)
+            if s_shape != c_shape:
+                raise CheckpointLoadError(
+                    f"shape mismatch loading {path} at module leaf {name!r}: checkpoint has {s_shape}, current "
+                    f"state has {c_shape} (model config differs from the one that saved this checkpoint)")
+            if s_leaf.dtype != c_leaf.dtype:
+                raise CheckpointLoadError(
+                    f"dtype mismatch loading {path} at module leaf {name!r}: checkpoint has {s_leaf.dtype}, "
+                    f"current state has {c_leaf.dtype} (precision config differs from the run that saved this "
+                    "checkpoint; pass load_module_strict=False to skip validation)")
+
+    def consolidated_16bit_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The compute-dtype weights as a flat ``path -> CPU tensor`` dict in
+        JAX's path order (JAX ``engine.py:3685``)."""
+        return {name: t.detach().cpu() for name, t in _flatten_with_paths(unflatten_tree(self._params)).items()}
+
+    def save_reference_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                                  dp_shards: Optional[int] = None) -> str:
+        """Write the reference's training-checkpoint layout
+        (``mp_rank_00_model_states.pt``, ``zero_pp_rank_*_optim_states.pt``,
+        ``latest``); see ``checkpoint/reference_export.py``."""
+        from deepspeed_tpu_torch.checkpoint.reference_export import export_reference_checkpoint
+
+        return export_reference_checkpoint(self, save_dir, tag=tag, dp_shards=dp_shards)
+
+    def save_16bit_model(self, save_dir: str, save_filename: str = "pytorch_model.bin",
+                         exclude_frozen_parameters: bool = False):  # noqa: ARG002
+        """One consolidated weights file loadable without the engine (JAX
+        ``engine.py:3716-3736``): ``.bin`` and ``.pt`` names save a torch
+        state dict of fp32 tensors; any other name an ``npz`` of the
+        compute-dtype weights under the same flat names (bf16 as the raw
+        2-byte values numpy stores for JAX's bf16)."""
+        sd = self.consolidated_16bit_state_dict()
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, save_filename)
+        if save_filename.endswith((".bin", ".pt")):
+            torch.save({k: v.float().contiguous() for k, v in sd.items()}, path)
+        else:
+            np.savez(path, **{k: _npz_array(v) for k, v in sd.items()})
+        return True
+
     # --- not ported yet ----------------------------------------------------------
     def deepspeed_io(self, *args, **kwargs):  # noqa: ARG002
         raise NotImplementedError("deepspeed_io / the engine dataloader is not ported yet (ROADMAP T5)")
 
-    def save_checkpoint(self, *args, **kwargs):  # noqa: ARG002
-        raise NotImplementedError("checkpointing is not ported yet (ROADMAP T3)")
 
-    def load_checkpoint(self, *args, **kwargs):  # noqa: ARG002
-        raise NotImplementedError("checkpointing is not ported yet (ROADMAP T3)")
+def _opt_state_to_tree(state) -> Dict[str, Any]:
+    """An optimizer state (a NamedTuple of scalars and flat ``path ->
+    tensor`` dicts) as JAX's ``_namedtuple_to_dict`` of its state: nested
+    trees, scalars as 0-d tensors."""
+    return {f: unflatten_tree(v) if isinstance(v, dict) else torch.tensor(v) for f, v in state._asdict().items()}
+
+
+def _opt_state_from_tree(tree: Dict[str, Any], like, device) -> Any:
+    """The inverse of ``_opt_state_to_tree``, shaped like the live state
+    ``like`` and placed on ``device``."""
+    fields = {}
+    for f, cur in like._asdict().items():
+        saved = tree[f]
+        if isinstance(cur, dict):
+            flat = flatten_tree(saved)
+            fields[f] = {k: flat[k].to(device=device, dtype=t.dtype) for k, t in cur.items()}
+        else:
+            fields[f] = type(cur)(saved.item() if isinstance(saved, torch.Tensor) else saved)
+    return type(like)(**fields)
+
+
+def _npz_array(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as the array ``np.savez`` stores for JAX's leaf of the
+    same dtype: bf16 (which numpy lacks) as its raw 2-byte values."""
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()

@@ -8,6 +8,16 @@ seeded, fully deterministic schedule.
 
 Injection points (sites call ``chaos.point(NAME, ...)``):
 
+* ``ckpt.pre_commit``  right before a staged checkpoint's commit rename;
+* ``ckpt.mid_commit``  inside a re-save of an existing tag, after the old
+  directory was moved aside and before the new one is renamed in;
+* ``ckpt.mid_array_write`` after the tensor payload reached the staging
+  directory, before ``meta.pkl`` and ``_COMPLETE``;
+* ``ckpt.post_commit`` right after the commit rename, before the
+  ``latest`` marker;
+* ``train.mid_step``   inside an optimizer step, after the update reached
+  the master and before the step's counters, lr schedule and interval
+  checkpoint (resume must replay from the last committed checkpoint);
 * ``serve.mid_step``   inside the serving scheduler step, after the device
   work and the emits, before the journal flush;
 * ``serve.mid_window`` inside a multi-step window's host phase: every token
@@ -51,6 +61,11 @@ from typing import Dict, List, Optional, Sequence
 
 # the injection points the port's code calls (keep in sync with the call sites)
 POINTS = (
+    "ckpt.pre_commit",
+    "ckpt.mid_commit",
+    "ckpt.mid_array_write",
+    "ckpt.post_commit",
+    "train.mid_step",
     "serve.mid_step",
     "serve.mid_window",
     "journal.append",

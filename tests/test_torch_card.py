@@ -14,7 +14,9 @@ on K4, bucketed with K5 rounds), a journaled server killed at a chaos
 point and recovered with its streams unchanged; a window graph replaying
 after the pool defrags under it, int8 codes and ``qmatmul`` on the card
 against the CPU, an int8 tree in a window graph, and a two-replica fleet
-with a migration and a replica kill.
+with a migration and a replica kill; a training checkpoint saved on the
+card loaded into a CPU engine (every state leaf equal), and an async
+snapshot that two in-place steps on the card do not reach.
 A CPU tensor handed straight to a kernel entry raises (those tests need no
 card).
 
@@ -1357,3 +1359,87 @@ def test_tp_serve_equals_single_rank_on_card(tp_card_ranks):
     for res in tp_card_ranks:
         assert res["tp_streams"] == ref
     assert tp_card_ranks[0]["fingerprint"] == tp_card_ranks[1]["fingerprint"]
+
+
+# --- training checkpoints on the card ----------------------------------------------------------
+def _card_train_engine(device, checkpoint=None):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import unflatten_tree
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2, max_seq_len=64,
+                            dtype="bfloat16", remat=False, attn_dropout=0.1)
+    config = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+              "optimizer": {"type": "adam", "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    if checkpoint:
+        config["checkpoint"] = checkpoint
+    engine, *_ = dst.initialize(model=TransformerLM(cfg), config=config,
+                                model_parameters=unflatten_tree(init_params(cfg, 0)), device=device)
+    return engine
+
+
+def _card_steps(engine, n):
+    for _ in range(n):
+        toks = np.random.RandomState(engine.global_steps).randint(0, 256, (4, 65))
+        loss = engine({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
+        engine.backward(loss)
+        engine.step()
+
+
+def _flat_state(engine):
+    from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
+
+    st = engine._opt_state
+    return (flatten_tree(engine.get_master_params()), flatten_tree(engine.get_params()),
+            {k: v.cpu().numpy() for k, v in st.exp_avg.items()}, {k: v.cpu().numpy() for k, v in st.exp_avg_sq.items()})
+
+
+def test_card_checkpoint_loads_into_cpu_engine(cuda_device, tmp_path):
+    """A bf16 checkpoint saved from the card loads into a CPU engine: the
+    master, the bf16 module, both moments, the counters and the dropout
+    generator are equal."""
+    card = _card_train_engine(cuda_device)
+    _card_steps(card, 2)
+    card.save_checkpoint(str(tmp_path))
+    cpu = _card_train_engine("cpu")
+    path, _ = cpu.load_checkpoint(str(tmp_path), auto_resume=True)
+    assert path.endswith("global_step2") and cpu.global_steps == 2 and cpu._opt_state.step == 2
+    for want, got in zip(_flat_state(card), _flat_state(cpu)):
+        assert set(want) == set(got) and all(np.array_equal(want[k], got[k]) for k in want)
+    assert cpu._dropout_rng.bit_generator.state == card._dropout_rng.bit_generator.state
+
+
+def test_async_snapshot_untouched_by_next_steps_on_card(cuda_device, tmp_path, monkeypatch):
+    """An async save holds the state of its step: the writer is held until
+    two more in-place steps have run on the card, and the committed
+    checkpoint still equals the state at the save, bitwise."""
+    import threading
+
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import TorchCheckpointEngine
+
+    engine = _card_train_engine(cuda_device, checkpoint={"async_snapshot": True})
+    _card_steps(engine, 2)
+    at_save = _flat_state(engine)
+    gate = threading.Event()
+    save = engine.checkpoint_engine.save
+
+    def held_save(state, path):
+        assert gate.wait(timeout=120)
+        save(state, path)
+
+    monkeypatch.setattr(engine.checkpoint_engine, "save", held_save)
+    engine.save_checkpoint(str(tmp_path))
+    assert engine.checkpoint_stats()["pending"] == 1
+    _card_steps(engine, 2)
+    torch.cuda.synchronize()
+    gate.set()
+    engine.wait_pending_checkpoint()
+    state = TorchCheckpointEngine().load(str(tmp_path / "global_step2"))
+    from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
+
+    saved = flatten_tree(state["master"])
+    assert all(np.array_equal(at_save[0][k], saved[k].numpy()) for k in saved)
+    assert not all(np.array_equal(at_save[0][k], v) for k, v in _flat_state(engine)[0].items())
+    moments = flatten_tree(state["optimizer"]["exp_avg"])
+    assert all(np.array_equal(at_save[2][k], moments[k].numpy()) for k in moments)

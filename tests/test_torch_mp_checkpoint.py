@@ -23,8 +23,9 @@ in fp32 from the same numpy-seeded tree as the JAX engines:
   weights raises, and the layout cases of
   ``tests/unit/inference/test_checkpoint_sharding.py`` (a shard of a
   stacked leaf, an indivisible leaf kept whole, the manifest detection)
-  hold for both writers and both readers; a checkpoint without a manifest
-  is refused (ROADMAP T3).
+  hold for both writers and both readers; a directory that is neither a
+  manifest nor an engine checkpoint raises ``CheckpointCorruptError`` as in
+  JAX, and an SD-loader descriptor is refused (module_inject containers).
 """
 
 from __future__ import annotations
@@ -270,8 +271,21 @@ def test_save_before_weights_raises(tmp_path):
 
 
 def test_non_manifest_checkpoint_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP T3"):
+    """A directory that is neither a manifest nor an engine checkpoint (no
+    ``meta.pkl``) raises ``CheckpointCorruptError``, as JAX's engine does;
+    an SD-loader descriptor stays refused until the module_inject
+    containers are ported."""
+    from deepspeed_tpu.runtime.checkpoint_engine.atomic import CheckpointCorruptError as JaxCorrupt
+
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import CheckpointCorruptError
+
+    with pytest.raises(CheckpointCorruptError, match="meta.pkl is missing"):
         _engine(checkpoint=str(tmp_path))
+    with pytest.raises(JaxCorrupt, match="meta.pkl is missing"):
+        _jax_engine(1, checkpoint=str(tmp_path))
+    descriptor = {"type": "Megatron", "checkpoints": [str(tmp_path / "mp_rank_00.pt")], "version": 1.0}
+    with pytest.raises(NotImplementedError, match="module_inject containers"):
+        _engine(checkpoint=descriptor)
 
 
 def _layout_params():

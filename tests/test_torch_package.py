@@ -73,7 +73,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "compression/int8.py", "ops/quantizer/__init__.py", "elasticity/fleet_policy.py",
                    "elasticity/elasticity.py", "utils/loadgen.py", "inference/traffic.py", "inference/fleet.py",
                    "comm/comm.py", "comm/__init__.py", "comm/reduce_op.py", "inference/tp.py",
-                   "inference/mp_checkpoint.py", "module_inject/auto_tp.py", "utils/tensor_fragment.py"):
+                   "inference/mp_checkpoint.py", "module_inject/auto_tp.py", "utils/tensor_fragment.py",
+                   "runtime/checkpoint_engine/atomic.py", "runtime/checkpoint_engine/checkpoint_engine.py",
+                   "runtime/checkpoint_engine/torch_checkpoint_engine.py",
+                   "runtime/checkpoint_engine/async_snapshot.py",
+                   "runtime/checkpoint_engine/nebula_checkpoint_engine.py", "checkpoint/constants.py",
+                   "checkpoint/utils.py", "checkpoint/reference_export.py", "checkpoint/reference_ingest.py",
+                   "checkpoint/reshape_utils.py", "checkpoint/deepspeed_checkpoint.py", "utils/zero_to_fp32.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
