@@ -7,8 +7,10 @@ Builds the package's CUDA kernels from ``deepspeed_tpu_torch/csrc`` and
 drives the serving (single-step, multi-step windows, speculative decoding,
 crash recovery from the journal, int8 weights, multi-tenant SLA serving,
 a two-replica fleet and tensor-parallel serving, forward and generate on
-two ranks), the training (with checkpoints: save, async save, bit-exact
-resume, serving booted from one) and the block-sparse attention main
+two ranks, tenancy, the fleet and wall-clock replay over tp servers), the
+training (with checkpoints: save, async save, bit-exact resume, serving
+booted from one; ZeRO stages 0-3 on two ranks and a checkpoint moved
+between dp = 2 and dp = 1) and the block-sparse attention main
 paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
@@ -194,6 +196,18 @@ non-zero without the final line:
    The ranks' step fingerprints must be equal in every serve; the port
    stages no collective through the host itself (``staged_collectives``
    0: gloo takes every one on CUDA tensors);
+9i. tensor parallelism under tenancy, the fleet and wall-clock replay
+   (S10), in phase 9h's two ranks, fp32 (TF32 off) on phase 9's 4 prompts
+   with 16 new tokens: a ``MultiTenantServer`` (the two tenants of phase
+   9f, alternating) over a tp = 2 server on a virtual clock; a
+   two-replica ``FleetRouter`` of tp = 2 servers, replica r1 drained after
+   4 fleet steps; ``replay`` on the wall clock of a two-tenant
+   ``make_trace`` (3 + 3 requests) across two tp = 2 replicas with a drain
+   of r1 fired at 1 s. Every request finishes on both ranks, the streams
+   are equal on both ranks and to the tp = 1 server's (or part at a plain
+   top-2 gap below 1e-4), the replay's drain fires and both ranks log the
+   same fingerprint after every step of each replica; K4 = 22 x the
+   servers' ragged steps on each rank, every other kernel 0;
 10. the flash attention kernels K1 (forward), K2 (dQ) and K3 (dK, dV)
    against their plain versions at the training shape (B=8, T=1024, N=12,
    D=64, causal), a ragged T=200, a non-causal T=256 and D=128 (B=1,
@@ -241,6 +255,37 @@ non-zero without the final line:
    stall beside its bound (the state over 64 GB/s), the async persist,
    the steps in flight beside the clean step, the restore and the peak
    memory. It writes into a fresh directory off tmpfs and removes it;
+12c. ZeRO stage 3 at one rank shards nothing: 3 bf16 steps of config 1 at
+   stage 3 equal stage 1's bit for bit (losses, grad norms, every master
+   leaf), K1-K3 = 12 a step;
+12d. data parallelism with ZeRO (T2) on two spawned gloo ranks sharing the
+   card (the sharded math and per-rank memory, not a DP speed): GPT-2 125M
+   at config 1's widths and depth, phase 11's batch of 8 rows as the
+   global micro batch (4 a rank). fp32 (TF32 off), stages 0-3, 3 steps
+   each: every stage's losses, grad norms and gathered master equal to
+   stage 0's bit for bit on both ranks; the losses within 1e-5 and each
+   step's grad norm within 1e-4 relative of phase 12's one-rank kernel
+   arm (the norm catches a gradient reduction off by a constant factor,
+   which Adam and the clip hide from losses and master); the master's
+   elements within 1e-5 of their leaf's largest magnitude from the
+   one-rank run's but for at most 0.1% of all of them and 10% of any one
+   leaf's, none further than lr / 2: GEMMs of 4 rows a rank round
+   otherwise than of 8, and Adam's normalised step turns that into up to
+   lr where a gradient is small (phase 12's plain arm against its kernel
+   arm is printed beside as the yardstick). A leaf whose one-rank
+   gradient stays below 1e-6 of the largest leaf's at every step
+   (``layers/bk``: softmax ignores a bias shared by every key) is zero up
+   to rounding and takes steps of noise: it is held only to Adam's reach
+   (2 x lr a step). bf16, stages
+   1-3, 3 steps each: each rank's peak memory and held state beside
+   ``estimate_zero_memory(n, stage, 2)``; stage 3 must hold 0.45-0.6 of
+   stage 1's parameter bytes a rank. K1-K3 = 12 a step on each rank in
+   every run, every other kernel 0, bf16 on the tensor cores;
+12e. the dp = 2 stage-3 fp32 run saves its checkpoint (rank 0 writes, off
+   tmpfs) and takes 2 more steps; two dp = 1 stage-1 engines load the tag
+   in the parent and take the same 2 steps: the loaded master bitwise the
+   ranks' gathered one (CRC), the two resumed runs bitwise equal, within
+   1e-5 of the ranks' continuation;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -301,9 +346,10 @@ split-KV launches, K4 with phase 9b's window numbers, its ``spec`` field
 counts), its ``recovery`` field (phase 9d's and the fp32 recovery's) and
 its ``int8``, ``traffic`` and ``fleet`` fields (phases 9e-9g); K5 with the
 fp32 int8 bucketed server's launches, K6 with the ``quant.enabled``
-generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a ``tp`` field: each rank's launches on
-the tensor-parallel paths of phase 9h and the local-shape checks); the
-last line is
+generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a
+``tp`` field: each rank's launches on the tensor-parallel paths of phase
+9h and the local-shape checks, K4's also phase 9i's; K1-K3 with a
+``zero`` field: each rank's launches in phase 12d's runs); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -2085,6 +2131,7 @@ def _tp_rank_work(rank, tree, prompts, budgets, small, small_ref, dense_prompts,
         server = make()
         out["fp32_streams"][name], out["fp32"][name] = _tp_serve_run(cfg32, server, small, new, f"fp32 {name}")
         del server
+    out["tenancy"] = _tp_tenancy_work(cfg32, params, small, new)
     del engine, params
     torch.cuda.empty_cache()
 
@@ -2120,7 +2167,125 @@ def _tp_rank_work(rank, tree, prompts, budgets, small, small_ref, dense_prompts,
     return out
 
 
-def _tp_rank(rank, store, tree_path, result_path, work_args):
+TP_TRACE = [  # phase 9i's wall-clock replay: two tenants, 3 requests each over 2 s of trace
+    dict(name="gold", rate=3.0, prompt_len=(96, 160), max_new_tokens=(8, 16), n_prefixes=1, prefix_len=64,
+         n_requests=3),
+    dict(name="free", rate=3.0, prompt_len=(96, 160), max_new_tokens=(8, 16), n_prefixes=0, n_requests=3),
+]
+TP_DRAIN_AT_S = 1.0
+
+
+def _tp_k4_want(cfg, servers):
+    """Launch counts a tp run must show: K4 = 22 x the servers' ragged steps
+    (no windows here), every other kernel 0."""
+    want = dict.fromkeys(_counts(), 0)
+    want["ragged_paged_attention"] = cfg.num_layers * sum(srv.stats["ragged_steps"] for srv in servers)
+    return want
+
+
+def _tp_tenancy_work(cfg, params, small, new):
+    """Phase 9i on one rank (fp32, TF32 off): a ``MultiTenantServer`` over a
+    tp = 2 server on a virtual clock, a two-replica ``FleetRouter`` of tp
+    servers with a drain, and ``replay`` on the wall clock across two tp
+    replicas with a drain at 1 s of trace time, each with its launches and
+    the step fingerprints it saw."""
+    from deepspeed_tpu_torch.inference.tp import TPServing
+    from deepspeed_tpu_torch.utils.loadgen import VirtualClock
+
+    def server(clock=None):
+        return PagedServer(cfg, params, dtype=torch.float32, tp=TPServing(degree=TP), prefix_cache=True,
+                           clock=clock, **SERVE)
+
+    out = {}
+    front = MultiTenantServer(server(VirtualClock(0.05)), tenants=[TenantSpec(**t) for t in TENANTS])
+    _zero_counts()
+    streams = front.serve(small, max_new_tokens=new, tenant=["free", "gold", "free", "gold"])
+    s = front.serve_stats()
+    out["tenancy"] = dict(streams=streams, launches=_counts(), want=_tp_k4_want(cfg, [front.server]),
+                          finished=s["finished"], fingerprint=s["step_fingerprint"], steps=s["fingerprint_steps"],
+                          tenants=_tenant_summary(s))
+    del front
+
+    router = FleetRouter([ReplicaHandle(name=f"r{i}", server=server()) for i in range(2)])
+    _zero_counts()
+    uids = [router.submit(p, max_new_tokens=n) for p, n in zip(small, new)]
+    for _ in range(4):
+        router.step()
+    router.drain("r1")
+    router.run()
+    fs = router.fleet_stats()
+    inners = [h.inner for h in router.replicas.values()]
+    out["fleet"] = dict(streams=[router.take_result(u) for u in uids], launches=_counts(),
+                        want=_tp_k4_want(cfg, inners), migrations=fs["migrations"], drains=fs["drains"],
+                        divergence=fs["migrated_token_divergence"], finished=sum(i.stats["finished"] for i in inners))
+    del router, inners
+
+    router = FleetRouter([ReplicaHandle(name=f"r{i}", server=server()) for i in range(2)])
+    prints = {}
+    for name, h in router.replicas.items():
+        log = prints[name] = []
+
+        def logged(step=h.inner.step, inner=h.inner, log=log):
+            step()
+            log.append(f"{inner._fingerprint:08x}")
+
+        h.inner.step = logged
+    trace = make_trace([TenantLoad(**t) for t in TP_TRACE], horizon_s=2.0, vocab_size=cfg.vocab_size, seed=11)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rep = replay(router, trace, events=[(TP_DRAIN_AT_S, lambda f: f.drain("r1"))])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    inners = [h.inner for h in router.replicas.values()]
+    out["replay"] = dict(requests=len(trace), steps=rep["steps"], events_fired=rep["events_fired"], prints=prints,
+                         outputs={int(k): np.asarray(v) for k, v in rep.pop("outputs").items()},
+                         finished=sum(t["finished"] for t in rep["tenants"].values()), launches=_counts(),
+                         want=_tp_k4_want(cfg, inners), wall_s=wall, duration_s=rep["duration_s"],
+                         ttft_ms=rep["ttft_ms"], tpot_ms=rep["tpot_ms"],
+                         states={n: h.state for n, h in router.replicas.items()})
+    del router, inners
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_tenancy_checks(cfg32, params32, ranks, small_ref, dev):
+    """The parent's checks of phase 9i (see the module docstring)."""
+    rec = dict(ranks=TP, backend="gloo", note="two gloo ranks on one card, not a TP speed")
+    for name in ("tenancy", "fleet"):
+        runs = [r["tenancy"][name] for r in ranks]
+        for rank, run in enumerate(runs):
+            if run["launches"] != run["want"] or run["finished"] != len(small_ref):
+                raise AssertionError(f"tp {name} rank {rank}: finished {run['finished']}, launches "
+                                     f"{run['launches']} want {run['want']}")
+            if not all(np.array_equal(a, b) for a, b in zip(run["streams"], runs[0]["streams"])):
+                raise AssertionError(f"tp {name}: rank {rank}'s streams differ from rank 0's")
+        if name == "fleet" and (runs[0]["divergence"] or runs[0]["drains"] != 1 or not runs[0]["migrations"]):
+            raise AssertionError(f"tp fleet: {runs[0]}")
+        rec[name] = dict(identical_to_tp1=_same(runs[0]["streams"], small_ref),
+                         partings=_partings(cfg32, params32, runs[0]["streams"], small_ref, dev, f"tp {name}"),
+                         launches_per_rank=[run["launches"]["ragged_paged_attention"] for run in runs],
+                         **{k: runs[0][k] for k in runs[0] if k in ("migrations", "drains", "divergence", "steps",
+                                                                     "tenants")})
+    runs = [r["tenancy"]["replay"] for r in ranks]
+    for rank, run in enumerate(runs):
+        if run["launches"] != run["want"] or run["finished"] != run["requests"] or run["events_fired"] != 1 \
+                or run["states"]["r1"] != "drained":
+            raise AssertionError(f"tp replay rank {rank}: finished {run['finished']} of {run['requests']}, events "
+                                 f"{run['events_fired']}, states {run['states']}, launches {run['launches']} want "
+                                 f"{run['want']}")
+        if (run["steps"], run["prints"]) != (runs[0]["steps"], runs[0]["prints"]) or any(
+                not np.array_equal(o, runs[0]["outputs"][k]) for k, o in run["outputs"].items()):
+            raise AssertionError(f"tp replay: rank {rank}'s steps, fingerprints or outputs differ from rank 0's")
+    rec["replay"] = dict(requests=runs[0]["requests"], steps=runs[0]["steps"], events_fired=1,
+                         fingerprints_per_replica={n: len(v) for n, v in runs[0]["prints"].items()},
+                         fingerprints_equal=True, wall_s=[run["wall_s"] for run in runs],
+                         duration_s=runs[0]["duration_s"], ttft_ms=runs[0]["ttft_ms"], tpot_ms=runs[0]["tpot_ms"],
+                         launches_per_rank=[run["launches"]["ragged_paged_attention"] for run in runs])
+    emit(phase="tp_tenancy", **rec)
+    return rec
+
+
+def _tp_rank(rank, store, result_path, work_args):
     """One spawned rank of phase 9h: joins the gloo group through a file
     store (with a timeout), runs ``_tp_rank_work`` and pickles its result
     or its traceback."""
@@ -2132,7 +2297,8 @@ def _tp_rank(rank, store, tree_path, result_path, work_args):
         torch.backends.cudnn.allow_tf32 = False
         dst.init_distributed("gloo", init_method=f"file://{store}", rank=rank, world_size=TP,
                              timeout=TP_PG_TIMEOUT_S)
-        res = _tp_rank_work(rank, _load_tree(tree_path), **work_args)
+        work_args = dict(work_args)
+        res = _tp_rank_work(rank, _load_tree(work_args.pop("tree_path")), **work_args)
         dst.comm.barrier()
         dst.comm.destroy_process_group()
         payload = ("ok", res)
@@ -2142,17 +2308,19 @@ def _tp_rank(rank, store, tree_path, result_path, work_args):
         pickle.dump(payload, f)
 
 
-def _run_tp_ranks(tmp, tree_path, work_args):
+def _spawn_ranks(target, world, tmp, work_args, limit_s, label):
+    """``world`` spawned ranks running ``target(rank, store, result, work_args)``;
+    the parent kills them at ``limit_s`` and raises on any rank's error."""
     import multiprocessing
     import pickle
 
     ctx = multiprocessing.get_context("spawn")
-    results = [f"{tmp}/rank{r}.pkl" for r in range(TP)]
-    procs = [ctx.Process(target=_tp_rank, args=(r, f"{tmp}/store", tree_path, results[r], work_args))
-             for r in range(TP)]
+    results = [f"{tmp}/{label}_rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=target, args=(r, f"{tmp}/{label}_store", results[r], work_args))
+             for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.perf_counter() + TP_LIMIT_S
+    deadline = time.perf_counter() + limit_s
     for p in procs:
         p.join(max(0.0, deadline - time.perf_counter()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -2160,7 +2328,7 @@ def _run_tp_ranks(tmp, tree_path, work_args):
         if p.is_alive():
             p.kill()
         p.join()
-    out, errors = [], [f"ranks {hung} still running after {TP_LIMIT_S} s: killed"] if hung else []
+    out, errors = [], [f"ranks {hung} still running after {limit_s} s: killed"] if hung else []
     for r, path in enumerate(results):
         try:
             with open(path, "rb") as f:
@@ -2173,7 +2341,7 @@ def _run_tp_ranks(tmp, tree_path, work_args):
         else:
             errors.append(f"rank {r}:\n{value}")
     if errors:
-        raise AssertionError("tp ranks failed:\n" + "\n".join(errors))
+        raise AssertionError(f"{label} ranks failed:\n" + "\n".join(errors))
     return out
 
 
@@ -2245,8 +2413,9 @@ def phase_tp(cfg, tree, seed, streams, dev):
         _save_tree(tree, f"{tmp}/tree")
         emit(phase="tp", event="tree_written", seconds=time.perf_counter() - t0)
         t0 = time.perf_counter()
-        ranks = _run_tp_ranks(tmp, f"{tmp}/tree", dict(
-            prompts=prompts, budgets=budgets, small=small, small_ref=small_ref, dense_prompts=dense_prompts, tokens=tokens, ckpt=f"{tmp}/ckpt"))
+        ranks = _spawn_ranks(_tp_rank, TP, tmp, dict(
+            tree_path=f"{tmp}/tree", prompts=prompts, budgets=budgets, small=small, small_ref=small_ref,
+            dense_prompts=dense_prompts, tokens=tokens, ckpt=f"{tmp}/ckpt"), TP_LIMIT_S, "tp")
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2279,6 +2448,7 @@ def phase_tp(cfg, tree, seed, streams, dev):
         if err > 1e-4 * scale or same != len(ref_dense) or fwd != want_fwd or gen != want_gen \
                 or not r["ckpt_tp_bitwise"]:
             raise AssertionError(f"tp dense rank {rank}: {dense[-1]}")
+    tenancy = _tp_tenancy_checks(cfg32, params32, ranks, small_ref, dev)
     ckpt_tp1 = bool(np.array_equal(ranks[0]["ckpt_tp1_logits"], ref_logits))
     rec["dense"] = dense
     rec["ckpt_tp1_bitwise"] = ckpt_tp1
@@ -2302,7 +2472,9 @@ def phase_tp(cfg, tree, seed, streams, dev):
     rec["kernels"] = {
         "ragged_paged_attention": dict(launches_per_rank=[r["bf16"]["launches"]["ragged_paged_attention"]
                                                           for r in ranks], path="bf16 tp = 2 serve",
-                                       local={dt: v["k4"] for dt, v in local.items()}),
+                                       local={dt: v["k4"] for dt, v in local.items()},
+                                       tenancy={k: tenancy[k]["launches_per_rank"]
+                                                for k in ("tenancy", "fleet", "replay")}),
         "decode_attention": dict(launches_per_rank=[r["dense_generate"]["launches"]["decode_attention"]
                                                     for r in ranks], path="fp32 tp = 2 generate, 16 x 32 new",
                                  local={dt: v["k6"] for dt, v in local.items()}),
@@ -2526,7 +2698,7 @@ def phase_train_fp32(seed, dev):
     tree = _weights(cfg, seed)
     config = {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
     batch = _train_batch(cfg, dev)
-    arms = {}
+    arms, masters, grad_max = {}, {}, []
     for impl in ("kernel", "plain"):
         engine, _, _, _ = dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree,
                                          attn_impl=impl)
@@ -2535,6 +2707,8 @@ def phase_train_fp32(seed, dev):
         for _ in range(3):
             loss = engine(batch)
             engine.backward(loss)
+            if impl == "kernel":  # each leaf's largest gradient magnitude: phase 12d's rule for a zero gradient
+                grad_max.append({k: float(g.abs().max()) for k, g in engine._grad_acc.items()})
             engine.step()
             rec.append((loss.item(), engine.get_global_grad_norm()))
         launched = fa.launches_fwd - before[0]
@@ -2543,6 +2717,9 @@ def phase_train_fp32(seed, dev):
             raise AssertionError(f"fp32 {impl} arm launched K1 {launched} times; K1-K3 launches on the "
                                  f"tensor-core variants {tc} (want 0)")
         arms[impl] = rec
+        masters[impl] = flatten_tree(engine.get_master_params())  # phase 12d's one-rank reference and yardstick
+        if impl == "kernel":
+            masters["grad_max"] = grad_max
         del engine
         torch.cuda.empty_cache()
     gaps = [dict(step=i + 1, loss_rel=abs(k[0] - p[0]) / abs(p[0]), grad_norm_rel=abs(k[1] - p[1]) / abs(p[1]))
@@ -2553,6 +2730,7 @@ def phase_train_fp32(seed, dev):
          step1_bit_identical=identical, flash_fwd_variant=VARIANT[torch.float32])
     if gaps[0]["loss_rel"] > 1e-5 or gaps[0]["grad_norm_rel"] > 1e-5 or not identical:
         raise AssertionError(f"fp32 training: step 1 kernel vs plain gap {gaps[0]} past 1e-5 or not bit-identical")
+    return arms["kernel"], masters
 
 
 # --- phase 12b: training checkpoints (T3) -------------------------------------------------
@@ -2763,6 +2941,297 @@ def phase_train_checkpoint(seed, dev):
         raise AssertionError(f"train_checkpoint: tensor-core launches {variants}, want all of {counts}")
     return dict(steps=steps_taken, launches=counts, k6_launches=served["decode_attention"],
                 stall_ms=stall_ms, stall_bound_ms=stall_bound_ms)
+
+
+# --- phases 12c-12e: data parallelism with ZeRO (T2), two gloo ranks sharing the one card ----------
+ZERO_DP = 2
+ZERO_STEPS = 3
+ZERO_CONTINUE = 2  # steps after the dp = 2 save, on the ranks and at dp = 1
+ZERO_LIMIT_S = 420
+ZERO_TOL = 1e-5
+ZERO_MASTER_SHARE = 1e-3  # of the master's elements may lie past ZERO_TOL of their leaf's scale from one rank's
+ZERO_LEAF_SHARE = 0.1  # of one leaf's elements may
+ZERO_NORM_TOL = 1e-4  # each step's grad norm against one rank's, relative
+ZERO_GRAD_ZERO = 1e-6  # a leaf whose gradient stays below this share of the largest leaf's is zero up to rounding
+
+
+def _zero_config(stage, bf16):
+    """Config 1 (fp32 without its bf16 section) at micro 4 a rank: two ranks
+    take phase 11's global batch of 8 rows."""
+    base = dict(TRAIN_CONFIG) if bf16 else {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+    return dict(base, train_micro_batch_size_per_gpu=8 // ZERO_DP, zero_optimization={"stage": stage})
+
+
+def _store_bytes(engine):
+    """Bytes of the state this rank holds: compute parameters, fp32 master,
+    Adam moments, gradient accumulators (an fp32 single copy counts once)."""
+    params = sum(p.numel() * p.element_size() for k, p in engine._params.items() if p is not engine._master[k])
+    master = sum(m.numel() * m.element_size() for m in engine._master.values())
+    st = engine._opt_state
+    moments = sum(t.numel() * t.element_size() for d in (st.exp_avg, st.exp_avg_sq) for t in d.values())
+    grads = sum(g.numel() * g.element_size() for g in engine._grad_acc.values())
+    return dict(params=params, master=master, moments=moments, grads=grads)
+
+
+def _zero_steps(engine, batch, n, label):
+    """``n`` steps with the counts zeroed just before: each step's (loss,
+    grad norm) and wall (to a synchronize); K1-K3 must launch 12 a step
+    each, every other kernel never."""
+    _zero_counts()
+    rec, walls = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        loss = engine(batch)
+        engine.backward(loss)
+        engine.step()
+        rec.append((loss.item(), engine.get_global_grad_norm()))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = _counts()
+    L = engine.module.config.num_layers
+    want = {k: (L * n if k in ("flash_fwd", "flash_dq", "flash_dkv") else 0) for k in counts}
+    if counts != want:
+        raise AssertionError(f"zero {label}: launches {counts}, want {want}")
+    return rec, walls, counts
+
+
+def _leaf_gaps(master, ref):
+    """Per leaf: the largest difference, it over the leaf's largest
+    magnitude in ``ref``, and the share of elements differing by more than
+    ``ZERO_TOL`` of that magnitude."""
+    out = {}
+    for k, r in ref.items():
+        d = np.abs(master[k] - r)
+        scale = max(float(np.abs(r).max()), 1e-30)
+        out[k] = dict(n=int(d.size), max_abs=float(d.max()), rel=float(d.max()) / scale,
+                      share_past_tol=float((d > ZERO_TOL * scale).mean()))
+    return out
+
+
+def _master_crc(master):
+    import zlib
+
+    crc = 0
+    for k in sorted(master):
+        crc = zlib.crc32(np.ascontiguousarray(master[k]).tobytes(), crc)
+    return f"{crc:08x}"
+
+
+def _zero_rank_work(rank, seed, ref_path, ckpt_dir):
+    """Everything one rank of phases 12c-12e runs, in order. Returns this
+    rank's records (masters only as their gap to the reference and CRCs)."""
+    from deepspeed_tpu_torch.runtime.zero.partition import estimate_zero_memory
+
+    dev = torch.device("cuda", 0)
+    cfg32 = gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float32")
+    tree = _weights(cfg32, seed)
+    batch = _train_batch(cfg32, dev)  # phase 11's global batch; this rank takes its 4 rows
+    ref = _load_tree(ref_path)
+    out = {"fp32": {}, "bf16": {}}
+    for stage in (0, 1, 2, 3):
+        engine = dst.initialize(model=TransformerLM(cfg32), config=_zero_config(stage, False),
+                                model_parameters=tree)[0]
+        rec, walls, counts = _zero_steps(engine, batch, ZERO_STEPS, f"fp32 stage {stage}")
+        master = flatten_tree(engine.get_master_params())
+        out["fp32"][stage] = dict(rec=rec, step_s=walls, launches=counts, crc=_master_crc(master),
+                                  gaps_to_one_rank=_leaf_gaps(master, ref) if stage == 0 else None,
+                                  store=_store_bytes(engine))
+        if stage == 3:  # phase 12e: save at dp = 2, stage 3, then continue
+            t0 = time.perf_counter()
+            engine.save_checkpoint(ckpt_dir, tag="zero3_dp2")
+            out["ckpt"] = dict(save_s=time.perf_counter() - t0, master_crc=_master_crc(master))
+            out["ckpt"]["continue"], _, _ = _zero_steps(engine, batch, ZERO_CONTINUE, "fp32 stage 3 after the save")
+        del engine, master
+        torch.cuda.empty_cache()
+    cfg16 = gpt2_config("125m", max_seq_len=1024, remat=False)
+    n = None
+    for stage in (1, 2, 3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = dst.initialize(model=TransformerLM(cfg16), config=_zero_config(stage, True), model_parameters=tree)[0]
+        n = engine.num_parameters()
+        rec, walls, counts = _zero_steps(engine, batch, ZERO_STEPS, f"bf16 stage {stage}")
+        out["bf16"][stage] = dict(rec=rec, step_s=walls, launches=counts, variants=_variants(),
+                                  peak_memory_bytes=torch.cuda.max_memory_allocated(), store=_store_bytes(engine),
+                                  estimate=estimate_zero_memory(n, stage, ZERO_DP, 2))
+        del engine
+        torch.cuda.empty_cache()
+    out["params"] = n
+    return out
+
+
+def _zero_rank(rank, store, result_path, work_args):
+    """One spawned rank of phases 12c-12e (as ``_tp_rank``)."""
+    import pickle
+    import traceback
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dst.init_distributed("gloo", init_method=f"file://{store}", rank=rank, world_size=ZERO_DP,
+                             timeout=TP_PG_TIMEOUT_S)
+        res = _zero_rank_work(rank, **work_args)
+        dst.comm.barrier()
+        dst.comm.destroy_process_group()
+        payload = ("ok", res)
+    except BaseException:  # the parent raises it
+        payload = ("error", traceback.format_exc())
+    with open(result_path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def phase_zero3_one_rank(seed, dev):
+    """Phase 12c: at one rank stage 3 shards nothing; in bf16 its 3 steps
+    are stage 1's bit for bit (losses, grad norms, every master leaf)."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    tree = _weights(cfg, seed)
+    batch = _train_batch(cfg, dev)
+    runs = {}
+    for stage in (1, 3):
+        engine = dst.initialize(model=TransformerLM(cfg), config=dict(TRAIN_CONFIG, zero_optimization={"stage": stage}),
+                                model_parameters=tree)[0]
+        rec, walls, _ = _zero_steps(engine, batch, ZERO_STEPS, f"one rank stage {stage}")
+        runs[stage] = (rec, walls, {k: m.clone() for k, m in engine._master.items()})
+        del engine
+        torch.cuda.empty_cache()
+    same_master = all(torch.equal(m, runs[1][2][k]) for k, m in runs[3][2].items())
+    rec = dict(stage1=runs[1][0], stage3=runs[3][0], bit_identical=runs[1][0] == runs[3][0] and same_master,
+               step_s={1: runs[1][1], 3: runs[3][1]})
+    emit(phase="zero3_one_rank", dtype="bfloat16", **rec)
+    if not rec["bit_identical"]:
+        raise AssertionError(f"zero3 at one rank: stage 3 {runs[3][0]} differs from stage 1 {runs[1][0]}")
+    return rec
+
+
+def phase_zero(seed, dev, ref_rec, masters):
+    """Phases 12d (ZeRO stages 0-3 at dp = 2) and 12e (a dp = 2 stage-3
+    checkpoint resumed at dp = 1): two spawned gloo ranks share the card;
+    the one-rank fp32 reference is phase 12's kernel arm."""
+    tmp = tempfile.mkdtemp(prefix="zero_smoke_", dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    n_bytes = sum(v.nbytes for v in masters["kernel"].values())
+    ckpt_dir, fs = _ckpt_root(8 * n_bytes)
+    yardstick = _leaf_gaps(masters["plain"], masters["kernel"])  # one rank, plain attention against the kernels
+    zero_grad = _zero_grad_leaves(masters["grad_max"])
+    try:
+        _save_tree(masters["kernel"], f"{tmp}/ref")
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_zero_rank, ZERO_DP, tmp, dict(seed=seed, ref_path=f"{tmp}/ref", ckpt_dir=ckpt_dir),
+                             ZERO_LIMIT_S, "zero")
+        ranks_s = time.perf_counter() - t0
+        rec = _zero_checks(ranks, ref_rec, yardstick, zero_grad, ranks_s)
+        rec["ckpt"] = _zero_ckpt_resume(seed, dev, ranks, ckpt_dir, fs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return rec
+
+
+def _zero_grad_leaves(grad_max):
+    """The leaves whose one-rank gradient is zero up to rounding at every
+    step (``layers/bk``: softmax ignores a bias shared by every key), with
+    each leaf's largest gradient over the largest leaf's, per step."""
+    ratios = {k: [g[k] / max(max(g.values()), 1e-30) for g in grad_max] for k in grad_max[0]}
+    return {k: r for k, r in ratios.items() if max(r) <= ZERO_GRAD_ZERO}, ratios
+
+
+def _zero_checks(ranks, ref_rec, yardstick, zero_grad, ranks_s):
+    """Phase 12d's bounds (see the module docstring) and its record."""
+    rec = dict(ranks=ZERO_DP, backend="gloo", note="two gloo ranks on one card, not a DP speed", ranks_wall_s=ranks_s,
+               params=ranks[0]["params"], one_rank=ref_rec, fp32={}, bf16={})
+    first = ranks[0]["fp32"][0]
+    for stage in (0, 1, 2, 3):
+        runs = [r["fp32"][stage] for r in ranks]
+        if any(run["rec"] != first["rec"] or run["crc"] != first["crc"] for run in runs):
+            raise AssertionError(f"zero fp32 stage {stage}: a rank's records or master differ from stage 0's "
+                                 f"on rank 0 (the stage may move state, never the math)")
+        rec["fp32"][stage] = dict(step_s=[run["step_s"] for run in runs], store=runs[0]["store"],
+                                  launches_per_rank=[run["launches"]["flash_fwd"] for run in runs])
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(first["rec"], ref_rec))
+    norm_rel = [abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(first["rec"], ref_rec)]
+    gaps = first["gaps_to_one_rank"]
+    exempt, grad_ratios = zero_grad
+    rec["fp32_vs_one_rank"] = dict(
+        rec=first["rec"], loss_rel=loss_rel, grad_norm_rel=norm_rel, stages_bitwise=True,
+        master_leaves_past_tol={k: g for k, g in gaps.items() if g["rel"] > ZERO_TOL},
+        one_rank_kernel_vs_plain_past_tol={k: g for k, g in yardstick.items() if g["rel"] > ZERO_TOL},
+        one_rank_grad_max_over_largest={k: max(r) for k, r in grad_ratios.items()}, zero_grad_leaves=sorted(exempt))
+    # the master: fp32 GEMMs over 4 rows a rank against 8 round differently, and Adam's normalised step
+    # turns a gradient's rounding into up to lr a step where the gradient is small; a leaf whose gradient
+    # is zero up to rounding (layers/bk) takes steps of rounding noise, held only to Adam's reach; phase
+    # 12's two one-rank arms show the same (the yardstick beside). The grad norm sees what Adam and
+    # the clip hide: a gradient reduction off by a constant factor (a missing or extra 1/dp)
+    n_all = sum(g["n"] for g in gaps.values())
+    pooled = sum(g["share_past_tol"] * g["n"] for g in gaps.values()) / n_all
+    lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
+    reach = 2 * lr * ZERO_STEPS
+    held = {k: g for k, g in gaps.items() if k not in exempt}
+    leaf_share = max(g["share_past_tol"] for g in held.values())
+    worst = max(g["max_abs"] for g in held.values())
+    worst_exempt = max((gaps[k]["max_abs"] for k in exempt), default=0.0)
+    rec["fp32_vs_one_rank"].update(master_share_past_tol=pooled, leaf_share_past_tol=leaf_share,
+                                   master_max_abs=worst, master_max_abs_bound=lr / 2,
+                                   zero_grad_max_abs=worst_exempt, adam_reach=reach)
+    faults = []
+    if loss_rel > ZERO_TOL or max(norm_rel) > ZERO_NORM_TOL:
+        faults.append(f"losses {loss_rel} relative (bound {ZERO_TOL}), grad norms {norm_rel} (bound {ZERO_NORM_TOL})")
+    if pooled > ZERO_MASTER_SHARE or leaf_share > ZERO_LEAF_SHARE:
+        faults.append(f"master: {pooled} of all elements (bound {ZERO_MASTER_SHARE}) and up to {leaf_share} of "
+                      f"a leaf's (bound {ZERO_LEAF_SHARE}) past {ZERO_TOL} of their leaf's scale")
+    if worst > lr / 2 or worst_exempt > reach:
+        faults.append(f"master: largest difference {worst} (bound lr / 2 = {lr / 2}), {worst_exempt} in the "
+                      f"zero-gradient leaves {sorted(exempt)} (bound {reach})")
+    if faults:
+        raise AssertionError("zero fp32 vs one rank: " + "; ".join(faults))
+    for stage in (1, 2, 3):
+        runs = [r["bf16"][stage] for r in ranks]
+        rec["bf16"][stage] = dict(rec=runs[0]["rec"], step_s=[run["step_s"] for run in runs],
+                                  peak_memory_bytes=[run["peak_memory_bytes"] for run in runs],
+                                  store=[run["store"] for run in runs], estimate=runs[0]["estimate"],
+                                  launches_per_rank={k: [run["launches"][k] for run in runs]
+                                                     for k in ("flash_fwd", "flash_dq", "flash_dkv")},
+                                  tensor_core_per_rank=[run["variants"]["flash_fwd_tc"] for run in runs])
+        if any(run["variants"][f"{k}_tc"] != run["launches"][k] for run in runs
+               for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+            raise AssertionError(f"zero bf16 stage {stage}: a K1-K3 launch missed the tensor-core variant")
+        if not all(np.isfinite(x) for run in runs for pair in run["rec"] for x in pair):
+            raise AssertionError(f"zero bf16 stage {stage}: non-finite losses {runs[0]['rec']}")
+    ratio = [s3["params"] / s1["params"] for s1, s3 in zip(rec["bf16"][1]["store"], rec["bf16"][3]["store"])]
+    rec["bf16_stage3_param_store_over_stage1"] = ratio
+    if any(not 0.45 <= x <= 0.6 for x in ratio):
+        raise AssertionError(f"zero: stage 3 holds {ratio} of stage 1's parameter bytes a rank, want about half")
+    emit(phase="zero", **rec)
+    return rec
+
+
+def _zero_ckpt_resume(seed, dev, ranks, ckpt_dir, fs):
+    """Phase 12e in the parent: two dp = 1 stage-1 fp32 engines load the
+    ranks' tag and take the steps the ranks took after saving it."""
+    cfg32 = gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float32")
+    tree = _weights(cfg32, seed)
+    batch = _train_batch(cfg32, dev)
+    config = {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+    runs = []
+    for _ in range(2):
+        engine = dst.initialize(model=TransformerLM(cfg32), config=dict(config), model_parameters=tree)[0]
+        t0 = time.perf_counter()
+        engine.load_checkpoint(ckpt_dir, tag="zero3_dp2", load_module_strict=False)
+        load_s = time.perf_counter() - t0
+        crc = _master_crc(flatten_tree(engine.get_master_params()))
+        rec, _, _ = _zero_steps(engine, batch, ZERO_CONTINUE, "fp32 dp = 1 resumed")
+        runs.append(dict(rec=rec, crc=crc, load_s=load_s, steps=engine.global_steps))
+        del engine
+        torch.cuda.empty_cache()
+    ranks_cont = ranks[0]["ckpt"]["continue"]
+    gap = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(runs[0]["rec"], ranks_cont))
+    out = dict(fs=fs, save_s=ranks[0]["ckpt"]["save_s"], load_s=[r["load_s"] for r in runs],
+               master_bitwise=all(r["crc"] == ranks[0]["ckpt"]["master_crc"] for r in runs),
+               resumed_bitwise=runs[0]["rec"] == runs[1]["rec"], resumed=runs[0]["rec"], dp2_continue=ranks_cont,
+               loss_rel_to_dp2=gap, global_steps=runs[0]["steps"])
+    emit(phase="zero_ckpt", **out)
+    if not (out["master_bitwise"] and out["resumed_bitwise"]) or gap > ZERO_TOL \
+            or out["global_steps"] != ZERO_STEPS + ZERO_CONTINUE:
+        raise AssertionError(f"zero checkpoint: {out}")
+    return out
 
 
 # --- phases 13 and 14: block-sparse attention (K7-K9) --------------------------------
@@ -3379,8 +3848,11 @@ def main() -> int:
     flash = phase_flash(dev, flush)
     del flush
     train_counts, train_variants = phase_train(args.seed, dev)
-    phase_train_fp32(args.seed, dev)
+    fp32_rec, fp32_masters = phase_train_fp32(args.seed, dev)
     ckpt = phase_train_checkpoint(args.seed, dev)
+    zero1 = phase_zero3_one_rank(args.seed, dev)
+    zero = phase_zero(args.seed, dev, fp32_rec, fp32_masters)
+    del fp32_masters
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
@@ -3422,6 +3894,10 @@ def main() -> int:
         fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")},
         **({"tp": tp["kernels"]["flash_fwd"]} if name == "flash_fwd" else {}),
         checkpoint=dict(launches=ckpt["launches"][name], steps=ckpt["steps"]),
+        zero=dict(fp32={st: r["launches_per_rank"] for st, r in zero["fp32"].items()},
+                  bf16={st: r["launches_per_rank"][name] for st, r in zero["bf16"].items()},
+                  steps_per_run=ZERO_STEPS, one_rank_stage3_bit_identical=zero1["bit_identical"],
+                  note="two gloo ranks on one card"),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,

@@ -30,7 +30,11 @@ beside it slice by slice and mirrors its module paths. It imports neither
 * training checkpoints (``engine.save_checkpoint`` / ``load_checkpoint``:
   atomic, synchronous or through the async snapshot writer, bit-exact
   ``auto_resume``), the reference-layout, universal and 16-bit exports,
-  and ``init_inference(checkpoint=<engine checkpoint tag dir>)``.
+  and ``init_inference(checkpoint=<engine checkpoint tag dir>)``;
+* data parallelism with ZeRO stages 0-3 across ``torch.distributed``
+  ranks, the ``zero`` namespace (``Init``, ``GatheredParameters``,
+  ``estimate_zero_memory``, ``TiledLinear``) and checkpoints saved and
+  loaded at any number of ranks.
 """
 
 from __future__ import annotations
@@ -55,7 +59,24 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     dict (or a JSON path) in the JAX package's schema. The engine runs on
     ``cuda`` unless ``device`` names another device, and raises when no
     card is present. ``attn_impl="plain"`` runs the plain attention on the
-    card (the comparison arm); the default launches the kernels."""
+    card (the comparison arm); the default launches the kernels.
+
+    Under a ``torch.distributed`` group the engine is one data-parallel
+    rank (``mesh.data`` defaults to the world size) and ZeRO stages 0-3
+    shard its state across the ranks; every rank passes the same global
+    micro batch and takes its own rows."""
+    # a live zero.Init context must not wrap engine construction: pause it and
+    # restore it on the way out (JAX __init__.py:56-67)
+    depth = zero.shutdown_init_context()
+    try:
+        return _initialize_paused(args, model, optimizer, model_parameters, training_data, lr_scheduler, mpu,
+                                  collate_fn, config, config_params, loss_fn, device, attn_impl)
+    finally:
+        zero.restore_init_context(depth)
+
+
+def _initialize_paused(args, model, optimizer, model_parameters, training_data, lr_scheduler, mpu, collate_fn,
+                       config, config_params, loss_fn, device, attn_impl):
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
 
@@ -74,6 +95,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
                              model_parameters=model_parameters, optimizer=optimizer,
                              lr_scheduler=lr_scheduler, device=device, attn_impl=attn_impl)
     return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+# namespaces mirroring the JAX package's exports
+from deepspeed_tpu_torch import zero  # noqa: E402
 
 
 def init_inference(model, config=None, device=None, **kwargs):

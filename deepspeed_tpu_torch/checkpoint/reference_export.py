@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 
 from deepspeed_tpu_torch.checkpoint.utils import get_model_ckpt_name_for_rank, get_zero_ckpt_name_for_rank
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import write_latest_marker
 from deepspeed_tpu_torch.utils.logging import log_dist
 from deepspeed_tpu_torch.utils.tensor_fragment import _flatten_with_paths
@@ -42,7 +43,8 @@ def export_reference_checkpoint(engine, save_dir: str, tag: Optional[str] = None
 
     ``dp_shards`` is how many ``zero_pp_rank_*`` files the flat fp32 master
     is split across (default: the engine's data-parallel world size); the
-    flat vector is zero-padded to a multiple of it. Returns the tag
+    flat vector is zero-padded to a multiple of it. At dp > 1 every rank
+    calls it (the slices are gathered) and rank 0 writes. Returns the tag
     directory."""
     if tag is None:
         tag = f"global_step{engine.global_steps}"
@@ -51,8 +53,11 @@ def export_reference_checkpoint(engine, save_dir: str, tag: Optional[str] = None
     masters = {name: torch.from_numpy(leaf).float()
                for name, leaf in _flatten_with_paths(engine.get_master_params()).items()}
     module_sd = engine.consolidated_16bit_state_dict()
-
     path = os.path.join(save_dir, tag)
+    if getattr(engine, "dp_rank", 0) != 0:
+        comm.barrier()
+        return path
+
     os.makedirs(path, exist_ok=True)
     names = list(masters.keys())
     param_shapes = OrderedDict((name, torch.Size(masters[name].shape)) for name in names)
@@ -85,6 +90,7 @@ def export_reference_checkpoint(engine, save_dir: str, tag: Optional[str] = None
         }
         torch.save(optim_state, get_zero_ckpt_name_for_rank(path, dp, 0))
     write_latest_marker(save_dir, tag)
+    comm.barrier()
     log_dist(f"exported reference-layout checkpoint: {path} ({len(names)} tensors, dp_shards={dp_shards})",
              ranks=[0])
     return path

@@ -40,6 +40,13 @@ exposes the serving surface the load harness drives (``submit``, ``step``,
 replica), so ``utils/loadgen.py`` replays traces across the fleet
 unchanged. Replicas may share one weight tree; each owns its pool.
 
+Replicas may be tensor-parallel servers (``PagedServer(tp=...)``): every
+rank runs the same router over its own shard of each replica, and the
+router's decisions (routing by crc32 chains, drains, kills, migration,
+adoption) read only host state that is the same on every rank, in the same
+order. A tensor-parallel replica's step error is raised, not counted by
+the breaker.
+
 Chaos points (``utils/chaos.py``): ``fleet.replica_kill`` at the top of a
 replica's turn in the step loop, ``fleet.mid_migration`` between the
 source's extraction and the target's seeding, ``fleet.mid_drain`` between
@@ -57,7 +64,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from deepspeed_tpu_torch.inference.journal import JournalCorruptError, JournaledRequest, RequestJournal
-from deepspeed_tpu_torch.inference.tp import refuse_tp
+from deepspeed_tpu_torch.inference.tp import serving_tp
 from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.logging import logger
@@ -187,8 +194,6 @@ class FleetRouter:
     ):
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
-        for replica in replicas:
-            refuse_tp(replica.server, "the serving fleet")
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.affinity = bool(affinity)
@@ -485,6 +490,10 @@ class FleetRouter:
             # replica's recovery code.)
             self.fail_replica(h.name, reason="chaos kill in step")
         except Exception as e:  # noqa: BLE001 — the breaker's whole job
+            if serving_tp(h.server) is not None:
+                # a tensor-parallel replica's failure may be one rank's alone, its peers waiting in a
+                # collective: no breaker can decide alike on every rank
+                raise
             h.failures += 1
             logger.warning(
                 f"fleet: replica {h.name!r} step failed "

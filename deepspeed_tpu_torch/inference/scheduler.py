@@ -70,8 +70,14 @@ shard, the pools hold ``NKV / tp`` kv heads, and page tables, the prefix
 index, copy-on-write and the journal stay whole on every rank, as in JAX.
 Every rank runs the same scheduler on the same submitted requests, and
 the steps' tokens agree through ``tp.argmax``; the host arrays each step
-ships are folded into a running CRC (``serve_stats()["step_fingerprint"]``),
-which a caller compares across ranks after a run. Windows under ``tp``
+ships are folded into a running CRC (``serve_stats()["step_fingerprint"]``).
+Each step under tp makes one ``TPServing.step_sync``, a small collective
+that raises ``TPDivergence`` when the ranks' CRCs differ and advances the
+server's clock: a ``SharedClock`` (rank 0's wall clock, the default under
+tp) unless the caller installs another. The sync comes when the step's
+first tokens reach the host (at the step's end when it emits none), so
+the step's TTFT/TPOT stamps read rank 0's clock after the device work
+that made the tokens, and the next step's admission reads the same value. Windows under ``tp``
 run their rounds eagerly with the same tokens: a gloo collective cannot
 be captured in a CUDA graph, so no ``WindowGraph`` is built.
 """
@@ -100,6 +106,7 @@ from deepspeed_tpu_torch.inference.decode import (
 from deepspeed_tpu_torch.inference.journal import JournaledRequest, RequestJournal
 from deepspeed_tpu_torch.inference.kv_pool import PagePool
 from deepspeed_tpu_torch.inference.spec_decode import Drafter, NGramDrafter
+from deepspeed_tpu_torch.inference.tp import SharedClock
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.profiling.tracer import NULL_TRACER, MetricsRegistry, percentile_summary
 from deepspeed_tpu_torch.utils import chaos
@@ -243,6 +250,7 @@ class PagedServer:
         self.params = params
         self._fingerprint = 0  # CRC-32 of every step's host arrays, in order
         self._fingerprint_steps = 0
+        self._sync_due = False  # under tp: this step's one sync has not run yet
         self.tracer = NULL_TRACER  # span names mirror the JAX server's; recording is not ported yet
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.prefill_chunk = int(prefill_chunk)
@@ -261,8 +269,8 @@ class PagedServer:
         # drafts a window probe proposed, handed to the single step it fell back to
         self._predrafts: Optional[Dict[int, np.ndarray]] = None
         self.journal = journal
-        # TTFT/TPOT stamps and the load harness's virtual time both read this clock
-        self.clock = clock or time.perf_counter
+        # TTFT/TPOT stamps and the load harness's virtual time both read this clock; under tp rank 0's
+        self.clock = clock or (SharedClock(tp) if self._tp_active() else time.perf_counter)
         # speculation: a SpecDecodeConfig or a dict of knobs, or an explicit Drafter (either enables it)
         self.max_draft = int(_knob(spec_decode, "max_draft", 4))
         lens = [int(n) for n in (_knob(spec_decode, "spec_lens", None) or [])]
@@ -582,6 +590,7 @@ class PagedServer:
         verify round over the running set. Then the chaos point
         ``serve.mid_step`` (a kill there loses only tokens that recovery
         re-derives) and one ``journal.sync()``."""
+        self._sync_due = self._tp_active()
         with self.tracer.span("serve.step"):
             with self.tracer.span("serve.admit"):
                 self._admit()
@@ -597,12 +606,26 @@ class PagedServer:
             if self.journal is not None:
                 with self.tracer.span("serve.journal_sync"):
                     self.journal.sync()
+        if self._sync_due:  # a step that emitted nothing
+            self.tp_sync()
         self.metrics.counter("serve.steps").inc()
 
     def run(self) -> Dict[int, np.ndarray]:
         while self.has_work():
             self.step()
+        if self._tp_active():
+            self.tp_sync()  # the last step's arrays checked too
         return self._results
+
+    def tp_sync(self) -> None:
+        """Under tp: check every rank's step fingerprint and advance a
+        shared clock (one collective; see the module docstring)."""
+        self._sync_due = False
+        sync = getattr(self.clock, "sync", None)
+        if sync is not None:
+            sync(self._fingerprint)
+        else:
+            self.tp.step_sync(self._fingerprint)
 
     def serve(self, prompts: Sequence, max_new_tokens=32, eos_token_id: Optional[int] = None,
               tenant: str = "default") -> List[np.ndarray]:
@@ -1083,7 +1106,10 @@ class PagedServer:
     def _emit(self, req: Request, token: int) -> None:
         """Record a newly sampled token (journaled, with the first token's
         stamp) and retire the request on EOS or budget (the token is
-        included)."""
+        included). Under tp the step's first emission makes its sync, so
+        the stamps follow the device work that made the tokens."""
+        if self._sync_due:
+            self.tp_sync()
         if req.t_first is None:
             req.t_first = self.clock()
             self.tracer.instant_async("request", req.uid, "first_token")

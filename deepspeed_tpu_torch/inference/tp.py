@@ -19,6 +19,17 @@ no counterpart).
 * **kv sharding**: the page pools hold ``NKV / tp`` kv heads
   (``local_cfg``); page tables and every other host structure stay whole
   on every rank, and every rank makes the same host decisions.
+* **one clock and one check a step**: every rank runs the same host code,
+  so every decision must see the same inputs on every rank, or the ranks
+  wait in different collectives. ``step_sync`` is the one small
+  collective a scheduler step makes: it gathers every rank's (clock
+  reading, step fingerprint), raises ``TPDivergence`` when the
+  fingerprints (the CRC of the host arrays every step shipped) differ,
+  and returns rank 0's reading. ``SharedClock`` is the wall clock a
+  server under tp reads (``PagedServer``'s default there): rank 0's
+  reading at the last sync, the same value on every rank, so arrivals,
+  admission, SLA stamps and timed events decide alike. A virtual clock
+  (``utils/loadgen.VirtualClock``) is already the same on every rank.
 * **collectives**: each row-parallel projection all-reduces its partial
   sums (``row_matmul``, its output features split into ``comm_chunks``,
   each chunk reduced on its own); ``quantized_allreduce`` swaps the fp
@@ -31,7 +42,8 @@ no counterpart).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import time
+from typing import Any, Callable, List, Optional
 
 import torch
 
@@ -46,16 +58,42 @@ _SCALE_FLOOR = 1e-30
 _INT32_MAX = 2**31 - 1
 
 
-def refuse_tp(server, what: str) -> None:
-    """Raise for a path whose host decisions would differ between the
-    ranks of a tensor-parallel server (they read the wall clock), which
-    would leave the ranks waiting in different collectives."""
-    tp = getattr(server, "tp", None)
-    if tp is not None and tp.degree > 1:
-        raise NotImplementedError(
-            f"{what} under tensor-parallel serving: its decisions read the wall clock, which "
-            "differs between ranks (ROADMAP S10)"
-        )
+class TPDivergence(RuntimeError):
+    """The ranks of a tensor-parallel group shipped different host arrays:
+    their schedulers decided differently."""
+
+
+def serving_tp(server) -> Optional["TPServing"]:
+    """The ``TPServing`` of degree > 1 that ``server`` (a ``PagedServer``,
+    its ``MultiTenantServer`` front, or a ``FleetRouter``'s replicas) runs
+    under, else None."""
+    replicas = getattr(server, "replicas", None)
+    inners = [h.inner for h in replicas.values()] if replicas is not None else [getattr(server, "server", server)]
+    for inner in inners:
+        tp = getattr(inner, "tp", None)
+        if tp is not None and tp.degree > 1:
+            return tp
+    return None
+
+
+class SharedClock:
+    """Rank 0's wall clock on every rank of a tensor-parallel group:
+    ``clock()`` returns the seconds since the clock was made, as rank 0
+    read them at the last ``sync`` (the same value on every rank; 0.0
+    before the first). ``sync(fingerprint)`` is ``TPServing.step_sync``
+    with this clock's reading."""
+
+    def __init__(self, tp: "TPServing", base: Callable[[], float] = time.perf_counter):
+        self.tp, self.base = tp, base
+        self._t0 = base()
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+    def sync(self, fingerprint: Optional[int] = None) -> float:
+        self.now = self.tp.step_sync(fingerprint, self.base() - self._t0)
+        return self.now
 
 
 def require_ranks(tp_degree: int) -> None:
@@ -360,6 +398,27 @@ class TPServing:
             return logits
         parts = comm.all_gather(None, logits.contiguous(), group=self.group)
         return torch.cat(parts, dim=-1)
+
+    def step_sync(self, fingerprint: Optional[int] = None, reading: float = 0.0) -> float:
+        """One gather of every rank's ``(reading, fingerprint)``: raises
+        ``TPDivergence`` unless the fingerprints agree (None: no check, on
+        every rank alike), returns rank 0's reading. fp64 holds a CRC-32
+        exactly; the pair rides on the host for gloo, on the card for
+        nccl."""
+        if self.degree == 1:
+            return reading
+        dev = torch.device("cuda", torch.cuda.current_device()) if comm.get_backend(self.group) == "nccl" \
+            else torch.device("cpu")
+        pair = torch.tensor([reading, -1.0 if fingerprint is None else float(fingerprint)], dtype=torch.float64,
+                            device=dev)
+        got = torch.empty((self.degree, 2), dtype=torch.float64, device=dev)
+        comm.all_gather_into_tensor(got, pair[None], group=self.group)
+        got = got.cpu()
+        prints = got[:, 1].tolist()
+        if any(p != prints[0] for p in prints):
+            raise TPDivergence(f"tensor-parallel ranks disagree on the step fingerprint: "
+                               f"{[f'{int(p) & 0xFFFFFFFF:08x}' for p in prints]}")
+        return float(got[0, 0])
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Group rank 0's ``x`` onto every rank, in place."""

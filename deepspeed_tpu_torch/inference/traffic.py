@@ -21,6 +21,9 @@ only who goes next.
 
 Greedy streams are byte-identical to single-tenant serving of the same
 requests: the order changes when a request runs, never what it generates.
+Over a tensor-parallel server every rank runs the same tenancy on the same
+submissions; its decisions read served-token counts and the server's
+clock, which under tp is rank 0's (``inference/tp.py:SharedClock``).
 Multi-step windows form underneath only when nothing is queued, so a
 tenant's pending admission always breaks the window first.
 """
@@ -37,7 +40,6 @@ from deepspeed_tpu_torch.inference.scheduler import (
     Request,
     SchedulingPolicy,
 )
-from deepspeed_tpu_torch.inference.tp import refuse_tp
 
 
 @dataclass
@@ -167,7 +169,6 @@ class MultiTenantServer:
         tenants: Sequence[Union[TenantSpec, Dict]],
         default_tenant: str = "default",
     ):
-        refuse_tp(server, "multi-tenant SLA serving")
         specs: Dict[str, TenantSpec] = {}
         for t in tenants or []:
             spec = t if isinstance(t, TenantSpec) else TenantSpec(**dict(t))

@@ -210,7 +210,7 @@ class TransformerLM(nn.Module):
 
     # --- training forward ------------------------------------------------
     def apply(self, params, batch, *, dropout_seed: Optional[int] = None, train: bool = True,
-              attn_impl: Optional[str] = None, pld_theta=None, ltd_idx=None, tp=None):
+              attn_impl: Optional[str] = None, pld_theta=None, ltd_idx=None, tp=None, layer_stream=None):
         """JAX ``apply`` (``transformer.py:821``): the scalar LM loss when the
         batch carries labels (``(tokens, labels)`` or ``{"input_ids",
         "labels"}``), else the logits ``[B, T, V]``. ``params`` is the nested
@@ -223,20 +223,24 @@ class TransformerLM(nn.Module):
         runs the rank's heads, the row-parallel ``wo`` and ``w_out`` sum
         their partials in ``tp.row_matmul``'s all-reduces, and the sharded
         head's logits are gathered along the vocabulary, so every rank
-        returns the full logits (JAX runs the same layout by GSPMD)."""
+        returns the full logits (JAX runs the same layout by GSPMD).
+
+        With ``layer_stream`` (ZeRO-3, ``runtime/zero/overlap.py``)
+        ``params`` holds no ``layers``: the stream gathers each layer's
+        weights and runs it (``layer_stream.run(i, fn, x, remat)``)."""
         if pld_theta is not None or ltd_idx is not None:
             raise NotImplementedError("progressive layer drop and random-LTD are not ported yet (ROADMAP T5)")
         if tp is not None and train:
             raise NotImplementedError("tensor-parallel training is not ported yet (ROADMAP P1)")
         tokens, labels = _split_batch(batch)
-        logits = self._forward(params, tokens, dropout_seed, train, attn_impl, tp)
+        logits = self._forward(params, tokens, dropout_seed, train, attn_impl, tp, layer_stream)
         if tp is not None:
             logits = tp.gather_vocab(logits)
         if labels is None:
             return logits
         return cross_entropy_loss(logits, labels)
 
-    def _forward(self, params, tokens, dropout_seed, train, attn_impl, tp=None):
+    def _forward(self, params, tokens, dropout_seed, train, attn_impl, tp=None, layer_stream=None):
         cfg = self.config if tp is None else tp.local_cfg(self.config)
         if cfg.sequence_parallel:
             raise NotImplementedError("sequence parallelism is not ported yet (ROADMAP P1)")
@@ -252,10 +256,14 @@ class TransformerLM(nn.Module):
             x = _norm(x, params["embed"]["norm_scale"], params["embed"].get("norm_bias"), cfg.norm, cfg.norm_eps)
         # one unbind per stacked leaf: its backward stacks the per-layer
         # gradients into the [L, ...] leaf in one op
-        layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+        layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()} if layer_stream is None else {}
         for i in range(cfg.num_layers):
-            per = {name: leaves[i] for name, leaves in layers.items()}
             seed = None if dropout_seed is None else int(dropout_seed) + i
+            if layer_stream is not None:
+                x = layer_stream.run(i, lambda h, per, seed=seed: self._layer(h, per, positions, seed, train,
+                                                                              attn_impl, cfg), x, cfg.remat)
+                continue
+            per = {name: leaves[i] for name, leaves in layers.items()}
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(self._layer, x, per, positions, seed, train, attn_impl, use_reentrant=False)
             else:

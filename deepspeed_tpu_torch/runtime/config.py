@@ -589,8 +589,6 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
     training engine does not have yet, each naming its ROADMAP item."""
     z = cfg.zero_config
     found = []
-    if cfg.zero_optimization_stage >= 2:
-        found.append(f"zero_optimization.stage={cfg.zero_optimization_stage} (ZeRO-2/3): ROADMAP T2")
     for name in ("offload_optimizer", "offload_param"):
         off = getattr(z, name)
         if off is not None and str(off.device.value) != "none":
@@ -609,8 +607,8 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
         found.append("mesh model / sequence / pipe axes > 1 (tensor, sequence, pipeline parallel): ROADMAP P1")
     if mc.expert > 1:
         found.append("mesh.expert > 1 (expert parallel MoE): ROADMAP M1")
-    if mc.data > 1 or mc.data_outer > 1:
-        found.append("mesh.data > 1 (multi-rank data parallel): ROADMAP T2")
+    if mc.data_outer > 1:
+        found.append("mesh.data_outer > 1 (MiCS shard groups): ROADMAP P1")
     if cfg.sparse_gradients_enabled:
         found.append("sparse_gradients: ROADMAP P1")
     if cfg.comms_config.comms_logger_enabled:

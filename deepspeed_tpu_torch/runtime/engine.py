@@ -32,15 +32,44 @@ saves from inside ``step``; ``load_checkpoint(auto_resume=True)`` resumes
 from the newest valid tag, and the resumed losses are bit-identical to an
 uninterrupted run's.
 
-ZeRO stage 1 at a data-parallel world of 1 shards nothing; the engine
-records the stage. Stage ≥ 2, a ``torch.distributed`` group of more than
-one rank, and the other unported switches raise ``NotImplementedError``
-naming their ROADMAP item. The engine runs on ``cuda`` unless the caller
-names another device, and raises without a card.
+Data parallelism (JAX ``partition.py:1-25``; ``runtime/zero/``): under a
+``torch.distributed`` group the engine is one rank of ``mesh.data`` (the
+world by default). Every rank passes the same global micro batch (``micro
+× dp`` rows) and takes its own rows (JAX's multi-host batch contract,
+``engine.py:978-1001``). The ZeRO stage decides where the state lives,
+never the math:
+
+* stage 0: all state replicated; the accumulated gradients are summed
+  over the ranks at the boundary (one bucketed all-reduce);
+* stage 1: the fp32 master and the Adam moments hold this rank's slice
+  (``partition.ZeroPartitioner``); the summed gradients' slice updates it
+  and the new compute parameters are all-gathered;
+* stage 2: the gradient accumulators are slices too, each microbatch's
+  gradients reduce-scattered into them (``overlap.GradBuckets``, issued
+  while backward runs under ``overlap_comm``);
+* stage 3: the compute parameters are stored sliced and gathered layer by
+  layer (``overlap.OverlapPlan``), again in backward, then freed.
+
+The gradients are the global-batch mean: each rank back-propagates its
+rows' token sum over the global token count times dp, the reduction sums
+and the update divides by dp; the loss ``forward`` returns is the global
+mean on every rank. The clipping norm is global (at stage >= 2 the
+squares of the slices, all-reduced); under fp16 an overflow on any rank
+skips the step on every rank. ``global_samples`` counts ``micro × dp``.
+At one rank nothing is sharded and every step is the one-rank engine's,
+bit for bit. ``set_params`` / ``get_param_treedef`` are the two halves of
+``zero.GatheredParameters``; ``get_params`` / ``get_master_params`` return
+the whole tree on every rank. Checkpoints hold whole arrays whatever the
+dp (the slices gathered, rank 0 writes) and load at any dp.
+
+The unported switches raise ``NotImplementedError`` naming their ROADMAP
+item. The engine runs on ``cuda`` unless the caller names another device,
+and raises without a card.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Any, Callable, Dict, Optional
@@ -48,6 +77,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.checkpoint.jax_params import (
     flatten_tree,
@@ -58,6 +88,7 @@ from deepspeed_tpu_torch.checkpoint.jax_params import (
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
 from deepspeed_tpu_torch.ops.adam.fused_adam import AdamW, FusedAdam
 from deepspeed_tpu_torch.ops.optimizer import DSOptimizer
+from deepspeed_tpu_torch.parallel.mesh import build_topology
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.checkpoint_engine.async_snapshot import (
     AsyncCheckpointWriter,
@@ -75,6 +106,8 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine impor
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, unported_switches
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, LossScaleState, has_inf_or_nan
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
+from deepspeed_tpu_torch.runtime.zero.overlap import GradBuckets, build_overlap_plan, gather_full, split_buckets
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartitioner, shard, shard_shape
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.tensor_fragment import _flatten_with_paths
@@ -93,6 +126,21 @@ _UNPORTED_OPTIMIZERS = {
 }
 _ACC_DTYPES = {"fp32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
                "bfloat16": torch.bfloat16, "fp16": torch.float16, "float16": torch.float16}
+_IGNORE_INDEX = -100  # models.transformer.cross_entropy_loss
+
+
+class _GlobalLoss(torch.autograd.Function):
+    """The value of the global-batch loss, the gradient of this rank's
+    share of it (``forward(local, value)`` returns ``value``; backward
+    passes the gradient on to ``local`` unchanged)."""
+
+    @staticmethod
+    def forward(ctx, local, value):  # noqa: ARG004
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):  # noqa: ARG004
+        return grad, None
 
 
 class DeepSpeedEngine:
@@ -106,14 +154,13 @@ class DeepSpeedEngine:
         unported = unported_switches(self._config)
         if unported:
             raise NotImplementedError("not ported to deepspeed_tpu_torch yet: " + "; ".join(unported))
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("multi-rank data parallelism (the ZeRO-1 owner-shard update over "
-                                      "torch.distributed) is not ported yet (ROADMAP T2)")
+        self.topo = build_topology(self._config.mesh_config)
+        self.dp = self.topo.get_data_parallel_world_size()
+        self.dp_rank = comm.get_rank() if self.dp > 1 else 0
         self.module = model
         self.device = resolve_device(device)
         self.attn_impl = attn_impl
-        self._config.resolve_batch_triad(1)
+        self._config.resolve_batch_triad(self.dp)
 
         if self._config.bfloat16_enabled:
             self.compute_dtype = torch.bfloat16
@@ -142,16 +189,8 @@ class DeepSpeedEngine:
         if model_parameters is None:
             raise ValueError("model_parameters is required: weights enter the port as the JAX tree in numpy "
                              "(models.transformer.init_params draws one with the JAX init's distributions)")
-        self._master = jax_tree_to_tensors(model.config, model_parameters, device=self.device,
-                                           dtype=torch.float32)
-        if self.mixed_precision:
-            self._params = {k: m.to(self.compute_dtype).requires_grad_(True) for k, m in self._master.items()}
-        else:
-            self._params = {k: m.requires_grad_(True) for k, m in self._master.items()}
-        self._param_tree = unflatten_tree(self._params)
-        self._opt_state = self.optimizer.init_state(self._master)
-        self._grad_acc = {k: torch.zeros(p.shape, dtype=self._acc_dtype, device=self.device)
-                          for k, p in self._params.items()}
+        self._init_state(jax_tree_to_tensors(model.config, model_parameters, device=self.device,
+                                             dtype=torch.float32))
         self._scale_state = self.loss_scaler.init_state()
 
         self.checkpoint_engine = TorchCheckpointEngine(self._config)
@@ -199,7 +238,7 @@ class DeepSpeedEngine:
         return self._config.gradient_clipping
 
     def data_parallel_world_size(self) -> int:
-        return 1
+        return self.dp
 
     @property
     def loss_scale(self) -> float:
@@ -222,15 +261,133 @@ class DeepSpeedEngine:
         return self.train(False)
 
     def num_parameters(self) -> int:
-        return sum(p.numel() for p in self._master.values())
+        return sum(math.prod(s) for s in self._shapes.values())
 
     def get_params(self):
-        """The compute-dtype tree as numpy (bf16 widened to fp32 exactly)."""
-        return tensors_to_jax_tree(self._params)
+        """The compute-dtype tree as numpy (bf16 widened to fp32 exactly),
+        whole on every rank."""
+        return tensors_to_jax_tree(self._full_params())
 
     def get_master_params(self):
-        """The fp32 master tree as numpy."""
-        return tensors_to_jax_tree(self._master)
+        """The fp32 master tree as numpy, whole on every rank."""
+        return tensors_to_jax_tree(self._full_master())
+
+    def get_param_treedef(self):
+        """The nesting of ``get_params()`` (dicts, None at the leaves),
+        without gathering it (JAX ``engine.py:3747``)."""
+        return unflatten_tree({k: None for k in self._params})
+
+    @torch.no_grad()
+    def set_params(self, tree, src_rank: Optional[int] = None) -> None:
+        """Adopt a whole parameter tree (numpy, nested or flat paths) as the
+        new weights: the fp32 master and the compute store are refreshed,
+        each rank keeping its slices, and the optimizer moments are kept
+        (JAX ``engine.py:3798``). With ``src_rank`` the tree of that rank
+        is broadcast to every rank first."""
+        full = jax_tree_to_tensors(self.module.config, tree, device=self.device, dtype=torch.float32)
+        if src_rank is not None and self.dp > 1:
+            for t in full.values():
+                comm.broadcast(t, src=src_rank)
+        r, W = self.dp_rank, self.dp
+        for k, m in self._master.items():
+            m.copy_(shard(full[k], self._mdim[k], r, W))
+            p = self._params[k]
+            if p is not m:
+                p.copy_(shard(full[k], self._pdim[k], r, W))
+
+    # --- the state and its slices ------------------------------------------
+    @torch.no_grad()
+    def _init_state(self, full: Dict[str, torch.Tensor]) -> None:
+        """Master, compute store, optimizer state and accumulators, each
+        leaf this rank's slice as the ZeRO stage places it (whole at one
+        rank: the master is ``full`` itself, and in fp32 the compute store
+        is the master)."""
+        zc = self._config.zero_config
+        part = ZeroPartitioner(zc, self.topo)
+        self._shapes = {k: tuple(t.shape) for k, t in full.items()}
+        self._pdim = part.dims(part.param_specs(self._shapes))
+        self._mdim = part.dims(part.master_specs(self._shapes))
+        self._gdim = part.dims(part.grad_accum_specs(self._shapes))
+        r, W = self.dp_rank, self.dp
+        self._master = {k: t if self._mdim[k] is None else shard(t, self._mdim[k], r, W).clone()
+                        for k, t in full.items()}
+        self._params = {}
+        for k, t in full.items():
+            if not self.mixed_precision and self._pdim[k] == self._mdim[k]:
+                self._params[k] = self._master[k].requires_grad_(True)
+            elif self._pdim[k] is None:
+                self._params[k] = t.to(self.compute_dtype).requires_grad_(True)
+            else:
+                self._params[k] = shard(t, self._pdim[k], r, W).to(self.compute_dtype).clone().requires_grad_(True)
+        self._param_tree = unflatten_tree(self._params)
+        self._opt_state = self.optimizer.init_state(self._master)
+        self._grad_acc = {k: torch.zeros(shard_shape(self._shapes[k], self._gdim[k], W), dtype=self._acc_dtype,
+                                         device=self.device) for k in self._params}
+        self._plan = build_overlap_plan(zc, self._params, self._pdim, self.module.config.num_layers,
+                                        self._acc_dtype) if W > 1 else None
+        # stage >= 2 with overlap_comm: each gradient joins a reduce bucket as backward accumulates it
+        self._buckets: Optional[GradBuckets] = None
+        self._eager_buckets = W > 1 and self.zero_optimization_stage() >= 2 and zc.overlap_comm and zc.reduce_scatter
+        if self._eager_buckets:
+            for k, p in self._params.items():
+                if self._plan is None or self._pdim[k] is None:
+                    p.register_post_accumulate_grad_hook(self._grad_ready(k))
+
+    def _grad_ready(self, name: str):
+        def hook(p):
+            if self._buckets is not None:
+                self._buckets.add(name, p.grad.to(self._acc_dtype))
+                p.grad = None
+        return hook
+
+    def _gather_tree(self, tensors: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]]
+                     ) -> Dict[str, torch.Tensor]:
+        """``tensors`` with every sliced leaf gathered whole (one all-gather
+        a bucket of ``allgather_bucket_size`` elements and one dtype)."""
+        if self.dp == 1:
+            return tensors
+        out = {k: t.detach() for k, t in tensors.items()}
+        by_dtype: Dict[torch.dtype, list] = {}
+        for k, t in tensors.items():
+            if dims[k] is not None:
+                by_dtype.setdefault(t.dtype, []).append(k)
+        cap = self._config.zero_config.allgather_bucket_size
+        for names in by_dtype.values():
+            for bucket in split_buckets([tensors[k].numel() for k in names], cap):
+                keys = [names[i] for i in bucket]
+                out.update(zip(keys, gather_full([tensors[k] for k in keys], [dims[k] for k in keys])))
+        return out
+
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        return self._gather_tree(self._params, self._pdim)
+
+    def _full_master(self) -> Dict[str, torch.Tensor]:
+        return self._gather_tree(self._master, self._mdim)
+
+    def _full_opt_state(self):
+        st = self._opt_state
+        return type(st)(**{f: self._gather_tree(v, self._mdim) if isinstance(v, dict) else v
+                           for f, v in st._asdict().items()})
+
+    @torch.no_grad()
+    def _refresh_params(self) -> None:
+        """The compute store from the master: a local cast where both hold
+        the same slice, an all-gather of the cast slices where the store is
+        whole and the master sliced."""
+        gather = []
+        for k, m in self._master.items():
+            p = self._params[k]
+            if p is m:
+                continue
+            if self._pdim[k] == self._mdim[k]:
+                p.copy_(m)
+            else:
+                gather.append(k)
+        if gather:
+            full = self._gather_tree({k: self._master[k].to(self._params[k].dtype) for k in gather},
+                                     {k: self._mdim[k] for k in gather})
+            for k in gather:
+                self._params[k].copy_(full[k])
 
     # --- wiring ------------------------------------------------------------
     def _grad_accum_dtype(self) -> torch.dtype:
@@ -275,7 +432,9 @@ class DeepSpeedEngine:
         return get_lr_scheduler(sched_cfg.type, self.optimizer, **sched_cfg.params)
 
     def _place(self, batch):
-        """Tokens and labels as int64 tensors on the engine's device."""
+        """Tokens and labels as int64 tensors on the engine's device; at dp
+        > 1 this rank's rows of the global micro batch, and this rank's
+        share of the global batch's labelled tokens (None at one rank)."""
         def place(x):
             if x is None:
                 return None
@@ -283,7 +442,28 @@ class DeepSpeedEngine:
             return t.to(device=self.device, dtype=torch.long, non_blocking=True)
 
         tokens, labels = _split_batch(batch)
-        return place(tokens), place(labels)
+        tokens, labels = place(tokens), place(labels)
+        if self.dp == 1:
+            return tokens, labels, None
+        B = tokens.shape[0]
+        if B % self.dp:
+            raise ValueError(f"every rank passes the global micro batch ({self.dp} x "
+                             f"train_micro_batch_size_per_gpu rows); got {B} rows, not divisible by dp={self.dp}")
+        b = B // self.dp
+        rows = slice(self.dp_rank * b, (self.dp_rank + 1) * b)
+        share = None
+        if labels is not None:
+            valid = labels != _IGNORE_INDEX
+            share = valid[rows].sum().float() / valid.sum().clamp(min=1).float()
+            labels = labels[rows]
+        return tokens[rows], labels, share
+
+    def _model_tree(self, train: bool):
+        """The tree ``apply`` reads and its layer stream: at stage 3 the
+        non-layer leaves gathered and the layers left to the plan."""
+        if self._plan is None:
+            return self._param_tree, {}
+        return unflatten_tree(self._plan.begin(train)), {"layer_stream": self._plan}
 
     # --- the step ------------------------------------------------------------
     def __call__(self, batch):
@@ -292,19 +472,32 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Training: the microbatch's loss with its graph (call ``backward``
         then ``step``). Eval: the loss (or logits without labels), no graph."""
-        tokens, labels = self._place(batch)
+        tokens, labels, share = self._place(batch)
         model_batch = tokens if labels is None else (tokens, labels)
         if not self._training_mode:
             with torch.no_grad():
-                return self.module.apply(self._param_tree, model_batch, train=False, attn_impl=self.attn_impl)
+                tree, stream = self._model_tree(False)
+                out = self.module.apply(tree, model_batch, train=False, attn_impl=self.attn_impl, **stream)
+                if self.dp > 1:  # the global batch's loss or logits on every rank
+                    if labels is None:
+                        out = torch.cat(comm.all_gather(None, out), dim=0)
+                    else:
+                        out = comm.all_reduce(out.float() * share).to(out.dtype)
+                return out
         if labels is None:
             raise ValueError("training expects (tokens, labels) batches (a dict with input_ids/labels, "
                              "or a 2-tuple)")
         if self._in_forward:
             raise RuntimeError("forward() called again before backward()")
         seed = int(self._dropout_rng.integers(0, 2**62))
-        loss = self.module.apply(self._param_tree, model_batch, dropout_seed=seed, train=True,
-                                 attn_impl=self.attn_impl)
+        tree, stream = self._model_tree(True)
+        loss = self.module.apply(tree, model_batch, dropout_seed=seed, train=True, attn_impl=self.attn_impl,
+                                 **stream)
+        if self.dp > 1:
+            # back-propagate this rank's token sum over the global count times dp (its mean when every
+            # rank holds as many tokens: a factor of exactly 1); report the global mean
+            value = comm.all_reduce(loss.detach().float() * share)
+            loss = _GlobalLoss.apply(loss * (share * self.dp).to(loss.dtype), value.to(loss.dtype))
         self._in_forward = True
         return loss
 
@@ -316,12 +509,40 @@ class DeepSpeedEngine:
         if not self._in_forward:
             raise RuntimeError("backward() called before forward()")
         scale = torch.tensor(self._scale_state.scale, dtype=torch.float32, device=loss.device)
-        (loss.float() * scale).backward(retain_graph=retain_graph)
+        # stage 3's sharded leaves are reduced by the plan as backward passes each layer; the rest
+        # accumulate whole (stages 0-1, reduced at the boundary) or go through the reduce buckets
+        # (stage >= 2 at dp > 1)
+        cap = self._config.zero_config.reduce_bucket_size
+        if self._eager_buckets:
+            self._buckets = GradBuckets(self._gdim, cap, eager=True)
+        if self._plan is not None:
+            self._plan.in_backward = True
+        try:
+            (loss.float() * scale).backward(retain_graph=retain_graph)
+        finally:
+            if self._plan is not None:
+                self._plan.in_backward = False
         with torch.no_grad():
+            if self._plan is not None:
+                self._plan.end_backward()
+                for k, g in self._plan.collect_grads().items():
+                    self._grad_acc[k].add_(g.to(self._acc_dtype))
+            buckets = self._buckets
+            if buckets is None and self.zero_optimization_stage() >= 2 and self.dp > 1:
+                buckets = GradBuckets(self._gdim, cap, eager=False)
+            self._buckets = None
             for k, p in self._params.items():
-                if p.grad is not None:
-                    self._grad_acc[k].add_(p.grad.to(self._acc_dtype))
-                    p.grad = None
+                if p.grad is None:
+                    continue
+                g = p.grad.to(self._acc_dtype)
+                p.grad = None
+                if buckets is not None:
+                    buckets.add(k, g)
+                else:
+                    self._grad_acc[k].add_(g)
+            if buckets is not None:
+                for k, g in buckets.finish().items():
+                    self._grad_acc[k].add_(g)
         self._in_forward = False
         return loss
 
@@ -332,7 +553,7 @@ class DeepSpeedEngine:
         if boundary:
             self._take_model_step()
         self.micro_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu()
+        self.global_samples += self.train_micro_batch_size_per_gpu() * self.dp
         # interval auto-save (JAX engine.py:2424-2429), after this microbatch
         # is counted: a save before the count would resume one microbatch
         # early and, at gas > 1, take the next step after a single microbatch
@@ -344,27 +565,51 @@ class DeepSpeedEngine:
     def _update_from_grads(self, lr: float):
         """One optimizer update from the accumulation buffer (see the module
         docstring). Returns the overflow flag (always False outside fp16)."""
-        gas = self.gradient_accumulation_steps()
-        inv = float(np.float32(1.0) / (np.float32(self._scale_state.scale) * np.float32(gas)))
+        gas, dp, r = self.gradient_accumulation_steps(), self.dp, self.dp_rank
+        denom = np.float32(self._scale_state.scale) * np.float32(gas)
+        if dp > 1:
+            denom = denom * np.float32(dp)  # the gradients are summed over the ranks
+            if self.zero_optimization_stage() <= 1:
+                self._all_reduce_accum()
+        inv = float(np.float32(1.0) / denom)
         grads = {k: g.float() * inv for k, g in self._grad_acc.items()}
-        overflow = bool(has_inf_or_nan(grads.values())) if self._config.fp16_enabled else False
-        sq = torch.stack([torch.sum(torch.square(g)) for g in grads.values()]).sum()
+        overflow = False
+        if self._config.fp16_enabled:
+            flag = has_inf_or_nan(grads.values())
+            if dp > 1:  # every rank skips together
+                flag = comm.all_reduce(flag.float(), op=comm.ReduceOp.MAX)
+            overflow = bool(flag)
+        if dp > 1 and self.zero_optimization_stage() >= 2:
+            # the global norm from the slices' squares (a replicated leaf counted on rank 0 only)
+            parts = [torch.sum(torch.square(g)) for k, g in grads.items() if self._gdim[k] is not None or r == 0]
+            sq = comm.all_reduce(torch.stack(parts).sum() if parts else torch.zeros((), device=self.device))
+        else:
+            sq = torch.stack([torch.sum(torch.square(g)) for g in grads.values()]).sum()
         grad_norm = torch.sqrt(sq)
         clip = self._config.gradient_clipping
         if clip > 0:
             coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
             grads = {k: g * coef for k, g in grads.items()}
         if not overflow:
+            # the owner-shard update: this rank's slice of each (whole) gradient
+            grads = {k: shard(g, self._mdim[k], r, dp) if self._gdim[k] is None else g for k, g in grads.items()}
             new_master, self._opt_state = self.optimizer.apply(grads, self._opt_state, self._master, lr)
             for k, m in self._master.items():
                 m.copy_(new_master[k])
-                if self.mixed_precision:
-                    self._params[k].copy_(m)
+            self._refresh_params()
         self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
         for g in self._grad_acc.values():
             g.zero_()
         self._last_grad_norm = grad_norm
         return overflow
+
+    def _all_reduce_accum(self) -> None:
+        """Stages 0-1: sum the whole accumulators over the ranks, one
+        all-reduce a bucket of ``reduce_bucket_size`` elements."""
+        names = list(self._grad_acc)
+        for bucket in split_buckets([self._grad_acc[k].numel() for k in names],
+                                    self._config.zero_config.reduce_bucket_size):
+            comm.all_reduce_coalesced([self._grad_acc[names[i]] for i in bucket])
 
     def _take_model_step(self) -> None:
         overflow = self._update_from_grads(self.optimizer.param_groups[0]["lr"])
@@ -415,16 +660,18 @@ class DeepSpeedEngine:
         return os.path.join(save_dir, str(tag))
 
     def _checkpoint_state(self, client_state: Optional[Dict]) -> Dict[str, Any]:
-        """The full replay state under JAX's keys and tree paths. Tensors
-        are the live ones (the caller snapshots them); the optimizer and
-        loss-scale scalars ride as 0-d tensors, where JAX has arrays."""
+        """The full replay state under JAX's keys and tree paths, whole
+        arrays at any dp (a collective at dp > 1: every rank gathers its
+        slices). At one rank the tensors are the live ones (the caller
+        snapshots them); the optimizer and loss-scale scalars ride as 0-d
+        tensors, where JAX has arrays."""
         from deepspeed_tpu_torch import __version__
 
         s = self._scale_state
         return {
-            "module": unflatten_tree(self._params),
-            "master": unflatten_tree(self._master) if self.mixed_precision else None,
-            "optimizer": _opt_state_to_tree(self._opt_state),
+            "module": unflatten_tree(self._full_params()),
+            "master": unflatten_tree(self._full_master()) if self.mixed_precision else None,
+            "optimizer": _opt_state_to_tree(self._full_opt_state()),
             "loss_scaler": {"scale": torch.tensor(float(s.scale), dtype=torch.float64),
                             "good_steps": torch.tensor(int(s.good_steps)),
                             "hysteresis": torch.tensor(int(s.hysteresis))},
@@ -447,7 +694,7 @@ class DeepSpeedEngine:
         }
 
     def _mesh_shape(self) -> Dict[str, int]:
-        return {"data": self.data_parallel_world_size()}
+        return {"data": self.dp}
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None, client_state: Optional[Dict] = None,
                         save_latest: bool = True, exclude_frozen_parameters: bool = False,  # noqa: ARG002
@@ -460,7 +707,9 @@ class DeepSpeedEngine:
         ``asynchronous`` (default ``checkpoint.async_snapshot``) copies the
         state to pinned host memory and persists it from a background
         writer, so the step pays only the copy
-        (``checkpoint_stats()["last_stall_ms"]``)."""
+        (``checkpoint_stats()["last_stall_ms"]``). At dp > 1 every rank
+        calls it: the slices are gathered and rank 0 writes the one layout;
+        a synchronous save returns on every rank once it is committed."""
         if self._in_forward:
             raise RuntimeError("save_checkpoint() between forward() and backward(): the step's graph is "
                                "not part of a checkpoint; call backward() and step() first")
@@ -468,15 +717,23 @@ class DeepSpeedEngine:
             tag = f"global_step{self.global_steps}"
         tag = self._validate_checkpoint_tag(tag)
         path = self._ckpt_dir(save_dir, tag)
-        self.checkpoint_engine.create(tag)
         use_async = self._config.checkpoint_config.async_snapshot if asynchronous is None else bool(asynchronous)
+        t0 = time.perf_counter()
+        state = self._checkpoint_state(client_state)
+        if self.dp_rank != 0:
+            del state
+            if not use_async:
+                comm.barrier()
+            self._ckpt_metrics["saves"] += 1
+            return True
+        self.checkpoint_engine.create(tag)
         if not use_async:
             # a synchronous save must not interleave with queued async writes:
             # an older snapshot committing after it would regress `latest`
             self.wait_pending_checkpoint()
-        t0 = time.perf_counter()
         pool = self._pinned if self.device.type == "cuda" else None
-        host_state, pinned = host_snapshot(self._checkpoint_state(client_state), pool)
+        host_state, pinned = host_snapshot(state, pool)
+        del state
         release = (lambda: pool.give(pinned)) if pool is not None else None  # noqa: E731
         if use_async:
             stall_ms = (time.perf_counter() - t0) * 1e3
@@ -498,6 +755,8 @@ class DeepSpeedEngine:
             finally:
                 if release is not None:
                     release()
+                if self.dp > 1:
+                    comm.barrier()
             self._ckpt_metrics["last_save_s"] = time.perf_counter() - t0
         self._ckpt_metrics["saves"] += 1
         return True
@@ -520,8 +779,19 @@ class DeepSpeedEngine:
         return out
 
     def _validate_checkpoint_tag(self, tag: str) -> str:
-        """The cross-rank tag check (JAX ``engine.py:3404``); at the port's
-        one rank every tag agrees with itself."""
+        """The cross-rank tag check (JAX ``engine.py:3404-3422``): every
+        rank's tag gathered; on a mismatch ``checkpoint.tag_validation``
+        ``Fail`` raises and ``Warn`` warns and saves under rank 0's tag (one
+        layout under one tag, which rank 0 writes)."""
+        if not self._config.checkpoint_tag_validation_enabled or comm.get_world_size() == 1:
+            return tag
+        tags = comm.all_gather_object(str(tag))
+        if any(t != str(tag) for t in tags):
+            msg = f"checkpoint tag mismatch across ranks: {tags}"
+            if self._config.checkpoint_tag_validation_fail:
+                raise RuntimeError(msg)
+            logger.warning(msg + f" — saving under rank 0's tag {tags[0]!r}")
+            return tags[0]
         return tag
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None, load_module_strict: bool = True,
@@ -536,6 +806,8 @@ class DeepSpeedEngine:
         state first: a mismatch raises one ``CheckpointLoadError`` naming
         the leaf and both shapes or dtypes."""
         self.wait_pending_checkpoint()
+        if self.dp > 1:  # rank 0's async writes are committed before any rank reads
+            comm.barrier()
         t_load = time.perf_counter()
         state = None
         if tag is None:
@@ -563,7 +835,8 @@ class DeepSpeedEngine:
             self._validate_checkpoint_state(state, path)
         self._adopt_weights(state)
         if load_optimizer_states and not load_module_only and state.get("optimizer") is not None:
-            self._opt_state = _opt_state_from_tree(state["optimizer"], self._opt_state, self.device)
+            slicer = None if self.dp == 1 else (lambda k, t: shard(t, self._mdim[k], self.dp_rank, self.dp))
+            self._opt_state = _opt_state_from_tree(state["optimizer"], self._opt_state, self.device, slicer)
         if state.get("loss_scaler") is not None:
             ls = state["loss_scaler"]
             self._scale_state = LossScaleState(scale=float(ls["scale"]), good_steps=int(ls["good_steps"]),
@@ -585,18 +858,21 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _adopt_weights(self, state: Dict) -> None:
-        """The module (compute dtype) and the fp32 master. A checkpoint
-        without a master (fp32 training, or module-only) rebuilds it from
-        the module, or the next step would recast the stale one over it."""
+        """The module (compute dtype) and the fp32 master, each rank taking
+        its slices of the whole arrays. A checkpoint without a master (fp32
+        training, or module-only) rebuilds it from the module, or the next
+        step would recast the stale one over it."""
         module = flatten_tree(state["module"])
         master = flatten_tree(state["master"]) if state.get("master") is not None else None
+        r, W = self.dp_rank, self.dp
         for k, m in self._master.items():
             if master is not None and k in master:
-                m.copy_(master[k])
+                m.copy_(shard(master[k], self._mdim[k], r, W))
             elif k in module:
-                m.copy_(module[k])
-            if self.mixed_precision and k in module:
-                self._params[k].copy_(module[k])
+                m.copy_(shard(module[k], self._mdim[k], r, W))
+            p = self._params[k]
+            if p is not m and k in module:
+                p.copy_(shard(module[k], self._pdim[k], r, W))
 
     def _restore_replay_state(self, state: Dict) -> None:
         """The dropout generator the next microbatch draws from (JAX's PRNG
@@ -623,7 +899,8 @@ class DeepSpeedEngine:
         if module is None:
             raise CheckpointLoadError(f"{path} holds no module state")
         saved = _flatten_with_paths(module)
-        cur = _flatten_with_paths(unflatten_tree(self._params))
+        cur = _flatten_with_paths(unflatten_tree({k: torch.empty(self._shapes[k], dtype=p.dtype, device="meta")
+                                                  for k, p in self._params.items()}))
         missing = sorted(set(cur) - set(saved))
         extra = sorted(set(saved) - set(cur))
         if missing or extra:
@@ -649,7 +926,7 @@ class DeepSpeedEngine:
     def consolidated_16bit_state_dict(self) -> Dict[str, torch.Tensor]:
         """The compute-dtype weights as a flat ``path -> CPU tensor`` dict in
         JAX's path order (JAX ``engine.py:3685``)."""
-        return {name: t.detach().cpu() for name, t in _flatten_with_paths(unflatten_tree(self._params)).items()}
+        return {name: t.detach().cpu() for name, t in _flatten_with_paths(unflatten_tree(self._full_params())).items()}
 
     def save_reference_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                                   dp_shards: Optional[int] = None) -> str:
@@ -667,13 +944,15 @@ class DeepSpeedEngine:
         state dict of fp32 tensors; any other name an ``npz`` of the
         compute-dtype weights under the same flat names (bf16 as the raw
         2-byte values numpy stores for JAX's bf16)."""
-        sd = self.consolidated_16bit_state_dict()
-        os.makedirs(save_dir, exist_ok=True)
-        path = os.path.join(save_dir, save_filename)
-        if save_filename.endswith((".bin", ".pt")):
-            torch.save({k: v.float().contiguous() for k, v in sd.items()}, path)
-        else:
-            np.savez(path, **{k: _npz_array(v) for k, v in sd.items()})
+        sd = self.consolidated_16bit_state_dict()  # a collective at dp > 1; rank 0 writes
+        if self.dp_rank == 0:
+            os.makedirs(save_dir, exist_ok=True)
+            path = os.path.join(save_dir, save_filename)
+            if save_filename.endswith((".bin", ".pt")):
+                torch.save({k: v.float().contiguous() for k, v in sd.items()}, path)
+            else:
+                np.savez(path, **{k: _npz_array(v) for k, v in sd.items()})
+        comm.barrier()
         return True
 
     # --- not ported yet ----------------------------------------------------------
@@ -688,14 +967,17 @@ def _opt_state_to_tree(state) -> Dict[str, Any]:
     return {f: unflatten_tree(v) if isinstance(v, dict) else torch.tensor(v) for f, v in state._asdict().items()}
 
 
-def _opt_state_from_tree(tree: Dict[str, Any], like, device) -> Any:
+def _opt_state_from_tree(tree: Dict[str, Any], like, device, slicer=None) -> Any:
     """The inverse of ``_opt_state_to_tree``, shaped like the live state
-    ``like`` and placed on ``device``."""
+    ``like`` and placed on ``device``; ``slicer(path, whole)`` takes this
+    rank's slice of a leaf."""
     fields = {}
     for f, cur in like._asdict().items():
         saved = tree[f]
         if isinstance(cur, dict):
             flat = flatten_tree(saved)
+            if slicer is not None:
+                flat = {k: slicer(k, flat[k]).contiguous() for k in cur}
             fields[f] = {k: flat[k].to(device=device, dtype=t.dtype) for k, t in cur.items()}
         else:
             fields[f] = type(cur)(saved.item() if isinstance(saved, torch.Tensor) else saved)

@@ -1,1 +1,1 @@
-"""ZeRO configuration: the JSON schema of ``deepspeed_tpu/runtime/zero``."""
+"""ZeRO: the configuration schema, the partitioning rule and the tiled linear."""

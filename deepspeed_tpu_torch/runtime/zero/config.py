@@ -1,8 +1,8 @@
 """ZeRO config: a copy of ``deepspeed_tpu/runtime/zero/config.py`` (the
 JSON schema), so the same ``zero_optimization`` section parses to the same
-values. The port's training engine runs stage 1 at one rank, where there is
-nothing to shard; stages 2 and 3 and offload parse and are then refused
-(``runtime/config.py:unported_switches``, ROADMAP T2).
+values. The port's training engine runs stages 0-3 at any number of ranks;
+offload parses and is then refused (``runtime/config.py:unported_switches``,
+ROADMAP T2).
 """
 
 from enum import Enum

@@ -21,6 +21,10 @@ its own copy, and its traces are the JAX package's for the same seed):
 Time is real (the wall clock; arrivals in real time, idle gaps slept) or
 virtual (``VirtualClock``: each server step costs a fixed ``dt`` and idle
 gaps jump at once), which is deterministic and what the tests pin down.
+Under tensor parallelism the wall clock is rank 0's (a ``SharedClock``
+installed on the server, synced once a step by the server and once an idle
+turn by the replay), so every rank fires the same arrivals and events at
+the same step; each step also checks the ranks' step fingerprints.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from deepspeed_tpu_torch.inference.tp import refuse_tp
+from deepspeed_tpu_torch.inference.tp import SharedClock, serving_tp
 
 
 @dataclass
@@ -173,12 +177,23 @@ def replay(
     reproducible measurement. Events landing after the replay finishes
     never fire; the report counts the fired ones."""
     wall = clock is None
+    shared = None
     if wall:
-        refuse_tp(server, "replay on the wall clock")
-        t0 = time.perf_counter()
+        tp = serving_tp(server)
+        if tp is None:
+            t0 = time.perf_counter()
 
-        def now_fn() -> float:
-            return time.perf_counter() - t0
+            def now_fn() -> float:
+                return time.perf_counter() - t0
+
+        else:
+            shared = SharedClock(tp)
+            inner = getattr(server, "server", server)
+            inner.clock = shared
+            t0 = shared.sync()
+
+            def now_fn() -> float:
+                return shared() - t0
 
     else:
         now_fn = clock
@@ -232,6 +247,8 @@ def replay(
             gap = trace[i].at - now
             if wall:
                 time.sleep(min(max(gap, 0.0), 0.005))
+                if shared is not None:
+                    shared.sync()
             else:
                 clock.tick(gap)
     duration = max(now_fn(), 1e-9)

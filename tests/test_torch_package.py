@@ -79,7 +79,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "runtime/checkpoint_engine/async_snapshot.py",
                    "runtime/checkpoint_engine/nebula_checkpoint_engine.py", "checkpoint/constants.py",
                    "checkpoint/utils.py", "checkpoint/reference_export.py", "checkpoint/reference_ingest.py",
-                   "checkpoint/reshape_utils.py", "checkpoint/deepspeed_checkpoint.py", "utils/zero_to_fp32.py"):
+                   "checkpoint/reshape_utils.py", "checkpoint/deepspeed_checkpoint.py", "utils/zero_to_fp32.py",
+                   "parallel/mesh.py", "runtime/zero/partition.py", "runtime/zero/overlap.py",
+                   "runtime/zero/tiling.py", "zero/__init__.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:

@@ -19,8 +19,8 @@ single-rank server (``torch_tp_scenarios.py``; JAX's tiny TP config, fp32):
   ``2 * scale * 2 / 127`` of the exact sum (``test_tp_serving.py:356``),
   the plain sum when the last dim does not split, and a
   quantized-all-reduce serve that finishes;
-* the refusals ("ragged", "divide", the config's "ragged", int8 bits,
-  tenancy and the fleet under tp) and FOLLOW-mode routing
+* the refusals ("ragged", "divide", the config's "ragged", int8 bits),
+  tenancy and the fleet building over a tp server, and FOLLOW-mode routing
   (``test_tp_serving.py:225-280``), and the engine's
   ``paged_kv.sharded.tp_degree`` knob.
 
@@ -121,9 +121,9 @@ def _refusals(world):
             lambda: DeepSpeedInferenceConfig(paged_kv={"ragged": False, "sharded": {"tp_degree": 2}}))
     refused("weight_quant_bits", Exception, "weight_quant_bits",
             lambda: DeepSpeedInferenceConfig(paged_kv={"sharded": {"weight_quant_bits": 4}}))
-    refused("tenancy", NotImplementedError, "ROADMAP S10", lambda: MultiTenantServer(server(), tenants=[]))
-    refused("fleet", NotImplementedError, "ROADMAP S10",
-            lambda: FleetRouter([ReplicaHandle(name="r0", server=server())]))
+    # tenancy and the fleet build over a tp server (the serving itself: test_torch_tp_tenancy.py)
+    seen["tenancy"] = MultiTenantServer(server(), tenants=[]).server.tp.degree == world
+    seen["fleet"] = FleetRouter([ReplicaHandle(name="r0", server=server())]).replicas["r0"].inner.tp.degree == world
     # FOLLOW mode (sharded.tp_degree=0 defers to tensor_parallel.tp_size) with the bucketed oracle stays
     # valid: tp_size drives the dense path, and the bucketed server stays single-rank
     engine = dst.init_inference(TransformerLM(cfg), dtype="fp32", device="cpu", tensor_parallel={"tp_size": world},
@@ -256,8 +256,8 @@ def test_quantized_allreduce_serve_finishes(runs, degree):
 
 @pytest.mark.parametrize("degree", DEGREES)
 def test_tp_refusals_and_follow_mode(runs, degree):
-    """The "ragged" and "divide" refusals, the config's, tenancy and the
-    fleet under tp (ROADMAP S10); FOLLOW mode with the bucketed oracle
+    """The "ragged" and "divide" refusals and the config's; tenancy and the
+    fleet build over a tp server; FOLLOW mode with the bucketed oracle
     builds a single-rank server."""
     for res in runs["port"][degree]:
         seen = res["refusals"]

@@ -272,8 +272,8 @@ def test_bench_config_resolves_as_jax():
 
 
 UNPORTED = {
-    "zero2": {"zero_optimization": {"stage": 2}},
-    "zero3": {"zero_optimization": {"stage": 3}},
+    "offload_param": {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    "zero_quantized_weights": {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     "offload": {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
     "fuse_grad_accum": {"compile": {"fuse_grad_accum": True}},
     "multi_step": {"compile": {"multi_step": {"enable": True, "horizon": 4}}},
