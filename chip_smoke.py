@@ -10,8 +10,8 @@ a two-replica fleet and tensor-parallel serving, forward and generate on
 two ranks, tenancy, the fleet and wall-clock replay over tp servers), the
 training (with checkpoints: save, async save, bit-exact resume, serving
 booted from one; ZeRO stages 0-3 on two ranks and a checkpoint moved
-between dp = 2 and dp = 1) and the block-sparse attention main
-paths at full width. Phases,
+between dp = 2 and dp = 1; optimizer and parameter offload, and
+ZeRO-Inference) and the block-sparse attention main paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -286,6 +286,52 @@ non-zero without the final line:
    in the parent and take the same 2 steps: the loaded master bitwise the
    ranks' gathered one (CRC), the two resumed runs bitwise equal, within
    1e-5 of the ranks' continuation;
+15a. (run after phase 9i, with 15f, while phase 3's llama-1B weights are
+   held; 15b-15e run after 12e) the offload paths' host libraries (T2):
+   ``g++`` builds of the host
+   Adam, Adagrad and aio (one per source, all started together), the SIMD
+   width, the host Adam on GPT-2 125M's 124,439,808 elements against the
+   plain FusedAdam arithmetic on the CPU (one fp32 step: the largest
+   difference within 1e-3 of the step) and one timed pass; aio writing and
+   reading 1 GiB (GB/s beside the file system and the I/O mode, buffered;
+   the read is warm); the yardstick, a pinned <-> card ``copy_`` of 1 GiB
+   each way;
+15b. streamed offload (stage 1, ``pipeline_read`` and ``pipeline_write``,
+   pinned, buckets of 2e7 elements) against the on-device stage 1, 4 steps
+   each in fp32 (TF32 off) and bf16: losses, grad norms and master bit for
+   bit; the bf16 device peak lower by at least the host state's 12 B an
+   element less the two largest buckets, less 5%; each step's stream bytes,
+   card copy times (GB/s against the yardstick) and exposed wait; the
+   step's median wall beside the on-device one; a bf16 async save after
+   step 2, resumed by a fresh engine, steps 3-4 bit for bit;
+15c. the host-Adam path (stage 2, ``device=cpu`` then ``nvme`` on a file
+   system off tmpfs), fp32, 3 steps, against the on-device stage 2 by phase
+   12d's bounds (losses 1e-5, grad norms 1e-4, each leaf's share past 1e-5
+   of its scale 10%, its largest difference lr / 2, the zero-gradient leaf
+   2 x lr a step); ``nvme`` bit for bit ``cpu``; the fp32 peak lower by 90%
+   of the moments' bytes (fp32 parameters are the master) and a bf16 pair's
+   by 90% of the host state's 12 B an element; each step's host Adam, swap
+   read and write and wall;
+15d. parameter offload (stage 3, ``device=cpu``; ``nvme`` with
+   ``cpu_checkpointing``), fp32, 3 steps, against the on-device stage 3 by
+   phase 12d's bounds, ``nvme`` bit for bit ``cpu``; K1 = 24, K2 = K3 = 12
+   a step (the forward and the recompute); the peak below the on-device
+   run's with its reckoning (resident parameters, two layers, the stash,
+   the fp32 logits); the layer copies' rate; then 2 bf16 steps, every K1-K3
+   launch on the tensor cores;
+15e. inside phase 12d's two ranks: streamed offload at stage 1 bit for bit
+   the dp = 2 on-device stage 1 on every rank, and the host Adam at stage 2
+   by phase 12d's bounds against it, with each rank's peak;
+15f. ZeRO-Inference on llama-1B (``zero={"stage": 3, "offload_param":
+   {"device": "cpu"}}``): ``engine(tokens)`` ([2, 256]) logits bit for bit
+   the in-memory engine's in bf16 and fp32, K1 = 22; greedy ``generate`` of
+   8 tokens on 4 prompts of 120, fp32 streams equal to the in-memory
+   ``generate`` (or parting where the streamed engine's top-2 gap is below
+   1e-4), bf16's equal streams counted, K1 = 22 x 8; the peak below half
+   the in-memory weight bytes; ms a token beside the yardstick's time for
+   the layer bytes; an ``nvme`` arm at depth 4 with 2 staging buffers (so
+   every token reads every layer file) whose streams equal the ``cpu``
+   arm's at that depth;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -349,7 +395,9 @@ fp32 int8 bucketed server's launches, K6 with the ``quant.enabled``
 generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a
 ``tp`` field: each rank's launches on the tensor-parallel paths of phase
 9h and the local-shape checks, K4's also phase 9i's; K1-K3 with a
-``zero`` field: each rank's launches in phase 12d's runs); the last line is
+``zero`` field: each rank's launches in phase 12d's runs, and an
+``offload`` field: the launches of phases 15b-15e's runs, K1's also phase
+15f's); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -3036,6 +3084,8 @@ def _zero_rank_work(rank, seed, ref_path, ckpt_dir):
         out["fp32"][stage] = dict(rec=rec, step_s=walls, launches=counts, crc=_master_crc(master),
                                   gaps_to_one_rank=_leaf_gaps(master, ref) if stage == 0 else None,
                                   store=_store_bytes(engine))
+        if stage == 1:
+            stage1_master = master  # phase 15e's reference
         if stage == 3:  # phase 12e: save at dp = 2, stage 3, then continue
             t0 = time.perf_counter()
             engine.save_checkpoint(ckpt_dir, tag="zero3_dp2")
@@ -3043,6 +3093,20 @@ def _zero_rank_work(rank, seed, ref_path, ckpt_dir):
             out["ckpt"]["continue"], _, _ = _zero_steps(engine, batch, ZERO_CONTINUE, "fp32 stage 3 after the save")
         del engine, master
         torch.cuda.empty_cache()
+    out["offload"] = {}  # phase 15e: streamed offload at stage 1 and the host Adam at stage 2, fp32
+    for name, stage, off in (("streamed", 1, STREAMED_OFFLOAD), ("host_adam", 2, {"device": "cpu"})):
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        engine = dst.initialize(model=TransformerLM(cfg32), model_parameters=tree, config=dict(
+            _zero_config(stage, False), zero_optimization={"stage": stage, "offload_optimizer": off}))[0]
+        rec, walls, counts = _zero_steps(engine, batch, ZERO_STEPS, f"offload {name}")
+        master = flatten_tree(engine.get_master_params())
+        out["offload"][name] = dict(rec=rec, step_s=walls, launches=counts, crc=_master_crc(master),
+                                    peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                                    gaps_to_stage1=_leaf_gaps(master, stage1_master) if name == "host_adam" else None)
+        del engine, master
+    del stage1_master
+    _free()
     cfg16 = gpt2_config("125m", max_seq_len=1024, remat=False)
     n = None
     for stage in (1, 2, 3):
@@ -3119,6 +3183,7 @@ def phase_zero(seed, dev, ref_rec, masters):
                              ZERO_LIMIT_S, "zero")
         ranks_s = time.perf_counter() - t0
         rec = _zero_checks(ranks, ref_rec, yardstick, zero_grad, ranks_s)
+        emit(phase="offload_ranks", **rec["offload"])
         rec["ckpt"] = _zero_ckpt_resume(seed, dev, ranks, ckpt_dir, fs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3195,11 +3260,34 @@ def _zero_checks(ranks, ref_rec, yardstick, zero_grad, ranks_s):
             raise AssertionError(f"zero bf16 stage {stage}: a K1-K3 launch missed the tensor-core variant")
         if not all(np.isfinite(x) for run in runs for pair in run["rec"] for x in pair):
             raise AssertionError(f"zero bf16 stage {stage}: non-finite losses {runs[0]['rec']}")
+    rec["offload"] = _offload_rank_checks(ranks, zero_grad)
     ratio = [s3["params"] / s1["params"] for s1, s3 in zip(rec["bf16"][1]["store"], rec["bf16"][3]["store"])]
     rec["bf16_stage3_param_store_over_stage1"] = ratio
     if any(not 0.45 <= x <= 0.6 for x in ratio):
         raise AssertionError(f"zero: stage 3 holds {ratio} of stage 1's parameter bytes a rank, want about half")
     emit(phase="zero", **rec)
+    return rec
+
+
+def _offload_rank_checks(ranks, zero_grad):
+    """Phase 15e: at dp = 2 the streamed stage-1 arm is the on-device stage
+    1 bit for bit (records and master CRC, every rank); the host-Adam
+    stage-2 arm follows rule 12d against it; per-rank peaks."""
+    stage1 = [r["fp32"][1] for r in ranks]
+    streamed = [r["offload"]["streamed"] for r in ranks]
+    host = [r["offload"]["host_adam"] for r in ranks]
+    bitwise = all(s["rec"] == t["rec"] and s["crc"] == t["crc"] for s, t in zip(streamed, stage1))
+    exempt, _ = zero_grad
+    rules = [_rule_12d(f"offload ranks host adam, rank {i}", h["rec"], s["rec"], h["gaps_to_stage1"], exempt, ZERO_STEPS)
+             for i, (h, s) in enumerate(zip(host, stage1))]
+    rec = dict(note="two gloo ranks on one card, not a DP speed", streamed_bitwise_stage1=bitwise,
+               host_adam_rule_12d=rules, peak_memory_bytes={n: [r["offload"][n]["peak_memory_bytes"] for r in ranks]
+                                                             for n in ("streamed", "host_adam")},
+               step_s={n: [r["offload"][n]["step_s"] for r in ranks] for n in ("streamed", "host_adam")},
+               launches={n: [r["offload"][n]["launches"] for r in ranks] for n in ("streamed", "host_adam")})
+    if not bitwise:
+        raise AssertionError(f"offload ranks: streamed {[s['rec'] for s in streamed]} differs from stage 1 "
+                             f"{[s['rec'] for s in stage1]}")
     return rec
 
 
@@ -3231,6 +3319,492 @@ def _zero_ckpt_resume(seed, dev, ranks, ckpt_dir, fs):
     if not (out["master_bitwise"] and out["resumed_bitwise"]) or gap > ZERO_TOL \
             or out["global_steps"] != ZERO_STEPS + ZERO_CONTINUE:
         raise AssertionError(f"zero checkpoint: {out}")
+    return out
+
+
+# --- phases 15a-15f: offload (T2's second half) and ZeRO-Inference ------------------------------
+STREAM_BUCKET = int(2e7)
+STREAMED_OFFLOAD = {"device": "cpu", "pipeline_read": True, "pipeline_write": True, "pin_memory": True,
+                    "bucket_size": STREAM_BUCKET}
+OFFLOAD_STEPS = 4  # the streamed arms; the host-Adam and param arms take ZERO_STEPS
+YARD_BYTES = 2**30  # the pinned copy yardstick and the aio file: 1 GiB
+ZI_NEW, ZI_PROMPTS, ZI_PROMPT_LEN = 8, 4, 120  # ZeRO-Inference greedy: new tokens, prompts, prompt length
+ZI_NVME_LAYERS = 4  # the ZeRO-Inference nvme arm's depth; with 2 staging buffers every token reads every layer file
+
+
+def _free():
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _offload_config(zero, bf16):
+    base = dict(TRAIN_CONFIG) if bf16 else {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+    return dict(base, zero_optimization=zero)
+
+
+def _offload_run(cfg, tree, config, batch, n, label, after_step=None):
+    """Build an engine, reset the peak (it starts from the engine's state),
+    take ``n`` steps with the counts zeroed just before; each step's (loss,
+    grad norm) and wall to a synchronize, and ``after_step(i, engine)``'s
+    records. K1-K3 must launch equally, every other kernel never."""
+    engine = dst.initialize(model=TransformerLM(cfg), config=config, model_parameters=tree)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rec, ms, extra = [], [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        loss = engine(batch)
+        engine.backward(loss)
+        engine.step()
+        rec.append((loss.item(), engine.get_global_grad_norm()))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if after_step is not None:
+            extra.append(after_step(i, engine))
+    counts = _counts()
+    others = {k: v for k, v in counts.items() if k not in ("flash_fwd", "flash_dq", "flash_dkv")}
+    if any(others.values()):
+        raise AssertionError(f"{label}: kernels off the training path launched: {others}")
+    return dict(engine=engine, rec=rec, step_ms=ms, peak=torch.cuda.max_memory_allocated(), counts=counts,
+                variants=_variants(), extra=extra)
+
+
+def _same_master(a, b):
+    return set(a) == set(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _rule_12d(label, rec, ref_rec, gaps, exempt, steps):
+    """Phase 12d's rule against a reference run: losses <= 1e-5 and
+    grad norms <= 1e-4 relative; each leaf's share past 1e-5 of its scale
+    <= 10% and its largest difference <= lr/2; a leaf whose reference
+    gradient stays below 1e-6 of the largest (``exempt``) within Adam's
+    reach 2·lr·steps alone."""
+    lr = TRAIN_CONFIG["optimizer"]["params"]["lr"]
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(rec, ref_rec))
+    norm_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rec, ref_rec))
+    held = {k: g for k, g in gaps.items() if k not in exempt}
+    worst_leaves = sorted(held, key=lambda k: -held[k]["share_past_tol"])[:3]
+    out = dict(loss_rel=loss_rel, grad_norm_rel=norm_rel, leaf_share_past_tol=max(g["share_past_tol"] for g in held.values()),
+               worst_leaves={k: held[k] for k in worst_leaves},
+               master_max_abs=max(g["max_abs"] for g in held.values()), master_max_abs_bound=lr / 2,
+               zero_grad_leaves=sorted(exempt), zero_grad_max_abs=max((gaps[k]["max_abs"] for k in exempt), default=0.0),
+               adam_reach=2 * lr * steps)
+    if loss_rel > ZERO_TOL or norm_rel > ZERO_NORM_TOL or out["leaf_share_past_tol"] > ZERO_LEAF_SHARE \
+            or out["master_max_abs"] > lr / 2 or out["zero_grad_max_abs"] > 2 * lr * steps:
+        raise AssertionError(f"{label} against the on-device run, rule 12d: {out}")
+    return out
+
+
+def _timed_copy(dst_t, src_t, reps=3):
+    """The best of ``reps`` copies' card time (CUDA events), ms."""
+    best = None
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        dst_t.copy_(src_t, non_blocking=True)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def phase_host_ops(dev):
+    """Phase 15a: the three host libraries built (g++, the JAX build's
+    flags); the host Adam on GPT-2 125M's 124,439,808 elements against the
+    plain FusedAdam arithmetic on the CPU (one fp32 step) and one timed
+    pass; aio writing and reading 1 GiB with the file system and the I/O
+    mode beside it; the yardstick, a pinned <-> card ``copy_`` of 1 GiB."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepspeed_tpu_torch.ops import aio
+    from deepspeed_tpu_torch.ops.adam import cpu_adam_native
+    from deepspeed_tpu_torch.ops.adam.fused_adam import AdamState
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one g++ a source, all started together
+        list(pool.map(native.load_host, list(native.HOST_SOURCES)))
+    build_s = time.perf_counter() - t0
+    n = 124_439_808
+    rs = np.random.default_rng(0)
+    p = rs.standard_normal(n, dtype=np.float32) * 0.02
+    g = rs.standard_normal(n, dtype=np.float32) * 1e-3
+    m, v = g * 0.1, g * g * 0.01
+    lr, wd = TRAIN_CONFIG["optimizer"]["params"]["lr"], TRAIN_CONFIG["optimizer"]["params"]["weight_decay"]
+    t0 = time.perf_counter()
+    new_p, _ = FusedAdam(lr=lr, weight_decay=wd).apply(
+        {"p": torch.from_numpy(g)}, AdamState(step=0, exp_avg={"p": torch.from_numpy(m.copy())},
+                                              exp_avg_sq={"p": torch.from_numpy(v.copy())}),
+        {"p": torch.from_numpy(p.copy())}, lr)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    host = cpu_adam_native.NativeCPUAdam(lr=lr, weight_decay=wd)
+    hp, hm, hv = p.copy(), m.copy(), v.copy()
+    host.step(hp, g, hm, hv, step=1)
+    ref = new_p["p"].numpy()
+    diff = np.abs(hp - ref)
+    step_size = float(np.abs(ref - p).max())
+    rel_diff = float((diff / np.maximum(np.abs(ref), 1e-8)).max())
+    t0 = time.perf_counter()
+    host.step(hp, g, hm, hv, step=2)
+    adam_ms = (time.perf_counter() - t0) * 1e3
+    adam_max_abs = float(diff.max())
+    del new_p, ref, hp, hm, hv, p, g, m, v, diff
+
+    root, fs = _ckpt_root(3 * YARD_BYTES)
+    try:
+        buf = torch.empty(YARD_BYTES, dtype=torch.uint8, pin_memory=True)
+        buf.numpy()[:] = np.frombuffer(np.random.default_rng(1).bytes(YARD_BYTES), np.uint8)
+        back = torch.empty_like(buf).pin_memory()
+        h = aio.AsyncIOHandle()
+        path = os.path.join(root, "aio_1gib.bin")
+        t0 = time.perf_counter()
+        h.sync_pwrite(buf.numpy(), path)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h.sync_pread(back.numpy(), path)
+        read_s = time.perf_counter() - t0
+        aio_equal = torch.equal(buf, back)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    card = torch.empty(YARD_BYTES, dtype=torch.uint8, device=dev)
+    h2d_ms = _timed_copy(card, buf)
+    d2h_ms = _timed_copy(back, card)
+    del card, buf, back
+    _free()
+    yard = dict(h2d_gb_s=YARD_BYTES / h2d_ms / 1e6, d2h_gb_s=YARD_BYTES / d2h_ms / 1e6, bytes=YARD_BYTES)
+    rec = dict(phase="host_ops", build_s=build_s, builds={k: native.build_log.get(k) for k in native.HOST_SOURCES},
+               simd_width=cpu_adam_native.simd_width(), cpu_count=os.cpu_count(), adam_elements=n,
+               adam_max_abs_diff=adam_max_abs, adam_max_rel_diff=rel_diff,
+               adam_max_diff_over_step=adam_max_abs / step_size, adam_step_max_abs=step_size,
+               host_adam_ms=adam_ms, plain_fused_adam_cpu_ms=plain_ms,
+               aio=dict(bytes=YARD_BYTES, write_gb_s=YARD_BYTES / write_s / 1e9, read_gb_s=YARD_BYTES / read_s / 1e9,
+                        fs=fs, mode=aio.IO_MODE, read_after_write="warm: the file was just written",
+                        equal=aio_equal),
+               yardstick=yard)
+    emit(**rec)
+    if not aio_equal or rec["adam_max_diff_over_step"] > 1e-3:
+        raise AssertionError(f"host_ops: aio equal {aio_equal}; host Adam differs from the plain arithmetic by "
+                             f"{rec['adam_max_diff_over_step']} of the step (bound 1e-3)")
+    return yard
+
+
+def _stream_delta(prev, cur):
+    return {k: cur[k] - prev.get(k, 0) for k in ("h2d_ms", "d2h_ms", "exposed_ms", "h2d_bytes", "d2h_bytes")}
+
+
+def phase_offload_streamed(dev, yard, tree):
+    """Phase 15b: the streamed ZeRO-Infinity path (stage 1, ``pipeline_read``
+    and ``pipeline_write``, pinned host tensors, buckets of 2e7 elements)
+    against the on-device stage 1 on the same batches: fp32 (TF32 off) and
+    bf16, 4 steps each, losses, grad norms and master bit for bit; the bf16
+    device peak lower by at least the host state's 12 B an element less the
+    two largest buckets, less 5%; each step's stream accounting and wall
+    beside the on-device step's; a bf16 async save after step 2 resumed by a
+    fresh engine, steps 3-4 bit for bit."""
+    out = {}
+    root, fs = _ckpt_root(4 * 124_439_808 * 16)
+    try:
+        for dt in ("float32", "bfloat16"):
+            bf16 = dt == "bfloat16"
+            cfg = gpt2_config("125m", max_seq_len=1024, remat=False, dtype=dt)
+            batch = _train_batch(cfg, dev)
+            ref = _offload_run(cfg, tree, _offload_config({"stage": 1}, bf16), batch, OFFLOAD_STEPS, f"streamed {dt} ref")
+            ref_master = flatten_tree(ref.pop("engine").get_master_params())
+            _free()
+            stats = [{}]
+
+            def after(i, engine, bf16=bf16):
+                cur = engine.offload_stream_stats()
+                d = _stream_delta(stats[-1], cur)
+                stats.append(cur)
+                if bf16 and i == 1:
+                    engine.save_checkpoint(root, tag="streamed2", asynchronous=True)
+                return d
+
+            zero = {"stage": 1, "offload_optimizer": STREAMED_OFFLOAD}
+            off = _offload_run(cfg, tree, _offload_config(zero, bf16), batch, OFFLOAD_STEPS, f"streamed {dt}", after)
+            engine = off.pop("engine")
+            engine.wait_pending_checkpoint()
+            mem = engine._host_offload.memory_report()
+            n = engine.num_parameters()
+            master = flatten_tree(engine.get_master_params())
+            del engine
+            _free()
+            rec = dict(rec=off["rec"], ref_rec=ref["rec"], bitwise=off["rec"] == ref["rec"] and _same_master(master, ref_master),
+                       step_ms=off["step_ms"], ref_step_ms=ref["step_ms"],
+                       step_ms_median=float(np.median(off["step_ms"][1:])),
+                       ref_step_ms_median=float(np.median(ref["step_ms"][1:])),
+                       peak_bytes=off["peak"], ref_peak_bytes=ref["peak"], host_bytes=mem["host_bytes"],
+                       bucket_bound_bytes=mem["device_residency_bound_bytes"], buckets=mem["buckets"],
+                       pinned=mem["pinned"], stream_per_step=off["extra"], launches=off["counts"],
+                       tensor_core=off["variants"]["flash_fwd_tc"],
+                       h2d_gb_s=[d["h2d_bytes"] / d["h2d_ms"] / 1e6 if d["h2d_ms"] else None for d in off["extra"]],
+                       d2h_gb_s=[d["d2h_bytes"] / d["d2h_ms"] / 1e6 if d["d2h_ms"] else None for d in off["extra"]],
+                       yardstick=yard)
+            want_saving = (12 * n - mem["device_residency_bound_bytes"]) * 0.95
+            rec["peak_saving_bytes"] = ref["peak"] - off["peak"]
+            rec["peak_saving_bound_bytes"] = want_saving if bf16 else None
+            L = cfg.num_layers
+            if not rec["bitwise"] or any(off["counts"][k] != L * OFFLOAD_STEPS for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+                raise AssertionError(f"streamed {dt}: bitwise {rec['bitwise']}, launches {off['counts']}")
+            if bf16:
+                if rec["peak_saving_bytes"] < want_saving:
+                    raise AssertionError(f"streamed bf16: the peak {off['peak']} is {rec['peak_saving_bytes']} below the "
+                                         f"on-device {ref['peak']}, want at least {want_saving}")
+                resumed = dst.initialize(model=TransformerLM(cfg), config=_offload_config(zero, True),
+                                         model_parameters=tree)[0]
+                resumed.load_checkpoint(root, tag="streamed2")
+                res = []
+                for _ in range(OFFLOAD_STEPS - 2):
+                    loss = resumed(batch)
+                    resumed.backward(loss)
+                    resumed.step()
+                    res.append((loss.item(), resumed.get_global_grad_norm()))
+                rec["resumed_bitwise"] = res == off["rec"][2:] and _same_master(flatten_tree(resumed.get_master_params()), master)
+                rec["ckpt_fs"] = fs
+                del resumed
+                _free()
+                if not rec["resumed_bitwise"]:
+                    raise AssertionError(f"streamed bf16: resumed steps {res} differ from {off['rec'][2:]}")
+            out[dt] = rec
+            emit(phase="offload_streamed", dtype=dt, **rec)
+            del master, ref_master
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_offload_host_adam(dev, zero_grad, tree):
+    """Phase 15c: the legacy ZeRO-Offload path (stage 2, the host Adam;
+    ``device=cpu`` then ``device=nvme``, pipeline off), fp32, 3 steps,
+    against the on-device stage 2 by rule 12d; ``nvme`` bit for bit ``cpu``;
+    each step's host Adam, swap read and write and step wall. The device
+    peak: in fp32 lower by at least 90% of the moments' 8 B an element (the
+    fp32 parameters are the master, so it stays on the card); in bf16 (2
+    steps each, on-device and ``cpu``) by at least 90% of the host state's
+    12 B an element."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float32")
+    batch = _train_batch(cfg, dev)
+    ref = _offload_run(cfg, tree, _offload_config({"stage": 2}, False), batch, ZERO_STEPS, "host adam ref")
+    ref_master = flatten_tree(ref.pop("engine").get_master_params())
+    _free()
+    out = {}
+    root, fs = _ckpt_root(4 * 124_439_808 * 8)
+    try:
+        for device in ("cpu", "nvme"):
+            off = {"device": device} if device == "cpu" else {"device": "nvme", "nvme_path": root}
+            run = _offload_run(cfg, tree, _offload_config({"stage": 2, "offload_optimizer": off}, False), batch,
+                               ZERO_STEPS, f"host adam {device}", lambda i, e: e._host_offload.timing())
+            engine = run.pop("engine")
+            n = engine.num_parameters()
+            out[device] = dict(run, master=flatten_tree(engine.get_master_params()))
+            del engine
+            _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cpu, nvme = out["cpu"], out["nvme"]
+    exempt, _ = zero_grad
+    rule = _rule_12d("host adam cpu", cpu["rec"], ref["rec"], _leaf_gaps(cpu["master"], ref_master), exempt, ZERO_STEPS)
+    nvme_bitwise = nvme["rec"] == cpu["rec"] and _same_master(nvme["master"], cpu["master"])
+    cfg16 = gpt2_config("125m", max_seq_len=1024, remat=False)
+    batch16 = _train_batch(cfg16, dev)
+    peaks16 = {}
+    for name, zero in (("on_device", {"stage": 2}), ("cpu", {"stage": 2, "offload_optimizer": {"device": "cpu"}})):
+        run = _offload_run(cfg16, tree, _offload_config(zero, True), batch16, 2, f"host adam bf16 {name}")
+        del run["engine"]
+        _free()
+        peaks16[name] = run["peak"]
+    saving32, saving16 = min(ref["peak"] - cpu["peak"], ref["peak"] - nvme["peak"]), peaks16["on_device"] - peaks16["cpu"]
+    rec = dict(rec=cpu["rec"], ref_rec=ref["rec"], rule_12d=rule, nvme_bitwise_cpu=nvme_bitwise,
+               peak_bytes={"cpu": cpu["peak"], "nvme": nvme["peak"]}, ref_peak_bytes=ref["peak"],
+               peak_saving_bytes=saving32, peak_saving_bound_bytes=0.9 * 8 * n,
+               bf16_peak_bytes=peaks16, bf16_peak_saving_bytes=saving16, bf16_peak_saving_bound_bytes=0.9 * 12 * n,
+               step_ms={"cpu": cpu["step_ms"], "nvme": nvme["step_ms"]},
+               ref_step_ms=ref["step_ms"], host_timing={"cpu": cpu["extra"], "nvme": nvme["extra"]},
+               launches={"cpu": cpu["counts"], "nvme": nvme["counts"]}, nvme_fs=fs, cpu_count=os.cpu_count())
+    emit(phase="offload_host_adam", **rec)
+    L = cfg.num_layers
+    bad_counts = [d for d in out.values() if any(d["counts"][k] != L * ZERO_STEPS for k in ("flash_fwd", "flash_dq", "flash_dkv"))]
+    if not nvme_bitwise or bad_counts or saving32 < 0.9 * 8 * n or saving16 < 0.9 * 12 * n:
+        raise AssertionError(f"host adam: nvme bitwise cpu {nvme_bitwise}, launches {[d['counts'] for d in bad_counts]}, "
+                             f"fp32 peaks {cpu['peak']} / {nvme['peak']} against {ref['peak']} (want {0.9 * 8 * n} "
+                             f"lower), bf16 {peaks16} (want {0.9 * 12 * n} lower)")
+    return rec
+
+
+def phase_offload_param(dev, zero_grad, tree):
+    """Phase 15d: layer-streamed training (``offload_param``, stage 3), fp32
+    (TF32 off), 3 steps: ``cpu`` against the on-device stage 3 by rule 12d,
+    ``nvme`` with ``cpu_checkpointing`` bit for bit ``cpu``; K1 = 24, K2 = 12,
+    K3 = 12 a step; the device peak below the on-device run's with its
+    reckoning; the layers' copy rate against the yardstick; then 2 bf16
+    steps, every K1-K3 launch on the tensor cores."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float32")
+    batch = _train_batch(cfg, dev)
+    L = cfg.num_layers
+    ref = _offload_run(cfg, tree, _offload_config({"stage": 3}, False), batch, ZERO_STEPS, "param ref")
+    ref_master = flatten_tree(ref.pop("engine").get_master_params())
+    _free()
+    out = {}
+    root, fs = _ckpt_root(4 * 124_439_808 * 4)
+    try:
+        for device in ("cpu", "nvme"):
+            zero = {"stage": 3, "offload_param": {"device": "cpu"} if device == "cpu" else
+                    {"device": "nvme", "nvme_path": root}}
+            config = _offload_config(zero, False)
+            if device == "nvme":
+                config["activation_checkpointing"] = {"cpu_checkpointing": True}
+            run = _offload_run(cfg, tree, config, batch, ZERO_STEPS, f"param {device}")
+            engine = run.pop("engine")
+            store = engine._param_stream.store
+            run.update(master=flatten_tree(engine.get_master_params()), layer_bytes=store.layer_nbytes,
+                       h2d_bytes=store.h2d_bytes, h2d_ms=store.h2d_ms(), read_bytes=store.read_bytes,
+                       resident_bytes=sum(t.numel() * t.element_size() for t in engine._param_stream.resident.values()))
+            out[device] = run
+            del engine, store
+            _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    cpu, nvme = out["cpu"], out["nvme"]
+    exempt, _ = zero_grad
+    rule = _rule_12d("param cpu", cpu["rec"], ref["rec"], _leaf_gaps(cpu["master"], ref_master), exempt, ZERO_STEPS)
+    nvme_bitwise = nvme["rec"] == cpu["rec"] and _same_master(nvme["master"], cpu["master"])
+    B, T, H, V = 8, cfg.max_seq_len, cfg.hidden_size, cfg.vocab_size
+    reckoning = dict(resident=cpu["resident_bytes"], two_layers=2 * cpu["layer_bytes"], stash=L * B * T * H * 4,
+                     logits=B * T * V * 4)
+    want = {k: L * ZERO_STEPS * (2 if k == "flash_fwd" else 1) for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    cfg16 = gpt2_config("125m", max_seq_len=1024, remat=False)
+    b16 = _offload_run(cfg16, tree, _offload_config({"stage": 3, "offload_param": {"device": "cpu"}}, True),
+                       _train_batch(cfg16, dev), 2, "param bf16")
+    del b16["engine"]
+    _free()
+    rec = dict(rec=cpu["rec"], ref_rec=ref["rec"], rule_12d=rule, nvme_cpu_checkpointing_bitwise_cpu=nvme_bitwise,
+               peak_bytes={"cpu": cpu["peak"], "nvme": nvme["peak"]}, ref_peak_bytes=ref["peak"], reckoning=reckoning,
+               step_ms={"cpu": cpu["step_ms"], "nvme": nvme["step_ms"]}, ref_step_ms=ref["step_ms"],
+               layer_h2d_gb_s={d: r["h2d_bytes"] / r["h2d_ms"] / 1e6 for d, r in out.items()},
+               nvme_read_bytes=nvme["read_bytes"], nvme_fs=fs, launches={"cpu": cpu["counts"], "nvme": nvme["counts"]},
+               launches_per_step={k: cpu["counts"][k] // ZERO_STEPS for k in want},
+               bf16=dict(rec=b16["rec"], launches=b16["counts"], tensor_core=b16["variants"], peak_bytes=b16["peak"]))
+    emit(phase="offload_param", **rec)
+    want16 = {k: L * 2 * (2 if k == "flash_fwd" else 1) for k in want}
+    tc_ok = all(b16["variants"][f"{k}_tc"] == b16["counts"][k] == want16[k] for k in want16)
+    if not nvme_bitwise or any(d["counts"][k] != want[k] for d in out.values() for k in want) or not tc_ok \
+            or cpu["peak"] >= ref["peak"]:
+        raise AssertionError(f"param offload: nvme bitwise {nvme_bitwise}, launches {[d['counts'] for d in out.values()]} "
+                             f"(want {want}), bf16 {b16['counts']} / {b16['variants']}, peak {cpu['peak']} vs {ref['peak']}")
+    return rec
+
+
+def _first_parting(a, b):
+    for i, (x, y) in enumerate(zip(a.tolist(), b.tolist())):
+        if x != y:
+            return i
+    return None
+
+
+def phase_zero_inference(dev, yard, tree):
+    """Phase 15f: ZeRO-Inference on llama-1B (22 layers, ~1.9 GB of bf16
+    layer weights; ``zero={"stage": 3, "offload_param": {"device":
+    "cpu"}}``) against the in-memory engine: ``engine(batch)`` logits bit for
+    bit in bf16 and fp32 ([2, 256] tokens, K1 = 22); greedy ``generate`` of
+    8 tokens on 4 prompts token for token in fp32 (TF32 off; bf16's equal
+    streams counted); K1 = 22 x tokens generated; the device peak below half
+    the in-memory weight bytes; ms a token against the yardstick's time for
+    the layer bytes. Then an ``nvme`` arm at depth 4 with 2 staging
+    buffers, so that every token reads every layer file: its streams equal
+    the ``cpu`` arm's at that depth."""
+    from deepspeed_tpu_torch.ops import aio
+
+    rs = np.random.default_rng(5)
+    tokens = torch.from_numpy(rs.integers(0, 32000, (2, 256), dtype=np.int64)).to(dev)
+    prompts = torch.from_numpy(rs.integers(0, 32000, (ZI_PROMPTS, ZI_PROMPT_LEN), dtype=np.int64)).to(dev)
+    zero = {"stage": 3, "offload_param": {"device": "cpu"}}
+    out = {}
+    for dt, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+        cfg = llama_config("1b", dtype=dtype)
+        hbm = dst.init_inference(TransformerLM(cfg), dtype=dt)
+        hbm.set_params(tree)
+        weight_bytes = sum(p.numel() * p.element_size() for p in hbm.module.parameters())
+        logits_hbm = hbm(tokens).float().cpu()
+        gen_hbm = hbm.generate(prompts, max_new_tokens=ZI_NEW).cpu()
+        del hbm
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        z = dst.init_inference(TransformerLM(cfg), dtype=dt, zero=zero)
+        z.set_params(tree)
+        _zero_counts()
+        logits = z(tokens).float().cpu()
+        fwd_counts = _counts()
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = z.generate(prompts, max_new_tokens=ZI_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_counts = _counts()
+        gen = gen.cpu()
+        store = z._param_stream.store
+        layer_bytes = store.layer_nbytes * cfg.num_layers
+        equal = [bool(torch.equal(a, b)) for a, b in zip(gen, gen_hbm)]
+        partings = []
+        for r, same in enumerate(equal):
+            if not same:  # the zero engine's top-2 gap where the streams part
+                i = _first_parting(gen[r], gen_hbm[r])
+                ctx = gen[r:r + 1, :i].to(dev)
+                top2 = torch.topk(z(ctx)[0, -1].float(), 2).values
+                partings.append(dict(row=r, at=i, top2_gap=float(top2[0] - top2[1])))
+        rec = dict(logits_bitwise=bool(torch.equal(logits, logits_hbm)),
+                   logits_max_abs=float((logits - logits_hbm).abs().max()), streams_equal=sum(equal),
+                   streams=ZI_PROMPTS, partings=partings, forward_launches=fwd_counts, generate_launches=gen_counts,
+                   ms_per_token=gen_s * 1e3 / ZI_NEW, layer_bytes=layer_bytes,
+                   yardstick_ms_for_layer_bytes=layer_bytes / (yard["h2d_gb_s"] * 1e9) * 1e3,
+                   layer_h2d_gb_s=store.h2d_bytes / store.h2d_ms() / 1e6, peak_bytes=torch.cuda.max_memory_allocated(),
+                   in_memory_weight_bytes=weight_bytes)
+        del z, store
+        _free()
+        out[dt] = rec
+        emit(phase="zero_inference", dtype=dt, **rec)
+        L = cfg.num_layers
+        others = {k: v for k, v in list(fwd_counts.items()) + list(gen_counts.items()) if k != "flash_fwd" and v}
+        faults = []
+        if not rec["logits_bitwise"]:
+            faults.append(f"logits differ from the in-memory forward by {rec['logits_max_abs']}")
+        if fwd_counts["flash_fwd"] != L or gen_counts["flash_fwd"] != L * ZI_NEW or others:
+            faults.append(f"launches {fwd_counts} / {gen_counts}, want K1 = {L} and {L * ZI_NEW}")
+        if rec["peak_bytes"] >= weight_bytes / 2:
+            faults.append(f"peak {rec['peak_bytes']} not below half the weight bytes {weight_bytes}")
+        if dt == "fp32" and any(p["top2_gap"] >= 1e-4 for p in partings):
+            faults.append(f"fp32 streams part away from a near-tie: {partings}")
+        if faults:
+            raise AssertionError(f"zero inference {dt}: " + "; ".join(faults))
+    small = llama_config("1b", num_layers=ZI_NVME_LAYERS)
+    small_tree = {k: (v[:ZI_NVME_LAYERS] if k.startswith("layers/") else v) for k, v in tree.items()}
+    root, fs = _ckpt_root(4 * 2**30)
+    try:
+        arms = {}
+        for device in ("cpu", "nvme"):
+            off = {"device": "cpu"} if device == "cpu" else {"device": "nvme", "nvme_path": root, "buffer_count": 2}
+            z = dst.init_inference(TransformerLM(small), dtype="bf16", zero={"stage": 3, "offload_param": off})
+            z.set_params(small_tree)
+            store = z._param_stream.store
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = z.generate(prompts, max_new_tokens=ZI_NEW).cpu()
+            arms[device] = (gen, time.perf_counter() - t0, store.read_bytes, store.layer_nbytes)
+            del store, z
+            _free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["nvme"] = dict(layers=ZI_NVME_LAYERS, staging_buffers=2,
+                       streams_equal_cpu=bool(torch.equal(arms["nvme"][0], arms["cpu"][0])),
+                       ms_per_token={d: a[1] * 1e3 / ZI_NEW for d, a in arms.items()}, read_bytes=arms["nvme"][2],
+                       reads_every_token=arms["nvme"][2] >= ZI_NEW * ZI_NVME_LAYERS * arms["nvme"][3],
+                       fs=fs, mode=aio.IO_MODE)
+    emit(phase="zero_inference_nvme", **out["nvme"])
+    if not (out["nvme"]["streams_equal_cpu"] and out["nvme"]["reads_every_token"]):
+        raise AssertionError(f"zero inference nvme: {out['nvme']}")
     return out
 
 
@@ -3842,6 +4416,8 @@ def main() -> int:
     traffic = phase_traffic(cfg, tree, args.seed, serve_streams, dev)
     fleet = phase_fleet(cfg, tree, args.seed, dev)
     tp = phase_tp(cfg, tree, args.seed, serve_streams, dev)
+    yard = phase_host_ops(dev)  # before any offload phase: the host libraries' builds are this process's own
+    zero_inf = phase_zero_inference(dev, yard, tree)
     del tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -3852,7 +4428,13 @@ def main() -> int:
     ckpt = phase_train_checkpoint(args.seed, dev)
     zero1 = phase_zero3_one_rank(args.seed, dev)
     zero = phase_zero(args.seed, dev, fp32_rec, fp32_masters)
+    zero_grad = _zero_grad_leaves(fp32_masters["grad_max"])
     del fp32_masters
+    gpt2_tree = _weights(gpt2_config("125m", max_seq_len=1024, remat=False), args.seed)  # fp32 and bf16 alike
+    streamed = phase_offload_streamed(dev, yard, gpt2_tree)
+    host_adam = phase_offload_host_adam(dev, zero_grad, gpt2_tree)
+    param = phase_offload_param(dev, zero_grad, gpt2_tree)
+    del gpt2_tree
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
@@ -3898,6 +4480,15 @@ def main() -> int:
                   bf16={st: r["launches_per_rank"][name] for st, r in zero["bf16"].items()},
                   steps_per_run=ZERO_STEPS, one_rank_stage3_bit_identical=zero1["bit_identical"],
                   note="two gloo ranks on one card"),
+        offload=dict(
+            streamed={dt: r["launches"][name] for dt, r in streamed.items()}, streamed_steps=OFFLOAD_STEPS,
+            host_adam={d: c[name] for d, c in host_adam["launches"].items()},
+            param={d: c[name] for d, c in param["launches"].items()}, param_bf16=param["bf16"]["launches"][name],
+            param_bf16_tensor_core=param["bf16"]["tensor_core"][f"{name}_tc"], steps=ZERO_STEPS,
+            ranks={n: [c[name] for c in per_rank] for n, per_rank in zero["offload"]["launches"].items()},
+            **({"zero_inference": {dt: dict(forward=r["forward_launches"][name], generate=r["generate_launches"][name],
+                                            new_tokens=ZI_NEW) for dt, r in zero_inf.items() if dt != "nvme"}}
+               if name == "flash_fwd" else {})),
     ) for name, line in (("flash_fwd", 63), ("flash_dq", 165), ("flash_dkv", 196))] + [dict(
         name="decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
         replaces="deepspeed_tpu/ops/transformer/decode_attention.py:42", launches=k6_launches,

@@ -85,9 +85,18 @@ def convert_to_universal(ckpt_dir: str, out_dir: str, tag: Optional[str] = None)
     for name, w in fp32.items():
         records[f"{name}::fp32"] = w
     opt = ckpt.get_zero_checkpoint_state()
-    if isinstance(opt, dict) and ("host_offload" in opt or "param_stream" in opt):
-        raise NotImplementedError("offload checkpoint layouts are not ported yet (ROADMAP T2)")
-    if isinstance(opt, dict):
+    if isinstance(opt, dict) and "host_offload" in opt:
+        from deepspeed_tpu_torch.runtime.zero.offload_states import assemble_records
+
+        for name, per in zip(list(fp32.keys()), opt["host_offload"]["leaves"]):
+            for key in ("exp_avg", "exp_avg_sq"):
+                if isinstance(per, dict):  # a streamed record: the whole leaf
+                    x = per[key]
+                    x = x.detach().cpu().float().numpy() if hasattr(x, "detach") else np.asarray(x, np.float32)
+                    records[f"{name}::{key}"] = x.reshape(fp32[name].shape)
+                else:
+                    records[f"{name}::{key}"] = assemble_records(per, key, fp32[name].shape)
+    elif isinstance(opt, dict):
         for key in ("exp_avg", "exp_avg_sq"):
             if key in opt and opt[key] is not None:
                 for name, v in _flat(opt[key]).items():

@@ -266,8 +266,6 @@ def unported_switches(cfg: DeepSpeedInferenceConfig) -> List[str]:
     """Messages for every switch set in ``cfg`` whose path this package
     does not have yet, each naming its ROADMAP item."""
     found = []
-    if cfg.zero:
-        found.append("zero (ZeRO-Inference offload): ROADMAP T2")
     if str(cfg.analysis.get("verify", "off")) != "off":
         found.append("analysis.verify (static passes on each program): ROADMAP X1")
     if cfg.tracing.get("flight_recorder"):

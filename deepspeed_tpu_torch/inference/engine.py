@@ -38,6 +38,15 @@ writes every file from the gathered leaves), ``save_mp_checkpoint_path``
 writes it at ``set_params``, and ``checkpoint=`` /
 ``load_checkpoint`` boot from one or from a training engine checkpoint's
 tag directory.
+
+ZeRO-Inference (JAX ``engine.py:142-190``): with ``zero={"stage": 3,
+"offload_param": {"device": "cpu"|"nvme"}}`` the weights go into a
+``runtime/zero/param_offload.ParamStreamEngine`` without an optimizer, so
+the layers live in host memory or on disk and stream through the card
+layer by layer: ``engine(batch)`` is its ``eval_forward`` and ``generate``
+re-runs the whole fixed-shape forward for every token (no KV cache), as
+JAX's ``_zero_generate`` does. ``serve``, beam search, tensor parallelism
+and ``save_mp_checkpoint`` need the weights on the card and raise.
 """
 
 from __future__ import annotations
@@ -97,6 +106,8 @@ class InferenceEngine:
         self._ds_config = model.config
         self.metrics = MetricsRegistry()
         self._paged_server = None
+        self._zero_config = self._parse_zero_inference()
+        self._param_stream = None
         # the dense path's tensor-parallel group (JAX builds a model-axis mesh here, engine.py:44-53): each
         # rank then holds only its shard of the weights (self._tp_params)
         tp_size = int(self._config.tensor_parallel.tp_size or 1)
@@ -105,6 +116,8 @@ class InferenceEngine:
         if self._tp is not None:
             self._tp.validate_cfg(model.config)
         self._tp_params = None
+        if self._zero_config is not None and self._tp is not None:
+            raise NotImplementedError("ZeRO-Inference with tensor_parallel.tp_size > 1 is not ported (ROADMAP P1)")
         # the counterpart of JAX's PRNGKey(0): sampled generate calls draw
         # from (and advance) this generator
         self._generator = torch.Generator(device=self.device)
@@ -113,7 +126,9 @@ class InferenceEngine:
         self._model_times = []
         if not any(p.is_meta for p in model.parameters()):
             # weights already made (e.g. init_weights): move them once (a tensor-parallel rank keeps its shard)
-            if self._tp is not None:
+            if self._zero_config is not None:
+                self._init_param_stream(flatten_tree(model.param_tree()))
+            elif self._tp is not None:
                 self._install_tp(flatten_tree(model.param_tree()))
             else:
                 with torch.no_grad():
@@ -139,6 +154,30 @@ class InferenceEngine:
             return 1
         return degree
 
+    def _parse_zero_inference(self):
+        """The ZeRO config when ``zero`` asks for ZeRO-Inference (stage 3 and
+        an ``offload_param`` device), else None (JAX ``engine.py:142-157``)."""
+        zdict = self._config.zero or {}
+        if not zdict:
+            return None
+        from deepspeed_tpu_torch.runtime.zero.config import DeepSpeedZeroConfig
+
+        zcfg = DeepSpeedZeroConfig(**zdict)
+        off = zcfg.offload_param
+        if int(zcfg.stage) >= 3 and off is not None and off.device.value != "none":
+            return zcfg
+        return None
+
+    def _init_param_stream(self, params) -> None:
+        """ZeRO-Inference: the weights go into the layer store (host memory
+        or disk) in the engine dtype, not onto the card; no optimizer."""
+        from deepspeed_tpu_torch.checkpoint.jax_params import _checked_flat
+        from deepspeed_tpu_torch.runtime.zero.param_offload import ParamStreamEngine
+
+        self._param_stream = None  # the previous store goes before the next is built
+        self._param_stream = ParamStreamEngine(self.module, _checked_flat(self._ds_config, params), self._zero_config,
+                                               {}, self.dtype, self.device)
+
     # --- weights --------------------------------------------------------
     def set_params(self, params) -> None:
         """Install the JAX parameter tree (numpy arrays, nested or under
@@ -146,6 +185,12 @@ class InferenceEngine:
         tensor-parallel rank keeps its shard. With
         ``save_mp_checkpoint_path`` the pre-sharded checkpoint is written
         at once (JAX ``engine.py:230-234``)."""
+        if self._zero_config is not None:
+            if self._config.save_mp_checkpoint_path:
+                log_dist("save_mp_checkpoint_path is ignored under ZeRO-Inference offload (weights live in the "
+                         "layer stream, not on the card)", ranks=[0])
+            self._init_param_stream(params)
+            return
         if self._tp is not None:
             self._install_tp(params)
         else:
@@ -201,6 +246,8 @@ class InferenceEngine:
         return fake_quantize(leaf, num_groups=groups, num_bits=int(qcfg.num_bits or 8))
 
     def _weights_ready(self) -> bool:
+        if self._zero_config is not None:
+            return self._param_stream is not None
         if self._tp is not None:
             return self._tp_params is not None
         return not any(p.is_meta for p in self.module.parameters())
@@ -224,6 +271,9 @@ class InferenceEngine:
         file while the others wait at a barrier. Boot from it with
         ``init_inference(..., checkpoint=<manifest or its dir>)`` or
         ``load_checkpoint``."""
+        if self._param_stream is not None:
+            raise NotImplementedError("save_mp_checkpoint is unsupported under ZeRO-Inference offload: the weights "
+                                      "live in the layer stream, not on the card")
         if not self._weights_ready():
             raise RuntimeError("save_mp_checkpoint before weights are set")
         params = self._full_params()
@@ -303,6 +353,8 @@ class InferenceEngine:
         tokens, labels = _split_batch(batch)
         tokens = torch.as_tensor(tokens, device=self.device)
         labels = None if labels is None else torch.as_tensor(labels, device=self.device)
+        if self._param_stream is not None:
+            return self._param_stream.eval_forward(tokens.long(), None if labels is None else labels.long())
         params = self._tp_params if self._tp is not None else self.module.param_tree()
         with torch.no_grad():  # (tokens, None) is the unlabelled batch: apply returns the logits
             return self.module.apply(params, (tokens, labels), train=False, tp=self._tp)
@@ -340,6 +392,12 @@ class InferenceEngine:
 
         if not self._weights_ready():
             raise RuntimeError("generate() before weights are set: call set_params / load_jax_params")
+        if self._param_stream is not None:
+            if num_beams > 1:
+                raise NotImplementedError("beam search needs the KV-cached path; under ZeRO-Inference offload the "
+                                          "weights live in the layer stream")
+            return self._zero_generate(input_ids, max_new_tokens, eos_token_id, pad_token_id, temperature=temperature,
+                                       top_k=top_k, top_p=top_p)
         params = self._tp_params if self._tp is not None else self.module.param_tree()
         if num_beams > 1:
             if temperature or top_k or top_p < 1.0:
@@ -360,8 +418,43 @@ class InferenceEngine:
     # the public generate adopts _generate_impl's signature and doc
     generate = functools.wraps(_generate_impl)(generate)
 
+    @torch.no_grad()
+    def _zero_generate(self, input_ids, max_new_tokens, eos_token_id, pad_token_id, temperature=0.0, top_k=0,
+                       top_p=1.0):
+        """Decode with layer-streamed weights (JAX ``engine.py:796-838``):
+        every token re-runs the whole fixed-shape forward ``[B, prompt +
+        max_new_tokens]`` over the padded buffer and streams every layer
+        through the card; greedy, or drawn like the cached paths. Returns
+        ``[B, prompt + emitted]`` int32 on the engine's device."""
+        from deepspeed_tpu_torch.inference.sampling import sample_logits
+
+        tokens = torch.as_tensor(np.asarray(input_ids.cpu() if isinstance(input_ids, torch.Tensor) else input_ids))
+        if tokens.ndim == 1:
+            tokens = tokens[None, :]
+        B, P = tokens.shape
+        L = P + max_new_tokens
+        padded = torch.full((B, L), pad_token_id, dtype=torch.long, device=self.device)
+        padded[:, :P] = tokens.to(self.device)
+        finished = torch.zeros(B, dtype=torch.bool, device=self.device)
+        cursor = P
+        for cur in range(P, L):
+            logits = self._param_stream.eval_forward(padded, None)
+            nxt = sample_logits(logits[:, cur - 1], self._generator, temperature, top_k, top_p)
+            if eos_token_id is not None:  # finished rows keep emitting EOS, as the cached paths pad
+                nxt = torch.where(finished, torch.full_like(nxt, eos_token_id), nxt)
+            padded[:, cur] = nxt
+            cursor = cur + 1
+            if eos_token_id is not None:
+                finished |= nxt == eos_token_id
+                if bool(finished.all()):
+                    break
+        return padded[:, :cursor].to(torch.int32)
+
     # --- paged serving --------------------------------------------------
     def _build_paged_server(self):
+        if self._zero_config is not None:
+            raise NotImplementedError("serve() requires the KV-cached path with the weights on the card; "
+                                      "ZeRO-Inference offload streams them layer by layer")
         if not self._weights_ready():
             raise RuntimeError("serve() before weights are set: call set_params / load_jax_params")
         pcfg = self._config.paged_kv

@@ -277,6 +277,50 @@ class TransformerLM(nn.Module):
             logits = logits + params["lm_head_bias"].to(logits.dtype)
         return logits
 
+    # --- layer streaming (ZeRO-Infinity param offload, ZeRO-Inference) ----
+    def stream_fns(self):
+        """The forward split into embed, layer and head functions for the
+        layer-streamed engine (``runtime/zero/param_offload.py``; JAX
+        ``transformer.py:762-826``): ``embed_fwd(resident, tokens) -> h``,
+        ``layer_fwd(layer_params, h, positions, seed, train=True,
+        attn_impl=None) -> h``, ``head_loss(resident, h, labels=None)`` (the
+        logits when ``labels`` is None, else the loss), where ``resident``
+        is the tree without ``layers`` and ``layer_params`` one layer's
+        leaves. ``seed`` is the layer's dropout seed (``_forward``'s
+        ``dropout_seed + i``), so a recomputed layer redraws the same
+        masks."""
+        cfg = self.config
+        dt = self.dtype
+
+        def embed_fwd(resident, tokens):
+            x = resident["embed"]["tokens"].to(dt)[tokens]
+            if cfg.position == "learned":
+                T = tokens.shape[1]
+                x = x + resident["embed"]["pos"].to(dt)[torch.arange(T, device=tokens.device)][None]
+            if cfg.embed_norm:
+                x = _norm(x, resident["embed"]["norm_scale"], resident["embed"].get("norm_bias"), cfg.norm,
+                          cfg.norm_eps)
+            return x
+
+        def layer_fwd(layer_params, h, positions, seed, train=True, attn_impl=None):
+            return self._layer(h, layer_params, positions, seed, train, attn_impl, cfg)
+
+        def head_loss(resident, h, labels=None):
+            x = h
+            if cfg.prenorm:
+                x = _norm(x, resident["final_norm_scale"], resident.get("final_norm_bias"), cfg.norm, cfg.norm_eps)
+            if cfg.tie_embeddings:
+                logits = x @ resident["embed"]["tokens"].to(dt).T
+            else:
+                logits = x @ resident["lm_head"].to(dt)
+                if cfg.lm_head_bias:
+                    logits = logits + resident["lm_head_bias"].to(logits.dtype)
+            if labels is None:
+                return logits
+            return cross_entropy_loss(logits, labels)
+
+        return embed_fwd, layer_fwd, head_loss
+
     def _layer(self, x, p, positions, seed, train, attn_impl, cfg=None, tp=None):
         """One block (``transformer.py:412``): pre-LN or post-LN, parallel
         residual, biases; weights cast to the activation dtype at use.

@@ -589,10 +589,6 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
     training engine does not have yet, each naming its ROADMAP item."""
     z = cfg.zero_config
     found = []
-    for name in ("offload_optimizer", "offload_param"):
-        off = getattr(z, name)
-        if off is not None and str(off.device.value) != "none":
-            found.append(f"zero_optimization.{name}.device={off.device.value}: ROADMAP T2")
     if z.zero_quantized_weights or z.zero_quantized_gradients or z.zero_quantized_nontrainable_weights:
         found.append("ZeRO++ quantized weights / gradients: ROADMAP P1")
     if z.zero_hpz_partition_size > 1 or z.mics_shard_size > 0:

@@ -62,6 +62,17 @@ bit for bit. ``set_params`` / ``get_param_treedef`` are the two halves of
 the whole tree on every rank. Checkpoints hold whole arrays whatever the
 dp (the slices gathered, rank 0 writes) and load at any dp.
 
+Offload (JAX ``engine.py:779-890``): ``zero_optimization.offload_param``
+(stage 3) trains through the layer stream (``runtime/zero/param_offload.py``);
+``offload_optimizer`` (stage >= 1) keeps the fp32 master and the moments on
+the host, streamed bucket by bucket through the engine's own update
+(``runtime/zero/host_offload.py``, with ``pipeline_read`` or
+``pipeline_write`` and ``device=cpu``; bit for bit the on-card engine) or
+updated by the host Adam (``runtime/zero/offload_states.py``, the legacy
+path, ``device=cpu|nvme``). Both run Adam/AdamW only and refuse a client
+optimizer. Their checkpoints carry ``optimizer["param_stream"]`` or
+``optimizer["host_offload"]`` (JAX's records) and no ``master``.
+
 The unported switches raise ``NotImplementedError`` naming their ROADMAP
 item. The engine runs on ``cuda`` unless the caller names another device,
 and raises without a card.
@@ -86,7 +97,8 @@ from deepspeed_tpu_torch.checkpoint.jax_params import (
     unflatten_tree,
 )
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
-from deepspeed_tpu_torch.ops.adam.fused_adam import AdamW, FusedAdam
+from deepspeed_tpu_torch.ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
+from deepspeed_tpu_torch.ops.adam.fused_adam import AdamState, AdamW, FusedAdam
 from deepspeed_tpu_torch.ops.optimizer import DSOptimizer
 from deepspeed_tpu_torch.parallel.mesh import build_topology
 from deepspeed_tpu_torch.runtime import constants as C
@@ -106,20 +118,27 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine impor
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, unported_switches
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, LossScaleState, has_inf_or_nan
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
+from deepspeed_tpu_torch.runtime.zero.host_offload import HostOffloadStreamer
+from deepspeed_tpu_torch.runtime.zero.offload_states import HostOffloadAdam, assemble_records
 from deepspeed_tpu_torch.runtime.zero.overlap import GradBuckets, build_overlap_plan, gather_full, split_buckets
+from deepspeed_tpu_torch.runtime.zero.param_offload import ParamStreamEngine
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartitioner, shard, shard_shape
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.tensor_fragment import _flatten_with_paths
 
-# "adam" is FusedAdam with decoupled decay, as in JAX (engine.py:118-120)
+# "adam" is FusedAdam with decoupled decay, as in JAX (engine.py:118-125); the host-offload variant of
+# cpu_adam is chosen by the ZeRO offload config
 _OPTIMIZERS = {
     C.ADAM_OPTIMIZER: FusedAdam,
     C.ADAMW_OPTIMIZER: AdamW,
     C.FUSED_ADAM_OPTIMIZER: FusedAdam,
+    C.CPU_ADAM_OPTIMIZER: FusedAdam,
+    C.CPU_ADAGRAD_OPTIMIZER: DeepSpeedCPUAdagrad,
+    C.ADAGRAD_OPTIMIZER: DeepSpeedCPUAdagrad,
 }
+_HOST_ADAM_OPTIMIZERS = (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER, C.FUSED_ADAM_OPTIMIZER, C.CPU_ADAM_OPTIMIZER)
 _UNPORTED_OPTIMIZERS = {
-    C.CPU_ADAM_OPTIMIZER: "T2", C.CPU_ADAGRAD_OPTIMIZER: "T2", C.ADAGRAD_OPTIMIZER: "X1",
     C.LAMB_OPTIMIZER: "X1", C.FUSED_LAMB_OPTIMIZER: "X1", C.SGD_OPTIMIZER: "X1",
     C.ONEBIT_ADAM_OPTIMIZER: "P1", C.ONEBIT_LAMB_OPTIMIZER: "P1", C.ZERO_ONE_ADAM_OPTIMIZER: "P1",
     C.LION_OPTIMIZER: "X1",
@@ -173,6 +192,7 @@ class DeepSpeedEngine:
         self.loss_scaler = CreateLossScaler(self.compute_dtype, self._config.loss_scale,
                                             self.dynamic_loss_scale, self._config.dynamic_loss_scale_args)
         self._acc_dtype = self._grad_accum_dtype()
+        self.client_optimizer = optimizer
         self.optimizer = self._configure_optimizer(optimizer)
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
 
@@ -189,8 +209,16 @@ class DeepSpeedEngine:
         if model_parameters is None:
             raise ValueError("model_parameters is required: weights enter the port as the JAX tree in numpy "
                              "(models.transformer.init_params draws one with the JAX init's distributions)")
-        self._init_state(jax_tree_to_tensors(model.config, model_parameters, device=self.device,
-                                             dtype=torch.float32))
+        self._host_offload = None  # HostOffloadStreamer (streamed) or HostOffloadAdam (legacy)
+        self._streamed_offload = False
+        self._param_stream: Optional[ParamStreamEngine] = None
+        if self._param_offload_enabled():
+            self._init_param_stream(model_parameters)
+        else:
+            self._init_state(jax_tree_to_tensors(model.config, model_parameters, device=self.device,
+                                                 dtype=torch.float32))
+            if self._offload_enabled():
+                self._init_host_offload()
         self._scale_state = self.loss_scaler.init_state()
 
         self.checkpoint_engine = TorchCheckpointEngine(self._config)
@@ -265,17 +293,30 @@ class DeepSpeedEngine:
 
     def get_params(self):
         """The compute-dtype tree as numpy (bf16 widened to fp32 exactly),
-        whole on every rank."""
+        whole on every rank (under ``offload_param``, from the host store)."""
+        if self._param_stream is not None:
+            return tensors_to_jax_tree(self._param_stream.gathered_params())
         return tensors_to_jax_tree(self._full_params())
 
     def get_master_params(self):
-        """The fp32 master tree as numpy, whole on every rank."""
+        """The fp32 master tree as numpy, whole on every rank (the host
+        master on the offload paths)."""
+        if self._param_stream is not None:
+            return tensors_to_jax_tree(self._param_stream.master_params())
         return tensors_to_jax_tree(self._full_master())
 
     def get_param_treedef(self):
         """The nesting of ``get_params()`` (dicts, None at the leaves),
         without gathering it (JAX ``engine.py:3747``)."""
-        return unflatten_tree({k: None for k in self._params})
+        return unflatten_tree({k: None for k in self._shapes})
+
+    def offload_stream_stats(self) -> Optional[Dict[str, Any]]:
+        """The streamed offload path's transfer accounting
+        (``HostOffloadStreamer.stream_stats``); None on every other path
+        (JAX ``engine.py:3206``)."""
+        if not self._streamed_offload:
+            return None
+        return self._host_offload.stream_stats()
 
     @torch.no_grad()
     def set_params(self, tree, src_rank: Optional[int] = None) -> None:
@@ -284,11 +325,21 @@ class DeepSpeedEngine:
         each rank keeping its slices, and the optimizer moments are kept
         (JAX ``engine.py:3798``). With ``src_rank`` the tree of that rank
         is broadcast to every rank first."""
-        full = jax_tree_to_tensors(self.module.config, tree, device=self.device, dtype=torch.float32)
+        # offload_param never holds the whole tree on the card
+        full = jax_tree_to_tensors(self.module.config, tree, device="cpu" if self._param_stream is not None
+                                   else self.device, dtype=torch.float32)
         if src_rank is not None and self.dp > 1:
             for t in full.values():
                 comm.broadcast(t, src=src_rank)
         r, W = self.dp_rank, self.dp
+        if self._param_stream is not None:
+            self._param_stream.set_master(full)
+            return
+        if self._host_offload is not None:
+            self._host_offload.set_master_leaves({k: shard(full[k], self._mdim[k], r, W) for k in self._shapes})
+            for k, p in self._params.items():
+                p.copy_(shard(full[k], self._pdim[k], r, W))
+            return
         for k, m in self._master.items():
             m.copy_(shard(full[k], self._mdim[k], r, W))
             p = self._params[k]
@@ -320,7 +371,8 @@ class DeepSpeedEngine:
             else:
                 self._params[k] = shard(t, self._pdim[k], r, W).to(self.compute_dtype).clone().requires_grad_(True)
         self._param_tree = unflatten_tree(self._params)
-        self._opt_state = self.optimizer.init_state(self._master)
+        # the offload paths keep the moments on the host
+        self._opt_state = None if self._offload_enabled() else self.optimizer.init_state(self._master)
         self._grad_acc = {k: torch.zeros(shard_shape(self._shapes[k], self._gdim[k], W), dtype=self._acc_dtype,
                                          device=self.device) for k in self._params}
         self._plan = build_overlap_plan(zc, self._params, self._pdim, self.module.config.num_layers,
@@ -362,7 +414,16 @@ class DeepSpeedEngine:
         return self._gather_tree(self._params, self._pdim)
 
     def _full_master(self) -> Dict[str, torch.Tensor]:
+        if self._host_offload is not None:
+            return self._gather_host(self._host_offload.master_leaves())
         return self._gather_tree(self._master, self._mdim)
+
+    def _gather_host(self, slices: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Whole leaves from this rank's host slices (through the card at
+        dp > 1, where the collectives run)."""
+        if self.dp == 1:
+            return slices
+        return self._gather_tree({k: t.to(self.device) for k, t in slices.items()}, self._mdim)
 
     def _full_opt_state(self):
         st = self._opt_state
@@ -388,6 +449,203 @@ class DeepSpeedEngine:
                                      {k: self._mdim[k] for k in gather})
             for k in gather:
                 self._params[k].copy_(full[k])
+
+    # --- offload (JAX engine.py:2207-2304) ----------------------------------
+    @staticmethod
+    def _offload_requested(off) -> bool:
+        return off is not None and str(off.device.value) != "none"
+
+    def _offload_enabled(self) -> bool:
+        requested = self._offload_requested(self._config.zero_config.offload_optimizer)
+        if requested and self._config.zero_optimization_stage < 1:
+            raise ValueError("offload_optimizer requires ZeRO stage >= 1 (stage 0 keeps full optimizer state on "
+                             "device; set zero_optimization.stage)")
+        return requested
+
+    def _param_offload_enabled(self) -> bool:
+        requested = self._offload_requested(self._config.zero_config.offload_param)
+        if requested and self._config.zero_optimization_stage != 3:
+            raise ValueError("offload_param requires ZeRO stage 3 (set zero_optimization.stage=3); got stage "
+                             f"{self._config.zero_optimization_stage}")
+        return requested
+
+    def _validate_host_adam(self, feature: str) -> None:
+        """Both offload paths run the host Adam/AdamW (or, streamed, the
+        engine's Adam on host-resident state): the configured optimizer must
+        be an Adam variant and there can be no client optimizer."""
+        opt_cfg = self._config.optimizer_config
+        opt_type = opt_cfg.type.lower() if opt_cfg is not None and opt_cfg.type else C.ADAM_OPTIMIZER
+        if opt_type not in _HOST_ADAM_OPTIMIZERS:
+            raise ValueError(f"{feature} runs the host Adam/AdamW (DeepSpeedCPUAdam analog); configured optimizer "
+                             f"{opt_type!r} is unsupported — use an adam variant or disable {feature}")
+        if self.client_optimizer is not None:
+            raise ValueError(f"{feature} is incompatible with a client optimizer: the host offload path owns the "
+                             "update rule (Adam/AdamW)")
+
+    def _host_adam_params(self) -> Dict[str, Any]:
+        opt_cfg = self._config.optimizer_config
+        return dict(opt_cfg.params) if opt_cfg is not None else {}
+
+    def _slice_index(self, name: str) -> list:
+        """Where this rank's master slice of ``name`` sits in the whole leaf,
+        as JAX's shard records say it: ``(start, stop)`` a dim, None for a
+        whole dim."""
+        idx = [(None, None)] * len(self._shapes[name])
+        d = self._mdim[name]
+        if d is not None and self.dp > 1:
+            n = self._shapes[name][d] // self.dp
+            idx[d] = (self.dp_rank * n, (self.dp_rank + 1) * n)
+        return idx
+
+    def _init_host_offload(self) -> None:
+        """``offload_optimizer``: the streamed path (``pipeline_read`` or
+        ``pipeline_write`` with ``device=cpu``) or the legacy host Adam; the
+        card's master is freed either way (the fp32 parameters stay)."""
+        offcfg = self._config.zero_config.offload_optimizer
+        self._validate_host_adam("offload_optimizer")
+        names = sorted(self._master)  # JAX's tree order: the buckets' and the checkpoint records'
+        master = {k: self._master[k] for k in names}
+        if offcfg.pipeline and offcfg.device.value == "cpu":
+            self._host_offload = HostOffloadStreamer(master, offcfg, mixed_precision=self.mixed_precision,
+                                                     device=self.device)
+            self._streamed_offload = True
+        else:
+            p = self._host_adam_params()
+            self._host_offload = HostOffloadAdam(
+                master, {k: self._slice_index(k) for k in names}, {k: self._params[k].dtype for k in names},
+                offcfg, self.device, aio_param_dict=self._config._param_dict,
+                betas=tuple(p.get("betas", (0.9, 0.999))), eps=p.get("eps", 1e-8),
+                weight_decay=p.get("weight_decay", 0.0), adamw_mode=p.get("adam_w_mode", True), rank=self.dp_rank)
+        del master
+        self._master = None
+
+    def _init_param_stream(self, model_parameters) -> None:
+        """``offload_param``: the layers live on the host or on disk and
+        stream through the card (``runtime/zero/param_offload.py``); the
+        tree never lands on the card whole. Pure data parallelism only: the
+        layers stay whole on every rank."""
+        self._validate_host_adam("offload_param")
+        from deepspeed_tpu_torch.checkpoint.jax_params import _checked_flat
+
+        flat = _checked_flat(self.module.config, model_parameters)
+        self._shapes = {k: tuple(np.shape(v)) for k, v in flat.items()}
+        self._params = None
+        self._master = None
+        self._opt_state = None
+        self._plan = None
+        self._grad_acc = {}
+        self._param_stream = ParamStreamEngine(
+            self.module, flat, self._config.zero_config, self._host_adam_params(), self.compute_dtype, self.device,
+            fp16=self._config.fp16_enabled, act_offload=self._config.activation_checkpointing_config.cpu_checkpointing,
+            attn_impl=self.attn_impl, dp=self.dp, dp_rank=self.dp_rank)
+        log_dist(f"Initialized param-offload state: {self._param_stream.num_parameters():,} parameters", ranks=[0])
+
+    @torch.no_grad()
+    def _install_slices(self, new: Dict[str, torch.Tensor]) -> None:
+        """The compute store from new master slices (``_refresh_params``'s
+        ops): a local copy where the store holds the same slice, an
+        all-gather of the cast slices where it is whole."""
+        gather = []
+        for k, m in new.items():
+            if self._pdim[k] == self._mdim[k]:
+                self._params[k].copy_(m)
+            else:
+                gather.append(k)
+        if gather:
+            full = self._gather_tree({k: new[k].to(self._params[k].dtype) for k in gather},
+                                     {k: self._mdim[k] for k in gather})
+            for k in gather:
+                self._params[k].copy_(full[k])
+
+    @torch.no_grad()
+    def _take_offload_step(self, lr: float) -> bool:
+        """The legacy host-Adam step (JAX ``_take_offload_step``): the card
+        computes the norm of the raw accumulators and the overflow flag,
+        the host Adam updates this rank's slices, the new parameters come
+        back. Returns the overflow flag."""
+        gas, dp, r, stage = self.gradient_accumulation_steps(), self.dp, self.dp_rank, self.zero_optimization_stage()
+        if dp > 1 and stage <= 1:
+            self._all_reduce_accum()
+        inv = 1.0 / (float(self._scale_state.scale) * gas * dp)
+        acc = self._grad_acc
+        if dp > 1 and stage >= 2:
+            parts = [torch.sum(torch.square(g.float())) for k, g in acc.items() if self._gdim[k] is not None or r == 0]
+            sq = comm.all_reduce(torch.stack(parts).sum() if parts else torch.zeros((), device=self.device))
+        else:
+            sq = torch.stack([torch.sum(torch.square(g.float())) for g in acc.values()]).sum()
+        grad_norm = torch.sqrt(sq) * inv
+        overflow = False
+        if self._config.fp16_enabled:
+            flag = has_inf_or_nan(acc.values())
+            if dp > 1:
+                flag = comm.all_reduce(flag.float(), op=comm.ReduceOp.MAX)
+            overflow = bool(flag)
+        if not overflow:
+            clip = self._config.gradient_clipping
+            norm = float(grad_norm)
+            clip_coef = min(1.0, clip / (norm + 1e-6)) if clip > 0 else 1.0
+            grads = {k: shard(acc[k], self._mdim[k], r, dp) if self._gdim[k] is None else acc[k]
+                     for k in self._host_offload.names}
+            self._install_slices(self._host_offload.step(grads, lr, inv, clip_coef))
+        self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
+        for g in acc.values():
+            g.zero_()
+        self._last_grad_norm = grad_norm
+        return overflow
+
+    @torch.no_grad()
+    def _take_streamed_offload_step(self, lr: float) -> bool:
+        """The streamed step (JAX ``_take_streamed_offload_step``): buckets 0
+        and 1 upload behind the tail of backward; the norm, clip
+        coefficient and overflow flag come from every gradient first, with
+        ``_update_from_grads``'s ops; then each bucket's leaves take that
+        function's update (``optimizer.apply`` on the bucket), bucket
+        ``i+2`` uploads while bucket ``i`` updates, and bucket ``i`` writes
+        back while ``i+1`` updates. An fp16 overflow drops the uploads and
+        writes nothing back. Returns the overflow flag."""
+        ho = self._host_offload
+        nb = ho.num_buckets
+        ho.h2d_bucket(0)
+        if nb > 1:
+            ho.h2d_bucket(1)
+        dp, r = self.dp, self.dp_rank
+        inv = self._unscale_inv()
+        acc = self._grad_acc
+        # the unscaled gradients leaf by leaf, never all at once (the same ops as the on-device update)
+        overflow, grad_norm, coef = self._grad_stats(lambda: ((k, g.float() * inv) for k, g in acc.items()))
+        if overflow:
+            ho.discard_staged()
+        else:
+            for bi in range(nb):
+                names = ho.bucket_names(bi)
+                masters, ms, vs = ho.take_staged(bi)
+                grads = {}
+                for k in names:
+                    g = acc[k].float() * inv
+                    if coef is not None:
+                        g = g * coef
+                    grads[k] = shard(g, self._mdim[k], r, dp) if self._gdim[k] is None else g
+                if masters is not None:
+                    master = dict(zip(names, masters))
+                else:  # fp32: the parameters hold the master (its slice, where they are whole)
+                    master = {k: shard(self._params[k].detach(), self._mdim[k] if self._pdim[k] is None else None, r, dp)
+                              for k in names}
+                state = AdamState(step=ho.step_count, exp_avg=dict(zip(names, ms)), exp_avg_sq=dict(zip(names, vs)))
+                new_master, new_state = self.optimizer.apply(grads, state, master, lr)
+                self._install_slices(new_master)
+                if bi + 2 < nb:
+                    ho.h2d_bucket(bi + 2)
+                chaos.point("train.mid_offload_stream", bucket=bi)
+                ho.d2h_bucket(bi, [new_master[k] for k in names], [new_state.exp_avg[k] for k in names],
+                              [new_state.exp_avg_sq[k] for k in names])
+                ho.materialize_writes(keep=1)
+            ho.step_count += 1
+        ho.note_step()
+        self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
+        for g in acc.values():
+            g.zero_()
+        self._last_grad_norm = grad_norm
+        return overflow
 
     # --- wiring ------------------------------------------------------------
     def _grad_accum_dtype(self) -> torch.dtype:
@@ -473,6 +731,8 @@ class DeepSpeedEngine:
         """Training: the microbatch's loss with its graph (call ``backward``
         then ``step``). Eval: the loss (or logits without labels), no graph."""
         tokens, labels, share = self._place(batch)
+        if self._param_stream is not None:
+            return self._stream_forward(tokens, labels, share)
         model_batch = tokens if labels is None else (tokens, labels)
         if not self._training_mode:
             with torch.no_grad():
@@ -501,13 +761,46 @@ class DeepSpeedEngine:
         self._in_forward = True
         return loss
 
+    def _stream_forward(self, tokens, labels, share):
+        """``forward`` under ``offload_param``: the layer stream's eval
+        forward, or its training forward (which stashes what ``backward``
+        recomputes from)."""
+        ps = self._param_stream
+        if not self._training_mode:
+            out = ps.eval_forward(tokens, labels)
+            if self.dp > 1:
+                if labels is None:
+                    out = torch.cat(comm.all_gather(None, out), dim=0)
+                else:
+                    out = comm.all_reduce(out.float() * share).to(out.dtype)
+            return out
+        if labels is None:
+            raise ValueError("param-offload training expects (tokens, labels) batches (dict with input_ids/labels, "
+                             "or a 2-tuple)")
+        if self._in_forward:
+            raise RuntimeError("forward() called again before backward() on the param-offload path: each "
+                               "microbatch's gradients are produced by backward(), so every training forward must "
+                               "complete backward() first")
+        seed = int(self._dropout_rng.integers(0, 2**62))
+        weight = None if self.dp == 1 else (share * self.dp)
+        loss = ps.forward(tokens, labels, seed, weight)
+        if self.dp > 1:
+            loss = comm.all_reduce(loss.detach().float() * share).to(loss.dtype)
+        self._in_forward = True
+        return loss.detach()
+
     def backward(self, loss, retain_graph: bool = False):
         """Back-propagate ``loss × scale`` and move every leaf's gradient
-        into the accumulation buffer."""
+        into the accumulation buffer (under ``offload_param``: the layer
+        stream's backward, into the host accumulators)."""
         if not self._training_mode:
             raise RuntimeError("backward() called in eval mode")
         if not self._in_forward:
             raise RuntimeError("backward() called before forward()")
+        if self._param_stream is not None:
+            self._param_stream.backward(float(self._scale_state.scale))
+            self._in_forward = False
+            return loss
         scale = torch.tensor(self._scale_state.scale, dtype=torch.float32, device=loss.device)
         # stage 3's sharded leaves are reduced by the plan as backward passes each layer; the rest
         # accumulate whole (stages 0-1, reduced at the boundary) or go through the reduce buckets
@@ -565,30 +858,11 @@ class DeepSpeedEngine:
     def _update_from_grads(self, lr: float):
         """One optimizer update from the accumulation buffer (see the module
         docstring). Returns the overflow flag (always False outside fp16)."""
-        gas, dp, r = self.gradient_accumulation_steps(), self.dp, self.dp_rank
-        denom = np.float32(self._scale_state.scale) * np.float32(gas)
-        if dp > 1:
-            denom = denom * np.float32(dp)  # the gradients are summed over the ranks
-            if self.zero_optimization_stage() <= 1:
-                self._all_reduce_accum()
-        inv = float(np.float32(1.0) / denom)
+        dp, r = self.dp, self.dp_rank
+        inv = self._unscale_inv()
         grads = {k: g.float() * inv for k, g in self._grad_acc.items()}
-        overflow = False
-        if self._config.fp16_enabled:
-            flag = has_inf_or_nan(grads.values())
-            if dp > 1:  # every rank skips together
-                flag = comm.all_reduce(flag.float(), op=comm.ReduceOp.MAX)
-            overflow = bool(flag)
-        if dp > 1 and self.zero_optimization_stage() >= 2:
-            # the global norm from the slices' squares (a replicated leaf counted on rank 0 only)
-            parts = [torch.sum(torch.square(g)) for k, g in grads.items() if self._gdim[k] is not None or r == 0]
-            sq = comm.all_reduce(torch.stack(parts).sum() if parts else torch.zeros((), device=self.device))
-        else:
-            sq = torch.stack([torch.sum(torch.square(g)) for g in grads.values()]).sum()
-        grad_norm = torch.sqrt(sq)
-        clip = self._config.gradient_clipping
-        if clip > 0:
-            coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0)
+        overflow, grad_norm, coef = self._grad_stats(lambda: grads.items())
+        if coef is not None:
             grads = {k: g * coef for k, g in grads.items()}
         if not overflow:
             # the owner-shard update: this rank's slice of each (whole) gradient
@@ -603,6 +877,38 @@ class DeepSpeedEngine:
         self._last_grad_norm = grad_norm
         return overflow
 
+    def _unscale_inv(self) -> float:
+        """``1 / (scale · gas [· dp])`` in fp32, after summing the whole
+        accumulators over the ranks at stages 0-1."""
+        denom = np.float32(self._scale_state.scale) * np.float32(self.gradient_accumulation_steps())
+        if self.dp > 1:
+            denom = denom * np.float32(self.dp)  # the gradients are summed over the ranks
+            if self.zero_optimization_stage() <= 1:
+                self._all_reduce_accum()
+        return float(np.float32(1.0) / denom)
+
+    def _grad_stats(self, grads: Callable):
+        """``(overflow, grad_norm, clip coefficient or None)`` of the unscaled
+        fp32 gradients ``grads()`` yields as ``(name, tensor)`` pairs (called
+        once for the flag, once for the norm)."""
+        dp, r = self.dp, self.dp_rank
+        overflow = False
+        if self._config.fp16_enabled:
+            flag = has_inf_or_nan(g for _, g in grads())
+            if dp > 1:  # every rank skips together
+                flag = comm.all_reduce(flag.float(), op=comm.ReduceOp.MAX)
+            overflow = bool(flag)
+        if dp > 1 and self.zero_optimization_stage() >= 2:
+            # the global norm from the slices' squares (a replicated leaf counted on rank 0 only)
+            parts = [torch.sum(torch.square(g)) for k, g in grads() if self._gdim[k] is not None or r == 0]
+            sq = comm.all_reduce(torch.stack(parts).sum() if parts else torch.zeros((), device=self.device))
+        else:
+            sq = torch.stack([torch.sum(torch.square(g)) for _, g in grads()]).sum()
+        grad_norm = torch.sqrt(sq)
+        clip = self._config.gradient_clipping
+        coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0) if clip > 0 else None
+        return overflow, grad_norm, coef
+
     def _all_reduce_accum(self) -> None:
         """Stages 0-1: sum the whole accumulators over the ranks, one
         all-reduce a bucket of ``reduce_bucket_size`` elements."""
@@ -612,7 +918,18 @@ class DeepSpeedEngine:
             comm.all_reduce_coalesced([self._grad_acc[names[i]] for i in bucket])
 
     def _take_model_step(self) -> None:
-        overflow = self._update_from_grads(self.optimizer.param_groups[0]["lr"])
+        lr = self.optimizer.param_groups[0]["lr"]
+        if self._param_stream is not None:
+            grad_norm, overflow = self._param_stream.step(lr, float(self._scale_state.scale),
+                                                          self._config.gradient_clipping)
+            self._last_grad_norm = torch.tensor(grad_norm, dtype=torch.float32)
+            self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
+        elif self._streamed_offload:
+            overflow = self._take_streamed_offload_step(lr)
+        elif self._host_offload is not None:
+            overflow = self._take_offload_step(lr)
+        else:
+            overflow = self._update_from_grads(lr)
         # the preemption instant: the master holds the update, nothing of the
         # step is committed on the host yet
         chaos.point("train.mid_step")
@@ -668,10 +985,22 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch import __version__
 
         s = self._scale_state
+        if self._param_stream is not None:
+            # the fp32 master and moments are the stream's host state; the module its compute-dtype store
+            module, master = _sorted_tree(self._param_stream.gathered_params()), None
+            optimizer = {"param_stream": self._param_stream.state_dict()}
+        elif self._host_offload is not None:
+            # the fp32 master lives inside the host-offload records (no second copy)
+            module, master = _sorted_tree(self._full_params()), None
+            optimizer = {"host_offload": self._host_offload_state()}
+        else:
+            module = unflatten_tree(self._full_params())
+            master = unflatten_tree(self._full_master()) if self.mixed_precision else None
+            optimizer = _opt_state_to_tree(self._full_opt_state())
         return {
-            "module": unflatten_tree(self._full_params()),
-            "master": unflatten_tree(self._full_master()) if self.mixed_precision else None,
-            "optimizer": _opt_state_to_tree(self._full_opt_state()),
+            "module": module,
+            "master": master,
+            "optimizer": optimizer,
             "loss_scaler": {"scale": torch.tensor(float(s.scale), dtype=torch.float64),
                             "good_steps": torch.tensor(int(s.good_steps)),
                             "hysteresis": torch.tensor(int(s.hysteresis))},
@@ -692,6 +1021,27 @@ class DeepSpeedEngine:
             "ds_version": __version__,
             "client_state": client_state or {},
         }
+
+    def _host_offload_state(self) -> Dict[str, Any]:
+        """``optimizer["host_offload"]``: the engine's records, whole leaves
+        at any dp (the slices gathered through the card at dp > 1: one
+        record a leaf, its index whole)."""
+        ho = self._host_offload
+        if self.dp == 1:
+            return ho.state_dict()
+        if self._streamed_offload:
+            st = ho.state_dict()
+            for k, rec in zip(ho.names, st["leaves"]):
+                for f in ("master", "exp_avg", "exp_avg_sq"):
+                    rec[f] = self._gather_host({k: rec[f]})[k].cpu()
+            return st
+        leaves = []
+        for k in ho.names:
+            slice_shape = shard(torch.empty(self._shapes[k], device="meta"), self._mdim[k], self.dp_rank, self.dp).shape
+            rec = {f: self._gather_host({k: torch.from_numpy(a).reshape(slice_shape)})[k].cpu().reshape(-1)
+                   for f, a in ho.leaf_state(k).items()}
+            leaves.append([dict(index=[(None, None)] * len(self._shapes[k]), **rec)])
+        return {"step": ho.step_count, "leaves": leaves}
 
     def _mesh_shape(self) -> Dict[str, int]:
         return {"data": self.dp}
@@ -833,10 +1183,40 @@ class DeepSpeedEngine:
             state = self.checkpoint_engine.load(path)
         if load_module_strict:
             self._validate_checkpoint_state(state, path)
-        self._adopt_weights(state)
-        if load_optimizer_states and not load_module_only and state.get("optimizer") is not None:
+        full_opt = load_optimizer_states and not load_module_only
+        opt = state.get("optimizer")
+        if self._param_stream is not None:  # JAX engine.py:3495-3521
+            if not (isinstance(opt, dict) and "param_stream" in opt):
+                raise NotImplementedError("param-offload load_checkpoint requires a checkpoint saved by the "
+                                          "param-offload engine (optimizer['param_stream'])")
+            if full_opt:
+                self._param_stream.load_state_dict(opt["param_stream"])
+            else:  # weights only: fresh moments and step count
+                self._param_stream.load_master_state(opt["param_stream"])
+        else:
+            self._adopt_weights(state)
+        if self._host_offload is not None:  # JAX engine.py:3532-3565
+            ho = self._host_offload
+            if isinstance(opt, dict) and "host_offload" in opt:
+                if not full_opt:
+                    # a module-only load still refreshes the host master, or the next step would write the
+                    # stale one over the loaded weights
+                    ho.load_master_only(opt["host_offload"], self._offload_slicer(opt["host_offload"]))
+            else:  # a non-offload checkpoint: its master, or (fp32) its module, is the master
+                src = flatten_tree(state["master"] if state.get("master") is not None else state["module"])
+                ho.set_master_leaves({k: shard(_cpu_tensor(src[k]), self._mdim[k], self.dp_rank, self.dp)
+                                      for k in ho.names})
+            if full_opt and opt is not None:
+                ho.load_state_dict(opt["host_offload"], self._offload_slicer(opt["host_offload"]))
+        elif self._param_stream is None and full_opt and opt is not None:
+            if isinstance(opt, dict) and ("param_stream" in opt or "host_offload" in opt):
+                kind = "param_stream" if "param_stream" in opt else "host_offload"
+                raise NotImplementedError(
+                    f"this checkpoint's optimizer state was saved by the {kind} offload engine and cannot be loaded "
+                    "into a non-offload engine; pass load_optimizer_states=False to adopt the module weights with a "
+                    "fresh optimizer")
             slicer = None if self.dp == 1 else (lambda k, t: shard(t, self._mdim[k], self.dp_rank, self.dp))
-            self._opt_state = _opt_state_from_tree(state["optimizer"], self._opt_state, self.device, slicer)
+            self._opt_state = _opt_state_from_tree(opt, self._opt_state, self.device, slicer)
         if state.get("loss_scaler") is not None:
             ls = state["loss_scaler"]
             self._scale_state = LossScaleState(scale=float(ls["scale"]), good_steps=int(ls["good_steps"]),
@@ -856,15 +1236,36 @@ class DeepSpeedEngine:
         self._ckpt_metrics["last_restore_s"] = time.perf_counter() - t_load
         return path, state.get("client_state", {})
 
+    def _offload_slicer(self, rec: Dict[str, Any]):
+        """The host-offload engine's reader of a checkpoint's records: this
+        rank's slice of each whole leaf (streamed records are whole; legacy
+        records are reassembled from their slices first, JAX's
+        ``zero_to_fp32`` rule)."""
+        r, W = self.dp_rank, self.dp
+        if self._streamed_offload:
+            return lambda k, whole: shard(whole.reshape(self._shapes[k]), self._mdim[k], r, W)
+        records = dict(zip(self._host_offload.names, rec["leaves"])) if "leaves" in rec else {}
+
+        def leaf(k, key):
+            whole = torch.from_numpy(assemble_records(records[k], key, self._shapes[k]))
+            return shard(whole, self._mdim[k], r, W).reshape(-1).numpy()
+        return leaf
+
     @torch.no_grad()
     def _adopt_weights(self, state: Dict) -> None:
         """The module (compute dtype) and the fp32 master, each rank taking
         its slices of the whole arrays. A checkpoint without a master (fp32
         training, or module-only) rebuilds it from the module, or the next
-        step would recast the stale one over it."""
+        step would recast the stale one over it. On the offload paths the
+        master is the host engine's (``load_checkpoint``)."""
         module = flatten_tree(state["module"])
         master = flatten_tree(state["master"]) if state.get("master") is not None else None
         r, W = self.dp_rank, self.dp
+        if self._master is None:
+            for k, p in self._params.items():
+                if k in module:
+                    p.copy_(shard(module[k], self._pdim[k], r, W))
+            return
         for k, m in self._master.items():
             if master is not None and k in master:
                 m.copy_(shard(master[k], self._mdim[k], r, W))
@@ -898,6 +1299,8 @@ class DeepSpeedEngine:
         module = state.get("module")
         if module is None:
             raise CheckpointLoadError(f"{path} holds no module state")
+        if self._params is None:
+            return  # offload_param: the layer stream validates its own store
         saved = _flatten_with_paths(module)
         cur = _flatten_with_paths(unflatten_tree({k: torch.empty(self._shapes[k], dtype=p.dtype, device="meta")
                                                   for k, p in self._params.items()}))
@@ -926,7 +1329,8 @@ class DeepSpeedEngine:
     def consolidated_16bit_state_dict(self) -> Dict[str, torch.Tensor]:
         """The compute-dtype weights as a flat ``path -> CPU tensor`` dict in
         JAX's path order (JAX ``engine.py:3685``)."""
-        return {name: t.detach().cpu() for name, t in _flatten_with_paths(unflatten_tree(self._full_params())).items()}
+        full = self._param_stream.gathered_params() if self._param_stream is not None else self._full_params()
+        return {name: t.detach().cpu() for name, t in _flatten_with_paths(unflatten_tree(full)).items()}
 
     def save_reference_checkpoint(self, save_dir: str, tag: Optional[str] = None,
                                   dp_shards: Optional[int] = None) -> str:
@@ -982,6 +1386,16 @@ def _opt_state_from_tree(tree: Dict[str, Any], like, device, slicer=None) -> Any
         else:
             fields[f] = type(cur)(saved.item() if isinstance(saved, torch.Tensor) else saved)
     return type(like)(**fields)
+
+
+def _sorted_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The nested tree of ``flat`` with every level in sorted key order
+    (JAX's tree order, which the offload records' leaf lists follow)."""
+    return unflatten_tree(dict(sorted(flat.items())))
+
+
+def _cpu_tensor(x) -> torch.Tensor:
+    return x.detach().cpu().float() if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
 
 
 def _npz_array(t: torch.Tensor) -> np.ndarray:

@@ -1,8 +1,7 @@
 """ZeRO config: a copy of ``deepspeed_tpu/runtime/zero/config.py`` (the
 JSON schema), so the same ``zero_optimization`` section parses to the same
-values. The port's training engine runs stages 0-3 at any number of ranks;
-offload parses and is then refused (``runtime/config.py:unported_switches``,
-ROADMAP T2).
+values. The port's training engine runs stages 0-3 at any number of ranks,
+with optimizer offload (stage >= 1) and parameter offload (stage 3).
 """
 
 from enum import Enum

@@ -1,6 +1,7 @@
 """Offload configs: a copy of ``deepspeed_tpu/runtime/zero/offload_config.py``
-(the JSON schema). Offload sections parse; the port's training engine then
-refuses a device other than ``none`` (ROADMAP T2).
+(the JSON schema). The training engine builds the offload paths from them
+(``runtime/engine.py``; ``runtime/zero/host_offload.py``,
+``offload_states.py``, ``param_offload.py``).
 """
 
 from enum import Enum

@@ -18,6 +18,10 @@ Injection points (sites call ``chaos.point(NAME, ...)``):
 * ``train.mid_step``   inside an optimizer step, after the update reached
   the master and before the step's counters, lr schedule and interval
   checkpoint (resume must replay from the last committed checkpoint);
+* ``train.mid_offload_stream`` once a bucket inside a streamed offload
+  step, between the bucket's update and its writeback: staged buckets
+  live, host buffers torn, the step uncommitted (resume rebuilds them from
+  the last committed checkpoint, never from the buffers);
 * ``serve.mid_step``   inside the serving scheduler step, after the device
   work and the emits, before the journal flush;
 * ``serve.mid_window`` inside a multi-step window's host phase: every token
@@ -66,6 +70,7 @@ POINTS = (
     "ckpt.mid_array_write",
     "ckpt.post_commit",
     "train.mid_step",
+    "train.mid_offload_stream",
     "serve.mid_step",
     "serve.mid_window",
     "journal.append",

@@ -50,8 +50,19 @@ def get_fp32_state_dict_from_zero_checkpoint(
     master = state.get("master")
     if master is None:
         opt = state.get("optimizer")
-        if isinstance(opt, dict) and ("host_offload" in opt or "param_stream" in opt):
-            raise NotImplementedError("offload checkpoint layouts are not ported yet (ROADMAP T2)")
+        if isinstance(opt, dict) and "host_offload" in opt:
+            # offload checkpoints keep the master inside the host-offload records; each leaf is
+            # reassembled from its slice records (streamed records are whole leaves)
+            from deepspeed_tpu_torch.runtime.zero.offload_states import assemble_records
+
+            module_flat = _flatten(state["module"])
+            out: Dict[str, np.ndarray] = {}
+            for name, per in zip(module_flat, opt["host_offload"]["leaves"]):
+                if isinstance(per, dict):
+                    out[name] = _flatten({"m": per["master"]})["m"].reshape(module_flat[name].shape)
+                else:
+                    out[name] = assemble_records(per, "master", module_flat[name].shape)
+            return out
         master = state.get("module")
     return _flatten(master)
 

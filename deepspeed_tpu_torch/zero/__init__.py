@@ -17,7 +17,7 @@ reference's ``deepspeed/runtime/zero/__init__.py`` re-exports).
   to write it back raises ``ValueError``, as in JAX.
 * the re-exports: ``ZeroPartitioner``, ``estimate_zero_memory``,
   ``DeepSpeedZeroConfig``, ``ZeroStageEnum``, the offload config classes
-  (the offload paths themselves are refused, ROADMAP T2), ``TiledLinear``
+  (the engine builds the offload paths from them), ``TiledLinear``
   and ``TiledLinearReturnBias``.
 """
 

@@ -1443,3 +1443,94 @@ def test_async_snapshot_untouched_by_next_steps_on_card(cuda_device, tmp_path, m
     assert not all(np.array_equal(at_save[0][k], v) for k, v in _flat_state(engine)[0].items())
     moments = flatten_tree(state["optimizer"]["exp_avg"])
     assert all(np.array_equal(at_save[2][k], moments[k].numpy()) for k in moments)
+
+
+# --- offload (T2's second half) ------------------------------------------------------------
+def _offload_card_engine(device, zero, dtype="bfloat16"):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import unflatten_tree
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2, max_seq_len=64, dtype=dtype,
+                            remat=False)
+    config = {"train_micro_batch_size_per_gpu": 4, "gradient_clipping": 1.0, "zero_optimization": zero,
+              "optimizer": {"type": "adam", "params": {"lr": 1e-3, "weight_decay": 0.01}}}
+    if dtype == "bfloat16":
+        config["bf16"] = {"enabled": True}
+    return dst.initialize(model=TransformerLM(cfg), config=config, model_parameters=unflatten_tree(init_params(cfg, 0)),
+                          device=device)[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamed_offload_bitwise_on_device_on_card(cuda_device, dtype, monkeypatch):
+    """The streamed buckets (H2D on a side stream, the update on the
+    compute stream, D2H into pinned host tensors, small buckets so several
+    are in flight) give the on-device engine's losses, norms and master bit
+    for bit over 4 steps."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
+
+    ref = _offload_card_engine(cuda_device, {"stage": 1}, dtype)
+    off = _offload_card_engine(cuda_device, {"stage": 1, "offload_optimizer": {
+        "device": "cpu", "pipeline_read": True, "pipeline_write": True, "pin_memory": True, "bucket_size": 40000}}, dtype)
+    assert off._host_offload.memory_report()["pinned"] and off._host_offload.num_buckets > 3
+    rec = []
+    for engine in (ref, off):
+        rec.append([])
+        for i in range(4):
+            toks = np.random.RandomState(i).randint(0, 256, (4, 65))
+            loss = engine({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
+            engine.backward(loss)
+            engine.step()
+            rec[-1].append((loss.item(), engine.get_global_grad_norm()))
+    assert rec[0] == rec[1]
+    a, b = flatten_tree(ref.get_master_params()), flatten_tree(off.get_master_params())
+    assert all(np.array_equal(a[k], b[k]) for k in a)
+    stats = off.offload_stream_stats()
+    assert stats["h2d_ms"] > 0 and stats["d2h_ms"] > 0 and stats["steps"] == 4
+
+
+def test_host_adam_on_pinned_buffers_on_card(cuda_device):
+    """The host Adam on the numpy views of pinned tensors, fed by a
+    ``non_blocking`` copy from the card and waited on by its event, equals
+    the same update on pageable copies."""
+    from deepspeed_tpu_torch.ops.adam.cpu_adam_native import NativeCPUAdam
+
+    n = 3 * 2**20 + 5
+    g_dev = torch.randn(n, device=cuda_device)
+    pinned = torch.empty(n, pin_memory=True)
+    pinned.copy_(g_dev, non_blocking=True)
+    landed = torch.cuda.Event()
+    landed.record()
+    p = np.random.RandomState(0).randn(n).astype(np.float32)
+    state = [p.copy(), np.zeros(n, np.float32), np.zeros(n, np.float32)]
+    ref = [p.copy(), np.zeros(n, np.float32), np.zeros(n, np.float32)]
+    master = torch.from_numpy(state[0]).pin_memory()
+    landed.synchronize()
+    adam = NativeCPUAdam(lr=1e-3, weight_decay=0.01)
+    adam.step(master.numpy(), pinned.numpy(), state[1], state[2], step=1)
+    adam.step(ref[0], g_dev.cpu().numpy(), ref[1], ref[2], step=1)
+    assert master.numpy().tobytes() == ref[0].tobytes() and state[1].tobytes() == ref[1].tobytes()
+    back = master.to(cuda_device, non_blocking=True)
+    assert torch.equal(back.cpu(), torch.from_numpy(ref[0]))
+
+
+def test_param_offload_launches_on_card(cuda_device):
+    """``offload_param`` in bf16: K1 twice a layer a step (forward and the
+    recompute), K2 and K3 once, all on the tensor-core variants."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    engine = _offload_card_engine(cuda_device, {"stage": 3, "offload_param": {"device": "cpu"}})
+    before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc,
+              fa.launches_dkv_tc)
+    for i in range(2):
+        toks = np.random.RandomState(i).randint(0, 256, (4, 65))
+        loss = engine({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
+        engine.backward(loss)
+        engine.step()
+    after = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv, fa.launches_fwd_tc, fa.launches_dq_tc,
+             fa.launches_dkv_tc)
+    d = [a - b for a, b in zip(after, before)]
+    assert d == [8, 4, 4, 8, 4, 4]
+    assert np.isfinite(engine.get_global_grad_norm())

@@ -81,7 +81,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "checkpoint/utils.py", "checkpoint/reference_export.py", "checkpoint/reference_ingest.py",
                    "checkpoint/reshape_utils.py", "checkpoint/deepspeed_checkpoint.py", "utils/zero_to_fp32.py",
                    "parallel/mesh.py", "runtime/zero/partition.py", "runtime/zero/overlap.py",
-                   "runtime/zero/tiling.py", "zero/__init__.py"):
+                   "runtime/zero/tiling.py", "zero/__init__.py", "ops/native.py", "ops/adam/cpu_adam_native.py",
+                   "ops/adagrad/cpu_adagrad.py", "ops/aio/__init__.py", "runtime/swap_tensor/aio_config.py",
+                   "runtime/swap_tensor/utils.py", "runtime/swap_tensor/async_swapper.py",
+                   "runtime/swap_tensor/optimizer_utils.py", "runtime/swap_tensor/partitioned_optimizer_swapper.py",
+                   "runtime/zero/contiguous_memory_allocator.py", "runtime/zero/offload_states.py",
+                   "runtime/zero/host_offload.py", "runtime/zero/param_offload.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
@@ -133,6 +138,17 @@ LOWER_ENTRY_POINTS = {
     "init_paged_cache": lambda cfg, tree, **kw: init_paged_cache(cfg, 6, 4, **kw),
     "init_cache": lambda cfg, tree, **kw: init_cache(cfg, 2, 16, **kw),
     "load_jax_params": lambda cfg, tree, **kw: load_jax_params(TransformerLM(cfg), tree, **kw),
+    # the offloaded engines: their host state must not hide where the engine runs
+    "initialize_offload_optimizer": lambda cfg, tree, **kw: dst.initialize(
+        model=TransformerLM(cfg), model_parameters=tree, config={
+            "train_micro_batch_size_per_gpu": 1, "zero_optimization": {
+                "stage": 1, "offload_optimizer": {"device": "cpu", "pipeline_read": True}}}, **kw),
+    "initialize_offload_param": lambda cfg, tree, **kw: dst.initialize(
+        model=TransformerLM(cfg), model_parameters=tree, config={
+            "train_micro_batch_size_per_gpu": 1, "zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+        **kw),
+    "init_inference_zero": lambda cfg, tree, **kw: dst.init_inference(
+        TransformerLM(cfg), dtype="fp32", zero={"stage": 3, "offload_param": {"device": "cpu"}}, **kw).set_params(tree),
 }
 
 

@@ -272,9 +272,9 @@ def test_bench_config_resolves_as_jax():
 
 
 UNPORTED = {
-    "offload_param": {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+    "mesh_model": {"mesh": {"model": 2}},
     "zero_quantized_weights": {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
-    "offload": {"zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu"}}},
+    "zero_hpz": {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
     "fuse_grad_accum": {"compile": {"fuse_grad_accum": True}},
     "multi_step": {"compile": {"multi_step": {"enable": True, "horizon": 4}}},
     "mesh_pipe": {"mesh": {"pipe": 2}},
