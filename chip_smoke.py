@@ -11,7 +11,9 @@ two ranks, tenancy, the fleet and wall-clock replay over tp servers), the
 training (with checkpoints: save, async save, bit-exact resume, serving
 booted from one; ZeRO stages 0-3 on two ranks and a checkpoint moved
 between dp = 2 and dp = 1; optimizer and parameter offload, and
-ZeRO-Inference) and the block-sparse attention main paths at full width. Phases,
+ZeRO-Inference; fused gradient accumulation and multi-step windows as
+captured CUDA graphs, GPT-2 2.7B at head_dim 80, the llama, qwen and ALiBi
+training shapes) and the block-sparse attention main paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -179,8 +181,9 @@ non-zero without the final line:
    ranks are spawned (``spawn``; ``init_distributed("gloo")`` through a
    file store with a timeout; the parent kills both at a time limit and
    fails on any rank's error). Each rank: ``init_inference(...,
-   paged_kv={"sharded": {"tp_degree": 2}})`` serving phase 3's 16
-   requests in bf16 (every request finished, K4 = 22 x ragged steps,
+   paged_kv={"sharded": {"tp_degree": 2}})`` serving the first 8 of phase
+   3's 16 requests in bf16 (the depth cut to make room for phases
+   16a-16e; every request finished, K4 = 22 x ragged steps,
    TTFT/TPOT, streams equal to phase 3's counted); a bf16 server with the
    quantized all-reduce (4 requests of 8 new tokens finished) and the largest logit
    difference of one [2, 256] forward against the fp all-reduce; fp32
@@ -332,6 +335,39 @@ non-zero without the final line:
    the layer bytes; an ``nvme`` arm at depth 4 with 2 staging buffers (so
    every token reads every layer file) whose streams equal the ``cpu``
    arm's at that depth;
+16a. K1-K3 at head_dim 80 ([4, 1024, 32, 80], causal: GPT-2 2.7B's heads at
+   micro 4) in bf16, fp16 and fp32 (TF32 off) against their plain versions
+   at the training shape's tolerances, each timed beside its bound, its
+   plain version and SDPA (forward; its autograd backward for K2 and K3);
+16b. ``compile.fuse_grad_accum`` at gas 4 on config 1's model: each arm's
+   step program (a warm-up step, one capture, then one CUDA-graph replay a
+   step) against the eager engine on the same microbatches, 4 steps, bit
+   for bit (losses, grad norms, loss scales, a digest of every master
+   leaf): fp32, bf16, fp16 with the scale written to 2^40 before step 2
+   (the overflow's skip and scale walk run in the program), remat, dropout
+   0.1; the bf16 arm's step ms and idle share (``torch.profiler`` kernel
+   time against the step wall), eager and captured. K1-K3 counters: every
+   step's launches on the eager engine, the warm-up's and the capture's on
+   the captured one (a replay passes no wrapper);
+16c. ``compile.multi_step`` (horizon 4), bf16: at gas 1 and at gas 4 12
+   steps bitwise the sequential eager run, 3 windows,
+   ``dispatches_per_opt_step`` 0.25, drained losses equal to the returned
+   ones, the third window's host wall beside its replay's device time; a
+   checkpoint interval of 6 (``checkpoint`` breaks) and a 10-step iterator
+   (``data`` breaks) bitwise the sequential run; streamed offload in
+   three windows (a warm-up, two captures) bitwise its sequential run,
+   host state included;
+16d. ``gpt2_config("2.7b")`` at full width and depth (32 layers, 32 heads of
+   80), bf16, ZeRO-1, remat, micro 4 x T 1024, gas 4: the eager engine 4
+   steps (K1 = 256, K2 = K3 = 128 a step, all tensor-core), then
+   ``fuse_grad_accum`` with windows of 2 on the same microbatches, bitwise
+   (losses, grad norms, master digest); step ms, MFU, peak and pool memory
+   against the reckoned state, idle share;
+16e. ``llama_config("1b")`` at micro 2 x T 2048 and ``qwen2_config("0.5b")``,
+   remat: kernel vs ``attn_impl="plain"``, fp32 step 1 within 1e-5 and 3
+   bf16 steps within twice the bf16 rounding of the plain arm; config 1
+   with ALiBi (no kernel): the card's fp32 loss against the CPU's within
+   1e-5, 3 bf16 steps falling;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -397,7 +433,9 @@ generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a
 9h and the local-shape checks, K4's also phase 9i's; K1-K3 with a
 ``zero`` field: each rank's launches in phase 12d's runs, and an
 ``offload`` field: the launches of phases 15b-15e's runs, K1's also phase
-15f's); the last line is
+15f's; a ``d80`` field: phase 16a's errors and times in each dtype; a
+``fused`` field: their counters, launches a step and replays on phases
+16b-16e's step programs); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -428,8 +466,8 @@ from deepspeed_tpu_torch.inference.journal import RequestJournal
 from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.inference.spec_decode import Drafter
 from deepspeed_tpu_torch.inference.traffic import MultiTenantServer, TenantSpec
-from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config
-from deepspeed_tpu_torch.models.transformer import init_params
+from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config, qwen2_config
+from deepspeed_tpu_torch.models.transformer import init_params, param_shapes
 from deepspeed_tpu_torch.ops import native
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -2080,6 +2118,7 @@ TP_SERVE = {"page_size": 16, "max_slots": 8, "sharded": {"tp_degree": TP}}
 TP_LIMIT_S = 480  # the parent's hard limit on the ranks
 TP_PG_TIMEOUT_S = 300
 TP_NEW = 16  # new tokens a request in the fp32 tp runs (a tp step costs ~90 gloo collectives on the shared card)
+TP_REQUESTS = 8  # phase 3's requests the bf16 tp server serves (cut from 16 to make room for 16a-16e)
 
 
 def _save_tree(tree, path):
@@ -2462,14 +2501,16 @@ def phase_tp(cfg, tree, seed, streams, dev):
         emit(phase="tp", event="tree_written", seconds=time.perf_counter() - t0)
         t0 = time.perf_counter()
         ranks = _spawn_ranks(_tp_rank, TP, tmp, dict(
-            tree_path=f"{tmp}/tree", prompts=prompts, budgets=budgets, small=small, small_ref=small_ref,
+            tree_path=f"{tmp}/tree", prompts=prompts[:TP_REQUESTS], budgets=budgets[:TP_REQUESTS], small=small,
+            small_ref=small_ref,
             dense_prompts=dense_prompts, tokens=tokens, ckpt=f"{tmp}/ckpt"), TP_LIMIT_S, "tp")
         ranks_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     L = cfg.num_layers
-    rec = dict(ranks=TP, backend="gloo", note="two gloo ranks on one card, not a TP speed", ranks_wall_s=ranks_s)
+    rec = dict(ranks=TP, backend="gloo", note="two gloo ranks on one card, not a TP speed", ranks_wall_s=ranks_s,
+               bf16_requests=f"phase 3's first {TP_REQUESTS} of {len(prompts)} (a depth cut)")
     # bf16 serving of phase 3's traffic
     rec["bf16"] = [r["bf16"] for r in ranks]
     rec["bf16_identical_to_phase3"] = [_same(r["bf16_streams"], streams["cold"]) for r in ranks]
@@ -4366,6 +4407,533 @@ def phase_sparse_train(seed, dev):
     return counts, variants
 
 
+# --- phases 16a-16e: T4 (head_dim 80, the step programs as CUDA graphs, 2.7B, training shapes) ------
+FLASH_D80 = (4, 1024, 32, 80, True)  # gpt2_config("2.7b")'s attention at micro 4 x T 1024: [B, T, N, D], causal
+FUSED_GAS, FUSED_STEPS, FUSED_TIMED = 4, 4, 2
+WINDOW_H = 4
+
+
+def phase_flash_d80(dev, flush):
+    """Phase 16a: K1-K3 at head_dim 80 ([4, 1024, 32, 80], causal) in bf16,
+    fp16 and fp32 (TF32 off), each against its plain version at the
+    training shape's tolerances; each timed beside its bound, its plain
+    version and SDPA (forward; its autograd backward for K2 and K3)."""
+    B, T, N, Dh, causal = FLASH_D80
+    rs = np.random.default_rng(8080)
+    base = [torch.from_numpy(rs.standard_normal((B, T, N, Dh), dtype=np.float32)).to(dev) for _ in range(4)]
+    out = {}
+    for dtype, (tol_o, tol_g) in {**FLASH_TOL, torch.float16: FLASH_FP16_TOL}.items():
+        q, k, v, do = (t.to(dtype) for t in base)
+        errs, (lse, delta) = _flash_errors(q, k, v, do, causal)
+        bad = [key for key, (abs_err, rel) in errs.items()
+               if (abs_err > tol_o if key in ("flash_fwd", "flash_lse") else rel > tol_g)]
+        dt = str(dtype).replace("torch.", "")
+        bounds = _flash_bound(B, T, N, Dh, causal, dtype)
+        f = [t.float() for t in (q, k, v, do)]
+        timed = {
+            "flash_fwd": (lambda: fa.flash_fwd_kernel(q, k, v, causal), lambda: fa.flash_fwd_plain(*f[:3], causal)),
+            "flash_dq": (lambda: fa.flash_dq_kernel(q, k, v, do, lse, delta, causal),
+                         lambda: fa.flash_dq_plain(*f, lse, delta, causal)),
+            "flash_dkv": (lambda: fa.flash_dkv_kernel(q, k, v, do, lse, delta, causal),
+                          lambda: fa.flash_dkv_plain(*f, lse, delta, causal)),
+        }
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+        sdo = do.transpose(1, 2).contiguous()
+        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(sq.detach(), sk.detach(), sv.detach(),
+                                                                  is_causal=causal), 20, flush)
+        lib_bwd = _time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True), 20, flush)
+        timing = {}
+        for key, (kernel, plain) in timed.items():
+            ms = _time_ms(kernel, 20, flush)
+            lib = lib_fwd if key == "flash_fwd" else lib_bwd
+            timing[key] = dict(ms=ms, plain_ms=_time_ms(plain, 3, flush), library_ms=lib, library_share=lib / ms,
+                               roofline_share=bounds[key]["bound_ms"] / ms, **bounds[key])
+        rec = dict(phase="flash_d80", case="B=4 T=1024 N=32 D=80 causal", dtype=dt, variant=VARIANT[dtype],
+                   tol_o_lse_abs=tol_o, tol_grad_rel=tol_g,
+                   errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()}, timing=timing,
+                   library=("flash_fwd: scaled_dot_product_attention(is_causal=True) on [B, N, T, D]; flash_dq and "
+                            "flash_dkv: the autograd backward of that call (dQ, dK and dV together)"))
+        emit(**rec)
+        out[dt] = rec
+        del so, sq, sk, sv, sdo
+        if bad:
+            raise AssertionError(f"flash D=80 {dt}: {bad} past tolerance: {errs}")
+    _free()
+    return out
+
+
+def _weights_on_card(cfg, seed, dev):
+    """``init_params``'s distributions (normal std 0.02, output projections
+    0.02/sqrt(2L), norm scales 1, biases 0) drawn on the card from a
+    ``torch.Generator`` seeded ``seed``, returned as host numpy: the large
+    models' trees in seconds rather than a minute of numpy draws."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tree = {}
+    for path, shape in param_shapes(cfg).items():
+        name = path.rsplit("/", 1)[-1]
+        if "norm_scale" in name:
+            tree[path] = np.ones(shape, np.float32)
+        elif name.startswith("b") or name.endswith("bias"):
+            tree[path] = np.zeros(shape, np.float32)
+        else:
+            std = 0.02 / np.sqrt(2 * cfg.num_layers) if name in ("wo", "w_out") else 0.02
+            tree[path] = torch.empty(shape, device=dev).normal_(0.0, std, generator=gen).cpu().numpy()
+    return tree
+
+
+def _step_data(vocab, T, n, micro, seed, dev):
+    """``n`` microbatches [micro, T] on the card, drawn from ``seed``."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        toks = torch.from_numpy(rs.randint(0, vocab, (micro, T + 1)).astype(np.int64)).to(dev)
+        out.append({"input_ids": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
+
+
+def _program_engine(cfg, tree, config, fuse=False, horizon=0, attn_impl=None):
+    c = dict(config, compile={"fuse_grad_accum": fuse, "multi_step": {"enable": horizon > 0, "horizon": max(horizon, 2)}})
+    return dst.initialize(model=TransformerLM(cfg), config=c, model_parameters=tree, attn_impl=attn_impl)[0]
+
+
+def _leaf_digest(t):
+    """Two int64 sums over the bits of ``t`` (plain and position-weighted),
+    on the card in pieces: equal masters give equal digests, and one
+    differing element changes them."""
+    x = t.detach().contiguous().view(-1)
+    x = x.view(torch.int32) if x.element_size() == 4 else x.view(torch.int16)
+    total, weighted, step = 0, 0, 1 << 26
+    for a in range(0, x.numel(), step):
+        piece = x[a:a + step].to(torch.int64)
+        w = (torch.arange(a, a + piece.numel(), device=x.device, dtype=torch.int64) % 1000003) + 1
+        total += int(piece.sum())
+        weighted += int((piece * w).sum())
+    return total, weighted
+
+
+def _master_digest(engine):
+    state = engine._master if engine._master is not None else engine._params
+    return {k: _leaf_digest(t) for k, t in state.items()}
+
+
+def _drive(engine, data, steps):
+    """``steps`` train_batch calls on one iterator over ``data``: per step
+    (loss, grad norm, loss scale) and the host wall of each call, which
+    ends in a host read of the loss (the card has finished the step or
+    the window)."""
+    it = iter(data)
+    rec, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(data_iter=it))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        rec.append((loss, engine.get_global_grad_norm(), engine.loss_scale))
+    return rec, walls
+
+
+def _kernel_ms(fn):
+    """The card's kernel time in one call of ``fn`` (torch.profiler: the
+    sum of the kernels' device time, those inside graph replays included)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us += next((float(getattr(evt, a)) for a in ("self_device_time_total", "self_cuda_time_total")
+                        if hasattr(evt, a)), 0.0)
+    return us / 1e3
+
+
+def _same_rec(a, b):
+    return np.array_equal(np.asarray(a, np.float64), np.asarray(b, np.float64), equal_nan=True)
+
+
+def phase_train_fused(seed, dev, tree):
+    """Phase 16b: ``compile.fuse_grad_accum`` on config 1's model (GPT-2
+    125M, micro 8 x T 1024, FusedAdam wd 0.01, clip 1.0) at gas 4: the step
+    program (a warm-up step, then one capture, then one replay a step)
+    against the eager engine on the same microbatches, 4 steps, in fp32
+    (TF32 off), bf16, fp16 with the loss scale written to 2^40 before step 2
+    in both engines and back to 2^14 before step 3 (step 2 overflows: the
+    skip and the scale walk run in the program), remat, and dropout 0.1
+    (attention and hidden): losses, grad norms, loss scales and a bitwise
+    digest of the master equal. Then
+    2 more steps of each bf16 engine, timed, and one profiled: step ms and
+    the card's idle share (1 - kernel time / step wall)."""
+    out = {}
+    bf16_cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    fp32_config = {k: v for k, v in TRAIN_CONFIG.items() if k != "bf16"}
+    arms = {
+        "fp32": (gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float32"), fp32_config),
+        "bf16": (bf16_cfg, TRAIN_CONFIG),
+        "fp16 overflow": (gpt2_config("125m", max_seq_len=1024, remat=False, dtype="float16"),
+                          dict(fp32_config, fp16={"enabled": True, "initial_scale_power": 14, "hysteresis": 1})),
+        "bf16 remat": (gpt2_config("125m", max_seq_len=1024, remat=True), TRAIN_CONFIG),
+        "bf16 dropout": (gpt2_config("125m", max_seq_len=1024, remat=False, attn_dropout=0.1, hidden_dropout=0.1),
+                         TRAIN_CONFIG),
+    }
+    extra = FUSED_TIMED + 1
+    for name, (cfg, config) in arms.items():
+        config = dict(config, gradient_accumulation_steps=FUSED_GAS)
+        steps = FUSED_STEPS + (extra if name == "bf16" else 0)
+        data = _step_data(cfg.vocab_size, cfg.max_seq_len, FUSED_GAS * steps, 8, seed + 16, dev)
+        res = {}
+        for fuse in (False, True):
+            engine = _program_engine(cfg, tree, config, fuse=fuse)
+            _zero_counts()
+            it = iter(data)
+            rec, walls = [], []
+            for i in range(FUSED_STEPS):
+                if name == "fp16 overflow" and i in (1, 2):
+                    # in place, as a captured program reads it: 2^40 forces step 2's overflow (the program
+                    # skips it and halves the scale); step 3 starts again from 2^14
+                    engine._scale_state.scale.fill_(2.0**40 if i == 1 else 2.0**14)
+                t0 = time.perf_counter()
+                loss = float(engine.train_batch(data_iter=it))
+                walls.append((time.perf_counter() - t0) * 1e3)
+                rec.append((loss, engine.get_global_grad_norm(), engine.loss_scale))
+            counts, variants = _counts(), _variants()
+            r = dict(rec=rec, walls=walls, digest=_master_digest(engine), counts=counts, variants=variants,
+                     graphs=engine.window_stats()["graphs"], skipped=engine.skipped_steps)
+            if name == "bf16":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(FUSED_TIMED):
+                    float(engine.train_batch(data_iter=it))
+                r["step_ms"] = (time.perf_counter() - t0) * 1e3 / FUSED_TIMED
+                r["kernel_ms"] = _kernel_ms(lambda: float(engine.train_batch(data_iter=it)))
+                r["idle_share"] = 1.0 - r["kernel_ms"] / r["step_ms"]
+            res["fused" if fuse else "eager"] = r
+            del engine, it
+            _free()
+        eager, fused = res["eager"], res["fused"]
+        bitwise = _same_rec(eager["rec"], fused["rec"]) and eager["digest"] == fused["digest"]
+        L = cfg.num_layers
+        per_step = 0 if "dropout" in name else L * FUSED_GAS * (2 if cfg.remat else 1)  # K1 (no flash under dropout)
+        launches_per_step = {"flash_fwd": per_step, "flash_dq": 0 if "dropout" in name else L * FUSED_GAS,
+                             "flash_dkv": 0 if "dropout" in name else L * FUSED_GAS}
+        rec = dict(phase="train_fused", arm=name, gas=FUSED_GAS, steps=FUSED_STEPS, bitwise=bitwise,
+                   losses=[x[0] for x in fused["rec"]], grad_norms=[x[1] for x in fused["rec"]],
+                   loss_scales=[x[2] for x in fused["rec"]], skipped=fused["skipped"], graphs=fused["graphs"],
+                   eager_launches=eager["counts"], fused_launches=fused["counts"],
+                   fused_tensor_core=fused["variants"]["flash_fwd_tc"],
+                   launches_per_step=launches_per_step, step_wall_ms=dict(eager=eager["walls"], fused=fused["walls"]))
+        if name == "bf16":
+            rec.update(step_ms=dict(eager=eager["step_ms"], fused=fused["step_ms"]),
+                       kernel_ms=dict(eager=eager["kernel_ms"], fused=fused["kernel_ms"]),
+                       idle_share=dict(eager=eager["idle_share"], fused=fused["idle_share"]))
+        emit(**rec)
+        out[name] = rec
+        # the eager run launches every step's kernels; the fused run the warm-up step's and the capture's
+        k1_eager, k1_fused = eager["counts"]["flash_fwd"], fused["counts"]["flash_fwd"]
+        want_fused, want_eager = 2 * per_step, per_step * FUSED_STEPS
+        if not bitwise or (k1_eager, k1_fused) != (want_eager, want_fused) or \
+                fused["graphs"] != {"captures": 1, "replays": FUSED_STEPS - 1, "warmups": 1, "uncaptured": 0}:
+            raise AssertionError(f"train_fused {name}: bitwise {bitwise}, K1 eager {k1_eager} (want {want_eager}) "
+                                 f"fused {k1_fused} (want {want_fused}), graphs {fused['graphs']}: {rec}")
+        if name == "fp16 overflow" and not (fused["skipped"] >= 1 and fused["skipped"] < FUSED_STEPS):
+            raise AssertionError(f"train_fused fp16: {fused['skipped']} skipped steps, want the forced one and taken ones")
+        if not all(np.isfinite(rec["losses"])):
+            raise AssertionError(f"train_fused {name}: losses {rec['losses']}")
+    return out
+
+
+def phase_train_window(seed, dev, tree):
+    """Phase 16c: ``compile.multi_step`` (horizon 4) on config 1's model in
+    bf16: at gas 1 and at gas 4 (over the fused body) 12 steps, each window
+    one replay of one captured graph after its warm-up window; bitwise the
+    sequential eager run, 3 windows, ``dispatches_per_opt_step`` 0.25, the
+    drained losses equal the returned ones; the third window's host wall
+    against its replay's device time (CUDA events). A checkpoint interval
+    of 6 forces ``checkpoint`` breaks and a 10-step iterator ``data``
+    breaks, both bitwise the sequential run; the streamed offload (stage 1,
+    ``pipeline_read``/``pipeline_write``) in three windows (a warm-up, two
+    captures over fresh state) is bitwise its sequential run."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    out = {}
+    steps = 3 * WINDOW_H
+    for gas in (1, FUSED_GAS):
+        config = dict(TRAIN_CONFIG, gradient_accumulation_steps=gas)
+        data = _step_data(cfg.vocab_size, cfg.max_seq_len, gas * steps, 8, seed + 160 + gas, dev)
+        ref = _program_engine(cfg, tree, config)
+        want, ref_walls = _drive(ref, data, steps)
+        want_digest = _master_digest(ref)
+        del ref
+        _free()
+        engine = _program_engine(cfg, tree, config, fuse=gas > 1, horizon=WINDOW_H)
+        _zero_counts()
+        got, walls = _drive(engine, data, steps)
+        counts = _counts()
+        engine.flush_loss_drain()
+        drained = [d["loss"] for d in engine.drained_losses()]
+        stats = engine.window_stats()
+        device_ms = engine.window_device_ms()
+        bitwise = _same_rec(got, want) and _master_digest(engine) == want_digest
+        del engine
+        _free()
+        third = walls[2 * WINDOW_H:3 * WINDOW_H]
+        rec = dict(phase="train_window", gas=gas, horizon=WINDOW_H, steps=steps, bitwise=bitwise,
+                   losses=[x[0] for x in got], window_stats=stats, drained_equal=drained == [x[0] for x in got],
+                   window_wall_ms=sum(third), window_first_call_ms=third[0], replay_device_ms=device_ms,
+                   sequential_ms_per_step=float(np.median(ref_walls[2:])), launches=counts)
+        rec["window_idle_share"] = 1.0 - device_ms[0] / rec["window_wall_ms"] if device_ms else None
+        emit(**rec)
+        out[f"gas{gas}"] = rec
+        if not (bitwise and rec["drained_equal"] and stats["window_steps"] == 3
+                and stats["dispatches_per_opt_step"] == 0.25 and stats["graphs"]["captures"] == 1):
+            raise AssertionError(f"train_window gas {gas}: {rec}")
+    # the breaks, at gas 1: a checkpoint interval of 6 (saves at 6 and after), then a 10-step iterator
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=1)
+    data = _step_data(cfg.vocab_size, cfg.max_seq_len, 10, 8, seed + 170, dev)
+    ref = _program_engine(cfg, tree, config)
+    want, _ = _drive(ref, data, 10)
+    del ref
+    _free()
+    root, fs = _ckpt_root(2 * 124_439_808 * 16)
+    try:
+        for label, extra in (("checkpoint", {"checkpoint": {"interval_steps": 6, "save_dir": root}}), ("data", {})):
+            engine = _program_engine(cfg, tree, dict(config, **extra), horizon=WINDOW_H)
+            got, _ = _drive(engine, data, 10)
+            stats = engine.window_stats()
+            del engine
+            _free()
+            rec = dict(phase="train_window", case=f"{label} break", bitwise=_same_rec(got, want),
+                       break_reasons=stats["window_break_reasons"], window_steps=stats["window_steps"], ckpt_fs=fs)
+            emit(**rec)
+            out[f"{label}_break"] = rec
+            if not rec["bitwise"] or rec["break_reasons"][label] < 1:
+                raise AssertionError(f"train_window {label} break: {rec}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # the streamed offload in windows: a warm-up, then two captures, each over the window's fresh state
+    zero = {"stage": 1, "offload_optimizer": STREAMED_OFFLOAD}
+    config = dict(TRAIN_CONFIG, zero_optimization=zero)
+    data = _step_data(cfg.vocab_size, cfg.max_seq_len, 3 * WINDOW_H, 8, seed + 180, dev)
+    runs = {}
+    for horizon in (0, WINDOW_H):
+        engine = _program_engine(cfg, tree, config, horizon=horizon)
+        rec_, walls = _drive(engine, data, 3 * WINDOW_H)
+        host = engine._host_offload.state_dict()
+        runs[horizon] = (rec_, walls, [[rec[f].clone() for f in ("master", "exp_avg", "exp_avg_sq")]
+                                       for rec in host["leaves"]], engine.window_stats(), host["step"])
+        del engine
+        _free()
+    same_host = all(all(torch.equal(a, b) for a, b in zip(x, y)) for x, y in zip(runs[0][2], runs[WINDOW_H][2]))
+    rec = dict(phase="train_window", case="streamed offload", bitwise=_same_rec(runs[0][0], runs[WINDOW_H][0]),
+               host_state_bitwise=same_host, host_steps=(runs[0][4], runs[WINDOW_H][4]),
+               window_steps=runs[WINDOW_H][3]["window_steps"], graphs=runs[WINDOW_H][3]["graphs"],
+               sequential_walls_ms=runs[0][1], window_walls_ms=runs[WINDOW_H][1])
+    emit(**rec)
+    out["streamed_offload"] = rec
+    if not (rec["bitwise"] and same_host and rec["window_steps"] == 3 and rec["graphs"]["captures"] == 2):
+        raise AssertionError(f"train_window streamed offload: {rec}")
+    return out
+
+
+TRAIN_2P7B = {"train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 4, "bf16": {"enabled": True},
+              "zero_optimization": {"stage": 1}, "gradient_clipping": 1.0,
+              "optimizer": {"type": "adam", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+STEPS_2P7B, HORIZON_2P7B = 4, 2
+
+
+def phase_train_2p7b(seed, dev):
+    """Phase 16d: ``gpt2_config("2.7b")`` at full width and depth (2560
+    wide, 32 layers, 32 heads of 80), bf16, ZeRO-1 at one rank, FusedAdam,
+    ``remat=True``, micro 4 x T 1024, gas 4, weights drawn on the card: the
+    eager engine 4 steps, then (the state does not fit twice)
+    ``fuse_grad_accum`` with ``multi_step.horizon`` 2 (a warm-up window,
+    then a capture and its replay) 4 steps on the same microbatches: losses
+    finite and falling, K1 = 256, K2 = K3 = 128 a step on the tensor-core
+    variants, losses, grad norms and a per-leaf bitwise digest of the master
+    equal. Then 2 more steps of each engine timed (on the captured one a
+    window, one replay, its device span by CUDA events; the eager step runs
+    the same kernels): step ms, MFU against the
+    dense bf16 peak (6 N + 12 L H T operations a token, the remat recompute
+    not counted), the peak and pool figures against the reckoned state, and
+    the idle share."""
+    cfg = gpt2_config("2.7b", remat=True)
+    t0 = time.perf_counter()
+    tree = _weights_on_card(cfg, seed, dev)
+    made_s = time.perf_counter() - t0
+    gas, micro, T, L = TRAIN_2P7B["gradient_accumulation_steps"], TRAIN_2P7B["train_micro_batch_size_per_gpu"], \
+        cfg.max_seq_len, cfg.num_layers
+    data = _step_data(cfg.vocab_size, T, gas * STEPS_2P7B, micro, seed + 27, dev)
+    arms = {}
+    for fused in (False, True):
+        t0 = time.perf_counter()
+        engine = _program_engine(cfg, tree, TRAIN_2P7B, fuse=fused, horizon=HORIZON_2P7B if fused else 0)
+        build_s = time.perf_counter() - t0
+        n_params = engine.num_parameters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        rec, walls = _drive(engine, data, STEPS_2P7B)
+        counts, variants = _counts(), _variants()
+        torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats()
+        r = dict(rec=rec, walls=walls, counts=counts, variants=variants, build_s=build_s,
+                 peak_allocated=stats["allocated_bytes.all.peak"], peak_reserved=stats["reserved_bytes.all.peak"],
+                 reserved_after=stats["reserved_bytes.all.current"], allocated_after=stats["allocated_bytes.all.current"],
+                 window=engine.window_stats(), device_ms=engine.window_device_ms(), digest=_master_digest(engine))
+        # a steady stretch of HORIZON_2P7B more steps (on the captured engine one window, one replay), timed
+        it = iter(_step_data(cfg.vocab_size, T, gas * HORIZON_2P7B, micro, seed + 28, dev))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(HORIZON_2P7B):
+            float(engine.train_batch(data_iter=it))
+        r["steady_ms"] = (time.perf_counter() - t1) * 1e3 / HORIZON_2P7B
+        r["steady_device_ms"] = engine.window_device_ms()
+        arms["fused" if fused else "eager"] = r
+        del engine, it
+        _free()
+    del tree
+    eager, fused = arms["eager"], arms["fused"]
+    bitwise = _same_rec(eager["rec"], fused["rec"]) and eager["digest"] == fused["digest"]
+    losses = [x[0] for x in fused["rec"]]
+    eager_ms, fused_ms = eager["steady_ms"], fused["steady_ms"]
+    flops_per_token = 6 * n_params + 12 * L * cfg.hidden_size * T
+    tokens = gas * micro * T
+    # bf16 params, fp32 master, two fp32 moments, fp32 accumulator, bf16 gradients
+    state_bytes = n_params * (2 + 4 + 8 + 4 + 2)
+    rec = dict(phase="train_2p7b", model='gpt2_config("2.7b", remat=True)', config=TRAIN_2P7B, params=n_params,
+               weights_made_s=made_s, build_s=dict(eager=eager["build_s"], fused=fused["build_s"]),
+               steps=STEPS_2P7B, horizon=HORIZON_2P7B, bitwise=bitwise, losses=losses,
+               grad_norms=[x[1] for x in fused["rec"]], eager_launches=eager["counts"],
+               eager_tensor_core=[eager["variants"][f"{k}_tc"] for k in ("flash_fwd", "flash_dq", "flash_dkv")],
+               fused_launches=fused["counts"], window_stats=fused["window"], replay_device_ms=fused["device_ms"],
+               step_ms=dict(eager=eager_ms, fused=fused_ms), step_walls_ms=dict(eager=eager["walls"], fused=fused["walls"]),
+               tokens_per_step=tokens, flops_per_token=flops_per_token,
+               mfu=dict(eager=tokens * flops_per_token / (eager_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+                        fused=tokens * flops_per_token / (fused_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]),
+               # the steady replay's device span by CUDA events; the eager step runs the same kernels (bitwise)
+               device_ms_per_step=fused["steady_device_ms"][0] / HORIZON_2P7B,
+               state_bytes_reckoned=state_bytes,
+               memory={a: {k: arms[a][k] for k in ("peak_allocated", "peak_reserved", "reserved_after", "allocated_after")}
+                       for a in arms})
+    # measured for the captured step; for the eager step derived (the replay's device time over the eager
+    # wall, on the assumption that the bitwise-equal eager step keeps the card as busy), not measured
+    rec["idle_share"] = {"fused": 1.0 - rec["device_ms_per_step"] / rec["step_ms"]["fused"],
+                         "eager_derived_from_replay": 1.0 - rec["device_ms_per_step"] / rec["step_ms"]["eager"]}
+    emit(**rec)
+    want = {"flash_fwd": 2 * L * gas * STEPS_2P7B, "flash_dq": L * gas * STEPS_2P7B, "flash_dkv": L * gas * STEPS_2P7B}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_2p7b: losses not finite or not falling: {losses}")
+    if any(eager["counts"][k] != w for k, w in want.items()) or rec["eager_tensor_core"] != [want[k] for k in want]:
+        raise AssertionError(f"train_2p7b: eager launches {eager['counts']}, want {want} all tensor-core")
+    if not bitwise:
+        raise AssertionError(f"train_2p7b: captured against eager not bitwise: {rec}")
+    return rec
+
+
+def _shape_run(cfg, tree, config, batch_data, steps, attn_impl=None):
+    engine = dst.initialize(model=TransformerLM(cfg), config=dict(config), model_parameters=tree, attn_impl=attn_impl)[0]
+    _zero_counts()
+    rec, _ = _drive(engine, batch_data, steps)
+    counts = _counts()
+    del engine
+    _free()
+    return [x[0] for x in rec], counts
+
+
+def phase_train_shapes(seed, dev):
+    """Phase 16e: training shapes the CPU tests held alone until now, 3 steps
+    each through the kernels and through ``attn_impl="plain"`` on the card:
+    ``llama_config("1b")`` (GQA 32/4, D 64) at micro 2 x T 2048 and
+    ``qwen2_config("0.5b")`` (GQA 14/2, q/k/v biases) at micro 4 x T 1024,
+    both with remat. One fp32 step (TF32 off) of kernel and plain within
+    1e-5 (the kernels' math); then bf16, where the kernel arm's loss gap to
+    the plain arm must stay within twice the plain arm's own bf16-to-fp32
+    gap (or 1e-3 of the loss): the rounding bf16 itself brings. Config 1
+    with ``position="alibi"``: no kernel launches; its fp32 loss on the card
+    equals the port's CPU loss on the same weights and batch within 1e-5;
+    3 bf16 steps fall."""
+    out = {}
+    base = {"optimizer": {"type": "adam", "params": {"lr": 1e-4, "weight_decay": 0.01}}, "gradient_clipping": 1.0,
+            "zero_optimization": {"stage": 1}}
+    for label, make, micro, T in (('llama_config("1b")', lambda dt: llama_config("1b", max_seq_len=2048, dtype=dt), 2,
+                                   2048),
+                                  ('qwen2_config("0.5b")', lambda dt: qwen2_config("0.5b", max_seq_len=1024, dtype=dt),
+                                   4, 1024)):
+        cfg32 = make("float32")
+        tree = _weights_on_card(cfg32, seed, dev)
+        data = _step_data(cfg32.vocab_size, T, 3, micro, seed + 31, dev)
+        arms = {}
+        for dt in ("float32", "bfloat16"):
+            cfg = make(dt)
+            config = dict(base, train_micro_batch_size_per_gpu=micro, **({"bf16": {"enabled": True}} if dt == "bfloat16" else {}))
+            n = 1 if dt == "float32" else 3
+            for impl in ("kernel", "plain"):
+                arms[(dt, impl)] = _shape_run(cfg, tree, config, data, n, attn_impl=impl)
+        del tree
+        L = cfg32.num_layers
+        fp32_gap = abs(arms[("float32", "kernel")][0][0] - arms[("float32", "plain")][0][0]) / \
+            abs(arms[("float32", "plain")][0][0])
+        bf_k, bf_p = arms[("bfloat16", "kernel")][0], arms[("bfloat16", "plain")][0]
+        rounding = abs(arms[("bfloat16", "plain")][0][0] - arms[("float32", "plain")][0][0])
+        tol = max(2 * rounding, 1e-3 * abs(bf_p[0]))
+        gaps = [abs(a - b) for a, b in zip(bf_k, bf_p)]
+        counts = arms[("bfloat16", "kernel")][1]
+        rec = dict(phase="train_shapes", model=label, micro=micro, seq=T, fp32_step1_rel_gap=fp32_gap,
+                   fp32_losses={impl: arms[("float32", impl)][0] for impl in ("kernel", "plain")},
+                   bf16_losses={"kernel": bf_k, "plain": bf_p}, bf16_gaps=gaps, bf16_tol=tol,
+                   bf16_kernel_launches=counts, plain_launches=arms[("bfloat16", "plain")][1])
+        emit(**rec)
+        out[label] = rec
+        want = {"flash_fwd": 2 * L * 3, "flash_dq": L * 3, "flash_dkv": L * 3}
+        if fp32_gap > 1e-5 or max(gaps) > tol or any(counts[k] != w for k, w in want.items()) or \
+                arms[("bfloat16", "plain")][1]["flash_fwd"] or not all(np.isfinite(bf_k)):
+            raise AssertionError(f"train_shapes {label}: {rec}")
+    # ALiBi: no kernel; the card's fp32 loss against the port's CPU loss
+    cfg32 = gpt2_config("125m", max_seq_len=1024, remat=False, position="alibi", dtype="float32")
+    tree = _weights(cfg32, seed)
+    batch = _step_data(cfg32.vocab_size, 1024, 1, 1, seed + 33, dev)[0]
+    losses = {}
+    for device in ("cuda", "cpu"):
+        engine = dst.initialize(model=TransformerLM(cfg32), config=dict(base, train_micro_batch_size_per_gpu=1),
+                                model_parameters=tree, device=device)[0]
+        engine.eval()
+        with torch.no_grad():
+            losses[device] = float(engine({k: v.to(device) for k, v in batch.items()}))
+        del engine
+    _free()
+    data = _step_data(cfg32.vocab_size, 1024, 1, 8, seed + 34, dev) * 3  # one batch three times: the loss falls
+    bf16, counts = _shape_run(gpt2_config("125m", max_seq_len=1024, remat=False, position="alibi"), tree,
+                              dict(TRAIN_CONFIG), data, 3)
+    del tree
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    rec = dict(phase="train_shapes", model='gpt2_config("125m", max_seq_len=1024, remat=False, position="alibi")',
+               fp32_card_loss=losses["cuda"], fp32_cpu_loss=losses["cpu"], fp32_rel_gap=rel, bf16_losses=bf16,
+               launches=counts)
+    emit(**rec)
+    out["alibi"] = rec
+    if rel > 1e-5 or counts["flash_fwd"] or not (all(np.isfinite(bf16)) and bf16[-1] < bf16[0]):
+        raise AssertionError(f"train_shapes alibi: {rec}")
+    return out
+
+
+def _fused_field(name, fused, window, big, shapes):
+    """K1-K3's launches on phases 16b-16e's step programs. A wrapper counts
+    host calls: under a captured program it counts the warm-up's launches
+    and the capture's, and a replay adds none; so each entry gives the
+    counter, the launches a step makes and the replays, and the launches
+    the card ran are the counter plus replays x launches a replay."""
+    remat = {"flash_fwd": 2, "flash_dq": 1, "flash_dkv": 1}
+    out = {"train_fused": {arm: dict(eager=r["eager_launches"][name], captured_counter=r["fused_launches"][name],
+                                     per_step=r["launches_per_step"][name], replays=r["graphs"]["replays"])
+                           for arm, r in fused.items()}}
+    out["train_window"] = {k: dict(counter=r["launches"][name], replays=r["window_stats"]["graphs"]["replays"],
+                                   horizon=r["horizon"], gas=r["gas"]) for k, r in window.items() if k.startswith("gas")}
+    gas, L = TRAIN_2P7B["gradient_accumulation_steps"], 32
+    out["train_2p7b"] = dict(eager=big["eager_launches"][name], per_step=remat[name] * L * gas,
+                             captured_counter=big["fused_launches"][name],
+                             replays=big["window_stats"]["graphs"]["replays"], horizon=big["horizon"])
+    out["train_shapes"] = {m: r["bf16_kernel_launches"][name] for m, r in shapes.items() if m != "alibi"}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4434,7 +5002,14 @@ def main() -> int:
     streamed = phase_offload_streamed(dev, yard, gpt2_tree)
     host_adam = phase_offload_host_adam(dev, zero_grad, gpt2_tree)
     param = phase_offload_param(dev, zero_grad, gpt2_tree)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    d80 = phase_flash_d80(dev, flush)
+    del flush
+    fused = phase_train_fused(args.seed, dev, gpt2_tree)
+    window = phase_train_window(args.seed, dev, gpt2_tree)
     del gpt2_tree
+    big = phase_train_2p7b(args.seed, dev)
+    shapes = phase_train_shapes(args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
@@ -4475,6 +5050,10 @@ def main() -> int:
         tensor_core_launches=train_variants[f"{name}_tc"],
         fp16={k: flash["float16"]["timing"][name][k] for k in ("ms", "bound_ms", "library_ms")},
         **({"tp": tp["kernels"]["flash_fwd"]} if name == "flash_fwd" else {}),
+        d80={dt: dict(max_abs_err=r["errors"][name]["max_abs_err"], rel_err=r["errors"][name]["rel_err"],
+                      **{k: r["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                      case=r["case"], variant=r["variant"]) for dt, r in d80.items()},
+        fused=_fused_field(name, fused, window, big, shapes),
         checkpoint=dict(launches=ckpt["launches"][name], steps=ckpt["steps"]),
         zero=dict(fp32={st: r["launches_per_rank"] for st, r in zero["fp32"].items()},
                   bf16={st: r["launches_per_rank"][name] for st, r in zero["bf16"].items()},

@@ -291,11 +291,32 @@ constexpr int TC_KEYS = 64;      // keys of a K/V tile
 constexpr int TC_THREADS = 128;  // 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
 
-// depth of the K/V ring: 3 stages at D = 64 (57 KB of shared memory), 2 at D = 128 (80 KB), so
-// that two blocks fit an SM at either width
+// Shared-memory tiles of the tensor-core kernels. At D = 64 and 128 a row is 8 or 16 chunks of 16
+// bytes, swizzled (tc::swz: chunk c of row r at c ^ (r & 7)). At D = 80 a row is 10 chunks, and the
+// XOR would send chunks 8 and 9 past the row, so rows are padded to 11 chunks (88 values, 176
+// bytes) and not swizzled: the eight rows an ldmatrix reads at one chunk start 176 bytes apart,
+// which is 48 bytes mod 128, and fall in eight different 16-byte bank groups (0, 48, 96, 16, 64,
+// 112, 32, 80): no conflicts. Rows stay 16-byte aligned for cp.async and ldmatrix.
+template <int D>
+struct TileW {
+  static constexpr int W = D == 80 ? 88 : D;  // values a tile row takes in shared memory
+};
+
+// element offset of (row, col) in a tile of D-wide rows; col % 8 == 0
+template <int D>
+__device__ __forceinline__ int fswz(int row, int col) {
+  if constexpr (D == 80) {
+    return row * TileW<D>::W + col;
+  } else {
+    return tc::swz<D>(row, col);
+  }
+}
+
+// depth of the K/V ring: 3 stages at D = 64 (57 KB of shared memory) and at D = 80 (79 KB with
+// the padded rows), 2 at D = 128 (80 KB), so that two blocks fit an SM at every width
 template <int D>
 struct TcRing {
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int STAGES = D == 128 ? 2 : 3;
 };
 
 // async copy of rows t0 .. t0+63 of head (b, n) of a [B, T, N, D] operand into a swizzled [64][D]
@@ -310,7 +331,7 @@ __device__ __forceinline__ void tc_load_tile(T* dst, const T* __restrict__ src, 
     const int r = e / CH, c = e % CH;
     const int t = t0 + r;
     const bool valid = t < Tn;
-    tc::cp_async16(dst + tc::swz<D>(r, c * 8), src + tok(b, valid ? t : 0, n, Tn, N, D) + c * 8, valid);
+    tc::cp_async16(dst + fswz<D>(r, c * 8), src + tok(b, valid ? t : 0, n, Tn, N, D) + c * 8, valid);
   }
 }
 
@@ -330,8 +351,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr int TC_STAGES = TcRing<D>::STAGES;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [64][D]
-  T* ks = qs + TC_ROWS * D;                // [STAGES][64][D]
-  T* vs = ks + TC_STAGES * TC_KEYS * D;    // [STAGES][64][D]
+  T* ks = qs + TC_ROWS * TileW<D>::W;                // [STAGES][64][D]
+  T* vs = ks + TC_STAGES * TC_KEYS * TileW<D>::W;    // [STAGES][64][D]
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
@@ -349,8 +370,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
   for (int i = 0; i < TC_STAGES - 1; ++i) {
     if (i < k_end) {
-      tc_load_tile<T, D>(ks + i * TC_KEYS * D, k, b, n, i * TC_KEYS, Tn, N);
-      tc_load_tile<T, D>(vs + i * TC_KEYS * D, v, b, n, i * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(ks + i * TC_KEYS * TileW<D>::W, k, b, n, i * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + i * TC_KEYS * TileW<D>::W, v, b, n, i * TC_KEYS, Tn, N);
     }
     tc::cp_async_commit();
   }
@@ -367,16 +388,16 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (kt == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        tc::ldmatrix_x4(qf[kk], qs + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(qf[kk], qs + fswz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
     }
     const int kn = kt + TC_STAGES - 1;  // the tile this step prefetches
     if (kn < k_end) {
-      tc_load_tile<T, D>(ks + (kn % TC_STAGES) * TC_KEYS * D, k, b, n, kn * TC_KEYS, Tn, N);
-      tc_load_tile<T, D>(vs + (kn % TC_STAGES) * TC_KEYS * D, v, b, n, kn * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(ks + (kn % TC_STAGES) * TC_KEYS * TileW<D>::W, k, b, n, kn * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + (kn % TC_STAGES) * TC_KEYS * TileW<D>::W, v, b, n, kn * TC_KEYS, Tn, N);
     }
     tc::cp_async_commit();
-    const T* kst = ks + (kt % TC_STAGES) * TC_KEYS * D;
-    const T* vst = vs + (kt % TC_STAGES) * TC_KEYS * D;
+    const T* kst = ks + (kt % TC_STAGES) * TC_KEYS * TileW<D>::W;
+    const T* vst = vs + (kt % TC_STAGES) * TC_KEYS * TileW<D>::W;
     const int k0 = kt * TC_KEYS;
 
     // S = Q K^T: 8 tiles of 16 x 8 scores
@@ -388,7 +409,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bf[4];
-        tc::ldmatrix_x4(bf, kst + tc::swz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
+        tc::ldmatrix_x4(bf, kst + fswz<D>(np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                              kk * 16 + ((lane >> 3) & 1) * 8));
         tc::mma<T>(s[2 * np], qf[kk], bf[0], bf[1]);
         tc::mma<T>(s[2 * np + 1], qf[kk], bf[2], bf[3]);
@@ -445,7 +466,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t bf[4];
-        tc::ldmatrix_x4_trans(bf, vst + tc::swz<D>(kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4_trans(bf, vst + fswz<D>(kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
         tc::mma<T>(acc[2 * dp], pa, bf[0], bf[1]);
         tc::mma<T>(acc[2 * dp + 1], pa, bf[2], bf[3]);
       }
@@ -592,15 +613,16 @@ flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   constexpr int KS = D / 16;  // k16 steps over D
   constexpr int DT = D / 8;   // 8-wide tiles of a dQ row
   constexpr int STAGES = TcRing<D>::STAGES;
-  // keys a warp takes per sub-step of a 64-key tile: the whole tile at D = 64, half of it at D = 128,
-  // where the Q and dO fragments and the dQ accumulator already take 128 registers a lane
+  // keys a warp takes per sub-step of a 64-key tile: the whole tile at D = 64; half of it at D = 128,
+  // where the Q and dO fragments and the dQ accumulator already take 128 registers a lane, and at
+  // D = 80, where they take 80, so that S and dP of a 32-key half keep the lane near D = 64's count
   constexpr int KH = D == 64 ? 64 : 32;
   constexpr int NK = KH / 8;  // 8-key tiles of a sub-step
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [64][D]
-  T* dos = qs + TC_ROWS * D;               // [64][D]
-  T* ks = dos + TC_ROWS * D;               // [STAGES][64][D]
-  T* vs = ks + STAGES * TC_KEYS * D;       // [STAGES][64][D]
+  T* dos = qs + TC_ROWS * TileW<D>::W;               // [64][D]
+  T* ks = dos + TC_ROWS * TileW<D>::W;               // [STAGES][64][D]
+  T* vs = ks + STAGES * TC_KEYS * TileW<D>::W;       // [STAGES][64][D]
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
@@ -617,8 +639,8 @@ flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < k_end) {
-      tc_load_tile<T, D>(ks + i * TC_KEYS * D, k, b, n, i * TC_KEYS, Tn, N);
-      tc_load_tile<T, D>(vs + i * TC_KEYS * D, v, b, n, i * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(ks + i * TC_KEYS * TileW<D>::W, k, b, n, i * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + i * TC_KEYS * TileW<D>::W, v, b, n, i * TC_KEYS, Tn, N);
     }
     tc::cp_async_commit();
   }
@@ -644,18 +666,18 @@ flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     if (kt == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
-        tc::ldmatrix_x4(qf[kk], qs + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
-        tc::ldmatrix_x4(of[kk], dos + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(qf[kk], qs + fswz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(of[kk], dos + fswz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
       }
     }
     const int kn = kt + STAGES - 1;  // the tile this step prefetches
     if (kn < k_end) {
-      tc_load_tile<T, D>(ks + (kn % STAGES) * TC_KEYS * D, k, b, n, kn * TC_KEYS, Tn, N);
-      tc_load_tile<T, D>(vs + (kn % STAGES) * TC_KEYS * D, v, b, n, kn * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(ks + (kn % STAGES) * TC_KEYS * TileW<D>::W, k, b, n, kn * TC_KEYS, Tn, N);
+      tc_load_tile<T, D>(vs + (kn % STAGES) * TC_KEYS * TileW<D>::W, v, b, n, kn * TC_KEYS, Tn, N);
     }
     tc::cp_async_commit();
-    const T* kst = ks + (kt % STAGES) * TC_KEYS * D;
-    const T* vst = vs + (kt % STAGES) * TC_KEYS * D;
+    const T* kst = ks + (kt % STAGES) * TC_KEYS * TileW<D>::W;
+    const T* vst = vs + (kt % STAGES) * TC_KEYS * TileW<D>::W;
     const int k0 = kt * TC_KEYS;
 
 #pragma unroll
@@ -674,8 +696,8 @@ flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         for (int np = 0; np < NK / 2; ++np) {
           const int r = c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3), c = kk * 16 + ((lane >> 3) & 1) * 8;
           uint32_t bk[4], bv[4];
-          tc::ldmatrix_x4(bk, kst + tc::swz<D>(r, c));
-          tc::ldmatrix_x4(bv, vst + tc::swz<D>(r, c));
+          tc::ldmatrix_x4(bk, kst + fswz<D>(r, c));
+          tc::ldmatrix_x4(bv, vst + fswz<D>(r, c));
           tc::mma<T>(s[2 * np], qf[kk], bk[0], bk[1]);
           tc::mma<T>(s[2 * np + 1], qf[kk], bk[2], bk[3]);
           tc::mma<T>(dp[2 * np], of[kk], bv[0], bv[1]);
@@ -705,7 +727,7 @@ flash_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
         for (int dp2 = 0; dp2 < D / 16; ++dp2) {
           uint32_t bf[4];
-          tc::ldmatrix_x4_trans(bf, kst + tc::swz<D>(c0 + kk * 16 + (lane & 15), dp2 * 16 + (lane >> 4) * 8));
+          tc::ldmatrix_x4_trans(bf, kst + fswz<D>(c0 + kk * 16 + (lane & 15), dp2 * 16 + (lane >> 4) * 8));
           tc::mma<T>(acc[2 * dp2], da, bf[0], bf[1]);
           tc::mma<T>(acc[2 * dp2 + 1], da, bf[2], bf[3]);
         }
@@ -853,12 +875,13 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // ---------------------------------------------------------------------------------------------
 // K3 on the tensor cores: bf16 and fp16
 // ---------------------------------------------------------------------------------------------
-// depth of the Q/dO ring: 3 stages at D = 64 (66 KB of shared memory with the K and V tiles), 2 at
-// D = 128 (97 KB); queries a warp takes per sub-step: the whole 64-row q tile at D = 64, half of it
-// at D = 128, where the two [16 x D] fp32 accumulators already take 128 registers a lane
+// depth of the Q/dO ring: 3 stages at D = 64 (66 KB of shared memory with the K and V tiles) and at
+// D = 80 (92 KB with the padded rows; two blocks still fit an SM), 2 at D = 128 (97 KB); queries a
+// warp takes per sub-step: the whole 64-row q tile at D = 64, half of it at D = 128, where the two
+// [16 x D] fp32 accumulators already take 128 registers a lane, and at D = 80, where they take 80
 template <int D>
 struct DkvTc {
-  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int STAGES = D == 128 ? 2 : 3;
   static constexpr int QS = D == 64 ? 64 : 32;
 };
 
@@ -886,10 +909,10 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   constexpr int NQ = QS / 8;  // 8-wide query tiles of a sub-step
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);   // [64][D]
-  T* vs = ks + TC_KEYS * D;                 // [64][D]
-  T* qs = vs + TC_KEYS * D;                 // [STAGES][64][D]
-  T* dos = qs + STAGES * TC_ROWS * D;       // [STAGES][64][D]
-  float* stats = reinterpret_cast<float*>(dos + STAGES * TC_ROWS * D);  // [STAGES][lse 64, delta 64]
+  T* vs = ks + TC_KEYS * TileW<D>::W;                 // [64][D]
+  T* qs = vs + TC_KEYS * TileW<D>::W;                 // [STAGES][64][D]
+  T* dos = qs + STAGES * TC_ROWS * TileW<D>::W;       // [STAGES][64][D]
+  float* stats = reinterpret_cast<float*>(dos + STAGES * TC_ROWS * TileW<D>::W);  // [STAGES][lse 64, delta 64]
 
   const int kt = blockIdx.x;  // heaviest causal tiles (the first keys) first
   const int bn = blockIdx.y, b = bn / N, n = bn % N;
@@ -904,8 +927,8 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   auto load_stage = [&](int stage, int qt) {
     const int q0 = qt * TC_ROWS;
-    tc_load_tile<T, D>(qs + stage * TC_ROWS * D, q, b, n, q0, Tn, N);
-    tc_load_tile<T, D>(dos + stage * TC_ROWS * D, dout, b, n, q0, Tn, N);
+    tc_load_tile<T, D>(qs + stage * TC_ROWS * TileW<D>::W, q, b, n, q0, Tn, N);
+    tc_load_tile<T, D>(dos + stage * TC_ROWS * TileW<D>::W, dout, b, n, q0, Tn, N);
     tc_load_stats(stats + stage * 2 * TC_ROWS, lse, delta, bn, q0, Tn);
   };
   tc_load_tile<T, D>(ks, k, b, n, k0, Tn, N);  // rides in the first group
@@ -929,8 +952,8 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     if (nx < n_it) load_stage(nx % STAGES, qt0 + nx);
     tc::cp_async_commit();
     const int stage = it % STAGES;
-    const T* qst = qs + stage * TC_ROWS * D;
-    const T* dost = dos + stage * TC_ROWS * D;
+    const T* qst = qs + stage * TC_ROWS * TileW<D>::W;
+    const T* dost = dos + stage * TC_ROWS * TileW<D>::W;
     const float* lse_s = stats + stage * 2 * TC_ROWS;
     const float* delta_s = lse_s + TC_ROWS;
     const int q0 = (qt0 + it) * TC_ROWS;
@@ -946,11 +969,11 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t kf[4];
-        tc::ldmatrix_x4(kf, ks + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(kf, ks + fswz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
 #pragma unroll
         for (int np = 0; np < NQ / 2; ++np) {
           uint32_t bf[4];
-          tc::ldmatrix_x4(bf, qst + tc::swz<D>(c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+          tc::ldmatrix_x4(bf, qst + fswz<D>(c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                                kk * 16 + ((lane >> 3) & 1) * 8));
           tc::mma<T>(s[2 * np], kf, bf[0], bf[1]);
           tc::mma<T>(s[2 * np + 1], kf, bf[2], bf[3]);
@@ -979,7 +1002,7 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t bf[4];
-          tc::ldmatrix_x4_trans(bf, dost + tc::swz<D>(c0 + kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
+          tc::ldmatrix_x4_trans(bf, dost + fswz<D>(c0 + kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
           tc::mma<T>(dv_acc[2 * dp], pa, bf[0], bf[1]);
           tc::mma<T>(dv_acc[2 * dp + 1], pa, bf[2], bf[3]);
         }
@@ -991,11 +1014,11 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t vf[4];
-        tc::ldmatrix_x4(vf, vs + tc::swz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+        tc::ldmatrix_x4(vf, vs + fswz<D>(warp * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
 #pragma unroll
         for (int np = 0; np < NQ / 2; ++np) {
           uint32_t bf[4];
-          tc::ldmatrix_x4(bf, dost + tc::swz<D>(c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
+          tc::ldmatrix_x4(bf, dost + fswz<D>(c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3),
                                                 kk * 16 + ((lane >> 3) & 1) * 8));
           tc::mma<T>(dpt[2 * np], vf, bf[0], bf[1]);
           tc::mma<T>(dpt[2 * np + 1], vf, bf[2], bf[3]);
@@ -1017,7 +1040,7 @@ flash_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t bf[4];
-          tc::ldmatrix_x4_trans(bf, qst + tc::swz<D>(c0 + kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
+          tc::ldmatrix_x4_trans(bf, qst + fswz<D>(c0 + kk * 16 + (lane & 15), dp * 16 + (lane >> 4) * 8));
           tc::mma<T>(dk_acc[2 * dp], da, bf[0], bf[1]);
           tc::mma<T>(dk_acc[2 * dp + 1], da, bf[2], bf[3]);
         }
@@ -1083,7 +1106,7 @@ int launch_fwd(const Args& a) {
         static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.T, a.N, a.causal, a.scale);
     *a.variant = 0;
   } else {
-    const size_t smem = sizeof(T) * (TC_ROWS + 2 * TcRing<D>::STAGES * TC_KEYS) * D;  // Q; the K/V ring
+    const size_t smem = sizeof(T) * (TC_ROWS + 2 * TcRing<D>::STAGES * TC_KEYS) * TileW<D>::W;  // Q; the K/V ring
     auto kernel = flash_fwd_tc_kernel<T, D>;
     err = prepare(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1111,7 +1134,7 @@ int launch_dq(const Args& a) {
         static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.T, a.N, a.causal, a.scale);
     *a.variant = 0;
   } else {
-    const size_t smem = sizeof(T) * (2 * TC_ROWS + 2 * TcRing<D>::STAGES * TC_KEYS) * D;  // Q, dO; the K/V ring
+    const size_t smem = sizeof(T) * (2 * TC_ROWS + 2 * TcRing<D>::STAGES * TC_KEYS) * TileW<D>::W;  // Q, dO; the K/V ring
     auto kernel = flash_dq_tc_kernel<T, D>;
     err = prepare(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1142,7 +1165,7 @@ int launch_dkv(const Args& a) {
     *a.variant = 0;
   } else {
     // K and V; the Q/dO ring; the lse/delta ring
-    const size_t smem = sizeof(T) * (2 * TC_KEYS + 2 * DkvTc<D>::STAGES * TC_ROWS) * D +
+    const size_t smem = sizeof(T) * (2 * TC_KEYS + 2 * DkvTc<D>::STAGES * TC_ROWS) * TileW<D>::W +
                         sizeof(float) * DkvTc<D>::STAGES * 2 * TC_ROWS;
     auto kernel = flash_dkv_tc_kernel<T, D>;
     err = prepare(kernel, smem);
@@ -1162,10 +1185,13 @@ int dispatch(int dtype, int D, const Args& a) {
   if (a.B <= 0 || a.T <= 0 || a.N <= 0 || a.B * a.N > 65535) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype * 1000 + D) {
     case 64: return Launch<float, 64>::run(a);
+    case 80: return Launch<float, 80>::run(a);
     case 128: return Launch<float, 128>::run(a);
     case 1064: return Launch<__nv_bfloat16, 64>::run(a);
+    case 1080: return Launch<__nv_bfloat16, 80>::run(a);
     case 1128: return Launch<__nv_bfloat16, 128>::run(a);
     case 2064: return Launch<__half, 64>::run(a);
+    case 2080: return Launch<__half, 80>::run(a);
     case 2128: return Launch<__half, 128>::run(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1186,7 +1212,7 @@ struct Dkv {
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 fp16; D in {64, 128}. Each returns cudaGetLastError() after its launch
+// dtype: 0 fp32, 1 bf16, 2 fp16; D in {64, 80, 128}. Each returns cudaGetLastError() after its launch
 // (or the error that stopped it) and does not synchronise, and writes the variant it launched to
 // *variant: 0 the fp32 FMA kernel, 1 the tensor-core kernel (bf16, fp16).
 extern "C" int flash_fwd(int dtype, const void* q, const void* k, const void* v, void* o, void* lse,

@@ -157,6 +157,21 @@ class PagePool:
         cap = self.used_pages() * self.page_size
         return self.live_tokens() / cap if cap else 0.0
 
+    @torch.no_grad()
+    def set_cache(self, new_k: torch.Tensor, new_v: torch.Tensor) -> None:
+        """Install page arrays (JAX ``kv_pool.py:304``, the one sanctioned
+        external write). They are copied into the pools' own storage, as
+        ``defrag`` moves pages: a captured window graph holds the pools'
+        addresses and keeps replaying into them. A shape or dtype other than
+        the pools' raises."""
+        for name, new, pages in (("k", new_k, self.cache.k_pages), ("v", new_v, self.cache.v_pages)):
+            if tuple(new.shape) != tuple(pages.shape) or new.dtype != pages.dtype:
+                raise ValueError(f"set_cache: new {name} pages {tuple(new.shape)} {new.dtype} do not match the "
+                                 f"pool's {tuple(pages.shape)} {pages.dtype}")
+        for new, pages in ((new_k, self.cache.k_pages), (new_v, self.cache.v_pages)):
+            if new.data_ptr() != pages.data_ptr():
+                pages.copy_(new)
+
     # --- page acquisition / release -------------------------------------
     def _acquire_page(self) -> Optional[int]:
         """One page off the free list, or the coldest cached prefix page."""

@@ -20,11 +20,17 @@ labels, else the logits. It follows ``_forward`` / ``_layer`` /
 norms and RoPE in fp32 cast back, attention through the flash kernels
 (``ops/transformer/flash_attention.py``) under exactly JAX's condition,
 else the grouped einsum with the softmax in fp32, and the cross entropy in
-fp32. ``remat`` wraps each layer in ``torch.utils.checkpoint``. Dropout
-draws from a per-layer ``torch.Generator`` seeded from the step's seed, so
-a recomputed layer redraws the same masks; it never touches the global RNG.
-Sequence parallelism, progressive layer drop, random-LTD, sparse embedding
-gradients, MoE and ALiBi raise ``NotImplementedError``.
+fp32. ``remat`` wraps each layer in ``torch.utils.checkpoint`` under
+``remat_policy`` (JAX's policy names, ``runtime/activation_checkpointing``;
+a name PyTorch cannot express raises). Dropout
+masks are a counter-based hash of the step's seed, the layer and the
+element index (``_dropout``): the seed may be a device tensor, so a
+captured CUDA graph draws new masks each replay from the seeds copied in
+with its batch and the eager path draws the same ones; a recomputed layer
+redraws the same masks; no generator state is touched. ALiBi adds JAX's
+per-head distance bias in the plain attention (the flash kernels never see
+it, as in JAX). Sequence parallelism, progressive layer drop, random-LTD,
+sparse embedding gradients and MoE raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,11 +40,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.moe.experts import apply_dense_ffn
 from deepspeed_tpu_torch.ops.transformer.flash_attention import flash_attention
+from deepspeed_tpu_torch.runtime.activation_checkpointing.checkpointing import remat
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -134,13 +140,11 @@ class TransformerLM(nn.Module):
     Covers the dense features: layernorm and rmsnorm, learned and rope
     positions (``rope_dim`` included), pre-LN and post-LN, ``embed_norm``,
     ``qkv_bias``, ``use_bias``, tied or untied head, ``lm_head_bias``,
-    ``parallel_residual`` / ``shared_parallel_norm``, MHA and GQA, and
-    ``attn_softmax_scale``. MoE and ALiBi models raise."""
+    ``parallel_residual`` / ``shared_parallel_norm``, MHA and GQA, ALiBi,
+    and ``attn_softmax_scale``. MoE models raise."""
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
-        if config.position == "alibi":
-            raise NotImplementedError("alibi attention biases are not ported yet (ROADMAP T4)")
         if getattr(config, "num_experts", 0):
             raise NotImplementedError("MoE models are not ported yet (ROADMAP M1)")
         self.config = config
@@ -258,14 +262,17 @@ class TransformerLM(nn.Module):
         # gradients into the [L, ...] leaf in one op
         layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()} if layer_stream is None else {}
         for i in range(cfg.num_layers):
-            seed = None if dropout_seed is None else int(dropout_seed) + i
+            seed = None if dropout_seed is None else dropout_seed + i
             if layer_stream is not None:
                 x = layer_stream.run(i, lambda h, per, seed=seed: self._layer(h, per, positions, seed, train,
                                                                               attn_impl, cfg), x, cfg.remat)
                 continue
             per = {name: leaves[i] for name, leaves in layers.items()}
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(self._layer, x, per, positions, seed, train, attn_impl, use_reentrant=False)
+                # remat_policy as JAX's model reads it; the masks are a function of the seed, not of
+                # torch's RNG, so no generator state is stashed (nor could its CUDA state be read inside
+                # a graph capture)
+                x = remat(self._layer, x, per, positions, seed, train, attn_impl, policy=cfg.remat_policy)
             else:
                 x = self._layer(x, per, positions, seed, train, attn_impl, cfg, tp)
         if cfg.prenorm:
@@ -330,10 +337,9 @@ class TransformerLM(nn.Module):
         B, T, _ = x.shape
         NH, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dt = x.dtype
-        gen = None
+        dseed = None  # this layer's dropout seed, an int64 tensor on x's device
         if train and seed is not None and (cfg.attn_dropout > 0 or cfg.hidden_dropout > 0):
-            gen = torch.Generator(device=x.device)
-            gen.manual_seed(seed)  # a recomputed layer redraws the same masks
+            dseed = torch.as_tensor(seed, dtype=torch.int64, device=x.device)
         h = _norm(x, p["attn_norm_scale"], p.get("attn_norm_bias"), cfg.norm, cfg.norm_eps) if cfg.prenorm else x
         q = h @ p["wq"].to(dt)
         k = h @ p["wk"].to(dt)
@@ -346,13 +352,13 @@ class TransformerLM(nn.Module):
         if cfg.position == "rope":
             q = _rope(q, positions, cfg.rope_theta, cfg.rope_dim)
             k = _rope(k, positions, cfg.rope_theta, cfg.rope_dim)
-        attn = self._attention(q, k, v, positions, gen, train, attn_impl)
+        attn = self._attention(q, k, v, positions, dseed, train, attn_impl)
         attn = attn.reshape(B, T, NH * D)
         attn = tp.row_matmul(attn, p["wo"]).to(dt) if tp is not None else attn @ p["wo"].to(dt)
         if cfg.use_bias:
             attn = attn + p["bo"].to(dt)
-        if train and cfg.hidden_dropout > 0 and gen is not None:
-            attn = _dropout(attn, cfg.hidden_dropout, gen)
+        if train and cfg.hidden_dropout > 0 and dseed is not None:
+            attn = _dropout(attn, cfg.hidden_dropout, dseed, _HIDDEN_SALT)
         ffn = {name: p[name].to(dt) for name in _FFN_LEAVES if name in p}
         if cfg.parallel_residual:
             h_mlp = h if cfg.shared_parallel_norm else _norm(
@@ -369,26 +375,30 @@ class TransformerLM(nn.Module):
             return x + out
         return _norm(x + out, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
 
-    def _attention(self, q, k, v, positions, gen, train, attn_impl):
+    def _attention(self, q, k, v, positions, dseed, train, attn_impl):
         """``_local_full_attention`` (``transformer.py:282``): the flash
         kernels under JAX's condition (``:293-304``), else the grouped
         einsum with the softmax in fp32."""
         cfg = self.config
         scale = cfg.attn_softmax_scale if cfg.attn_softmax_scale is not None else 1.0 / float(np.sqrt(q.shape[-1]))
         NH, NKV = q.shape[2], k.shape[2]
-        if cfg.flash_attention and cfg.causal and (not train or cfg.attn_dropout == 0):
+        if cfg.flash_attention and cfg.position != "alibi" and cfg.causal and (not train or cfg.attn_dropout == 0):
             if NKV != NH:
                 k, v = _expand_gqa(q, k, v)  # kernel contract: equal head counts
             return flash_attention(q, k, v, causal=True, scale=scale, impl=attn_impl)
         B, T, _, D = q.shape
         G = NH // NKV
         scores = torch.einsum("btkgd,bskd->bkgts", q.reshape(B, T, NKV, G, D), k).float() * scale
+        if cfg.position == "alibi":  # JAX transformer.py:311-326: -slope_h * |i - j|, heads as [NKV, G]
+            slopes = _alibi_slopes_on(NH, q.device).reshape(NKV, G)
+            dist = (positions[:, None, :] - positions[:, :, None]).float()
+            scores = scores - slopes[None, :, :, None, None] * torch.abs(dist)[:, None, None]
         if cfg.causal:
             mask = positions[:, None, None, :, None] >= positions[:, None, None, None, :]
             scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
         probs = torch.softmax(scores, dim=-1)
-        if train and cfg.attn_dropout > 0 and gen is not None:
-            probs = _dropout(probs, cfg.attn_dropout, gen)
+        if train and cfg.attn_dropout > 0 and dseed is not None:
+            probs = _dropout(probs, cfg.attn_dropout, dseed, _ATTN_SALT)
         out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
         return out.reshape(B, T, NH, D)
 
@@ -396,9 +406,73 @@ class TransformerLM(nn.Module):
 _FFN_LEAVES = ("w_in", "b_in", "w_gate", "w_up", "w_out", "b_out")
 
 
-def _dropout(x, rate: float, gen: torch.Generator):
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - rate)
+_M32 = 0xFFFFFFFF
+_ATTN_SALT, _HIDDEN_SALT = 0x2545F491, 0x6A09E667  # attention and hidden masks of one layer differ
+
+
+def _mix32(h):
+    """A 32-bit integer finaliser on int64 tensors holding values below
+    2**32 (the products stay below 2**63)."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x346CA68B) & _M32
+    return h ^ (h >> 16)
+
+
+def _as_int32(h):
+    """int64 values below 2**32 as int32 with the same 32 bits."""
+    return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
+
+
+def _dropout(x, rate: float, seed: torch.Tensor, salt: int):
+    """Inverted dropout whose mask is a hash of (``seed``, ``salt``, element
+    index): uniform 32-bit draws kept below ``(1 - rate) · 2**32``. ``seed``
+    is an int64 tensor on ``x``'s device, read by no host code, so a CUDA
+    graph replays it from whatever its buffer holds.
+
+    The index is split into row (every dim but the last) and column: each
+    row and each column gets a fully mixed 32-bit key (small int64
+    tensors), and the full-size work is their xor mixed by two multiplies
+    and a xorshift in int32 (a multiply wraps; the shift is masked to act
+    as a logical one), seven passes over ``x``'s elements. The keep test
+    reads the high bits, which the multiplies mix from every input bit."""
+    n = x.shape[-1]
+    rows = torch.arange(x.numel() // n, dtype=torch.int64, device=x.device)
+    s = seed ^ salt
+    rk = _mix32(_mix32((rows & _M32) ^ (s & _M32)) ^ ((s >> 32) & _M32) ^ ((rows >> 32) & _M32))
+    ck = _mix32(torch.arange(n, dtype=torch.int64, device=x.device) * 0x9E3779B9 & _M32 ^ salt)
+    h = _as_int32(rk).view(x.shape[:-1] + (1,)) ^ _as_int32(ck)
+    h.mul_(0x7FEB352D)
+    h.bitwise_xor_(torch.bitwise_and(h >> 16, 0xFFFF))
+    h.mul_(0x346CA68B)
+    keep = h < int((1.0 - rate) * 2**32) - 2**31  # h is uniform over [-2**31, 2**31)
     return x * keep / (1.0 - rate)
+
+
+_SLOPES: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def _alibi_slopes_on(n_heads: int, device) -> torch.Tensor:
+    """``_alibi_slopes`` as an fp32 tensor on ``device``, made once (its
+    host-to-device copy then never falls inside a captured step)."""
+    key = (n_heads, str(device))
+    if key not in _SLOPES:
+        _SLOPES[key] = torch.as_tensor(_alibi_slopes(n_heads), dtype=torch.float32, device=device)
+    return _SLOPES[key]
+
+
+def _alibi_slopes(n_heads: int) -> np.ndarray:
+    """The per-head ALiBi slopes (JAX ``transformer.py:91``): a geometric
+    sequence from ``2**(-8/n)``, interleaved past the largest power of two."""
+    def pow2slopes(n):
+        start = 2.0 ** (-(2.0 ** -(np.log2(n) - 3)))
+        return start * (start ** np.arange(n))
+
+    if np.log2(n_heads).is_integer():
+        return pow2slopes(n_heads)
+    closest = 2 ** int(np.floor(np.log2(n_heads)))
+    return np.concatenate([pow2slopes(closest), pow2slopes(2 * closest)[0::2][: n_heads - closest]])
 
 
 def _expand_gqa(q, k, v):

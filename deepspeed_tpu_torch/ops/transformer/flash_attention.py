@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 launches_fwd = 0  # K1 launches since the caller last set it to 0
 launches_fwd_tc = 0  # of those, launches of the tensor-core variant (bf16, fp16)

@@ -77,28 +77,23 @@ class MeshConfig(DeepSpeedConfigModel):
 
 
 class MultiStepTrainConfig(DeepSpeedConfigModel):
-    """N-step fused training windows (``compile.multi_step``).
+    """N-step training windows (``compile.multi_step``).
 
-    ``enable`` arms the training-side twin of the serving multi-step
-    windows (``paged_kv.multi_step``): when ``train_batch(data_iter=...)``
-    sits at an optimizer-step boundary with ``horizon`` steps of data
-    available and no schedule event (checkpoint interval, monitor flush,
-    flops-profiler step) inside the window, the engine dispatches ONE
-    jitted program that ``lax.scan``s ``horizon`` FULL optimizer steps —
-    stacked ``[N, gas, ...]`` microbatches, per-step lr values evaluated
-    ahead on the host and riding in as an array, fp16 dynamic loss-scale
-    state carried through the scan so overflow-skip/rescale stays
-    in-program — amortizing every per-step host cost (dispatch RTT, data
-    fetch, h2d, loss fetch) to 1/N. Windows are bit-identical to N
-    sequential ``train_batch`` calls by construction; any step a window
-    cannot cover falls back to the single-step fused path and
-    ``engine.window_stats()['window_break_reasons']`` says why.
-    ``prefetch`` stages the next window's batches (sharded ``device_put``
-    enqueued ahead) while the current window computes — the
-    double-buffered input pipeline (``runtime/dataloader.py``
-    ``PrefetchingLoader``; exact-resume data cursors are preserved).
-    With ``gradient_accumulation_steps > 1`` the window scans the fused
-    grad-accum step body, so ``compile.fuse_grad_accum`` must be on."""
+    With ``enable``, a ``train_batch(data_iter=...)`` call at an optimizer
+    step boundary with ``horizon`` steps of data at hand and no checkpoint
+    interval boundary inside the window runs ``horizon`` whole steps as one
+    step program (on the card one replay of a captured CUDA graph): the
+    microbatches stacked ``[N, gas, ...]``, the lr values of the window
+    evaluated ahead on the host and read in the program at a cursor that
+    skips overflowed steps, the loss-scale state carried through it. The
+    next ``horizon - 1`` calls commit the steps already computed. Windows
+    equal N sequential ``train_batch`` calls bit for bit; a step a window
+    cannot cover runs on its own and
+    ``engine.window_stats()['window_break_reasons']`` says why. With
+    ``gradient_accumulation_steps > 1`` the window runs the fused
+    grad-accum body, so ``compile.fuse_grad_accum`` must be on.
+    ``prefetch`` is parsed as JAX's; the port's look-ahead holds host
+    batches only."""
 
     enable: bool = False
     horizon: int = 8
@@ -115,19 +110,16 @@ class MultiStepTrainConfig(DeepSpeedConfigModel):
 
 
 class CompileConfig(DeepSpeedConfigModel):
-    """TPU-native compile controls.
+    """Step-program controls.
 
-    ``fuse_grad_accum`` collapses a gas>1 optimizer step into ONE jitted
-    program — a ``lax.scan`` over the stacked microbatches running
-    fwd+bwd+accumulate, followed by the optimizer update — so the host
-    dispatches once per optimizer step instead of gas+1 times (engaged
-    through ``train_batch``; the per-microbatch forward/backward/step
-    protocol keeps the unfused programs). ``multi_step`` goes one level
-    further and fuses N whole optimizer steps into one dispatch (see
-    :class:`MultiStepTrainConfig`). ``cache_dir`` opts into JAX's
-    persistent compilation cache so repeated runs skip cold compiles;
-    ``cache_min_compile_secs`` is the write threshold (0 caches everything).
-    """
+    ``fuse_grad_accum`` runs a gas > 1 optimizer step as one step program
+    (forward, backward and accumulation per stacked microbatch, then the
+    update; on the card one CUDA-graph replay), engaged through
+    ``train_batch``; the per-microbatch forward/backward/step protocol
+    keeps the eager path. ``multi_step`` fuses N whole steps (see
+    :class:`MultiStepTrainConfig`). ``cache_dir`` and
+    ``cache_min_compile_secs`` are JAX's compilation-cache knobs, parsed
+    for config parity; the port has no compilation cache."""
 
     fuse_grad_accum: bool = False
     multi_step: MultiStepTrainConfig = Field(default_factory=MultiStepTrainConfig)
@@ -593,11 +585,6 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
         found.append("ZeRO++ quantized weights / gradients: ROADMAP P1")
     if z.zero_hpz_partition_size > 1 or z.mics_shard_size > 0:
         found.append("ZeRO++ hpZ / MiCS shard groups: ROADMAP P1")
-    cc = cfg.compile_config
-    if cc.fuse_grad_accum:
-        found.append("compile.fuse_grad_accum: ROADMAP T4")
-    if cc.multi_step.enable:
-        found.append("compile.multi_step.enable: ROADMAP T4")
     mc = cfg.mesh_config
     if max(mc.model, mc.sequence, mc.pipe) > 1:
         found.append("mesh model / sequence / pipe axes > 1 (tensor, sequence, pipeline parallel): ROADMAP P1")

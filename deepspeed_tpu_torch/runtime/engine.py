@@ -73,6 +73,23 @@ path, ``device=cpu|nvme``). Both run Adam/AdamW only and refuse a client
 optimizer. Their checkpoints carry ``optimizer["param_stream"]`` or
 ``optimizer["host_offload"]`` (JAX's records) and no ``master``.
 
+Step programs (JAX ``engine.py:19-31``, ``:1317-1620``): the update runs on
+device state only. The loss scale, the lr, the Adam step count and the
+overflow flag are device scalars, an overflow keeps master and moments by
+``torch.where`` and walks the scale in place, and nothing is read on the
+host inside the step. ``compile.fuse_grad_accum`` (gas > 1, through
+``train_batch``) runs the gas microbatches and the update as one step
+program; ``compile.multi_step`` runs ``horizon`` whole steps as one, the
+window's per-step results drained to the host one window late. On the card
+a step program's first call runs eagerly on a side stream (PyTorch's
+warm-up: a real step), the second captures it as a ``torch.cuda.CUDAGraph``
+and replays it, every later call copies its batch into the static buffers
+and replays; on the CPU the same body runs eagerly. The eager path runs the
+same ops, so both equal each other bit for bit. The batch-size setters,
+``get_last_grads`` and the per-leaf state surface of
+``utils/tensor_fragment.py`` write in place, so a captured program sees
+them.
+
 The unported switches raise ``NotImplementedError`` naming their ROADMAP
 item. The engine runs on ``cuda`` unless the caller names another device,
 and raises without a card.
@@ -80,10 +97,12 @@ and raises without a card.
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -116,7 +135,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import (
 )
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import TorchCheckpointEngine
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig, unported_switches
-from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, LossScaleState, has_inf_or_nan
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, has_inf_or_nan
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
 from deepspeed_tpu_torch.runtime.zero.host_offload import HostOffloadStreamer
 from deepspeed_tpu_torch.runtime.zero.offload_states import HostOffloadAdam, assemble_records
@@ -141,11 +160,12 @@ _HOST_ADAM_OPTIMIZERS = (C.ADAM_OPTIMIZER, C.ADAMW_OPTIMIZER, C.FUSED_ADAM_OPTIM
 _UNPORTED_OPTIMIZERS = {
     C.LAMB_OPTIMIZER: "X1", C.FUSED_LAMB_OPTIMIZER: "X1", C.SGD_OPTIMIZER: "X1",
     C.ONEBIT_ADAM_OPTIMIZER: "P1", C.ONEBIT_LAMB_OPTIMIZER: "P1", C.ZERO_ONE_ADAM_OPTIMIZER: "P1",
-    C.LION_OPTIMIZER: "X1",
 }
 _ACC_DTYPES = {"fp32": torch.float32, "float32": torch.float32, "bf16": torch.bfloat16,
                "bfloat16": torch.bfloat16, "fp16": torch.float16, "float16": torch.float16}
 _IGNORE_INDEX = -100  # models.transformer.cross_entropy_loss
+_NO_WINDOW = object()
+_UPDATE_CHUNK = 1 << 24  # elements of one piece of a leaf in the in-place update (elementwise: any cut is exact)
 
 
 class _GlobalLoss(torch.autograd.Function):
@@ -170,6 +190,7 @@ class DeepSpeedEngine:
             raise NotImplementedError("deepspeed_tpu_torch trains its own TransformerLM; other modules "
                                       "are not ported yet (ROADMAP X1)")
         self._config = config if isinstance(config, DeepSpeedConfig) else DeepSpeedConfig(config or {})
+        _validate_multi_step_config(self._config)
         unported = unported_switches(self._config)
         if unported:
             raise NotImplementedError("not ported to deepspeed_tpu_torch yet: " + "; ".join(unported))
@@ -219,7 +240,8 @@ class DeepSpeedEngine:
                                                  dtype=torch.float32))
             if self._offload_enabled():
                 self._init_host_offload()
-        self._scale_state = self.loss_scaler.init_state()
+        self._scale_state = self.loss_scaler.init_state(self.device)  # device scalars, updated in place
+        self._lr_t = torch.zeros((), dtype=torch.float32, device=self.device)  # the step's lr as a device scalar
 
         self.checkpoint_engine = TorchCheckpointEngine(self._config)
         self._ckpt_writer: Optional[AsyncCheckpointWriter] = None  # built at the first async save
@@ -232,6 +254,7 @@ class DeepSpeedEngine:
             "last_save_s": 0.0,  # full persist wall time (staging + commit)
             "last_restore_s": 0.0,
         }
+        self._init_step_programs()
         log_dist(
             f"DeepSpeedEngine: zero_stage={self.zero_optimization_stage()} dtype={self.compute_dtype} "
             f"device={self.device} batch triad=({self.train_batch_size()},"
@@ -268,6 +291,165 @@ class DeepSpeedEngine:
     def data_parallel_world_size(self) -> int:
         return self.dp
 
+    def set_train_batch_size(self, train_batch_size: int) -> None:
+        """Resize the global batch by changing the number of microbatches
+        (gas), keeping the micro batch (JAX ``engine.py:509-575``). The
+        step programs depend on gas, so every captured graph is dropped and
+        its memory pool released before the next step captures anew."""
+        micro, dp = self.train_micro_batch_size_per_gpu(), max(1, self.dp)
+        if train_batch_size % (micro * dp) != 0:
+            raise ValueError(f"Train batch size must be divisible by micro-batch * data parallelism ({micro} * {dp})")
+        new_gas = train_batch_size // (micro * dp)
+        if new_gas < 1:
+            raise ValueError(f"train_batch_size={train_batch_size} is below one micro-batch per data shard "
+                             f"({micro} * {dp})")
+        if new_gas == self.gradient_accumulation_steps():
+            self._config.train_batch_size = train_batch_size
+            return
+        self._check_resize_allowed()
+        cc = self._config.compile_config
+        if cc.multi_step.enable and new_gas > 1 and not cc.fuse_grad_accum:
+            raise ValueError(f"set_train_batch_size: gradient_accumulation_steps={new_gas} with compile.multi_step "
+                             "enabled requires compile.fuse_grad_accum (the window scans the fused grad-accum body)")
+        self._config.train_batch_size = train_batch_size
+        self._config.gradient_accumulation_steps = new_gas
+        # re-base the counter: boundaries are micro_steps % gas
+        self.micro_steps = 0
+        self.invalidate_compiled_step()
+        armed = self._window_armed
+        self._fused_accum_enabled = bool(cc.fuse_grad_accum) and new_gas > 1
+        self._window_armed = bool(cc.multi_step.enable) and (new_gas == 1 or self._fused_accum_enabled)
+        self._window_horizon = int(cc.multi_step.horizon) if self._window_armed else 0
+        if armed != self._window_armed:
+            self._loader = self._loader_key = None
+        log_dist(f"set_train_batch_size: train_batch={train_batch_size} gas={new_gas}", ranks=[0])
+
+    def _check_resize_allowed(self) -> None:
+        """JAX ``engine.py:577``: no resize mid-step, mid-window, inside an
+        accumulation window, or on the offload paths."""
+        if self._in_forward:
+            raise RuntimeError("cannot resize the batch mid-step: finish backward()+step() first")
+        if self._window_stash:
+            raise RuntimeError("cannot resize the batch mid-window: the multi-step window's remaining train_batch "
+                               "calls must commit first")
+        if self.micro_steps % self.gradient_accumulation_steps() != 0:
+            raise RuntimeError("cannot resize the batch inside an accumulation window: step() must complete the "
+                               "current window first")
+        if self._param_stream is not None or self._host_offload is not None:
+            raise NotImplementedError("batch resizing is unsupported on the offload paths")
+
+    def set_train_micro_batch_size(self, micro_batch_size: int) -> None:
+        """Change the micro batch, keeping gas (JAX ``engine.py:602``). The
+        step programs are keyed by their batch shapes, so a new micro batch
+        captures its own; the old ones are dropped with their pools."""
+        if micro_batch_size < 1:
+            raise ValueError(f"micro_batch_size={micro_batch_size} must be >= 1")
+        self._check_resize_allowed()
+        gas, dp = self.gradient_accumulation_steps(), max(1, self.dp)
+        self._config.train_batch_size = micro_batch_size * gas * dp
+        self._config.train_micro_batch_size_per_gpu = micro_batch_size
+        self.invalidate_compiled_step()
+
+    # --- one leaf's fp32 state, whole (utils/tensor_fragment.py's surface) -------------
+    def _leaf_state(self, name: str, field: str) -> Optional[np.ndarray]:
+        """The whole fp32 ``field`` (``master`` or an optimizer state such as
+        ``exp_avg``) of leaf ``name`` as numpy, on every rank (the slices
+        gathered at dp > 1), wherever the engine keeps it: on the card, in
+        the streamed or legacy host offload, or in the layer stream. None
+        for an unknown leaf or field."""
+        if name not in self._shapes:
+            return None
+        shape = self._shapes[name]
+        if self._param_stream is not None:
+            return self._param_stream.leaf_state(name, field)
+        if self._host_offload is not None:
+            if field not in ("master", "exp_avg", "exp_avg_sq"):
+                return None
+            ho = self._host_offload
+            if self._streamed_offload:
+                ho.drain_writes()
+                if field == "master" and not self.mixed_precision:  # fp32: the parameters are the master
+                    return _host_copy(self._gather_tree({name: self._params[name].detach()},
+                                                        {name: self._pdim[name]})[name], shape)
+                t = ho.leaf_tensor(name, field)
+            else:
+                t = torch.from_numpy(ho.leaf_state(name)[field]).reshape(self._slice_shape(name))
+            return _host_copy(self._gather_host({name: t})[name], shape)
+        if field == "master":
+            t = self._master[name]
+        else:
+            tree = getattr(self._opt_state, field, None)
+            if not isinstance(tree, dict):
+                return None
+            t = tree[name]
+        return _host_copy(self._gather_tree({name: t.detach()}, {name: self._mdim[name]})[name], shape)
+
+    @torch.no_grad()
+    def _set_leaf_state(self, name: str, field: str, value) -> bool:
+        """Write the whole fp32 ``field`` of leaf ``name`` (every rank passes
+        the whole value and keeps its slice), in place: a captured step
+        program's next replay reads it. Writing ``master`` refreshes the
+        compute-dtype copy. False for an unknown leaf or field."""
+        if name not in self._shapes:
+            return False
+        full = torch.as_tensor(np.asarray(value, np.float32)).reshape(self._shapes[name])
+        if self._param_stream is not None:
+            return self._param_stream.set_leaf_state(name, field, full.numpy())
+        r, W = self.dp_rank, self.dp
+        mine = shard(full, self._mdim[name], r, W)
+        if self._host_offload is not None:
+            if field not in ("master", "exp_avg", "exp_avg_sq"):
+                return False
+            ho = self._host_offload
+            if self._streamed_offload:
+                ho.drain_writes()
+                t = ho.leaf_tensor(name, field)
+                t.copy_(mine.reshape(t.shape))
+            else:
+                ho.set_leaf_state(name, field, mine.numpy())
+        elif field == "master":
+            self._master[name].copy_(mine)
+        else:
+            tree = getattr(self._opt_state, field, None)
+            if not isinstance(tree, dict):
+                return False
+            tree[name].copy_(mine)
+        if field == "master":
+            p = self._params[name]
+            if self._master is None or p is not self._master[name]:
+                p.copy_(shard(full, self._pdim[name], r, W))
+        return True
+
+    def _slice_shape(self, name: str):
+        return shard(torch.empty(self._shapes[name], device="meta"), self._mdim[name], self.dp_rank, self.dp).shape
+
+    def get_last_grads(self):
+        """The gradient tree of the latest training microbatch, fp32 numpy
+        (JAX ``engine.py:3755``, the surface behind ``safe_get_full_grad``).
+        On the accumulating path it is the live accumulator; where the last
+        step ran as a step program (and at gas = 1, where JAX always fuses)
+        the gradients died inside it, so they are recomputed on the stashed
+        microbatch with its dropout seed and loss scale, at the current
+        (post-update) parameters, as JAX documents. Under
+        ``offload_param``, the layer stream's ``debug_grads()``."""
+        if self._param_stream is not None:
+            return self._param_stream.debug_grads()
+        gas1 = self.gradient_accumulation_steps() == 1 and self._host_offload is None
+        if not gas1 and not self._last_fused:
+            return tensors_to_jax_tree({k: g.detach().float().clone()
+                                        for k, g in self._gather_tree(self._grad_acc, self._gdim).items()})
+        if self._last_batch is None:
+            return None
+        tokens, labels, seed = self._last_batch
+        params = {k: p.detach().clone().requires_grad_(True) for k, p in self._full_params().items()}
+        tokens = tokens.to(self.device)
+        labels = labels.to(self.device)
+        loss = self.module.apply(unflatten_tree(params), (tokens, labels), dropout_seed=seed, train=True,
+                                 attn_impl=self.attn_impl)
+        (loss.float() * self._last_fwd_scale).backward()
+        return tensors_to_jax_tree({k: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+                                    for k, p in params.items()})
+
     @property
     def loss_scale(self) -> float:
         return float(self._scale_state.scale)
@@ -282,6 +464,11 @@ class DeepSpeedEngine:
         return (self.micro_steps + 1) % self.gradient_accumulation_steps() == 0
 
     def train(self, mode: bool = True):
+        if not mode and self._window_stash:
+            raise RuntimeError(
+                "eval() called with a multi-step window mid-flight: the window already advanced the model "
+                f"state but {len(self._window_stash)} step(s) are uncommitted; finish the window's train_batch "
+                "calls before switching to eval")
         self._training_mode = mode
         return self
 
@@ -373,6 +560,9 @@ class DeepSpeedEngine:
         self._param_tree = unflatten_tree(self._params)
         # the offload paths keep the moments on the host
         self._opt_state = None if self._offload_enabled() else self.optimizer.init_state(self._master)
+        if self._opt_state is not None and getattr(self.optimizer, "capturable", False):
+            # the step count lives on the device, as JAX's int32 scalar: the captured step advances it
+            self._opt_state = self._opt_state._replace(step=torch.zeros((), dtype=torch.int32, device=self.device))
         self._grad_acc = {k: torch.zeros(shard_shape(self._shapes[k], self._gdim[k], W), dtype=self._acc_dtype,
                                          device=self.device) for k in self._params}
         self._plan = build_overlap_plan(zc, self._params, self._pdim, self.module.config.num_layers,
@@ -587,7 +777,7 @@ class DeepSpeedEngine:
             grads = {k: shard(acc[k], self._mdim[k], r, dp) if self._gdim[k] is None else acc[k]
                      for k in self._host_offload.names}
             self._install_slices(self._host_offload.step(grads, lr, inv, clip_coef))
-        self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
+        self.loss_scaler.update_(self._scale_state, overflow)
         for g in acc.values():
             g.zero_()
         self._last_grad_norm = grad_norm
@@ -612,7 +802,8 @@ class DeepSpeedEngine:
         inv = self._unscale_inv()
         acc = self._grad_acc
         # the unscaled gradients leaf by leaf, never all at once (the same ops as the on-device update)
-        overflow, grad_norm, coef = self._grad_stats(lambda: ((k, g.float() * inv) for k, g in acc.items()))
+        flag, grad_norm, coef = self._grad_stats(lambda: ((k, g.float() * inv) for k, g in acc.items()))
+        overflow = bool(flag)  # this path's host loop branches on it
         if overflow:
             ho.discard_staged()
         else:
@@ -641,7 +832,7 @@ class DeepSpeedEngine:
                 ho.materialize_writes(keep=1)
             ho.step_count += 1
         ho.note_step()
-        self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
+        self.loss_scaler.update_(self._scale_state, overflow)
         for g in acc.values():
             g.zero_()
         self._last_grad_norm = grad_norm
@@ -730,6 +921,11 @@ class DeepSpeedEngine:
     def forward(self, batch):
         """Training: the microbatch's loss with its graph (call ``backward``
         then ``step``). Eval: the loss (or logits without labels), no graph."""
+        if self._window_stash:
+            raise RuntimeError(
+                "forward() called with a multi-step window mid-flight: "
+                f"{len(self._window_stash)} computed step(s) are uncommitted; drive them through "
+                "train_batch(data_iter) first")
         tokens, labels, share = self._place(batch)
         if self._param_stream is not None:
             return self._stream_forward(tokens, labels, share)
@@ -749,6 +945,12 @@ class DeepSpeedEngine:
                              "or a 2-tuple)")
         if self._in_forward:
             raise RuntimeError("forward() called again before backward()")
+        if self._fused_accum_enabled and not self._warned_unfused_fallback and not self._in_step_program:
+            # JAX engine.py:1946-1955: the fused step engages only through train_batch
+            self._warned_unfused_fallback = True
+            logger.warning("fuse_grad_accum is on but forward() is being driven per microbatch; the "
+                           "single-dispatch fused step only engages through train_batch() — falling back to the "
+                           "unfused per-microbatch programs")
         seed = int(self._dropout_rng.integers(0, 2**62))
         tree, stream = self._model_tree(True)
         loss = self.module.apply(tree, model_batch, dropout_seed=seed, train=True, attn_impl=self.attn_impl,
@@ -758,6 +960,8 @@ class DeepSpeedEngine:
             # rank holds as many tokens: a factor of exactly 1); report the global mean
             value = comm.all_reduce(loss.detach().float() * share)
             loss = _GlobalLoss.apply(loss * (share * self.dp).to(loss.dtype), value.to(loss.dtype))
+        self._last_batch = (tokens, labels, seed)
+        self._last_fwd_scale = self._scale_state.scale.clone()
         self._in_forward = True
         return loss
 
@@ -801,7 +1005,14 @@ class DeepSpeedEngine:
             self._param_stream.backward(float(self._scale_state.scale))
             self._in_forward = False
             return loss
-        scale = torch.tensor(self._scale_state.scale, dtype=torch.float32, device=loss.device)
+        self._backward_core(loss, retain_graph)
+        self._in_forward = False
+        return loss
+
+    def _backward_core(self, loss, retain_graph: bool = False) -> None:
+        """``backward``'s work, which the fused step programs run too: the
+        scaled backward (the scale a device scalar) and each leaf's gradient
+        into the accumulator."""
         # stage 3's sharded leaves are reduced by the plan as backward passes each layer; the rest
         # accumulate whole (stages 0-1, reduced at the boundary) or go through the reduce buckets
         # (stage >= 2 at dp > 1)
@@ -811,7 +1022,7 @@ class DeepSpeedEngine:
         if self._plan is not None:
             self._plan.in_backward = True
         try:
-            (loss.float() * scale).backward(retain_graph=retain_graph)
+            (loss.float() * self._scale_state.scale).backward(retain_graph=retain_graph)
         finally:
             if self._plan is not None:
                 self._plan.in_backward = False
@@ -827,17 +1038,17 @@ class DeepSpeedEngine:
             for k, p in self._params.items():
                 if p.grad is None:
                     continue
-                g = p.grad.to(self._acc_dtype)
+                g = p.grad
                 p.grad = None
                 if buckets is not None:
-                    buckets.add(k, g)
+                    buckets.add(k, g.to(self._acc_dtype))
                 else:
-                    self._grad_acc[k].add_(g)
+                    # an fp32 accumulator adds the gradient exactly widened, without a widened copy
+                    acc = self._grad_acc[k]
+                    acc.add_(g if acc.dtype == torch.float32 else g.to(acc.dtype))
             if buckets is not None:
                 for k, g in buckets.finish().items():
                     self._grad_acc[k].add_(g)
-        self._in_forward = False
-        return loss
 
     def step(self, lr_kwargs=None):  # noqa: ARG002
         if self._in_forward:
@@ -855,49 +1066,79 @@ class DeepSpeedEngine:
             self.save_checkpoint(ccfg.save_dir)
 
     @torch.no_grad()
-    def _update_from_grads(self, lr: float):
+    def _update_from_grads(self, lr: torch.Tensor):
         """One optimizer update from the accumulation buffer (see the module
-        docstring). Returns the overflow flag (always False outside fp16)."""
+        docstring), JAX's ``update_from_grads`` on device state only: the
+        loss scale, the lr (``lr``, an fp32 device scalar) and the step
+        count are device scalars, the overflow flag is a device bool that
+        keeps master and moments by ``torch.where`` and walks the scale in
+        place, and no value is read on the host, so a CUDA graph can capture
+        it. Master, moments and accumulators are written in place, a leaf
+        (or a piece of a leaf) at a time. Returns ``(overflow, grad_norm)``
+        as device scalars."""
         dp, r = self.dp, self.dp_rank
         inv = self._unscale_inv()
-        grads = {k: g.float() * inv for k, g in self._grad_acc.items()}
-        overflow, grad_norm, coef = self._grad_stats(lambda: grads.items())
-        if coef is not None:
-            grads = {k: g * coef for k, g in grads.items()}
-        if not overflow:
-            # the owner-shard update: this rank's slice of each (whole) gradient
-            grads = {k: shard(g, self._mdim[k], r, dp) if self._gdim[k] is None else g for k, g in grads.items()}
-            new_master, self._opt_state = self.optimizer.apply(grads, self._opt_state, self._master, lr)
-            for k, m in self._master.items():
-                m.copy_(new_master[k])
+        acc = self._grad_acc
+        overflow, grad_norm, coef = self._grad_stats(lambda: ((k, g.float() * inv) for k, g in acc.items()))
+        fp16 = self._config.fp16_enabled
+        opt, st = self.optimizer, self._opt_state
+        if not getattr(opt, "capturable", False):
+            # a client optimizer: its own apply, on host numbers, outside any captured program
+            grads = {k: g.float() * inv for k, g in acc.items()}
+            if coef is not None:
+                grads = {k: g * coef for k, g in grads.items()}
+            if not bool(overflow):
+                grads = {k: shard(g, self._mdim[k], r, dp) if self._gdim[k] is None else g for k, g in grads.items()}
+                new_master, self._opt_state = opt.apply(grads, st, self._master, float(lr))
+                for k, m in self._master.items():
+                    m.copy_(new_master[k])
+                self._refresh_params()
+        else:
+            moments = opt.moments(st)
+            bc1, bc2 = opt.bias_corrections(st.step + 1, self.device)
+            for k, a in acc.items():
+                g = a.float() * inv
+                if coef is not None:
+                    g = g * coef
+                if self._gdim[k] is None:
+                    g = shard(g, self._mdim[k], r, dp)  # the owner-shard update: this rank's slice
+                state = [self._master[k]] + [t[k] for t in moments]
+                for piece in _pieces(g, state, chunked=dp == 1):
+                    gp, old = piece[0], piece[1:]
+                    new = opt.leaf(gp, *old, bc1, bc2, lr)
+                    for o, n in zip(old, new):
+                        o.copy_(torch.where(overflow, o, n) if fp16 else n)
+            # the step count advances on a taken step only (JAX's where over the whole optimizer state)
+            st.step.add_((~overflow).to(st.step.dtype) if fp16 else 1)
             self._refresh_params()
-        self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
-        for g in self._grad_acc.values():
+        self.loss_scaler.update_(self._scale_state, overflow)
+        for g in acc.values():
             g.zero_()
         self._last_grad_norm = grad_norm
-        return overflow
+        return overflow, grad_norm
 
-    def _unscale_inv(self) -> float:
-        """``1 / (scale · gas [· dp])`` in fp32, after summing the whole
-        accumulators over the ranks at stages 0-1."""
-        denom = np.float32(self._scale_state.scale) * np.float32(self.gradient_accumulation_steps())
+    def _unscale_inv(self) -> torch.Tensor:
+        """``1 / (scale · gas [· dp])`` as an fp32 device scalar, after
+        summing the whole accumulators over the ranks at stages 0-1."""
+        denom = self._scale_state.scale * float(self.gradient_accumulation_steps())
         if self.dp > 1:
-            denom = denom * np.float32(self.dp)  # the gradients are summed over the ranks
+            denom = denom * float(self.dp)  # the gradients are summed over the ranks
             if self.zero_optimization_stage() <= 1:
                 self._all_reduce_accum()
-        return float(np.float32(1.0) / denom)
+        return 1.0 / denom
 
     def _grad_stats(self, grads: Callable):
         """``(overflow, grad_norm, clip coefficient or None)`` of the unscaled
         fp32 gradients ``grads()`` yields as ``(name, tensor)`` pairs (called
-        once for the flag, once for the norm)."""
+        once for the flag, once for the norm), all device scalars; the flag
+        is False outside fp16."""
         dp, r = self.dp, self.dp_rank
-        overflow = False
         if self._config.fp16_enabled:
-            flag = has_inf_or_nan(g for _, g in grads())
+            overflow = has_inf_or_nan(g for _, g in grads())
             if dp > 1:  # every rank skips together
-                flag = comm.all_reduce(flag.float(), op=comm.ReduceOp.MAX)
-            overflow = bool(flag)
+                overflow = comm.all_reduce(overflow.float(), op=comm.ReduceOp.MAX) > 0
+        else:
+            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         if dp > 1 and self.zero_optimization_stage() >= 2:
             # the global norm from the slices' squares (a replicated leaf counted on rank 0 only)
             parts = [torch.sum(torch.square(g)) for k, g in grads() if self._gdim[k] is not None or r == 0]
@@ -918,20 +1159,34 @@ class DeepSpeedEngine:
             comm.all_reduce_coalesced([self._grad_acc[names[i]] for i in bucket])
 
     def _take_model_step(self) -> None:
+        """The eager optimizer step at the accumulation boundary: one
+        dispatch, its overflow read on the host afterwards for the
+        bookkeeping."""
         lr = self.optimizer.param_groups[0]["lr"]
+        self._dispatches += 1
+        self._last_fused = False
         if self._param_stream is not None:
             grad_norm, overflow = self._param_stream.step(lr, float(self._scale_state.scale),
                                                           self._config.gradient_clipping)
             self._last_grad_norm = torch.tensor(grad_norm, dtype=torch.float32)
-            self._scale_state = self.loss_scaler.update(self._scale_state, overflow)
+            self.loss_scaler.update_(self._scale_state, overflow)
         elif self._streamed_offload:
             overflow = self._take_streamed_offload_step(lr)
         elif self._host_offload is not None:
             overflow = self._take_offload_step(lr)
         else:
-            overflow = self._update_from_grads(lr)
-        # the preemption instant: the master holds the update, nothing of the
-        # step is committed on the host yet
+            self._lr_t.fill_(lr)
+            overflow = self._update_from_grads(self._lr_t)[0]
+            overflow = bool(overflow) if self._config.fp16_enabled else False
+        self._finish_step_bookkeeping(overflow)
+
+    def _finish_step_bookkeeping(self, overflow: bool, save: bool = False) -> None:
+        """The host tail every step flavour shares (JAX ``engine.py:2389``):
+        the preemption instant (the state holds the update, nothing of the
+        step is committed on the host yet), the counters, the overflow
+        accounting, the lr schedule (not advanced on a skipped step), and,
+        with ``save``, the interval auto-save (the sequential path saves in
+        ``step`` once the microbatch is counted)."""
         chaos.point("train.mid_step")
         self.global_steps += 1
         if overflow:
@@ -940,24 +1195,61 @@ class DeepSpeedEngine:
                      ranks=[0])
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        ccfg = self._config.checkpoint_config
+        if save and ccfg.save_dir and ccfg.interval_steps > 0 and self.global_steps % ccfg.interval_steps == 0:
+            self.save_checkpoint(ccfg.save_dir)
 
     def train_batch(self, data_iter=None, batch=None):
         """One optimizer step over ``gas`` microbatches: ``batch`` is the
         full-step batch (its leading dim is sliced into ``gas`` microbatches),
-        or ``data_iter`` yields the microbatches. Returns the mean loss."""
+        or ``data_iter`` yields the microbatches. Returns the mean loss.
+
+        With ``compile.fuse_grad_accum`` at gas > 1 the step is one step
+        program (``_fused_train_batch``): on the card one replay of a
+        captured CUDA graph. With ``compile.multi_step`` and a ``data_iter``
+        a call at a step boundary runs a window of ``horizon`` whole steps
+        as one program (``_try_train_window``), and the next horizon - 1
+        calls commit the steps it already computed; such calls return the
+        step's loss as a 0-d device tensor, and the host values arrive
+        through ``drained_losses()`` one window late."""
         gas = self.gradient_accumulation_steps()
+        if self._window_stash:
+            if batch is not None:
+                raise RuntimeError(
+                    "train_batch(batch=...) called with a multi-step window mid-flight: the window's remaining "
+                    "steps already consumed their data; keep driving with train_batch(data_iter)")
+            return self._commit_window_step()
+        if (self._window_armed and data_iter is not None and batch is None and self._training_mode
+                and not self._in_forward):
+            out = self._try_train_window(data_iter)
+            if out is not _NO_WINDOW:
+                return out
         if batch is not None:
             micro = self._split_step_batch(batch, gas)
         elif data_iter is not None:
-            micro = [next(data_iter) for _ in range(gas)]
+            # an armed engine keeps pulling through its loader, so batches a window
+            # looked ahead at are never dropped
+            src = self._window_loader(data_iter) if (self._window_armed and self._training_mode) else data_iter
+            micro = [next(src) for _ in range(gas)]
         else:
             raise ValueError("train_batch needs data_iter or batch")
+        fused = (self._fused_accum_enabled and self._training_mode and not self._in_forward
+                 and self.micro_steps % gas == 0)
+        if fused and self.dp == 1:
+            return self._fused_train_batch(micro)
+        if fused:
+            self._fused_step_uncaptured(micro)
         losses = []
-        for b in micro:
-            loss = self.forward(b)
-            self.backward(loss)
-            self.step()
-            losses.append(loss.detach())
+        try:
+            for b in micro:
+                loss = self.forward(b)
+                self.backward(loss)
+                self.step()
+                losses.append(loss.detach())
+        finally:
+            self._in_step_program = False
+        if fused:
+            self._last_fused = True  # get_last_grads recomputes, as after a fused step
         return float(torch.stack(losses).float().mean())
 
     def _split_step_batch(self, batch, gas: int):
@@ -971,6 +1263,412 @@ class DeepSpeedEngine:
         b = B // gas
         cut = lambda x, g: None if x is None else x[g * b:(g + 1) * b]  # noqa: E731
         return [(cut(tokens, g), cut(labels, g)) if labels is not None else cut(tokens, g) for g in range(gas)]
+
+    # --- the step programs: fused accumulation and multi-step windows (JAX engine.py:1317-1620, 2662-3205)
+    def _init_step_programs(self) -> None:
+        """The switches of ``compile``: ``fuse_grad_accum`` at gas > 1 (not on
+        the offload paths, as in JAX) and ``multi_step`` (checked by
+        ``_validate_multi_step``); the captured graphs, built at first use."""
+        cc = self._config.compile_config
+        gas = self.gradient_accumulation_steps()
+        offload = self._host_offload is not None or self._param_stream is not None
+        self._fused_accum_enabled = bool(cc.fuse_grad_accum) and gas > 1 and not offload
+        if cc.fuse_grad_accum and gas > 1 and offload:
+            logger.warning("compile.fuse_grad_accum does not engage on the offload paths (their host loop owns "
+                           "the update, as in the reference): steps run per microbatch")
+        self._warned_unfused_fallback = False
+        self._in_step_program = False  # the fused step's own forward calls do not warn
+        self._graphs: Dict[Any, _StepProgram] = {}
+        # one memory pool for every captured program: they never run at once, and everything they keep
+        # between replays (state, static buffers) lives outside it, so a second batch shape reuses the
+        # first one's activations instead of holding a pool of its own
+        self._graph_pool = None  # the handle, taken anew whenever no captured graph holds the pool
+        self._graph_counts = {"captures": 0, "replays": 0, "warmups": 0, "uncaptured": 0}
+        self._dispatches = 0  # calls of a step program: eager steps, fused steps, windows
+        self._last_batch = None  # get_last_grads' stash: (tokens, labels, seed) of the last microbatch
+        self._last_fwd_scale = None  # and the loss scale it was back-propagated at
+        self._last_fused = False  # the last step ran a step program (its gradients died inside it)
+        self._validate_multi_step()
+        mscfg = cc.multi_step
+        streamed_ok = self._streamed_offload and (gas == 1 or bool(cc.fuse_grad_accum))
+        self._window_armed = bool(mscfg.enable) and (gas == 1 or self._fused_accum_enabled or streamed_ok)
+        self._window_horizon = int(mscfg.horizon) if self._window_armed else 0
+        self._window_stash: deque = deque()  # computed-but-uncommitted steps
+        self._pending_drains: deque = deque()  # windows whose host copies are in flight
+        self._drained_log: deque = deque(maxlen=4096)
+        self._drained_dropped = 0
+        self._window_metrics = {
+            "window_steps": 0,
+            "windowed_opt_steps": 0,
+            "window_break_reasons": {
+                "checkpoint": 0,  # a checkpoint-interval boundary inside the horizon
+                "monitor": 0,  # a monitor flush inside the horizon (monitors are not ported: never)
+                "data": 0,  # the iterator ran out before a full window
+                "profiler": 0,  # the flops-profiler step (not ported: never)
+            },
+        }
+        self._loader: Optional[_WindowLoader] = None
+        self._loader_key = None
+
+    def _validate_multi_step(self) -> None:
+        """JAX ``_validate_multi_step`` (``engine.py:2083``), the checks that
+        need the built engine (the config-only ones ran first,
+        ``_validate_multi_step_config``)."""
+        if not self._config.compile_config.multi_step.enable:
+            return
+        if self.gradient_accumulation_steps() > 1 and not self._config.compile_config.fuse_grad_accum:
+            raise ValueError("compile.multi_step with gradient_accumulation_steps > 1 requires "
+                             "compile.fuse_grad_accum (the window scans the fused grad-accum body)")
+        if self.lr_scheduler is not None and not (hasattr(self.lr_scheduler, "state_dict")
+                                                  and hasattr(self.lr_scheduler, "load_state_dict")):
+            raise ValueError("compile.multi_step requires an lr scheduler with state_dict/load_state_dict (the "
+                             "window pre-evaluates the schedule via snapshot -> replay -> restore)")
+        self._require_capturable("compile.multi_step")
+
+    def _require_capturable(self, what: str) -> None:
+        if not getattr(self.optimizer, "capturable", False):
+            raise ValueError(f"{what} needs an optimizer whose step runs on device scalars (FusedAdam, Adam, "
+                             "AdamW, Adagrad); a client optimizer's host apply cannot run inside one step program")
+
+    def _step_body(self, tokens, labels, seeds, lr):
+        """One whole optimizer step on device state (JAX ``full_step_core``,
+        ``engine.py:1317-1395``): forward, scaled backward and accumulation
+        per microbatch of ``tokens``/``labels`` ``[gas, b, T]``, then the
+        update. The same ops as ``forward``/``backward``/``step``, so the
+        fused programs equal the sequential run. Returns ``(mean loss,
+        grad_norm, overflow, the loss scale the step used)`` as device
+        scalars."""
+        pre_scale = self._scale_state.scale.clone()
+        losses = []
+        for g in range(tokens.shape[0]):
+            seed = seeds[g] if self._has_dropout else None
+            loss = self.module.apply(self._param_tree, (tokens[g], labels[g]), dropout_seed=seed, train=True,
+                                     attn_impl=self.attn_impl)
+            self._backward_core(loss)
+            losses.append(loss.detach())
+        loss = torch.stack(losses).float().mean()
+        overflow, grad_norm = self._update_from_grads(lr)
+        return loss, grad_norm, overflow, pre_scale
+
+    @property
+    def _has_dropout(self) -> bool:
+        c = self.module.config
+        return c.attn_dropout > 0 or c.hidden_dropout > 0
+
+    def _stack_micro(self, micro) -> Dict[str, torch.Tensor]:
+        """The step's microbatches as host or device int64 ``[n, b, T]``
+        tokens and labels, and one dropout seed a microbatch drawn from the
+        engine's generator in the sequential path's order."""
+        toks, labs = [], []
+        for b in micro:
+            t, lab = _split_batch(b)
+            if lab is None:
+                raise ValueError("training expects (tokens, labels) batches (a dict with input_ids/labels, "
+                                 "or a 2-tuple)")
+            toks.append(_as_long(t))
+            labs.append(_as_long(lab))
+        seeds = torch.tensor([int(self._dropout_rng.integers(0, 2**62)) for _ in micro], dtype=torch.int64)
+        return {"tokens": torch.stack(toks), "labels": torch.stack(labs), "seeds": seeds}
+
+    def _program(self, key, inputs: Dict[str, torch.Tensor], outputs: Dict[str, tuple], body) -> "_StepProgram":
+        """Run the step program ``key`` once on ``inputs`` (host or device
+        tensors, copied into its static buffers): on the card the first call
+        runs ``body`` eagerly on a side stream (PyTorch's warm-up, a real
+        step), the second captures it as a ``torch.cuda.CUDAGraph`` into the
+        engine's shared graph pool and replays it, every later call
+        replays; on the CPU ``body`` runs eagerly. A failed capture
+        raises."""
+        prog = self._graphs.get(key)
+        if prog is None:
+            prog = self._graphs[key] = _StepProgram(inputs, outputs, self.device)
+        prog.load(inputs)
+        self._dispatches += 1
+        if self.device.type != "cuda":
+            body(prog)
+            self._graph_counts["uncaptured"] += 1
+        elif prog.runs == 0:
+            side = _warmup_stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                body(prog)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graph_counts["warmups"] += 1
+        else:
+            if prog.graph is None:
+                if not any(p.graph is not None for p in self._graphs.values()):
+                    # a pool whose last graph was freed cannot take another capture: start a new one
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self._graph_pool):
+                    body(prog)
+                prog.graph = graph
+                self._graph_counts["captures"] += 1
+            prog.start.record()
+            prog.graph.replay()
+            prog.end.record()
+            self._graph_counts["replays"] += 1
+        prog.runs += 1
+        return prog
+
+    def invalidate_compiled_step(self) -> None:
+        """Drop every captured step program (JAX ``engine.py:1077``): their
+        graphs and static buffers are released and the caching allocator's
+        graph pools returned, so a resize never holds two sets."""
+        for prog in self._graphs.values():
+            prog.release()
+        self._graphs.clear()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+
+    def _fused_step_uncaptured(self, micro) -> None:
+        """``compile.fuse_grad_accum`` at dp > 1: the collectives are gloo's
+        or NCCL's host calls, so the step runs as ``train_batch``'s
+        sequential loop, uncaptured and counted in ``window_stats()``; its
+        ``forward`` calls do not warn. The batches must be host batches
+        (JAX ``engine.py:963-973``)."""
+        self._require_capturable("compile.fuse_grad_accum")
+        for b in micro:
+            if any(isinstance(x, torch.Tensor) and x.device.type != "cpu" for x in _split_batch(b)):
+                raise NotImplementedError(
+                    "fuse_grad_accum on multi-process runs requires host (numpy or CPU tensor) microbatches; "
+                    "pre-placed device batches cannot be re-stacked across ranks — feed host batches or "
+                    "disable compile.fuse_grad_accum")
+        self._graph_counts["uncaptured"] += 1
+        self._in_step_program = True
+
+    def _fused_train_batch(self, micro):
+        """``compile.fuse_grad_accum`` at dp = 1 (JAX ``_fused_train_batch``,
+        ``engine.py:2700``): the gas microbatches stacked, then forward,
+        backward and accumulation per microbatch and the update as one step
+        program (one replay a step on the card). Returns the mean loss as a
+        host number."""
+        gas = len(micro)
+        self._require_capturable("compile.fuse_grad_accum")
+        data = self._stack_micro(micro)
+        data["lr"] = torch.tensor([self.optimizer.param_groups[0]["lr"]], dtype=torch.float32)
+        tokens = data["tokens"]
+        prog = self._program(("fused", tuple(tokens.shape)), data,
+                             {"loss": ((), torch.float32), "norm": ((), torch.float32),
+                              "overflow": ((), torch.bool), "scale": ((), torch.float32)}, self._fused_body)
+        loss, self._last_grad_norm, overflow = prog.out["loss"], prog.out["norm"], prog.out["overflow"]
+        self._last_batch = (tokens[-1], data["labels"][-1], int(data["seeds"][-1]))
+        self._last_fwd_scale = prog.out["scale"].clone()
+        self._last_fused = True
+        self.micro_steps += gas
+        self.global_samples += self.train_micro_batch_size_per_gpu() * self.dp * gas
+        self._finish_step_bookkeeping(bool(overflow) if self._config.fp16_enabled else False, save=True)
+        return float(loss)
+
+    def _fused_body(self, prog: "_StepProgram") -> None:
+        i, o = prog.inp, prog.out
+        loss, norm, overflow, scale = self._step_body(i["tokens"], i["labels"], i["seeds"], i["lr"][0])
+        o["loss"].copy_(loss)
+        o["norm"].copy_(norm)
+        o["overflow"].copy_(overflow)
+        o["scale"].copy_(scale)
+
+    # --- multi-step windows (JAX engine.py:2867-3205) ---------------------------------
+    def _window_loader(self, data_iter) -> "_WindowLoader":
+        """The look-ahead wrapper of the live ``data_iter`` (JAX's
+        ``PrefetchingLoader``, cached by iterator identity): a window checks
+        that a whole horizon of batches exists before it forms, and batches
+        it looked at are handed to the sequential path if it does not."""
+        if self._loader is not None and self._loader_key == id(data_iter):
+            return self._loader
+        if self._loader is not None and data_iter is not self._loader and self._loader.buffered():
+            logger.warning(f"multi_step loader: a new data iterator replaces one with {self._loader.buffered()} "
+                           "staged-but-untrained batch(es); those samples are dropped. Drive epochs through one "
+                           "continuous iterator")
+        if isinstance(data_iter, _WindowLoader):
+            self._loader, self._loader_key = data_iter, id(data_iter)
+            return data_iter
+        self._loader, self._loader_key = _WindowLoader(data_iter), id(data_iter)
+        return self._loader
+
+    def _window_break(self, reason: str):
+        self._window_metrics["window_break_reasons"][reason] += 1
+        return _NO_WINDOW
+
+    def _window_lrs(self, n: int) -> List[float]:
+        """The next ``n`` lr values of the host schedule without advancing it
+        (JAX ``engine.py:2926``): snapshot, replay, restore, and the live
+        param groups' lr put back for a never-stepped schedule."""
+        lr0 = float(self.optimizer.param_groups[0]["lr"])
+        if self.lr_scheduler is None or n == 1:
+            return [lr0] * n
+        sd = copy.deepcopy(self.lr_scheduler.state_dict())
+        group_lrs = [g["lr"] for g in self.optimizer.param_groups]
+        lrs = [lr0]
+        try:
+            for _ in range(n - 1):
+                self.lr_scheduler.step()
+                lrs.append(float(self.optimizer.param_groups[0]["lr"]))
+        finally:
+            self.lr_scheduler.load_state_dict(sd)
+            for group, lr in zip(self.optimizer.param_groups, group_lrs):
+                group["lr"] = lr
+        return lrs
+
+    def _try_train_window(self, data_iter):
+        """Form and run one window of ``horizon`` whole steps as one step
+        program, or return ``_NO_WINDOW`` (counting why) so the caller runs
+        the step sequentially (JAX ``engine.py:2958``). A window forms only
+        when it ends at or before the next checkpoint-interval boundary and
+        a whole horizon of data exists."""
+        gas = self.gradient_accumulation_steps()
+        H = self._window_horizon
+        if self.micro_steps % gas != 0:
+            return _NO_WINDOW  # mid-accumulation: the sequential path owns it
+        ccfg = self._config.checkpoint_config
+        if ccfg.save_dir and ccfg.interval_steps > 0:
+            if ccfg.interval_steps - (self.global_steps % ccfg.interval_steps) < H:
+                return self._window_break("checkpoint")
+        loader = self._window_loader(data_iter)
+        if loader.fill(gas * H) < gas * H:
+            return self._window_break("data")
+        micro = [next(loader) for _ in range(gas * H)]
+        data = self._stack_micro(micro)
+        tokens = data["tokens"]
+        data["tokens"] = tokens.reshape((H, gas) + tuple(tokens.shape[1:]))
+        data["labels"] = data["labels"].reshape((H, gas) + tuple(tokens.shape[1:]))
+        data["seeds"] = data["seeds"].reshape(H, gas)
+        data["lrs"] = torch.tensor(self._window_lrs(H), dtype=torch.float32)
+        if self._streamed_offload:
+            self._window_gather_offload()
+        prog = self._program(("window", tuple(data["tokens"].shape)), data,
+                             {"losses": ((H,), torch.float32), "norms": ((H,), torch.float32),
+                              "overflows": ((H,), torch.bool), "scale": ((), torch.float32)}, self._window_body)
+        # the window's results as tensors of their own (the next replay rewrites the program's outputs),
+        # copied to pinned host memory behind an event and drained one window late
+        vals = (prog.out["losses"].clone(), prog.out["norms"].clone(), prog.out["overflows"].clone())
+        drain = _Drain(vals, self.global_steps)
+        self._last_batch = (data["tokens"][-1, -1], data["labels"][-1, -1], int(data["seeds"][-1, -1]))
+        self._last_fwd_scale = prog.out["scale"].clone()
+        self._last_fused = True
+        self._window_metrics["window_steps"] += 1
+        self._window_metrics["windowed_opt_steps"] += H
+        chaos.point("train.mid_window")
+        fp16 = self._config.fp16_enabled
+        if fp16:
+            # the skip counters and the lr schedule follow the overflow verdicts: drain this window now
+            self._append_drain(drain)
+            ovfs = [bool(x) for x in drain.wait()[2]]
+        else:
+            self._pending_drains.append(drain)
+            self._drain_pending(keep=1)
+            ovfs = [None] * H
+        if self._streamed_offload:
+            self._window_scatter_offload(H - sum(1 for x in ovfs if x))
+            prog.drop_graph()
+        self._window_stash.extend({"loss": vals[0][k], "norm": vals[1][k], "ovf": ovfs[k]} for k in range(H))
+        return self._commit_window_step()
+
+    @torch.no_grad()
+    def _window_gather_offload(self) -> None:
+        """Streamed offload: the host master and moments to the card for the
+        window (JAX ``engine.py:3000-3040``); the window's step body runs on
+        the staged tensors as on the on-card engine's state. They live for
+        this window only (``_window_scatter_offload`` writes them back and
+        lets them go, with the window's graph, which read their addresses),
+        so between windows the card holds what the streamed sequential step
+        holds, and each window after the warm-up captures anew. Under fp32
+        the parameters are the master."""
+        ho = self._host_offload
+        masters, ms, vs = ho.gather_device_state()
+        self._master = dict(zip(ho.names, masters)) if masters is not None else dict(self._params)
+        step = torch.full((), ho.step_count, dtype=torch.int32, device=self.device)
+        self._opt_state = AdamState(step=step, exp_avg=dict(zip(ho.names, ms)), exp_avg_sq=dict(zip(ho.names, vs)))
+
+    def _window_scatter_offload(self, taken: int) -> None:
+        """The window's master and moments back to the host buffers, which
+        are authoritative again; ``taken`` steps advance the host count."""
+        ho = self._host_offload
+        st = self._opt_state
+        self._host_offload.scatter_device_state([self._master[k] for k in ho.names],
+                                                [st.exp_avg[k] for k in ho.names],
+                                                [st.exp_avg_sq[k] for k in ho.names], taken)
+        self._master = None
+        self._opt_state = None
+
+    def _window_body(self, prog: "_StepProgram") -> None:
+        """H whole steps in one program: the step body per step, the lr taken
+        from the window's pre-evaluated schedule at a cursor that advances
+        only on a step that did not overflow (JAX ``engine.py:1553-1582``)."""
+        i, o = prog.inp, prog.out
+        cursor = torch.zeros(1, dtype=torch.int64, device=self.device)
+        for h in range(i["tokens"].shape[0]):
+            lr = torch.index_select(i["lrs"], 0, cursor)[0]
+            loss, norm, overflow, scale = self._step_body(i["tokens"][h], i["labels"][h], i["seeds"][h], lr)
+            o["scale"].copy_(scale)  # the last step's, for get_last_grads
+            o["losses"][h].copy_(loss)
+            o["norms"][h].copy_(norm)
+            o["overflows"][h].copy_(overflow)
+            cursor = cursor + (~overflow).long()
+
+    def _commit_window_step(self):
+        """Commit one already-computed window step to the host bookkeeping
+        (JAX ``engine.py:3114``): counters, lr schedule, fp16 skip
+        accounting and the interval auto-save, which the formation rule
+        lets fire only at a window's last step."""
+        rec = self._window_stash.popleft()
+        gas = self.gradient_accumulation_steps()
+        self._last_grad_norm = rec["norm"]
+        self.micro_steps += gas
+        self.global_samples += self.train_micro_batch_size_per_gpu() * self.dp * gas
+        self._finish_step_bookkeeping(bool(rec["ovf"]), save=True)
+        return rec["loss"]
+
+    def _append_drain(self, drain: "_Drain") -> None:
+        for k, (loss, norm, ovf) in enumerate(zip(*drain.wait())):
+            if len(self._drained_log) == self._drained_log.maxlen:
+                self._drained_dropped += 1
+            self._drained_log.append({"step": drain.base_step + k + 1, "loss": float(loss),
+                                      "grad_norm": float(norm), "overflow": bool(ovf)})
+
+    def _drain_pending(self, keep: int = 0) -> None:
+        while len(self._pending_drains) > keep:
+            self._append_drain(self._pending_drains.popleft())
+
+    def flush_loss_drain(self) -> None:
+        """Force the deferred loss drain: ``drained_losses()`` then covers
+        every committed window step."""
+        self._drain_pending(keep=0)
+
+    def drained_losses(self):
+        """The windows' per-step results on the host, ``{step, loss,
+        grad_norm, overflow}`` in step order, delivered one window late
+        (JAX ``engine.py:3155``). Bounded at 4096 entries;
+        ``window_stats()["drained_dropped"]`` counts evictions.
+        ``load_checkpoint`` resets it to the resumed timeline."""
+        return list(self._drained_log)
+
+    def window_stats(self) -> Dict[str, Any]:
+        """JAX's window telemetry (``engine.py:3174``): window counts, break
+        reasons, and ``dispatches_per_opt_step``, calls of a step program
+        (an eager step, a fused step, a window) over optimizer steps, 1/H on
+        a windowed run. ``graphs`` (the port's) counts the captured
+        programs' warm-ups, captures and replays, and the step programs run
+        uncaptured (on the CPU, or the fused step at dp > 1)."""
+        return {
+            "multi_step_enabled": self._window_armed,
+            "window_horizon": self._window_horizon,
+            "window_steps": self._window_metrics["window_steps"],
+            "windowed_opt_steps": self._window_metrics["windowed_opt_steps"],
+            "opt_steps": self.global_steps,
+            "window_break_reasons": dict(self._window_metrics["window_break_reasons"]),
+            "dispatches": self._dispatches,
+            "dispatches_per_opt_step": self._dispatches / self.global_steps if self.global_steps else 0.0,
+            "pending_loss_drains": len(self._pending_drains),
+            "stashed_steps": len(self._window_stash),
+            "drained_dropped": self._drained_dropped,
+            "graphs": dict(self._graph_counts),
+        }
+
+    def window_device_ms(self) -> List[float]:
+        """Device time of each captured program's last replay, by CUDA
+        events (``[]`` before a replay or off the card)."""
+        return [p.device_ms() for p in self._graphs.values() if p.device_ms() is not None]
 
     # --- checkpoints (JAX engine.py:3240-3736) --------------------------------------
     def _ckpt_dir(self, save_dir: str, tag: str) -> str:
@@ -1037,8 +1735,7 @@ class DeepSpeedEngine:
             return st
         leaves = []
         for k in ho.names:
-            slice_shape = shard(torch.empty(self._shapes[k], device="meta"), self._mdim[k], self.dp_rank, self.dp).shape
-            rec = {f: self._gather_host({k: torch.from_numpy(a).reshape(slice_shape)})[k].cpu().reshape(-1)
+            rec = {f: self._gather_host({k: torch.from_numpy(a).reshape(self._slice_shape(k))})[k].cpu().reshape(-1)
                    for f, a in ho.leaf_state(k).items()}
             leaves.append([dict(index=[(None, None)] * len(self._shapes[k]), **rec)])
         return {"step": ho.step_count, "leaves": leaves}
@@ -1063,6 +1760,11 @@ class DeepSpeedEngine:
         if self._in_forward:
             raise RuntimeError("save_checkpoint() between forward() and backward(): the step's graph is "
                                "not part of a checkpoint; call backward() and step() first")
+        if self._window_stash:
+            raise RuntimeError(
+                "save_checkpoint() called mid-window: the multi-step window already advanced the model state but "
+                f"{len(self._window_stash)} step(s) are uncommitted (counters/lr would be inconsistent); finish "
+                "the window's train_batch calls first")
         if tag is None:
             tag = f"global_step{self.global_steps}"
         tag = self._validate_checkpoint_tag(tag)
@@ -1154,7 +1856,12 @@ class DeepSpeedEngine:
         back past a tag that turns out torn at load time. With
         ``load_module_strict`` every module leaf is checked against the live
         state first: a mismatch raises one ``CheckpointLoadError`` naming
-        the leaf and both shapes or dtypes."""
+        the leaf and both shapes or dtypes. The state is written into the
+        live tensors, so captured step programs replay the loaded state."""
+        if self._window_stash:
+            raise RuntimeError(
+                f"load_checkpoint() called mid-window: {len(self._window_stash)} computed step(s) are uncommitted; "
+                "finish the window's train_batch calls (or rebuild the engine) before loading")
         self.wait_pending_checkpoint()
         if self.dp > 1:  # rank 0's async writes are committed before any rank reads
             comm.barrier()
@@ -1216,11 +1923,13 @@ class DeepSpeedEngine:
                     "into a non-offload engine; pass load_optimizer_states=False to adopt the module weights with a "
                     "fresh optimizer")
             slicer = None if self.dp == 1 else (lambda k, t: shard(t, self._mdim[k], self.dp_rank, self.dp))
-            self._opt_state = _opt_state_from_tree(opt, self._opt_state, self.device, slicer)
+            # into the live tensors: a captured step program reads their storage
+            self._opt_state = _copy_opt_state(self._opt_state,
+                                              _opt_state_from_tree(opt, self._opt_state, self.device, slicer))
         if state.get("loss_scaler") is not None:
             ls = state["loss_scaler"]
-            self._scale_state = LossScaleState(scale=float(ls["scale"]), good_steps=int(ls["good_steps"]),
-                                               hysteresis=int(ls["hysteresis"]))
+            for t, v in zip(self._scale_state, (float(ls["scale"]), int(ls["good_steps"]), int(ls["hysteresis"]))):
+                t.fill_(v)
         if load_lr_scheduler_states and self.lr_scheduler is not None and state.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(state["lr_scheduler"])
         if not load_module_only:
@@ -1233,6 +1942,12 @@ class DeepSpeedEngine:
             for g in self._grad_acc.values():
                 g.zero_()
         self._in_forward = False
+        # the drains and the drained log belong to the abandoned timeline: the resumed run re-drains its steps
+        # (JAX engine.py:3620-3635); the look-ahead loader held batches of the old cursor
+        self._loader = self._loader_key = None
+        self._pending_drains.clear()
+        self._drained_log.clear()
+        self._drained_dropped = 0
         self._ckpt_metrics["last_restore_s"] = time.perf_counter() - t_load
         return path, state.get("client_state", {})
 
@@ -1368,7 +2083,8 @@ def _opt_state_to_tree(state) -> Dict[str, Any]:
     """An optimizer state (a NamedTuple of scalars and flat ``path ->
     tensor`` dicts) as JAX's ``_namedtuple_to_dict`` of its state: nested
     trees, scalars as 0-d tensors."""
-    return {f: unflatten_tree(v) if isinstance(v, dict) else torch.tensor(v) for f, v in state._asdict().items()}
+    return {f: unflatten_tree(v) if isinstance(v, dict) else torch.tensor(v.item() if isinstance(v, torch.Tensor) else v)
+            for f, v in state._asdict().items()}
 
 
 def _opt_state_from_tree(tree: Dict[str, Any], like, device, slicer=None) -> Any:
@@ -1384,8 +2100,30 @@ def _opt_state_from_tree(tree: Dict[str, Any], like, device, slicer=None) -> Any
                 flat = {k: slicer(k, flat[k]).contiguous() for k in cur}
             fields[f] = {k: flat[k].to(device=device, dtype=t.dtype) for k, t in cur.items()}
         else:
-            fields[f] = type(cur)(saved.item() if isinstance(saved, torch.Tensor) else saved)
+            val = saved.item() if isinstance(saved, torch.Tensor) else saved
+            fields[f] = torch.tensor(val, dtype=cur.dtype, device=cur.device) if isinstance(cur, torch.Tensor) \
+                else type(cur)(val)
     return type(like)(**fields)
+
+
+@torch.no_grad()
+def _copy_opt_state(live, new):
+    """``new`` written into ``live``'s tensors (dict leaves and a tensor
+    step count); host scalars are taken as they come. Returns the state to
+    keep."""
+    fields = {}
+    for f, cur in live._asdict().items():
+        val = getattr(new, f)
+        if isinstance(cur, dict):
+            for k, t in cur.items():
+                t.copy_(val[k])
+            fields[f] = cur
+        elif isinstance(cur, torch.Tensor):
+            cur.copy_(val)
+            fields[f] = cur
+        else:
+            fields[f] = val
+    return type(live)(**fields)
 
 
 def _sorted_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -1404,3 +2142,191 @@ def _npz_array(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view(np.dtype("V2"))
     return t.numpy()
+
+
+def _validate_multi_step_config(cfg: DeepSpeedConfig) -> None:
+    """JAX ``_validate_multi_step`` (``engine.py:2083-2180``), the checks a
+    config alone decides, made before anything else is built: each of
+    these features puts a host decision between optimizer steps, which a
+    window removes, so arming both is refused, not worked around."""
+    if not cfg.compile_config.multi_step.enable:
+        return
+    if comm.is_initialized() and comm.get_world_size() > 1:
+        raise NotImplementedError(
+            "compile.multi_step currently requires a single-process run (the window former stacks the "
+            "microbatches of one process); disable multi_step on multi-process launches")
+    if (cfg.curriculum_learning_config or {}).get("enabled", False):
+        raise ValueError("compile.multi_step is incompatible with curriculum_learning (the per-step seqlen "
+                         "schedule changes batch shapes inside the window)")
+    if cfg.pld_config.enabled:
+        raise ValueError("compile.multi_step is incompatible with progressive_layer_drop (theta is a per-step "
+                         "host kwarg)")
+    de = cfg.data_efficiency_config or {}
+    routing = de.get("data_routing", {})
+    if de.get("enabled") and routing.get("enabled") and routing.get("random_ltd", {}).get("enabled"):
+        raise ValueError("compile.multi_step is incompatible with random_ltd (per-step host-sampled index shapes "
+                         "change the program)")
+    shared = (cfg.compression_config or {}).get("weight_quantization", {}).get("shared_parameters", {})
+    if shared.get("enabled", False) and not shared.get("quantize_weight_in_forward", False):
+        raise ValueError("compile.multi_step is incompatible with MoQ (the host re-quantizes the compute store "
+                         "between optimizer steps)")
+    z = cfg.zero_config
+    if z.zero_quantized_gradients:
+        raise ValueError("compile.multi_step is incompatible with zero_quantized_gradients (the qgZ grad path is "
+                         "unfused)")
+    requested = lambda off: off is not None and str(off.device.value) != "none"  # noqa: E731
+    if requested(z.offload_param):
+        raise ValueError("compile.multi_step is incompatible with offload_param (the layer stream owns the "
+                         "per-microbatch update loop)")
+    off = z.offload_optimizer
+    if requested(off) and not (off.pipeline and str(off.device.value) == "cpu"):
+        raise ValueError("compile.multi_step is incompatible with the LEGACY host-Adam offload (the host owns that "
+                         "update loop); the streamed ZeRO-Infinity path (offload_optimizer.device=cpu with "
+                         "pipeline_read/pipeline_write) composes with windows")
+
+
+def _host_copy(t: torch.Tensor, shape) -> np.ndarray:
+    """A host fp32 numpy copy of ``t`` (never a view of live state)."""
+    return t.detach().float().cpu().numpy().reshape(shape).copy()
+
+
+def _as_long(x) -> torch.Tensor:
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    return t.to(torch.long)
+
+
+def _pieces(g: torch.Tensor, state: List[torch.Tensor], chunked: bool):
+    """``[g] + state`` whole, or (``chunked``: all of one shape) cut into
+    aligned flat pieces of ``_UPDATE_CHUNK`` elements, so that the update's
+    temporaries stay small on a large leaf (the ops are elementwise: the
+    pieces give the whole leaf's bits)."""
+    if not chunked or g.numel() <= _UPDATE_CHUNK:
+        yield [g] + list(state)
+        return
+    flat = [t.view(-1) for t in [g] + list(state)]
+    for start in range(0, g.numel(), _UPDATE_CHUNK):
+        yield [t[start:start + _UPDATE_CHUNK] for t in flat]
+
+
+_WARMUP_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream step programs warm up on, one a device for the
+    process: cuBLAS keeps a workspace for every stream it has run on (64 MB
+    on an H100) for the life of the process, so a new stream a warm-up
+    would hold one more each time."""
+    idx = torch.cuda.current_device() if device.index is None else device.index
+    if idx not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[idx] = torch.cuda.Stream(idx)
+    return _WARMUP_STREAMS[idx]
+
+
+class _StepProgram:
+    """One step program (a fused step or a window): its static input and
+    output buffers on the engine's device, and its CUDA graph once
+    captured. ``load`` copies a call's inputs in; host inputs go through
+    pinned staging buffers, so the copy does not wait for the card."""
+
+    def __init__(self, inputs: Dict[str, torch.Tensor], outputs: Dict[str, tuple], device: torch.device):
+        self.device = device
+        self.inp = {k: torch.empty(v.shape, dtype=v.dtype, device=device) for k, v in inputs.items()}
+        self.out = {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, dt) in outputs.items()}
+        self.graph = None
+        self.runs = 0
+        cuda = device.type == "cuda"
+        self.start = torch.cuda.Event(enable_timing=True) if cuda else None
+        self.end = torch.cuda.Event(enable_timing=True) if cuda else None
+        self._stage: Dict[str, torch.Tensor] = {}
+        self._staged = None  # the event after the last staged copies
+
+    def load(self, inputs: Dict[str, torch.Tensor]) -> None:
+        cuda = self.device.type == "cuda"
+        if cuda and self._staged is not None:
+            self._staged.synchronize()  # the staging buffers' last copies have left
+        for k, v in inputs.items():
+            dst = self.inp[k]
+            if tuple(v.shape) != tuple(dst.shape):
+                raise ValueError(f"step program input {k!r}: {tuple(v.shape)} against its buffer {tuple(dst.shape)}")
+            if cuda and v.device.type == "cpu":
+                st = self._stage.get(k)
+                if st is None:
+                    st = self._stage[k] = torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True)
+                st.copy_(v)
+                dst.copy_(st, non_blocking=True)
+            else:
+                dst.copy_(v)
+        if cuda:
+            self._staged = torch.cuda.Event()
+            self._staged.record()
+
+    def device_ms(self) -> Optional[float]:
+        if self.graph is None or self.start is None:
+            return None
+        self.end.synchronize()
+        return self.start.elapsed_time(self.end)
+
+    def drop_graph(self) -> None:
+        """Free the captured graph (its pool memory back to the caching
+        allocator); the next call captures anew."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+
+    def release(self) -> None:
+        self.drop_graph()
+        self.inp.clear()
+        self.out.clear()
+        self._stage.clear()
+
+
+class _WindowLoader:
+    """Look-ahead over a data iterator: ``fill(n)`` pulls until ``n``
+    batches wait (or the iterator ends) and says how many do; iteration
+    hands the waiting batches out first."""
+
+    def __init__(self, it):
+        self._it = it
+        self._buf: deque = deque()
+
+    def fill(self, n: int) -> int:
+        while len(self._buf) < n:
+            try:
+                self._buf.append(next(self._it))
+            except StopIteration:
+                break
+        return len(self._buf)
+
+    def buffered(self) -> int:
+        return len(self._buf)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._buf:
+            return self._buf.popleft()
+        return next(self._it)
+
+
+class _Drain:
+    """A window's per-step losses, grad norms and overflow flags on their
+    way to the host: copied ``non_blocking`` into pinned buffers behind a
+    CUDA event, read when ``wait`` is called (one window later)."""
+
+    def __init__(self, vals, base_step: int):
+        self.base_step = base_step
+        self.event = None
+        if vals[0].device.type == "cuda":
+            self.host = [torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for v in vals]
+            for h, v in zip(self.host, vals):
+                h.copy_(v, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = [v.clone() for v in vals]
+
+    def wait(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return [h.tolist() for h in self.host]

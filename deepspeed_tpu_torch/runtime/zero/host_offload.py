@@ -242,6 +242,44 @@ class HostOffloadStreamer:
             self.materialize_writes(keep=0)
             self._stats["exposed_ms"] += (self._clock() - t0) * 1e3
 
+    def leaf_tensor(self, name: str, field: str) -> torch.Tensor:
+        """The host tensor of ``field`` (``master``, ``exp_avg`` or
+        ``exp_avg_sq``) of leaf ``name``: this rank's slice, shaped."""
+        bufs = {"master": self._master, "exp_avg": self._exp_avg, "exp_avg_sq": self._exp_avg_sq}[field]
+        return bufs[self.names.index(name)]
+
+    # -- windows (compile.multi_step) -------------------------------------------
+    def gather_device_state(self):
+        """Every bucket card-ward for a multi-step window, which scans the
+        whole master and moments on the card (JAX ``host_offload.py:263``):
+        ``(masters or None under fp32, exp_avg, exp_avg_sq)`` as lists of
+        card tensors in ``names`` order, through ``h2d_bucket``."""
+        for bi in range(self.num_buckets):
+            self.h2d_bucket(bi)
+        n = len(self._master)
+        masters: List[Optional[torch.Tensor]] = [None] * n
+        ms: List[Optional[torch.Tensor]] = [None] * n
+        vs: List[Optional[torch.Tensor]] = [None] * n
+        for bi in range(self.num_buckets):
+            staged_m, staged_ea, staged_eas = self.take_staged(bi)
+            for k, i in enumerate(self._buckets[bi]):
+                if staged_m is not None:
+                    masters[i] = staged_m[k]
+                ms[i], vs[i] = staged_ea[k], staged_eas[k]
+        return (masters if self.mixed_precision else None), ms, vs
+
+    def scatter_device_state(self, master_leaves, m_leaves, v_leaves, steps_taken: int) -> None:
+        """The window's updated master and moments host-ward, bucket by
+        bucket through ``d2h_bucket`` (JAX ``host_offload.py:281``); the
+        step count advances by the steps the window took (an overflow-
+        skipped step does not count)."""
+        for bi in range(self.num_buckets):
+            idx = self._buckets[bi]
+            self.d2h_bucket(bi, [master_leaves[i] for i in idx], [m_leaves[i] for i in idx],
+                            [v_leaves[i] for i in idx])
+            self.materialize_writes(keep=1)
+        self.step_count += int(steps_taken)
+
     def materialize_writes(self, keep: int = 0) -> None:
         """Wait until the pending writebacks have landed in the host
         tensors, oldest first, leaving at most ``keep`` in flight (``keep=1``

@@ -221,6 +221,23 @@ class HostOffloadAdam:
         for k, sh in self._shards.items():
             sh.master[:] = leaf(k, "master")
 
+    def set_leaf_state(self, name: str, field: str, flat: np.ndarray) -> None:
+        """Overwrite one field (``master``, ``exp_avg``, ``exp_avg_sq``) of
+        this rank's slice of leaf ``name`` (through the swap files for the
+        moments under ``nvme``)."""
+        sh = self._shards[name]
+        flat = np.asarray(flat, np.float32).reshape(-1)
+        if field == "master":
+            sh.master[:] = flat
+        elif self.swapper is not None:
+            m, v = np.empty_like(sh.master), np.empty_like(sh.master)
+            self.swapper.fetch_param(sh.param_id, {"exp_avg": m, "exp_avg_sq": v})
+            {"exp_avg": m, "exp_avg_sq": v}[field][:] = flat
+            self.swapper.swap_out_param(sh.param_id, {"exp_avg": m, "exp_avg_sq": v})
+            self.swapper.drain_writes()
+        else:
+            getattr(sh, field)[:] = flat
+
     def set_master_leaves(self, leaves: Dict[str, Any]) -> None:
         """Overwrite the host master (this rank's slices, by name)."""
         for k, sh in self._shards.items():

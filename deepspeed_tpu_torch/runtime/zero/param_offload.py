@@ -522,6 +522,60 @@ class ParamStreamEngine:
     def num_parameters(self) -> int:
         return sum(st.master.size for st in self._layer_state) + self._resident_state.master.size
 
+    def _leaf_slices(self, name: str):
+        """``(host state, start, stop, shape)`` of leaf ``name`` in the flat
+        host state: one a layer for a stacked leaf, one for a resident leaf."""
+        if name.startswith("layers/"):
+            j = self._layer_names.index(name[len("layers/"):])
+            a = sum(self._layer_sizes[:j])
+            return [(st, a, a + self._layer_sizes[j], self._layer_shapes[j]) for st in self._layer_state]
+        j = self._resident_names.index(name)
+        a = sum(int(np.prod(s)) for s in self._resident_shapes[:j])
+        shape = self._resident_shapes[j]
+        return [(self._resident_state, a, a + int(np.prod(shape)), shape)]
+
+    def leaf_state(self, name: str, field: str) -> Optional[np.ndarray]:
+        """One leaf's whole fp32 ``master``, ``exp_avg`` or ``exp_avg_sq``
+        (the utils/tensor_fragment surface); None for an unknown field."""
+        if field not in ("master", "exp_avg", "exp_avg_sq"):
+            return None
+        parts = []
+        for st, a, b, shape in self._leaf_slices(name):
+            if field != "master":
+                st.ensure_moments()
+            parts.append(getattr(st, field)[a:b].reshape(shape).copy())
+        return np.stack(parts) if name.startswith("layers/") else parts[0]
+
+    def set_leaf_state(self, name: str, field: str, value: np.ndarray) -> bool:
+        """Overwrite one leaf's whole fp32 field; a new master refreshes the
+        streamed store and the resident parameters."""
+        if field not in ("master", "exp_avg", "exp_avg_sq"):
+            return False
+        value = np.asarray(value, np.float32)
+        stacked = name.startswith("layers/")
+        for i, (st, a, b, _) in enumerate(self._leaf_slices(name)):
+            if field != "master":
+                st.ensure_moments()
+            getattr(st, field)[a:b] = (value[i] if stacked else value).reshape(-1)
+        if field == "master":
+            self.materialize_from_master()
+        return True
+
+    def debug_grads(self):
+        """The host fp32 gradient accumulators as the JAX tree (JAX
+        ``param_offload.py:573``, the ``safe_get_full_grad`` surface): the
+        raw scaled sum of this accumulation window's microbatches; None
+        when the window is empty (right after ``step()``)."""
+        if self._micro_in_window == 0:
+            return None
+        from deepspeed_tpu_torch.checkpoint.jax_params import tensors_to_jax_tree
+
+        out = self._resident_flat(self._grad_acc_res, torch.float32)
+        per = [self._layer_tree(acc, torch.float32) for acc in self._grad_acc]
+        for name in self._layer_names:
+            out[f"layers/{name}"] = torch.stack([p[name] for p in per])
+        return tensors_to_jax_tree(out)
+
     @staticmethod
     def _leaf_state_dict(st: _HostLeafState) -> Dict[str, torch.Tensor]:
         st.ensure_moments()

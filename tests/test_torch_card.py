@@ -16,7 +16,10 @@ after the pool defrags under it, int8 codes and ``qmatmul`` on the card
 against the CPU, an int8 tree in a window graph, and a two-replica fleet
 with a migration and a replica kill; a training checkpoint saved on the
 card loaded into a CPU engine (every state leaf equal), and an async
-snapshot that two in-place steps on the card do not reach.
+snapshot that two in-place steps on the card do not reach; a captured
+fused training step bitwise the eager step, a `safe_set_full_fp32_param`
+that the next replay trains from, and a batch resize that returns the graph
+pool.
 A CPU tensor handed straight to a kernel entry raises (those tests need no
 card).
 
@@ -148,6 +151,8 @@ FLASH_CASES = {  # (B, T, N, D, causal)
     "T=200 causal": (2, 200, 3, 64, True),
     "T=256 full": (2, 256, 2, 64, False),
     "D=128 T=130 causal": (1, 130, 2, 128, True),
+    "D=80 T=200 causal": (2, 200, 3, 80, True),
+    "D=80 T=130 full": (1, 130, 2, 80, False),
 }
 
 
@@ -208,6 +213,8 @@ DKV_TC_CASES = {  # chip_smoke's four flash shapes and D=128 at T=130; (B, T, N,
     "full B=2 T=256 N=12 D=64": (2, 256, 12, 64, False),
     "D=128 B=1 T=2048 N=32 causal": (1, 2048, 32, 128, True),
     "D=128 B=1 T=130 N=2 full": (1, 130, 2, 128, False),
+    "D=80 B=2 T=1024 N=4 causal": (2, 1024, 4, 80, True),
+    "D=80 B=1 T=130 N=2 full": (1, 130, 2, 80, False),
 }
 
 
@@ -279,7 +286,7 @@ def test_flash_dq_tensor_cores_match_plain_on_card(cuda_device, case, dtype):
     assert rel <= 3e-2, (case, dtype, rel)
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_flash_dq_fp32_on_fma_and_bitwise_repeat_on_card(cuda_device, D):
     """fp32 K2 stays on the FMA kernel (the tensor-core count does not
     move); two bf16 calls on the same inputs give a bitwise-equal dQ (each
@@ -1534,3 +1541,167 @@ def test_param_offload_launches_on_card(cuda_device):
     d = [a - b for a, b in zip(after, before)]
     assert d == [8, 4, 4, 8, 4, 4]
     assert np.isfinite(engine.get_global_grad_norm())
+
+
+# --- captured training step programs ------------------------------------------------------------
+def _step_engine(device, fuse=False, multi_step=False, gas=2, model=None):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import unflatten_tree
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(**(model or dict(vocab_size=512, hidden_size=320, num_layers=2, num_heads=4,
+                                             max_seq_len=128, dtype="bfloat16", remat=True)))
+    config = {"train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+              "gradient_clipping": 1.0, "optimizer": {"type": "adam", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+              "compile": {"fuse_grad_accum": fuse, "multi_step": {"enable": multi_step, "horizon": 2}}}
+    engine, *_ = dst.initialize(model=TransformerLM(cfg), config=config,
+                                model_parameters=unflatten_tree(init_params(cfg, 0)), device=device)
+    return engine
+
+
+def _step_batches(n, seed=0):
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        t = rs.randint(0, 512, (4, 129))
+        out.append({"input_ids": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def test_captured_fused_step_bitwise_the_eager_step_on_card(cuda_device):
+    """``compile.fuse_grad_accum`` at gas 2, bf16, remat, head_dim 80: the
+    third and later steps replay one captured CUDA graph (the first is the
+    warm-up, the second captures); losses, grad norms and the master equal
+    the eager engine's bit for bit."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
+
+    data = _step_batches(8)
+    runs = []
+    for fuse in (False, True):
+        e = _step_engine(cuda_device, fuse=fuse)
+        it = iter(data)
+        rec = [(float(e.train_batch(data_iter=it)), e.get_global_grad_norm()) for _ in range(4)]
+        runs.append((rec, {k: np.asarray(v) for k, v in flatten_tree(e.get_master_params()).items()},
+                     e.window_stats()["graphs"]))
+    assert runs[1][0] == runs[0][0]
+    assert all(runs[1][1][k].tobytes() == runs[0][1][k].tobytes() for k in runs[0][1])
+    assert runs[1][2] == {"captures": 1, "replays": 3, "warmups": 1, "uncaptured": 0}
+    assert runs[0][2]["replays"] == 0
+
+
+def test_safe_set_full_fp32_param_is_seen_by_the_next_replay_on_card(cuda_device):
+    """A set on a captured path writes into the graph's own state: the next
+    replay trains from it, as the eager engine given the same set does."""
+    from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
+    from deepspeed_tpu_torch.utils import tensor_fragment as tf
+
+    data = _step_batches(12, seed=1)
+    finals = []
+    for fuse in (False, True):
+        e = _step_engine(cuda_device, fuse=fuse)
+        it = iter(data)
+        for _ in range(3):  # on the fused engine: warm-up, capture, replay
+            e.train_batch(data_iter=it)
+        value = tf.safe_get_full_fp32_param(e, "layers/wq") * 0.5
+        tf.safe_set_full_fp32_param(e, "layers/wq", value)
+        tf.safe_set_full_optimizer_state(e, "layers/wq", "exp_avg", np.zeros_like(value))
+        loss = float(e.train_batch(data_iter=it))
+        finals.append((loss, {k: np.asarray(v) for k, v in flatten_tree(e.get_master_params()).items()}))
+        if fuse:
+            assert e.window_stats()["graphs"]["replays"] == 3
+    assert finals[1][0] == finals[0][0]
+    assert all(finals[1][1][k].tobytes() == finals[0][1][k].tobytes() for k in finals[0][1])
+
+
+def test_set_train_batch_size_releases_the_graph_pool_on_card(cuda_device):
+    """A resize drops the captured step program and returns its graph pool
+    to the card (the reserved bytes fall back); the next steps capture
+    anew at the new gas and equal an engine built at it."""
+    data = _step_batches(16, seed=2)
+    e = _step_engine(cuda_device, fuse=True)
+    it = iter(data)
+    for _ in range(3):  # warm-up, capture, replay
+        e.train_batch(data_iter=it)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved(cuda_device)
+    e.set_train_batch_size(16)  # micro 4 x gas 4
+    after = torch.cuda.memory_reserved(cuda_device)
+    assert after < before and e.gradient_accumulation_steps() == 4 and not e._graphs
+    rest = [float(e.train_batch(data_iter=it)) for _ in range(2)]  # a new warm-up, then a new capture
+    assert e.window_stats()["graphs"]["captures"] == 2 and all(np.isfinite(rest))
+
+
+def test_second_sequence_length_shares_the_graph_pool_on_card(cuda_device):
+    """Every step program captures into the engine's one graph pool: a
+    second sequence length (128, then 120) reuses the first one's memory
+    instead of reserving a pool of its own, and both shapes keep replaying
+    bitwise an eager engine fed the same batches."""
+    def batches(T, n, seed):
+        rs = np.random.RandomState(seed)
+        return [{"input_ids": t[:, :-1], "labels": t[:, 1:]} for t in (rs.randint(0, 512, (4, T + 1))
+                                                                         for _ in range(n))]
+
+    data = batches(128, 6, 3) + batches(120, 6, 4) + batches(128, 2, 5)
+    runs = []
+    for fuse in (False, True):
+        e = _step_engine(cuda_device, fuse=fuse)
+        it = iter(data)
+        torch.cuda.synchronize()
+        r0 = torch.cuda.memory_reserved(cuda_device)
+        losses = [float(e.train_batch(data_iter=it)) for _ in range(3)]  # T 128: warm-up, capture, replay
+        torch.cuda.synchronize()
+        r1 = torch.cuda.memory_reserved(cuda_device)
+        losses += [float(e.train_batch(data_iter=it)) for _ in range(3)]  # T 120: the same
+        torch.cuda.synchronize()
+        r2 = torch.cuda.memory_reserved(cuda_device)
+        losses += [float(e.train_batch(data_iter=it))]  # T 128 again: a replay
+        runs.append(losses)
+        if fuse:
+            assert e.window_stats()["graphs"] == {"captures": 2, "replays": 5, "warmups": 2, "uncaptured": 0}
+            assert r2 - r1 <= 0.25 * (r1 - r0), (r0, r1, r2)
+        del e
+        torch.cuda.empty_cache()
+    assert runs[1] == runs[0]
+
+
+def test_streamed_offload_window_frees_its_card_state_on_card(cuda_device):
+    """Windows over the streamed offload hold the gathered master and
+    moments on the card only while the window runs: after three windows (a
+    warm-up, then two captures over fresh state, each into a new graph
+    pool) the card holds what the sequential streamed engine holds after
+    the same steps, and the host state is bitwise that engine's."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint.jax_params import unflatten_tree
+    from deepspeed_tpu_torch.models import TransformerConfig, TransformerLM
+    from deepspeed_tpu_torch.models.transformer import init_params
+
+    cfg = TransformerConfig(vocab_size=512, hidden_size=320, num_layers=2, num_heads=4, max_seq_len=128,
+                            dtype="bfloat16", remat=False)
+    data = _step_batches(6, seed=6)
+    held, hosts = [], []
+    for horizon in (0, 2):
+        config = {"train_micro_batch_size_per_gpu": 4, "bf16": {"enabled": True}, "gradient_clipping": 1.0,
+                  "optimizer": {"type": "adam", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+                  "zero_optimization": {"stage": 1, "offload_optimizer": {"device": "cpu", "pipeline_read": True}},
+                  "compile": {"multi_step": {"enable": horizon > 0, "horizon": max(horizon, 1)}}}
+        e, *_ = dst.initialize(model=TransformerLM(cfg), config=config,
+                               model_parameters=unflatten_tree(init_params(cfg, 0)), device=cuda_device)
+        it = iter(data)
+        for _ in range(6):
+            e.train_batch(data_iter=it)
+        e.flush_loss_drain()
+        e._host_offload.materialize_writes()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()  # cuBLAS's per-stream workspaces: a process cache, not the engine's
+        torch.cuda.empty_cache()  # and the frees held back for other streams' events
+        held.append(torch.cuda.memory_allocated(cuda_device))
+        hosts.append([[leaf[f].clone() for f in ("master", "exp_avg", "exp_avg_sq")]
+                      for leaf in e._host_offload.state_dict()["leaves"]])
+        if horizon:
+            assert e.window_stats()["window_steps"] == 3 and e.window_stats()["graphs"]["captures"] == 2
+        del e, it
+        torch.cuda.empty_cache()
+    state_bytes = sum(t.numel() * 4 for leaf in hosts[0] for t in leaf)
+    assert held[1] <= held[0] + state_bytes // 8, (held, state_bytes)
+    assert all(torch.equal(a, b) for x, y in zip(hosts[0], hosts[1]) for a, b in zip(x, y))

@@ -86,7 +86,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "runtime/swap_tensor/utils.py", "runtime/swap_tensor/async_swapper.py",
                    "runtime/swap_tensor/optimizer_utils.py", "runtime/swap_tensor/partitioned_optimizer_swapper.py",
                    "runtime/zero/contiguous_memory_allocator.py", "runtime/zero/offload_states.py",
-                   "runtime/zero/host_offload.py", "runtime/zero/param_offload.py"):
+                   "runtime/zero/host_offload.py", "runtime/zero/param_offload.py",
+                   "runtime/activation_checkpointing/__init__.py",
+                   "runtime/activation_checkpointing/checkpointing.py", "runtime/fp16/loss_scaler.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:

@@ -14,7 +14,11 @@ lacked until now, held against the JAX package on the CPU.
   same, with equal move counts step by step;
 * ``RequestJournal.close``: a segment sealed byte-identically to JAX's
   writer, ``records_written`` equal to JAX's;
-* ``PagedServer.result``: peeks; ``take_result`` then removes.
+* ``PagedServer.result``: peeks; ``take_result`` then removes;
+* ``PagePool.set_cache``: JAX's one sanctioned external write; the port
+  copies into the pools' own storage (a captured window graph keeps its
+  addresses), reads back like JAX's pool through the tables, and refuses a
+  shape or dtype other than the pools'.
 """
 
 from __future__ import annotations
@@ -326,3 +330,30 @@ def test_result_peeks_then_take_result_removes():
         assert srv.result(uid) is None and srv.take_result(uid) is None
         outs.append(np.asarray(first))
     np.testing.assert_array_equal(outs[1], outs[0])
+
+
+def test_set_cache_writes_in_place_like_jax():
+    jp, tp = _pools()
+    _script(jp)
+    _script(tp)
+    ptr = (tp.cache.k_pages.data_ptr(), tp.cache.v_pages.data_ptr())
+    rs = np.random.RandomState(11)
+    k = rs.standard_normal(tuple(tp.cache.k_pages.shape)).astype(np.float32)
+    v = rs.standard_normal(tuple(tp.cache.v_pages.shape)).astype(np.float32)
+    jp.set_cache(jnp.asarray(k), jnp.asarray(v))
+    tp.set_cache(torch.from_numpy(k), torch.from_numpy(v))
+    assert (tp.cache.k_pages.data_ptr(), tp.cache.v_pages.data_ptr()) == ptr
+    np.testing.assert_array_equal(tp.cache.k_pages.numpy(), k)
+    np.testing.assert_array_equal(tp.cache.v_pages.numpy(), v)
+    got = _live_bytes(tp, tp.cache.k_pages, tp.cache.v_pages)
+    want = _live_bytes(jp, jp.cache.k_pages, jp.cache.v_pages)
+    assert set(got) == set(want)
+    for key in got:
+        for a, b in zip(got[key], want[key]):
+            np.testing.assert_array_equal(a, b)
+    tp.set_cache(tp.cache.k_pages, tp.cache.v_pages)  # its own pools: nothing to copy
+    with pytest.raises(ValueError, match="set_cache"):
+        tp.set_cache(torch.from_numpy(k[:, :-1]), torch.from_numpy(v[:, :-1]))
+    with pytest.raises(ValueError, match="set_cache"):
+        tp.set_cache(torch.from_numpy(k).double(), torch.from_numpy(v).double())
+    np.testing.assert_array_equal(tp.cache.k_pages.numpy(), k)  # a refused call writes nothing

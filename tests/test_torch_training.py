@@ -275,8 +275,8 @@ UNPORTED = {
     "mesh_model": {"mesh": {"model": 2}},
     "zero_quantized_weights": {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     "zero_hpz": {"zero_optimization": {"stage": 3, "zero_hpz_partition_size": 2}},
-    "fuse_grad_accum": {"compile": {"fuse_grad_accum": True}},
-    "multi_step": {"compile": {"multi_step": {"enable": True, "horizon": 4}}},
+    "zero_quantized_gradients": {"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
+    "comms_logger": {"comms_logger": {"enabled": True}},
     "mesh_pipe": {"mesh": {"pipe": 2}},
     "mesh_sequence": {"mesh": {"sequence": 2}},
     "mesh_expert": {"mesh": {"expert": 2}},
@@ -382,9 +382,9 @@ def test_cross_entropy_ignore_index_matches_jax():
 
 
 def test_dropout_masks_follow_the_seed_under_remat():
-    """Dropout draws from per-layer generators seeded from the step's seed:
-    remat redraws the same masks (identical loss and gradients with and
-    without it), another seed draws others, and eval applies none."""
+    """Dropout masks hash the step's seed, offset by the layer: remat
+    redraws the same masks (identical loss and gradients with and without
+    it), another seed draws others, and eval applies none."""
     model_kw = dict(GPT2, attn_dropout=0.2, hidden_dropout=0.2, num_layers=2)
     tree = _leaves(_jax_tree(model_kw))
     batch = _tokens(np.random.RandomState(5), GPT2["vocab_size"], 2, 32)
@@ -404,6 +404,36 @@ def test_dropout_masks_follow_the_seed_under_remat():
         np.testing.assert_array_equal(grads_r[path], grads[path], err_msg=path)
     assert run(False, 8)[0] != loss
     assert run(False, 7, train=False)[0] == run(False, 8, train=False)[0] != loss
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_masks_keep_their_rate_and_rows_independent(rate):
+    """The hashed masks keep ``1 - rate`` of the elements, in every row and
+    every column alike; two rows' masks agree as often as independent draws
+    would (``p² + (1-p)²``), and the attention and hidden salts draw
+    different masks from one seed."""
+    from deepspeed_tpu_torch.models.transformer import _ATTN_SALT, _HIDDEN_SALT, _dropout
+
+    x = torch.ones(2, 4, 256, 512)
+    seed = torch.tensor(2**40 + 12345, dtype=torch.int64)
+    keep = (_dropout(x, rate, seed, _ATTN_SALT) > 0).reshape(-1, 512).float()
+    p = 1.0 - rate
+    assert abs(keep.mean().item() - p) < 3e-3
+    assert (keep.mean(1) - p).abs().max().item() < 0.1 and (keep.mean(0) - p).abs().max().item() < 0.05
+    agree = (keep[:-1] == keep[1:]).float().mean().item()
+    assert abs(agree - (p * p + (1 - p) ** 2)) < 5e-3
+    other = (_dropout(x, rate, seed, _HIDDEN_SALT) > 0).reshape(-1, 512).float()
+    assert abs((other == keep).float().mean().item() - (p * p + (1 - p) ** 2)) < 5e-3
+    np.testing.assert_allclose(_dropout(x, rate, seed, _ATTN_SALT).sum().item() / x.numel(), 1.0, atol=5e-3)
+
+
+def test_lion_raises_jax_unknown_optimizer():
+    """The reference has no Lion: both packages raise ``ValueError("Unknown
+    optimizer 'lion'")`` (JAX ``engine.py:738-741``)."""
+    cfg = dict(BENCH, optimizer={"type": "lion", "params": {"lr": 1e-3}})
+    with pytest.raises(ValueError, match="Unknown optimizer 'lion'"):
+        dst.initialize(model=TransformerLM(port_model_config.TransformerConfig(**GPT2)), config=cfg,
+                       model_parameters=_jax_tree(GPT2), device="cpu")
 
 
 def test_initialize_requires_the_jax_tree():
