@@ -13,7 +13,9 @@ booted from one; ZeRO stages 0-3 on two ranks and a checkpoint moved
 between dp = 2 and dp = 1; optimizer and parameter offload, and
 ZeRO-Inference; fused gradient accumulation and multi-step windows as
 captured CUDA graphs, GPT-2 2.7B at head_dim 80, the llama, qwen and ALiBi
-training shapes) and the block-sparse attention main paths at full width. Phases,
+training shapes; the data pipeline: curriculum, random-LTD, PLD and a resume
+from the data cursor), MoE on one rank (moe-llama 1b-8e serving and training)
+and the block-sparse attention main paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
 
@@ -173,7 +175,9 @@ non-zero without the final line:
    streams equal to one server's (counted); every request finished, the
    kill fired, divergence 0 and K4 exact are required;
 9h. tensor parallelism (S9) on two gloo ranks that share the one card
-   (the sharded math and collectives on the device, not a TP speed). K4,
+   (the sharded math and collectives on the device, not a TP speed), on
+   llama-1B's width at 8 of its 22 layers (the depth cut to make room for
+   phases 17a-17e; the references below are made at that depth too). K4,
    K6 and K1 against their plain versions at a rank's head counts under
    tp = 2 (16 query heads over 2 kv heads, D 64; one launch each, fp32
    within 1e-4 and bf16 within 2e-2). The single-rank fp32 references
@@ -182,18 +186,17 @@ non-zero without the final line:
    file store with a timeout; the parent kills both at a time limit and
    fails on any rank's error). Each rank: ``init_inference(...,
    paged_kv={"sharded": {"tp_degree": 2}})`` serving the first 8 of phase
-   3's 16 requests in bf16 (the depth cut to make room for phases
-   16a-16e; every request finished, K4 = 22 x ragged steps,
-   TTFT/TPOT, streams equal to phase 3's counted); a bf16 server with the
+   3's 16 requests in bf16 (cut to make room for phases 16a-16e; every
+   request finished, K4 = layers x ragged steps, TTFT/TPOT); a bf16 server with the
    quantized all-reduce (4 requests of 8 new tokens finished) and the largest logit
    difference of one [2, 256] forward against the fp all-reduce; fp32
    (TF32 off) servers on phase 9's 4 prompts, 16 new tokens each: ragged, windows (eager
-   rounds under tp, K4 = 22 x (steps + 8 x windows)), an oracle drafter
+   rounds under tp, K4 = layers x (steps + 8 x windows)), an oracle drafter
    and int8 weights, each stream equal to the single-rank server's or
    parting at a plain top-2 gap below 1e-4; ``tensor_parallel={"tp_size":
    2}``: ``engine(tokens)`` [2, 256] within 1e-4 of the logit scale of
-   tp = 1 with K1 = 22, greedy ``generate`` (16 x 32 new) equal to tp =
-   1's with K6 = 22 x 32; ``save_mp_checkpoint`` (rank 0 writes), then
+   tp = 1 with K1 = layers, greedy ``generate`` (16 x 32 new) equal to tp =
+   1's with K6 = layers x 32; ``save_mp_checkpoint`` (rank 0 writes), then
    fresh tp = 2 and (rank 0) tp = 1 engines booted with ``checkpoint=``,
    logits bitwise those of the saving engine and of the tp = 1 engine.
    The ranks' step fingerprints must be equal in every serve; the port
@@ -357,17 +360,42 @@ non-zero without the final line:
    (``data`` breaks) bitwise the sequential run; streamed offload in
    three windows (a warm-up, two captures) bitwise its sequential run,
    host state included;
-16d. ``gpt2_config("2.7b")`` at full width and depth (32 layers, 32 heads of
-   80), bf16, ZeRO-1, remat, micro 4 x T 1024, gas 4: the eager engine 4
-   steps (K1 = 256, K2 = K3 = 128 a step, all tensor-core), then
+16d. ``gpt2_config("2.7b")`` at full width (32 heads of 80) and 8 of its 32
+   layers (the depth cut to make room for phases 17a-17f), bf16, ZeRO-1,
+   remat, micro 4 x T 1024, gas 4: the eager engine 4 steps (K1 = 64, K2 =
+   K3 = 32 a step, all tensor-core), then
    ``fuse_grad_accum`` with windows of 2 on the same microbatches, bitwise
    (losses, grad norms, master digest); step ms, MFU, peak and pool memory
    against the reckoned state, idle share;
 16e. ``llama_config("1b")`` at micro 2 x T 2048 and ``qwen2_config("0.5b")``,
-   remat: kernel vs ``attn_impl="plain"``, fp32 step 1 within 1e-5 and 3
+   at their widths and 8 layers each (cut to make room for 17a-17e), remat: kernel vs ``attn_impl="plain"``, fp32 step 1 within 1e-5 and 3
    bf16 steps within twice the bf16 rounding of the plain arm; config 1
    with ALiBi (no kernel): the card's fp32 loss against the CPU's within
    1e-5, 3 bf16 steps falling;
+17a. K1-K3 against their plain versions at the data pipeline's new lengths:
+   a curriculum length of 72 (a multiple of 8, not of 64) and a random-LTD
+   kept count of 400, [8, T, 12, 64] causal, fp32 and bf16;
+17b. config 1's model at full width and depth, bf16, ZeRO-1, gas 2 under
+   ``fuse_grad_accum``, on a seeded synthetic corpus written by
+   ``MMapIndexedDatasetBuilder``, analysed by ``DataAnalyzer``, ordered by
+   ``DeepSpeedDataSampler`` and loaded through ``initialize(training_data=
+   ...)``, curriculum 64 -> 1024: 20 steps with random-LTD (layers 1-10,
+   kept 128 -> 1024) and 20 with PLD (theta 0.5); losses falling, K1-K3
+   = the layers that ran at each warm-up and capture, reserved memory
+   within 10% of one run at the final shape; PLD eager: K1 = kept layers;
+17c. config 1 at gas 2 with windows of 2 over the engine dataloader: a
+   checkpoint while the window's look-ahead holds batches, resumed in a
+   fresh engine, bit for bit the uninterrupted 8 steps;
+17d. ``moe_llama_config("1b-8e", moe_top_k=2)`` at full width and depth
+   (6.15 B parameters): fp32 kernel vs plain streams (no capacity drops;
+   partings only at a top-2 gap or router margin below 1e-4); bf16 phase
+   3's traffic ragged (K4 = 22 a step) and its first 8 requests bucketed
+   (K5 = 22 a round),
+   windows on steady traffic, ``generate`` (K6 = 22 a token);
+17e. the same width at 6 of 22 layers, bf16, ZeRO-1, micro 4 x T 1024,
+   gas 2: eager 3 steps, then ``fuse_grad_accum`` 3 steps bit for bit;
+   load-balance losses and expert counts; K1-K3 = layers x microbatches;
+   fp32 step 1 kernels vs plain within 1e-5;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -435,13 +463,16 @@ generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a
 ``offload`` field: the launches of phases 15b-15e's runs, K1's also phase
 15f's; a ``d80`` field: phase 16a's errors and times in each dtype; a
 ``fused`` field: their counters, launches a step and replays on phases
-16b-16e's step programs); the last line is
+16b-16e's step programs), a ``data_pipeline`` field (17a's errors, 17b's
+runs' counters and graphs, 17c's verdict) and a ``moe`` field (17e's
+launches); K4, K5 and K6 with a ``moe`` field (17d's launches); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import gc
 import json
 import os
@@ -458,7 +489,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 import deepspeed_tpu_torch as dst
-from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree
+from deepspeed_tpu_torch.checkpoint.jax_params import flatten_tree, load_jax_params
 from deepspeed_tpu_torch.compression.int8 import QuantizedTensor, quantize_params_int8, tree_nbytes
 from deepspeed_tpu_torch.inference import decode
 from deepspeed_tpu_torch.inference.fleet import FleetRouter, ReplicaHandle
@@ -467,6 +498,8 @@ from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.inference.spec_decode import Drafter
 from deepspeed_tpu_torch.inference.traffic import MultiTenantServer, TenantSpec
 from deepspeed_tpu_torch.models import TransformerLM, bert_config, gpt2_config, llama_config, qwen2_config
+from deepspeed_tpu_torch.models.moe_transformer import MoETransformerLM, moe_llama_config
+from deepspeed_tpu_torch.moe.layer import MoE
 from deepspeed_tpu_torch.models.transformer import init_params, param_shapes
 from deepspeed_tpu_torch.ops import native
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
@@ -483,6 +516,7 @@ from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 from deepspeed_tpu_torch.ops.transformer.paged_attention import paged_decode_attention, ragged_paged_attention
 from deepspeed_tpu_torch.runtime.checkpoint_engine.atomic import find_latest_valid, read_latest_marker
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import TorchCheckpointEngine
+from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
 from deepspeed_tpu_torch.utils import chaos
 from deepspeed_tpu_torch.utils.loadgen import TenantLoad, make_trace, replay
 
@@ -492,7 +526,13 @@ GARBAGE = 3.0e4  # finite in fp32 and bf16: pages past kv_len and page 0 hold it
 R, NH, NKV, D, P, MAXP, NP = 8, 32, 4, 64, 16, 128, 1025
 
 
+T_START = time.perf_counter()
+
+
 def emit(**obj):
+    """One JSON line; ``t_s`` is the script's wall time when it was
+    printed (phase times are the differences)."""
+    obj["t_s"] = round(time.perf_counter() - T_START, 3)
     print(json.dumps(obj, default=lambda o: o.item() if hasattr(o, "item") else str(o)), flush=True)
 
 
@@ -2119,6 +2159,7 @@ TP_LIMIT_S = 480  # the parent's hard limit on the ranks
 TP_PG_TIMEOUT_S = 300
 TP_NEW = 16  # new tokens a request in the fp32 tp runs (a tp step costs ~90 gloo collectives on the shared card)
 TP_REQUESTS = 8  # phase 3's requests the bf16 tp server serves (cut from 16 to make room for 16a-16e)
+TP_DEPTH = 8  # llama-1B's layers the tp phases run (its width; the depth cut to make room for 17a-17e)
 
 
 def _save_tree(tree, path):
@@ -2145,8 +2186,8 @@ def _load_tree(path):
 def _tp_serve_run(cfg, server, prompts, budgets, label):
     """One serve on ``server`` (an engine or a ``PagedServer``) with the
     counts zeroed just before: every
-    request finishes with its budget, and the launches are exactly K4 = 22
-    x (ragged steps + 8 x window steps) on this rank (windows under tp run
+    request finishes with its budget, and the launches are exactly K4 =
+    layers x (ragged steps + 8 x window steps) on this rank (windows under tp run
     their rounds eagerly: no capture)."""
     _zero_counts()
     t0 = time.perf_counter()
@@ -2176,11 +2217,10 @@ def _tp_rank_work(rank, tree, prompts, budgets, small, small_ref, dense_prompts,
 
     out = {}
     # bf16 tp = 2 ragged serving of phase 3's traffic, through init_inference
-    cfg = llama_config("1b")
+    cfg = llama_config("1b", num_layers=TP_DEPTH)
     engine = dst.init_inference(TransformerLM(cfg), dtype="bf16", paged_kv=TP_SERVE)
     engine.set_params(tree)
-    outs, out["bf16"] = _tp_serve_run(cfg, engine, prompts, budgets, "bf16 serve")
-    out["bf16_streams"] = outs
+    _, out["bf16"] = _tp_serve_run(cfg, engine, prompts, budgets, "bf16 serve")
     params = engine.module.param_tree()
     # bf16 with the quantized all-reduce: the serve, and one [2, 256] forward's logits against the fp all-reduce's
     qar = PagedServer(cfg, params, dtype=torch.bfloat16, tp=TPServing(degree=TP, quantized_allreduce=True), **SERVE)
@@ -2198,7 +2238,7 @@ def _tp_rank_work(rank, tree, prompts, budgets, small, small_ref, dense_prompts,
     torch.cuda.empty_cache()
 
     # fp32 (TF32 off): ragged, windows (eager rounds), an oracle drafter and int8 weights
-    cfg32 = llama_config("1b", dtype="float32")
+    cfg32 = llama_config("1b", dtype="float32", num_layers=TP_DEPTH)
     engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", paged_kv=TP_SERVE)
     engine.set_params(tree)
     params = engine.module.param_tree()
@@ -2263,7 +2303,7 @@ TP_DRAIN_AT_S = 1.0
 
 
 def _tp_k4_want(cfg, servers):
-    """Launch counts a tp run must show: K4 = 22 x the servers' ragged steps
+    """Launch counts a tp run must show: K4 = layers x the servers' ragged steps
     (no windows here), every other kernel 0."""
     want = dict.fromkeys(_counts(), 0)
     want["ragged_paged_attention"] = cfg.num_layers * sum(srv.stats["ragged_steps"] for srv in servers)
@@ -2470,7 +2510,7 @@ def _tp_local_kernels(dev):
     return recs
 
 
-def phase_tp(cfg, tree, seed, streams, dev):
+def phase_tp(cfg, tree, seed, dev):
     """Phase 9h: two spawned ranks share the card over gloo (not a TP speed
     measurement); the tp = 1 references are made here first."""
     import shutil
@@ -2481,8 +2521,10 @@ def phase_tp(cfg, tree, seed, streams, dev):
     small = list(rs.integers(0, cfg.vocab_size, (4, 224), dtype=np.int32))
     dense_prompts = np.random.default_rng(seed + 9).integers(0, cfg.vocab_size, (16, 224), dtype=np.int32)
     tokens = np.random.default_rng(seed + 5).integers(0, cfg.vocab_size, (2, 256), dtype=np.int32)
-    # the single-rank fp32 references: ragged and int8 streams, the dense forward's logits and greedy generate
-    cfg32 = llama_config("1b", dtype="float32")
+    # the single-rank fp32 references: ragged and int8 streams, the dense forward's logits and greedy generate,
+    # all at the phase's depth (the first TP_DEPTH layers of the tree)
+    tree = {k: (v[:TP_DEPTH] if k.startswith("layers/") else v) for k, v in tree.items()}
+    cfg32 = llama_config("1b", dtype="float32", num_layers=TP_DEPTH)
     ref_engine = dst.init_inference(TransformerLM(cfg32), dtype="fp32", paged_kv=SERVE)
     ref_engine.load_jax_params(tree)
     params32 = ref_engine.module.param_tree()
@@ -2508,12 +2550,12 @@ def phase_tp(cfg, tree, seed, streams, dev):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    L = cfg.num_layers
+    L = TP_DEPTH
     rec = dict(ranks=TP, backend="gloo", note="two gloo ranks on one card, not a TP speed", ranks_wall_s=ranks_s,
-               bf16_requests=f"phase 3's first {TP_REQUESTS} of {len(prompts)} (a depth cut)")
+               layers=f"{TP_DEPTH} of llama-1B's {cfg.num_layers} (a depth cut)",
+               bf16_requests=f"phase 3's first {TP_REQUESTS} of {len(prompts)} (a cut)")
     # bf16 serving of phase 3's traffic
     rec["bf16"] = [r["bf16"] for r in ranks]
-    rec["bf16_identical_to_phase3"] = [_same(r["bf16_streams"], streams["cold"]) for r in ranks]
     rec["bf16_qar"] = [r["bf16_qar"] for r in ranks]
     # fp32 identities against the single-rank streams (or a parting at a plain top-2 gap below 1e-4)
     rec["fp32"] = {}
@@ -4737,16 +4779,18 @@ TRAIN_2P7B = {"train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps"
               "zero_optimization": {"stage": 1}, "gradient_clipping": 1.0,
               "optimizer": {"type": "adam", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
 STEPS_2P7B, HORIZON_2P7B = 4, 2
+DEPTH_2P7B = 8  # of the model's 32 layers: the width is the model's, the depth cut to make room for 17a-17f
 
 
 def phase_train_2p7b(seed, dev):
-    """Phase 16d: ``gpt2_config("2.7b")`` at full width and depth (2560
-    wide, 32 layers, 32 heads of 80), bf16, ZeRO-1 at one rank, FusedAdam,
+    """Phase 16d: ``gpt2_config("2.7b")`` at full width (2560 wide, 32
+    heads of 80) and ``DEPTH_2P7B`` of its 32 layers, bf16, ZeRO-1 at one
+    rank, FusedAdam,
     ``remat=True``, micro 4 x T 1024, gas 4, weights drawn on the card: the
     eager engine 4 steps, then (the state does not fit twice)
     ``fuse_grad_accum`` with ``multi_step.horizon`` 2 (a warm-up window,
     then a capture and its replay) 4 steps on the same microbatches: losses
-    finite and falling, K1 = 256, K2 = K3 = 128 a step on the tensor-core
+    finite and falling, K1 = 2 x layers x gas, K2 = K3 = layers x gas a step on the tensor-core
     variants, losses, grad norms and a per-leaf bitwise digest of the master
     equal. Then 2 more steps of each engine timed (on the captured one a
     window, one replay, its device span by CUDA events; the eager step runs
@@ -4754,7 +4798,7 @@ def phase_train_2p7b(seed, dev):
     dense bf16 peak (6 N + 12 L H T operations a token, the remat recompute
     not counted), the peak and pool figures against the reckoned state, and
     the idle share."""
-    cfg = gpt2_config("2.7b", remat=True)
+    cfg = gpt2_config("2.7b", remat=True, num_layers=DEPTH_2P7B)
     t0 = time.perf_counter()
     tree = _weights_on_card(cfg, seed, dev)
     made_s = time.perf_counter() - t0
@@ -4798,7 +4842,8 @@ def phase_train_2p7b(seed, dev):
     tokens = gas * micro * T
     # bf16 params, fp32 master, two fp32 moments, fp32 accumulator, bf16 gradients
     state_bytes = n_params * (2 + 4 + 8 + 4 + 2)
-    rec = dict(phase="train_2p7b", model='gpt2_config("2.7b", remat=True)', config=TRAIN_2P7B, params=n_params,
+    rec = dict(phase="train_2p7b", model=f'gpt2_config("2.7b", remat=True, num_layers={DEPTH_2P7B})',
+               config=TRAIN_2P7B, params=n_params,
                weights_made_s=made_s, build_s=dict(eager=eager["build_s"], fused=fused["build_s"]),
                steps=STEPS_2P7B, horizon=HORIZON_2P7B, bitwise=bitwise, losses=losses,
                grad_norms=[x[1] for x in fused["rec"]], eager_launches=eager["counts"],
@@ -4838,12 +4883,15 @@ def _shape_run(cfg, tree, config, batch_data, steps, attn_impl=None):
     return [x[0] for x in rec], counts
 
 
+SHAPES_DEPTH = 8  # 16e's layers: the models' widths, the depth cut to make room for 17a-17e
+
+
 def phase_train_shapes(seed, dev):
     """Phase 16e: training shapes the CPU tests held alone until now, 3 steps
     each through the kernels and through ``attn_impl="plain"`` on the card:
     ``llama_config("1b")`` (GQA 32/4, D 64) at micro 2 x T 2048 and
     ``qwen2_config("0.5b")`` (GQA 14/2, q/k/v biases) at micro 4 x T 1024,
-    both with remat. One fp32 step (TF32 off) of kernel and plain within
+    both with remat, at their widths and ``SHAPES_DEPTH`` layers. One fp32 step (TF32 off) of kernel and plain within
     1e-5 (the kernels' math); then bf16, where the kernel arm's loss gap to
     the plain arm must stay within twice the plain arm's own bf16-to-fp32
     gap (or 1e-3 of the loss): the rounding bf16 itself brings. Config 1
@@ -4853,10 +4901,11 @@ def phase_train_shapes(seed, dev):
     out = {}
     base = {"optimizer": {"type": "adam", "params": {"lr": 1e-4, "weight_decay": 0.01}}, "gradient_clipping": 1.0,
             "zero_optimization": {"stage": 1}}
-    for label, make, micro, T in (('llama_config("1b")', lambda dt: llama_config("1b", max_seq_len=2048, dtype=dt), 2,
-                                   2048),
-                                  ('qwen2_config("0.5b")', lambda dt: qwen2_config("0.5b", max_seq_len=1024, dtype=dt),
-                                   4, 1024)):
+    d = SHAPES_DEPTH
+    for label, make, micro, T in ((f'llama_config("1b", num_layers={d})',
+                                   lambda dt: llama_config("1b", max_seq_len=2048, dtype=dt, num_layers=d), 2, 2048),
+                                  (f'qwen2_config("0.5b", num_layers={d})',
+                                   lambda dt: qwen2_config("0.5b", max_seq_len=1024, dtype=dt, num_layers=d), 4, 1024)):
         cfg32 = make("float32")
         tree = _weights_on_card(cfg32, seed, dev)
         data = _step_data(cfg32.vocab_size, T, 3, micro, seed + 31, dev)
@@ -4926,12 +4975,560 @@ def _fused_field(name, fused, window, big, shapes):
                            for arm, r in fused.items()}}
     out["train_window"] = {k: dict(counter=r["launches"][name], replays=r["window_stats"]["graphs"]["replays"],
                                    horizon=r["horizon"], gas=r["gas"]) for k, r in window.items() if k.startswith("gas")}
-    gas, L = TRAIN_2P7B["gradient_accumulation_steps"], 32
+    gas, L = TRAIN_2P7B["gradient_accumulation_steps"], DEPTH_2P7B
     out["train_2p7b"] = dict(eager=big["eager_launches"][name], per_step=remat[name] * L * gas,
                              captured_counter=big["fused_launches"][name],
                              replays=big["window_stats"]["graphs"]["replays"], horizon=big["horizon"])
     out["train_shapes"] = {m: r["bf16_kernel_launches"][name] for m, r in shapes.items() if m != "alibi"}
     return out
+
+
+# --- phases 17a-17f: the data pipeline (T5) and MoE on one rank (M1, first half) ------------------
+T5_STEPS, T5_GAS, T5_MICRO = 20, 2, 8
+T5_FLASH = {"curriculum T=72": (8, 72, 12, 64, True), "random-LTD kept=400": (8, 400, 12, 64, True)}
+T5_CURRICULUM = {"enabled": True, "min_difficulty": 64, "max_difficulty": 1024, "schedule_type": "fixed_linear",
+                 "schedule_config": {"total_curriculum_step": 8, "difficulty_step": 8}}
+T5_LTD = {"enabled": True, "data_routing": {"enabled": True, "random_ltd": {
+    "enabled": True, "random_ltd_layer_num": 10,
+    "random_ltd_schedule": {"min_value": 128, "max_value": 1024,
+                            "schedule_config": {"require_steps": 12, "seq_per_step": 16}}}}}
+T5_PLD = {"enabled": True, "theta": 0.5, "gamma": 0.5}
+T5_MEMORY_SLACK = 1.10  # the schedule's reserved memory against one run at its final shape (allocator rounding)
+T5_RESUME_STEPS, T5_RESUME_AT = 8, 4
+CHAIN = 256  # the corpus's token range: a Markov chain (next = 7 prev + 3 mod 256, one token in ten uniform)
+MOE_CFG = dict(moe_top_k=2)  # moe_llama_config("1b-8e", moe_top_k=2)
+MOE_TRAIN_LAYERS = 6  # of 22: the fp32 master, two Adam moments and the fp32 accumulator at 16 B a parameter
+MOE_TRAIN = {"train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 2, "bf16": {"enabled": True},
+             "zero_optimization": {"stage": 1}, "gradient_clipping": 1.0,
+             "optimizer": {"type": "adam", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
+MOE_STEPS = 3
+MOE_BUCKETED_REQUESTS = 8  # the first 8 of phase 3's 16: the bucketed oracle's host loop is the slow one
+
+
+def phase_t5_kernels(dev):
+    """Phase 17a: K1-K3 against their plain versions at the data
+    pipeline's new lengths: a curriculum length that is a multiple of 8
+    but not of 64 (T = 72) and a random-LTD kept count (400), both at
+    config 1's heads (micro 8, 12 heads of 64, causal), fp32 (TF32 off)
+    and bf16, at phase 10's tolerances."""
+    rs = np.random.default_rng(1717)
+    out = {}
+    for name, (B, T, N, Dh, causal) in T5_FLASH.items():
+        base = [torch.from_numpy(rs.standard_normal((B, T, N, Dh), dtype=np.float32)).to(dev) for _ in range(4)]
+        for dtype in (torch.float32, torch.bfloat16):
+            tol_o, tol_g = FLASH_TOL[dtype]
+            q, k, v, do = (t.to(dtype) for t in base)
+            errs, _ = _flash_errors(q, k, v, do, causal)
+            bad = [key for key, (abs_err, rel) in errs.items()
+                   if (abs_err > tol_o if key in ("flash_fwd", "flash_lse") else rel > tol_g)]
+            dt = str(dtype).replace("torch.", "")
+            rec = dict(phase="t5_kernels", case=name, dtype=dt, variant=VARIANT[dtype], tol_o_lse_abs=tol_o,
+                       tol_grad_rel=tol_g, errors={key: dict(max_abs_err=a, rel_err=r) for key, (a, r) in errs.items()})
+            emit(**rec)
+            out[f"{name} {dt}"] = rec["errors"]
+            if bad:
+                raise AssertionError(f"t5 kernels {name} {dt}: {bad} past tolerance: {errs}")
+    _free()
+    return out
+
+
+def _t5_corpus(root, seed, n_docs):
+    """``n_docs`` documents of 64..1024 tokens written by
+    ``MMapIndexedDatasetBuilder`` under ``root/corpus``, analysed by
+    ``DataAnalyzer`` on their length (``seqlen``). Returns the dataset."""
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_sampling import DataAnalyzer, make_builder, make_dataset
+
+    rs = np.random.default_rng(seed)
+    prefix = os.path.join(root, "corpus")
+    builder = make_builder(prefix + ".bin", dtype=np.uint16)
+    for n in rs.integers(64, 1025, n_docs):
+        noise, rnd = rs.random(n) < 0.1, rs.integers(0, CHAIN, n)
+        doc = np.empty(n, np.int64)
+        doc[0] = rnd[0]
+        for i in range(1, n):
+            doc[i] = rnd[i] if noise[i] else (7 * doc[i - 1] + 3) % CHAIN
+        builder.add_item(doc)
+        builder.end_document()
+    builder.finalize(prefix + ".idx")
+    corpus = make_dataset(prefix)
+    DataAnalyzer(corpus, num_workers=2, metric_names=["seqlen"], metric_functions=[len],
+                 metric_types=["single_value_per_sample"], save_path=os.path.join(root, "analysis")).run()
+    return corpus
+
+
+class _CorpusItems:
+    """Training items over the corpus in ``order``: a document's tokens as
+    ``input_ids`` and the next ones as ``labels``, padded to ``T`` (token 0,
+    label -100)."""
+
+    def __init__(self, corpus, order, T):
+        self.corpus, self.order, self.T = corpus, np.asarray(order), T
+
+    def __len__(self):
+        return len(self.order)
+
+    def __getitem__(self, i):
+        doc = self.corpus[int(self.order[i])].astype(np.int64)
+        n = min(doc.size - 1, self.T)
+        ids, labels = np.zeros(self.T, np.int64), np.full(self.T, -100, np.int64)
+        ids[:n], labels[:n] = doc[:n], doc[1:n + 1]
+        return {"input_ids": ids, "labels": labels}
+
+
+def _t5_order(root, n, seed):
+    """``n`` sample indices from ``DeepSpeedDataSampler`` over the analysis
+    (``sampler_from_analysis``), its own seqlen curriculum stepping once per
+    optimizer step (gas x micro samples)."""
+    from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
+    from deepspeed_tpu_torch.runtime.data_pipeline.data_sampler import sampler_from_analysis
+
+    sched = CurriculumScheduler({k: v for k, v in T5_CURRICULUM.items() if k != "enabled"})
+    sampler = sampler_from_analysis(os.path.join(root, "analysis"), "seqlen", sched, seed=seed,
+                                    global_batch_size=T5_GAS * T5_MICRO)
+    it = iter(sampler)
+    return [next(it) for _ in range(n)], sampler.state_dict()
+
+
+def _t5_run(cfg, tree, config, items, steps, record_kwargs=False):
+    """``steps`` train_batch calls over ``initialize(training_data=items)``'s
+    dataloader: per step the loss, the curriculum length, the kept count,
+    the reserved and allocated bytes; the counters; the engine."""
+    _free()
+    engine, _, loader, _ = dst.initialize(model=TransformerLM(cfg), config=config, model_parameters=tree,
+                                          training_data=items)
+    drawn = []
+    if record_kwargs:  # the keep flags each microbatch drew (the eager path reads them on the host)
+        draw = engine._model_kwargs
+        engine._model_kwargs = lambda *a, **k: drawn.append(draw(*a, **k)) or drawn[-1]
+    it = RepeatingLoader(loader)
+    _zero_counts()
+    rows, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = float(engine.train_batch(data_iter=it))
+        walls.append((time.perf_counter() - t0) * 1e3)
+        rows.append(dict(loss=loss, seqlen=engine.curriculum_scheduler.get_current_difficulty()
+                         if engine.curriculum_scheduler else None,
+                         kept=engine.random_ltd_scheduler.current if engine.random_ltd_scheduler else None,
+                         theta=engine.progressive_layer_drop.get_theta() if engine.progressive_layer_drop else None,
+                         reserved=torch.cuda.memory_reserved(), allocated=torch.cuda.memory_allocated()))
+    return engine, rows, walls, _counts(), _variants(), drawn
+
+
+def phase_t5_train(seed, dev, tree):
+    """Phase 17b: config 1's model (GPT-2 125M, full width and depth) in
+    bf16, ZeRO-1, FusedAdam, micro 8, ``fuse_grad_accum`` at gas 2, trained
+    on a seeded synthetic corpus (``MMapIndexedDatasetBuilder`` documents of
+    64..1024 tokens, enough for 2 epochs of the run, analysed by
+    ``DataAnalyzer`` on length, ordered by ``DeepSpeedDataSampler``) through
+    ``initialize(training_data=...)``, curriculum ``seqlen`` ``fixed_linear``
+    64 -> 1024 in steps of 8: run A with random-LTD (layers 1-10 of 12,
+    kept 128 -> 1024 in steps of 16), run B with PLD (theta 0.5, gamma 0.5),
+    20 steps each. Losses finite and falling; K1 = K2 = K3 = the layers that
+    ran a microbatch, counted at each step program's warm-up and capture (a
+    replay passes no wrapper: PLD's captured step computes every layer and
+    keeps or drops each by torch.where), all tensor-core; reserved memory
+    over the schedule within 10% of one run at the final shape alone. Then
+    PLD eager (no step program) 4 steps: K1 = the kept layers, each step's
+    ms beside the captured step's."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    L = cfg.num_layers
+    root = tempfile.mkdtemp(prefix="chip_smoke_t5_")
+    t0 = time.perf_counter()
+    n = T5_STEPS * T5_GAS * T5_MICRO
+    corpus = _t5_corpus(root, seed + 17, 2 * n)
+    order, sampler_state = _t5_order(root, n, seed)
+    items = _CorpusItems(corpus, order, cfg.max_seq_len)
+    data_s = time.perf_counter() - t0
+    base = dict(TRAIN_CONFIG, gradient_accumulation_steps=T5_GAS, compile={"fuse_grad_accum": True},
+                curriculum_learning=T5_CURRICULUM)
+    runs = {}
+    for name, extra in (("random_ltd", {"data_efficiency": T5_LTD}), ("pld", {"progressive_layer_drop": T5_PLD})):
+        engine, rows, walls, counts, variants, _ = _t5_run(cfg, tree, dict(base, **extra), items, T5_STEPS)
+        g = engine.window_stats()["graphs"]
+        want = (g["warmups"] + g["captures"]) * L * T5_GAS
+        runs[name] = dict(rows=rows, walls_ms=walls, counts=counts, variants=variants, graphs=g, launches_want=want,
+                          programs_alive=len(engine._graphs))
+        del engine
+        # one run at the schedule's final shape alone: the memory the whole schedule may reserve
+        final = dict(base, **extra)
+        final["curriculum_learning"] = dict(T5_CURRICULUM, min_difficulty=1024)
+        if name == "random_ltd":
+            final["data_efficiency"] = copy.deepcopy(T5_LTD)
+            final["data_efficiency"]["data_routing"]["random_ltd"]["random_ltd_schedule"]["min_value"] = 1024
+        ref, ref_rows, _, _, _, _ = _t5_run(cfg, tree, final, items, 3)
+        runs[name]["final_shape_reserved"] = max(r["reserved"] for r in ref_rows)
+        del ref
+    pld_eager, eager_rows, eager_walls, eager_counts, _, drawn = _t5_run(
+        cfg, tree, dict(TRAIN_CONFIG, gradient_accumulation_steps=T5_GAS, progressive_layer_drop=T5_PLD,
+                        curriculum_learning=dict(T5_CURRICULUM, min_difficulty=1024)), items, 4, record_kwargs=True)
+    kept_layers = sum(sum(d["pld_keep"]) for d in drawn)
+    del pld_eager
+    shutil.rmtree(root, ignore_errors=True)
+    _free()
+    for name, r in runs.items():
+        losses = [x["loss"] for x in r["rows"]]
+        reserved = [x["reserved"] for x in r["rows"]]
+        r.update(losses=losses, first3=float(np.mean(losses[:3])), last3=float(np.mean(losses[-3:])),
+                 seqlens=[x["seqlen"] for x in r["rows"]], kept=[x["kept"] for x in r["rows"]],
+                 thetas=[x["theta"] for x in r["rows"]], reserved=reserved, reserved_peak=max(reserved),
+                 reserved_limit=r["final_shape_reserved"] * T5_MEMORY_SLACK,
+                 captured_step_ms_p50=float(np.median(r["walls_ms"][-4:])))
+        emit(phase="t5_train", run=name, model='gpt2_config("125m", max_seq_len=1024)', corpus_docs=2 * n,
+             data_s=data_s, sampler_state=sampler_state, **{k: v for k, v in r.items() if k != "rows"})
+        bad = []
+        if not all(np.isfinite(losses)) or not r["last3"] < r["first3"]:
+            bad.append("losses not finite or not falling")
+        if any(r["counts"][k] != r["launches_want"] for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+            bad.append(f"K1-K3 {r['counts']} != {r['launches_want']}")
+        if [r["variants"][f"{k}_tc"] for k in ("flash_fwd", "flash_dq", "flash_dkv")] != [r["launches_want"]] * 3:
+            bad.append("a K1-K3 launch off the tensor cores")
+        if r["reserved_peak"] > r["reserved_limit"] or r["programs_alive"] != 1 or r["graphs"]["captures"] == 0:
+            bad.append(f"reserved peak {r['reserved_peak']} > {r['reserved_limit']}, programs alive "
+                       f"{r['programs_alive']}, captures {r['graphs']['captures']}")
+        if name == "random_ltd" and not any(k is not None and k < s for k, s in zip(r["kept"], r["seqlens"])):
+            bad.append("random-LTD never dropped a token")
+        if bad:
+            raise AssertionError(f"t5_train {name}: {bad}")
+    eager = dict(losses=[x["loss"] for x in eager_rows], step_ms=eager_walls, counts=eager_counts,
+                 kept_layers=kept_layers, all_layers=len(drawn) * L)
+    emit(phase="t5_train", run="pld eager (host skip)", **eager,
+         captured_step_ms_p50=runs["pld"]["captured_step_ms_p50"])
+    if any(eager_counts[k] != kept_layers for k in ("flash_fwd", "flash_dq", "flash_dkv")) or \
+            kept_layers >= len(drawn) * L:
+        raise AssertionError(f"t5_train pld eager: launches {eager_counts}, kept layers {kept_layers} of "
+                             f"{len(drawn) * L}")
+    runs["pld_eager"] = eager
+    return runs
+
+
+def phase_t5_resume(seed, dev, tree):
+    """Phase 17c: config 1 in bf16 at gas 2 with ``fuse_grad_accum`` and
+    ``multi_step`` windows of 2 over ``initialize(training_data=...)``'s
+    dataloader (the window's ``PrefetchingLoader`` places gas x 2
+    microbatches on the card ahead): 8 steps uninterrupted; then 4 steps,
+    a checkpoint while the look-ahead holds untrained batches, a fresh
+    engine resumed from it and 4 more. Losses, grad norms and the master
+    digest bit for bit the uninterrupted run's."""
+    cfg = gpt2_config("125m", max_seq_len=1024, remat=False)
+    root = tempfile.mkdtemp(prefix="chip_smoke_t5r_")
+    corpus = _t5_corpus(root, seed + 18, T5_RESUME_STEPS * T5_GAS * T5_MICRO)
+    items = _CorpusItems(corpus, np.arange(len(corpus)), cfg.max_seq_len)
+    config = dict(TRAIN_CONFIG, gradient_accumulation_steps=T5_GAS,
+                  compile={"fuse_grad_accum": True, "multi_step": {"enable": True, "horizon": 2}})
+    ckpt, fs = _ckpt_root(4 * 2**30)
+
+    def run(n, load=False):
+        _free()
+        engine, _, loader, _ = dst.initialize(model=TransformerLM(cfg), config=config, model_parameters=tree,
+                                              training_data=items)
+        if load:
+            engine.load_checkpoint(ckpt)
+        it = RepeatingLoader(loader)
+        rec = []
+        for _ in range(n):
+            loss = float(engine.train_batch(data_iter=it))
+            rec.append((loss, float(engine.get_global_grad_norm())))
+        return engine, rec
+
+    full_engine, full = run(T5_RESUME_STEPS)
+    full_digest = _master_digest(full_engine)
+    del full_engine
+    engine, first = run(T5_RESUME_AT)
+    staged = engine._active_prefetcher.buffered()
+    cursor = engine._checkpoint_state(None)["data_cursor"]
+    engine.save_checkpoint(ckpt)
+    del engine
+    engine, rest = run(T5_RESUME_STEPS - T5_RESUME_AT, load=True)
+    bitwise = _same_rec(first + rest, full) and _master_digest(engine) == full_digest
+    del engine
+    shutil.rmtree(ckpt, ignore_errors=True)
+    shutil.rmtree(root, ignore_errors=True)
+    _free()
+    rec = dict(phase="t5_resume", steps=T5_RESUME_STEPS, saved_at=T5_RESUME_AT, staged_at_save=staged,
+               cursor=cursor, filesystem=fs, bitwise=bitwise, losses=[x[0] for x in full])
+    emit(**rec)
+    if not bitwise or staged == 0:
+        raise AssertionError(f"t5_resume: bitwise {bitwise}, staged batches at the save {staged}: {full} vs "
+                             f"{first + rest}")
+    return rec
+
+
+def _moe_tree_on_card(cfg, seed, dev, dtype):
+    """The MoE tree in the JAX layout as tensors on the card in ``dtype``,
+    with ``init_params``' distributions drawn from a seeded
+    ``torch.Generator`` (six billion numpy normals would take minutes)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tree = {}
+    for path, shape in param_shapes(cfg).items():
+        name = path.rsplit("/", 1)[-1]
+        if "norm_scale" in name:
+            tree[path] = torch.ones(shape, dtype=dtype, device=dev)
+        elif name.startswith("b") or name.endswith("bias"):
+            tree[path] = torch.zeros(shape, dtype=dtype, device=dev)
+        else:
+            std = 0.02 / np.sqrt(2 * cfg.num_layers) if name in ("wo", "w_out") else 0.02
+            tree[path] = torch.empty(shape, device=dev).normal_(0.0, std, generator=gen).to(dtype)
+    return tree
+
+
+def _moe_gaps(cfg, tree_t, context, dev):
+    """The plain path's margins at the position after ``context`` (one
+    prefill row over a fresh pool): the final logits' top-2 gap, and the
+    smallest router margin (the k-th gate logit over the next one) of any
+    token of the row in any MoE layer, where a tie flips an expert choice
+    and moves that token's hidden state, and so every later logit."""
+    margins = []
+    route = MoE.route
+
+    def record(self, params, tokens, **kw):
+        logits = tokens.float() @ params["gate"]["wg"].float()
+        top = torch.topk(logits, self.k + 1, dim=-1).values
+        margins.append(float((top[:, self.k - 1] - top[:, self.k]).min()))
+        return route(self, params, tokens, **kw)
+
+    MoE.route = record
+    try:
+        gap = _top2_gap(cfg, tree_t, context, dev)
+    finally:
+        MoE.route = route
+    return gap, min(margins)
+
+
+def _moe_partings(cfg, params, outs, ref, dev):
+    """Where each stream first parts from ``ref``, with the plain path's
+    final top-2 gap and smallest router margin there; raises when both
+    are 1e-4 or more (phase 4's top-2 gap rule, with the router's choice as
+    the other place two fp32 runs may part)."""
+    partings = []
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        if a.shape != b.shape:
+            raise AssertionError(f"moe stream {i}: shapes {a.shape} vs {b.shape}")
+        diff = np.nonzero(a != b)[0]
+        if diff.size:
+            at = int(diff[0])
+            gap, margin = _moe_gaps(cfg, params, b[:at], dev)
+            partings.append({"request": i, "position": at, "plain_top2_gap": gap, "router_margin": margin})
+            if min(gap, margin) >= 1e-4:
+                raise AssertionError(f"moe stream {i} parts at {at}: plain top-2 gap {gap}, router margin {margin}")
+    return partings
+
+
+def _moe_model(cfg, seed, dev, dtype):
+    model = MoETransformerLM(cfg)
+    tree = _moe_tree_on_card(cfg, seed, dev, dtype)
+    load_jax_params(model, tree, device=dev, dtype=dtype)
+    del tree
+    _free()
+    return model
+
+
+def phase_moe_serve(seed, dev):
+    """Phase 17d: ``moe_llama_config("1b-8e", moe_top_k=2)`` at full width
+    and depth (hidden 2048, 22 layers, 32/4 heads, 8 experts of 5376),
+    weights drawn on the card and installed through ``load_jax_params``.
+    fp32 (TF32 off) without capacity drops (``moe_drop_tokens=False``: a
+    token's logits then do not depend on the rows packed beside it, so a
+    one-row recompute reproduces them): phase 4's prompts, 32 new tokens
+    each, through K4 and through the plain attention on one model, streams
+    identical up to the top-2 gap rule, a router margin below 1e-4 counting
+    as a near-tie too. bf16 with the config's drops: phase 3's 16 requests
+    ragged (K4 = 22 a step), the first 8 of them bucketed (K5 = 22 a decode
+    round), windows of 8 on steady traffic (8 x 128 new) against single
+    steps, and ``generate`` (K6 = 22 a token);
+    tok/s and TPOT. ``generate``: 4 prompts of 224, 32 new tokens (a
+    256-position cache, JAX's condition for the decode kernel)."""
+    cfg32 = moe_llama_config("1b-8e", dtype="float32", moe_drop_tokens=False, **MOE_CFG)
+    cfg = moe_llama_config("1b-8e", **MOE_CFG)
+    out = {}
+    t0 = time.perf_counter()
+    model = _moe_model(cfg32, seed, dev, torch.float32)
+    made_s = time.perf_counter() - t0
+    params_n = sum(p.numel() for p in model.parameters())
+    paged = {"page_size": 16, "max_slots": 8}
+    kernel = dst.init_inference(model, dtype="fp32", paged_kv=dict(paged, attn_impl="kernel"))
+    plain = dst.init_inference(model, dtype="fp32", paged_kv=dict(paged, attn_impl="plain"))
+    rs = np.random.default_rng(seed + 1)
+    prompts = [rs.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in (40, 100, 200, 333)]
+    _zero_counts()
+    outs_k = kernel.serve(prompts, max_new_tokens=32)
+    k4 = _counts()["ragged_paged_attention"]
+    outs_p = plain.serve(prompts, max_new_tokens=32)
+    if k4 == 0 or _counts()["ragged_paged_attention"] != k4:
+        raise AssertionError(f"moe fp32: the kernel arm launched K4 {k4} times, the plain arm "
+                             f"{_counts()['ragged_paged_attention'] - k4}")
+    partings = _moe_partings(cfg32, model.param_tree(), outs_k, outs_p, dev)
+    out["fp32"] = dict(identical=sum(1 for a, b in zip(outs_k, outs_p) if np.array_equal(a, b)), partings=partings,
+                       k4=k4)
+    emit(phase="moe_serve", dtype="float32", params=params_n, weights_made_s=made_s, requests=4, new_tokens=32,
+         **out["fp32"])
+    del kernel, plain, model
+    _free()
+
+    t0 = time.perf_counter()
+    model = _moe_model(cfg, seed, dev, torch.bfloat16)
+    made_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    all_prompts, all_budgets = _requests(seed, cfg.vocab_size)
+    for name, extra, n in (("ragged", {}, 16), ("bucketed", {"ragged": False}, MOE_BUCKETED_REQUESTS)):
+        prompts, budgets = all_prompts[:n], all_budgets[:n]
+        engine = dst.init_inference(model, dtype="bf16", paged_kv=dict(paged, **extra))
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs = engine.serve(prompts, max_new_tokens=budgets)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s, counts = engine.serve_stats(), _counts()
+        for p, b, o in zip(prompts, budgets, outs):
+            if o is None or o.shape != (p.size + b,) or o.min() < 0 or o.max() >= cfg.vocab_size:
+                raise AssertionError(f"moe {name}: malformed output for a {p.size}-token prompt")
+        kernel_name, steps = (("ragged_paged_attention", s["ragged_steps"]) if name == "ragged"
+                              else ("paged_decode_attention", s["decode_steps"]))
+        rec = dict(requests=len(outs), generated_tokens=sum(budgets), wall_s=wall, tokens_per_s=sum(budgets) / wall,
+                   ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"], steps=steps, launches=counts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        emit(phase="moe_serve", dtype="bfloat16", server=name, **rec)
+        out[name] = rec
+        if counts[kernel_name] != cfg.num_layers * steps or steps == 0 or sum(counts.values()) != counts[kernel_name]:
+            raise AssertionError(f"moe {name}: launches {counts}, want {kernel_name} = {cfg.num_layers} x {steps}")
+        del engine
+    rs = np.random.default_rng(seed + 7)
+    steady = [rs.integers(0, cfg.vocab_size, 128, dtype=np.int32) for _ in range(8)]
+    runs, ref = [], None
+    for multi_step in (None, WINDOWS["multi_step"]):
+        server = PagedServer(cfg, model.param_tree(), page_size=16, max_slots=8, dtype=torch.bfloat16,
+                             prefix_cache=True, multi_step=multi_step)
+        outs, rec = _steady_run(server, steady, 128)
+        ref = ref or outs
+        rec.update(mode="windows" if multi_step else "single-step",
+                   identical=sum(1 for a, b in zip(outs, ref) if np.array_equal(a, b)))
+        want = _k4_counter_want(cfg, rec)
+        emit(phase="moe_serve", dtype="bfloat16", server="steady", requests=8, new_tokens=128,
+             **{k: v for k, v in rec.items() if k != "launches"}, k4_counter_want=want)
+        if rec["k4_counter"] != want or (multi_step and rec["window_steps"] == 0):
+            raise AssertionError(f"moe steady {rec['mode']}: K4 counter {rec['k4_counter']} want {want}, "
+                                 f"window steps {rec['window_steps']}")
+        runs.append({k: rec[k] for k in ("mode", "tokens_per_s", "tpot_ms", "window_steps", "window_ms_p50",
+                                         "single_step_ms_p50", "identical", "k4_counter")})
+        del server
+    out["steady"] = runs
+    engine = dst.init_inference(model, dtype="bf16")
+    # 224 + 32: the cache holds 256 positions, a multiple of 256, which is JAX's condition for the decode kernel
+    gen_prompts = np.random.default_rng(seed + 9).integers(0, cfg.vocab_size, (4, 224), dtype=np.int32)
+    _zero_counts()
+    t0 = time.perf_counter()
+    gen = engine.generate(gen_prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_generated("moe generate", gen, gen_prompts, 32, cfg.vocab_size)
+    counts = _counts()
+    out["generate"] = dict(batch=4, prompt=224, new_tokens=32, wall_s=wall, ms_per_token=wall * 1e3 / 32,
+                           launches=counts)
+    emit(phase="moe_serve", dtype="bfloat16", server="generate", weights_made_s=made_s, **out["generate"])
+    if counts["decode_attention"] != cfg.num_layers * 32 or sum(counts.values()) != counts["decode_attention"]:
+        raise AssertionError(f"moe generate: launches {counts}, want K6 = {cfg.num_layers} x 32")
+    del engine, model
+    _free()
+    return out
+
+
+def _moe_stats(engine, batch):
+    """Each MoE layer's load-balance loss (unscaled) and expert token
+    counts on one training forward, read by wrapping the model's layer."""
+    moe, layers = engine.module.moe, []
+    apply = moe.apply
+
+    def record(*a, **k):
+        out = apply(*a, **k)
+        layers.append((float(out[1]), out[2].tolist()))
+        return out
+
+    moe.apply = record
+    try:
+        with torch.no_grad():
+            engine.module.apply(engine._param_tree, (batch["input_ids"], batch["labels"]), train=True)
+    finally:
+        moe.apply = apply
+    return layers
+
+
+def phase_moe_train(seed, dev):
+    """Phase 17e: ``moe_llama_config("1b-8e", moe_top_k=2)`` at full width
+    and 6 of its 22 layers (the fp32 master, two Adam moments and the fp32
+    accumulator take 16 B a parameter), bf16, ZeRO-1, FusedAdam, micro 4 x
+    T 1024 at gas 2: the eager engine 3 steps, then ``fuse_grad_accum`` 3
+    steps (a warm-up, a capture and a replay) on the same microbatches, bit
+    for bit (losses, grad norms, master digest); losses and the load-balance
+    losses finite, each layer's expert token counts recorded; K1-K3 = one a
+    layer and microbatch, on the tensor cores. Then one fp32 step (TF32 off)
+    through the kernels and through ``attn_impl="plain"``: loss and grad
+    norm within 1e-5 relative."""
+    cfg = moe_llama_config("1b-8e", num_layers=MOE_TRAIN_LAYERS, max_seq_len=1024, remat=False, **MOE_CFG)
+    gas, micro, T, L = MOE_TRAIN["gradient_accumulation_steps"], MOE_TRAIN["train_micro_batch_size_per_gpu"], \
+        cfg.max_seq_len, cfg.num_layers
+    data = _step_data(cfg.vocab_size, T, gas * MOE_STEPS, micro, seed + 37, dev)
+    arms = {}
+    for fused in (False, True):
+        _free()
+        tree = _moe_tree_on_card(cfg, seed + 3, dev, torch.float32)
+        engine = dst.initialize(model=MoETransformerLM(cfg), config=dict(MOE_TRAIN, compile={"fuse_grad_accum": fused}),
+                                model_parameters=tree)[0]
+        del tree
+        n_params = engine.num_parameters()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        rec, walls = _drive(engine, data, MOE_STEPS)
+        r = dict(rec=rec, walls=walls, counts=_counts(), variants=_variants(), digest=_master_digest(engine),
+                 graphs=engine.window_stats()["graphs"], peak_allocated=torch.cuda.max_memory_allocated())
+        if not fused:
+            r["moe_layers"] = _moe_stats(engine, data[0])
+        arms["fused" if fused else "eager"] = r
+        del engine
+    eager, fused = arms["eager"], arms["fused"]
+    bitwise = _same_rec(eager["rec"], fused["rec"]) and eager["digest"] == fused["digest"]
+    want_eager = L * gas * MOE_STEPS
+    want_fused = (fused["graphs"]["warmups"] + fused["graphs"]["captures"]) * L * gas
+    fp32 = {}
+    cfg32 = moe_llama_config("1b-8e", num_layers=MOE_TRAIN_LAYERS, max_seq_len=1024, remat=False, dtype="float32",
+                             **MOE_CFG)
+    config32 = {k: v for k, v in MOE_TRAIN.items() if k != "bf16"}
+    for impl in (None, "plain"):
+        _free()
+        tree = _moe_tree_on_card(cfg32, seed + 3, dev, torch.float32)
+        engine = dst.initialize(model=MoETransformerLM(cfg32), config=config32, model_parameters=tree,
+                                attn_impl=impl)[0]
+        del tree
+        rec, _ = _drive(engine, data, 1)
+        fp32[impl or "kernel"] = rec[0]
+        del engine
+    _free()
+    loss_rel = abs(fp32["kernel"][0] - fp32["plain"][0]) / abs(fp32["plain"][0])
+    norm_rel = abs(fp32["kernel"][1] - fp32["plain"][1]) / abs(fp32["plain"][1])
+    losses = [x[0] for x in fused["rec"]]
+    rec = dict(phase="moe_train", model='moe_llama_config("1b-8e", moe_top_k=2)', layers=L, of_layers=22,
+               params=n_params, config=MOE_TRAIN, steps=MOE_STEPS, bitwise=bitwise, losses=losses,
+               grad_norms=[x[1] for x in fused["rec"]], step_ms=dict(eager=eager["walls"], fused=fused["walls"]),
+               moe_layers=eager["moe_layers"], eager_launches=eager["counts"], fused_launches=fused["counts"],
+               launches_want=dict(eager=want_eager, fused=want_fused), graphs=fused["graphs"],
+               peak_allocated=dict(eager=eager["peak_allocated"], fused=fused["peak_allocated"]),
+               fp32_step1=dict(kernel=fp32["kernel"], plain=fp32["plain"], loss_rel=loss_rel, norm_rel=norm_rel))
+    emit(**rec)
+    bad = []
+    aux = [a for a, _ in eager["moe_layers"]]
+    if not all(np.isfinite(losses)) or not all(np.isfinite(aux)) or len(aux) != L:
+        bad.append(f"losses {losses} or load-balance losses {aux} not finite")
+    if not bitwise:
+        bad.append("captured steps not bitwise the eager ones")
+    for arm, want in (("eager", want_eager), ("fused", want_fused)):
+        c, v = arms[arm]["counts"], arms[arm]["variants"]
+        if any(c[k] != want or v[f"{k}_tc"] != want for k in ("flash_fwd", "flash_dq", "flash_dkv")):
+            bad.append(f"{arm} K1-K3 {c} want {want} on the tensor cores")
+    if loss_rel > 1e-5 or norm_rel > 1e-5:
+        bad.append(f"fp32 kernel vs plain: loss {loss_rel}, grad norm {norm_rel}")
+    if bad:
+        raise AssertionError(f"moe_train: {bad}")
+    return rec
 
 
 def main() -> int:
@@ -4983,7 +5580,7 @@ def main() -> int:
     int8 = phase_int8(cfg, tree, args.seed, serve_streams, steady, steady_ref, dev)
     traffic = phase_traffic(cfg, tree, args.seed, serve_streams, dev)
     fleet = phase_fleet(cfg, tree, args.seed, dev)
-    tp = phase_tp(cfg, tree, args.seed, serve_streams, dev)
+    tp = phase_tp(cfg, tree, args.seed, dev)
     yard = phase_host_ops(dev)  # before any offload phase: the host libraries' builds are this process's own
     zero_inf = phase_zero_inference(dev, yard, tree)
     del tree
@@ -5007,9 +5604,14 @@ def main() -> int:
     del flush
     fused = phase_train_fused(args.seed, dev, gpt2_tree)
     window = phase_train_window(args.seed, dev, gpt2_tree)
+    t5_kernels = phase_t5_kernels(dev)
+    t5 = phase_t5_train(args.seed, dev, gpt2_tree)
+    t5_resume = phase_t5_resume(args.seed, dev, gpt2_tree)
     del gpt2_tree
     big = phase_train_2p7b(args.seed, dev)
     shapes = phase_train_shapes(args.seed, dev)
+    moe_serve = phase_moe_serve(args.seed, dev)
+    moe_train = phase_moe_train(args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
@@ -5035,6 +5637,9 @@ def main() -> int:
         int8=dict(serve=int8["serve"], logits_relative=int8["logits_relative"], steady=int8["steady"],
                   fp32={k: int8["fp32"][k] for k in ("k4", "identical_plain")}),
         traffic=traffic, fleet=fleet, tp=tp["kernels"]["ragged_paged_attention"],
+        moe=dict(ragged=moe_serve["ragged"]["launches"]["ragged_paged_attention"],
+                 ragged_steps=moe_serve["ragged"]["steps"], fp32=moe_serve["fp32"]["k4"],
+                 steady=[{k: r[k] for k in ("mode", "k4_counter", "window_steps")} for r in moe_serve["steady"]]),
         cases=[{k: c[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "splits", "bitwise_equal")} for c in cases],
     )] + [dict(
@@ -5054,6 +5659,14 @@ def main() -> int:
                       **{k: r["timing"][name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                       case=r["case"], variant=r["variant"]) for dt, r in d80.items()},
         fused=_fused_field(name, fused, window, big, shapes),
+        data_pipeline=dict(
+            new_lengths={case: errs[name] for case, errs in t5_kernels.items()},
+            runs={run: dict(counter=r["counts"][name], tensor_core=r["variants"][f"{name}_tc"],
+                            want=r["launches_want"], graphs=r["graphs"]) for run, r in t5.items() if run != "pld_eager"},
+            pld_eager=dict(counter=t5["pld_eager"]["counts"][name], kept_layers=t5["pld_eager"]["kept_layers"]),
+            resume_bitwise=t5_resume["bitwise"]),
+        moe=dict(eager=moe_train["eager_launches"][name], captured_counter=moe_train["fused_launches"][name],
+                 want=moe_train["launches_want"], layers=moe_train["layers"]),
         checkpoint=dict(launches=ckpt["launches"][name], steps=ckpt["steps"]),
         zero=dict(fp32={st: r["launches_per_rank"] for st, r in zero["fp32"].items()},
                   bf16={st: r["launches_per_rank"][name] for st, r in zero["bf16"].items()},
@@ -5074,6 +5687,8 @@ def main() -> int:
         **{k: k6_main[k] for k in keys}, variant="split_kv", split_launches=k6_split_launches,
         splits=k6_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k6_cases],
         quant_enabled=int8["quant"], tp=tp["kernels"]["decode_attention"],
+        moe=dict(generate=moe_serve["generate"]["launches"]["decode_attention"],
+                 new_tokens=moe_serve["generate"]["new_tokens"]),
         checkpoint=dict(launches=ckpt["k6_launches"]),
     ), dict(
         name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",
@@ -5081,6 +5696,8 @@ def main() -> int:
         **{k: k5_main[k] for k in keys}, variant="split_kv", split_launches=k5_split_launches,
         splits=k5_main["splits"], cases=[{k: c[k] for k in keys + ("splits", "bitwise_equal")} for c in k5_cases],
         int8_fp32=dict(launches=int8["fp32"]["k5"], identical_to_k4=int8["fp32"]["identical_bucketed"]),
+        moe=dict(bucketed=moe_serve["bucketed"]["launches"]["paged_decode_attention"],
+                 decode_steps=moe_serve["bucketed"]["steps"]),
     )] + [dict(
         name=name, route="cuda", source="deepspeed_tpu_torch/csrc/block_sparse_attention.cu",
         replaces=f"deepspeed_tpu/ops/sparse_attention/pallas_block_sparse.py:{line}",

@@ -34,7 +34,12 @@ beside it slice by slice and mirrors its module paths. It imports neither
 * data parallelism with ZeRO stages 0-3 across ``torch.distributed``
   ranks, the ``zero`` namespace (``Init``, ``GatheredParameters``,
   ``estimate_zero_memory``, ``TiledLinear``) and checkpoints saved and
-  loaded at any number of ranks.
+  loaded at any number of ranks;
+* the data pipeline: the engine dataloader (``training_data``), indexed
+  datasets, the data analyzer and samplers, curriculum learning, random-LTD
+  and progressive layer drop, and the data cursor in checkpoints;
+* MoE on one rank (``models.moe_transformer``, ``moe``): gating, the
+  expert stack, training and serving.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     """Build the training engine (JAX ``initialize``, ``__init__.py:32``).
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
 
-    ``model`` is the port's ``TransformerLM``; ``model_parameters`` the JAX
+    ``model`` is the port's ``TransformerLM`` (or ``MoETransformerLM``);
+    ``model_parameters`` the JAX
     tree as numpy (nested or flat paths), the one way weights enter the
     port (``models.transformer.init_params`` draws a tree with the JAX
     init's distributions). ``config`` is a
@@ -60,6 +66,8 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     ``cuda`` unless ``device`` names another device, and raises when no
     card is present. ``attn_impl="plain"`` runs the plain attention on the
     card (the comparison arm); the default launches the kernels.
+    ``training_data`` (a map- or iterable-style dataset) builds the engine
+    dataloader, returned third (``collate_fn`` batches its items).
 
     Under a ``torch.distributed`` group the engine is one data-parallel
     rank (``mesh.data`` defaults to the world size) and ZeRO stages 0-3
@@ -82,9 +90,6 @@ def _initialize_paused(args, model, optimizer, model_parameters, training_data, 
 
     if model is None:
         raise AssertionError("deepspeed.initialize requires a model")
-    if training_data is not None or collate_fn is not None:
-        raise NotImplementedError("training_data / collate_fn (the engine dataloader) are not ported yet "
-                                  "(ROADMAP T5)")
     if mpu is not None or loss_fn is not None:
         raise NotImplementedError("mpu / loss_fn are not ported yet (ROADMAP P1, X1)")
     if config is None:
@@ -93,8 +98,9 @@ def _initialize_paused(args, model, optimizer, model_parameters, training_data, 
         config = args.deepspeed_config
     engine = DeepSpeedEngine(model, config=DeepSpeedConfig(config if config is not None else {}),
                              model_parameters=model_parameters, optimizer=optimizer,
-                             lr_scheduler=lr_scheduler, device=device, attn_impl=attn_impl)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                             lr_scheduler=lr_scheduler, device=device, attn_impl=attn_impl,
+                             training_data=training_data, collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 # namespaces mirroring the JAX package's exports

@@ -92,8 +92,22 @@ def _ffn_body(cfg: TransformerConfig, p, x, norm_scale, norm_bias, tp=None):
                 "tensor-parallel MoE serving is not supported: expert "
                 "placement is the 'expert' mesh axis, not a TP weight split"
             )
-        raise NotImplementedError("MoE serving is not ported yet (ROADMAP M1)")
+        return _moe_ffn(cfg, p["moe"], h)
     return apply_dense_ffn({name: p[name] for name in _FFN_LEAVES if name in p}, h, cfg.activation, tp=tp)
+
+
+def _moe_ffn(cfg, p, h):
+    """Eval-mode MoE routing of a normed ``[B, T, H]`` slab (JAX
+    ``_moe_ffn``, ``decode.py:78-112``): ``MoE.apply(train=False)``, the
+    eval capacity factor and no gate noise. The capacity comes from the
+    program's static token count B·T, and tokens past it drop in row-major
+    token order, so a token's output depends on the rows packed beside it
+    (padding rows included): the serving programs pack their rows as JAX's
+    do. Expert weights may be int8 (``QuantizedTensor`` stacks with ``[E,
+    1, I]`` scales)."""
+    from deepspeed_tpu_torch.models.moe_transformer import moe_layer_of
+
+    return moe_layer_of(cfg).apply(p, h, train=False)[0]
 
 
 def _softmax_scale(cfg, head_dim: int) -> float:
@@ -151,10 +165,29 @@ def _layer_leaf(w, l: int):
 
 def split_layers(params) -> List[Dict[str, torch.Tensor]]:
     """Per-layer views ``{name: layers[name][l]}`` of the stacked tree (an
-    int8 leaf gives ``QuantizedTensor(q[l], scale[l])``)."""
+    int8 leaf gives ``QuantizedTensor(q[l], scale[l])``; an MoE model's
+    ``moe`` subtree splits leaf by leaf). An interleaved MoE tree
+    (``moe_layers``) raises, as JAX's serving does."""
+    if "moe_layers" in params:
+        raise NotImplementedError("paged serving supports MoE only with moe_layer_freq == 1 (a stacked [L, E, ...] "
+                                  "expert stack); interleaved dense/MoE stacks keep experts outside the layer stack")
     layers = params["layers"]
-    L = next(iter(layers.values())).shape[0]
-    return [{name: _layer_leaf(w, l) for name, w in layers.items()} for l in range(L)]
+
+    def at(tree, l):
+        if isinstance(tree, dict):
+            return {name: at(w, l) for name, w in tree.items()}
+        return _layer_leaf(tree, l)
+
+    L = next(_leaves(layers)).shape[0]
+    return [at(layers, l) for l in range(L)]
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def _accepted_prefix(tokens, greedy, n_drafts):

@@ -235,6 +235,10 @@ class PagedServer:
         # tensor-parallel serving (inference/tp.py:TPServing): this rank's shard of the weights, pools of
         # its kv heads, every host structure whole (JAX scheduler.py:246-283)
         self.tp = tp
+        if isinstance(params, dict) and "moe_layers" in params:
+            raise NotImplementedError(
+                "paged serving supports MoE only with moe_layer_freq == 1 (a stacked [L, E, ...] expert stack); "
+                "interleaved dense/MoE stacks keep experts outside the layer stack")
         if tp is not None:
             if "moe" in params.get("layers", {}) and tp.degree > 1:
                 raise NotImplementedError(

@@ -29,13 +29,29 @@ captured CUDA graph draws new masks each replay from the seeds copied in
 with its batch and the eager path draws the same ones; a recomputed layer
 redraws the same masks; no generator state is touched. ALiBi adds JAX's
 per-head distance bias in the plain attention (the flash kernels never see
-it, as in JAX). Sequence parallelism, progressive layer drop, random-LTD,
-sparse embedding gradients and MoE raise ``NotImplementedError``.
+it, as in JAX).
+
+Progressive layer drop and random-LTD (JAX ``_forward``,
+``transformer.py:531-672``) take their random decisions as arguments, so
+the caller draws them (the engine, from a ``torch.Generator`` on its
+device) and tests hand JAX's own decisions in. ``pld_keep`` holds one keep
+flag a layer: host booleans skip a dropped layer (identity, no rescale),
+a device tensor keeps or drops it by ``torch.where`` over the layer's
+output, so a captured CUDA graph computes every layer and replays new
+flags from its input buffer. ``ltd_idx [n, B, kept]`` runs layers 1..n
+each on its own sorted token subset (gathered with its true positions, so
+RoPE, learned positions and the causal mask see the subset's order, as
+JAX's flash call does) and scatters the result back; layer 0 and the rest
+run on every token. Both apply in training only. The MoE family
+(``models/moe_transformer.py``) overrides ``_mlp`` and the per-layer tree;
+its load-balance loss joins the training loss here, as in JAX. Sequence
+parallelism and sparse embedding gradients raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,7 +100,21 @@ def _rope(x, positions, theta: float, rope_dim=None):
 def param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
     """Flat ``path -> shape`` of the JAX tree (``embed/tokens``,
     ``layers/wq``, ``final_norm_scale``, ...), stacked ``[L, ...]``
-    per-layer leaves included."""
+    per-layer leaves included; an MoE config's tree
+    (``moe_transformer.moe_param_shapes``) for an ``MoETransformerConfig``."""
+    if is_moe_config(cfg):
+        from deepspeed_tpu_torch.models.moe_transformer import moe_param_shapes
+
+        return moe_param_shapes(cfg)
+    return dense_param_shapes(cfg)
+
+
+def is_moe_config(cfg) -> bool:
+    return hasattr(cfg, "moe_layer_freq")
+
+
+def dense_param_shapes(cfg: TransformerConfig) -> Dict[str, Tuple[int, ...]]:
+    """``param_shapes`` of the dense decoder."""
     H, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
     NH, NKV, D, I = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.intermediate_size
     gated = cfg.activation in ("swiglu", "geglu")
@@ -141,38 +171,45 @@ class TransformerLM(nn.Module):
     positions (``rope_dim`` included), pre-LN and post-LN, ``embed_norm``,
     ``qkv_bias``, ``use_bias``, tied or untied head, ``lm_head_bias``,
     ``parallel_residual`` / ``shared_parallel_norm``, MHA and GQA, ALiBi,
-    and ``attn_softmax_scale``. MoE models raise."""
+    and ``attn_softmax_scale``. An MoE config builds
+    ``moe_transformer.MoETransformerLM``."""
+
+    _moe = False
 
     def __init__(self, config: TransformerConfig):
         super().__init__()
-        if getattr(config, "num_experts", 0):
-            raise NotImplementedError("MoE models are not ported yet (ROADMAP M1)")
+        if is_moe_config(config) and not self._moe:
+            raise TypeError("an MoETransformerConfig builds models.moe_transformer.MoETransformerLM")
         self.config = config
         self.dtype = DTYPES[config.dtype]
         self.embed = nn.ParameterDict()
-        self.layers = nn.ParameterDict()
+        self.layers = nn.ParameterDict()  # keys: the path under "layers/" ("wq", "moe/gate/wg", ...)
+        self.groups = nn.ParameterDict()  # other nested leaves by full path ("dense_mlp/w_up", ...)
         for path, shape in param_shapes(config).items():
             self.set_leaf(path, torch.empty(shape, device="meta"))
 
     def set_leaf(self, path: str, value: torch.Tensor) -> None:
         """Install one leaf of the tree under its JAX path."""
         p = nn.Parameter(value, requires_grad=False)
-        head, _, name = path.rpartition("/")
+        head, _, rest = path.partition("/")
         if head == "embed":
-            self.embed[name] = p
+            self.embed[rest] = p
         elif head == "layers":
-            self.layers[name] = p
-        elif head == "":
-            setattr(self, name, p)
+            self.layers[rest] = p
+        elif rest == "":
+            setattr(self, head, p)
+        elif head in ("dense_mlp", "moe_layers"):
+            self.groups[path] = p
         else:
             raise KeyError(f"unknown parameter path {path!r}")
 
     def param_tree(self) -> Dict:
         """The parameters as the JAX package's nested dict (tensors, not
         copies)."""
-        tree: Dict = {"embed": dict(self.embed.items()), "layers": dict(self.layers.items())}
+        tree: Dict = {"embed": dict(self.embed.items()), "layers": _nest(dict(self.layers.items()))}
         for name, p in self.named_parameters(recurse=False):
             tree[name] = p
+        tree.update(_nest(dict(self.groups.items())))
         return tree
 
     # --- TP sharding rules ----------------------------------------------
@@ -214,13 +251,18 @@ class TransformerLM(nn.Module):
 
     # --- training forward ------------------------------------------------
     def apply(self, params, batch, *, dropout_seed: Optional[int] = None, train: bool = True,
-              attn_impl: Optional[str] = None, pld_theta=None, ltd_idx=None, tp=None, layer_stream=None):
+              attn_impl: Optional[str] = None, pld_keep=None, ltd_idx=None, tp=None, layer_stream=None):
         """JAX ``apply`` (``transformer.py:821``): the scalar LM loss when the
         batch carries labels (``(tokens, labels)`` or ``{"input_ids",
         "labels"}``), else the logits ``[B, T, V]``. ``params`` is the nested
-        tree of tensors; ``dropout_seed`` seeds this step's dropout masks;
-        ``attn_impl="plain"`` asks for the plain flash functions on the card
-        (the comparison arm).
+        tree of tensors; ``dropout_seed`` seeds this step's dropout masks
+        (and an MoE model's gate noise); ``attn_impl="plain"`` asks for the
+        plain flash functions on the card (the comparison arm). In training
+        the loss includes the MoE load-balance loss, as in JAX.
+
+        ``pld_keep`` (progressive layer drop: one keep flag a layer) and
+        ``ltd_idx`` (random-LTD: ``[n, B, kept]`` token indices of layers
+        1..n) apply in training only; see the module docstring.
 
         With ``tp`` (``inference/tp.py:TPServing``, inference only)
         ``params`` is this rank's shard (``tp.shard_params``): each layer
@@ -232,19 +274,31 @@ class TransformerLM(nn.Module):
         With ``layer_stream`` (ZeRO-3, ``runtime/zero/overlap.py``)
         ``params`` holds no ``layers``: the stream gathers each layer's
         weights and runs it (``layer_stream.run(i, fn, x, remat)``)."""
-        if pld_theta is not None or ltd_idx is not None:
-            raise NotImplementedError("progressive layer drop and random-LTD are not ported yet (ROADMAP T5)")
         if tp is not None and train:
             raise NotImplementedError("tensor-parallel training is not ported yet (ROADMAP P1)")
         tokens, labels = _split_batch(batch)
-        logits = self._forward(params, tokens, dropout_seed, train, attn_impl, tp, layer_stream)
+        logits, aux = self._forward(params, tokens, dropout_seed, train, attn_impl, tp, layer_stream,
+                                    pld_keep=pld_keep if train else None, ltd_idx=ltd_idx if train else None)
         if tp is not None:
             logits = tp.gather_vocab(logits)
         if labels is None:
             return logits
-        return cross_entropy_loss(logits, labels)
+        loss = cross_entropy_loss(logits, labels)
+        if train and aux is not None:
+            loss = loss + aux
+        return loss
 
-    def _forward(self, params, tokens, dropout_seed, train, attn_impl, tp=None, layer_stream=None):
+    def _per_layer(self, params) -> List[Dict]:
+        """One tree a layer from the stacked ``params["layers"]``: one
+        unbind per stacked leaf, whose backward stacks the per-layer
+        gradients into the ``[L, ...]`` leaf in one op."""
+        unbound = {k: v.unbind(0) for k, v in _flat(params["layers"]).items()}
+        return [_nest({k: u[i] for k, u in unbound.items()}) for i in range(self.config.num_layers)]
+
+    def _forward(self, params, tokens, dropout_seed, train, attn_impl, tp=None, layer_stream=None,
+                 pld_keep=None, ltd_idx=None):
+        """``(logits, aux)``: the logits and the summed (coefficient-scaled)
+        MoE load-balance loss, None for a dense model."""
         cfg = self.config if tp is None else tp.local_cfg(self.config)
         if cfg.sequence_parallel:
             raise NotImplementedError("sequence parallelism is not ported yet (ROADMAP P1)")
@@ -252,37 +306,60 @@ class TransformerLM(nn.Module):
             raise NotImplementedError("sparse embedding gradients are not ported yet (ROADMAP P1)")
         dt = self.dtype
         B, T = tokens.shape
+        L = cfg.num_layers
         x = params["embed"]["tokens"].to(dt)[tokens]
         positions = torch.arange(T, dtype=torch.int32, device=tokens.device)[None].expand(B, T)
         if cfg.position == "learned":
             x = x + params["embed"]["pos"].to(dt)[positions[0].long()][None]
         if cfg.embed_norm:
             x = _norm(x, params["embed"]["norm_scale"], params["embed"].get("norm_bias"), cfg.norm, cfg.norm_eps)
-        # one unbind per stacked leaf: its backward stacks the per-layer
-        # gradients into the [L, ...] leaf in one op
-        layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()} if layer_stream is None else {}
-        for i in range(cfg.num_layers):
+        if pld_keep is not None and ltd_idx is not None:
+            raise ValueError("progressive_layer_drop and random-LTD cannot be combined")
+        n_ltd = 0 if ltd_idx is None else int(ltd_idx.shape[0])
+        if n_ltd and n_ltd > L - 2:
+            raise ValueError(f"random-LTD covers {n_ltd} layers but only {L - 2} middle layers exist (the first "
+                             "and last layers always run full)")
+        if pld_keep is not None and layer_stream is not None and not isinstance(pld_keep, torch.Tensor):
+            # the stream gathers every layer in order: a dropped layer runs and is discarded by torch.where
+            pld_keep = torch.as_tensor(list(pld_keep), dtype=torch.bool, device=tokens.device)
+        per_layer = self._per_layer(params) if layer_stream is None else None
+        aux_total = None
+        for i in range(L):
+            if pld_keep is not None and not isinstance(pld_keep, torch.Tensor) and not pld_keep[i]:
+                continue  # PLD: a dropped layer passes x through (identity, no rescale)
             seed = None if dropout_seed is None else dropout_seed + i
+            block = self._block
+            extra = ()
+            if 1 <= i <= n_ltd:
+                block, extra = self._ltd_block, (ltd_idx[i - 1],)
             if layer_stream is not None:
-                x = layer_stream.run(i, lambda h, per, seed=seed: self._layer(h, per, positions, seed, train,
-                                                                              attn_impl, cfg), x, cfg.remat)
-                continue
-            per = {name: leaves[i] for name, leaves in layers.items()}
-            if cfg.remat and torch.is_grad_enabled():
-                # remat_policy as JAX's model reads it; the masks are a function of the seed, not of
-                # torch's RNG, so no generator state is stashed (nor could its CUDA state be read inside
-                # a graph capture)
-                x = remat(self._layer, x, per, positions, seed, train, attn_impl, policy=cfg.remat_policy)
+                y = layer_stream.run(i, lambda h, per, seed=seed, block=block, extra=extra: block(
+                    h, per, positions, seed, train, attn_impl, cfg, None, *extra)[0], x, cfg.remat)
+                aux = None
+            elif cfg.remat and torch.is_grad_enabled():
+                # remat_policy as JAX's model reads it; the masks and the gate noise are a function of the
+                # seed, not of torch's RNG, so no generator state is stashed (nor could its CUDA state be
+                # read inside a graph capture)
+                y, aux = remat(block, x, per_layer[i], positions, seed, train, attn_impl, cfg, None, *extra,
+                               policy=cfg.remat_policy)
             else:
-                x = self._layer(x, per, positions, seed, train, attn_impl, cfg, tp)
+                y, aux = block(x, per_layer[i], positions, seed, train, attn_impl, cfg, tp, *extra)
+            if isinstance(pld_keep, torch.Tensor):
+                keep = pld_keep[i]
+                y = torch.where(keep, y, x)
+                if aux is not None:
+                    aux = torch.where(keep, aux, torch.zeros_like(aux))
+            x = y
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         if cfg.prenorm:
             x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"), cfg.norm, cfg.norm_eps)
         if cfg.tie_embeddings:
-            return x @ params["embed"]["tokens"].to(dt).T
+            return x @ params["embed"]["tokens"].to(dt).T, aux_total
         logits = x @ params["lm_head"].to(dt)
         if cfg.lm_head_bias:
             logits = logits + params["lm_head_bias"].to(logits.dtype)
-        return logits
+        return logits, aux_total
 
     # --- layer streaming (ZeRO-Infinity param offload, ZeRO-Inference) ----
     def stream_fns(self):
@@ -329,17 +406,40 @@ class TransformerLM(nn.Module):
         return embed_fwd, layer_fwd, head_loss
 
     def _layer(self, x, p, positions, seed, train, attn_impl, cfg=None, tp=None):
+        """One block's output (``_block`` without its MoE loss)."""
+        return self._block(x, p, positions, seed, train, attn_impl, cfg, tp)[0]
+
+    def _ltd_block(self, x, p, positions, seed, train, attn_impl, cfg, tp, idx):
+        """A random-LTD layer (JAX ``ltd_body``): the block on the rows
+        ``idx [B, kept]`` of ``x`` at their own positions, scattered back
+        over ``x``; the other rows pass through."""
+        from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import gather_tokens, scatter_tokens
+
+        pos_sub = torch.gather(positions, 1, idx.long())
+        y, aux = self._block(gather_tokens(x, idx), p, pos_sub, seed, train, attn_impl, cfg, tp)
+        return scatter_tokens(x, y, idx), aux
+
+    def _mlp(self, p, h, seed, train, tp=None):
+        """The dense FFN over one layer's leaves: ``(out, None)``; the MoE
+        family returns its layer's scaled load-balance loss as the second
+        item."""
+        ffn = {name: p[name].to(h.dtype) for name in _FFN_LEAVES if name in p}
+        return apply_dense_ffn(ffn, h, self.config.activation, tp=tp), None
+
+    def _block(self, x, p, positions, seed, train, attn_impl, cfg=None, tp=None):
         """One block (``transformer.py:412``): pre-LN or post-LN, parallel
         residual, biases; weights cast to the activation dtype at use.
         ``cfg`` is the rank's local view under ``tp`` (the model's config
-        otherwise)."""
+        otherwise). Returns ``(x, aux)``, ``aux`` the MoE loss or None."""
         cfg = cfg if cfg is not None else self.config
         B, T, _ = x.shape
         NH, NKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dt = x.dtype
-        dseed = None  # this layer's dropout seed, an int64 tensor on x's device
-        if train and seed is not None and (cfg.attn_dropout > 0 or cfg.hidden_dropout > 0):
-            dseed = torch.as_tensor(seed, dtype=torch.int64, device=x.device)
+        dropout = cfg.attn_dropout > 0 or cfg.hidden_dropout > 0
+        lseed = None  # this layer's seed, an int64 tensor on x's device (dropout masks, gate noise)
+        if train and seed is not None and (dropout or self._moe):
+            lseed = torch.as_tensor(seed, dtype=torch.int64, device=x.device)
+        dseed = lseed if dropout else None
         h = _norm(x, p["attn_norm_scale"], p.get("attn_norm_bias"), cfg.norm, cfg.norm_eps) if cfg.prenorm else x
         q = h @ p["wq"].to(dt)
         k = h @ p["wk"].to(dt)
@@ -359,21 +459,21 @@ class TransformerLM(nn.Module):
             attn = attn + p["bo"].to(dt)
         if train and cfg.hidden_dropout > 0 and dseed is not None:
             attn = _dropout(attn, cfg.hidden_dropout, dseed, _HIDDEN_SALT)
-        ffn = {name: p[name].to(dt) for name in _FFN_LEAVES if name in p}
         if cfg.parallel_residual:
             h_mlp = h if cfg.shared_parallel_norm else _norm(
                 x, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
-            return x + attn + apply_dense_ffn(ffn, h_mlp, cfg.activation, tp=tp)
+            out, aux = self._mlp(p, h_mlp, lseed, train, tp)
+            return x + attn + out, aux
         if cfg.prenorm:
             x = x + attn
             h = _norm(x, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
         else:
             x = _norm(x + attn, p["attn_norm_scale"], p.get("attn_norm_bias"), cfg.norm, cfg.norm_eps)
             h = x
-        out = apply_dense_ffn(ffn, h, cfg.activation, tp=tp)
+        out, aux = self._mlp(p, h, lseed, train, tp)
         if cfg.prenorm:
-            return x + out
-        return _norm(x + out, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
+            return x + out, aux
+        return _norm(x + out, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps), aux
 
     def _attention(self, q, k, v, positions, dseed, train, attn_impl):
         """``_local_full_attention`` (``transformer.py:282``): the flash
@@ -425,27 +525,42 @@ def _as_int32(h):
     return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
 
 
-def _dropout(x, rate: float, seed: torch.Tensor, salt: int):
-    """Inverted dropout whose mask is a hash of (``seed``, ``salt``, element
-    index): uniform 32-bit draws kept below ``(1 - rate) · 2**32``. ``seed``
-    is an int64 tensor on ``x``'s device, read by no host code, so a CUDA
-    graph replays it from whatever its buffer holds.
+def _hash_bits(shape, seed: torch.Tensor, salt: int, device) -> torch.Tensor:
+    """Uniform int32 draws over ``[-2**31, 2**31)``, a hash of (``seed``,
+    ``salt``, element index) for a tensor of ``shape``. ``seed`` is an
+    int64 tensor on ``device``, read by no host code, so a CUDA graph
+    replays it from whatever its buffer holds.
 
     The index is split into row (every dim but the last) and column: each
     row and each column gets a fully mixed 32-bit key (small int64
     tensors), and the full-size work is their xor mixed by two multiplies
     and a xorshift in int32 (a multiply wraps; the shift is masked to act
-    as a logical one), seven passes over ``x``'s elements. The keep test
-    reads the high bits, which the multiplies mix from every input bit."""
-    n = x.shape[-1]
-    rows = torch.arange(x.numel() // n, dtype=torch.int64, device=x.device)
+    as a logical one), seven passes over the elements. Readers take the
+    high bits, which the multiplies mix from every input bit."""
+    shape = tuple(shape)
+    n = shape[-1]
+    rows = torch.arange(math.prod(shape) // n, dtype=torch.int64, device=device)
     s = seed ^ salt
     rk = _mix32(_mix32((rows & _M32) ^ (s & _M32)) ^ ((s >> 32) & _M32) ^ ((rows >> 32) & _M32))
-    ck = _mix32(torch.arange(n, dtype=torch.int64, device=x.device) * 0x9E3779B9 & _M32 ^ salt)
-    h = _as_int32(rk).view(x.shape[:-1] + (1,)) ^ _as_int32(ck)
+    ck = _mix32(torch.arange(n, dtype=torch.int64, device=device) * 0x9E3779B9 & _M32 ^ salt)
+    h = _as_int32(rk).view(shape[:-1] + (1,)) ^ _as_int32(ck)
     h.mul_(0x7FEB352D)
     h.bitwise_xor_(torch.bitwise_and(h >> 16, 0xFFFF))
     h.mul_(0x346CA68B)
+    return h
+
+
+def _uniform(shape, seed: torch.Tensor, salt: int, device) -> torch.Tensor:
+    """fp32 uniforms in ``(0, 1)`` from the top 24 bits of ``_hash_bits``
+    (exact in fp32: never 0 or 1)."""
+    h = _hash_bits(shape, seed, salt, device)
+    return (torch.bitwise_and(h >> 8, 0xFFFFFF).to(torch.float32) + 0.5) * (2.0 ** -24)
+
+
+def _dropout(x, rate: float, seed: torch.Tensor, salt: int):
+    """Inverted dropout whose mask is ``_hash_bits`` kept below ``(1 -
+    rate) · 2**32``."""
+    h = _hash_bits(x.shape, seed, salt, x.device)
     keep = h < int((1.0 - rate) * 2**32) - 2**31  # h is uniform over [-2**31, 2**31)
     return x * keep / (1.0 - rate)
 
@@ -483,6 +598,29 @@ def _expand_gqa(q, k, v):
         k = torch.repeat_interleave(k, NH // NKV, dim=2)
         v = torch.repeat_interleave(v, NH // NKV, dim=2)
     return k, v
+
+
+def _flat(tree, prefix: str = "") -> Dict:
+    """A nested dict as flat ``path -> leaf``."""
+    out: Dict = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _nest(flat: Dict) -> Dict:
+    """Flat ``path -> leaf`` as a nested dict."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *heads, name = path.split("/")
+        for head in heads:
+            node = node.setdefault(head, {})
+        node[name] = leaf
+    return tree
 
 
 def _split_batch(batch):

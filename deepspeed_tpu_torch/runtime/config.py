@@ -589,7 +589,7 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
     if max(mc.model, mc.sequence, mc.pipe) > 1:
         found.append("mesh model / sequence / pipe axes > 1 (tensor, sequence, pipeline parallel): ROADMAP P1")
     if mc.expert > 1:
-        found.append("mesh.expert > 1 (expert parallel MoE): ROADMAP M1")
+        found.append("mesh.expert > 1 (expert parallel MoE): ROADMAP M1 (second half)")
     if mc.data_outer > 1:
         found.append("mesh.data_outer > 1 (MiCS shard groups): ROADMAP P1")
     if cfg.sparse_gradients_enabled:
@@ -610,10 +610,4 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
             found.append(f"{name}.enabled: ROADMAP X1")
     if cfg.compression_config:
         found.append("compression_training: ROADMAP X1")
-    if cfg.pld_config.enabled:
-        found.append("progressive_layer_drop.enabled: ROADMAP T5")
-    if (cfg.curriculum_learning_config or {}).get("enabled"):
-        found.append("curriculum_learning.enabled: ROADMAP T5")
-    if (cfg.data_efficiency_config or {}).get("enabled"):
-        found.append("data_efficiency.enabled (random-LTD, data sampling): ROADMAP T5")
     return found

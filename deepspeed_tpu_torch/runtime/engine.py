@@ -90,6 +90,24 @@ same ops, so both equal each other bit for bit. The batch-size setters,
 ``utils/tensor_fragment.py`` write in place, so a captured program sees
 them.
 
+The data pipeline (JAX ``engine.py:289-346``, ``:487``, ``:648-690``,
+``:1038-1058``): ``training_data`` builds ``training_dataloader``
+(``deepspeed_io``, ``runtime/dataloader.py``); ``curriculum_learning``
+truncates each training batch's sequence to the scheduler's difficulty at
+``global_steps + 1``; ``progressive_layer_drop`` and
+``data_efficiency.data_routing.random_ltd`` hand the model each
+microbatch's keep flags and token indices (``_model_kwargs``), drawn from
+a ``torch.Generator`` on the engine's device seeded with the microbatch's
+own seed, so a step program and the eager path draw the same ones and a
+resumed run redraws them; the schedules advance at the step boundary.
+Under ``fuse_grad_accum`` the flags and indices are inputs of the captured
+step (its key carries their shapes); the schedules only grow, so a program
+whose shape they left is released with its graph. With
+``compile.multi_step`` the window's look-ahead is a ``PrefetchingLoader``
+whose batches the engine places on the card ahead (``_place_ahead``);
+checkpoints carry the data cursor of the first batch not yet trained
+(``_data_cursor_state``) and the random-LTD schedule.
+
 The unported switches raise ``NotImplementedError`` naming their ROADMAP
 item. The engine runs on ``cuda`` unless the caller names another device,
 and raises without a card.
@@ -185,7 +203,7 @@ class _GlobalLoss(torch.autograd.Function):
 class DeepSpeedEngine:
     def __init__(self, model: TransformerLM, config: Any = None, model_parameters: Any = None,
                  optimizer: Optional[DSOptimizer] = None, lr_scheduler=None, device=None,
-                 attn_impl: Optional[str] = None):
+                 attn_impl: Optional[str] = None, training_data=None, collate_fn=None):
         if not isinstance(model, TransformerLM):
             raise NotImplementedError("deepspeed_tpu_torch trains its own TransformerLM; other modules "
                                       "are not ported yet (ROADMAP X1)")
@@ -196,6 +214,9 @@ class DeepSpeedEngine:
             raise NotImplementedError("not ported to deepspeed_tpu_torch yet: " + "; ".join(unported))
         self.topo = build_topology(self._config.mesh_config)
         self.dp = self.topo.get_data_parallel_world_size()
+        if getattr(model, "_moe", False) and self.dp > 1:
+            raise NotImplementedError("MoE training across ranks (expert-data parallelism) is not ported yet "
+                                      "(ROADMAP M1 (second half))")
         self.dp_rank = comm.get_rank() if self.dp > 1 else 0
         self.module = model
         self.device = resolve_device(device)
@@ -254,6 +275,7 @@ class DeepSpeedEngine:
             "last_save_s": 0.0,  # full persist wall time (staging + commit)
             "last_restore_s": 0.0,
         }
+        self._init_data_pipeline(training_data, collate_fn)
         self._init_step_programs()
         log_dist(
             f"DeepSpeedEngine: zero_stage={self.zero_optimization_stage()} dtype={self.compute_dtype} "
@@ -262,6 +284,171 @@ class DeepSpeedEngine:
             f"params={self.num_parameters():,}",
             ranks=[0],
         )
+
+    # --- the data pipeline (JAX engine.py:289-346, :487, :648-690) ------------
+    def _init_data_pipeline(self, training_data, collate_fn) -> None:
+        """The curriculum scheduler, progressive layer drop, the random-LTD
+        schedule and the engine dataloader, with JAX's refusals."""
+        from deepspeed_tpu_torch.runtime.data_pipeline.curriculum_scheduler import CurriculumScheduler
+        from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import RandomLTDScheduler
+        from deepspeed_tpu_torch.runtime.progressive_layer_drop import ProgressiveLayerDrop
+
+        cfg = self._config
+        cl_cfg = cfg.curriculum_learning_config
+        self.curriculum_scheduler = CurriculumScheduler(cl_cfg) if cl_cfg and cl_cfg.get("enabled", False) else None
+        self.progressive_layer_drop = None
+        if cfg.pld_config.enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(theta=cfg.pld_config.theta, gamma=cfg.pld_config.gamma)
+        self.random_ltd_scheduler = None
+        self._ltd_layer_num = 0
+        de_cfg = cfg.data_efficiency_config or {}
+        routing = de_cfg.get("data_routing", {})
+        ltd_cfg = routing.get("random_ltd", {})
+        if de_cfg.get("enabled") and routing.get("enabled") and ltd_cfg.get("enabled"):
+            sched = ltd_cfg.get("random_ltd_schedule", {})
+            if "min_value" not in sched or "max_value" not in sched:
+                raise ValueError("random_ltd.random_ltd_schedule needs min_value and max_value (kept-token counts)")
+            scfg = sched.get("schedule_config", {})
+            self.random_ltd_scheduler = RandomLTDScheduler(
+                start_token_num=int(sched["min_value"]), max_token_num=int(sched["max_value"]),
+                total_steps=int(scfg.get("require_steps", 1000)), step_size=int(scfg.get("seq_per_step", 16)))
+            self._ltd_layer_num = int(ltd_cfg.get("random_ltd_layer_num", 1))
+            if self._ltd_layer_num < 1:
+                raise ValueError(f"random_ltd_layer_num={self._ltd_layer_num} must be >= 1 (0 would silently disable "
+                                 "the feature)")
+            if cfg.pld_config.enabled:
+                raise ValueError("progressive_layer_drop and random_ltd cannot be combined")
+        if self._param_stream is not None and (self.progressive_layer_drop is not None
+                                               or self.random_ltd_scheduler is not None):
+            raise NotImplementedError("progressive_layer_drop / random_ltd are unsupported on the param-offload path "
+                                      "(the layer streamer replays a fixed layer sequence)")
+        self.training_data = training_data
+        self.collate_fn = collate_fn
+        self.training_dataloader = self.deepspeed_io(training_data) if training_data is not None else None
+        self._last_kwargs: Dict[str, Any] = {}  # the model kwargs of the last training microbatch
+
+    def deepspeed_io(self, dataset, batch_size=None, route=None, pin_memory=True, data_sampler=None,  # noqa: ARG002
+                     collate_fn=None, num_local_io_workers=None):
+        """The engine dataloader over ``dataset`` (JAX ``engine.py:761``):
+        global micro batches of ``train_micro_batch_size_per_gpu × dp`` rows
+        as numpy, each rank taking its rows when the engine places them.
+        ``route``, ``pin_memory``, ``data_sampler`` and
+        ``num_local_io_workers`` are accepted and not used, as in JAX (a
+        sampled order is the dataset's: index it with the sampler's
+        stream)."""
+        from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
+
+        return DeepSpeedDataLoader(dataset, batch_size=batch_size or self.train_micro_batch_size_per_gpu() * self.dp,
+                                   collate_fn=collate_fn or self.collate_fn)
+
+    def set_data_post_process_func(self, post_process_func) -> None:
+        """A per-batch transform on the engine dataloader (JAX
+        ``engine.py:648``)."""
+        if self.training_dataloader is None:
+            raise ValueError("set_data_post_process_func needs an engine-owned dataloader: pass training_data to "
+                             "initialize() (a silently dropped hook would train on unprocessed batches)")
+        self.training_dataloader.post_process_func = post_process_func
+
+    def set_custom_curriculum_learning_schedule(self, schedule_func_dict) -> None:
+        """Custom curriculum schedule functions (JAX ``engine.py:659``): a
+        bare callable drives the engine's (seqlen) scheduler; a
+        ``{metric_name: fn}`` dict routes ``seqlen`` / ``default`` to the
+        engine's scheduler and any other metric to the curriculum sampler's."""
+        if callable(schedule_func_dict):
+            if self.curriculum_scheduler is None:
+                raise ValueError("curriculum learning is not enabled")
+            self.curriculum_scheduler.set_custom_get_difficulty(schedule_func_dict)
+            return
+        if not isinstance(schedule_func_dict, dict):
+            raise TypeError(f"expected a callable or a {{metric_name: schedule_fn}} dict, got "
+                            f"{type(schedule_func_dict).__name__}")
+        sampler = getattr(self.training_dataloader, "data_sampler", None)
+        sampler_sched = getattr(sampler, "scheduler", None)
+        for metric, fn in schedule_func_dict.items():
+            if not callable(fn):
+                raise TypeError(f"schedule for metric {metric!r} is not callable")
+            if metric in ("seqlen", "default") and self.curriculum_scheduler is not None:
+                self.curriculum_scheduler.set_custom_get_difficulty(fn)
+            elif sampler_sched is not None:
+                sampler_sched.set_custom_get_difficulty(fn)
+            elif self.curriculum_scheduler is not None:
+                self.curriculum_scheduler.set_custom_get_difficulty(fn)
+            else:
+                raise ValueError(f"no curriculum scheduler to receive metric {metric!r} (enable curriculum_learning "
+                                 "or use a curriculum sampler)")
+
+    def _curriculum(self, batch):
+        """A training batch truncated to the curriculum's difficulty at the
+        coming step (JAX ``engine.py:1866-1868``)."""
+        if self.curriculum_scheduler is None:
+            return batch
+        return _truncate_seq(batch, self.curriculum_scheduler.update_difficulty(self.global_steps + 1))
+
+    def _model_kwargs(self, B: int, T: int, seed: int, host_keep: bool) -> Dict[str, Any]:
+        """One microbatch's ``pld_keep`` / ``ltd_idx`` (JAX ``_model_kwargs``,
+        ``engine.py:1038``): drawn from a generator on the engine's device
+        seeded with the microbatch's seed. PLD keeps layer ``i`` with
+        probability ``1 - (i + 1) / L · (1 - θ)``; ``host_keep`` reads the
+        flags on the host (the eager path skips a dropped layer), else they
+        stay a device tensor (a step program's input). LTD draws its
+        indices only when the kept count is below ``T``."""
+        kwargs: Dict[str, Any] = {}
+        if self.progressive_layer_drop is None and self.random_ltd_scheduler is None:
+            return kwargs
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        if self.progressive_layer_drop is not None:
+            L = self.module.config.num_layers
+            theta = float(self.progressive_layer_drop.get_theta())
+            keep_p = 1.0 - (torch.arange(L, dtype=torch.float32, device=self.device) + 1.0) / L * (1.0 - theta)
+            keep = torch.rand(L, generator=gen, device=self.device) < keep_p
+            kwargs["pld_keep"] = keep.tolist() if host_keep else keep
+        if self.random_ltd_scheduler is not None:
+            from deepspeed_tpu_torch.runtime.data_pipeline.data_routing import sample_layer_token_indices
+
+            kept = min(self.random_ltd_scheduler.current, T)
+            if kept < T:
+                kwargs["ltd_idx"] = sample_layer_token_indices(gen, self._ltd_layer_num, B, T, kept)
+        return kwargs
+
+    def _data_cursor_state(self):
+        """The data cursor a checkpoint carries (JAX ``engine.py:3218``):
+        the look-ahead's snapshot before its first untrained batch when it
+        reads the engine dataloader, else the dataloader's own cursor."""
+        pl = self._active_prefetcher
+        if pl is not None and self.training_dataloader is not None and pl._state_source is self.training_dataloader:
+            return pl.state_dict()
+        if self.training_dataloader is not None and hasattr(self.training_dataloader, "state_dict"):
+            return self.training_dataloader.state_dict()
+        return None
+
+    def _place_ahead(self, batch):
+        """The look-ahead's placement: tokens and labels as int64, on the
+        card through pinned host buffers and ``non_blocking`` copies on a
+        side stream, which the current stream waits for by an event (and
+        whose blocks it records, so the allocator keeps them until it has
+        used them); a CPU engine keeps them on the host."""
+        tokens, labels = _split_batch(batch)
+        host = [None if x is None else _as_long(x) for x in (tokens, labels)]
+        if self.device.type != "cuda":
+            return tuple(host) if labels is not None else host[0]
+        cur = torch.cuda.current_stream(self.device)
+        side = _side_stream(self.device, "h2d")
+        placed = []
+        with torch.cuda.stream(side):
+            for h in host:
+                if h is None:
+                    placed.append(None)
+                    continue
+                h = h if h.device.type != "cpu" or h.is_pinned() else h.pin_memory()
+                placed.append(h.to(self.device, non_blocking=True))
+        done = torch.cuda.Event()
+        done.record(side)
+        cur.wait_event(done)
+        for t in placed:
+            if t is not None:
+                t.record_stream(cur)
+        return tuple(placed) if labels is not None else placed[0]
 
     # --- configuration accessors ------------------------------------------
     def train_batch_size(self) -> int:
@@ -321,7 +508,7 @@ class DeepSpeedEngine:
         self._window_armed = bool(cc.multi_step.enable) and (new_gas == 1 or self._fused_accum_enabled)
         self._window_horizon = int(cc.multi_step.horizon) if self._window_armed else 0
         if armed != self._window_armed:
-            self._loader = self._loader_key = None
+            self._active_prefetcher = self._prefetch_key = None
         log_dist(f"set_train_batch_size: train_batch={train_batch_size} gas={new_gas}", ranks=[0])
 
     def _check_resize_allowed(self) -> None:
@@ -445,7 +632,7 @@ class DeepSpeedEngine:
         tokens = tokens.to(self.device)
         labels = labels.to(self.device)
         loss = self.module.apply(unflatten_tree(params), (tokens, labels), dropout_seed=seed, train=True,
-                                 attn_impl=self.attn_impl)
+                                 attn_impl=self.attn_impl, **self._last_kwargs)
         (loss.float() * self._last_fwd_scale).backward()
         return tensors_to_jax_tree({k: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
                                     for k, p in params.items()})
@@ -550,13 +737,17 @@ class DeepSpeedEngine:
         self._master = {k: t if self._mdim[k] is None else shard(t, self._mdim[k], r, W).clone()
                         for k, t in full.items()}
         self._params = {}
+        keep = self.module.keep_fp32_params(unflatten_tree(self._shapes)) \
+            if hasattr(self.module, "keep_fp32_params") else None
+        keep32 = {k for k, v in flatten_tree(keep).items() if v} if keep is not None else set()
         for k, t in full.items():
-            if not self.mixed_precision and self._pdim[k] == self._mdim[k]:
+            dt = torch.float32 if k in keep32 else self.compute_dtype  # an MoE router stays fp32 (JAX keep_fp32)
+            if (dt == torch.float32) and self._pdim[k] == self._mdim[k]:
                 self._params[k] = self._master[k].requires_grad_(True)
             elif self._pdim[k] is None:
-                self._params[k] = t.to(self.compute_dtype).requires_grad_(True)
+                self._params[k] = t.to(dt).requires_grad_(True)
             else:
-                self._params[k] = shard(t, self._pdim[k], r, W).to(self.compute_dtype).clone().requires_grad_(True)
+                self._params[k] = shard(t, self._pdim[k], r, W).to(dt).clone().requires_grad_(True)
         self._param_tree = unflatten_tree(self._params)
         # the offload paths keep the moments on the host
         self._opt_state = None if self._offload_enabled() else self.optimizer.init_state(self._master)
@@ -926,6 +1117,8 @@ class DeepSpeedEngine:
                 "forward() called with a multi-step window mid-flight: "
                 f"{len(self._window_stash)} computed step(s) are uncommitted; drive them through "
                 "train_batch(data_iter) first")
+        if self._training_mode:
+            batch = self._curriculum(batch)
         tokens, labels, share = self._place(batch)
         if self._param_stream is not None:
             return self._stream_forward(tokens, labels, share)
@@ -952,15 +1145,17 @@ class DeepSpeedEngine:
                            "single-dispatch fused step only engages through train_batch() — falling back to the "
                            "unfused per-microbatch programs")
         seed = int(self._dropout_rng.integers(0, 2**62))
+        kwargs = self._model_kwargs(tokens.shape[0], tokens.shape[1], seed, host_keep=True)
         tree, stream = self._model_tree(True)
         loss = self.module.apply(tree, model_batch, dropout_seed=seed, train=True, attn_impl=self.attn_impl,
-                                 **stream)
+                                 **stream, **kwargs)
         if self.dp > 1:
             # back-propagate this rank's token sum over the global count times dp (its mean when every
             # rank holds as many tokens: a factor of exactly 1); report the global mean
             value = comm.all_reduce(loss.detach().float() * share)
             loss = _GlobalLoss.apply(loss * (share * self.dp).to(loss.dtype), value.to(loss.dtype))
         self._last_batch = (tokens, labels, seed)
+        self._last_kwargs = kwargs
         self._last_fwd_scale = self._scale_state.scale.clone()
         self._in_forward = True
         return loss
@@ -1189,6 +1384,10 @@ class DeepSpeedEngine:
         ``step`` once the microbatch is counted)."""
         chaos.point("train.mid_step")
         self.global_steps += 1
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        if self.random_ltd_scheduler is not None:
+            self.random_ltd_scheduler.update(self.global_steps)
         if overflow:
             self.skipped_steps += 1
             log_dist(f"[deepspeed_tpu_torch] OVERFLOW! skipping step, new loss scale: {self.loss_scale}",
@@ -1233,6 +1432,8 @@ class DeepSpeedEngine:
             micro = [next(src) for _ in range(gas)]
         else:
             raise ValueError("train_batch needs data_iter or batch")
+        if self._training_mode:
+            micro = [self._curriculum(b) for b in micro]
         fused = (self._fused_accum_enabled and self._training_mode and not self._in_forward
                  and self.micro_steps % gas == 0)
         if fused and self.dp == 1:
@@ -1307,8 +1508,8 @@ class DeepSpeedEngine:
                 "profiler": 0,  # the flops-profiler step (not ported: never)
             },
         }
-        self._loader: Optional[_WindowLoader] = None
-        self._loader_key = None
+        self._active_prefetcher = None  # the window's PrefetchingLoader over the live data iterator
+        self._prefetch_key = None
 
     def _validate_multi_step(self) -> None:
         """JAX ``_validate_multi_step`` (``engine.py:2083``), the checks that
@@ -1330,20 +1531,22 @@ class DeepSpeedEngine:
             raise ValueError(f"{what} needs an optimizer whose step runs on device scalars (FusedAdam, Adam, "
                              "AdamW, Adagrad); a client optimizer's host apply cannot run inside one step program")
 
-    def _step_body(self, tokens, labels, seeds, lr):
+    def _step_body(self, tokens, labels, seeds, lr, routing=None):
         """One whole optimizer step on device state (JAX ``full_step_core``,
         ``engine.py:1317-1395``): forward, scaled backward and accumulation
         per microbatch of ``tokens``/``labels`` ``[gas, b, T]``, then the
-        update. The same ops as ``forward``/``backward``/``step``, so the
-        fused programs equal the sequential run. Returns ``(mean loss,
-        grad_norm, overflow, the loss scale the step used)`` as device
-        scalars."""
+        update. ``routing`` holds the microbatches' stacked ``pld_keep``
+        ``[gas, L]`` or ``ltd_idx`` ``[gas, n, b, kept]``. The same ops as
+        ``forward``/``backward``/``step``, so the fused programs equal the
+        sequential run. Returns ``(mean loss, grad_norm, overflow, the loss
+        scale the step used)`` as device scalars."""
         pre_scale = self._scale_state.scale.clone()
         losses = []
         for g in range(tokens.shape[0]):
             seed = seeds[g] if self._has_dropout else None
+            kwargs = {k: v[g] for k, v in (routing or {}).items()}
             loss = self.module.apply(self._param_tree, (tokens[g], labels[g]), dropout_seed=seed, train=True,
-                                     attn_impl=self.attn_impl)
+                                     attn_impl=self.attn_impl, **kwargs)
             self._backward_core(loss)
             losses.append(loss.detach())
         loss = torch.stack(losses).float().mean()
@@ -1352,8 +1555,10 @@ class DeepSpeedEngine:
 
     @property
     def _has_dropout(self) -> bool:
+        """The step's seeds reach the model: dropout masks, or an MoE
+        model's gate noise."""
         c = self.module.config
-        return c.attn_dropout > 0 or c.hidden_dropout > 0
+        return c.attn_dropout > 0 or c.hidden_dropout > 0 or getattr(self.module, "_moe", False)
 
     def _stack_micro(self, micro) -> Dict[str, torch.Tensor]:
         """The step's microbatches as host or device int64 ``[n, b, T]``
@@ -1367,8 +1572,14 @@ class DeepSpeedEngine:
                                  "or a 2-tuple)")
             toks.append(_as_long(t))
             labs.append(_as_long(lab))
-        seeds = torch.tensor([int(self._dropout_rng.integers(0, 2**62)) for _ in micro], dtype=torch.int64)
-        return {"tokens": torch.stack(toks), "labels": torch.stack(labs), "seeds": seeds}
+        seeds = [int(self._dropout_rng.integers(0, 2**62)) for _ in micro]
+        data = {"tokens": torch.stack(toks), "labels": torch.stack(labs),
+                "seeds": torch.tensor(seeds, dtype=torch.int64)}
+        b, T = data["tokens"].shape[1:]
+        per_micro = [self._model_kwargs(b, T, sd, host_keep=False) for sd in seeds]
+        for k in per_micro[0]:
+            data[k] = torch.stack([kw[k] for kw in per_micro])
+        return data
 
     def _program(self, key, inputs: Dict[str, torch.Tensor], outputs: Dict[str, tuple], body) -> "_StepProgram":
         """Run the step program ``key`` once on ``inputs`` (host or device
@@ -1380,6 +1591,14 @@ class DeepSpeedEngine:
         raises."""
         prog = self._graphs.get(key)
         if prog is None:
+            if self.curriculum_scheduler is not None or self.random_ltd_scheduler is not None:
+                # the schedules only grow: a program whose shape they left never replays again
+                left = [k for k in self._graphs if k[0] == key[0]]
+                for k in left:
+                    self._graphs.pop(k).release()
+                if left and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                    torch.cuda.empty_cache()
             prog = self._graphs[key] = _StepProgram(inputs, outputs, self.device)
         prog.load(inputs)
         self._dispatches += 1
@@ -1387,7 +1606,7 @@ class DeepSpeedEngine:
             body(prog)
             self._graph_counts["uncaptured"] += 1
         elif prog.runs == 0:
-            side = _warmup_stream(self.device)
+            side = _side_stream(self.device, "warmup")
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 body(prog)
@@ -1448,11 +1667,14 @@ class DeepSpeedEngine:
         data = self._stack_micro(micro)
         data["lr"] = torch.tensor([self.optimizer.param_groups[0]["lr"]], dtype=torch.float32)
         tokens = data["tokens"]
-        prog = self._program(("fused", tuple(tokens.shape)), data,
+        routing = {k: data[k] for k in _ROUTING if k in data}
+        key = ("fused", tuple(tokens.shape)) + tuple((k, tuple(v.shape)) for k, v in routing.items())
+        prog = self._program(key, data,
                              {"loss": ((), torch.float32), "norm": ((), torch.float32),
                               "overflow": ((), torch.bool), "scale": ((), torch.float32)}, self._fused_body)
         loss, self._last_grad_norm, overflow = prog.out["loss"], prog.out["norm"], prog.out["overflow"]
         self._last_batch = (tokens[-1], data["labels"][-1], int(data["seeds"][-1]))
+        self._last_kwargs = {k: v[-1] for k, v in routing.items()}
         self._last_fwd_scale = prog.out["scale"].clone()
         self._last_fused = True
         self.micro_steps += gas
@@ -1462,29 +1684,44 @@ class DeepSpeedEngine:
 
     def _fused_body(self, prog: "_StepProgram") -> None:
         i, o = prog.inp, prog.out
-        loss, norm, overflow, scale = self._step_body(i["tokens"], i["labels"], i["seeds"], i["lr"][0])
+        loss, norm, overflow, scale = self._step_body(i["tokens"], i["labels"], i["seeds"], i["lr"][0],
+                                                      {k: i[k] for k in _ROUTING if k in i})
         o["loss"].copy_(loss)
         o["norm"].copy_(norm)
         o["overflow"].copy_(overflow)
         o["scale"].copy_(scale)
 
     # --- multi-step windows (JAX engine.py:2867-3205) ---------------------------------
-    def _window_loader(self, data_iter) -> "_WindowLoader":
-        """The look-ahead wrapper of the live ``data_iter`` (JAX's
-        ``PrefetchingLoader``, cached by iterator identity): a window checks
-        that a whole horizon of batches exists before it forms, and batches
-        it looked at are handed to the sequential path if it does not."""
-        if self._loader is not None and self._loader_key == id(data_iter):
-            return self._loader
-        if self._loader is not None and data_iter is not self._loader and self._loader.buffered():
-            logger.warning(f"multi_step loader: a new data iterator replaces one with {self._loader.buffered()} "
-                           "staged-but-untrained batch(es); those samples are dropped. Drive epochs through one "
-                           "continuous iterator")
-        if isinstance(data_iter, _WindowLoader):
-            self._loader, self._loader_key = data_iter, id(data_iter)
+    def _window_loader(self, data_iter):
+        """The window's look-ahead over the live ``data_iter`` (JAX
+        ``engine.py:2869-2916``): a ``PrefetchingLoader``, cached by iterator
+        identity, keeping ``gas × horizon`` batches placed on the card ahead
+        (``_place_ahead``; none with ``multi_step.prefetch`` off), whose
+        cursor snapshots ``training_dataloader`` before each pull, so a
+        checkpoint cut while batches wait resumes on them. A window checks
+        that a whole horizon exists before it forms; batches it looked at go
+        to the sequential path if it does not."""
+        from deepspeed_tpu_torch.runtime.dataloader import PrefetchingLoader
+
+        if self._active_prefetcher is not None and self._prefetch_key == id(data_iter):
+            return self._active_prefetcher
+        if (self._active_prefetcher is not None and data_iter is not self._active_prefetcher
+                and self._active_prefetcher.buffered()):
+            logger.warning(f"multi_step prefetcher: a new data iterator replaces one with "
+                           f"{self._active_prefetcher.buffered()} staged-but-untrained batch(es); those samples "
+                           "are dropped. Drive epochs through one continuous iterator (e.g. a RepeatingLoader) or "
+                           "set compile.multi_step.prefetch=false")
+        if isinstance(data_iter, PrefetchingLoader):
+            self._active_prefetcher, self._prefetch_key = data_iter, id(data_iter)
             return data_iter
-        self._loader, self._loader_key = _WindowLoader(data_iter), id(data_iter)
-        return self._loader
+        depth = self.gradient_accumulation_steps() * self._window_horizon \
+            if self._config.compile_config.multi_step.prefetch else 0
+        source = self.training_dataloader if self.training_dataloader is not None and hasattr(
+            self.training_dataloader, "state_dict") else None
+        self._active_prefetcher = PrefetchingLoader(data_iter, place_fn=self._place_ahead, depth=depth,
+                                                    state_source=source)
+        self._prefetch_key = id(data_iter)
+        return self._active_prefetcher
 
     def _window_break(self, reason: str):
         self._window_metrics["window_break_reasons"][reason] += 1
@@ -1703,17 +1940,18 @@ class DeepSpeedEngine:
                             "good_steps": torch.tensor(int(s.good_steps)),
                             "hysteresis": torch.tensor(int(s.hysteresis))},
             "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler is not None else None,
-            "random_ltd": None,
+            "random_ltd": self.random_ltd_scheduler.state_dict() if self.random_ltd_scheduler is not None else None,
             "moq": None,
             "global_steps": self.global_steps,
             "global_samples": self.global_samples,
             "micro_steps": self.micro_steps,
             "skipped_steps": self.skipped_steps,
-            # exact-resume replay state: the dropout generator the next
-            # microbatch draws its seed from (JAX's PRNG key), no data cursor
-            # (the port has no engine dataloader), the one-rank mesh
+            # exact-resume replay state: the generator the next microbatch
+            # draws its seed from (JAX's PRNG key; the dropout masks, gate
+            # noise, PLD flags and LTD indices all derive from that seed),
+            # the data cursor of the first untrained batch, the mesh
             "rng": self._dropout_rng.bit_generator.state,
-            "data_cursor": None,
+            "data_cursor": self._data_cursor_state(),
             "mesh": self._mesh_shape(),
             "ds_config": self._config._param_dict,
             "ds_version": __version__,
@@ -1932,19 +2170,24 @@ class DeepSpeedEngine:
                 t.fill_(v)
         if load_lr_scheduler_states and self.lr_scheduler is not None and state.get("lr_scheduler"):
             self.lr_scheduler.load_state_dict(state["lr_scheduler"])
+        if self.random_ltd_scheduler is not None and state.get("random_ltd"):
+            self.random_ltd_scheduler.load_state_dict(state["random_ltd"])
         if not load_module_only:
             self.global_steps = state.get("global_steps", 0)
             self.global_samples = state.get("global_samples", 0)
             self.micro_steps = state.get("micro_steps", 0)
             self.skipped_steps = state.get("skipped_steps", 0)
             self._restore_replay_state(state)
+            if self.progressive_layer_drop is not None:
+                # theta is a function of global_steps: the first resumed step drops layers as the uninterrupted run
+                self.progressive_layer_drop.update_state(self.global_steps)
         with torch.no_grad():  # a loaded state starts at an accumulation boundary
             for g in self._grad_acc.values():
                 g.zero_()
         self._in_forward = False
         # the drains and the drained log belong to the abandoned timeline: the resumed run re-drains its steps
         # (JAX engine.py:3620-3635); the look-ahead loader held batches of the old cursor
-        self._loader = self._loader_key = None
+        self._active_prefetcher = self._prefetch_key = None
         self._pending_drains.clear()
         self._drained_log.clear()
         self._drained_dropped = 0
@@ -1991,14 +2234,18 @@ class DeepSpeedEngine:
                 p.copy_(shard(module[k], self._pdim[k], r, W))
 
     def _restore_replay_state(self, state: Dict) -> None:
-        """The dropout generator the next microbatch draws from (JAX's PRNG
-        key); the port has no data cursor to restore."""
+        """The generator the next microbatch draws its seed from (JAX's PRNG
+        key) and the engine dataloader's cursor (JAX ``engine.py:3600-3630``;
+        the caller drops the live look-ahead)."""
         rng = state.get("rng")
         if isinstance(rng, dict):
             self._dropout_rng.bit_generator.state = rng
         else:
             logger.warning("checkpoint carries no dropout generator state: resumed dropout masks will "
                            "diverge from the uninterrupted run")
+        cursor = state.get("data_cursor")
+        if cursor and self.training_dataloader is not None and hasattr(self.training_dataloader, "load_state_dict"):
+            self.training_dataloader.load_state_dict(cursor)
 
     def _validate_checkpoint_state(self, state: Dict, path: str) -> None:
         """Fail fast, with names (JAX ``engine.py:3624-3683``): a checkpoint
@@ -2073,10 +2320,6 @@ class DeepSpeedEngine:
                 np.savez(path, **{k: _npz_array(v) for k, v in sd.items()})
         comm.barrier()
         return True
-
-    # --- not ported yet ----------------------------------------------------------
-    def deepspeed_io(self, *args, **kwargs):  # noqa: ARG002
-        raise NotImplementedError("deepspeed_io / the engine dataloader is not ported yet (ROADMAP T5)")
 
 
 def _opt_state_to_tree(state) -> Dict[str, Any]:
@@ -2185,6 +2428,24 @@ def _validate_multi_step_config(cfg: DeepSpeedConfig) -> None:
                          "pipeline_read/pipeline_write) composes with windows")
 
 
+_ROUTING = ("pld_keep", "ltd_idx")  # the per-microbatch model kwargs a step program takes as inputs
+
+
+def _truncate_seq(batch, seqlen: int):
+    """Every rank >= 2 leaf of the batch cut to ``seqlen`` along dim 1
+    (curriculum; JAX ``engine.py:3876``)."""
+    def leaf(x):
+        if x is not None and np.ndim(x) >= 2 and np.shape(x)[1] > seqlen:
+            return x[:, :seqlen]
+        return x
+
+    if isinstance(batch, dict):
+        return {k: leaf(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(leaf(v) for v in batch)
+    return leaf(batch)
+
+
 def _host_copy(t: torch.Tensor, shape) -> np.ndarray:
     """A host fp32 numpy copy of ``t`` (never a view of live state)."""
     return t.detach().float().cpu().numpy().reshape(shape).copy()
@@ -2208,18 +2469,19 @@ def _pieces(g: torch.Tensor, state: List[torch.Tensor], chunked: bool):
         yield [t[start:start + _UPDATE_CHUNK] for t in flat]
 
 
-_WARMUP_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+_SIDE_STREAMS: Dict[tuple, "torch.cuda.Stream"] = {}
 
 
-def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The side stream step programs warm up on, one a device for the
+def _side_stream(device: torch.device, use: str) -> "torch.cuda.Stream":
+    """The side stream of ``use`` ("warmup": step programs' first calls;
+    "h2d": the look-ahead's host-to-device copies), one a device for the
     process: cuBLAS keeps a workspace for every stream it has run on (64 MB
-    on an H100) for the life of the process, so a new stream a warm-up
+    on an H100) for the life of the process, so a new stream each time
     would hold one more each time."""
-    idx = torch.cuda.current_device() if device.index is None else device.index
-    if idx not in _WARMUP_STREAMS:
-        _WARMUP_STREAMS[idx] = torch.cuda.Stream(idx)
-    return _WARMUP_STREAMS[idx]
+    key = (use, torch.cuda.current_device() if device.index is None else device.index)
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(key[1])
+    return _SIDE_STREAMS[key]
 
 
 class _StepProgram:
@@ -2278,35 +2540,6 @@ class _StepProgram:
         self.inp.clear()
         self.out.clear()
         self._stage.clear()
-
-
-class _WindowLoader:
-    """Look-ahead over a data iterator: ``fill(n)`` pulls until ``n``
-    batches wait (or the iterator ends) and says how many do; iteration
-    hands the waiting batches out first."""
-
-    def __init__(self, it):
-        self._it = it
-        self._buf: deque = deque()
-
-    def fill(self, n: int) -> int:
-        while len(self._buf) < n:
-            try:
-                self._buf.append(next(self._it))
-            except StopIteration:
-                break
-        return len(self._buf)
-
-    def buffered(self) -> int:
-        return len(self._buf)
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        if self._buf:
-            return self._buf.popleft()
-        return next(self._it)
 
 
 class _Drain:

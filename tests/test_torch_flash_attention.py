@@ -106,10 +106,12 @@ def test_autograd_matches_pallas(T, causal):
     function). T=200 is not a multiple of the block: JAX pads it, the port
     masks the ragged edge."""
     q, k, v, do = _inputs(T, seed=T)
-    o_ref, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention(a, b, c, causal=causal, block_q=BLK,
-                                                                block_k=BLK, interpret=True),
-                         *(jnp.asarray(x) for x in (q, k, v)))
-    grads_ref = vjp(jnp.asarray(do))
+    def fwd_vjp(a, b, c, d):
+        o, vjp = jax.vjp(lambda a, b, c: jax_fa.flash_attention(a, b, c, causal=causal, block_q=BLK, block_k=BLK,
+                                                                interpret=True), a, b, c)
+        return o, vjp(d)
+
+    o_ref, grads_ref = jax.jit(fwd_vjp)(*(jnp.asarray(x) for x in (q, k, v, do)))
     qt, kt, vt = (_t(x).requires_grad_(True) for x in (q, k, v))
     before = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
     o = fa.flash_attention(qt, kt, vt, causal=causal)

@@ -10,6 +10,7 @@
 from __future__ import annotations
 
 import ast
+import functools
 import os
 
 import jax
@@ -88,7 +89,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "runtime/zero/contiguous_memory_allocator.py", "runtime/zero/offload_states.py",
                    "runtime/zero/host_offload.py", "runtime/zero/param_offload.py",
                    "runtime/activation_checkpointing/__init__.py",
-                   "runtime/activation_checkpointing/checkpointing.py", "runtime/fp16/loss_scaler.py"):
+                   "runtime/activation_checkpointing/checkpointing.py", "runtime/fp16/loss_scaler.py",
+                   "runtime/dataloader.py", "runtime/progressive_layer_drop.py",
+                   "runtime/data_pipeline/curriculum_scheduler.py", "runtime/data_pipeline/data_sampler.py",
+                   "runtime/data_pipeline/data_routing.py", "runtime/data_pipeline/data_sampling/indexed_dataset.py",
+                   "runtime/data_pipeline/data_sampling/data_analyzer.py", "moe/sharded_moe.py", "moe/experts.py",
+                   "moe/layer.py", "moe/utils.py", "models/moe_transformer.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
@@ -114,7 +120,10 @@ def test_init_inference_defaults_to_cuda_and_raises_without_it():
     assert engine.device.type == "cpu"
 
 
+@functools.lru_cache(maxsize=None)
 def _tiny_tree():
+    """The JAX init's tree for TINY as numpy, made once for the module (the
+    cases read it and copy what they keep)."""
     jcfg = jax_model_config.TransformerConfig(**TINY)
     from deepspeed_tpu.models import TransformerLM as JaxLM
 

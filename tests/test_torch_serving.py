@@ -18,6 +18,8 @@ in fp32.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,8 +62,10 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
+@functools.lru_cache(maxsize=None)
 def _models(name):
-    """(jax cfg, port cfg, jax params, numpy tree) for one config."""
+    """(jax cfg, port cfg, jax params, numpy tree) for one config, made once
+    a process (the tests read the trees and copy what they keep)."""
     jcfg = JaxConfig(**CONFIGS[name])
     params = JaxLM(jcfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
     rs = np.random.RandomState(7)

@@ -305,7 +305,7 @@ def test_autograd_matches_jax_grad():
         o = jax_pbs.pallas_block_sparse_attention(q, k, v, layout, BLK, causal=False, interpret=True)
         return jnp.sum(o * jnp.cos(o)), o
 
-    (_, o_ref), g_ref = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
+    (_, o_ref), g_ref = jax.jit(jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True))(
         *(jnp.asarray(x) for x in (q, k, v)))
     tq, tk, tv = (_t(x, grad=True) for x in (q, k, v))
     o = bs.fused_block_sparse_attention(tq, tk, tv, layout, BLK, causal=False)
@@ -439,7 +439,8 @@ def test_bert_sparse_self_attention_matches_jax():
         out = jax_mod(jnp.asarray(hidden), wq, wk, wv)
         return jnp.sum(out * jnp.cos(out)), out
 
-    (_, ref), g_ref = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(*(jnp.asarray(w) for w in ws))
+    (_, ref), g_ref = jax.jit(jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True))(
+        *(jnp.asarray(w) for w in ws))
     tw = [_t(w, grad=True) for w in ws]
     out = ssa.BertSparseSelfAttention(config)(_t(hidden), *tw)
     (out * out.cos()).sum().backward()
