@@ -14,7 +14,8 @@ between dp = 2 and dp = 1; optimizer and parameter offload, and
 ZeRO-Inference; fused gradient accumulation and multi-step windows as
 captured CUDA graphs, GPT-2 2.7B at head_dim 80, the llama, qwen and ALiBi
 training shapes; the data pipeline: curriculum, random-LTD, PLD and a resume
-from the data cursor), MoE on one rank (moe-llama 1b-8e serving and training)
+from the data cursor), MoE on one rank (moe-llama 1b-8e serving and training),
+expert parallelism on two ranks (its training, forward, generate and serving)
 and the block-sparse attention main paths at full width. Phases,
 each printing JSON lines; any failure raises, and the script then exits
 non-zero without the final line:
@@ -74,7 +75,8 @@ non-zero without the final line:
    K5 never. Then beam search (4 beams, 2 prompts of 224 tokens, 32 new):
    K6 = 22 × 32. Every K6 call on the split path;
 8. the bucketed server (``paged_kv.ragged=False``) in bf16 on phase 3's
-   traffic, cold and warm: 32 of 32 finished, K5 = 22 × ``decode_steps``,
+   last 8 requests (one shared prefix; cut from 16 to make room for
+   18a-18d), cold and warm: 16 of 16 finished, K5 = 22 × ``decode_steps``,
    every K5 call on the split path, K4 never;
 9. fp32 (TF32 off) stream identity of the three decode kernels: 4 prompts
    of 224 tokens, 32 new tokens each, through the ragged server (K4), the
@@ -118,26 +120,28 @@ non-zero without the final line:
    traffic with an oracle drafter of phase 9b's single-step streams
    (K = 4), the oracle corrupted at index 2 (no accepted prefix past 2),
    one bucketed pass with the oracle (every third round plain, so K5 runs
-   between verify rounds); then phase 3's traffic through
+   between verify rounds); then phase 3's first 8 requests (cut from 16
+   for 18a-18d) through
    ``init_inference(..., spec_decode={"enable": True})`` (the n-gram
    drafter). Each prints the streams equal to speculation-off (counted,
    not required: bf16 GEMMs round by width), ``spec_rounds``, the
    acceptance, dispatches per token, tok/s and TPOT p50; and the decode
    row vs verify row logit difference in bf16;
 9d. crash and recovery in bf16: a journaled engine
-   (``journal={"enabled": True, "dir": ...}``) on phase 3's traffic killed
+   (``journal={"enabled": True, "dir": ...}``) on phase 3's first 8
+   requests (cut from 16 for 18a-18d) killed
    by ``utils.chaos`` at ``serve.mid_step`` (hit 40), dropped, and a fresh
    engine on the same directory recovers: ``stats["recovered"]`` equals
    the live requests, every request finishes, the counts are exact (the
    killed pass's too); again with windows, killed at ``serve.mid_window``
    (hit 2). Streams equal to phase 3's are counted. Then the journal's
-   cost on the steady traffic (64 new), off, on, on, off, off, on on fresh
-   servers:
+   cost on the steady traffic (64 new), off, on, on, off on fresh
+   servers (two turns cut for 18a-18d):
    tok/s, TPOT p50 and each step's ``journal.sync`` time;
 9e. int8 serving weights (S8): a bf16 engine with
    ``paged_kv={"page_size": 16, "max_slots": 8, "sharded":
-   {"weight_quant_bits": 8}}`` serves phase 3's 16 requests cold then
-   warm: every request finishes and K4 = 22 x ``ragged_steps``, every
+   {"weight_quant_bits": 8}}`` serves phase 3's last 8 requests (one
+   shared prefix; cut from 16 for 18a-18d) cold then warm: every request finishes and K4 = 22 x ``ragged_steps``, every
    other kernel 0. Prints the served tree's bytes (codes, scales and
    exact leaves) beside the bf16 tree's, TTFT/TPOT, the streams equal to
    phase 3's (counted, not required) and the largest logit difference of
@@ -176,8 +180,9 @@ non-zero without the final line:
    kill fired, divergence 0 and K4 exact are required;
 9h. tensor parallelism (S9) on two gloo ranks that share the one card
    (the sharded math and collectives on the device, not a TP speed), on
-   llama-1B's width at 8 of its 22 layers (the depth cut to make room for
-   phases 17a-17e; the references below are made at that depth too). K4,
+   llama-1B's width at 2 of its 22 layers (the depth cut to 8 to make room
+   for phases 17a-17e, to 2 for 18a-18d; the references below are made at
+   that depth too). K4,
    K6 and K1 against their plain versions at a rank's head counts under
    tp = 2 (16 query heads over 2 kv heads, D 64; one launch each, fp32
    within 1e-4 and bf16 within 2e-2). The single-rank fp32 references
@@ -283,7 +288,7 @@ non-zero without the final line:
    (``layers/bk``: softmax ignores a bias shared by every key) is zero up
    to rounding and takes steps of noise: it is held only to Adam's reach
    (2 x lr a step). bf16, stages
-   1-3, 3 steps each: each rank's peak memory and held state beside
+   1-3, 2 steps each (cut from 3 for 18a-18d): each rank's peak memory and held state beside
    ``estimate_zero_memory(n, stage, 2)``; stage 3 must hold 0.45-0.6 of
    stage 1's parameter bytes a rank. K1-K3 = 12 a step on each rank in
    every run, every other kernel 0, bf16 on the tensor cores;
@@ -368,7 +373,7 @@ non-zero without the final line:
    (losses, grad norms, master digest); step ms, MFU, peak and pool memory
    against the reckoned state, idle share;
 16e. ``llama_config("1b")`` at micro 2 x T 2048 and ``qwen2_config("0.5b")``,
-   at their widths and 8 layers each (cut to make room for 17a-17e), remat: kernel vs ``attn_impl="plain"``, fp32 step 1 within 1e-5 and 3
+   at their widths and 4 layers each (cut to 8 for 17a-17e, to 4 for 18a-18d), remat: kernel vs ``attn_impl="plain"``, fp32 step 1 within 1e-5 and 3
    bf16 steps within twice the bf16 rounding of the plain arm; config 1
    with ALiBi (no kernel): the card's fp32 loss against the CPU's within
    1e-5, 3 bf16 steps falling;
@@ -386,16 +391,52 @@ non-zero without the final line:
 17c. config 1 at gas 2 with windows of 2 over the engine dataloader: a
    checkpoint while the window's look-ahead holds batches, resumed in a
    fresh engine, bit for bit the uninterrupted 8 steps;
-17d. ``moe_llama_config("1b-8e", moe_top_k=2)`` at full width and depth
-   (6.15 B parameters): fp32 kernel vs plain streams (no capacity drops;
+17d. ``moe_llama_config("1b-8e", moe_top_k=2)`` at full width and 8 of
+   its 22 layers (2.35 B parameters; the depth cut to make room for
+   18a-18d): fp32 kernel vs plain streams (no capacity drops;
    partings only at a top-2 gap or router margin below 1e-4); bf16 phase
-   3's traffic ragged (K4 = 22 a step) and its first 8 requests bucketed
-   (K5 = 22 a round),
-   windows on steady traffic, ``generate`` (K6 = 22 a token);
+   3's traffic ragged (K4 = 8 a step) and its first 8 requests bucketed
+   (K5 = 8 a round),
+   windows on steady traffic, ``generate`` (K6 = 8 a token);
 17e. the same width at 6 of 22 layers, bf16, ZeRO-1, micro 4 x T 1024,
    gas 2: eager 3 steps, then ``fuse_grad_accum`` 3 steps bit for bit;
    load-balance losses and expert counts; K1-K3 = layers x microbatches;
    fp32 step 1 kernels vs plain within 1e-5;
+18a-18d. expert parallelism on two spawned gloo ranks that share the card
+   (the sharded math and each rank's memory; not an EP speed), every rank
+   started with a process-group timeout and a hard join limit (a hung
+   rank fails the run), ``moe_llama_config("1b-8e", moe_top_k=2)`` at full
+   width (8 experts of 5376, 33.0 M parameters an expert, 4 a rank); the
+   one-rank references are made first in this process:
+18a. 4 layers, ``mesh.expert`` 2, bf16, ZeRO-1, micro 2 x T 1024 a rank at
+   gas 2, capacity factor 4 (E / k: no token drops), no load-balance loss
+   (ep = 2 takes each token shard's, one rank the global batch's: with it
+   the two arms would be different functions), 3 steps against one rank on
+   the same global batch (micro 4): losses within 1e-3 and grad norms
+   within 1e-2 relative, the master past half an Adam step from the
+   one-rank master on at most ``EP_LEAF_SHARE`` of a leaf's elements and
+   ``EP_MASTER_SHARE`` of all (bf16 rule 12d; set from sound runs, and
+   rejecting one expert left without its gradient or the combine's blocks
+   out of order, ``tools/torch_ep_fault_probe.py``); each rank holds 4 of
+   the 8 experts; K1-K3 = 4 x 2 x 3 a rank, all on the tensor cores; peak
+   memory a rank. Then ``moe_quantized_a2a`` (the int8 wire) one step:
+   within 2e-2 of the fp wire and not equal to it; and fp32 (TF32 off,
+   the model's load-balance loss on) step 1 through the kernels and
+   through ``attn_impl="plain"``: the loss equal, the grad norm within
+   1e-6 relative;
+18b. the same at ``mesh.data`` 2 (no expert axis: the global gate over the
+   all-gathered router logits), 2 steps against the one-rank run, the same
+   bounds, K1-K3 = 4 x 2 x 2 a rank;
+18c. ``groups.initialize(ep_size=2)``, then ``init_inference`` in fp32 at
+   8 layers (``EP_DEPTH``; each rank keeps 4 experts) with the eval
+   capacity factor 4 (E / k: no drops, so a token shard's gate and the
+   global one agree): ``engine(tokens)`` on [2, 128], each rank gating its
+   token shard, within 1e-4 of the largest logit of one rank's; greedy
+   ``generate`` of 4 x 224 prompts, 32 new: streams equal to one rank's,
+   K6 = 8 x 32 a rank; bf16 streams parting from one rank's counted;
+18d. the same fp32 engine's ragged ``serve`` of phase 3's first 8
+   requests: streams equal to one rank's, every rank's step fingerprint
+   equal, K4 = 8 x ragged steps a rank, TPOT recorded;
 13. the block-sparse kernels K7 (forward), K8 (dQ) and K9 (dK, dV)
    against their plain versions: the main case at BERT-large widths (B=2,
    16 heads of 64, T=4096, ``FixedSparsityConfig(num_heads=16, block=16)``,
@@ -465,7 +506,9 @@ generate's and phase 12b's ``checkpoint`` launches; K4, K6 and K1 with a
 ``fused`` field: their counters, launches a step and replays on phases
 16b-16e's step programs), a ``data_pipeline`` field (17a's errors, 17b's
 runs' counters and graphs, 17c's verdict) and a ``moe`` field (17e's
-launches); K4, K5 and K6 with a ``moe`` field (17d's launches); the last line is
+launches); K4, K5 and K6 with a ``moe`` field (17d's launches); K1-K3, K4
+and K6 with an ``expert_parallel`` field (each rank's launches in 18a-18b,
+18d and 18c); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -708,6 +751,26 @@ def phase_kernel(dev, flush):
 
 
 # --- phase 3: the serving main path ------------------------------------------
+def _tree_on_card(cfg, seed, dev, dtype):
+    """The tree in the JAX layout as tensors on the card in ``dtype``, with
+    ``init_params``' distributions (normal std 0.02, output projections
+    0.02/sqrt(2L), norm scales 1, biases 0) drawn from a seeded
+    ``torch.Generator`` on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tree = {}
+    for path, shape in param_shapes(cfg).items():
+        name = path.rsplit("/", 1)[-1]
+        if "norm_scale" in name:
+            tree[path] = torch.ones(shape, dtype=dtype, device=dev)
+        elif name.startswith("b") or name.endswith("bias"):
+            tree[path] = torch.zeros(shape, dtype=dtype, device=dev)
+        else:
+            std = 0.02 / np.sqrt(2 * cfg.num_layers) if name in ("wo", "w_out") else 0.02
+            tree[path] = torch.empty(shape, device=dev).normal_(0.0, std, generator=gen).to(dtype)
+    return tree
+
+
 def _weights(cfg, seed):
     """The JAX tree layout as numpy with the distributions of the JAX
     ``TransformerLM.init`` (normal std 0.02, output projections
@@ -1082,11 +1145,16 @@ def phase_generate(cfg, tree, seed):
 
 
 # --- phase 8: the bucketed server -------------------------------------------------
+BUCKETED_REQUESTS = 8  # phase 3's 8 last requests (one shared prefix): cut from 16 to make room for 18a-18d
+CUT_REQUESTS = 8  # of phase 3's 16 that 9c's n-gram run, 9d's kills and 9e's int8 passes serve (cut for 18a-18d)
+
+
 def phase_bucketed(cfg, tree, seed):
     model = TransformerLM(cfg)
     engine = dst.init_inference(model, dtype="bf16", paged_kv={"page_size": 16, "max_slots": 8, "ragged": False})
     engine.load_jax_params(tree)
     prompts, budgets = _requests(seed, cfg.vocab_size)
+    prompts, budgets = prompts[-BUCKETED_REQUESTS:], budgets[-BUCKETED_REQUESTS:]  # they share one prefix
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()  # counts from here are the bucketed serving path's
     passes = []
@@ -1117,8 +1185,8 @@ def phase_bucketed(cfg, tree, seed):
          prefill_chunks=s["prefill_chunks"], dispatches=s["dispatches"], finished=s["finished"],
          preempted=s["preempted"], prefix=s["prefix"], buckets=engine._paged_server.buckets, k5_launches=launches,
          launches=counts, peak_memory_bytes=torch.cuda.max_memory_allocated())
-    if s["finished"] != 32 or passes[1]["prefix_hit_rate"] <= 0:
-        raise AssertionError(f"bucketed: finished {s['finished']} of 32, warm prefix hit rate "
+    if s["finished"] != 2 * BUCKETED_REQUESTS or passes[1]["prefix_hit_rate"] <= 0:
+        raise AssertionError(f"bucketed: finished {s['finished']} of {2 * BUCKETED_REQUESTS}, warm prefix hit rate "
                              f"{passes[1]['prefix_hit_rate']}")
     if launches != cfg.num_layers * s["decode_steps"] or launches == 0 or sum(counts.values()) != launches:
         raise AssertionError(f"K5 launches {launches} != {cfg.num_layers} x decode_steps {s['decode_steps']}, "
@@ -1516,6 +1584,7 @@ def phase_spec(cfg, tree, seed, streams, steady, steady_ref, dev):
             or bucketed["spec_rounds"] == 0 or bucketed["decode_steps"] == 0):
         raise AssertionError(f"spec: {runs}")
     prompts, budgets = _requests(seed, cfg.vocab_size)
+    prompts, budgets = prompts[:CUT_REQUESTS], budgets[:CUT_REQUESTS]
     _zero_counts()
     t0 = time.perf_counter()
     outs = engine.serve(prompts, max_new_tokens=budgets)
@@ -1523,7 +1592,8 @@ def phase_spec(cfg, tree, seed, streams, steady, steady_ref, dev):
     wall = time.perf_counter() - t0
     s = engine.serve_stats()
     counts, want = _counts(), _want_counts(cfg, engine._paged_server, s)
-    rec = dict(identical_to_phase_3=_same(outs, streams["cold"]), requests=len(outs), tokens_per_s=sum(budgets) / wall,
+    rec = dict(identical_to_phase_3=_same(outs, streams["cold"][:CUT_REQUESTS]), requests=len(outs),
+               tokens_per_s=sum(budgets) / wall,
                wall_s=wall, tpot_ms=s["tpot_ms"], **_spec_stats(s), launches=counts)
     emit(phase="spec", run="n-gram (init_inference spec_decode)", traffic="phase 3", dtype="bfloat16", **rec)
     runs["ngram"] = rec
@@ -1643,6 +1713,7 @@ def phase_recovery(cfg, tree, seed, streams):
     request. bf16: streams equal to phase 3's are counted. Then the journal's
     cost on the steady traffic (8 x 64 new), off and on in turns."""
     prompts, budgets = _requests(seed, cfg.vocab_size)
+    prompts, budgets = prompts[:CUT_REQUESTS], budgets[:CUT_REQUESTS]
     recs = {}
     for name, paged, point, hit in (("mid_step", SERVE, "serve.mid_step", 40),
                                     ("mid_window", WINDOWS, "serve.mid_window", 2)):
@@ -1672,7 +1743,8 @@ def phase_recovery(cfg, tree, seed, streams):
             outs = [server.take_result(u) for u in range(len(prompts))]
             counts, want = _counts(), _want_counts(cfg, server, s2)
             rec = dict(killed=killed, recovered=s2["recovered"], finished_after=s2["finished"], wall_s=wall,
-                       identical_to_phase_3=_same(outs, streams["cold"]), ragged_steps=s2["ragged_steps"],
+                       identical_to_phase_3=_same(outs, streams["cold"][:CUT_REQUESTS]),
+                       ragged_steps=s2["ragged_steps"],
                        window_steps=s2["window_steps"], window_captures=s2["window_captures"], launches=counts,
                        segments=len(RequestJournal.segments(jdir)))
             emit(phase="recovery", point=point, hit=hit, dtype="bfloat16", **rec)
@@ -1692,7 +1764,7 @@ def phase_recovery(cfg, tree, seed, streams):
 
 def _journal_cost(cfg, tree, seed):
     """The steady traffic (8 x 64 new) on fresh single-step servers, the
-    journal off and on in turns (off, on, on, off, off, on): tok/s, TPOT
+    journal off and on in turns (off, on, on, off): tok/s, TPOT
     p50 and, journal on, each step's ``journal.sync`` (write, flush,
     fsync)."""
     model = TransformerLM(cfg)
@@ -1712,7 +1784,7 @@ def _journal_cost(cfg, tree, seed):
     runs, ref = [], None
     RequestJournal.sync = timed
     try:
-        for on in (False, True, True, False, False, True):
+        for on in (False, True, True, False):
             with tempfile.TemporaryDirectory(prefix="journal_") as jdir:
                 server = PagedServer(cfg, params, dtype=torch.bfloat16, prefix_cache=True,
                                      journal=RequestJournal(jdir) if on else None, **SERVE)
@@ -1785,6 +1857,7 @@ def phase_int8(cfg, tree, seed, streams, steady, steady_ref, dev):
     if not isinstance(qparams["layers"]["wq"], QuantizedTensor) or isinstance(params["layers"]["wq"], QuantizedTensor):
         raise AssertionError("int8: the server's tree is not quantized, or the engine's tree is")
     prompts, budgets = _requests(seed, cfg.vocab_size)
+    prompts, budgets = prompts[-CUT_REQUESTS:], budgets[-CUT_REQUESTS:]  # one shared prefix: warm hits
     _zero_counts()
     passes = {}
     for name in ("cold", "warm"):
@@ -1797,7 +1870,8 @@ def phase_int8(cfg, tree, seed, streams, steady, steady_ref, dev):
             if o is None or o.shape != (p.size + b,) or not (o[: p.size] == p).all():
                 raise AssertionError(f"int8 {name}: a request is missing or malformed")
         s = server.serve_stats()
-        passes[name] = dict(wall_s=wall, tokens_per_s=sum(budgets) / wall, identical_to_phase_3=_same(outs, streams[name]),
+        passes[name] = dict(wall_s=wall, tokens_per_s=sum(budgets) / wall,
+                            identical_to_phase_3=_same(outs, streams[name][-CUT_REQUESTS:]),
                             ragged_steps=s["ragged_steps"] - before["ragged_steps"])
         emit(phase="int8", pass_=name, requests=len(outs), generated_tokens=sum(budgets), **passes[name])
     s = server.serve_stats()
@@ -2159,7 +2233,7 @@ TP_LIMIT_S = 480  # the parent's hard limit on the ranks
 TP_PG_TIMEOUT_S = 300
 TP_NEW = 16  # new tokens a request in the fp32 tp runs (a tp step costs ~90 gloo collectives on the shared card)
 TP_REQUESTS = 8  # phase 3's requests the bf16 tp server serves (cut from 16 to make room for 16a-16e)
-TP_DEPTH = 8  # llama-1B's layers the tp phases run (its width; the depth cut to make room for 17a-17e)
+TP_DEPTH = 2  # llama-1B's layers the tp phases run (its width; the depth cut to 8 for 17a-17e, to 2 for 18a-18d)
 
 
 def _save_tree(tree, path):
@@ -3077,6 +3151,7 @@ def phase_train_checkpoint(seed, dev):
 # --- phases 12c-12e: data parallelism with ZeRO (T2), two gloo ranks sharing the one card ----------
 ZERO_DP = 2
 ZERO_STEPS = 3
+ZERO_BF16_STEPS = 2  # the bf16 stages' steps (state and peak memory a rank; cut from 3 for 18a-18d)
 ZERO_CONTINUE = 2  # steps after the dp = 2 save, on the ranks and at dp = 1
 ZERO_LIMIT_S = 420
 ZERO_TOL = 1e-5
@@ -3197,7 +3272,7 @@ def _zero_rank_work(rank, seed, ref_path, ckpt_dir):
         torch.cuda.reset_peak_memory_stats()
         engine = dst.initialize(model=TransformerLM(cfg16), config=_zero_config(stage, True), model_parameters=tree)[0]
         n = engine.num_parameters()
-        rec, walls, counts = _zero_steps(engine, batch, ZERO_STEPS, f"bf16 stage {stage}")
+        rec, walls, counts = _zero_steps(engine, batch, ZERO_BF16_STEPS, f"bf16 stage {stage}")
         out["bf16"][stage] = dict(rec=rec, step_s=walls, launches=counts, variants=_variants(),
                                   peak_memory_bytes=torch.cuda.max_memory_allocated(), store=_store_bytes(engine),
                                   estimate=estimate_zero_memory(n, stage, ZERO_DP, 2))
@@ -4506,23 +4581,9 @@ def phase_flash_d80(dev, flush):
 
 
 def _weights_on_card(cfg, seed, dev):
-    """``init_params``'s distributions (normal std 0.02, output projections
-    0.02/sqrt(2L), norm scales 1, biases 0) drawn on the card from a
-    ``torch.Generator`` seeded ``seed``, returned as host numpy: the large
-    models' trees in seconds rather than a minute of numpy draws."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    tree = {}
-    for path, shape in param_shapes(cfg).items():
-        name = path.rsplit("/", 1)[-1]
-        if "norm_scale" in name:
-            tree[path] = np.ones(shape, np.float32)
-        elif name.startswith("b") or name.endswith("bias"):
-            tree[path] = np.zeros(shape, np.float32)
-        else:
-            std = 0.02 / np.sqrt(2 * cfg.num_layers) if name in ("wo", "w_out") else 0.02
-            tree[path] = torch.empty(shape, device=dev).normal_(0.0, std, generator=gen).cpu().numpy()
-    return tree
+    """``_tree_on_card``'s fp32 tree as host numpy: the large models' trees
+    in seconds rather than a minute of numpy draws."""
+    return {k: v.cpu().numpy() for k, v in _tree_on_card(cfg, seed, dev, torch.float32).items()}
 
 
 def _step_data(vocab, T, n, micro, seed, dev):
@@ -4883,7 +4944,7 @@ def _shape_run(cfg, tree, config, batch_data, steps, attn_impl=None):
     return [x[0] for x in rec], counts
 
 
-SHAPES_DEPTH = 8  # 16e's layers: the models' widths, the depth cut to make room for 17a-17e
+SHAPES_DEPTH = 4  # 16e's layers: the models' widths, the depth cut to 8 for 17a-17e, to 4 for 18a-18d
 
 
 def phase_train_shapes(seed, dev):
@@ -5003,6 +5064,7 @@ MOE_TRAIN = {"train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps":
              "optimizer": {"type": "adam", "params": {"lr": 1e-4, "weight_decay": 0.01}}}
 MOE_STEPS = 3
 MOE_BUCKETED_REQUESTS = 8  # the first 8 of phase 3's 16: the bucketed oracle's host loop is the slow one
+MOE_SERVE_DEPTH = 8  # 17d's layers of 22: its width, the depth cut to make room for 18a-18d
 
 
 def phase_t5_kernels(dev):
@@ -5254,25 +5316,6 @@ def phase_t5_resume(seed, dev, tree):
     return rec
 
 
-def _moe_tree_on_card(cfg, seed, dev, dtype):
-    """The MoE tree in the JAX layout as tensors on the card in ``dtype``,
-    with ``init_params``' distributions drawn from a seeded
-    ``torch.Generator`` (six billion numpy normals would take minutes)."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    tree = {}
-    for path, shape in param_shapes(cfg).items():
-        name = path.rsplit("/", 1)[-1]
-        if "norm_scale" in name:
-            tree[path] = torch.ones(shape, dtype=dtype, device=dev)
-        elif name.startswith("b") or name.endswith("bias"):
-            tree[path] = torch.zeros(shape, dtype=dtype, device=dev)
-        else:
-            std = 0.02 / np.sqrt(2 * cfg.num_layers) if name in ("wo", "w_out") else 0.02
-            tree[path] = torch.empty(shape, device=dev).normal_(0.0, std, generator=gen).to(dtype)
-    return tree
-
-
 def _moe_gaps(cfg, tree_t, context, dev):
     """The plain path's margins at the position after ``context`` (one
     prefill row over a fresh pool): the final logits' top-2 gap, and the
@@ -5317,7 +5360,7 @@ def _moe_partings(cfg, params, outs, ref, dev):
 
 def _moe_model(cfg, seed, dev, dtype):
     model = MoETransformerLM(cfg)
-    tree = _moe_tree_on_card(cfg, seed, dev, dtype)
+    tree = _tree_on_card(cfg, seed, dev, dtype)
     load_jax_params(model, tree, device=dev, dtype=dtype)
     del tree
     _free()
@@ -5339,8 +5382,8 @@ def phase_moe_serve(seed, dev):
     steps, and ``generate`` (K6 = 22 a token);
     tok/s and TPOT. ``generate``: 4 prompts of 224, 32 new tokens (a
     256-position cache, JAX's condition for the decode kernel)."""
-    cfg32 = moe_llama_config("1b-8e", dtype="float32", moe_drop_tokens=False, **MOE_CFG)
-    cfg = moe_llama_config("1b-8e", **MOE_CFG)
+    cfg32 = moe_llama_config("1b-8e", num_layers=MOE_SERVE_DEPTH, dtype="float32", moe_drop_tokens=False, **MOE_CFG)
+    cfg = moe_llama_config("1b-8e", num_layers=MOE_SERVE_DEPTH, **MOE_CFG)
     out = {}
     t0 = time.perf_counter()
     model = _moe_model(cfg32, seed, dev, torch.float32)
@@ -5471,7 +5514,7 @@ def phase_moe_train(seed, dev):
     arms = {}
     for fused in (False, True):
         _free()
-        tree = _moe_tree_on_card(cfg, seed + 3, dev, torch.float32)
+        tree = _tree_on_card(cfg, seed + 3, dev, torch.float32)
         engine = dst.initialize(model=MoETransformerLM(cfg), config=dict(MOE_TRAIN, compile={"fuse_grad_accum": fused}),
                                 model_parameters=tree)[0]
         del tree
@@ -5495,7 +5538,7 @@ def phase_moe_train(seed, dev):
     config32 = {k: v for k, v in MOE_TRAIN.items() if k != "bf16"}
     for impl in (None, "plain"):
         _free()
-        tree = _moe_tree_on_card(cfg32, seed + 3, dev, torch.float32)
+        tree = _tree_on_card(cfg32, seed + 3, dev, torch.float32)
         engine = dst.initialize(model=MoETransformerLM(cfg32), config=config32, model_parameters=tree,
                                 attn_impl=impl)[0]
         del tree
@@ -5531,6 +5574,372 @@ def phase_moe_train(seed, dev):
     return rec
 
 
+# --- phases 18a-18d: expert parallelism (M1's second half), two gloo ranks sharing the one card ---------
+EP = 2
+EP_LAYERS = 4  # of moe-llama 1b-8e's 22 in training (its width: 8 experts of 5376 a layer, 4 a rank)
+EP_DEPTH = 8  # of its 22 in inference
+EP_CF = 4.0  # the training capacity factor E / k: an expert's queue holds every token of a shard (no drops)
+EP_TRAIN = dict(MOE_TRAIN, train_micro_batch_size_per_gpu=2)  # a rank's micro 2; one rank takes micro 4
+EP_ROWS = 4  # the global micro batch: every rank passes it and takes its 2 rows
+EP_STEPS, EP_DATA_STEPS, EP_INT8_STEPS = 3, 2, 1
+EP_NEW = 32  # 18c's greedy tokens (224 + 32: a 256-position cache, JAX's condition for K6)
+EP_REQUESTS = 8  # phase 3's first requests that 18d serves
+EP_LIMIT_S = 720
+EP_LOSS_TOL, EP_NORM_TOL = 1e-3, 1e-2  # bf16, two ranks against one: GEMMs over 2 x 1024 rows against 4 x 1024
+EP_STEP_TOL = 0.5  # of one Adam step (lr): the master difference most elements must stay within
+EP_LEAF_SHARE, EP_MASTER_SHARE = 0.12, 0.09  # of a leaf's / all elements past EP_STEP_TOL x lr: sound runs read
+# 0.088 / 0.061, one expert left without its gradient 0.186 / 0.164 (tools/torch_ep_fault_probe.py)
+EP_INT8_TOL = 2e-2  # the int8 wire's losses and norms against the fp wire's, relative
+# 18a-18b and their one-rank run train without the load-balance loss: ep = 2 takes each token shard's (JAX's
+# fast path), one rank the global batch's, so with it the two would be different functions
+EP_AUX = 0.0
+MOE_AUX = moe_llama_config("1b-8e").moe_aux_loss_coef  # the model's own: 18a's fp32 arm keeps it
+EP_INFER = dict(MOE_CFG, eval_capacity_factor=4.0)  # 18c-18d: E / k, no drops, so a token shard's gate is the global
+EP_FWD_TOL = 1e-4  # 18c's fp32 logits against one rank's, relative to their largest magnitude
+
+
+def _ep_train_cfg(**kw):
+    return moe_llama_config("1b-8e", num_layers=EP_LAYERS, max_seq_len=1024, remat=False, capacity_factor=EP_CF,
+                            **{**MOE_CFG, "moe_aux_loss_coef": EP_AUX, **kw})
+
+
+def _ep_engine(cfg, seed, dev, config, attn_impl=None):
+    tree = _tree_on_card(cfg, seed + 3, dev, torch.float32)
+    engine = dst.initialize(model=MoETransformerLM(cfg), config=config, model_parameters=tree, attn_impl=attn_impl)[0]
+    del tree
+    _free()
+    return engine
+
+
+def _ep_gaps(engine, ref_path):
+    """Per leaf of this rank's master slices (its experts, its ZeRO blocks):
+    elements, largest difference from the one-rank master's same slice and
+    the share past ``EP_STEP_TOL`` Adam steps, on the card."""
+    ref = _load_tree(ref_path)
+    tol = EP_STEP_TOL * MOE_TRAIN["optimizer"]["params"]["lr"]
+    out = {}
+    for k, m in engine._master.items():
+        whole = torch.from_numpy(np.array(ref[k])).to(m.device)
+        d = (m - engine._own(k, whole, engine._mdim[k])).abs()
+        out[k] = dict(n=d.numel(), max_abs=float(d.max()), share_past_tol=float((d > tol).float().mean()))
+        del whole, d
+    return out
+
+
+def _ep_train_rank(seed, dev, ref_dir):
+    """18a and 18b on this rank (see ``phase_ep``)."""
+    out = {}
+    cfg = _ep_train_cfg()
+    gas = EP_TRAIN["gradient_accumulation_steps"]
+    data = _step_data(cfg.vocab_size, cfg.max_seq_len, gas * EP_STEPS, EP_ROWS, seed + 43, dev)
+    for name, kw, steps in (("fp", {}, EP_STEPS), ("int8", {"moe_quantized_a2a": True}, EP_INT8_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        engine = _ep_engine(_ep_train_cfg(**kw), seed, dev, dict(EP_TRAIN, mesh={"expert": EP}))
+        _zero_counts()
+        rec, walls = _drive(engine, data, steps)
+        out[name] = dict(rec=rec, step_ms=walls, counts=_counts(), variants=_variants(),
+                         peak_allocated=torch.cuda.max_memory_allocated(),
+                         a2a=(engine._a2a.a2a_axis, engine._a2a.a2a_world, engine._a2a.a2a_quantized),
+                         local_experts=int(engine._params["layers/moe/experts/w_up"].shape[1]))
+        if name == "fp":
+            out[name]["gaps"] = _ep_gaps(engine, f"{ref_dir}/master{steps}")
+        del engine
+        _free()
+    config32 = {k: v for k, v in EP_TRAIN.items() if k != "bf16"}
+    fp32 = {}
+    for impl in (None, "plain"):
+        engine = _ep_engine(_ep_train_cfg(dtype="float32", moe_aux_loss_coef=MOE_AUX), seed, dev,
+                            dict(config32, mesh={"expert": EP}), attn_impl=impl)
+        fp32[impl or "kernel"] = _drive(engine, data, 1)[0][0]
+        del engine
+        _free()
+    out["fp32"] = fp32
+    engine = _ep_engine(cfg, seed, dev, dict(EP_TRAIN, mesh={"data": EP}))  # no expert axis: JAX's global gate
+    _zero_counts()
+    rec, walls = _drive(engine, data, EP_DATA_STEPS)
+    out["data"] = dict(rec=rec, step_ms=walls, counts=_counts(), variants=_variants(),
+                       gaps=_ep_gaps(engine, f"{ref_dir}/master{EP_DATA_STEPS}"))
+    del engine
+    _free()
+    return out
+
+
+def _ep_infer_rank(seed, dev, refs):
+    """18c and 18d on this rank (see ``phase_ep``)."""
+    from deepspeed_tpu_torch.utils import groups
+
+    groups.initialize(ep_size=EP)
+    out = {}
+    cfg32 = moe_llama_config("1b-8e", num_layers=EP_DEPTH, dtype="float32", **EP_INFER)
+    tree = _tree_on_card(cfg32, seed, dev, torch.float32)
+    engine = dst.init_inference(MoETransformerLM(cfg32), dtype="fp32", paged_kv={"page_size": 16, "max_slots": 8})
+    engine.load_jax_params(tree)
+    out["local_experts"] = int(engine.module.layers["moe/experts/w_up"].shape[1])
+    tok = torch.from_numpy(refs["tokens"]).to(dev)
+    _zero_counts()
+    logits = engine(tok)
+    torch.cuda.synchronize()
+    ref = torch.from_numpy(np.load(refs["logits_path"])).to(dev)
+    out["forward"] = dict(max_abs=float((logits - ref).abs().max()), scale=float(ref.abs().max()),
+                          shape=list(logits.shape), finite=bool(torch.isfinite(logits).all()), launches=_counts())
+    del logits, ref
+    _zero_counts()
+    t0 = time.perf_counter()
+    gen = engine.generate(refs["gen_prompts"], max_new_tokens=EP_NEW)
+    torch.cuda.synchronize()
+    out["generate"] = dict(wall_s=time.perf_counter() - t0, launches=_counts(), variants=_variants(),
+                           streams=gen.cpu().numpy())
+    _zero_counts()
+    t0 = time.perf_counter()
+    outs = engine.serve(refs["prompts"], max_new_tokens=refs["budgets"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = engine.serve_stats()
+    out["serve"] = dict(wall_s=wall, tokens_per_s=sum(refs["budgets"]) / wall, ttft_ms=s["ttft_ms"], tpot_ms=s["tpot_ms"],
+                        ragged_steps=s["ragged_steps"], finished=s["finished"], ep_degree=s["ep_degree"],
+                        fingerprint=s["step_fingerprint"], launches=_counts(), variants=_variants(),
+                        streams=[o.tolist() for o in outs])
+    del engine
+    _free()
+    bf16 = dst.init_inference(MoETransformerLM(moe_llama_config("1b-8e", num_layers=EP_DEPTH, **EP_INFER)),
+                              dtype="bf16")
+    bf16.load_jax_params(tree)
+    del tree
+    _free()
+    out["generate_bf16"] = bf16.generate(refs["gen_prompts"], max_new_tokens=EP_NEW).cpu().numpy()
+    del bf16
+    _free()
+    return out
+
+
+def _ep_rank(rank, store, result_path, work_args):
+    """One spawned rank of phases 18a-18d (as ``_tp_rank``)."""
+    import pickle
+    import traceback
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dst.init_distributed("gloo", init_method=f"file://{store}", rank=rank, world_size=EP,
+                             timeout=TP_PG_TIMEOUT_S)
+        dev = torch.device("cuda", 0)
+        t0 = time.perf_counter()
+        res = dict(train=_ep_train_rank(work_args["seed"], dev, work_args["ref_dir"]))
+        res["train_s"] = time.perf_counter() - t0
+        res.update(infer=_ep_infer_rank(work_args["seed"], dev, work_args["refs"]))
+        res["infer_s"] = time.perf_counter() - t0 - res["train_s"]
+        dst.comm.barrier()
+        dst.comm.destroy_process_group()
+        payload = ("ok", res)
+    except BaseException:  # the parent raises it
+        payload = ("error", traceback.format_exc())
+    with open(result_path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def _ep_train_ref(seed, dev, tmp):
+    """18a-18b's one-rank bf16 run on the global batch (micro 4): its
+    records, its master after 2 and 3 steps saved for the ranks to read."""
+    cfg = _ep_train_cfg()
+    gas = MOE_TRAIN["gradient_accumulation_steps"]
+    data = _step_data(cfg.vocab_size, cfg.max_seq_len, gas * EP_STEPS, EP_ROWS, seed + 43, dev)
+    engine = _ep_engine(cfg, seed, dev, MOE_TRAIN)
+    it, rec = iter(data), []
+    for step in range(1, EP_STEPS + 1):
+        rec.append(_drive(engine, [next(it) for _ in range(gas)], 1)[0][0])
+        if step in (EP_DATA_STEPS, EP_STEPS):
+            _save_tree({k: v.detach().cpu().numpy() for k, v in engine._master.items()}, f"{tmp}/master{step}")
+    del engine
+    _free()
+    return rec
+
+
+def _ep_refs(seed, dev, tmp):
+    """The one-rank references, made before the ranks start: 18a-18b's
+    (``_ep_train_ref``), 18c's fp32 logits and greedy streams and bf16
+    greedy streams, 18d's fp32 streams."""
+    refs = {"train": _ep_train_ref(seed, dev, tmp)}
+    cfg32 = moe_llama_config("1b-8e", num_layers=EP_DEPTH, dtype="float32", **EP_INFER)
+    model = _moe_model(cfg32, seed, dev, torch.float32)
+    engine = dst.init_inference(model, dtype="fp32", paged_kv={"page_size": 16, "max_slots": 8})
+    rs = np.random.default_rng(seed + 19)
+    tokens = rs.integers(0, cfg32.vocab_size, (2, 128), dtype=np.int64)
+    np.save(f"{tmp}/logits.npy", engine(torch.from_numpy(tokens).to(dev)).cpu().numpy())
+    gen_prompts = rs.integers(0, cfg32.vocab_size, (4, 224), dtype=np.int32)
+    prompts, budgets = _requests(seed, cfg32.vocab_size)
+    prompts, budgets = prompts[:EP_REQUESTS], budgets[:EP_REQUESTS]
+    refs.update(tokens=tokens, logits_path=f"{tmp}/logits.npy", gen_prompts=gen_prompts, prompts=prompts,
+                budgets=budgets, gen=engine.generate(gen_prompts, max_new_tokens=EP_NEW).cpu().numpy(),
+                serve=[o.tolist() for o in engine.serve(prompts, max_new_tokens=budgets)], params32=model.param_tree())
+    del engine
+    bf16 = dst.init_inference(MoETransformerLM(moe_llama_config("1b-8e", num_layers=EP_DEPTH, **EP_INFER)),
+                              dtype="bf16")
+    bf16.load_jax_params(model.param_tree())
+    refs["gen_bf16"] = bf16.generate(gen_prompts, max_new_tokens=EP_NEW).cpu().numpy()
+    del bf16
+    return refs, cfg32, model
+
+
+def _ep_pooled(ranks, key):
+    """The ranks' gaps of ``key`` joined: per leaf the largest difference
+    and the share past tolerance over all its elements."""
+    out = {}
+    for k in ranks[0]["train"][key]["gaps"]:
+        parts = [r["train"][key]["gaps"][k] for r in ranks]
+        n = sum(p["n"] for p in parts)
+        out[k] = dict(n=n, max_abs=max(p["max_abs"] for p in parts),
+                      share_past_tol=sum(p["share_past_tol"] * p["n"] for p in parts) / n)
+    return out
+
+
+def _ep_rule(label, rec, ref_rec, gaps, bad):
+    """The bf16 form of rule 12d: losses and grad norms within
+    ``EP_LOSS_TOL`` / ``EP_NORM_TOL`` relative; the master held by share:
+    each leaf's share of elements farther than ``EP_STEP_TOL`` Adam steps
+    (lr) within ``EP_LEAF_SHARE``, all elements' within ``EP_MASTER_SHARE``
+    (one of the 8 experts left unchanged moves an eighth of each expert
+    leaf and a tenth of all elements past it). The largest difference is
+    reported, not bounded: Adam moves an element at most about lr a step,
+    so no bound on it could fail. A breach is appended to ``bad``."""
+    lr = MOE_TRAIN["optimizer"]["params"]["lr"]
+    n_all = sum(g["n"] for g in gaps.values())
+    out = dict(loss_rel=max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(rec, ref_rec)),
+               grad_norm_rel=max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(rec, ref_rec)),
+               leaf_share_past_tol=max(g["share_past_tol"] for g in gaps.values()),
+               master_share_past_tol=sum(g["share_past_tol"] * g["n"] for g in gaps.values()) / n_all,
+               master_max_abs=max(g["max_abs"] for g in gaps.values()),
+               worst_leaves=sorted(gaps, key=lambda k: -gaps[k]["share_past_tol"])[:3],
+               bounds=dict(loss_rel=EP_LOSS_TOL, grad_norm_rel=EP_NORM_TOL, leaf_share=EP_LEAF_SHARE,
+                           master_share=EP_MASTER_SHARE, past_abs=EP_STEP_TOL * lr))
+    if out["loss_rel"] > EP_LOSS_TOL or out["grad_norm_rel"] > EP_NORM_TOL \
+            or out["leaf_share_past_tol"] > EP_LEAF_SHARE or out["master_share_past_tol"] > EP_MASTER_SHARE:
+        bad.append(f"{label} against one rank: {out}")
+    return out
+
+
+def phase_ep(seed, dev):
+    """Phases 18a-18d: expert parallelism on two spawned gloo ranks that
+    share the card (gloo takes CUDA tensors for the all-to-alls,
+    all-reduces and all-gathers; NCCL refuses two ranks on one device): the
+    sharded math and each rank's memory, not a speed. The model is
+    ``moe_llama_config("1b-8e", moe_top_k=2)`` at full width (hidden 2048,
+    8 experts of 5376, 33.0 M parameters an expert), its depth cut to 4
+    layers for training and ``EP_DEPTH`` (8) for inference; the one-rank
+    references are made first, in this process."""
+    tmp = tempfile.mkdtemp(prefix="ep_smoke_", dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+    try:
+        t0 = time.perf_counter()
+        refs, cfg32, model = _ep_refs(seed, dev, tmp)
+        refs_s = time.perf_counter() - t0
+        params32 = refs.pop("params32")
+        work = dict(seed=seed, ref_dir=tmp, refs={k: v for k, v in refs.items()
+                                                   if k in ("tokens", "logits_path", "gen_prompts", "prompts",
+                                                            "budgets")})
+        del model
+        _free()
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_ep_rank, EP, tmp, work, EP_LIMIT_S, "ep")
+        ranks_s = time.perf_counter() - t0
+        walls = dict(refs_s=refs_s, ranks_wall_s=ranks_s, rank_s=[dict(train=r["train_s"], infer=r["infer_s"])
+                                                                  for r in ranks])
+        emit(phase="ep_walls", **walls)
+        out = _ep_checks(ranks, refs, cfg32, params32, dev)
+        out.update(walls)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _ep_checks(ranks, refs, cfg32, params32, dev):
+    """The records and verdicts of 18a-18d (see the module docstring)."""
+    L, gas = EP_LAYERS, EP_TRAIN["gradient_accumulation_steps"]
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    out, bad = {}, []
+    # 18a: ep = 2 against one rank, the int8 wire against the fp wire, fp32 kernels against plain
+    fp = [r["train"]["fp"] for r in ranks]
+    rule = _ep_rule("ep 18a", fp[0]["rec"], refs["train"], _ep_pooled(ranks, "fp"), bad)
+    want = L * gas * EP_STEPS
+    int8 = [r["train"]["int8"] for r in ranks]
+    int8_rel = max(abs(a[i] - b[i]) / abs(b[i]) for q in int8 for a, b in zip(q["rec"], fp[0]["rec"]) for i in (0, 1))
+    fp32 = ranks[0]["train"]["fp32"]
+    loss_rel = abs(fp32["kernel"][0] - fp32["plain"][0]) / abs(fp32["plain"][0])
+    norm_rel = abs(fp32["kernel"][1] - fp32["plain"][1]) / abs(fp32["plain"][1])
+    rec = dict(phase="ep_train", model='moe_llama_config("1b-8e", moe_top_k=2)', layers=L, of_layers=22,
+               capacity_factor=EP_CF, ranks=EP, backend="gloo", note="two gloo ranks on one card, not an EP speed",
+               config=dict(EP_TRAIN, mesh={"expert": EP}), steps=EP_STEPS, losses=[x[0] for x in fp[0]["rec"]],
+               grad_norms=[x[1] for x in fp[0]["rec"]], one_rank=refs["train"], rule=rule,
+               step_ms=[f["step_ms"] for f in fp], peak_allocated=[f["peak_allocated"] for f in fp],
+               local_experts=[f["local_experts"] for f in fp], a2a=fp[0]["a2a"],
+               launches=[{k: f["counts"][k] for k in flash} for f in fp], launches_want=want,
+               int8=dict(rec=int8[0]["rec"], max_rel_to_fp=int8_rel, bound=EP_INT8_TOL, a2a=int8[0]["a2a"]),
+               fp32_step1=dict(kernel=fp32["kernel"], plain=fp32["plain"], loss_rel=loss_rel, norm_rel=norm_rel))
+    emit(**rec)
+    for i, f in enumerate(fp):
+        if any(f["counts"][k] != want or f["variants"][f"{k}_tc"] != want for k in flash) \
+                or sum(f["counts"].values()) != 3 * want:
+            bad.append(f"rank {i} launches {f['counts']} want K1-K3 = {want} on the tensor cores")
+        if f["rec"] != fp[0]["rec"] or f["local_experts"] != 8 // EP:
+            bad.append(f"rank {i}: records {f['rec']} or {f['local_experts']} local experts")
+    if not 0.0 < int8_rel <= EP_INT8_TOL or int8[0]["a2a"][2] is not True:
+        bad.append(f"int8 wire: {int8_rel} from the fp wire (bound {EP_INT8_TOL}, must be nonzero)")
+    if loss_rel != 0.0 or norm_rel > 1e-6:
+        bad.append(f"fp32 kernel vs plain: loss {loss_rel}, grad norm {norm_rel}")
+    out["train"] = rec
+    # 18b: data = 2 without an expert axis (the global gate) against the same one-rank run
+    data = [r["train"]["data"] for r in ranks]
+    rule_b = _ep_rule("ep 18b", data[0]["rec"], refs["train"][:EP_DATA_STEPS], _ep_pooled(ranks, "data"), bad)
+    want_b = L * gas * EP_DATA_STEPS
+    rec = dict(phase="ep_data", mesh={"data": EP}, steps=EP_DATA_STEPS, losses=[x[0] for x in data[0]["rec"]],
+               rule=rule_b, step_ms=[d["step_ms"] for d in data],
+               launches=[{k: d["counts"][k] for k in flash} for d in data], launches_want=want_b)
+    emit(**rec)
+    if any(d["counts"][k] != want_b or d["variants"][f"{k}_tc"] != want_b for d in data for k in flash) \
+            or any(d["rec"] != data[0]["rec"] for d in data):
+        bad.append(f"ep_data: launches {[d['counts'] for d in data]} want {want_b}, or ranks differ")
+    out["data"] = rec
+    # 18c: forward and generate under the expert axis
+    inf = [r["infer"] for r in ranks]
+    gen_want = EP_DEPTH * EP_NEW
+    partings = [int((g["generate_bf16"] != refs["gen_bf16"]).any(axis=1).sum()) for g in inf]
+    rec = dict(phase="ep_generate", layers=EP_DEPTH, local_experts=[i["local_experts"] for i in inf],
+               forward={k: inf[0]["forward"][k] for k in ("max_abs", "scale", "shape", "finite")},
+               forward_max_abs=[i["forward"]["max_abs"] for i in inf],
+               fp32_streams_equal=[bool(np.array_equal(i["generate"]["streams"], refs["gen"])) for i in inf],
+               bf16_partings=partings, new_tokens=EP_NEW, batch=int(refs["gen_prompts"].shape[0]),
+               wall_s=[i["generate"]["wall_s"] for i in inf],
+               launches=[i["generate"]["launches"]["decode_attention"] for i in inf], launches_want=gen_want)
+    emit(**rec)
+    for i in inf:
+        c, v = i["generate"]["launches"], i["generate"]["variants"]
+        if c["decode_attention"] != gen_want or sum(c.values()) != gen_want or v["decode_split"] != gen_want:
+            bad.append(f"generate launches {c} want K6 = {gen_want}")
+        if not i["forward"]["finite"] or i["forward"]["max_abs"] > EP_FWD_TOL * i["forward"]["scale"] \
+                or i["local_experts"] != 8 // EP:
+            bad.append(f"forward logits {i['forward']} past {EP_FWD_TOL} of their scale, or the experts not split")
+    if not all(rec["fp32_streams_equal"]):
+        bad.append(f"fp32 streams part from ep = 1: {[p for p in _moe_partings(cfg32, params32, list(inf[0]['generate']['streams']), list(refs['gen']), dev)]}")
+    out["generate"] = rec
+    # 18d: ragged serving under the expert axis
+    sv = [i["serve"] for i in inf]
+    rec = dict(phase="ep_serve", requests=EP_REQUESTS, note="two gloo ranks on one card, not an EP speed",
+               identical_to_ep1=[s["streams"] == refs["serve"] for s in sv],
+               **{k: [s[k] for s in sv] for k in ("tpot_ms", "ttft_ms", "tokens_per_s", "wall_s", "ragged_steps",
+                                                 "fingerprint")},
+               launches=[s["launches"]["ragged_paged_attention"] for s in sv],
+               launches_want=[EP_DEPTH * s["ragged_steps"] for s in sv])
+    emit(**rec)
+    if not all(rec["identical_to_ep1"]) or len(set(rec["fingerprint"])) != 1 \
+            or any(s["launches"]["ragged_paged_attention"] != EP_DEPTH * s["ragged_steps"] or s["ragged_steps"] == 0
+                   or sum(s["launches"].values()) != s["launches"]["ragged_paged_attention"]
+                   or s["variants"]["ragged_split"] != s["launches"]["ragged_paged_attention"]
+                   or s["finished"] != EP_REQUESTS or s["ep_degree"] != EP for s in sv):
+        bad.append(f"ep_serve: {rec}")
+    out["serve"] = rec
+    if bad:
+        raise AssertionError(f"phases 18a-18d: {bad}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5562,7 +5971,7 @@ def main() -> int:
 
     cfg = llama_config("1b")
     t0 = time.perf_counter()
-    tree = _weights(cfg, args.seed)
+    tree = _weights_on_card(cfg, args.seed, dev)  # llama-1B's serving tree (~19 s of numpy normals otherwise)
     emit(phase="serve", event="weights_made", seconds=time.perf_counter() - t0)
     launches, split_launches, serve_streams = phase_serve(cfg, tree, args.seed)
     phase_streams(llama_config("1b", dtype="float32"), tree, args.seed, dev)
@@ -5612,6 +6021,7 @@ def main() -> int:
     shapes = phase_train_shapes(args.seed, dev)
     moe_serve = phase_moe_serve(args.seed, dev)
     moe_train = phase_moe_train(args.seed, dev)
+    ep = phase_ep(args.seed, dev)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     sparse = phase_sparse_kernels(dev, flush)
@@ -5637,6 +6047,8 @@ def main() -> int:
         int8=dict(serve=int8["serve"], logits_relative=int8["logits_relative"], steady=int8["steady"],
                   fp32={k: int8["fp32"][k] for k in ("k4", "identical_plain")}),
         traffic=traffic, fleet=fleet, tp=tp["kernels"]["ragged_paged_attention"],
+        expert_parallel=dict(serve=ep["serve"]["launches"], want=ep["serve"]["launches_want"],
+                             note="18d, each rank's launches, two gloo ranks on one card"),
         moe=dict(ragged=moe_serve["ragged"]["launches"]["ragged_paged_attention"],
                  ragged_steps=moe_serve["ragged"]["steps"], fp32=moe_serve["fp32"]["k4"],
                  steady=[{k: r[k] for k in ("mode", "k4_counter", "window_steps")} for r in moe_serve["steady"]]),
@@ -5667,10 +6079,14 @@ def main() -> int:
             resume_bitwise=t5_resume["bitwise"]),
         moe=dict(eager=moe_train["eager_launches"][name], captured_counter=moe_train["fused_launches"][name],
                  want=moe_train["launches_want"], layers=moe_train["layers"]),
+        expert_parallel=dict(train=[c[name] for c in ep["train"]["launches"]], want=ep["train"]["launches_want"],
+                             data=[c[name] for c in ep["data"]["launches"]], data_want=ep["data"]["launches_want"],
+                             note="18a and 18b, each rank's launches, two gloo ranks on one card"),
         checkpoint=dict(launches=ckpt["launches"][name], steps=ckpt["steps"]),
         zero=dict(fp32={st: r["launches_per_rank"] for st, r in zero["fp32"].items()},
                   bf16={st: r["launches_per_rank"][name] for st, r in zero["bf16"].items()},
-                  steps_per_run=ZERO_STEPS, one_rank_stage3_bit_identical=zero1["bit_identical"],
+                  steps_per_run=ZERO_STEPS, bf16_steps_per_run=ZERO_BF16_STEPS,
+                  one_rank_stage3_bit_identical=zero1["bit_identical"],
                   note="two gloo ranks on one card"),
         offload=dict(
             streamed={dt: r["launches"][name] for dt, r in streamed.items()}, streamed_steps=OFFLOAD_STEPS,
@@ -5689,6 +6105,8 @@ def main() -> int:
         quant_enabled=int8["quant"], tp=tp["kernels"]["decode_attention"],
         moe=dict(generate=moe_serve["generate"]["launches"]["decode_attention"],
                  new_tokens=moe_serve["generate"]["new_tokens"]),
+        expert_parallel=dict(generate=ep["generate"]["launches"], want=ep["generate"]["launches_want"],
+                             note="18c, each rank's launches, two gloo ranks on one card"),
         checkpoint=dict(launches=ckpt["k6_launches"]),
     ), dict(
         name="paged_decode_attention", route="cuda", source="deepspeed_tpu_torch/csrc/decode_attention.cu",

@@ -38,8 +38,11 @@ beside it slice by slice and mirrors its module paths. It imports neither
 * the data pipeline: the engine dataloader (``training_data``), indexed
   datasets, the data analyzer and samplers, curriculum learning, random-LTD
   and progressive layer drop, and the data cursor in checkpoints;
-* MoE on one rank (``models.moe_transformer``, ``moe``): gating, the
-  expert stack, training and serving.
+* MoE (``models.moe_transformer``, ``moe``): gating, the expert stack,
+  training and serving, on one rank and across ranks (expert parallelism:
+  ``utils.groups.initialize(ep_size)`` or ``mesh.expert``, the dispatch
+  and combine all-to-alls and their int8 wire, expert-sharded state and
+  checkpoints, expert-parallel forward, ``generate`` and ``serve``).
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ training checkpoint's module) against the config and gives a flat
 ``path -> tensor`` dict on a device in a dtype (the training engine's
 master and compute leaves); ``tensors_to_jax_tree`` is its inverse, the
 nested numpy tree ``get_params`` / ``get_master_params`` return.
-``load_jax_params`` installs a tree into a ``TransformerLM`` for serving.
+``load_jax_params`` installs a tree into a ``TransformerLM`` for serving
+(under an expert axis, each rank's slice of the expert leaves).
 
 Each leaf is stored in the engine dtype once. JAX keeps fp32 weights and
 casts them at every matmul (``compression/int8.py:97``); one cast up front
@@ -22,7 +23,7 @@ gives the same bits at half the memory traffic in bf16.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,13 +103,41 @@ def tensors_to_jax_tree(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     return unflatten_tree({path: host(t) for path, t in flat.items()})
 
 
+def is_expert_leaf(path: str) -> bool:
+    """A stacked expert leaf ``[L, E, ...]`` of an MoE tree (``layers/moe/
+    experts/...`` or ``moe_layers/experts/...``): JAX places its dim 1 on
+    the ``expert`` axis (``P(None, 'expert', ...)``,
+    ``moe_transformer.py:139-147``)."""
+    return "/experts/" in path and path.split("/", 1)[0] in ("layers", "moe_layers")
+
+
+def expert_slice(path: str, leaf, expert_shard: Optional[Tuple[int, int]]):
+    """Shard ``r`` of ``e`` (``expert_shard = (r, e)``) of an expert leaf:
+    experts ``[r·E/e, (r+1)·E/e)``, the slice JAX's sharding puts on expert
+    coordinate ``r``; any other leaf, or no ``expert_shard``, as it is."""
+    if expert_shard is None or not is_expert_leaf(path):
+        return leaf
+    r, e = expert_shard
+    n = leaf.shape[1] // e
+    return leaf[:, r * n:(r + 1) * n]
+
+
 @torch.no_grad()
 def load_jax_params(model: TransformerLM, params: Mapping[str, Any], device=None,
-                    dtype: torch.dtype = torch.float32) -> TransformerLM:
+                    dtype: torch.dtype = torch.float32,
+                    expert_shard: Optional[Tuple[int, int]] = None) -> TransformerLM:
     """Install the JAX tree ``params`` into ``model`` on ``device``
     (``cuda`` by default; raises without a card) in ``dtype``. The set of
     paths and every shape must match the model's config exactly; anything
-    else raises before any leaf is replaced."""
-    for path, leaf in jax_tree_to_tensors(model.config, params, device=device, dtype=dtype).items():
-        model.set_leaf(path, leaf)
+    else raises before any leaf is replaced. With ``expert_shard = (r,
+    e)`` the whole tree comes in and each expert leaf keeps its shard
+    ``r`` of ``e`` (``expert_slice``), cut before it reaches the device."""
+    device = resolve_device(device)
+    for path, leaf in _checked_flat(model.config, params).items():
+        leaf = expert_slice(path, leaf, expert_shard)
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().to(device=device, dtype=dtype, copy=True)
+        else:
+            t = torch.from_numpy(np.array(leaf, dtype=np.float32, order="C")).to(device=device, dtype=dtype)
+        model.set_leaf(path, t.contiguous())
     return model

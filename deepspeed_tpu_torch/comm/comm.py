@@ -107,10 +107,14 @@ def destroy_process_group(group=None) -> None:
 
 
 def get_rank(group=None) -> int:
+    if isinstance(getattr(group, "axis", None), tuple):  # a utils.groups.AxisGroup
+        return group.rank
     return dist.get_rank(group) if is_initialized() else 0
 
 
 def get_world_size(group=None) -> int:
+    if isinstance(getattr(group, "axis", None), tuple):  # a utils.groups.AxisGroup
+        return group.size
     return dist.get_world_size(group) if is_initialized() else 1
 
 

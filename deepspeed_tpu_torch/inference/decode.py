@@ -98,16 +98,19 @@ def _ffn_body(cfg: TransformerConfig, p, x, norm_scale, norm_bias, tp=None):
 
 def _moe_ffn(cfg, p, h):
     """Eval-mode MoE routing of a normed ``[B, T, H]`` slab (JAX
-    ``_moe_ffn``, ``decode.py:78-112``): ``MoE.apply(train=False)``, the
-    eval capacity factor and no gate noise. The capacity comes from the
-    program's static token count B·T, and tokens past it drop in row-major
-    token order, so a token's output depends on the rows packed beside it
-    (padding rows included): the serving programs pack their rows as JAX's
-    do. Expert weights may be int8 (``QuantizedTensor`` stacks with ``[E,
-    1, I]`` scales)."""
+    ``_moe_ffn``, ``decode.py:78-112``): the global gate of
+    ``MoE.apply(train=False)``, the eval capacity factor and no gate noise.
+    The capacity comes from the program's static token count B·T, and
+    tokens past it drop in row-major token order, so a token's output
+    depends on the rows packed beside it (padding rows included): the
+    serving programs pack their rows as JAX's do. Under an expert axis
+    every rank gates the whole slab, runs its own experts' capacity rows
+    and the partial combines are summed over the expert group
+    (``MoE.apply_global``), as JAX's GSPMD program does. Expert weights may
+    be int8 (``QuantizedTensor`` stacks with ``[E, 1, I]`` scales)."""
     from deepspeed_tpu_torch.models.moe_transformer import moe_layer_of
 
-    return moe_layer_of(cfg).apply(p, h, train=False)[0]
+    return moe_layer_of(cfg).apply_global(p, h)
 
 
 def _softmax_scale(cfg, head_dim: int) -> float:

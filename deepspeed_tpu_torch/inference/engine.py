@@ -39,6 +39,17 @@ writes it at ``set_params``, and ``checkpoint=`` /
 ``load_checkpoint`` boot from one or from a training engine checkpoint's
 tag directory.
 
+Expert parallelism (JAX ``engine.py:213-229``): under a live topology
+with an ``expert`` axis (``utils.groups.initialize(ep_size)`` on every
+rank first) an MoE model's engine keeps each rank's slice of the expert
+leaves (``load_jax_params(expert_shard=...)``). ``forward`` runs the
+layers' fast path where JAX's ``ep_fast_path`` holds (each rank gates its
+shard of the batch, the dispatch and combine all-to-alls, the full logits
+on every rank), else the global gate; ``generate`` and ``serve`` gate
+globally on every rank and sum the ranks' partial expert outputs
+(``decode._moe_ffn``), every rank emitting the same tokens, the server's
+host state checked each step as under tensor parallelism.
+
 ZeRO-Inference (JAX ``engine.py:142-190``): with ``zero={"stage": 3,
 "offload_param": {"device": "cpu"|"nvme"}}`` the weights go into a
 ``runtime/zero/param_offload.ParamStreamEngine`` without an optimizer, so
@@ -61,7 +72,14 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import resolve_device
-from deepspeed_tpu_torch.checkpoint.jax_params import _checked_flat, flatten_tree, load_jax_params, unflatten_tree
+from deepspeed_tpu_torch.checkpoint.jax_params import (
+    _checked_flat,
+    expert_slice,
+    flatten_tree,
+    is_expert_leaf,
+    load_jax_params,
+    unflatten_tree,
+)
 from deepspeed_tpu_torch.compression.int8 import quantize_params_int8
 from deepspeed_tpu_torch.inference.config import DeepSpeedInferenceConfig, DtypeEnum, unported_switches
 from deepspeed_tpu_torch.inference.journal import RequestJournal
@@ -71,6 +89,8 @@ from deepspeed_tpu_torch.inference.scheduler import PagedServer
 from deepspeed_tpu_torch.inference.tp import TPServing, gather_tree, require_ranks
 from deepspeed_tpu_torch.inference.traffic import MultiTenantServer
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch, param_shapes
+from deepspeed_tpu_torch.parallel.mesh import live_topology
+from deepspeed_tpu_torch.runtime.zero.overlap import gather_full
 from deepspeed_tpu_torch.module_inject.auto_tp import AutoTP
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize
 from deepspeed_tpu_torch.profiling.tracer import MetricsRegistry
@@ -118,6 +138,13 @@ class InferenceEngine:
         self._tp_params = None
         if self._zero_config is not None and self._tp is not None:
             raise NotImplementedError("ZeRO-Inference with tensor_parallel.tp_size > 1 is not ported (ROADMAP P1)")
+        # expert placement reads the live topology (JAX engine.py:213-229): this rank keeps its experts
+        live = live_topology()
+        self._ep = live if getattr(model, "_moe", False) and live is not None and live.axis_size("expert") > 1 \
+            else None
+        if self._ep is not None and (self._tp is not None or self._zero_config is not None):
+            raise NotImplementedError("an expert axis with tensor parallelism or ZeRO-Inference is not ported "
+                                      "(ROADMAP P1)")
         # the counterpart of JAX's PRNGKey(0): sampled generate calls draw
         # from (and advance) this generator
         self._generator = torch.Generator(device=self.device)
@@ -133,7 +160,8 @@ class InferenceEngine:
             else:
                 with torch.no_grad():
                     for path, leaf in flatten_tree(model.param_tree()).items():
-                        model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype))
+                        leaf = expert_slice(path, leaf, self._expert_shard())
+                        model.set_leaf(path, leaf.to(device=self.device, dtype=self.dtype).contiguous())
                 self._quantize_weights()
         # a checkpoint handed to init_inference (JAX engine.py:117-136): a pre-sharded manifest or its
         # dir, or a training engine checkpoint's tag dir
@@ -194,7 +222,8 @@ class InferenceEngine:
         if self._tp is not None:
             self._install_tp(params)
         else:
-            load_jax_params(self.module, params, device=self.device, dtype=self.dtype)
+            load_jax_params(self.module, params, device=self.device, dtype=self.dtype,
+                            expert_shard=self._expert_shard())
             self._quantize_weights()
         self._paged_server = None
         if self._config.save_mp_checkpoint_path:
@@ -216,12 +245,25 @@ class InferenceEngine:
         for path, shape in param_shapes(self.module.config).items():
             self.module.set_leaf(path, torch.empty(shape, device="meta"))
 
+    def _expert_shard(self):
+        """``(expert coordinate, expert axis size)`` under an expert axis,
+        else None."""
+        return None if self._ep is None else (self._ep.expert_rank, self._ep.axis_size("expert"))
+
     def _full_params(self):
         """The whole tree on this rank: the module's, or a tensor-parallel
-        rank's shards gathered from the group (every rank must call it)."""
+        rank's shards, or an expert-parallel rank's experts, gathered from
+        the group (every rank must call it)."""
         if self._tp is not None:
             return gather_tree(self._tp, self._tp_params)
-        return self.module.param_tree()
+        tree = self.module.param_tree()
+        if self._ep is None:
+            return tree
+        flat = flatten_tree(tree)
+        for path, leaf in flat.items():
+            if is_expert_leaf(path):
+                flat[path] = gather_full([leaf.detach()], [1], self._ep.expert_group)[0]
+        return unflatten_tree(flat)
 
     @torch.no_grad()
     def _quantize_weights(self) -> None:
@@ -356,8 +398,9 @@ class InferenceEngine:
         if self._param_stream is not None:
             return self._param_stream.eval_forward(tokens.long(), None if labels is None else labels.long())
         params = self._tp_params if self._tp is not None else self.module.param_tree()
-        with torch.no_grad():  # (tokens, None) is the unlabelled batch: apply returns the logits
-            return self.module.apply(params, (tokens, labels), train=False, tp=self._tp)
+        # every rank holds the whole batch: an MoE layer takes its shard or gates globally
+        with torch.no_grad():  # (tokens, None): apply returns the logits
+            return self.module.apply(params, (tokens, labels), train=False, tp=self._tp, replicated=True)
 
     # --- generation -----------------------------------------------------
     def generate(self, *args, **kwargs):
@@ -477,21 +520,24 @@ class InferenceEngine:
                                comm_chunks=scfg.comm_chunks)
         # the crash-recovery journal: replay the directory before the new writer opens its segment,
         # then hand the replayed state to the fresh server, which resumes every journaled stream. Under
-        # tensor parallelism every rank replays and rank 0 alone writes: the barriers keep every rank
-        # from reading before rank 0's earlier writes are synced, or after its new segment opened
+        # tensor or expert parallelism every rank replays and rank 0 alone writes: the barriers keep every
+        # rank from reading before rank 0's earlier writes are synced, or after its new segment opened
         journal, states, next_uid = None, None, 0
         jcfg = self._config.journal
         if jcfg.enabled:
             if not jcfg.dir:
                 raise ValueError("inference.journal.enabled requires journal.dir")
-            if tp_ctx is not None:
-                comm.barrier(tp_ctx.group)
+            group = tp_ctx.group if tp_ctx is not None else (self._ep.expert_group if self._ep is not None else None)
+            ranks = tp_ctx is not None or self._ep is not None
+            if ranks:
+                comm.barrier(group)
             states, next_uid = RequestJournal.replay(jcfg.dir)
-            if tp_ctx is not None:
-                comm.barrier(tp_ctx.group)
-            if tp_ctx is None or tp_ctx.rank == 0:
+            if ranks:
+                comm.barrier(group)
+            if (tp_ctx.rank if tp_ctx is not None else self._ep.expert_rank if self._ep is not None else 0) == 0:
                 journal = RequestJournal(jcfg.dir, segment_bytes=jcfg.segment_bytes, fsync=jcfg.fsync)
-        params = self._full_params()
+        # under an expert axis the server runs this rank's experts (per-channel int8 scales are per expert)
+        params = self._full_params() if self._ep is None else self.module.param_tree()
         if scfg.weight_quant_bits == 8:
             # the server's tree only: forward and generate keep the engine's weights, as in JAX
             params = quantize_params_int8(params)
@@ -514,6 +560,7 @@ class InferenceEngine:
             spec_decode=self._config.spec_decode,
             journal=journal,
             tp=tp_ctx,
+            ep=self._ep,
         )
         if states:
             server.recover(states, next_uid)

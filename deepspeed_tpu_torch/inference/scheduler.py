@@ -229,12 +229,17 @@ class PagedServer:
         journal: Optional[RequestJournal] = None,
         clock=None,
         tp=None,
+        ep=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         # tensor-parallel serving (inference/tp.py:TPServing): this rank's shard of the weights, pools of
         # its kv heads, every host structure whole (JAX scheduler.py:246-283)
         self.tp = tp
+        # expert-parallel serving (ep, the topology): this rank's experts, the MoE blocks' partial combines
+        # summed over the expert group (decode._moe_ffn), every host structure whole and checked each step
+        self.ep = ep if ep is not None and ep.axis_size("expert") > 1 else None
+        self._ranks = tp if tp is not None and tp.degree > 1 else _expert_sync(self.ep)
         if isinstance(params, dict) and "moe_layers" in params:
             raise NotImplementedError(
                 "paged serving supports MoE only with moe_layer_freq == 1 (a stacked [L, E, ...] expert stack); "
@@ -274,7 +279,7 @@ class PagedServer:
         self._predrafts: Optional[Dict[int, np.ndarray]] = None
         self.journal = journal
         # TTFT/TPOT stamps and the load harness's virtual time both read this clock; under tp rank 0's
-        self.clock = clock or (SharedClock(tp) if self._tp_active() else time.perf_counter)
+        self.clock = clock or (SharedClock(self._ranks) if self._tp_active() else time.perf_counter)
         # speculation: a SpecDecodeConfig or a dict of knobs, or an explicit Drafter (either enables it)
         self.max_draft = int(_knob(spec_decode, "max_draft", 4))
         lens = [int(n) for n in (_knob(spec_decode, "spec_lens", None) or [])]
@@ -622,14 +627,15 @@ class PagedServer:
         return self._results
 
     def tp_sync(self) -> None:
-        """Under tp: check every rank's step fingerprint and advance a
-        shared clock (one collective; see the module docstring)."""
+        """Under tp (or an expert axis): check every rank's step
+        fingerprint and advance a shared clock (one collective; see the
+        module docstring)."""
         self._sync_due = False
         sync = getattr(self.clock, "sync", None)
         if sync is not None:
             sync(self._fingerprint)
         else:
-            self.tp.step_sync(self._fingerprint)
+            self._ranks.step_sync(self._fingerprint)
 
     def serve(self, prompts: Sequence, max_new_tokens=32, eos_token_id: Optional[int] = None,
               tenant: str = "default") -> List[np.ndarray]:
@@ -1167,7 +1173,9 @@ class PagedServer:
         self.tracer.instant_async("request", req.uid, "preempt", tokens=len(req.generated))
 
     def _tp_active(self) -> bool:
-        return self.tp is not None and self.tp.degree > 1
+        """The server is one of several ranks (tensor or expert parallel):
+        its steps sync, and its windows run eagerly."""
+        return self._ranks is not None
 
     # --- observability ---------------------------------------------------
     def finished_log(self) -> List:
@@ -1204,6 +1212,7 @@ class PagedServer:
             self._window.device_ms if isinstance(self._window, WindowGraph) else ())
         s["dispatches_per_token"] = s["dispatches"] / s["emitted_tokens"] if s["emitted_tokens"] else 0.0
         s["tp_degree"] = self.tp.degree if self.tp is not None else 1
+        s["ep_degree"] = self.ep.axis_size("expert") if self.ep is not None else 1
         s["tp_quantized_allreduce"] = bool(self.tp.quantized_allreduce) if self.tp is not None else False
         # windows under tensor parallelism replay no CUDA graph: their rounds run eagerly
         s["window_graph"] = self.ms_enable and self.device.type == "cuda" and not self._tp_active()
@@ -1234,3 +1243,14 @@ class PagedServer:
         s["tenants"] = tenants
         s["prefix"] = self.pool.prefix_stats()
         return s
+
+
+def _expert_sync(ep):
+    """The rank context whose ``step_sync`` checks an expert-parallel
+    server's host state across its expert group (None without one)."""
+    if ep is None:
+        return None
+    from deepspeed_tpu_torch.inference.tp import TPServing
+
+    group = ep.expert_group
+    return TPServing(group=group) if group is not None else TPServing(degree=ep.axis_size("expert"))

@@ -303,11 +303,12 @@ class TPServing:
             self.validate_cfg(cfg)
         dims = {}
 
-        def walk(prefix, name, tree):
+        def walk(prefix, name, tree, whole=False):
             if isinstance(tree, dict):
-                return {k: walk(f"{prefix}{k}/", k, v) for k, v in tree.items()}
+                # an MoE block runs on the replicated activation: its leaves stay whole on every rank
+                return {k: walk(f"{prefix}{k}/", k, v, whole or k in ("moe", "moe_layers")) for k, v in tree.items()}
             path = prefix[:-1]
-            dim = self.leaf_dim(name, tree.ndim, cfg)
+            dim = None if whole else self.leaf_dim(name, tree.ndim, cfg)
             dims[path] = dim
             if name == "lm_head" and dim is not None:
                 self.head_sharded = self.degree > 1

@@ -1,8 +1,9 @@
 """The MoE decoder family.
 
 Counterpart of ``deepspeed_tpu/models/moe_transformer.py``: a
-``TransformerLM`` whose MLP blocks are ``moe.layer.MoE`` layers, one rank
-(expert parallelism is the second half of ROADMAP M1).
+``TransformerLM`` whose MLP blocks are ``moe.layer.MoE`` layers, which run
+across ranks by the live topology (``moe/layer.py``; the expert leaves
+over the ``expert`` axis, ``expert_partition_rules``).
 
 The tree is JAX's: with every layer MoE (``moe_layer_freq == 1``) the
 dense FFN leaves leave ``layers`` and each MoE leaf stacks ``[L, ...]``
@@ -14,6 +15,12 @@ the MoE layers under ``moe_layers``. The load-balance loss of each MoE
 layer, times ``moe_aux_loss_coef``, is summed into the training loss
 (``TransformerLM.apply``). The router weight ``wg`` stays fp32 under mixed
 precision (``keep_fp32_params``), as JAX's engine keeps it.
+
+Under tensor parallelism (the inference engine's forward) each layer's
+attention runs sharded and the MoE block runs on the replicated
+activation with the experts replicated over ``model``, as JAX's rules
+place them (``tp_partition_rules``); tensor-parallel training is ROADMAP
+P1.
 
 The MoE layers draw their training noise (top-2's second-expert Gumbel
 sample, top-1's Random Token Selection, ``noisy_gate_policy``) from the
@@ -30,7 +37,7 @@ import numpy as np
 
 from deepspeed_tpu_torch.models.config import TransformerConfig
 from deepspeed_tpu_torch.models.transformer import TransformerLM, _FFN_LEAVES, _flat, _nest, dense_param_shapes
-from deepspeed_tpu_torch.moe.layer import MoE, ep_refusal
+from deepspeed_tpu_torch.moe.layer import MoE
 
 
 @dataclasses.dataclass
@@ -147,18 +154,34 @@ class MoETransformerLM(TransformerLM):
             out.append(_nest(per))
         return out
 
-    def _mlp(self, p, h, seed, train, tp=None):
+    def _mlp(self, p, h, seed, train, tp=None, replicated=False):
         if "moe" not in p:
             return super()._mlp(p, h, seed, train, tp)
-        if tp is not None:
-            raise ep_refusal("tensor-parallel MoE")
-        out, l_aux, _counts = self.moe.apply(p["moe"], h, train=train, seed=seed)
+        if tp is not None and train:
+            raise NotImplementedError("tensor-parallel MoE training needs tensor-parallel training, which is not "
+                                      "ported yet (ROADMAP P1)")
+        out, l_aux, _counts = self.moe.apply(p["moe"], h, train=train, seed=seed, replicated=replicated)
         return out, l_aux * self.config.moe_aux_loss_coef
 
     def tp_partition_rules(self, params_shapes=None) -> Any:
+        """JAX's rules (``moe_transformer.py:133-158``) in the port's form,
+        the dim each leaf splits over ``model``: the dense leaves by the
+        name-driven walk (an interleaved stack's ``dense_mlp`` too), every
+        MoE leaf None (JAX places the experts on the ``expert`` axis,
+        ``expert_partition_rules``, and the gate and the residual
+        replicated)."""
         if params_shapes is None:
             return None
-        raise ep_refusal("tensor-parallel partition rules of an MoE model")
+        base = super().tp_partition_rules(params_shapes)
+
+        def replicated(tree):
+            return {k: replicated(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+        if "moe" in params_shapes.get("layers", {}):
+            base["layers"]["moe"] = replicated(params_shapes["layers"]["moe"])
+        if "moe_layers" in params_shapes:
+            base["moe_layers"] = replicated(params_shapes["moe_layers"])
+        return base
 
 
 def moe_llama_config(size: str = "tiny", **overrides) -> MoETransformerConfig:

@@ -50,6 +50,7 @@ parallelism and sparse embedding gradients raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -251,7 +252,8 @@ class TransformerLM(nn.Module):
 
     # --- training forward ------------------------------------------------
     def apply(self, params, batch, *, dropout_seed: Optional[int] = None, train: bool = True,
-              attn_impl: Optional[str] = None, pld_keep=None, ltd_idx=None, tp=None, layer_stream=None):
+              attn_impl: Optional[str] = None, pld_keep=None, ltd_idx=None, tp=None, layer_stream=None,
+              split_aux: bool = False, replicated: bool = False):
         """JAX ``apply`` (``transformer.py:821``): the scalar LM loss when the
         batch carries labels (``(tokens, labels)`` or ``{"input_ids",
         "labels"}``), else the logits ``[B, T, V]``. ``params`` is the nested
@@ -273,17 +275,28 @@ class TransformerLM(nn.Module):
 
         With ``layer_stream`` (ZeRO-3, ``runtime/zero/overlap.py``)
         ``params`` holds no ``layers``: the stream gathers each layer's
-        weights and runs it (``layer_stream.run(i, fn, x, remat)``)."""
+        weights and runs it (``layer_stream.run(i, fn, x, remat)``).
+
+        With ``split_aux`` a labelled training batch returns ``(lm_loss,
+        aux)`` apart (``aux`` None for a dense model): the data-parallel
+        engine weighs the two by their own shares.
+
+        ``replicated`` says every rank holds the whole batch (the inference
+        engine's forward), not its own rows: an MoE layer across ranks then
+        takes its token shard itself (``moe/layer.py``)."""
         if tp is not None and train:
             raise NotImplementedError("tensor-parallel training is not ported yet (ROADMAP P1)")
         tokens, labels = _split_batch(batch)
         logits, aux = self._forward(params, tokens, dropout_seed, train, attn_impl, tp, layer_stream,
-                                    pld_keep=pld_keep if train else None, ltd_idx=ltd_idx if train else None)
+                                    pld_keep=pld_keep if train else None, ltd_idx=ltd_idx if train else None,
+                                    replicated=replicated)
         if tp is not None:
             logits = tp.gather_vocab(logits)
         if labels is None:
             return logits
         loss = cross_entropy_loss(logits, labels)
+        if split_aux:
+            return loss, (aux if train else None)
         if train and aux is not None:
             loss = loss + aux
         return loss
@@ -296,7 +309,7 @@ class TransformerLM(nn.Module):
         return [_nest({k: u[i] for k, u in unbound.items()}) for i in range(self.config.num_layers)]
 
     def _forward(self, params, tokens, dropout_seed, train, attn_impl, tp=None, layer_stream=None,
-                 pld_keep=None, ltd_idx=None):
+                 pld_keep=None, ltd_idx=None, replicated=False):
         """``(logits, aux)``: the logits and the summed (coefficient-scaled)
         MoE load-balance loss, None for a dense model."""
         cfg = self.config if tp is None else tp.local_cfg(self.config)
@@ -328,14 +341,13 @@ class TransformerLM(nn.Module):
             if pld_keep is not None and not isinstance(pld_keep, torch.Tensor) and not pld_keep[i]:
                 continue  # PLD: a dropped layer passes x through (identity, no rescale)
             seed = None if dropout_seed is None else dropout_seed + i
-            block = self._block
+            block = functools.partial(self._block, replicated=replicated)
             extra = ()
             if 1 <= i <= n_ltd:
-                block, extra = self._ltd_block, (ltd_idx[i - 1],)
+                block, extra = self._ltd_block, (ltd_idx[i - 1],)  # training only: never replicated
             if layer_stream is not None:
-                y = layer_stream.run(i, lambda h, per, seed=seed, block=block, extra=extra: block(
-                    h, per, positions, seed, train, attn_impl, cfg, None, *extra)[0], x, cfg.remat)
-                aux = None
+                y, aux = layer_stream.run(i, lambda h, per, seed=seed, block=block, extra=extra: block(
+                    h, per, positions, seed, train, attn_impl, cfg, None, *extra), x, cfg.remat)
             elif cfg.remat and torch.is_grad_enabled():
                 # remat_policy as JAX's model reads it; the masks and the gate noise are a function of the
                 # seed, not of torch's RNG, so no generator state is stashed (nor could its CUDA state be
@@ -419,14 +431,14 @@ class TransformerLM(nn.Module):
         y, aux = self._block(gather_tokens(x, idx), p, pos_sub, seed, train, attn_impl, cfg, tp)
         return scatter_tokens(x, y, idx), aux
 
-    def _mlp(self, p, h, seed, train, tp=None):
+    def _mlp(self, p, h, seed, train, tp=None, replicated=False):  # noqa: ARG002
         """The dense FFN over one layer's leaves: ``(out, None)``; the MoE
         family returns its layer's scaled load-balance loss as the second
-        item."""
+        item (``replicated``: see ``apply``)."""
         ffn = {name: p[name].to(h.dtype) for name in _FFN_LEAVES if name in p}
         return apply_dense_ffn(ffn, h, self.config.activation, tp=tp), None
 
-    def _block(self, x, p, positions, seed, train, attn_impl, cfg=None, tp=None):
+    def _block(self, x, p, positions, seed, train, attn_impl, cfg=None, tp=None, replicated=False):
         """One block (``transformer.py:412``): pre-LN or post-LN, parallel
         residual, biases; weights cast to the activation dtype at use.
         ``cfg`` is the rank's local view under ``tp`` (the model's config
@@ -462,7 +474,7 @@ class TransformerLM(nn.Module):
         if cfg.parallel_residual:
             h_mlp = h if cfg.shared_parallel_norm else _norm(
                 x, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps)
-            out, aux = self._mlp(p, h_mlp, lseed, train, tp)
+            out, aux = self._mlp(p, h_mlp, lseed, train, tp, replicated)
             return x + attn + out, aux
         if cfg.prenorm:
             x = x + attn
@@ -470,7 +482,7 @@ class TransformerLM(nn.Module):
         else:
             x = _norm(x + attn, p["attn_norm_scale"], p.get("attn_norm_bias"), cfg.norm, cfg.norm_eps)
             h = x
-        out, aux = self._mlp(p, h, lseed, train, tp)
+        out, aux = self._mlp(p, h, lseed, train, tp, replicated)
         if cfg.prenorm:
             return x + out, aux
         return _norm(x + out, p["mlp_norm_scale"], p.get("mlp_norm_bias"), cfg.norm, cfg.norm_eps), aux
@@ -525,7 +537,7 @@ def _as_int32(h):
     return torch.where(h >= 2**31, h - 2**32, h).to(torch.int32)
 
 
-def _hash_bits(shape, seed: torch.Tensor, salt: int, device) -> torch.Tensor:
+def _hash_bits(shape, seed: torch.Tensor, salt: int, device, row0: int = 0) -> torch.Tensor:
     """Uniform int32 draws over ``[-2**31, 2**31)``, a hash of (``seed``,
     ``salt``, element index) for a tensor of ``shape``. ``seed`` is an
     int64 tensor on ``device``, read by no host code, so a CUDA graph
@@ -536,10 +548,12 @@ def _hash_bits(shape, seed: torch.Tensor, salt: int, device) -> torch.Tensor:
     tensors), and the full-size work is their xor mixed by two multiplies
     and a xorshift in int32 (a multiply wraps; the shift is masked to act
     as a logical one), seven passes over the elements. Readers take the
-    high bits, which the multiplies mix from every input bit."""
+    high bits, which the multiplies mix from every input bit. ``row0``
+    offsets the row index: rows ``[row0, row0 + rows)`` of a larger draw
+    (an expert-parallel token shard's rows of the global batch)."""
     shape = tuple(shape)
     n = shape[-1]
-    rows = torch.arange(math.prod(shape) // n, dtype=torch.int64, device=device)
+    rows = torch.arange(row0, row0 + math.prod(shape) // n, dtype=torch.int64, device=device)
     s = seed ^ salt
     rk = _mix32(_mix32((rows & _M32) ^ (s & _M32)) ^ ((s >> 32) & _M32) ^ ((rows >> 32) & _M32))
     ck = _mix32(torch.arange(n, dtype=torch.int64, device=device) * 0x9E3779B9 & _M32 ^ salt)
@@ -550,10 +564,10 @@ def _hash_bits(shape, seed: torch.Tensor, salt: int, device) -> torch.Tensor:
     return h
 
 
-def _uniform(shape, seed: torch.Tensor, salt: int, device) -> torch.Tensor:
+def _uniform(shape, seed: torch.Tensor, salt: int, device, row0: int = 0) -> torch.Tensor:
     """fp32 uniforms in ``(0, 1)`` from the top 24 bits of ``_hash_bits``
     (exact in fp32: never 0 or 1)."""
-    h = _hash_bits(shape, seed, salt, device)
+    h = _hash_bits(shape, seed, salt, device, row0)
     return (torch.bitwise_and(h >> 8, 0xFFFFFF).to(torch.float32) + 0.5) * (2.0 ** -24)
 
 

@@ -206,10 +206,11 @@ def dispatch(tokens: torch.Tensor, r: Routing) -> torch.Tensor:
     return out[: E * C].reshape(E, C, H)
 
 
-def combine(expert_out: torch.Tensor, r: Routing) -> torch.Tensor:
+def combine(expert_out: torch.Tensor, r: Routing, cast: bool = True) -> torch.Tensor:
     """``[E, C, H]`` expert outputs to ``[S, H]``: each token's kept rows
     times their weights (cast to the output dtype, as JAX casts the combine
-    weights), summed in fp32 in assignment order, cast back."""
+    weights), summed in fp32 in assignment order, cast back (left in fp32
+    with ``cast=False``: a partial sum over some experts)."""
     E, C, H = expert_out.shape
     dt = expert_out.dtype
     pos = torch.where(r.kept, r.expert * C + r.slot, torch.zeros_like(r.slot))
@@ -218,7 +219,7 @@ def combine(expert_out: torch.Tensor, r: Routing) -> torch.Tensor:
     out = rows[:, 0] * w[:, 0, None]
     for j in range(1, pos.shape[1]):
         out = out + rows[:, j] * w[:, j, None]
-    return out.to(dt)
+    return out.to(dt) if cast else out
 
 
 def dispatch_dense(tokens: torch.Tensor, dispatch_mask: torch.Tensor) -> torch.Tensor:

@@ -588,8 +588,6 @@ def unported_switches(cfg: DeepSpeedConfig) -> List[str]:
     mc = cfg.mesh_config
     if max(mc.model, mc.sequence, mc.pipe) > 1:
         found.append("mesh model / sequence / pipe axes > 1 (tensor, sequence, pipeline parallel): ROADMAP P1")
-    if mc.expert > 1:
-        found.append("mesh.expert > 1 (expert parallel MoE): ROADMAP M1 (second half)")
     if mc.data_outer > 1:
         found.append("mesh.data_outer > 1 (MiCS shard groups): ROADMAP P1")
     if cfg.sparse_gradients_enabled:

@@ -62,6 +62,20 @@ bit for bit. ``set_params`` / ``get_param_treedef`` are the two halves of
 the whole tree on every rank. Checkpoints hold whole arrays whatever the
 dp (the slices gathered, rank 0 writes) and load at any dp.
 
+Expert parallelism (JAX ``partition.py:83``, ``moe/a2a.py``): with
+``mesh.expert`` > 1, or the topology ``utils.groups.initialize``
+established when the config names no mesh (``parallel/mesh.topology_for``),
+the ``data × expert`` ranks are the data-parallel world. Each expert leaf
+``[L, E, ...]`` holds this rank's ``E/e`` experts and no ZeRO slice at any
+stage (the master and the moments alike); its gradient is reduced over the
+expert-data group only, and the global grad norm counts each expert shard
+once. Across ranks an MoE model's loss is the LM loss weighted by this
+rank's share, as above, plus the load-balance loss, one global value whose
+gradient reaches this rank's own tokens (times dp). The a2a stage
+(``overlap.A2AStage``, the plan's at stage 3) carries ``moe_quantized_a2a``
+to the layers. Checkpoints gather the experts: whole arrays, as at dp > 1.
+ZeRO optimizer offload keeps each rank's expert slices on the host.
+
 Offload (JAX ``engine.py:779-890``): ``zero_optimization.offload_param``
 (stage 3) trains through the layer stream (``runtime/zero/param_offload.py``);
 ``offload_optimizer`` (stage >= 1) keeps the fp32 master and the moments on
@@ -129,6 +143,7 @@ from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.checkpoint.jax_params import (
     flatten_tree,
+    is_expert_leaf,
     jax_tree_to_tensors,
     tensors_to_jax_tree,
     unflatten_tree,
@@ -137,7 +152,8 @@ from deepspeed_tpu_torch.models.transformer import TransformerLM, _split_batch
 from deepspeed_tpu_torch.ops.adagrad.cpu_adagrad import DeepSpeedCPUAdagrad
 from deepspeed_tpu_torch.ops.adam.fused_adam import AdamState, AdamW, FusedAdam
 from deepspeed_tpu_torch.ops.optimizer import DSOptimizer
-from deepspeed_tpu_torch.parallel.mesh import build_topology
+from deepspeed_tpu_torch.moe.a2a import EXPERT_AXIS
+from deepspeed_tpu_torch.parallel.mesh import topology_for
 from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.checkpoint_engine.async_snapshot import (
     AsyncCheckpointWriter,
@@ -157,7 +173,14 @@ from deepspeed_tpu_torch.runtime.fp16.loss_scaler import CreateLossScaler, has_i
 from deepspeed_tpu_torch.runtime.lr_schedules import get_lr_scheduler
 from deepspeed_tpu_torch.runtime.zero.host_offload import HostOffloadStreamer
 from deepspeed_tpu_torch.runtime.zero.offload_states import HostOffloadAdam, assemble_records
-from deepspeed_tpu_torch.runtime.zero.overlap import GradBuckets, build_overlap_plan, gather_full, split_buckets
+from deepspeed_tpu_torch.runtime.zero.overlap import (
+    A2AStage,
+    GradBuckets,
+    activate,
+    build_overlap_plan,
+    gather_full,
+    split_buckets,
+)
 from deepspeed_tpu_torch.runtime.zero.param_offload import ParamStreamEngine
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartitioner, shard, shard_shape
 from deepspeed_tpu_torch.utils import chaos
@@ -212,12 +235,12 @@ class DeepSpeedEngine:
         unported = unported_switches(self._config)
         if unported:
             raise NotImplementedError("not ported to deepspeed_tpu_torch yet: " + "; ".join(unported))
-        self.topo = build_topology(self._config.mesh_config)
+        self.topo = topology_for(self._config.mesh_config)
         self.dp = self.topo.get_data_parallel_world_size()
-        if getattr(model, "_moe", False) and self.dp > 1:
-            raise NotImplementedError("MoE training across ranks (expert-data parallelism) is not ported yet "
-                                      "(ROADMAP M1 (second half))")
         self.dp_rank = comm.get_rank() if self.dp > 1 else 0
+        self.ep = self.topo.axis_size(EXPERT_AXIS)
+        # the expert-parallel a2a stage (JAX overlap.py:339-343, engine.py:1795-1806); a stage-3 plan carries it
+        self._a2a = A2AStage().set_a2a(self.topo, getattr(model.config, "moe_quantized_a2a", None))
         self.module = model
         self.device = resolve_device(device)
         self.attn_impl = attn_impl
@@ -504,9 +527,7 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self.invalidate_compiled_step()
         armed = self._window_armed
-        self._fused_accum_enabled = bool(cc.fuse_grad_accum) and new_gas > 1
-        self._window_armed = bool(cc.multi_step.enable) and (new_gas == 1 or self._fused_accum_enabled)
-        self._window_horizon = int(cc.multi_step.horizon) if self._window_armed else 0
+        self._arm_step_programs(new_gas)
         if armed != self._window_armed:
             self._active_prefetcher = self._prefetch_key = None
         log_dist(f"set_train_batch_size: train_batch={train_batch_size} gas={new_gas}", ranks=[0])
@@ -583,7 +604,7 @@ class DeepSpeedEngine:
         if self._param_stream is not None:
             return self._param_stream.set_leaf_state(name, field, full.numpy())
         r, W = self.dp_rank, self.dp
-        mine = shard(full, self._mdim[name], r, W)
+        mine = self._own(name, full, self._mdim[name])
         if self._host_offload is not None:
             if field not in ("master", "exp_avg", "exp_avg_sq"):
                 return False
@@ -604,11 +625,11 @@ class DeepSpeedEngine:
         if field == "master":
             p = self._params[name]
             if self._master is None or p is not self._master[name]:
-                p.copy_(shard(full, self._pdim[name], r, W))
+                p.copy_(self._own(name, full, self._pdim[name]))
         return True
 
     def _slice_shape(self, name: str):
-        return shard(torch.empty(self._shapes[name], device="meta"), self._mdim[name], self.dp_rank, self.dp).shape
+        return self._own(name, torch.empty(self._shapes[name], device="meta"), self._mdim[name]).shape
 
     def get_last_grads(self):
         """The gradient tree of the latest training microbatch, fp32 numpy
@@ -710,15 +731,15 @@ class DeepSpeedEngine:
             self._param_stream.set_master(full)
             return
         if self._host_offload is not None:
-            self._host_offload.set_master_leaves({k: shard(full[k], self._mdim[k], r, W) for k in self._shapes})
+            self._host_offload.set_master_leaves({k: self._own(k, full[k], self._mdim[k]) for k in self._shapes})
             for k, p in self._params.items():
-                p.copy_(shard(full[k], self._pdim[k], r, W))
+                p.copy_(self._own(k, full[k], self._pdim[k]))
             return
         for k, m in self._master.items():
-            m.copy_(shard(full[k], self._mdim[k], r, W))
+            m.copy_(self._own(k, full[k], self._mdim[k]))
             p = self._params[k]
             if p is not m:
-                p.copy_(shard(full[k], self._pdim[k], r, W))
+                p.copy_(self._own(k, full[k], self._pdim[k]))
 
     # --- the state and its slices ------------------------------------------
     @torch.no_grad()
@@ -728,12 +749,15 @@ class DeepSpeedEngine:
         rank: the master is ``full`` itself, and in fp32 the compute store
         is the master)."""
         zc = self._config.zero_config
-        part = ZeroPartitioner(zc, self.topo)
         self._shapes = {k: tuple(t.shape) for k, t in full.items()}
+        # an expert leaf holds this rank's experts and no ZeRO slice (JAX partition.py:83): dim 1 of [L, E, ...]
+        self._edim = {k: 1 for k in self._shapes if is_expert_leaf(k)} if self.ep > 1 else {}
+        part = ZeroPartitioner(zc, self.topo, expert=self._edim)
         self._pdim = part.dims(part.param_specs(self._shapes))
         self._mdim = part.dims(part.master_specs(self._shapes))
         self._gdim = part.dims(part.grad_accum_specs(self._shapes))
         r, W = self.dp_rank, self.dp
+        full = {k: self._eslice(k, t).contiguous() for k, t in full.items()}
         self._master = {k: t if self._mdim[k] is None else shard(t, self._mdim[k], r, W).clone()
                         for k, t in full.items()}
         self._params = {}
@@ -754,17 +778,30 @@ class DeepSpeedEngine:
         if self._opt_state is not None and getattr(self.optimizer, "capturable", False):
             # the step count lives on the device, as JAX's int32 scalar: the captured step advances it
             self._opt_state = self._opt_state._replace(step=torch.zeros((), dtype=torch.int32, device=self.device))
-        self._grad_acc = {k: torch.zeros(shard_shape(self._shapes[k], self._gdim[k], W), dtype=self._acc_dtype,
+        self._grad_acc = {k: torch.zeros(shard_shape(tuple(full[k].shape), self._gdim[k], W), dtype=self._acc_dtype,
                                          device=self.device) for k in self._params}
         self._plan = build_overlap_plan(zc, self._params, self._pdim, self.module.config.num_layers,
-                                        self._acc_dtype) if W > 1 else None
+                                        self._acc_dtype, topo=self.topo,
+                                        moe_quantized_a2a=self._a2a.a2a_quantized) if W > 1 else None
         # stage >= 2 with overlap_comm: each gradient joins a reduce bucket as backward accumulates it
         self._buckets: Optional[GradBuckets] = None
         self._eager_buckets = W > 1 and self.zero_optimization_stage() >= 2 and zc.overlap_comm and zc.reduce_scatter
         if self._eager_buckets:
             for k, p in self._params.items():
-                if self._plan is None or self._pdim[k] is None:
+                if (self._plan is None or self._pdim[k] is None) and k not in self._edim:
                     p.register_post_accumulate_grad_hook(self._grad_ready(k))
+
+    # --- expert leaves (an expert mesh axis) ---------------------------------
+    def _eslice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's experts of a whole leaf (the leaf itself when it is
+        not an expert leaf, or without an expert axis)."""
+        d = self._edim.get(name)
+        return t if d is None else shard(t, d, self.topo.expert_rank, self.ep)
+
+    def _own(self, name: str, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's slice of a whole leaf: its experts, then its ZeRO
+        block along ``dim``."""
+        return shard(self._eslice(name, t), dim, self.dp_rank, self.dp)
 
     def _grad_ready(self, name: str):
         def hook(p):
@@ -789,6 +826,9 @@ class DeepSpeedEngine:
             for bucket in split_buckets([tensors[k].numel() for k in names], cap):
                 keys = [names[i] for i in bucket]
                 out.update(zip(keys, gather_full([tensors[k] for k in keys], [dims[k] for k in keys])))
+        experts = [k for k in tensors if k in self._edim]
+        for k in experts:  # the expert shards, gathered over the expert group
+            out[k] = gather_full([out[k]], [self._edim[k]], self.topo.expert_group)[0]
         return out
 
     def _full_params(self) -> Dict[str, torch.Tensor]:
@@ -876,6 +916,10 @@ class DeepSpeedEngine:
         if d is not None and self.dp > 1:
             n = self._shapes[name][d] // self.dp
             idx[d] = (self.dp_rank * n, (self.dp_rank + 1) * n)
+        e = self._edim.get(name)
+        if e is not None:  # an expert leaf: this rank's experts
+            n = self._shapes[name][e] // self.ep
+            idx[e] = (self.topo.expert_rank * n, (self.topo.expert_rank + 1) * n)
         return idx
 
     def _init_host_offload(self) -> None:
@@ -947,10 +991,14 @@ class DeepSpeedEngine:
         gas, dp, r, stage = self.gradient_accumulation_steps(), self.dp, self.dp_rank, self.zero_optimization_stage()
         if dp > 1 and stage <= 1:
             self._all_reduce_accum()
+        elif dp > 1 and self._edim:
+            self._all_reduce_accum(experts_only=True)
         inv = 1.0 / (float(self._scale_state.scale) * gas * dp)
         acc = self._grad_acc
-        if dp > 1 and stage >= 2:
-            parts = [torch.sum(torch.square(g.float())) for k, g in acc.items() if self._gdim[k] is not None or r == 0]
+        if dp > 1 and (stage >= 2 or self._edim):
+            first = self.topo.expert_data_rank == 0  # an expert shard counted once (see _grad_stats)
+            parts = [torch.sum(torch.square(g.float())) for k, g in acc.items()
+                     if (first if k in self._edim else self._gdim[k] is not None or r == 0)]
             sq = comm.all_reduce(torch.stack(parts).sum() if parts else torch.zeros((), device=self.device))
         else:
             sq = torch.stack([torch.sum(torch.square(g.float())) for g in acc.values()]).sum()
@@ -1124,7 +1172,7 @@ class DeepSpeedEngine:
             return self._stream_forward(tokens, labels, share)
         model_batch = tokens if labels is None else (tokens, labels)
         if not self._training_mode:
-            with torch.no_grad():
+            with torch.no_grad(), activate(self._plan or self._a2a):
                 tree, stream = self._model_tree(False)
                 out = self.module.apply(tree, model_batch, train=False, attn_impl=self.attn_impl, **stream)
                 if self.dp > 1:  # the global batch's loss or logits on every rank
@@ -1146,14 +1194,21 @@ class DeepSpeedEngine:
                            "unfused per-microbatch programs")
         seed = int(self._dropout_rng.integers(0, 2**62))
         kwargs = self._model_kwargs(tokens.shape[0], tokens.shape[1], seed, host_keep=True)
-        tree, stream = self._model_tree(True)
-        loss = self.module.apply(tree, model_batch, dropout_seed=seed, train=True, attn_impl=self.attn_impl,
-                                 **stream, **kwargs)
+        with activate(self._plan or self._a2a):
+            tree, stream = self._model_tree(True)
+            loss = self.module.apply(tree, model_batch, dropout_seed=seed, train=True, attn_impl=self.attn_impl,
+                                     split_aux=self.dp > 1, **stream, **kwargs)
         if self.dp > 1:
             # back-propagate this rank's token sum over the global count times dp (its mean when every
-            # rank holds as many tokens: a factor of exactly 1); report the global mean
+            # rank holds as many tokens: a factor of exactly 1); report the global mean. An MoE loss is
+            # one global value on every rank whose gradient reaches this rank's own tokens: times dp
+            loss, aux = loss
             value = comm.all_reduce(loss.detach().float() * share)
-            loss = _GlobalLoss.apply(loss * (share * self.dp).to(loss.dtype), value.to(loss.dtype))
+            local = loss * (share * self.dp).to(loss.dtype)
+            if aux is not None:
+                value = value + aux.detach().float()
+                local = local + aux * self.dp
+            loss = _GlobalLoss.apply(local, value.to(loss.dtype))
         self._last_batch = (tokens, labels, seed)
         self._last_kwargs = kwargs
         self._last_fwd_scale = self._scale_state.scale.clone()
@@ -1235,7 +1290,7 @@ class DeepSpeedEngine:
                     continue
                 g = p.grad
                 p.grad = None
-                if buckets is not None:
+                if buckets is not None and k not in self._edim:  # expert leaves reduce at the boundary
                     buckets.add(k, g.to(self._acc_dtype))
                 else:
                     # an fp32 accumulator adds the gradient exactly widened, without a widened copy
@@ -1320,6 +1375,8 @@ class DeepSpeedEngine:
             denom = denom * float(self.dp)  # the gradients are summed over the ranks
             if self.zero_optimization_stage() <= 1:
                 self._all_reduce_accum()
+            elif self._edim:
+                self._all_reduce_accum(experts_only=True)
         return 1.0 / denom
 
     def _grad_stats(self, grads: Callable):
@@ -1334,9 +1391,12 @@ class DeepSpeedEngine:
                 overflow = comm.all_reduce(overflow.float(), op=comm.ReduceOp.MAX) > 0
         else:
             overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-        if dp > 1 and self.zero_optimization_stage() >= 2:
-            # the global norm from the slices' squares (a replicated leaf counted on rank 0 only)
-            parts = [torch.sum(torch.square(g)) for k, g in grads() if self._gdim[k] is not None or r == 0]
+        if dp > 1 and (self.zero_optimization_stage() >= 2 or self._edim):
+            # the global norm from the slices' squares: a replicated leaf counted on rank 0 only, an expert
+            # shard once for each expert coordinate (on the first rank of its expert-data group)
+            first = self.topo.expert_data_rank == 0
+            parts = [torch.sum(torch.square(g)) for k, g in grads()
+                     if (first if k in self._edim else self._gdim[k] is not None or r == 0)]
             sq = comm.all_reduce(torch.stack(parts).sum() if parts else torch.zeros((), device=self.device))
         else:
             sq = torch.stack([torch.sum(torch.square(g)) for _, g in grads()]).sum()
@@ -1345,13 +1405,20 @@ class DeepSpeedEngine:
         coef = torch.clamp(clip / (grad_norm + 1e-6), max=1.0) if clip > 0 else None
         return overflow, grad_norm, coef
 
-    def _all_reduce_accum(self) -> None:
+    def _all_reduce_accum(self, experts_only: bool = False) -> None:
         """Stages 0-1: sum the whole accumulators over the ranks, one
-        all-reduce a bucket of ``reduce_bucket_size`` elements."""
-        names = list(self._grad_acc)
-        for bucket in split_buckets([self._grad_acc[k].numel() for k in names],
-                                    self._config.zero_config.reduce_bucket_size):
-            comm.all_reduce_coalesced([self._grad_acc[names[i]] for i in bucket])
+        all-reduce a bucket of ``reduce_bucket_size`` elements; the expert
+        leaves over their expert-data group only (with ``experts_only``,
+        stages 2-3, those alone)."""
+        dense = [] if experts_only else [k for k in self._grad_acc if k not in self._edim]
+        experts = [k for k in self._grad_acc if k in self._edim]
+        for names, group, size in ((dense, None, self.dp), (experts, self.topo.expert_data_group,
+                                                              self.topo.get_expert_data_parallel_world_size())):
+            if not names or size == 1:
+                continue
+            for bucket in split_buckets([self._grad_acc[k].numel() for k in names],
+                                        self._config.zero_config.reduce_bucket_size):
+                comm.all_reduce_coalesced([self._grad_acc[names[i]] for i in bucket], group=group)
 
     def _take_model_step(self) -> None:
         """The eager optimizer step at the accumulation boundary: one
@@ -1472,9 +1539,7 @@ class DeepSpeedEngine:
         ``_validate_multi_step``); the captured graphs, built at first use."""
         cc = self._config.compile_config
         gas = self.gradient_accumulation_steps()
-        offload = self._host_offload is not None or self._param_stream is not None
-        self._fused_accum_enabled = bool(cc.fuse_grad_accum) and gas > 1 and not offload
-        if cc.fuse_grad_accum and gas > 1 and offload:
+        if cc.fuse_grad_accum and gas > 1 and (self._host_offload is not None or self._param_stream is not None):
             logger.warning("compile.fuse_grad_accum does not engage on the offload paths (their host loop owns "
                            "the update, as in the reference): steps run per microbatch")
         self._warned_unfused_fallback = False
@@ -1490,10 +1555,7 @@ class DeepSpeedEngine:
         self._last_fwd_scale = None  # and the loss scale it was back-propagated at
         self._last_fused = False  # the last step ran a step program (its gradients died inside it)
         self._validate_multi_step()
-        mscfg = cc.multi_step
-        streamed_ok = self._streamed_offload and (gas == 1 or bool(cc.fuse_grad_accum))
-        self._window_armed = bool(mscfg.enable) and (gas == 1 or self._fused_accum_enabled or streamed_ok)
-        self._window_horizon = int(mscfg.horizon) if self._window_armed else 0
+        self._arm_step_programs(gas)
         self._window_stash: deque = deque()  # computed-but-uncommitted steps
         self._pending_drains: deque = deque()  # windows whose host copies are in flight
         self._drained_log: deque = deque(maxlen=4096)
@@ -1510,6 +1572,23 @@ class DeepSpeedEngine:
         }
         self._active_prefetcher = None  # the window's PrefetchingLoader over the live data iterator
         self._prefetch_key = None
+
+    def _arm_step_programs(self, gas: int) -> None:
+        """Whether fused accumulation and multi-step windows engage at
+        ``gas`` microbatches a step, at construction and after every resize:
+        fused accumulation at gas > 1 off the offload paths; windows at gas 1,
+        over the fused body, or on the streamed offload path. A window's body
+        runs every rank's microbatches whole, and an MoE layer across ranks
+        gates each rank's own rows (its token shard), so an MoE model at
+        dp > 1 steps sequentially, through forward."""
+        cc = self._config.compile_config
+        offload = self._host_offload is not None or self._param_stream is not None
+        self._fused_accum_enabled = bool(cc.fuse_grad_accum) and gas > 1 and not offload
+        streamed_ok = self._streamed_offload and (gas == 1 or bool(cc.fuse_grad_accum))
+        moe_across_ranks = self.dp > 1 and getattr(self.module, "_moe", False)
+        self._window_armed = (bool(cc.multi_step.enable) and not moe_across_ranks
+                              and (gas == 1 or self._fused_accum_enabled or streamed_ok))
+        self._window_horizon = int(cc.multi_step.horizon) if self._window_armed else 0
 
     def _validate_multi_step(self) -> None:
         """JAX ``_validate_multi_step`` (``engine.py:2083``), the checks that
@@ -1979,7 +2058,9 @@ class DeepSpeedEngine:
         return {"step": ho.step_count, "leaves": leaves}
 
     def _mesh_shape(self) -> Dict[str, int]:
-        return {"data": self.dp}
+        """The mesh a checkpoint records: ``{"data": dp}``, or under an
+        expert axis every axis, as JAX writes it (``engine.py:3316``)."""
+        return {"data": self.dp} if self.ep == 1 else dict(self.topo.sizes)
 
     def save_checkpoint(self, save_dir: str, tag: Optional[str] = None, client_state: Optional[Dict] = None,
                         save_latest: bool = True, exclude_frozen_parameters: bool = False,  # noqa: ARG002
@@ -2149,8 +2230,7 @@ class DeepSpeedEngine:
                     ho.load_master_only(opt["host_offload"], self._offload_slicer(opt["host_offload"]))
             else:  # a non-offload checkpoint: its master, or (fp32) its module, is the master
                 src = flatten_tree(state["master"] if state.get("master") is not None else state["module"])
-                ho.set_master_leaves({k: shard(_cpu_tensor(src[k]), self._mdim[k], self.dp_rank, self.dp)
-                                      for k in ho.names})
+                ho.set_master_leaves({k: self._own(k, _cpu_tensor(src[k]), self._mdim[k]) for k in ho.names})
             if full_opt and opt is not None:
                 ho.load_state_dict(opt["host_offload"], self._offload_slicer(opt["host_offload"]))
         elif self._param_stream is None and full_opt and opt is not None:
@@ -2160,7 +2240,7 @@ class DeepSpeedEngine:
                     f"this checkpoint's optimizer state was saved by the {kind} offload engine and cannot be loaded "
                     "into a non-offload engine; pass load_optimizer_states=False to adopt the module weights with a "
                     "fresh optimizer")
-            slicer = None if self.dp == 1 else (lambda k, t: shard(t, self._mdim[k], self.dp_rank, self.dp))
+            slicer = None if self.dp == 1 else (lambda k, t: self._own(k, t, self._mdim[k]))
             # into the live tensors: a captured step program reads their storage
             self._opt_state = _copy_opt_state(self._opt_state,
                                               _opt_state_from_tree(opt, self._opt_state, self.device, slicer))
@@ -2199,14 +2279,13 @@ class DeepSpeedEngine:
         rank's slice of each whole leaf (streamed records are whole; legacy
         records are reassembled from their slices first, JAX's
         ``zero_to_fp32`` rule)."""
-        r, W = self.dp_rank, self.dp
         if self._streamed_offload:
-            return lambda k, whole: shard(whole.reshape(self._shapes[k]), self._mdim[k], r, W)
+            return lambda k, whole: self._own(k, whole.reshape(self._shapes[k]), self._mdim[k])
         records = dict(zip(self._host_offload.names, rec["leaves"])) if "leaves" in rec else {}
 
         def leaf(k, key):
             whole = torch.from_numpy(assemble_records(records[k], key, self._shapes[k]))
-            return shard(whole, self._mdim[k], r, W).reshape(-1).numpy()
+            return self._own(k, whole, self._mdim[k]).reshape(-1).numpy()
         return leaf
 
     @torch.no_grad()
@@ -2226,12 +2305,12 @@ class DeepSpeedEngine:
             return
         for k, m in self._master.items():
             if master is not None and k in master:
-                m.copy_(shard(master[k], self._mdim[k], r, W))
+                m.copy_(self._own(k, master[k], self._mdim[k]))
             elif k in module:
-                m.copy_(shard(module[k], self._mdim[k], r, W))
+                m.copy_(self._own(k, module[k], self._mdim[k]))
             p = self._params[k]
             if p is not m and k in module:
-                p.copy_(shard(module[k], self._pdim[k], r, W))
+                p.copy_(self._own(k, module[k], self._pdim[k]))
 
     def _restore_replay_state(self, state: Dict) -> None:
         """The generator the next microbatch draws its seed from (JAX's PRNG

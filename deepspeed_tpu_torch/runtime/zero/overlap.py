@@ -35,12 +35,21 @@ data itself, one process a rank:
   the owner keeps it. Under ``remat`` the gather runs inside the
   checkpointed layer, so its recomputation gathers again.
 
+* **The a2a stage** (``A2AStage``, JAX ``overlap.py:102-114``): under an
+  ``expert`` axis the plan names the axis the MoE dispatch and combine
+  all-to-alls run over (``a2a_axis``, ``a2a_world``) and their wire format
+  (``a2a_quantized``, the model config's ``moe_quantized_a2a``; None defers
+  to the layer's own knob). The engine makes its plan (or, without a
+  stage-3 stream, the stage alone) active around the training forward
+  (``activate``), and ``moe/layer.py`` reads it through ``active_plan()``.
+
 Every rank issues the same collectives in the same order: the schedule
 depends only on shapes and the layer index.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -209,7 +218,51 @@ class _GatherFn(torch.autograd.Function):
         return None, None, None
 
 
-class OverlapPlan:
+class A2AStage:
+    """The expert-parallel a2a stage of a plan (JAX ``overlap.py:102-114``):
+    the axis the MoE dispatch and combine all-to-alls run over, its size,
+    and their wire format (None: the layer's own ``quantized_a2a``)."""
+
+    a2a_axis: Optional[str] = None
+    a2a_world: int = 1
+    a2a_quantized: Optional[bool] = None
+
+    def set_a2a(self, topo, moe_quantized_a2a: Optional[bool] = None) -> "A2AStage":
+        """Armed when the topology has a real expert axis (JAX
+        ``overlap.py:339-343``)."""
+        world = int(topo.axis_size("expert")) if topo is not None else 1
+        self.a2a_axis = "expert" if world > 1 else None
+        self.a2a_world = world
+        self.a2a_quantized = moe_quantized_a2a
+        return self
+
+    @property
+    def a2a_enabled(self) -> bool:
+        return self.a2a_axis is not None and self.a2a_world > 1
+
+
+_ACTIVE: List[A2AStage] = []
+
+
+def active_plan() -> Optional[A2AStage]:
+    """The plan (or a2a stage) of the engine whose forward is running."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+@contextlib.contextmanager
+def activate(plan: Optional[A2AStage]):
+    """Make ``plan`` the active one within the block (nothing for None)."""
+    if plan is None:
+        yield
+        return
+    _ACTIVE.append(plan)
+    try:
+        yield
+    finally:
+        _ACTIVE.pop()
+
+
+class OverlapPlan(A2AStage):
     """The stage-3 parameter stream of one engine (see the module
     docstring). ``params`` is the engine's compute store (shards and
     replicated leaves), ``dims`` each leaf's sharded dim (None:
@@ -388,14 +441,15 @@ class OverlapPlan:
                 self.prefetch(j)
         return {k.split("/", 1)[1]: v for k, v in per.items()}
 
-    def run(self, i: int, fn: Callable, x: torch.Tensor, remat: bool) -> torch.Tensor:
-        """Layer ``i``: ``fn(x, per_layer_weights)`` on the gathered weights."""
+    def run(self, i: int, fn: Callable, x: torch.Tensor, remat: bool):
+        """Layer ``i``: ``fn(x, per_layer_weights)`` on the gathered weights
+        (what ``fn`` returns: the block's output and its MoE loss)."""
         grad = torch.is_grad_enabled()
         if remat and grad:
-            return checkpoint(lambda h: fn(h, self._gathered_layer(i, True)), x, use_reentrant=False)
+            return checkpoint(lambda h: fn(h, _nest(self._gathered_layer(i, True))), x, use_reentrant=False)
         per = self._gathered_layer(i, grad)
         if not grad:
-            return fn(x, per)
+            return fn(x, _nest(per))
         gathered = set(self._names(i))
         ptrs = {per[k.split("/", 1)[1]].untyped_storage().data_ptr(): k.split("/", 1)[1] for k in gathered}
 
@@ -412,12 +466,25 @@ class OverlapPlan:
             return self.regather(j)["layers/" + name].as_strided(shape, stride, offset)
 
         with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
-            return fn(x, per)
+            return fn(x, _nest(per))
+
+
+def _nest(per: Dict[str, torch.Tensor]) -> Dict:
+    """A layer's ``name -> tensor`` leaves as the nested tree the block
+    reads (an MoE layer's ``moe/...`` leaves under ``moe``)."""
+    out: Dict = {}
+    for path, t in per.items():
+        node = out
+        *heads, name = path.split("/")
+        for head in heads:
+            node = node.setdefault(head, {})
+        node[name] = t
+    return out
 
 
 def build_overlap_plan(zero_config, params: Dict[str, torch.Tensor], dims: Dict[str, Optional[int]],
-                       num_layers: int, reduce_dtype: torch.dtype = torch.float32,
-                       group=None) -> Optional[OverlapPlan]:
+                       num_layers: int, reduce_dtype: torch.dtype = torch.float32, group=None, topo=None,
+                       moe_quantized_a2a: Optional[bool] = None) -> Optional[OverlapPlan]:
     """The stage-3 stream, or None when nothing of the compute store is
     sharded. ``prefetch_layers`` None takes one layer of lookahead under
     ``overlap_comm`` (JAX's default), 0 gathers at use; the depth is capped
@@ -435,4 +502,6 @@ def build_overlap_plan(zero_config, params: Dict[str, torch.Tensor], dims: Dict[
     if budget > 0 and per_layer > 0:
         while depth > 1 and depth * per_layer > budget:
             depth -= 1
-    return OverlapPlan(params, dims, num_layers, depth, reduce_dtype, group)
+    plan = OverlapPlan(params, dims, num_layers, depth, reduce_dtype, group)
+    plan.set_a2a(topo, moe_quantized_a2a)
+    return plan

@@ -120,21 +120,30 @@ class ZeroPartitioner:
     """The spec of each leaf of a tree (nested dicts, or a flat ``path ->
     leaf`` dict; leaves are tensors, arrays or shapes) for the stage and the
     topology (JAX ``partition.py:111-180``; the port has no tensor-parallel
-    training, so every leaf's base spec is replicated)."""
+    training, so a dense leaf's base spec is replicated). ``expert`` maps
+    the paths of the expert leaves to their expert dim: their base spec
+    carries the ``expert`` axis there, which the ZeRO axes overlap, so
+    they take no ZeRO sharding at any stage (JAX ``partition.py:83``), the
+    master and the moments alike, and ``dims`` gives them None."""
 
-    def __init__(self, zero_config: DeepSpeedZeroConfig, topo):
+    def __init__(self, zero_config: DeepSpeedZeroConfig, topo, expert: Optional[Dict[str, int]] = None):
         self.config = zero_config
         self.stage = int(zero_config.stage)
         self.topo = topo
+        self.expert = dict(expert or {})
 
-    def _specs(self, params: Any, from_stage: int, threshold: int) -> Any:
+    def _specs(self, params: Any, from_stage: int, threshold: int, path: str = "") -> Any:
         """Sharded over the ZeRO axes from ``from_stage`` on, else replicated."""
         if isinstance(params, dict):
-            return {k: self._specs(v, from_stage, threshold) for k, v in params.items()}
+            return {k: self._specs(v, from_stage, threshold, f"{path}/{k}" if path else k)
+                    for k, v in params.items()}
         shape = tuple(params) if isinstance(params, (tuple, list)) else tuple(params.shape)
+        base = None
+        if path in self.expert:
+            base = tuple("expert" if i == self.expert[path] else None for i in range(len(shape)))
         if self.stage >= from_stage:
-            return shard_over_zero_axes(shape, self.topo, threshold=threshold)
-        return (None,) * len(shape)
+            return shard_over_zero_axes(shape, self.topo, base_spec=base, threshold=threshold)
+        return base if base is not None else (None,) * len(shape)
 
     def param_specs(self, params: Any) -> Any:
         """The live (compute-dtype) parameter store: sharded at stage 3 above
@@ -151,7 +160,7 @@ class ZeroPartitioner:
 
     def dims(self, specs: Dict[str, Spec]) -> Dict[str, Optional[int]]:
         """A flat ``path -> spec`` dict as ``path -> zero_dim``."""
-        return {k: zero_dim(s, self.topo.zero_shard_axes) for k, s in specs.items()}
+        return {k: None if k in self.expert else zero_dim(s, self.topo.zero_shard_axes) for k, s in specs.items()}
 
 
 def estimate_zero_memory(n_params: int, stage: int, dp_size: int, bytes_per_param: int = 2,

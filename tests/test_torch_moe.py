@@ -18,8 +18,8 @@
 * the engine: an MoE engine's first fp32 step against JAX's loss and the
   norm of its gradients (1e-5; top-1 without RTS, whose training gates
   draw no noise), the fp32 router leaf under bf16, the MoE utilities'
-  splits, and the refusals of expert parallelism naming ROADMAP M1
-  (second half).
+  splits, and tensor-parallel MoE training refused naming ROADMAP P1
+  (expert parallelism: ``test_torch_moe_ep.py``).
 """
 
 from __future__ import annotations
@@ -321,17 +321,19 @@ def test_moe_utils_match_jax():
         assert _leaves(got)[path] == tuple(spec), path
 
 
-REFUSALS = {
-    "mesh_expert": lambda cfg: dst.initialize(model=pmt.MoETransformerLM(cfg), device="cpu",
-                                              model_parameters=unflatten_tree(init_params(cfg, 0)),
-                                              config={"train_micro_batch_size_per_gpu": 1, "mesh": {"expert": 2}}),
-    "moe_quantized_a2a": lambda cfg: pmt.MoETransformerLM(pmt.moe_llama_config(
-        "tiny", **dict(TINY, moe_quantized_a2a=True))),
-    "ep_size": lambda cfg: player.MoE(hidden_size=8, num_experts=4, ep_size=2),
-}
+def test_tensor_parallel_moe_training_names_p1():
+    """Tensor-parallel MoE training needs tensor-parallel training (ROADMAP
+    P1): a ``model`` mesh axis in the engine config, and the model's
+    training forward under a tensor-parallel context, both refuse naming
+    it (expert parallelism itself runs: ``test_torch_moe_ep.py``)."""
+    from deepspeed_tpu_torch.inference.tp import TPServing
 
-
-@pytest.mark.parametrize("name", sorted(REFUSALS))
-def test_expert_parallel_switches_name_their_item(name):
-    with pytest.raises(NotImplementedError, match=r"M1 \(second half\)"):
-        REFUSALS[name](pmt.moe_llama_config("tiny", **TINY))
+    cfg = pmt.moe_llama_config("tiny", **TINY)
+    tree = unflatten_tree(init_params(cfg, 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP P1"):
+        dst.initialize(model=pmt.MoETransformerLM(cfg), device="cpu", model_parameters=tree,
+                       config={"train_micro_batch_size_per_gpu": 1, "mesh": {"model": 2}})
+    params = unflatten_tree({k: torch.from_numpy(np.asarray(v)) for k, v in flatten_tree(tree).items()})
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP P1"):
+        pmt.MoETransformerLM(cfg).apply(params, (toks, toks), train=True, tp=TPServing(degree=1))

@@ -94,7 +94,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                    "runtime/data_pipeline/curriculum_scheduler.py", "runtime/data_pipeline/data_sampler.py",
                    "runtime/data_pipeline/data_routing.py", "runtime/data_pipeline/data_sampling/indexed_dataset.py",
                    "runtime/data_pipeline/data_sampling/data_analyzer.py", "moe/sharded_moe.py", "moe/experts.py",
-                   "moe/layer.py", "moe/utils.py", "models/moe_transformer.py"):
+                   "moe/layer.py", "moe/utils.py", "models/moe_transformer.py", "moe/a2a.py",
+                   "moe/mappings.py", "utils/groups.py"):
         assert any(f.endswith(os.path.join("deepspeed_tpu_torch", module)) for f in files), module
     for path in files:
         with open(path) as f:
